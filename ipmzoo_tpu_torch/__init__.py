@@ -1,0 +1,26 @@
+"""ipmzoo_tpu_torch — the PyTorch/CUDA port of :mod:`ipmzoo_tpu`.
+
+It reuses the device-free layers of the JAX package
+(:mod:`ipmzoo_tpu.symbolic`, :mod:`ipmzoo_tpu.formulations`) and never
+imports jax.  Module names mirror the JAX package's:
+
+* :mod:`ipmzoo_tpu_torch.models` — ``CompiledIPM`` (batched Mehrotra
+  solver, dense LDL^T mode), ``QPData``, the compaction engine.
+* :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor/solve: CUDA kernels
+  (``csrc/ldlt.cu``) with plain torch versions for CPU tensors.
+* :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy.
+"""
+
+__version__ = "0.1.0"
+
+from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,  # noqa: E402
+                                     InequalityHandling, Settings,
+                                     VariableNames)
+
+
+def __getattr__(name):
+    # torch-heavy imports stay lazy
+    if name in ("CompiledIPM", "QPData", "SolveResult", "IPMState"):
+        from . import models
+        return getattr(models, name)
+    raise AttributeError(name)

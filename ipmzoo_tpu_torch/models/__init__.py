@@ -1,0 +1,7 @@
+"""Batched solvers of the port: the symbolic systems evaluated eagerly on
+torch tensors."""
+
+from .data import QPData, validate
+from .ipm import CompiledIPM, IPMState, SolveResult
+
+__all__ = ["QPData", "validate", "CompiledIPM", "IPMState", "SolveResult"]

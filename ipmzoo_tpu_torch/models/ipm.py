@@ -1,0 +1,440 @@
+"""The Mehrotra predictor-corrector IPM on batched torch tensors.
+
+Counterpart of :class:`ipmzoo_tpu.models.ipm.CompiledIPM`.  The
+constructor binds a symbolic formulation (Settings -> Newton system ->
+augmented reduction, from :mod:`ipmzoo_tpu.formulations`) to concrete
+sizes; each iteration then evaluates the derived system eagerly on a
+batch of QP instances:
+
+  1. residual norm and duality measure of the full KKT residual at mu=0
+  2. assemble the augmented KKT matrices; factor once (LDL^T, kernel K2)
+  3. affine predictor: residual vectors at mu=0, solve (K3),
+     back-substitute eliminated variables via the symbolic delta
+     definitions
+  4. ratio test, trial step, mu_aff, sigma = (mu_aff/mu)^3
+  5. corrector with the exact quadratic Taylor remainder, solved with
+     the SAME factorisation
+  6. optional Gondzio rounds; step all variables by 0.995 * alpha
+
+Where the reference runs one instance under ``vmap`` and a
+``lax.while_loop``, this runs the whole batch in a masked loop: an
+instance that converged or diverged is frozen (its state re-enters
+unchanged), and a step that goes NaN/inf rolls back to the last good
+iterate.  The loop asks the device once per iteration whether any
+instance is still active; ``host_syncs`` counts those round trips.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ipmzoo_tpu.formulations import (Settings, VariableNames,
+                                     augmented_system, build_symbols,
+                                     delta_variable, newton_system,
+                                     shorthand_rhs)
+from ipmzoo_tpu.symbolic import expr as E
+
+from ..utils.precision import apply_default_matmul_precision
+from . import codegen as cg
+from .compact import CompactScheduleMixin, _where
+from .data import QPData
+from .directions import DirectionsMixin
+from .kernels import KernelDispatchMixin
+from .state import IPMState, SolveResult, tree_map
+
+__all__ = ["CompiledIPM", "IPMState", "SolveResult"]
+
+_ROADMAP_KERNELS = "ROADMAP.md Queue 1 item 11 (remaining kernel modes)"
+_ROADMAP_TWO_FLOAT = "ROADMAP.md Queue 1 item 7 (escalation precision)"
+_ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
+
+
+class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
+                  CompactScheduleMixin):
+    """A formulation + problem-size specialised batched IPM solver.
+
+    ``device`` is where the solver's tensors live; data on any other
+    device is rejected.  ``dtype`` is the working precision (default
+    float64, as the reference)."""
+
+    def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
+                 m_eq: int = 0, *, names: VariableNames = VariableNames(),
+                 dtype: torch.dtype = torch.float64, device="cpu",
+                 tol: float = 1e-8, max_iter: int = 100,
+                 fraction_to_boundary: float = 0.995, mu0: float = 1.0,
+                 delta0: float = 1e-4, pivot_floor: float = 1e-8,
+                 refine: int = 0, kernel: str = "auto",
+                 scale_tol: bool = False, gondzio: int = 0,
+                 mu_floor: float | str = "auto",
+                 hybrid_refine: bool = False, df_residuals: bool = False,
+                 two_float: bool = False, mesh=None,
+                 taylor: str = "staged"):
+        apply_default_matmul_precision()
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, not {dtype}")
+        if two_float or df_residuals or hybrid_refine:
+            raise NotImplementedError(
+                "two_float / df_residuals / hybrid_refine are not ported: "
+                f"see {_ROADMAP_TWO_FLOAT}")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh= is not ported: see {_ROADMAP_MESH}")
+        if kernel not in ("auto", "ldlt"):
+            raise NotImplementedError(
+                f"kernel={kernel!r} is not ported; the port has the dense "
+                f"LDL^T mode ('auto'/'ldlt') only: see {_ROADMAP_KERNELS}")
+        if taylor not in ("staged", "symbolic"):
+            raise ValueError(f"unknown taylor={taylor!r}; expected "
+                             "'staged' or 'symbolic'")
+        self.settings = settings
+        self.n, self.m_ineq, self.m_eq = n, m_ineq, m_eq
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.tol = tol
+        self.max_iter = max_iter
+        self.fraction_to_boundary = fraction_to_boundary
+        self.mu0 = mu0
+        self.delta0 = delta0
+        self.pivot_floor = pivot_floor
+        #: extra iterative-refinement sweeps per linear solve
+        self.refine = refine
+        #: Gondzio multiple-centrality-corrector rounds per iteration
+        self.gondzio = gondzio
+        #: lower bound on mu tied to the working dtype ("auto" =
+        #: eps(dtype)^2 * mu0), as in the reference
+        if mu_floor == "auto":
+            mu_floor = torch.finfo(dtype).eps ** 2 * mu0
+        self.mu_floor = float(mu_floor)
+        #: scale the residual test by (1 + initial residual norm)
+        self.scale_tol = scale_tol
+        #: device-to-host round trips made by the iteration loops
+        self.host_syncs = 0
+
+        o = build_symbols(names)
+        self.symbols = o
+        self.names = names
+
+        # --- symbolic derivation ------------------------------------------
+        full = newton_system(settings, names)
+        sh = shorthand_rhs(full)
+        reduced = full.copy()
+        reduced.rhs = list(sh.shorthand_rhs)
+        aug = augmented_system(reduced)
+        self.full, self.sh, self.aug = full, sh, aug
+        if any(aug.lhs[i][i] is E.ZERO for i in range(len(aug.lhs))):
+            raise NotImplementedError(
+                "augmented system has a symbolically zero diagonal block "
+                "(indefinite); its 'regldlt'/'lu' modes are not ported: "
+                f"see {_ROADMAP_KERNELS}")
+
+        size_of = {
+            o.x: n, o.s_x_l: n, o.s_x_u: n, o.lambda_sxl: n, o.lambda_sxu: n,
+            o.s_A_ineq: m_ineq, o.s_A_ineq_l: m_ineq, o.s_A_ineq_u: m_ineq,
+            o.lambda_A_ineq: m_ineq, o.lambda_sAineql: m_ineq,
+            o.lambda_sAinequ: m_ineq,
+            o.s_A_eq: m_eq, o.s_A_eq_l: m_eq, o.s_A_eq_u: m_eq, o.p_eq: m_eq,
+            o.lambda_A_eq: m_eq, o.lambda_sAeql: m_eq, o.lambda_sAequ: m_eq,
+        }
+        self.size_of = size_of
+        self.var_sizes = [size_of[v] for v in full.variables]
+        self.aug_sizes = [size_of[v] for v in aug.variables]
+        self.aug_dim = sum(self.aug_sizes)
+        self.var_index = {v: i for i, v in enumerate(full.variables)}
+        # the reference's 'auto' hands large systems to its block modes
+        can_block = (len(aug.variables) == 2 and aug.variables[0] is o.x)
+        if kernel == "auto" and ((can_block and n >= 384) or
+                                 self.aug_dim >= 384):
+            raise NotImplementedError(
+                f"aug_dim={self.aug_dim}: the reference's 'auto' picks a "
+                f"block mode here, which is not ported: see "
+                f"{_ROADMAP_KERNELS}; pass kernel='ldlt' for dense LDL^T")
+        self.delta_to_var = {delta_variable(v): v for v in full.variables}
+
+        # complementarity rows: contain an e-vector and mu
+        e_vecs = (o.e_var, o.e_ineq, o.e_eq)
+
+        def is_comp(expr):
+            return (any(expr.contains(ev) for ev in e_vecs) and
+                    expr.contains(o.mu))
+        self.comp_rows = [i for i, r in enumerate(full.rhs) if is_comp(r)]
+        self.comp_size = sum(self.var_sizes[i] for i in self.comp_rows)
+
+        # corrector: the exact quadratic Taylor remainder
+        # c_i(v + d_aff) - c_i(v) - J_i d_aff of each complementarity row
+        self.corrector = [(vec, definition, is_comp(definition))
+                          for vec, definition in sh.vector_definitions]
+        self.taylor = taylor
+        self.corrector_rem = (self._build_symbolic_corrector()
+                              if taylor == "symbolic" else None)
+
+        nonneg = {o.s_A_ineq_l, o.s_A_ineq_u, o.s_x_l, o.s_x_u, o.s_A_eq_l,
+                  o.s_A_eq_u, o.lambda_sAeql, o.lambda_sAequ,
+                  o.lambda_sAineql, o.lambda_sAinequ, o.lambda_sxl,
+                  o.lambda_sxu}
+        self.nonneg_idx = [i for i, v in enumerate(full.variables)
+                           if v in nonneg]
+
+        # explicit box ratio tests when the bound slacks are not variables
+        var_set = set(full.variables)
+        self.box_test = (o.s_A_ineq_l not in var_set and
+                         o.s_A_ineq_u not in var_set)
+        self.x_has_lb = settings.variable_bounds.has_lower
+        self.x_has_ub = settings.variable_bounds.has_upper
+        self.s_has_lb = settings.inequalities.has_lower
+        self.s_has_ub = settings.inequalities.has_upper
+
+        self.objective_expr = E.sum_expr([
+            E.product([E.number(0.5), E.transpose(o.x), o.Q, o.x]),
+            E.product([E.transpose(o.c), o.x])])
+
+    # ------------------------------------------------------------------
+    # environment plumbing
+    # ------------------------------------------------------------------
+
+    def _bscalar(self, v, B: int) -> torch.Tensor:
+        """A per-instance scalar as a (B,) tensor; a constant becomes an
+        expanded view."""
+        if isinstance(v, torch.Tensor) and v.dim() == 1:
+            return v
+        return torch.full((1,), v, dtype=self.dtype,
+                          device=self.device).expand(B)
+
+    def _ones(self, B: int, size: int) -> torch.Tensor:
+        return torch.ones((1, size), dtype=self.dtype,
+                          device=self.device).expand(B, size)
+
+    def _base_env(self, data: QPData, mu_val) -> cg.Env:
+        o = self.symbols
+        B = data.Q.shape[0]
+        return {
+            o.Q: cg.matrix(data.Q),
+            o.c: cg.vector(data.c),
+            o.A_ineq: cg.matrix(data.A_ineq),
+            o.l_A_ineq: cg.vector(data.l_A_ineq),
+            o.u_A_ineq: cg.vector(data.u_A_ineq),
+            o.A_eq: cg.matrix(data.A_eq),
+            o.b_eq: cg.vector(data.b_eq),
+            o.l_x: cg.vector(data.l_x),
+            o.u_x: cg.vector(data.u_x),
+            o.delta_eq: cg.scalar(self._bscalar(self.delta0, B)),
+            o.mu: cg.scalar(self._bscalar(mu_val, B)),
+            o.e_var: cg.vector(self._ones(B, self.n)),
+            o.e_ineq: cg.vector(self._ones(B, self.m_ineq)),
+            o.e_eq: cg.vector(self._ones(B, self.m_eq)),
+        }
+
+    def _env(self, data: QPData, var_vals, mu_val) -> cg.Env:
+        env = self._base_env(data, mu_val)
+        for var, val in zip(self.full.variables, var_vals):
+            env[var] = cg.vector(val)
+        return env
+
+    def _check_data(self, data: QPData) -> QPData:
+        """Reject data on another device or of the wrong sizes; cast it
+        to the working dtype.  Returns batched data."""
+        for name in ("Q", "c", "A_ineq", "l_A_ineq", "u_A_ineq", "A_eq",
+                     "b_eq", "l_x", "u_x"):
+            t = getattr(data, name)
+            if t.device.type != self.device.type or (
+                    self.device.index is not None and
+                    t.device.index != self.device.index):
+                raise ValueError(f"QPData.{name} is on {t.device}, the "
+                                 f"solver on {self.device}")
+        if (data.n, data.m_ineq, data.m_eq) != (self.n, self.m_ineq,
+                                                self.m_eq):
+            raise ValueError(
+                f"data sizes (n, m_ineq, m_eq) = "
+                f"{(data.n, data.m_ineq, data.m_eq)}, solver built for "
+                f"{(self.n, self.m_ineq, self.m_eq)}")
+        if len(data.batch_shape) != 1:
+            raise ValueError(f"expected one leading batch axis, got "
+                             f"batch shape {data.batch_shape}")
+        return data.to(dtype=self.dtype)
+
+    # ------------------------------------------------------------------
+    # metrics
+    # ------------------------------------------------------------------
+
+    def _metrics(self, env0, B: int):
+        """(residual norm, duality gap) of the full system at mu=0, each
+        (B,)."""
+        zero = torch.zeros(B, dtype=self.dtype, device=self.device)
+        if sum(self.var_sizes) == 0:
+            return zero, zero
+        memo = {}
+        vals = [cg.as_vector(cg.evaluate(r, env0, memo), sz)
+                for r, sz in zip(self.full.rhs, self.var_sizes)]
+        r = torch.cat(vals, dim=-1)
+        residual = torch.sqrt((r * r).sum(-1))
+        if self.comp_size == 0:
+            return residual, zero
+        comp = torch.cat([vals[i] for i in self.comp_rows], dim=-1)
+        return residual, comp.abs().sum(-1) / self.comp_size
+
+    def _gap_only(self, env0, B: int):
+        """Duality measure alone (only the complementarity rows), (B,)."""
+        acc = torch.zeros(B, dtype=self.dtype, device=self.device)
+        if self.comp_size == 0:
+            return acc
+        memo = {}
+        for i in self.comp_rows:
+            v = cg.as_vector(cg.evaluate(self.full.rhs[i], env0, memo),
+                             self.var_sizes[i])
+            if v.shape[-1]:
+                acc = acc + v.abs().sum(-1)
+        return acc / self.comp_size
+
+    def _done(self, state: IPMState, res_tol) -> torch.Tensor:
+        return (state.residual < res_tol) & (state.gap < self.tol)
+
+    # ------------------------------------------------------------------
+    # iteration / loop
+    # ------------------------------------------------------------------
+
+    def init_state(self, data: QPData,
+                   warm_start: Optional[dict] = None) -> IPMState:
+        """The initial iterate of a batch: bound midpoints for x and s,
+        ones elsewhere.  ``warm_start`` maps variable names to starting
+        values broadcastable to (B, size); nonnegative variables are
+        kept at least 1e-2 from their bound."""
+        o = self.symbols
+        B = data.Q.shape[0]
+        init = {
+            o.x: 0.5 * (data.l_x + data.u_x),
+            o.s_A_ineq: 0.5 * (data.l_A_ineq + data.u_A_ineq),
+        }
+        nonneg = {self.full.variables[i] for i in self.nonneg_idx}
+        vals = []
+        for v, sz in zip(self.full.variables, self.var_sizes):
+            if warm_start is not None and v.name in warm_start:
+                w = torch.as_tensor(warm_start[v.name], dtype=self.dtype,
+                                    device=self.device).expand(B, sz)
+                if v in nonneg:
+                    w = torch.clamp(w, min=1e-2)
+                vals.append(w)
+            elif v in init:
+                vals.append(init[v])
+            else:
+                vals.append(torch.ones((B, sz), dtype=self.dtype,
+                                       device=self.device))
+        residual, gap = self._metrics(self._env(data, vals, 0.0), B)
+        return IPMState(
+            vars=tuple(vals),
+            mu=torch.full((B,), self.mu0, dtype=self.dtype,
+                          device=self.device),
+            iteration=torch.zeros(B, dtype=torch.int32, device=self.device),
+            residual=residual, gap=gap)
+
+    def _step_impl(self, state: IPMState, data: QPData,
+                   gondzio: Optional[int] = None) -> IPMState:
+        """One Mehrotra iteration of every instance of the batch."""
+        B = data.Q.shape[0]
+        env = self._env(data, state.vars, state.mu)
+        gap = state.gap
+
+        # factor the augmented KKT once
+        solve_fn = self._make_solve_dense(env, B)
+
+        # affine predictor (mu = 0)
+        renv = self._residual_env(env, 0.0)
+        d_aff = self._search_direction(solve_fn, renv)
+        alpha_aff = self._max_step(env, state.vars, d_aff)
+
+        # trial step -> mu_aff -> sigma
+        trial = tuple(v + alpha_aff[:, None] * d
+                      for v, d in zip(state.vars, d_aff))
+        gap_aff = self._gap_only(self._env(data, trial, 0.0), B)
+        pos = gap > 0
+        sigma = torch.where(pos, (gap_aff / torch.where(
+            pos, gap, torch.ones_like(gap))) ** 3, torch.zeros_like(gap))
+        mu_new = torch.clamp(gap * sigma, min=self.mu_floor)
+
+        # corrector with recentred complementarity + affine correction
+        cenv = self._residual_env(env, mu_new, data=data,
+                                  var_vals=state.vars, affine_deltas=d_aff)
+        d_cc = self._search_direction(solve_fn, cenv)
+        alpha = self._max_step(env, state.vars, d_cc)
+
+        n_gondzio = self.gondzio if gondzio is None else gondzio
+        for _ in range(n_gondzio):
+            d_cc, alpha = self._gondzio_round(env, data, state.vars,
+                                              solve_fn, d_cc, alpha, mu_new)
+
+        step = (self.fraction_to_boundary * alpha)[:, None]
+        new_vars = tuple(v + step * d for v, d in zip(state.vars, d_cc))
+        residual, new_gap = self._metrics(self._env(data, new_vars, 0.0), B)
+        return IPMState(vars=new_vars, mu=mu_new,
+                        iteration=state.iteration + 1,
+                        residual=residual, gap=new_gap)
+
+    def _result(self, state: IPMState, data: QPData, res_tol,
+                diverged) -> SolveResult:
+        env = self._env(data, state.vars, state.mu)
+        return SolveResult(
+            x=state.vars[self.var_index[self.symbols.x]],
+            variables={v.name: val for v, val in
+                       zip(self.full.variables, state.vars)},
+            objective=cg.evaluate(self.objective_expr, env).val,
+            iterations=state.iteration,
+            residual=state.residual,
+            gap=state.gap,
+            converged=self._done(state, res_tol),
+            diverged=diverged)
+
+    def _res_tol(self, state: IPMState) -> torch.Tensor:
+        if self.scale_tol:
+            return self.tol * (1.0 + state.residual)
+        return torch.full_like(state.residual, self.tol)
+
+    def _solve_impl(self, data: QPData,
+                    warm_start: Optional[dict] = None) -> SolveResult:
+        """Solve every instance of a batch: the batched form of the
+        reference's per-instance ``while_loop``."""
+        state = self.init_state(data, warm_start)
+        res_tol = self._res_tol(state)
+
+        def bad(s):
+            # the reference's while loop does not test gap for inf (its
+            # masked compact loops do: compact.py's _bad)
+            return torch.isnan(s.residual) | torch.isinf(s.residual) | \
+                torch.isnan(s.gap)
+
+        diverged = torch.zeros_like(res_tol, dtype=torch.bool)
+        while True:
+            active = ~self._done(state, res_tol) & ~diverged & \
+                (state.iteration < self.max_iter)
+            self.host_syncs += 1
+            if not bool(active.any()):
+                break
+            new = self._step_impl(state, data)
+            # divergence rollback: a failed step keeps the last good
+            # iterate and flags the instance
+            failed = bad(new)
+            state = _where(~active | failed, state, new)
+            diverged = diverged | (active & failed)
+        return self._result(state, data, res_tol, diverged | bad(state))
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def solve(self, data: QPData,
+              warm_start: Optional[dict] = None) -> SolveResult:
+        """Solve one QP instance (fields without a batch axis).
+
+        ``warm_start``: optional dict of variable name -> initial value
+        (e.g. a previous ``SolveResult.variables``)."""
+        one = tree_map(lambda t: t.unsqueeze(0), data)
+        res = self._solve_impl(self._check_data(one), warm_start)
+        return tree_map(lambda t: t[0], res)
+
+    def step(self, state: IPMState, data: QPData) -> IPMState:
+        """One IPM iteration of a batch (leading batch axis on ``data``
+        and on every field of ``state``)."""
+        return self._step_impl(state, self._check_data(data))
+
+    def solve_batch(self, data: QPData) -> SolveResult:
+        """Solve a batch of QPs (leading batch axis on every field)."""
+        return self._solve_impl(self._check_data(data))

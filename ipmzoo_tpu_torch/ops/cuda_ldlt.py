@@ -1,0 +1,139 @@
+"""Batched LDL^T factor (K2) and solve (K3): CUDA kernels with plain
+torch versions.
+
+Counterpart of :mod:`ipmzoo_tpu.ops.pallas_ldlt` (``ldlt_auto`` /
+``solve_ldlt_auto``).  The public layout is the reference's: A (B, n, n),
+D (B, n), b (B, n).  For CUDA tensors the wrappers transpose to the
+kernels' structure-of-arrays layout ((n, n, B), batch fastest) and launch
+the kernels of ``csrc/ldlt.cu`` on the current stream.  The factors are
+returned as (B, n, n) / (B, n) views of their SoA storage, so a solve
+against them reads the factors without a second transpose.  For CPU
+tensors the wrappers run the plain versions of :mod:`.ldlt`.  Any other
+device raises; a failed build or launch raises too.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
+
+#: kernel launches since the last :func:`reset_launch_counts`
+launches = {"ldlt": 0, "solve_ldlt": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ldlt")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for dt, sfx in _SUFFIX.items():
+        f = getattr(lib, f"ipmzoo_ldlt_factor_{sfx}")
+        f.argtypes = [ptr, ptr, ptr, i32, i64, _CTYPE[dt], ptr]
+        f.restype = i32
+        s = getattr(lib, f"ipmzoo_ldlt_solve_{sfx}")
+        s.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
+        s.restype = i32
+    return lib
+
+
+def _check_soa(dtype, device, **tensors) -> None:
+    if dtype not in _SUFFIX:
+        raise TypeError(f"LDL^T kernels take float32/float64, not {dtype}")
+    for name, (t, shape) in tensors.items():
+        if t.dtype != dtype or t.device != device:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{dtype} on {device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def factor_soa(A_t: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """Launch K2 on SoA data: A_t (n, n, B) -> L_t (n, n, B), D_t (n, B)."""
+    n, B = A_t.shape[0], A_t.shape[-1]
+    _check_soa(A_t.dtype, A_t.device, A_t=(A_t, (n, n, B)))
+    if not A_t.is_cuda:
+        raise ValueError(f"K2 needs a CUDA tensor, got {A_t.device}")
+    L_t = torch.empty_like(A_t)
+    D_t = A_t.new_empty((n, B))
+    if n == 0 or B == 0:
+        return L_t, D_t
+    with torch.cuda.device(A_t.device):
+        err = getattr(_lib(), f"ipmzoo_ldlt_factor_{_SUFFIX[A_t.dtype]}")(
+            A_t.data_ptr(), L_t.data_ptr(), D_t.data_ptr(), n, B,
+            pivot_floor, _stream(A_t.device))
+    if err:
+        raise RuntimeError(f"LDL^T factor kernel launch failed: "
+                           f"cudaError {err}")
+    launches["ldlt"] += 1
+    return L_t, D_t
+
+
+def solve_soa(L_t: torch.Tensor, D_t: torch.Tensor,
+              b_t: torch.Tensor) -> torch.Tensor:
+    """Launch K3 on SoA data: L_t (n, n, B), D_t (n, B), b_t (n, B) ->
+    x_t (n, B) with L D L^T x = b per instance."""
+    n, B = b_t.shape
+    _check_soa(b_t.dtype, b_t.device, L_t=(L_t, (n, n, B)),
+               D_t=(D_t, (n, B)), b_t=(b_t, (n, B)))
+    if not b_t.is_cuda:
+        raise ValueError(f"K3 needs CUDA tensors, got {b_t.device}")
+    x_t = torch.empty_like(b_t)
+    if n == 0 or B == 0:
+        return x_t
+    with torch.cuda.device(b_t.device):
+        err = getattr(_lib(), f"ipmzoo_ldlt_solve_{_SUFFIX[b_t.dtype]}")(
+            L_t.data_ptr(), D_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(),
+            n, B, _stream(b_t.device))
+    if err:
+        raise RuntimeError(f"LDL^T solve kernel launch failed: "
+                           f"cudaError {err}")
+    launches["solve_ldlt"] += 1
+    return x_t
+
+
+def _dispatch(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no LDL^T implementation for device {t.device}")
+
+
+def ldlt_auto(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """Batched LDL^T: A (B, n, n) -> L (B, n, n) unit-lower, D (B, n)."""
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"expected (B, n, n), got {tuple(A.shape)}")
+    if not _dispatch(A):
+        return ldlt(A, pivot_floor)
+    L_t, D_t = factor_soa(A.permute(1, 2, 0).contiguous(), pivot_floor)
+    return L_t.permute(2, 0, 1), D_t.t()
+
+
+def solve_ldlt_auto(L: torch.Tensor, D: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """Batched solve against ``ldlt_auto``'s factors: b (B, n) -> x."""
+    if not _dispatch(b):
+        return solve_ldlt(L, D, b)
+    x_t = solve_soa(L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
+                    b.t().contiguous())
+    return x_t.t()

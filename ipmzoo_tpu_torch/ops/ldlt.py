@@ -1,0 +1,54 @@
+"""Batched dense LDL^T factorisation and solve in plain torch.
+
+Counterpart of :mod:`ipmzoo_tpu.ops.ldlt` (the column algorithm of
+``ldlt`` and the forward / diagonal / backward sweeps of ``solve_ldlt``),
+written over a leading batch axis.  These are the plain versions of the
+CUDA kernels in ``csrc/ldlt.cu``: :mod:`.cuda_ldlt` runs them for CPU
+tensors, and the tests and ``chip_smoke.py`` hold the kernels to them.
+
+The augmented KKT system of an interior-point iteration is symmetric
+quasi-definite, so an unpivoted LDL^T is stable; an exactly-zero pivot is
+replaced by ``pivot_floor`` (Vanderbei 1995).
+"""
+
+from __future__ import annotations
+
+import torch
+
+PIVOT_FLOOR = 1e-8
+
+
+def ldlt(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """Factor a batch of symmetric matrices A (B, n, n) = L D L^T.
+
+    Returns L (B, n, n) unit-lower-triangular and D (B, n).  Only an
+    exactly-zero pivot is replaced by ``pivot_floor``."""
+    B, n = A.shape[0], A.shape[-1]
+    L = torch.zeros_like(A)
+    D = A.new_zeros((B, n))
+    for j in range(n):
+        lj = L[:, j, :j]                          # L[j, k<j]
+        w = lj * D[:, :j]                         # L[j,k] D[k]
+        d = A[:, j, j] - (lj * w).sum(-1)
+        d = torch.where(d == 0, torch.full_like(d, pivot_floor), d)
+        s = torch.matmul(L[:, j + 1:, :j], w.unsqueeze(-1)).squeeze(-1)
+        L[:, j + 1:, j] = (A[:, j + 1:, j] - s) / d.unsqueeze(-1)
+        L[:, j, j] = 1.0
+        D[:, j] = d
+    return L, D
+
+
+def solve_ldlt(L: torch.Tensor, D: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Solve L D L^T x = b per instance: L (B, n, n), D (B, n), b (B, n).
+
+    Forward sweep with the unit-lower L, division by D, backward sweep
+    with L^T."""
+    n = b.shape[-1]
+    x = b.clone()
+    for i in range(1, n):
+        x[:, i] = x[:, i] - (L[:, i, :i] * x[:, :i]).sum(-1)
+    x = x / D
+    for i in range(n - 2, -1, -1):
+        x[:, i] = x[:, i] - (L[:, i + 1:, i] * x[:, i + 1:]).sum(-1)
+    return x

@@ -1,0 +1,121 @@
+"""Plain batched LDL^T of the port (ipmzoo_tpu_torch/ops/ldlt.py, the CPU
+twins of CUDA kernels K2/K3) against the reference's Pallas kernels (run
+in interpret mode on the CPU) and its jnp column kernel, in float64.
+
+Tolerance: rtol 1e-12 (with atol 1e-12 for the exact zeros above the
+diagonal); the algorithms are the same, only summation order differs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ipmzoo_tpu.ops.ldlt import batched_ldlt
+from ipmzoo_tpu.ops.pallas_ldlt import (batched_ldlt_pallas,
+                                        batched_solve_ldlt_pallas)
+from ipmzoo_tpu_torch.ops import cuda_ldlt
+from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
+
+
+def quasi_definite(B, n, seed):
+    """Well-conditioned symmetric quasi-definite matrices
+    [[H, A^T], [A, -C]] with H, C positive definite, as the IPM's
+    augmented systems; ``n`` rows in all."""
+    rng = np.random.default_rng(seed)
+    n1 = (n + 1) // 2
+    n2 = n - n1
+    M = rng.normal(size=(B, n1, n1))
+    H = np.einsum("bij,bkj->bik", M, M) / n1 + np.eye(n1)
+    A = rng.normal(size=(B, n2, n1))
+    C = np.abs(rng.normal(size=(B, n2))) + 0.5
+    K = np.zeros((B, n, n))
+    K[:, :n1, :n1] = H
+    K[:, n1:, :n1] = A
+    K[:, :n1, n1:] = np.swapaxes(A, 1, 2)
+    K[:, n1:, n1:] = -np.einsum("bi,ij->bij", C, np.eye(n2))
+    return K, rng.normal(size=(B, n))
+
+
+@pytest.mark.parametrize("B", [1, 7, 130])
+@pytest.mark.parametrize("n", [1, 5, 24])
+def test_factor_and_solve_match_reference(B, n):
+    K, b = quasi_definite(B, n, seed=B * 100 + n)
+    L_pl, D_pl = batched_ldlt_pallas(jnp.asarray(K), PIVOT_FLOOR)
+    L_jnp, D_jnp = batched_ldlt(jnp.asarray(K), PIVOT_FLOOR)
+    x_pl = batched_solve_ldlt_pallas(L_pl, D_pl, jnp.asarray(b))
+
+    L, D = ldlt(torch.from_numpy(K), PIVOT_FLOOR)
+    x = solve_ldlt(L, D, torch.from_numpy(b))
+    for ref in (L_pl, L_jnp):
+        np.testing.assert_allclose(L.numpy(), np.asarray(ref), rtol=1e-12,
+                                   atol=1e-12)
+    for ref in (D_pl, D_jnp):
+        np.testing.assert_allclose(D.numpy(), np.asarray(ref), rtol=1e-12)
+    np.testing.assert_allclose(x.numpy(), np.asarray(x_pl), rtol=1e-12,
+                               atol=1e-12)
+    # and the factors really solve the system
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", K, x.numpy()), b,
+                               rtol=1e-10, atol=1e-10)
+
+
+def test_exact_zero_pivot_takes_the_floor():
+    # second pivot: 1 - 1*1*1 == 0 exactly
+    K = np.array([[[1.0, 1.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 2.0]]])
+    L_pl, D_pl = batched_ldlt_pallas(jnp.asarray(K), PIVOT_FLOOR)
+    L, D = ldlt(torch.from_numpy(K), PIVOT_FLOOR)
+    assert D[0, 1].item() == PIVOT_FLOOR == float(D_pl[0, 1])
+    np.testing.assert_allclose(L.numpy(), np.asarray(L_pl), rtol=1e-12)
+    np.testing.assert_allclose(D.numpy(), np.asarray(D_pl), rtol=1e-12)
+
+
+def test_only_exact_zero_is_floored():
+    # a pivot far below the floor, but not zero, is kept as it is
+    K = np.array([[[1e-12, 0.0], [0.0, 1.0]]])
+    _, D = ldlt(torch.from_numpy(K), PIVOT_FLOOR)
+    assert D[0, 0].item() == 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wrappers_take_plain_version_on_cpu(dtype):
+    K, b = quasi_definite(9, 6, seed=3)
+    K_t, b_t = torch.from_numpy(K).to(dtype), torch.from_numpy(b).to(dtype)
+    cuda_ldlt.reset_launch_counts()
+    L, D = cuda_ldlt.ldlt_auto(K_t)
+    x = cuda_ldlt.solve_ldlt_auto(L, D, b_t)
+    L0, D0 = ldlt(K_t)
+    assert torch.equal(L, L0) and torch.equal(D, D0)
+    assert torch.equal(x, solve_ldlt(L0, D0, b_t))
+    assert x.dtype == dtype
+    assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0}
+
+
+def test_solve_does_not_write_into_its_inputs():
+    K, b = quasi_definite(4, 5, seed=4)
+    L, D = ldlt(torch.from_numpy(K))
+    b_t = torch.from_numpy(b)
+    before = b_t.clone()
+    solve_ldlt(L, D, b_t)
+    assert torch.equal(b_t, before)
+
+
+def test_wrappers_reject_other_devices():
+    A = torch.zeros((2, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        cuda_ldlt.ldlt_auto(A)
+    with pytest.raises(ValueError, match="B, n, n"):
+        cuda_ldlt.ldlt_auto(torch.zeros((3, 3)))
+
+
+def test_soa_launchers_check_their_inputs_before_launching():
+    # the launch wrappers refuse CPU tensors and bad shapes without ever
+    # loading the CUDA library
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ldlt.factor_soa(torch.zeros((3, 3, 4)))
+    with pytest.raises(TypeError, match="float32/float64"):
+        cuda_ldlt.factor_soa(torch.zeros((3, 3, 4), dtype=torch.float16))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_ldlt.solve_soa(torch.zeros((3, 3, 4)), torch.zeros((3, 5)),
+                            torch.zeros((3, 4)))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ldlt.factor_soa(torch.zeros((4, 3, 3)).permute(1, 2, 0))
