@@ -5,9 +5,12 @@ It reuses the device-free layers of the JAX package
 imports jax.  Module names mirror the JAX package's:
 
 * :mod:`ipmzoo_tpu_torch.models` — ``CompiledIPM`` (batched Mehrotra
-  solver, dense LDL^T mode), ``QPData``, the compaction engine.
+  solver, dense LDL^T mode), ``QPData``, the compaction engine, and
+  ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
+  from the symbolic derivation).
 * :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor/solve: CUDA kernels
-  (``csrc/ldlt.cu``) with plain torch versions for CPU tensors.
+  (``csrc/ldlt.cu``) with plain torch versions for CPU tensors; K1's
+  build and launch (``cuda_fused``).
 * :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy.
 """
 
@@ -20,7 +23,8 @@ from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,  # noqa: E402
 
 def __getattr__(name):
     # torch-heavy imports stay lazy
-    if name in ("CompiledIPM", "QPData", "SolveResult", "IPMState"):
+    if name in ("CompiledIPM", "FusedBatchedIPM", "QPData", "SolveResult",
+                "IPMState"):
         from . import models
         return getattr(models, name)
     raise AttributeError(name)

@@ -2,6 +2,8 @@
 torch tensors."""
 
 from .data import QPData, validate
+from .fused import FusedBatchedIPM
 from .ipm import CompiledIPM, IPMState, SolveResult
 
-__all__ = ["QPData", "validate", "CompiledIPM", "IPMState", "SolveResult"]
+__all__ = ["QPData", "validate", "CompiledIPM", "FusedBatchedIPM",
+           "IPMState", "SolveResult"]

@@ -4,7 +4,10 @@ benchmark workload.
 The ``*_from_numpy`` functions take any object with the fields of the
 corresponding container (the reference's ``QPData``, ``IPMState`` or
 ``SolveResult`` included) and read each field through ``np.asarray``; the
-``*_to_numpy`` functions return plain dicts of numpy arrays.  Tests use
+``*_to_numpy`` functions return plain dicts of numpy arrays.  The fused
+engine's results and warm states are dicts already (``x``,
+``variables``, ``iterations``, ``residual``, ``gap``, ``mu``,
+``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.  Tests use
 them to pass the same data and state between the reference and the
 port.
 """
@@ -77,6 +80,18 @@ def result_to_numpy(res: SolveResult) -> dict:
     out = {k: _np(v) for k, v in out.items()}
     out["variables"] = {k: _np(v) for k, v in res.variables.items()}
     return out
+
+
+def fused_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                     device="cpu") -> dict:
+    """A fused-engine result or warm state (the reference's dict, or any
+    subset of its keys) as tensors; ``converged`` stays boolean."""
+    return {k: _t(v, torch.bool if k == "converged" else dtype, device)
+            for k, v in src.items()}
+
+
+def fused_to_numpy(out: dict) -> dict:
+    return {k: _np(v) for k, v in out.items()}
 
 
 def make_batch(batch: int, n: int, m: int, dtype: torch.dtype,

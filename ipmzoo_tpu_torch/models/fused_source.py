@@ -1,0 +1,303 @@
+"""The C++ source of kernel K1 for one formulation and one set of sizes.
+
+:func:`fused_source` walks the same symbolic derivation as the plain
+version, through the same pieces of :class:`.fused.FusedBatchedIPM`
+(metrics, residual environments, augmented right-hand side,
+back-substitution, Gondzio targets), with the C++ emitter
+:class:`.codegen_soa.CppSoA`.  The result is a ``struct Form`` of
+``__host__ __device__`` functions for one instance, appended to the
+hand-written ``csrc/fused_ipm.cuh`` together with the entry points.
+The text depends only on the formulation and the sizes (and
+``taylor``), never on the dtype or the solver's scalar settings, which
+are run-time arguments: one build serves both float32 and float64.
+
+Generated functions (``T`` is the working type; ``v``, ``r``, ``delta``
+and the like are per-instance arrays laid out like the variables):
+
+  init(dat, v)                                  cold-start iterate
+  metrics(dat, prm, v, residual, gap)           residual norm, gap at mu=0
+  assemble(dat, prm, v, mu, K)                  packed lower KKT triangle
+  residuals(dat, prm, v, mu_r, r)               predictor right-hand sides
+  corrector(dat, prm, v, mu, mu_r, d_aff, r)    ... plus Taylor remainder
+  aug_rhs(dat, prm, v, mu_r, r, b)              augmented right-hand side
+  back_substitute(dat, prm, v, mu_r, r, sol, delta)
+  gondzio_targets(dat, prm, trial, mu_t, r)
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List
+
+from ipmzoo_tpu.symbolic import expr as E
+
+from . import codegen_soa as soa
+from .codegen_soa import CppSoA, CScalar
+
+CUH = Path(__file__).resolve().parents[1] / "csrc" / "fused_ipm.cuh"
+
+_PARAMS = "const Data<T>& dat, const Params<T>& prm"
+
+
+def _function(name: str, args: str, ev: CppSoA) -> List[str]:
+    return (["  template <typename T>",
+             f"  IPM_FN static void {name}({args}) {{"]
+            + ["    " + line for line in ev.lines] + ["  }", ""])
+
+
+class _Generator:
+    def __init__(self, solver):
+        self.s = solver
+        self.offsets = []
+        off = 0
+        for sz in solver.var_sizes:
+            self.offsets.append(off)
+            off += sz
+        self.total = off
+        self.aug_offsets = []
+        off = 0
+        for sz in solver.aug_sizes:
+            self.aug_offsets.append(off)
+            off += sz
+
+    # -- environments ------------------------------------------------------
+
+    def split(self, array: str):
+        """Per-variable handles into a per-instance array laid out like the
+        variables."""
+        return tuple(soa.array_vec(array, sz, off)
+                     for sz, off in zip(self.s.var_sizes, self.offsets))
+
+    def env(self, var_vals, mu: CScalar):
+        s = self.s
+        o = s.symbols
+        n, m, e = s.n, s.m_ineq, s.m_eq
+
+        def data_vec(name, size):
+            return soa.vector(soa.array_vec(f"dat.{name}", size,
+                                            stride="dat.S"))
+
+        env = {
+            o.Q: soa.matrix(soa.data_matrix("Q", n, n)),
+            o.c: data_vec("c", n),
+            o.A_ineq: soa.matrix(soa.data_matrix("A_ineq", m, n)),
+            o.l_A_ineq: data_vec("l_A_ineq", m),
+            o.u_A_ineq: data_vec("u_A_ineq", m),
+            o.A_eq: soa.matrix(soa.data_matrix("A_eq", e, n)),
+            o.b_eq: data_vec("b_eq", e),
+            o.l_x: data_vec("l_x", n),
+            o.u_x: data_vec("u_x", n),
+            o.delta_eq: soa.scalar(CScalar("prm.delta0")),
+            o.mu: soa.scalar(mu),
+            o.e_var: soa.vector(soa.ones_vec(n)),
+            o.e_ineq: soa.vector(soa.ones_vec(m)),
+            o.e_eq: soa.vector(soa.ones_vec(e)),
+        }
+        for var, val in zip(s.full.variables, var_vals):
+            env[var] = soa.vector(val)
+        return env
+
+    def bind_residuals(self, env, r: str):
+        renv = dict(env)
+        for (vec, _, _), val in zip(self.s.corrector, self.split(r)):
+            renv[vec] = soa.vector(val)
+        return renv
+
+    def store_residuals(self, ev: CppSoA, renv, r: str):
+        """Write the residual vectors bound in ``renv`` into array ``r``.
+        Across generated functions they travel as plain vectors, so each
+        must be one (or empty: zeros)."""
+        for i, (vec, _, _) in enumerate(self.s.corrector):
+            val = renv[vec]
+            size = self.s.var_sizes[i]
+            if val.tag != "vector":
+                raise NotImplementedError(
+                    f"residual {vec!r} evaluates to a {val.tag}, which K1's "
+                    "generated functions do not pass between them")
+            ev.store(r, self.offsets[i], soa.as_vector(ev, val, size))
+
+    # -- functions -----------------------------------------------------------
+
+    def init(self) -> List[str]:
+        o = self.s.symbols
+        ev = CppSoA()
+        mids = {o.x: ("l_x", "u_x"), o.s_A_ineq: ("l_A_ineq", "u_A_ineq")}
+        for var, size, off in zip(self.s.full.variables, self.s.var_sizes,
+                                  self.offsets):
+            if not size:
+                continue
+            if var in mids:
+                lo, hi = mids[var]
+                elem = (f"T(0.5) * (dat.{lo}[i * dat.S] + "
+                        f"dat.{hi}[i * dat.S])")
+            else:
+                elem = "T(1)"
+            ev.lines.append(f"for (int i = 0; i < {size}; ++i) "
+                            f"v[{off} + i] = {elem};")
+        return _function("init", "const Data<T>& dat, T* v", ev)
+
+    def metrics(self) -> List[str]:
+        ev = CppSoA()
+        env0 = self.env(self.split("v"), CScalar("T(0)"))
+        residual, gap = self.s._metrics_soa(ev, env0)
+        ev.lines.append(f"residual = {residual.expr};")
+        ev.lines.append(f"gap = {gap.expr};")
+        return _function("metrics", f"{_PARAMS}, const T* v, T& residual, "
+                         "T& gap", ev)
+
+    def assemble(self) -> List[str]:
+        s = self.s
+        ev = CppSoA()
+        env = self.env(self.split("v"), CScalar("mu"))
+        memo = {}
+        nblk = len(s.aug.variables)
+        for bi in range(nblk):
+            for bj in range(bi + 1):
+                self._write_block(ev, env, memo, bi, bj)
+        return _function("assemble", f"{_PARAMS}, const T* v, T mu, T* K",
+                         ev)
+
+    def _write_block(self, ev, env, memo, bi: int, bj: int) -> None:
+        """Write block (bi, bj), bj <= bi, of the augmented matrix into the
+        packed lower triangle K (its upper half when bi == bj is never
+        read)."""
+        s = self.s
+        si, sj = s.aug_sizes[bi], s.aug_sizes[bj]
+        if not si or not sj:
+            return
+        r0, c0 = self.aug_offsets[bi], self.aug_offsets[bj]
+        cols = "i + 1" if bi == bj else str(sj)
+        cell = s.aug.lhs[bi][bj]
+        if cell is E.ZERO:
+            elem = "T(0)"
+        else:
+            v = soa.evaluate(ev, cell, env, memo)
+            if v.tag == "matrix":
+                elem = v.val.at("i", "j")
+            elif v.tag in ("diag", "scalar"):
+                d = v.val.expr if v.tag == "scalar" else v.val.at("i")
+                elem = f"(i == j ? {d} : T(0))"
+            else:
+                raise TypeError(f"cell {cell!r} -> {v.tag}")
+        ev.lines.append(f"for (int i = 0; i < {si}; ++i)")
+        ev.lines.append(f"  for (int j = 0; j < {cols}; ++j)")
+        ev.lines.append(f"    K[tri({r0} + i, {c0} + j)] = {elem};")
+
+    def residuals(self) -> List[str]:
+        ev = CppSoA()
+        env = self.env(self.split("v"), CScalar("mu_r"))
+        renv = self.s._residual_env_soa(ev, self.env, env,
+                                        CScalar("mu_r"))
+        self.store_residuals(ev, renv, "r")
+        return _function("residuals", f"{_PARAMS}, const T* v, T mu_r, T* r",
+                         ev)
+
+    def corrector(self) -> List[str]:
+        ev = CppSoA()
+        var_vals = self.split("v")
+        env = self.env(var_vals, CScalar("mu"))
+        renv = self.s._residual_env_soa(ev, self.env, env,
+                                        CScalar("mu_r"), var_vals=var_vals,
+                                        affine_deltas=self.split("d_aff"))
+        self.store_residuals(ev, renv, "r")
+        return _function("corrector", f"{_PARAMS}, const T* v, T mu, T mu_r, "
+                         "const T* d_aff, T* r", ev)
+
+    def aug_rhs(self) -> List[str]:
+        ev = CppSoA()
+        renv = self.bind_residuals(self.env(self.split("v"),
+                                            CScalar("mu_r")), "r")
+        for part, off in zip(self.s._aug_rhs_soa(ev, renv),
+                             self.aug_offsets):
+            ev.store("b", off, part)
+        return _function("aug_rhs", f"{_PARAMS}, const T* v, T mu_r, "
+                         "const T* r, T* b", ev)
+
+    def back_substitute(self) -> List[str]:
+        s = self.s
+        ev = CppSoA()
+        renv = self.bind_residuals(self.env(self.split("v"),
+                                            CScalar("mu_r")), "r")
+        sol = [soa.array_vec("sol", sz, off)
+               for sz, off in zip(s.aug_sizes, self.aug_offsets)]
+        deltas = s._back_substitute_soa(ev, renv, sol)
+        for i, val in enumerate(deltas):
+            if val is None:
+                raise NotImplementedError(
+                    f"no delta for variable {s.full.variables[i]!r}")
+            ev.store("delta", self.offsets[i], val)
+        return _function("back_substitute", f"{_PARAMS}, const T* v, "
+                         "T mu_r, const T* r, const T* sol, T* delta", ev)
+
+    def gondzio_targets(self) -> List[str]:
+        ev = CppSoA()
+        tenv = self.env(self.split("trial"), CScalar("T(0)"))
+        for val, off in zip(self.s._gondzio_targets_soa(
+                ev, tenv, CScalar("mu_t")), self.offsets):
+            ev.store("r", off, val)
+        return _function("gondzio_targets", f"{_PARAMS}, const T* trial, "
+                         "T mu_t, T* r", ev)
+
+    # -- the struct ------------------------------------------------------
+
+    def constants(self) -> List[str]:
+        s = self.s
+        o = s.symbols
+        groups = [(self.offsets[i], s.var_sizes[i]) for i in s.nonneg_idx
+                  if s.var_sizes[i]]
+        s_index = s.var_index.get(o.s_A_ineq)
+        k_s = self.offsets[s_index] if (
+            s_index is not None and s.var_sizes[s_index]) else -1
+        offs = ", ".join(str(g[0]) for g in groups) or "0"
+        sizes = ", ".join(str(g[1]) for g in groups) or "0"
+        flag = lambda b: "true" if b else "false"  # noqa: E731
+        return [
+            f"  static constexpr int kN = {s.n};",
+            f"  static constexpr int kM = {s.m_ineq};",
+            f"  static constexpr int kTotal = {self.total};",
+            f"  static constexpr int kAug = {s.aug_dim};",
+            f"  static constexpr int kTri = {s.aug_dim * (s.aug_dim + 1) // 2};",
+            f"  static constexpr int kX = "
+            f"{self.offsets[s.var_index[o.x]]};",
+            f"  static constexpr int kS = {k_s};",
+            f"  static constexpr int kNonnegGroups = {len(groups)};",
+            f"  static constexpr bool kBoxTest = {flag(s.box_test)};",
+            f"  static constexpr bool kXLower = {flag(s.x_has_lb)};",
+            f"  static constexpr bool kXUpper = {flag(s.x_has_ub)};",
+            f"  static constexpr bool kSLower = {flag(s.s_has_lb)};",
+            f"  static constexpr bool kSUpper = {flag(s.s_has_ub)};",
+            "  IPM_FN static int nonneg_offset(int g) {",
+            f"    const int t[] = {{{offs}}};",
+            "    return t[g];",
+            "  }",
+            "  IPM_FN static int nonneg_size(int g) {",
+            f"    const int t[] = {{{sizes}}};",
+            "    return t[g];",
+            "  }",
+            "",
+        ]
+
+
+def fused_source(solver) -> str:
+    """K1's complete C++ source for ``solver``'s formulation and sizes:
+    the hand-written ``csrc/fused_ipm.cuh`` followed by the generated
+    ``struct Form`` and the entry points.  Deterministic: the same
+    formulation and sizes give the same text."""
+    g = _Generator(solver)
+    s = solver
+    body = (["struct Form {"] + g.constants() + g.init() + g.metrics()
+            + g.assemble() + g.residuals() + g.corrector() + g.aug_rhs()
+            + g.back_substitute() + g.gondzio_targets() + ["};", ""])
+    head = [
+        "// Kernel K1, generated by ipmzoo_tpu_torch/models/fused_source.py.",
+        f"// formulation: {s.settings!r}",
+        f"// names: {s.names!r}",
+        f"// n={s.n} m_ineq={s.m_ineq} m_eq={s.m_eq} "
+        f"aug_dim={s.aug_dim} variables={g.total} taylor={s.taylor}",
+        '#line 1 "fused_ipm.cuh"',
+    ]
+    return "\n".join(
+        head + [CUH.read_text(), '#line 1 "generated"',
+                "namespace ipmzoo_fused {", ""] + body
+        + ["}  // namespace ipmzoo_fused", "",
+           "IPMZOO_FUSED_ENTRY_POINTS(ipmzoo_fused::Form)", ""])

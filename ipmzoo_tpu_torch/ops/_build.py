@@ -5,6 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 loaded with ``ctypes``.  Libraries land in ``build/ipmzoo_tpu_torch/``
 beside the package, under a name keyed by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is reused.
+A generated source (kernel K1, printed per formulation by
+``models/fused_source.py``) is written into the same directory, keyed by
+a hash of its text and the flags, and built the same way.
 
 The flags keep IEEE arithmetic: no ``--use_fast_math``, ``-ftz=true`` or
 ``-prec-div=false``.  The kernels' exact-zero pivot test and divisions
@@ -39,30 +42,51 @@ def _nvcc() -> str:
     return path
 
 
+def _keyed_path(name: str, text: bytes) -> Path:
+    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{key[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    return _keyed_path(name, (CSRC / f"{name}.cu").read_bytes())
+
+
+def generated_library_path(name: str, text: str) -> Path:
+    return _keyed_path(name, text.encode())
+
+
+def _build(src: Path, out: Path, what: str) -> None:
+    """nvcc ``src`` into ``out``; nvcc's report (registers, stack frame,
+    spills) is kept beside the library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it.
-
     Raises ``RuntimeError`` carrying nvcc's output when the build
-    fails.  nvcc's report (registers, spills) is kept beside the library
-    as ``.log``."""
+    fails."""
     out = library_path(name)
     if not out.exists():
+        _build(CSRC / f"{name}.cu", out, f"csrc/{name}.cu")
+    return ctypes.CDLL(str(out))
+
+
+def load_generated(name: str, text: str) -> ctypes.CDLL:
+    """Write the generated source ``text`` beside its library (``.cu``),
+    build it if the library is missing, then load it.  Raises
+    ``RuntimeError`` carrying nvcc's output when the build fails."""
+    out = generated_library_path(name, text)
+    if not out.exists():
+        src = out.with_suffix(".cu")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        src.write_text(text)
+        _build(src, out, f"generated {src.name}")
     return ctypes.CDLL(str(out))

@@ -35,6 +35,14 @@ def test_port_imports_and_solves_without_jax():
                           u_A_ineq=[1.2], l_x=[0, 0], u_x=[10, 10])
         r = p.CompiledIPM(p.Settings(), n=2, m_ineq=1).solve(d)
         assert bool(r.converged), r
+        import torch
+        from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+        f = FusedBatchedIPM(p.Settings(), n=2, m_ineq=1, bt=1,
+                            dtype=torch.float64)
+        one = p.QPData(**{k: getattr(d, k)[None]
+                          for k in d.__dataclass_fields__})
+        assert bool(f.solve_fused_compact(one, esc_cap=0)["converged"][0])
+        assert "struct Form" in f.kernel_source()
         jaxy = [m for m in sys.modules if m == "jax" or m.startswith(
             ("jax.", "ipmzoo_tpu.models", "ipmzoo_tpu.ops",
              "ipmzoo_tpu.utils", "ipmzoo_tpu.parallel"))]
@@ -95,6 +103,24 @@ def test_state_and_result_round_trip():
     assert rback["variables"].keys() == res.variables.keys()
     for k, v in res.variables.items():
         np.testing.assert_array_equal(rback["variables"][k], np.asarray(v))
+
+
+def test_fused_dicts_round_trip():
+    rng = np.random.default_rng(0)
+    ref = {"x": rng.normal(size=(3, 4)), "variables": rng.normal(size=(3, 9)),
+           "iterations": np.array([7.0, 8.0, 30.0]),
+           "residual": rng.random(3), "gap": rng.random(3),
+           "mu": rng.random(3), "converged": np.array([True, True, False])}
+    ours = convert.fused_from_numpy(ref, dtype=torch.float32)
+    assert ours["converged"].dtype == torch.bool
+    assert ours["x"].dtype == torch.float32
+    back = convert.fused_to_numpy(convert.fused_from_numpy(ref))
+    assert back.keys() == ref.keys()
+    for k, v in ref.items():
+        np.testing.assert_array_equal(back[k], v)
+    # a warm state is a subset of the result's keys
+    warm = {k: ref[k] for k in ("variables", "mu", "iterations")}
+    assert convert.fused_from_numpy(warm).keys() == warm.keys()
 
 
 def test_qpdata_make_fills_absent_groups():
