@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's three slices, on one NVIDIA GPU.
+
+    python3 chip_profile.py      # from the repository root; needs one
+                                 # CUDA card and nvcc
+
+It builds the kernels as chip_smoke.py does, drives the same slices on
+the same data, and prints, after the card's name and power limit:
+
+1. the Schur slice (bench_schur's defaults; tol 1e-8, solved in float64,
+   and plain float32 at tol 1e-5): the wall by CUDA events (median of 5
+   runs after a warm-up); the kernel launches and device busy time of
+   one solve under torch.profiler, as launches per iteration and busy
+   share (busy time over the un-profiled median); the largest entries of
+   device time; and the host-clock time of three single iterations;
+2. the fused slice with esc_cap=32 and with esc_cap=0, twice each: the
+   wall and the host-clock time of every stage (K1's solve_fused calls,
+   the escalation, the safety-net tail; each stage ends in a
+   synchronize), converged instances and host syncs; then the profiled
+   launches and busy time of one esc_cap=32 solve;
+3. the compact slice with esc_cap 'auto', 0, 0, 'auto' in turns: the
+   wall by CUDA events (median of 2 runs after the first).
+
+torch.profiler inflates the wall; only its device times and launch
+counts are read.  It checks nothing: chip_smoke.py holds the results.
+"""
+
+import functools
+import subprocess
+import sys
+import time
+
+import chip_smoke as cs
+
+
+def profiled(fn, label):
+    """Device busy ms and kernel launches of one call of ``fn`` (after
+    one untraced call) under torch.profiler; prints the largest
+    entries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    print(f"{label}: profiled device busy {busy:.3f} ms, kernel launches "
+          f"{launches}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:10.3f} ms  "
+              f"x{e.count:6d}  {e.key[:90]}")
+    return busy, launches
+
+
+def profile_schur(dev):
+    import torch
+    from ipmzoo_tpu_torch.parallel import SchurIPM
+    data = cs.schur_data(dev)
+    for tol in (1e-8, 1e-5):
+        solver = SchurIPM(cs.SCHUR_N, cs.SCHUR_MC, dtype=torch.float32,
+                          tol=tol, refine=2, max_iter=60, device=dev)
+        res = solver.solve_batch(data)
+        steps = int(res.iterations.max())
+        med = cs.time_solves(lambda: solver.solve_batch(data), 5)
+        busy, launches = profiled(lambda: solver.solve_batch(data),
+                                  f"schur tol={tol:g}")
+        print(f"schur tol={tol:g} (solved in {solver.compute_dtype}): wall "
+              f"median {med:.3f} ms; iterations {steps}; launches per "
+              f"iteration {launches / steps:.1f}; busy share "
+              f"{busy / med:.4f}")
+        d = solver._check(data, 1)
+        st = solver.init_state(d)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver._step(d, st)
+            torch.cuda.synchronize()
+            print(f"    one _step {1e3 * (time.perf_counter() - t0):.3f} ms "
+                  f"(host clock)")
+
+
+def profile_fused(dev, data):
+    import torch
+    solver = cs.fused_solver(dev, torch.float32)
+    stages = []
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.append((name, 1e3 * (time.perf_counter() - t0)))
+            return out
+        return wrapper
+
+    for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
+        setattr(solver, name, timed(name, getattr(solver, name)))
+    for esc in (32, 0):
+        for rep in range(2):
+            stages.clear()
+            solver.host_syncs = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solver.solve_fused_compact(data, esc_cap=esc)
+            torch.cuda.synchronize()
+            print(f"fused esc_cap={esc} run {rep}: wall "
+                  f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock), "
+                  f"converged {int(out['converged'].sum())}, host syncs "
+                  f"{solver.host_syncs}")
+            for name, ms in stages:
+                print(f"    {ms:10.3f} ms  {name}")
+    for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
+        delattr(solver, name)
+    profiled(lambda: solver.solve_fused_compact(data, esc_cap=32),
+             "fused esc_cap=32")
+
+
+def profile_compact(dev, data):
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    solver = CompiledIPM(Settings(), 16, 8, dtype=torch.float32, tol=1e-6,
+                         device=dev)
+    solver.solve_batch_compact(data)
+    for esc in ("auto", 0, 0, "auto"):
+        res = solver.solve_batch_compact(data, esc_cap=esc)
+        med = cs.time_solves(
+            lambda: solver.solve_batch_compact(data, esc_cap=esc), 2)
+        print(f"compact esc_cap={esc!r}: converged "
+              f"{int(res.converged.sum())}, iterations "
+              f"{int(res.iterations.sum())}, wall median {med:.3f} ms")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device is available", file=sys.stderr)
+        return 2
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip())
+    cs.build_kernels()
+    profile_schur(dev)
+    data = make_batch(cs.B_SLICE, 16, 8, torch.float32, device=dev)
+    profile_fused(dev, data)
+    profile_compact(dev, data)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

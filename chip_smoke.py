@@ -13,13 +13,19 @@ Steps, each reported on its own line:
    plain torch versions on the card at n=24, B=10240: float32 within a
    relative difference of 1e-5, float64 within 1e-12 (largest absolute
    difference over the largest magnitude of the plain result), and an
-   exactly-zero pivot replaced by the floor exactly in both;
+   exactly-zero pivot replaced by the floor exactly in both; then K4
+   (multi-rhs LDL^T solve) against its plain version at the Schur
+   slice's n=64, k=16, B=512, at n=24, k=2, B=10240 and at n=13, k=5,
+   B=1000, in the same measure and limits;
 5. solve the README's demo QP on the card (float64, tol 1e-8);
 6. run the slice: CompiledIPM(Settings(), n=16, m_ineq=8, float32,
-   tol=1e-6).solve_batch_compact on 10240 QPs of the benchmark workload,
-   with >= 99% converged and both kernels launched by that run; time it
-   with CUDA events (median of 3 runs after the first) and report useful
-   IPM iterations/s (per-instance iterations summed over the batch);
+   tol=1e-6).solve_batch_compact on 10240 QPs of the benchmark workload
+   with the reference's default esc_cap='auto' (32 here: the float64
+   escalation stage), with >= 99% converged and both kernels launched by
+   that run; report the share converged, the instances escalated, the
+   float64 K2/K3 launches and the host syncs; time it with CUDA events
+   (median of 3 runs after the first) and report useful IPM
+   iterations/s (per-instance iterations summed over the batch);
 7. check the slice's objectives against the port on the CPU in float64
    on the first 256 instances: |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
 8. time K2 and K3 against their plain versions at the slice's batch
@@ -35,15 +41,37 @@ Steps, each reported on its own line:
     on the instances converged in both, and at tol 1e-5 iterations equal
     on >= 99% (see check_fused for why not at 1e-6);
 11. run the fused slice: FusedBatchedIPM(Settings(), n=16, m_ineq=8,
-    float32, tol=1e-6, max_iter=30).solve_fused_compact(esc_cap=0) on
-    the 10240 QPs, with >= 99.9% converged, finite x and K1 launched by
-    that run; report launches, host syncs, the wall by CUDA events
-    (median of 7 runs after the first) and useful iterations/s;
+    float32, tol=1e-6, max_iter=30).solve_fused_compact(esc_cap=32), the
+    reference's default, on the 10240 QPs, with >= 99.9% converged,
+    finite x and K1 launched by that run; report the share converged,
+    the instances escalated, launches (float64 K2/K3 apart), the host
+    syncs of the escalation stage and of the safety-net tail, the wall
+    by CUDA events (median of 7 runs after the first) and useful
+    iterations/s; then, on a line of its own, the same solve with
+    esc_cap=0 (median of 3 runs);
 12. check the fused slice's objectives against the fused port on the
     CPU in float64 on the first 256 instances: |f_gpu - f_cpu| <=
     1e-4 (1 + |f_cpu|);
 13. time K1 alone against its plain version: one cold
-    solve_fused(max_iter=14) at B=10240 and at 1280, float32.
+    solve_fused(max_iter=14) at B=10240 and at 1280, float32;
+14. run the Schur slice, bench.py's bench_schur at its defaults: 8
+    coupled QPs of 64 blocks, n=64, m_c=16, built as bench.py builds
+    them (numpy seeds 0-7, float32), through SchurIPM(64, 16, float32,
+    tol=1e-8, refine=2, max_iter=60).solve_batch, which solves in
+    float64 (two_float='auto'); >= 99% converged and K2, K3 and K4
+    launched by that run; time it with CUDA events (median of 5 runs
+    after a warm-up) and report ms per solve, ms per iteration and
+    useful iterations/s as bench.py counts them;
+15. the same slice in plain float32 at tol 1e-5 (two_float off, so the
+    float32 kernels), >= 99% converged;
+16. check step 14's objectives against the port on the CPU in float64:
+    |f_gpu - f_cpu| <= 1e-6 (1 + |f_cpu|) per instance;
+17. hold K2, K3 and K4 against their plain versions at the shapes the
+    Schur slice gives them, on its own matrices at the initial iterate,
+    float32 within 1e-5 and float64 within 1e-12 as in step 4: the H
+    blocks (n=64, B=512; K4 with k=16) and the coupling systems S (n=16,
+    B=8); then time the three kernels and their plain versions on the H
+    blocks.
 
 Any failed check raises, so the exit code is nonzero.  The line before
 the last is a JSON object describing the kernels; the last line is the
@@ -60,11 +88,16 @@ from concurrent.futures import ThreadPoolExecutor
 N_AUG, B_SLICE = 24, 10240
 SCHEDULE_BATCHES = (10240, 2560, 320)
 SOURCE = "ipmzoo_tpu_torch/csrc/ldlt.cu"
+#: bench_schur's defaults: instances, blocks, block size, coupling rows
+SCHUR_I, SCHUR_BLOCKS, SCHUR_N, SCHUR_MC = 8, 64, 64, 16
+K4_SHAPES = ((SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS), (24, 2, 10240),
+             (13, 5, 1000))
 K1_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
              "ipmzoo_tpu_torch/models/codegen_soa.py + "
              "ipmzoo_tpu_torch/models/fused_source.py")
 REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:130",
+            "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "fused": "ipmzoo_tpu/models/fused.py:432"}
 K1_BATCHES = (10240, 1280)
 
@@ -165,6 +198,35 @@ def check_kernels(dev):
     return errs
 
 
+def check_k4(dev):
+    """Step 4, K4: the multi-rhs solve against its plain version on the
+    card, on the factors of quasi-definite systems; returns the float64
+    largest absolute difference at the Schur shape."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt, solve_ldlt_matrix
+
+    err = None
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = str(dtype).replace("torch.", "")
+        for n, k, B in K4_SHAPES:
+            K, _ = quasi_definite(B, n, dtype, dev, seed=n + k)
+            R = torch.randn((B, n, k), dtype=dtype, device=dev,
+                            generator=torch.Generator(dev).manual_seed(k))
+            L, D = ldlt(K)
+            X0 = solve_ldlt_matrix(L, D, R)
+            X = cuda_ldlt.solve_ldlt_matrix_auto(L, D, R)
+            torch.cuda.synchronize()
+            rx = rel_diff(X, X0)
+            print(f"kernels {name} n={n} k={k} B={B}: K4 rel diff X "
+                  f"{rx:.3e} (limit {tol:g})")
+            check(rx <= tol, f"K4 disagrees with its plain version in "
+                  f"{name} at n={n} k={k} B={B}: {rx:.3e} > {tol:g}")
+            if dtype == torch.float64 and (n, k, B) == K4_SHAPES[0]:
+                err = (X - X0).abs().max().item()
+    return err
+
+
 def solve_demo(dev):
     """Step 5: the README's demo QP on the card."""
     import torch
@@ -196,10 +258,13 @@ def run_slice(dev):
                          device=dev)
     cuda_ldlt.reset_launch_counts()
     solver.host_syncs = 0
-    res = solver.solve_batch_compact(data, esc_cap=0)
+    res = solver.solve_batch_compact(data)
     torch.cuda.synchronize()
     launches = dict(cuda_ldlt.launches)
+    f64 = dict(cuda_ldlt.f64_launches)
     syncs = solver.host_syncs
+    twin_syncs = solver._esc_twin.host_syncs
+    escalated = int(solver.escalated)
 
     check(tuple(res.x.shape) == (B_SLICE, 16), f"x shape {res.x.shape}")
     check(bool(torch.isfinite(res.x).all()), "non-finite x")
@@ -207,27 +272,21 @@ def run_slice(dev):
     conv = res.converged.float().mean().item()
     iters = int(res.iterations.sum().item())
     print(f"slice: {B_SLICE} QPs n=16 m=8 float32 tol=1e-6 schedule "
-          f"{solver.default_schedule(B_SLICE)}: converged {conv:.6f}, "
+          f"{solver.default_schedule(B_SLICE)} esc_cap='auto' (32): "
+          f"converged {conv:.6f} ({int(res.converged.sum())}/{B_SLICE}), "
           f"diverged {int(res.diverged.sum())}, iterations {iters}")
     print(f"slice: launches K2 {launches['ldlt']} K3 "
-          f"{launches['solve_ldlt']}; host syncs {syncs}")
+          f"{launches['solve_ldlt']} (float64: K2 {f64['ldlt']} K3 "
+          f"{f64['solve_ldlt']}); escalated instances {escalated}; host "
+          f"syncs {syncs} ({twin_syncs} in the escalation stage, "
+          f"{syncs - twin_syncs} in the mop-up)")
     check(conv >= 0.99, f"slice convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt"):
         check(launches[k] > 0, f"the slice never launched kernel {k}")
 
-    times = []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        solver.solve_batch_compact(data, esc_cap=0)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    med = statistics.median(times)
-    print(f"slice: wall ms per solve (CUDA events, 3 runs) "
-          f"{[round(t, 3) for t in times]}, median {med:.3f}; "
-          f"useful iterations/s {iters / (med / 1e3):.1f}")
+    med = time_solves(lambda: solver.solve_batch_compact(data), 3)
+    print(f"slice: wall ms per solve (CUDA events, 3 runs) median "
+          f"{med:.3f}; useful iterations/s {iters / (med / 1e3):.1f}")
     return data, res, launches
 
 
@@ -241,7 +300,7 @@ def compare_cpu(data, res):
     sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
                    data)
     cres = CompiledIPM(Settings(), 16, 8, dtype=torch.float64,
-                       tol=1e-8).solve_batch_compact(sub, esc_cap=0)
+                       tol=1e-8).solve_batch_compact(sub)
     f_cpu = cres.objective
     f_gpu = res.objective[:k].cpu().double()
     both = cres.converged & res.converged[:k].cpu()
@@ -413,10 +472,13 @@ def run_fused_slice(dev, data):
     cuda_fused.reset_launch_counts()
     cuda_ldlt.reset_launch_counts()
     solver.host_syncs = 0
-    out = solver.solve_fused_compact(data, esc_cap=0)
+    out = solver.solve_fused_compact(data, esc_cap=32)
     torch.cuda.synchronize()
     launches = {**cuda_fused.launches, **cuda_ldlt.launches}
+    f64 = dict(cuda_ldlt.f64_launches)
     syncs = solver.host_syncs
+    twin_syncs = solver._esc_twin.host_syncs
+    escalated = int(solver.escalated)
 
     x = out["x"]
     check(tuple(x.shape) == (B_SLICE, 16), f"fused x shape {x.shape}")
@@ -425,27 +487,47 @@ def run_fused_slice(dev, data):
     iters = int(out["iterations"].sum().item())
     print(f"fused slice: {B_SLICE} QPs n=16 m=8 float32 tol=1e-6 "
           f"max_iter=30 schedule {solver.default_fused_schedule(B_SLICE)} "
-          f"esc_cap=0: converged {conv:.6f}, iterations {iters}")
+          f"esc_cap=32: converged {conv:.6f} "
+          f"({int(out['converged'].sum())}/{B_SLICE}), iterations {iters}")
     print(f"fused slice: launches K1 {launches['fused']} K2 "
-          f"{launches['ldlt']} K3 {launches['solve_ldlt']}; host syncs "
-          f"{syncs}")
+          f"{launches['ldlt']} K3 {launches['solve_ldlt']} (float64: K2 "
+          f"{f64['ldlt']} K3 {f64['solve_ldlt']}); escalated instances "
+          f"{escalated}; host syncs {syncs} ({twin_syncs} in the "
+          f"escalation stage, {syncs - twin_syncs} in the safety-net "
+          f"tail)")
     check(conv >= 0.999, f"fused slice convergence {conv} < 0.999")
     check(launches["fused"] > 0, "the fused slice never launched K1")
 
+    med = time_solves(lambda: solver.solve_fused_compact(data, esc_cap=32),
+                      7)
+    print(f"fused slice: wall ms per solve (CUDA events, 7 runs) "
+          f"median {med:.3f}; useful iterations/s {iters / (med / 1e3):.1f}")
+    before = solver.solve_fused_compact(data, esc_cap=0)
+    b_conv = before["converged"].float().mean().item()
+    b_iters = int(before["iterations"].sum().item())
+    b_med = time_solves(lambda: solver.solve_fused_compact(data, esc_cap=0),
+                        3)
+    print(f"fused slice esc_cap=0: converged {b_conv:.6f}; wall ms per "
+          f"solve (CUDA events, 3 runs) median {b_med:.3f}; useful "
+          f"iterations/s {b_iters / (b_med / 1e3):.1f}")
+    return out, launches
+
+
+def time_solves(fn, runs):
+    """Median milliseconds of ``runs`` calls of ``fn`` by CUDA events, each
+    timed alone; the times are printed."""
+    import torch
     times = []
-    for _ in range(7):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        solver.solve_fused_compact(data, esc_cap=0)
+        fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    med = statistics.median(times)
-    print(f"fused slice: wall ms per solve (CUDA events, 7 runs) "
-          f"{[round(t, 3) for t in times]}, median {med:.3f}; "
-          f"useful iterations/s {iters / (med / 1e3):.1f}")
-    return out, launches
+    print(f"timing: {runs} runs, ms {[round(t, 3) for t in times]}")
+    return statistics.median(times)
 
 
 def objective(data, x):
@@ -469,7 +551,7 @@ def compare_cpu_fused(data, out):
     sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
                    data)
     cpu = FusedBatchedIPM(Settings(), 16, 8, dtype=torch.float64, tol=1e-8,
-                          max_iter=30).solve_fused_compact(sub, esc_cap=0)
+                          max_iter=30).solve_fused_compact(sub)
     f_cpu = objective(sub, cpu["x"])
     f_gpu = objective(sub, out["x"][:k])
     both = cpu["converged"] & out["converged"][:k].cpu()
@@ -509,6 +591,173 @@ def time_fused(dev):
     return out
 
 
+def schur_data(dev):
+    """bench.py's bench_schur instances: numpy seeds 0..SCHUR_I-1, each
+    SCHUR_BLOCKS blocks of n=SCHUR_N with SCHUR_MC coupling rows, cast to
+    float32, stacked on a leading instance axis."""
+    import types
+    import numpy as np
+    import torch
+    from ipmzoo_tpu_torch.models.convert import block_qp_from_numpy
+
+    blocks, n, m_c = SCHUR_BLOCKS, SCHUR_N, SCHUR_MC
+
+    def make(seed):
+        r = np.random.default_rng(seed)
+        M = r.normal(size=(blocks, n, n))
+        return dict(Q=np.einsum("bij,bkj->bik", M, M) / n + np.eye(n),
+                    c=r.normal(size=(blocks, n)),
+                    F=r.normal(size=(blocks, m_c, n)) / blocks,
+                    l_x=np.full((blocks, n), -3.0),
+                    u_x=np.full((blocks, n), 3.0),
+                    g=r.normal(size=(m_c,)) * 0.1)
+
+    insts = [make(s) for s in range(SCHUR_I)]
+    raw = types.SimpleNamespace(**{
+        k: np.stack([d[k] for d in insts]).astype(np.float32)
+        for k in insts[0]})
+    return block_qp_from_numpy(raw, dtype=torch.float32, device=dev)
+
+
+def run_schur(dev, data, tol, runs):
+    """Steps 14 and 15: the Schur slice through SchurIPM.solve_batch."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.parallel import SchurIPM
+
+    solver = SchurIPM(SCHUR_N, SCHUR_MC, dtype=torch.float32, tol=tol,
+                      refine=2, max_iter=60, device=dev)
+    work = str(solver.compute_dtype).replace("torch.", "")
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    res = solver.solve_batch(data)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ldlt.launches)
+    f64 = dict(cuda_ldlt.f64_launches)
+    syncs = solver.host_syncs
+
+    shape = (SCHUR_I, SCHUR_BLOCKS, SCHUR_N)
+    check(tuple(res.x.shape) == shape, f"schur x shape {res.x.shape}")
+    check(bool(torch.isfinite(res.x).all()), "schur: non-finite x")
+    check(bool(torch.isfinite(res.objective).all()),
+          "schur: non-finite objective")
+    conv = res.converged.float().mean().item()
+    iters = int(res.iterations.sum().item())
+    steps = int(res.iterations.max().item())
+    print(f"schur slice: {SCHUR_I} instances x {SCHUR_BLOCKS} blocks x "
+          f"n={SCHUR_N}, m_c={SCHUR_MC}, float32 tol={tol:g} "
+          f"two_float={solver.two_float} (solved in {work}), block kernel "
+          f"{solver.block_kernel}: converged {conv:.6f}, iterations "
+          f"{res.iterations.tolist()}")
+    print(f"schur slice: launches K2 {launches['ldlt']} K3 "
+          f"{launches['solve_ldlt']} K4 {launches['solve_ldlt_matrix']} "
+          f"(float64: {f64['ldlt']} / {f64['solve_ldlt']} / "
+          f"{f64['solve_ldlt_matrix']}); host syncs {syncs}")
+    check(conv >= 0.99, f"schur convergence {conv} < 0.99")
+    for k in ("ldlt", "solve_ldlt", "solve_ldlt_matrix"):
+        check(launches[k] > 0, f"the schur slice never launched {k}")
+        wanted = launches[k] if solver.two_float else 0
+        check(f64[k] == wanted, f"schur slice: {f64[k]} float64 launches "
+              f"of {k}, expected {wanted}")
+
+    solver.solve_batch(data)
+    med = time_solves(lambda: solver.solve_batch(data), runs)
+    print(f"schur slice tol={tol:g}: wall ms per solve (CUDA events, "
+          f"{runs} runs) median {med:.3f}; ms per iteration "
+          f"{med / steps:.3f}; useful iterations/s {iters / (med / 1e3):.1f}")
+    return res, launches
+
+
+def compare_cpu_schur(data, res):
+    """Step 16: the Schur slice's objectives against the port on the CPU
+    in float64."""
+    import torch
+    from ipmzoo_tpu_torch.parallel import SchurIPM
+
+    cpu = SchurIPM(SCHUR_N, SCHUR_MC, dtype=torch.float64, tol=1e-8,
+                   refine=2, max_iter=60).solve_batch(
+                       data.to(device="cpu", dtype=torch.float64))
+    f_cpu = cpu.objective
+    f_gpu = res.objective.cpu().double()
+    rel = (f_gpu - f_cpu).abs() / (1.0 + f_cpu.abs())
+    print(f"schur cpu f64 check: converged {int(cpu.converged.sum())}/"
+          f"{SCHUR_I} on the CPU; largest |f_gpu - f_cpu| / (1 + |f_cpu|)"
+          f" = {rel.max().item():.3e} (limit 1e-6); f_cpu "
+          f"{[round(f, 6) for f in f_cpu.tolist()]}")
+    check(bool(cpu.converged.all()), "CPU f64 Schur port did not converge")
+    check(bool((rel <= 1e-6).all()), "schur objectives disagree with the "
+          "CPU f64 port")
+
+
+def check_schur_kernels(dev, data):
+    """Step 17: K2, K3 and K4 against their plain versions at the shapes
+    the Schur slice gives them, float32 and float64, and their times.
+
+    The matrices are the slice's own at its initial iterate: the H blocks
+    Q + 2/3 I (n=64, B=512; K4 on the panel's k=16 columns of F^T) and
+    the coupling systems S = F H^-1 F^T + delta I built from them (n=16,
+    B=8).  K3 and K4 solve against the plain factors, so each kernel is
+    held alone; limits and measure as step 4."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt, solve_ldlt, solve_ldlt_matrix
+
+    B, n, k = SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = str(dtype).replace("torch.", "")
+        H = (data.Q.reshape(B, n, n) + (2.0 / 3.0) * torch.eye(
+            n, device=data.Q.device)).to(dtype)
+        R = data.F.reshape(B, k, n).transpose(1, 2).to(dtype)
+        r = R[:, :, 0].contiguous()
+        L0, D0 = ldlt(H)
+        X0 = solve_ldlt_matrix(L0, D0, R)
+        S = torch.einsum("abij,abjk->aik", data.F.to(dtype),
+                         X0.reshape(SCHUR_I, SCHUR_BLOCKS, n, k)) + \
+            1e-8 * torch.eye(k, dtype=dtype, device=dev)
+        LS0, DS0 = ldlt(S)
+        g = data.g.to(dtype)
+        L, D = cuda_ldlt.ldlt_auto(H)
+        LS, DS = cuda_ldlt.ldlt_auto(S)
+        diffs = {
+            f"K2 n={n} B={B} L": rel_diff(L, L0),
+            f"K2 n={n} B={B} D": rel_diff(D, D0),
+            f"K3 n={n} B={B} x": rel_diff(
+                cuda_ldlt.solve_ldlt_auto(L0, D0, r), solve_ldlt(L0, D0, r)),
+            f"K4 n={n} k={k} B={B} X": rel_diff(
+                cuda_ldlt.solve_ldlt_matrix_auto(L0, D0, R), X0),
+            f"K2 S n={k} B={SCHUR_I} L": rel_diff(LS, LS0),
+            f"K2 S n={k} B={SCHUR_I} D": rel_diff(DS, DS0),
+            f"K3 S n={k} B={SCHUR_I} x": rel_diff(
+                cuda_ldlt.solve_ldlt_auto(LS0, DS0, g),
+                solve_ldlt(LS0, DS0, g)),
+        }
+        print(f"kernels schur {name}: rel diff " + ", ".join(
+            f"{a} {v:.3e}" for a, v in diffs.items()) + f" (limit {tol:g})")
+        for what, v in diffs.items():
+            check(v <= tol, f"{what.split()[0]} disagrees with its plain "
+                  f"version at the Schur shape in {name} ({what}): "
+                  f"{v:.3e} > {tol:g}")
+
+        H_t = H.permute(1, 2, 0).contiguous()
+        L_t, D_t = cuda_ldlt.factor_soa(H_t)
+        R_t, r_t = R.permute(1, 2, 0).contiguous(), r.t().contiguous()
+        t = {
+            "K2": time_cuda(lambda: cuda_ldlt.factor_soa(H_t), 20),
+            "K2_plain": time_cuda(lambda: ldlt(H), 3),
+            "K3": time_cuda(lambda: cuda_ldlt.solve_soa(L_t, D_t, r_t), 20),
+            "K3_plain": time_cuda(lambda: solve_ldlt(L0, D0, r), 3),
+            "K4": time_cuda(lambda: cuda_ldlt.solve_matrix_soa(L_t, D_t,
+                                                               R_t), 20),
+            "K4_plain": time_cuda(lambda: solve_ldlt_matrix(L0, D0, R), 3),
+        }
+        out[name] = t
+        print(f"timing schur shape n={n} k={k} B={B} {name} (ms per call, "
+              f"CUDA events): " + ", ".join(f"{a} {v:.4f}"
+                                            for a, v in t.items()))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -528,6 +777,7 @@ def main():
 
     build_kernels()
     errs = check_kernels(dev)
+    errs["solve_ldlt_matrix"] = check_k4(dev)
     solve_demo(dev)
     data, res, launches = run_slice(dev)
     compare_cpu(data, res)
@@ -536,6 +786,11 @@ def main():
     f_out, f_launches = run_fused_slice(dev, data)
     compare_cpu_fused(data, f_out)
     k1_times = time_fused(dev)
+    s_data = schur_data(dev)
+    s_res, s_launches = run_schur(dev, s_data, 1e-8, 5)
+    run_schur(dev, s_data, 1e-5, 3)
+    compare_cpu_schur(s_data, s_res)
+    s_times = check_schur_kernels(dev, s_data)["float64"]
 
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(
         ("jax.", "ipmzoo_tpu.models", "ipmzoo_tpu.ops", "ipmzoo_tpu.utils",
@@ -558,6 +813,12 @@ def main():
          "launches": f_launches["fused"], "max_abs_err": errs["fused"],
          "ms": k1_times[B_SLICE]["K1"],
          "plain_ms": k1_times[B_SLICE]["K1_plain"]},
+        {"name": "K4 batched multi-rhs LDL^T solve (float64, n=64, k=16, "
+                 "B=512)", "route": "cuda",
+         "source": SOURCE, "replaces": REPLACES["solve_ldlt_matrix"],
+         "launches": s_launches["solve_ldlt_matrix"],
+         "max_abs_err": errs["solve_ldlt_matrix"],
+         "ms": s_times["K4"], "plain_ms": s_times["K4_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

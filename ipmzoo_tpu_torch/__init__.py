@@ -8,9 +8,11 @@ imports jax.  Module names mirror the JAX package's:
   solver, dense LDL^T mode), ``QPData``, the compaction engine, and
   ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
   from the symbolic derivation).
-* :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor/solve: CUDA kernels
-  (``csrc/ldlt.cu``) with plain torch versions for CPU tensors; K1's
-  build and launch (``cuda_fused``).
+* :mod:`ipmzoo_tpu_torch.parallel` — ``SchurIPM``, the block-separable
+  coupled-QP engine (Schur complements over K2/K3/K4), on one device.
+* :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve and
+  multi-rhs solve: CUDA kernels (``csrc/ldlt.cu``) with plain torch
+  versions for CPU tensors; K1's build and launch (``cuda_fused``).
 * :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy.
 """
 

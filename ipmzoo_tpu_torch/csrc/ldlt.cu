@@ -1,12 +1,15 @@
-// Batched LDL^T factor (K2) and single right-hand-side solve (K3) for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes
-// (ipmzoo_tpu_torch/ops/cuda_ldlt.py).
+// Batched LDL^T factor (K2), single right-hand-side solve (K3) and
+// multi right-hand-side solve (K4) for Hopper (sm_90a), with a plain C
+// interface loaded through ctypes (ipmzoo_tpu_torch/ops/cuda_ldlt.py).
 //
 // K2 ldlt_factor_kernel replaces the TPU kernel
 //     ipmzoo_tpu/ops/pallas_ldlt.py:_factor_kernel
 // K3 ldlt_solve_kernel replaces the TPU kernel
 //     ipmzoo_tpu/ops/pallas_ldlt.py:_solve_kernel
-// Their plain versions are ipmzoo_tpu_torch/ops/ldlt.py:ldlt / solve_ldlt.
+// K4 ldlt_solve_matrix_kernel replaces the TPU kernel
+//     ipmzoo_tpu/ops/pallas_ldlt.py:_solve_matrix_kernel
+// Their plain versions are ipmzoo_tpu_torch/ops/ldlt.py:ldlt / solve_ldlt
+// / solve_ldlt_matrix.
 //
 // What bounds them on this card.  The solver factors one small augmented
 // KKT system per QP instance and per iteration: at n = 24 that is about
@@ -28,6 +31,19 @@
 //
 // Arithmetic is plain IEEE: no fast-math flags.  An exactly-zero pivot,
 // and only that, is replaced by pivot_floor, as in the plain version.
+//
+// K4 solves k right-hand sides against one factor (the Schur-complement
+// IPM's H^-1 F^T panel: n = 64, k = 16, B = 512 blocks).  The TPU kernel
+// reads each factor once for all k columns from VMEM.  Here the first
+// design is one thread per (instance, column): the grid is
+// (ceil(B / 128), k), so the threads of one warp are 32 neighbouring
+// instances of the same column and every load and store is coalesced;
+// the k threads of one instance re-read the same factor, which L1/L2
+// serve after the first column (an f32 factor panel of 512 instances at
+// n = 64 is 8 MB, far inside the 50 MB L2).  Rhs and solution are SoA
+// (n, k, B).  The forward sweep accumulates each row in a register in
+// the order of the plain version's column sweep; staging the factor in
+// shared memory or wgmma are later work.
 
 #include <cstdint>
 
@@ -101,6 +117,38 @@ __global__ void ldlt_solve_kernel(const T* __restrict__ L,
   }
 }
 
+template <typename T>
+__global__ void ldlt_solve_matrix_kernel(const T* __restrict__ L,
+                                         const T* __restrict__ D,
+                                         const T* __restrict__ rhs,
+                                         T* __restrict__ x, int n, int k,
+                                         int64_t B) {
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  // column blockIdx.y of the (n, k, B) rhs; rows are k * B apart
+  const int64_t col = static_cast<int64_t>(blockIdx.y) * B;
+  const int64_t row = static_cast<int64_t>(k) * B;
+  L += b;
+  D += b;
+  rhs += col + b;
+  x += col + b;
+  // forward sweep with the unit-lower L: y_i = r_i - sum_{j<i} L_ij y_j,
+  // subtracted in increasing j as the column-oriented sweep does
+  for (int i = 0; i < n; ++i) {
+    T s = rhs[i * row];
+    for (int j = 0; j < i; ++j) s -= L[soa(i, j, n, B)] * x[j * row];
+    x[i * row] = s;
+  }
+  for (int i = 0; i < n; ++i) x[i * row] = x[i * row] / D[i * B];
+  // backward sweep with L^T: x_i = z_i - sum_{j>i} L_ji x_j
+  for (int i = n - 1; i >= 0; --i) {
+    T s = x[i * row];
+    for (int j = i + 1; j < n; ++j) s -= L[soa(j, i, n, B)] * x[j * row];
+    x[i * row] = s;
+  }
+}
+
 unsigned int grid_for(int64_t B) {
   return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
 }
@@ -121,12 +169,22 @@ int launch_solve(const T* L, const T* D, const T* rhs, T* x, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_solve_matrix(const T* L, const T* D, const T* rhs, T* x, int n,
+                        int k, int64_t B, cudaStream_t stream) {
+  const dim3 grid(grid_for(B), static_cast<unsigned int>(k));
+  ldlt_solve_matrix_kernel<T><<<grid, kThreads, 0, stream>>>(L, D, rhs, x,
+                                                             n, k, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers to
-// contiguous SoA arrays: A, L (n, n, B); D, rhs, x (n, B).  The caller
-// guarantees n > 0 and B > 0.
+// contiguous SoA arrays: A, L (n, n, B); D, rhs, x (n, B) for K2/K3, and
+// rhs, x (n, k, B) for K4.  The caller guarantees n > 0, B > 0 and
+// 0 < k <= 65535.
 extern "C" {
 
 int ipmzoo_ldlt_factor_f32(const float* A, float* L, float* D, int n,
@@ -152,6 +210,20 @@ int ipmzoo_ldlt_solve_f64(const double* L, const double* D,
                           void* stream) {
   return launch_solve<double>(L, D, rhs, x, n, B,
                               static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_matrix_f32(const float* L, const float* D,
+                                 const float* rhs, float* x, int n, int k,
+                                 long long B, void* stream) {
+  return launch_solve_matrix<float>(L, D, rhs, x, n, k, B,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_matrix_f64(const double* L, const double* D,
+                                 const double* rhs, double* x, int n, int k,
+                                 long long B, void* stream) {
+  return launch_solve_matrix<double>(L, D, rhs, x, n, k, B,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -8,6 +8,12 @@ leading ``B // divisor`` instances and continues on that sub-batch only,
 scattering results back; a full-batch early-exit loop mops up whatever
 overflowed a stage's capacity.
 
+The escalation stage finishes the instances left at the float32
+representation floor in float64: where the reference carries them in
+double-single pairs (its ``two_float`` twin, for a TPU without f64), the
+port's twin is the same solver in ``torch.float64`` on the same device,
+which on a card runs the f64 instantiations of K2/K3.
+
 Host syncs: ``_masked_steps`` runs a fixed count and never asks the
 device anything; ``_masked_while`` asks once per iteration whether any
 instance is still active (counted in ``host_syncs``).
@@ -22,9 +28,6 @@ import torch
 from .data import QPData
 from .state import IPMState, SolveResult, tree_map
 
-_ROADMAP_ESCALATION = ("ROADMAP.md Queue 1 item 7 (escalation precision: "
-                       "the two-float escalation stage)")
-
 
 def _where(mask, old, new):
     """Per-instance select: ``old`` where ``mask`` else ``new``."""
@@ -35,6 +38,22 @@ def _where(mask, old, new):
 def _bad(s: IPMState) -> torch.Tensor:
     return (torch.isnan(s.residual) | torch.isinf(s.residual) |
             torch.isnan(s.gap) | torch.isinf(s.gap))
+
+
+def _stragglers_first(converged: torch.Tensor, cap: int) -> torch.Tensor:
+    """Indices of the first ``cap`` instances, unconverged ones first, in
+    batch order within each group."""
+    return torch.argsort(converged.to(torch.int8), stable=True)[:cap]
+
+
+def _put(dst: torch.Tensor, take: torch.Tensor, use: torch.Tensor,
+         src: torch.Tensor) -> torch.Tensor:
+    """dst with dst[take] replaced by src (cast to dst's dtype) where
+    ``use``."""
+    out = dst.clone()
+    mask = use.reshape((-1,) + (1,) * (src.dim() - 1))
+    out[take] = torch.where(mask, src.to(dst.dtype), dst[take])
+    return out
 
 
 class CompactScheduleMixin:
@@ -71,8 +90,89 @@ class CompactScheduleMixin:
                                                 diverged, gondzio)
         return state, diverged
 
+    def _escalation_twin(self):
+        """The float64 twin of this solver for the escalation stage (the
+        solver itself when it works in float64).  It keeps this solver's
+        settings, ``mu_floor`` included, as the reference's pair twin
+        does."""
+        if self.dtype == torch.float64:
+            return self
+        esc = getattr(self, "_esc_twin", None)
+        if esc is None:
+            from .ipm import CompiledIPM
+            esc = CompiledIPM(
+                self.settings, self.n, self.m_ineq, self.m_eq,
+                names=self.names, dtype=torch.float64, device=self.device,
+                tol=self.tol, max_iter=self.max_iter, mu0=self.mu0,
+                delta0=self.delta0, pivot_floor=self.pivot_floor,
+                fraction_to_boundary=self.fraction_to_boundary,
+                mu_floor=self.mu_floor, scale_tol=self.scale_tol,
+                gondzio=self.gondzio, kernel="ldlt")
+            self._esc_twin = esc
+        return esc
+
+    def _run_twin(self, esc, state, data, frozen0, res_tol, esc_iters,
+                  gondzio):
+        """``esc._masked_while`` with its host syncs counted here too."""
+        before = esc.host_syncs
+        out = esc._masked_while(state, data, frozen0, res_tol, esc_iters,
+                                gondzio=gondzio)
+        if esc is not self:
+            self.host_syncs += esc.host_syncs - before
+        return out
+
+    def _twin_warm_state(self, esc, e_data: QPData, vals, mu) -> IPMState:
+        """The twin's state at the float64 iterates ``vals``: metrics
+        recomputed, ``max(mu, mu_floor)``, iteration count 0."""
+        cap = mu.shape[0]
+        residual, gap = esc._metrics(esc._env(e_data, vals, 0.0), cap)
+        return IPMState(
+            vars=vals, mu=torch.clamp(mu.to(torch.float64),
+                                      min=esc.mu_floor),
+            iteration=torch.zeros(cap, dtype=torch.int32,
+                                  device=self.device),
+            residual=residual, gap=gap)
+
+    def _escalate_batch(self, data: QPData, state, res_tol, diverged,
+                        esc_cap: int, esc_iters: int, gondzio: int):
+        """Warm float64 refinement of the residual-floor stragglers.
+
+        Gathers up to ``esc_cap`` unconverged instances (diverged ones
+        included, as the reference), promotes their iterates to float64
+        (the reference's (hi, lo=0) pairs, here exact), recomputes their
+        metrics and runs the twin's masked loop.  Results are merged back
+        rounded to the working dtype only where an instance was not
+        converged before and converged now; ``diverged`` is returned as it
+        came, so a diverged instance that the stage converges is reported
+        both converged and diverged, as by the reference."""
+        f64 = torch.float64
+        cap = min(esc_cap, data.Q.shape[0])
+        esc = self._escalation_twin()
+        done = self._done(state, res_tol)
+        take = _stragglers_first(done, cap)
+        e_data = tree_map(lambda a: a[take].to(f64), data)
+        e_was = done[take]
+        e_state = self._twin_warm_state(
+            esc, e_data, tuple(v[take].to(f64) for v in state.vars),
+            state.mu[take])
+        e_tol = res_tol[take].to(f64)
+        self.escalated = self.escalated + (~e_was).sum()
+        e_state, e_div = self._run_twin(esc, e_state, e_data, e_was, e_tol,
+                                        esc_iters, gondzio)
+        use = ~e_was & esc._done(e_state, e_tol) & ~e_div
+        state = IPMState(
+            vars=tuple(_put(v, take, use, ev)
+                       for v, ev in zip(state.vars, e_state.vars)),
+            mu=_put(state.mu, take, use, e_state.mu),
+            iteration=_put(state.iteration, take, use,
+                           state.iteration[take] + e_state.iteration),
+            residual=_put(state.residual, take, use, e_state.residual),
+            gap=_put(state.gap, take, use, e_state.gap))
+        return state, diverged
+
     def _compact_impl(self, data: QPData, schedule, tail_gondzio,
-                      tail_restart) -> SolveResult:
+                      tail_restart, esc_cap: int = 0,
+                      esc_iters: int = 40) -> SolveResult:
         """Whole-batch solve with compaction between stages.
 
         Tail stages restart still-active instances from the initial
@@ -123,6 +223,14 @@ class CompactScheduleMixin:
             state = tree_map(put, state, s_state)
             diverged = put(diverged, s_div)
 
+        # escalation before the mop-up, as the reference: an instance at
+        # the float32 floor can never pass the mop-up's test in float32
+        # and would keep the whole batch stepping for its budget
+        if esc_cap:
+            state, diverged = self._escalate_batch(
+                data, state, res_tol, diverged, esc_cap, esc_iters,
+                tail_gondzio)
+
         # full-batch mop-up of whatever overflowed a stage's capacity
         done = self._done(state, res_tol)
         state, mop_div = self._masked_while(
@@ -151,24 +259,21 @@ class CompactScheduleMixin:
     def solve_batch_compact(self, data: QPData, schedule=None,
                             tail_gondzio: int = 2,
                             tail_restart: bool = True,
-                            esc_cap="auto") -> SolveResult:
+                            esc_cap="auto",
+                            esc_iters: int = 40) -> SolveResult:
         """Straggler-free batched solve (see :meth:`_compact_impl`).
 
         ``schedule``: list of ``(steps, batch_divisor)`` stages; the
         first divisor must be 1 (default: :meth:`default_schedule`).
-        ``esc_cap``: capacity of the reference's two-float escalation
-        stage ('auto' = 32 for f32 at tolerances near its floor, else
-        0).  The stage is not ported, so a nonzero cap raises."""
+        ``esc_cap``: capacity of the float64 escalation stage for
+        float32-floor stragglers ('auto' = 32 when the working dtype's
+        floor can sit above the tolerance, i.e. float32 at tight
+        tolerances; 0 otherwise); ``esc_iters``: its iteration budget."""
         if esc_cap == "auto":
             eps = torch.finfo(self.dtype).eps
             esc_cap = 32 if self.tol <= eps * 20 else 0
-        if esc_cap:
-            raise NotImplementedError(
-                f"esc_cap={esc_cap}: the escalation stage is not ported "
-                f"({_ROADMAP_ESCALATION}); pass esc_cap=0 to solve "
-                "without it")
         data = self._check_data(data)
         if schedule is None:
             schedule = self.default_schedule(data.Q.shape[0])
         return self._compact_impl(data, schedule, tail_gondzio,
-                                  tail_restart)
+                                  tail_restart, esc_cap, esc_iters)

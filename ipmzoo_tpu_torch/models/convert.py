@@ -7,9 +7,10 @@ corresponding container (the reference's ``QPData``, ``IPMState`` or
 ``*_to_numpy`` functions return plain dicts of numpy arrays.  The fused
 engine's results and warm states are dicts already (``x``,
 ``variables``, ``iterations``, ``residual``, ``gap``, ``mu``,
-``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.  Tests use
-them to pass the same data and state between the reference and the
-port.
+``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.
+``block_qp_from_numpy`` does the same for the coupled-QP data of
+``SchurIPM``.  Tests use them to pass the same data and state between
+the reference and the port.
 """
 
 from __future__ import annotations
@@ -92,6 +93,16 @@ def fused_from_numpy(src, *, dtype: torch.dtype = torch.float64,
 
 def fused_to_numpy(out: dict) -> dict:
     return {k: _np(v) for k, v in out.items()}
+
+
+def block_qp_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                        device="cpu"):
+    """The port's ``BlockQPData`` from any object with its fields (the
+    reference's ``BlockQPData`` included), with or without the instance
+    axis."""
+    from ..parallel.schur import BlockQPData
+    return BlockQPData(**{f.name: _t(getattr(src, f.name), dtype, device)
+                          for f in dataclasses.fields(BlockQPData)})
 
 
 def make_batch(batch: int, n: int, m: int, dtype: torch.dtype,

@@ -3,9 +3,12 @@
 
 ``FusedCompactMixin`` holds the hybrid entries built on the fused solve:
 the cold-restarted Gondzio anti-cycling tail (``_gondzio_tail``, on the
-base class's masked while loop), ``solve_fused_refined``, and the
-compaction schedule of ``solve_fused_compact``.  The reference's two-float
-escalation stage is not ported: a nonzero ``esc_cap`` raises.
+base class's masked while loop), the escalation stage (``_escalate_tail``),
+``solve_fused_refined``, and the compaction schedule of
+``solve_fused_compact``.  The escalation stage finishes the instances at
+the float32 representation floor with a float64 ``CompiledIPM`` twin on
+the same device (K2/K3 in f64 on a card), where the reference carries
+them in double-single pairs.
 
 Gathers use a stable sort of the converged mask, as the reference's
 ``jnp.argsort``, so every capacity-limited stage takes the same
@@ -16,32 +19,16 @@ from __future__ import annotations
 
 import torch
 
+from .compact import _put, _stragglers_first
 from .data import QPData
 from .state import IPMState, tree_map
 
-_ROADMAP_ESCALATION = ("ROADMAP.md Queue 1 item 7 (escalation precision: "
-                       "the two-float escalation stage)")
 _FIELDS = ("x", "variables", "iterations", "residual", "gap", "mu",
            "converged")
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _stragglers_first(converged: torch.Tensor, cap: int) -> torch.Tensor:
-    """Indices of the first ``cap`` instances, unconverged ones first, in
-    batch order within each group."""
-    return torch.argsort(converged.to(torch.int8), stable=True)[:cap]
-
-
-def _put(dst: torch.Tensor, take: torch.Tensor, use: torch.Tensor,
-         src: torch.Tensor) -> torch.Tensor:
-    """dst with dst[take] replaced by src where ``use``."""
-    out = dst.clone()
-    mask = use.reshape((-1,) + (1,) * (src.dim() - 1))
-    out[take] = torch.where(mask, src, dst[take])
-    return out
 
 
 class FusedCompactMixin:
@@ -88,6 +75,53 @@ class FusedCompactMixin:
         out["converged"] = _put(out["converged"], take, use, s_conv)
         return out
 
+    def _escalate_tail(self, data: QPData, out, esc_cap: int,
+                       esc_iters: int, esc_gondzio: int,
+                       esc_warm: bool = True):
+        """Re-solve up to ``esc_cap`` unconverged instances in float64 with
+        the twin of :meth:`_escalation_twin`; when every instance has
+        converged its masked loop ends at the first check.
+
+        ``esc_warm`` starts from the fused iterate promoted to float64 and
+        ``max(mu, mu_floor)``: these instances are already essentially
+        optimal, only unable to express a smaller residual in float32.
+        Otherwise they restart from the twin's initial iterate."""
+        f64 = torch.float64
+        cap = min(esc_cap, data.Q.shape[0])
+        esc = self._escalation_twin()
+        take = _stragglers_first(out["converged"], cap)
+        e_data = tree_map(lambda a: a[take].to(f64), data)
+        e_was = out["converged"][take]
+        if esc_warm:
+            e_state = self._twin_warm_state(
+                esc, e_data, tuple(torch.split(out["variables"][take].to(
+                    f64), self.var_sizes, dim=-1)), out["mu"][take])
+        else:
+            e_state = esc.init_state(e_data)
+        # the working dtype's tolerance, as the reference compares
+        e_tol = torch.full((cap,), self.tol, dtype=self.dtype,
+                           device=self.device).to(f64)
+        self.escalated = self.escalated + (~e_was).sum()
+        e_state, e_div = self._run_twin(esc, e_state, e_data, e_was, e_tol,
+                                        esc_iters, esc_gondzio)
+        e_conv = esc._done(e_state, e_tol) & ~e_div
+        # merged back rounded to the working dtype
+        dt = self.dtype
+        e_vars = torch.cat(e_state.vars, dim=-1).to(dt)
+        use = ~e_was & e_conv
+        x_i = self.var_index[self.symbols.x]
+        off = sum(self.var_sizes[:x_i])
+        out = dict(out)
+        out["x"] = _put(out["x"], take, use, e_vars[:, off:off + self.n])
+        out["variables"] = _put(out["variables"], take, use, e_vars)
+        out["residual"] = _put(out["residual"], take, use, e_state.residual)
+        out["gap"] = _put(out["gap"], take, use, e_state.gap)
+        out["iterations"] = _put(
+            out["iterations"], take, use,
+            out["iterations"][take] + e_state.iteration.to(dt))
+        out["converged"] = _put(out["converged"], take, use, e_conv)
+        return out
+
     def solve_fused_refined(self, data: QPData, tail_cap: int = 128,
                             tail_iters: int = 30, tail_gondzio: int = 2):
         """Fused solve plus the restarted Gondzio tail: the instances
@@ -108,14 +142,16 @@ class FusedCompactMixin:
 
     def _compact_fused_impl(self, data: QPData, schedule, tail_cap: int,
                             tail_iters: int, tail_gondzio: int,
-                            fused_tail: bool):
+                            fused_tail: bool, esc_cap: int = 0,
+                            esc_iters: int = 40, esc_warm: bool = True):
         """Staged fused solve: the full batch for ``k0`` iterations, then
         the unconverged instances gathered into smaller batches and
         resumed warm; a full-batch resume mops up what overflowed a
         stage's capacity.  With ``fused_tail`` the stragglers are then
         cold-restarted in one ``bt``-sized fused solve with in-kernel
-        Gondzio rounds; the masked-while Gondzio tail runs last as the
-        safety net."""
+        Gondzio rounds.  With ``esc_cap`` the float64 escalation stage
+        follows; the masked-while Gondzio tail runs last as the safety
+        net."""
         B = data.Q.shape[0]
         (k0, div0), *rest = schedule
         if div0 != 1:
@@ -152,6 +188,11 @@ class FusedCompactMixin:
             use = ~s_was & s_out["converged"]
             for f in _FIELDS:
                 out[f] = _put(out[f], take, use, s_out[f])
+        # escalation before the safety net, as the reference: a
+        # float32-floor instance would churn through every tail step
+        if esc_cap:
+            out = self._escalate_tail(data, out, esc_cap, esc_iters,
+                                      tail_gondzio, esc_warm)
         return self._gondzio_tail(data, out, tail_cap, tail_iters,
                                   tail_gondzio)
 
@@ -165,14 +206,9 @@ class FusedCompactMixin:
         for 8 iterations (14 below tol 1e-5), then the stragglers resumed
         in a 1/8-size batch for the rest of ``max_iter``.
 
-        ``esc_cap``, ``esc_iters``, ``esc_warm`` configure the
-        reference's two-float escalation stage, which is not ported: a
-        nonzero ``esc_cap`` raises; pass ``esc_cap=0``."""
-        if esc_cap:
-            raise NotImplementedError(
-                f"esc_cap={esc_cap}: the escalation stage is not ported "
-                f"({_ROADMAP_ESCALATION}); pass esc_cap=0 to solve "
-                "without it")
+        ``esc_cap``, ``esc_iters``, ``esc_warm`` configure the float64
+        escalation stage (:meth:`_escalate_tail`); ``esc_cap=0`` skips
+        it."""
         data = self._check_data(data)
         B = data.Q.shape[0]
         if B % self.bt:
@@ -184,7 +220,8 @@ class FusedCompactMixin:
             schedule = self.default_fused_schedule(B)
         return self._compact_fused_impl(data, schedule, tail_cap,
                                         tail_iters, tail_gondzio,
-                                        fused_tail)
+                                        fused_tail, esc_cap, esc_iters,
+                                        esc_warm)
 
     def default_fused_schedule(self, B: int):
         """The reference's default ``(max_iter, batch_divisor)`` stages of

@@ -111,6 +111,9 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.scale_tol = scale_tol
         #: device-to-host round trips made by the iteration loops
         self.host_syncs = 0
+        #: instances the escalation stage took in unconverged, summed over
+        #: solves (a device tensor once a stage has run)
+        self.escalated = 0
 
         o = build_symbols(names)
         self.symbols = o

@@ -1,11 +1,12 @@
-"""Batched LDL^T factor (K2) and solve (K3): CUDA kernels with plain
-torch versions.
+"""Batched LDL^T factor (K2), solve (K3) and multi-rhs solve (K4): CUDA
+kernels with plain torch versions.
 
 Counterpart of :mod:`ipmzoo_tpu.ops.pallas_ldlt` (``ldlt_auto`` /
-``solve_ldlt_auto``).  The public layout is the reference's: A (B, n, n),
-D (B, n), b (B, n).  For CUDA tensors the wrappers transpose to the
-kernels' structure-of-arrays layout ((n, n, B), batch fastest) and launch
-the kernels of ``csrc/ldlt.cu`` on the current stream.  The factors are
+``solve_ldlt_auto``, ``batched_solve_ldlt_matrix_pallas``).  The public
+layout is the reference's: A (B, n, n), D (B, n), b (B, n),
+R (B, n, k).  For CUDA tensors the wrappers transpose to the kernels'
+structure-of-arrays layout ((n, n, B), batch fastest) and launch the
+kernels of ``csrc/ldlt.cu`` on the current stream.  The factors are
 returned as (B, n, n) / (B, n) views of their SoA storage, so a solve
 against them reads the factors without a second transpose.  For CPU
 tensors the wrappers run the plain versions of :mod:`.ldlt`.  Any other
@@ -20,10 +21,12 @@ import functools
 import torch
 
 from . import _build
-from .ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
+from .ldlt import PIVOT_FLOOR, ldlt, solve_ldlt, solve_ldlt_matrix
 
 #: kernel launches since the last :func:`reset_launch_counts`
-launches = {"ldlt": 0, "solve_ldlt": 0}
+launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0}
+#: the float64 instantiations' share of ``launches``
+f64_launches = dict(launches)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -32,6 +35,13 @@ _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
+        f64_launches[k] = 0
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    launches[name] += 1
+    if dtype == torch.float64:
+        f64_launches[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,6 +55,9 @@ def _lib() -> ctypes.CDLL:
         s = getattr(lib, f"ipmzoo_ldlt_solve_{sfx}")
         s.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
         s.restype = i32
+        m = getattr(lib, f"ipmzoo_ldlt_solve_matrix_{sfx}")
+        m.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
+        m.restype = i32
     return lib
 
 
@@ -83,7 +96,7 @@ def factor_soa(A_t: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
     if err:
         raise RuntimeError(f"LDL^T factor kernel launch failed: "
                            f"cudaError {err}")
-    launches["ldlt"] += 1
+    _count("ldlt", A_t.dtype)
     return L_t, D_t
 
 
@@ -106,8 +119,34 @@ def solve_soa(L_t: torch.Tensor, D_t: torch.Tensor,
     if err:
         raise RuntimeError(f"LDL^T solve kernel launch failed: "
                            f"cudaError {err}")
-    launches["solve_ldlt"] += 1
+    _count("solve_ldlt", b_t.dtype)
     return x_t
+
+
+def solve_matrix_soa(L_t: torch.Tensor, D_t: torch.Tensor,
+                     R_t: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on SoA data: L_t (n, n, B), D_t (n, B), R_t (n, k, B) ->
+    X_t (n, k, B) with L D L^T X = R per instance."""
+    n, k, B = R_t.shape
+    _check_soa(R_t.dtype, R_t.device, L_t=(L_t, (n, n, B)),
+               D_t=(D_t, (n, B)), R_t=(R_t, (n, k, B)))
+    if not R_t.is_cuda:
+        raise ValueError(f"K4 needs CUDA tensors, got {R_t.device}")
+    if k > 65535:
+        raise ValueError(f"K4 takes at most 65535 right-hand sides, got {k}")
+    X_t = torch.empty_like(R_t)
+    if n == 0 or k == 0 or B == 0:
+        return X_t
+    with torch.cuda.device(R_t.device):
+        err = getattr(_lib(),
+                      f"ipmzoo_ldlt_solve_matrix_{_SUFFIX[R_t.dtype]}")(
+            L_t.data_ptr(), D_t.data_ptr(), R_t.data_ptr(), X_t.data_ptr(),
+            n, k, B, _stream(R_t.device))
+    if err:
+        raise RuntimeError(f"LDL^T multi-rhs solve kernel launch failed: "
+                           f"cudaError {err}")
+    _count("solve_ldlt_matrix", R_t.dtype)
+    return X_t
 
 
 def _dispatch(t: torch.Tensor) -> bool:
@@ -137,3 +176,17 @@ def solve_ldlt_auto(L: torch.Tensor, D: torch.Tensor,
     x_t = solve_soa(L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
                     b.t().contiguous())
     return x_t.t()
+
+
+def solve_ldlt_matrix_auto(L: torch.Tensor, D: torch.Tensor,
+                           R: torch.Tensor) -> torch.Tensor:
+    """Batched multi-rhs solve against ``ldlt_auto``'s factors:
+    R (B, n, k) -> X (B, n, k)."""
+    if R.dim() != 3:
+        raise ValueError(f"expected R (B, n, k), got {tuple(R.shape)}")
+    if not _dispatch(R):
+        return solve_ldlt_matrix(L, D, R)
+    X_t = solve_matrix_soa(L.permute(1, 2, 0).contiguous(),
+                           D.t().contiguous(),
+                           R.permute(1, 2, 0).contiguous())
+    return X_t.permute(2, 0, 1)

@@ -2,9 +2,11 @@
 
 Counterpart of :mod:`ipmzoo_tpu.ops.ldlt` (the column algorithm of
 ``ldlt`` and the forward / diagonal / backward sweeps of ``solve_ldlt``),
-written over a leading batch axis.  These are the plain versions of the
-CUDA kernels in ``csrc/ldlt.cu``: :mod:`.cuda_ldlt` runs them for CPU
-tensors, and the tests and ``chip_smoke.py`` hold the kernels to them.
+written over a leading batch axis, and of the multi-rhs solve of
+:mod:`ipmzoo_tpu.ops.pallas_ldlt` (``solve_ldlt_matrix``).  These are the
+plain versions of the CUDA kernels in ``csrc/ldlt.cu`` (K2, K3, K4):
+:mod:`.cuda_ldlt` runs them for CPU tensors, and the tests and
+``chip_smoke.py`` hold the kernels to them.
 
 The augmented KKT system of an interior-point iteration is symmetric
 quasi-definite, so an unpivoted LDL^T is stable; an exactly-zero pivot is
@@ -51,4 +53,24 @@ def solve_ldlt(L: torch.Tensor, D: torch.Tensor,
     x = x / D
     for i in range(n - 2, -1, -1):
         x[:, i] = x[:, i] - (L[:, i + 1:, i] * x[:, i + 1:]).sum(-1)
+    return x
+
+
+def solve_ldlt_matrix(L: torch.Tensor, D: torch.Tensor,
+                      R: torch.Tensor) -> torch.Tensor:
+    """Solve L D L^T X = R per instance for k right-hand sides: L (B, n, n),
+    D (B, n), R (B, n, k) -> X (B, n, k).
+
+    The sweep order of the reference's multi-rhs Pallas kernel: a
+    column-oriented forward sweep, x[j+1:] -= L[j+1:, j] x[j]; division
+    by D; a row-sum backward sweep, x[i] -= sum_{k>i} L[k, i] x[k]."""
+    n = R.shape[-2]
+    x = R.clone()
+    for j in range(n - 1):
+        x[:, j + 1:, :] = x[:, j + 1:, :] - \
+            L[:, j + 1:, j, None] * x[:, j, None, :]
+    x = x / D[:, :, None]
+    for i in range(n - 2, -1, -1):
+        x[:, i, :] = x[:, i, :] - \
+            (L[:, i + 1:, i, None] * x[:, i + 1:, :]).sum(-2)
     return x

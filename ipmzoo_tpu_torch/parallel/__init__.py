@@ -1,0 +1,6 @@
+"""Structure-parallel solvers (counterpart of :mod:`ipmzoo_tpu.parallel`):
+``SchurIPM``, the block-separable coupled-QP engine, on one device."""
+
+from .schur import BlockQPData, SchurIPM, SchurResult, SchurState
+
+__all__ = ["BlockQPData", "SchurIPM", "SchurResult", "SchurState"]

@@ -116,28 +116,132 @@ class TestMehrotraCycling:
 
 
 class TestEscalationCap:
-    def test_auto_cap_at_f32_tight_tol_raises(self):
+    def test_auto_cap_at_f32_tight_tol_escalates_in_f64(self):
+        # esc_cap='auto' at float32 and tol 1e-6 resolves to 32 and runs
+        # the float64 escalation stage
         s = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
                         tol=1e-6)
         data = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6),
                                  dtype=torch.float32)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            s.solve_batch_compact(data)
-        with pytest.raises(NotImplementedError, match="esc_cap=8"):
-            s.solve_batch_compact(data, esc_cap=8)
-        r = s.solve_batch_compact(data, esc_cap=0)
-        assert r.x.dtype == torch.float32
+        r = s.solve_batch_compact(data)
+        assert r.x.dtype == torch.float32 and bool(r.converged.all())
+        twin = s._esc_twin
+        assert twin.dtype == torch.float64 and twin.mu_floor == s.mu_floor
+        for cap in (8, 0):
+            r = s.solve_batch_compact(data, esc_cap=cap)
+            assert r.x.dtype == torch.float32 and bool(r.converged.all())
 
     def test_auto_cap_is_zero_where_the_reference_needs_no_stage(self):
         data = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6))
-        r = CompiledIPM(Settings(), n=4, m_ineq=2,
-                        tol=1e-6).solve_batch_compact(data)
-        assert bool(r.converged.all())
+        s64 = CompiledIPM(Settings(), n=4, m_ineq=2, tol=1e-6)
+        assert bool(s64.solve_batch_compact(data).converged.all())
         d32 = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6),
                                 dtype=torch.float32)
-        r32 = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
-                          tol=1e-5).solve_batch_compact(d32)
-        assert bool(r32.converged.all())
+        s32 = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
+                          tol=1e-5)
+        assert bool(s32.solve_batch_compact(d32).converged.all())
+        assert not hasattr(s64, "_esc_twin")
+        assert not hasattr(s32, "_esc_twin")
+
+
+class TestEscalation:
+    """The escalation stage against the reference's (tests/test_compact.py
+    TestEscalation).  The reference's twin carries double-single pairs
+    (double-double in float64), the port's computes in float64, so the
+    two are not bit-identical: ``converged`` equal, x within 1e-6, and
+    per-instance iteration counts within 2."""
+
+    @staticmethod
+    def starved(dtype_np, dtype_t):
+        B, n, m = 8, 6, 3
+        raw = numpy_batch(B, n, m, seed=5)
+        ref = RefIPM(Settings(), n=n, m_ineq=m, dtype=dtype_np, tol=1e-8,
+                     max_iter=3)
+        port = CompiledIPM(Settings(), n=n, m_ineq=m, dtype=dtype_t,
+                           tol=1e-8, max_iter=3)
+        jd = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype_np), raw)
+        return ref, port, jd, qpdata_from_numpy(raw, dtype=dtype_t)
+
+    def test_escalation_rescues_starved_batch(self):
+        # every earlier stage is starved (budget 3, no mop-up headroom),
+        # so only the escalation stage can converge the batch
+        ref, port, jd, data = self.starved(jnp.float64, torch.float64)
+        starved = port.solve_batch_compact(data, schedule=[(3, 1)],
+                                           esc_cap=0)
+        assert not bool(starved.converged.all())
+        out = result_to_numpy(port.solve_batch_compact(
+            data, schedule=[(3, 1)], esc_cap=8, esc_iters=60))
+        r = ref.solve_batch_compact(jd, schedule=[(3, 1)], esc_cap=8,
+                                    esc_iters=60)
+        assert out["converged"].all()
+        np.testing.assert_array_equal(out["converged"],
+                                      np.asarray(r.converged))
+        np.testing.assert_allclose(out["x"], np.asarray(r.x), rtol=1e-6,
+                                   atol=1e-6)
+        assert np.abs(out["iterations"] -
+                      np.asarray(r.iterations)).max() <= 2
+        # and the answer is the straight solve's
+        full = CompiledIPM(Settings(), n=6, m_ineq=3,
+                           max_iter=60).solve_batch(data)
+        np.testing.assert_allclose(out["x"], full.x.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        # an f64 solver is its own twin
+        assert not hasattr(port, "_esc_twin")
+
+    def test_float32_starved_batch_matches_two_float_reference(self):
+        # float32: the reference escalates in double-single pairs, the
+        # port in float64; the merged x is rounded to float32 on both
+        # sides, so it agrees to float32 rounding of the optimum
+        ref, port, jd, data = self.starved(jnp.float32, torch.float32)
+        kw = dict(schedule=[(3, 1)], esc_cap=8, esc_iters=60)
+        out = result_to_numpy(port.solve_batch_compact(data, **kw))
+        r = ref.solve_batch_compact(jd, **kw)
+        assert out["x"].dtype == np.float32
+        assert out["converged"].all()
+        np.testing.assert_array_equal(out["converged"],
+                                      np.asarray(r.converged))
+        np.testing.assert_allclose(out["x"], np.asarray(r.x), rtol=1e-5,
+                                   atol=1e-5)
+        assert np.abs(out["iterations"] -
+                      np.asarray(r.iterations)).max() <= 2
+        assert port._esc_twin.mu_floor == port.mu_floor == ref.mu_floor
+
+    def test_auto_cap_tied_to_dtype_and_tol(self):
+        s32 = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
+                          tol=1e-6)
+        s64 = CompiledIPM(Settings(), n=4, m_ineq=2, tol=1e-6)
+        data = numpy_batch(4, 4, 2, seed=6)
+        s32.solve_batch_compact(qpdata_from_numpy(data,
+                                                  dtype=torch.float32))
+        s64.solve_batch_compact(qpdata_from_numpy(data))
+        # f32 at tol 1e-6 builds the float64 twin; f64 never needs it
+        assert hasattr(s32, "_esc_twin")
+        assert not hasattr(s64, "_esc_twin")
+
+    def test_escalated_diverged_instance_reported_both_ways(self):
+        """The reference's stage gathers diverged instances with the
+        active ones and returns ``diverged`` unchanged, so a diverged
+        instance it converges ends both converged and diverged
+        (ipmzoo_tpu/models/compact.py:127).  The port matches that."""
+        ref, port, jd, data = self.starved(jnp.float64, torch.float64)
+        r_state = jax.vmap(ref.init_state)(jd)
+        p_state = port.init_state(data)
+        res_tol = torch.full((8,), 1e-8, dtype=torch.float64)
+        div = torch.zeros(8, dtype=torch.bool)
+        div[2] = True
+        p_state, p_div = port._escalate_batch(data, p_state, res_tol, div,
+                                              8, 60, 2)
+        r_state, r_div = ref._escalate_batch(
+            jd, r_state, jnp.asarray(res_tol.numpy()),
+            jnp.asarray(div.numpy()), 8, 60, 2)
+        p_conv = port._done(p_state, res_tol).numpy()
+        r_conv = np.asarray((r_state.residual < 1e-8) & (r_state.gap < 1e-8))
+        assert p_conv[2] and p_div[2].item()
+        np.testing.assert_array_equal(p_div.numpy(), np.asarray(r_div))
+        np.testing.assert_array_equal(p_conv, r_conv)
+        np.testing.assert_allclose(p_state.vars[0].numpy(),
+                                   np.asarray(r_state.vars[0]), rtol=1e-6,
+                                   atol=1e-6)
 
 
 def test_does_not_write_into_the_callers_data():

@@ -4,9 +4,10 @@ against the reference's FusedBatchedIPM in Pallas interpret mode, float64,
 bt=8 (as tests/test_fused.py runs it), on the same numpy inputs.
 
 Parity: per-instance iterations equal, ``converged`` equal, x within
-rtol 1e-10 / atol 1e-10.  The nine non-escalation tests of
-tests/test_fused.py are mirrored; the escalation stage is not ported and
-raises.
+rtol 1e-10 / atol 1e-10.  The ten tests of tests/test_fused.py are
+mirrored.  The escalation stage runs a float64 twin where the reference
+runs double-single (here double-double) pairs; where it does work the
+two agree in ``converged``, x within 1e-6 and iterations within 2.
 """
 
 import functools
@@ -118,8 +119,9 @@ def test_fused_refined_tail_rescues_straggler():
 
 def test_fused_compact_matches_refined():
     data = numpy_batch(24, 6, 3, seed=7)
+    # the default esc_cap=32 on both sides: nothing is left to escalate
     r, p = both("solve_fused_compact", 6, 3, data, max_iter=40,
-                schedule=[(7, 1), (33, 3)], tail_cap=8, esc_cap=0)
+                schedule=[(7, 1), (33, 3)], tail_cap=8)
     assert p["converged"].all()
     assert_parity(r, p)
     # iteration accounting is cumulative across the resume stages
@@ -154,14 +156,48 @@ def test_fused_padded_public_entries(entry, kw):
     assert_parity(r, p)
 
 
-def test_escalation_stage_is_not_ported():
+def test_escalation_stage_runs_at_every_cap():
+    # the default esc_cap=32, a smaller cap, esc_cap=0 and a cold restart
+    # all solve, and an f64 solver escalates with itself
     _, port = solvers(4, 2)
     data = qpdata_from_numpy(numpy_batch(8, 4, 2, seed=6))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.solve_fused_compact(data)
-    with pytest.raises(NotImplementedError, match="esc_cap=8"):
-        port.solve_fused_compact(data, esc_cap=8)
-    assert bool(port.solve_fused_compact(data, esc_cap=0)["converged"].all())
+    for kw in ({}, {"esc_cap": 8}, {"esc_cap": 0}, {"esc_warm": False}):
+        assert bool(port.solve_fused_compact(data, **kw)["converged"].all())
+    assert port._escalation_twin() is port
+
+
+def test_fused_compact_escalation_rescues_residual_stuck():
+    # every earlier stage is starved (core budget 4, tails 1 iteration),
+    # so only the escalation stage can converge the batch
+    data = numpy_batch(8, 6, 3, seed=5)
+    _, port = solvers(6, 3, 4)
+    kw = dict(schedule=[(4, 1)], tail_iters=1)
+    starved = port.solve_fused_compact(qpdata_from_numpy(data), esc_cap=0,
+                                       **kw)
+    assert not bool(starved["converged"].all())
+    r, p = both("solve_fused_compact", 6, 3, data, max_iter=4,
+                esc_iters=60, **kw)
+    assert p["converged"].all()
+    np.testing.assert_array_equal(p["converged"], r["converged"])
+    np.testing.assert_allclose(p["x"], r["x"], rtol=1e-6, atol=1e-6)
+    assert np.abs(p["iterations"] - r["iterations"]).max() <= 2
+    # escalated instances accumulate iterations on top of earlier stages
+    rescued = ~starved["converged"].numpy()
+    assert (p["iterations"][rescued] > 4).all()
+
+
+def test_float32_escalation_twin_is_float64():
+    fused = FusedBatchedIPM(Settings(), n=4, m_ineq=2, bt=8,
+                            dtype=torch.float32, tol=1e-6, max_iter=4)
+    data = qpdata_from_numpy(numpy_batch(8, 4, 2, seed=6),
+                             dtype=torch.float32)
+    fused.host_syncs = 0
+    out = fused.solve_fused_compact(data, tail_iters=1, esc_iters=60)
+    twin = fused._escalation_twin()
+    assert twin.dtype == torch.float64 and twin.mu_floor == fused.mu_floor
+    assert out["x"].dtype == torch.float32 and out["converged"].all()
+    # the twin's loop checks are counted on the solver that ran it
+    assert fused.host_syncs >= twin.host_syncs > 0
 
 
 def test_wide_augmented_system_is_not_ported():

@@ -1,6 +1,6 @@
 """Plain batched LDL^T of the port (ipmzoo_tpu_torch/ops/ldlt.py, the CPU
-twins of CUDA kernels K2/K3) against the reference's Pallas kernels (run
-in interpret mode on the CPU) and its jnp column kernel, in float64.
+twins of CUDA kernels K2/K3/K4) against the reference's Pallas kernels
+(run in interpret mode on the CPU) and its jnp column kernel, in float64.
 
 Tolerance: rtol 1e-12 (with atol 1e-12 for the exact zeros above the
 diagonal); the algorithms are the same, only summation order differs.
@@ -13,9 +13,12 @@ import torch
 
 from ipmzoo_tpu.ops.ldlt import batched_ldlt
 from ipmzoo_tpu.ops.pallas_ldlt import (batched_ldlt_pallas,
+                                        batched_solve_ldlt_matrix_pallas,
                                         batched_solve_ldlt_pallas)
+from ipmzoo_tpu.parallel.schur import _ldlt_solve_batched_mat
 from ipmzoo_tpu_torch.ops import cuda_ldlt
-from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
+from ipmzoo_tpu_torch.ops.ldlt import (PIVOT_FLOOR, ldlt, solve_ldlt,
+                                       solve_ldlt_matrix)
 
 
 def quasi_definite(B, n, seed):
@@ -59,6 +62,28 @@ def test_factor_and_solve_match_reference(B, n):
                                rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("n", [1, 13, 64])
+def test_multi_rhs_solve_matches_reference(n, k):
+    B = 6
+    K, _ = quasi_definite(B, n, seed=n * 100 + k)
+    R = np.random.default_rng(k).normal(size=(B, n, k))
+    L, D = ldlt(torch.from_numpy(K), PIVOT_FLOOR)
+    X = solve_ldlt_matrix(L, D, torch.from_numpy(R)).numpy()
+    Lj, Dj = jnp.asarray(L.numpy()), jnp.asarray(D.numpy())
+    for ref in (batched_solve_ldlt_matrix_pallas(Lj, Dj, jnp.asarray(R)),
+                _ldlt_solve_batched_mat(Lj, Dj, jnp.asarray(R))):
+        np.testing.assert_allclose(X, np.asarray(ref), rtol=1e-12,
+                                   atol=1e-12)
+    # each column is the single-rhs solve of that column
+    for c in range(k):
+        np.testing.assert_allclose(
+            X[:, :, c], solve_ldlt(L, D, torch.from_numpy(R[:, :, c])),
+            rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(np.einsum("bij,bjk->bik", K, X), R,
+                               rtol=1e-9, atol=1e-9)
+
+
 def test_exact_zero_pivot_takes_the_floor():
     # second pivot: 1 - 1*1*1 == 0 exactly
     K = np.array([[[1.0, 1.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 2.0]]])
@@ -87,7 +112,20 @@ def test_wrappers_take_plain_version_on_cpu(dtype):
     assert torch.equal(L, L0) and torch.equal(D, D0)
     assert torch.equal(x, solve_ldlt(L0, D0, b_t))
     assert x.dtype == dtype
-    assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0}
+    assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
+                                 "solve_ldlt_matrix": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_multi_rhs_wrapper_takes_plain_version_on_cpu(dtype):
+    K, _ = quasi_definite(9, 6, seed=5)
+    R = torch.from_numpy(np.random.default_rng(5).normal(size=(9, 6, 4)))
+    L, D = ldlt(torch.from_numpy(K).to(dtype))
+    cuda_ldlt.reset_launch_counts()
+    X = cuda_ldlt.solve_ldlt_matrix_auto(L, D, R.to(dtype))
+    assert torch.equal(X, solve_ldlt_matrix(L, D, R.to(dtype)))
+    assert X.dtype == dtype and tuple(X.shape) == (9, 6, 4)
+    assert cuda_ldlt.launches["solve_ldlt_matrix"] == 0
 
 
 def test_solve_does_not_write_into_its_inputs():
@@ -97,6 +135,10 @@ def test_solve_does_not_write_into_its_inputs():
     before = b_t.clone()
     solve_ldlt(L, D, b_t)
     assert torch.equal(b_t, before)
+    R = b_t[:, :, None].repeat(1, 1, 3)
+    before = R.clone()
+    solve_ldlt_matrix(L, D, R)
+    assert torch.equal(R, before)
 
 
 def test_wrappers_reject_other_devices():
@@ -105,6 +147,12 @@ def test_wrappers_reject_other_devices():
         cuda_ldlt.ldlt_auto(A)
     with pytest.raises(ValueError, match="B, n, n"):
         cuda_ldlt.ldlt_auto(torch.zeros((3, 3)))
+    with pytest.raises(ValueError, match="device"):
+        cuda_ldlt.solve_ldlt_matrix_auto(A, A[:, :, 0],
+                                         torch.zeros((2, 3, 2),
+                                                     device="meta"))
+    with pytest.raises(ValueError, match="B, n, k"):
+        cuda_ldlt.solve_ldlt_matrix_auto(A, A[:, :, 0], A[0])
 
 
 def test_soa_launchers_check_their_inputs_before_launching():
@@ -119,3 +167,11 @@ def test_soa_launchers_check_their_inputs_before_launching():
                             torch.zeros((3, 4)))
     with pytest.raises(ValueError, match="contiguous"):
         cuda_ldlt.factor_soa(torch.zeros((4, 3, 3)).permute(1, 2, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ldlt.solve_matrix_soa(torch.zeros((3, 3, 4)),
+                                   torch.zeros((3, 4)),
+                                   torch.zeros((3, 2, 4)))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_ldlt.solve_matrix_soa(torch.zeros((3, 3, 4)),
+                                   torch.zeros((3, 4)),
+                                   torch.zeros((3, 2, 5)))

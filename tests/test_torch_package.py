@@ -41,8 +41,15 @@ def test_port_imports_and_solves_without_jax():
                             dtype=torch.float64)
         one = p.QPData(**{k: getattr(d, k)[None]
                           for k in d.__dataclass_fields__})
-        assert bool(f.solve_fused_compact(one, esc_cap=0)["converged"][0])
+        assert bool(f.solve_fused_compact(one)["converged"][0])
         assert "struct Form" in f.kernel_source()
+        from ipmzoo_tpu_torch.parallel import BlockQPData, SchurIPM
+        blk = BlockQPData(Q=torch.eye(2)[None].repeat(3, 1, 1),
+                          c=torch.ones(3, 2), F=torch.ones(3, 1, 2),
+                          l_x=-torch.ones(3, 2), u_x=torch.ones(3, 2),
+                          g=torch.zeros(1))
+        assert bool(SchurIPM(2, 1, dtype=torch.float32).solve(
+            blk.to(dtype=torch.float32)).converged)
         jaxy = [m for m in sys.modules if m == "jax" or m.startswith(
             ("jax.", "ipmzoo_tpu.models", "ipmzoo_tpu.ops",
              "ipmzoo_tpu.utils", "ipmzoo_tpu.parallel"))]
@@ -62,7 +69,8 @@ def test_cpu_runs_leave_launch_counters_at_zero():
     s = CompiledIPM(Settings(), n=4, m_ineq=2)
     s.solve_batch_compact(data)
     s.solve_batch(data)
-    assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0}
+    assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
+                                 "solve_ldlt_matrix": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
