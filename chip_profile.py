@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's three slices, on one NVIDIA GPU.
+"""Where the time goes on the port's four slices, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the repository root; needs one
                                  # CUDA card and nvcc
+    python3 chip_profile.py arrow schur   # only the named sections
+                                 # (arrow, schur, fused, compact)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -19,7 +21,12 @@ the same data, and prints, after the card's name and power limit:
    synchronize), converged instances and host syncs; then the profiled
    launches and busy time of one esc_cap=32 solve;
 3. the compact slice with esc_cap 'auto', 0, 0, 'auto' in turns: the
-   wall by CUDA events (median of 2 runs after the first).
+   wall by CUDA events (median of 2 runs after the first);
+4. the banded+arrow slice (bench_arrow's defaults, float32, tol 1e-5),
+   one instance and the batch of 32: the wall by CUDA events (median of
+   5 runs after a warm-up); launches per iteration and busy share of one
+   solve under torch.profiler; K6's and K7's share of device time; and
+   the host-clock time of three single iterations.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -33,10 +40,10 @@ import time
 import chip_smoke as cs
 
 
-def profiled(fn, label):
+def profiled(fn, label, per_kernel=None):
     """Device busy ms and kernel launches of one call of ``fn`` (after
-    one untraced call) under torch.profiler; prints the largest
-    entries."""
+    one untraced call) under torch.profiler; prints the largest entries
+    and appends every (kernel name, ms) to ``per_kernel`` if given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -49,6 +56,9 @@ def profiled(fn, label):
               if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
+    if per_kernel is not None:
+        per_kernel += [(e.key, e.self_device_time_total / 1e3)
+                       for e in events]
     print(f"{label}: profiled device busy {busy:.3f} ms, kernel launches "
           f"{launches}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
@@ -82,6 +92,37 @@ def profile_schur(dev):
             torch.cuda.synchronize()
             print(f"    one _step {1e3 * (time.perf_counter() - t0):.3f} ms "
                   f"(host clock)")
+
+
+def profile_arrow():
+    import torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    data, st, batch = cs.arrow_slice_data()
+    solver = cs.arrow_solver(data, st)
+    one = tree_map(lambda a: a[None], data)
+    for label, d in (("arrow single", one),
+                     (f"arrow batch of {cs.ARROW_BATCH}", batch)):
+        res = solver.solve_batch(d)
+        steps = int(res.iterations.max())
+        med = cs.time_solves(lambda: solver.solve_batch(d), 5)
+        events = []
+        busy, launches = profiled(lambda: solver.solve_batch(d), label,
+                                  events)
+        k6 = sum(ms for key, ms in events if "cr_factor_kernel" in key)
+        k7 = sum(ms for key, ms in events if "cr_solve_kernel" in key)
+        print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
+              f"launches per iteration {launches / steps:.1f}; busy share "
+              f"{busy / med:.4f}; K6 {k6:.3f} ms ({k6 / busy:.4f} of device "
+              f"time), K7 {k7:.3f} ms ({k7 / busy:.4f})")
+        dd = solver._check_data(d)
+        state = solver.init_state(dd)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver._step_impl(state, dd)
+            torch.cuda.synchronize()
+            print(f"    one _step_impl "
+                  f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock)")
 
 
 def profile_fused(dev, data):
@@ -150,11 +191,23 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip())
+    sections = sys.argv[1:] or ["schur", "fused", "compact", "arrow"]
+    unknown = set(sections) - {"schur", "fused", "compact", "arrow"}
+    if unknown:
+        print(f"chip_profile: unknown sections {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     cs.build_kernels()
-    profile_schur(dev)
-    data = make_batch(cs.B_SLICE, 16, 8, torch.float32, device=dev)
-    profile_fused(dev, data)
-    profile_compact(dev, data)
+    if "schur" in sections:
+        profile_schur(dev)
+    if {"fused", "compact"} & set(sections):
+        data = make_batch(cs.B_SLICE, 16, 8, torch.float32, device=dev)
+    if "fused" in sections:
+        profile_fused(dev, data)
+    if "compact" in sections:
+        profile_compact(dev, data)
+    if "arrow" in sections:
+        profile_arrow()
     return 0
 
 

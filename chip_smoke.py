@@ -71,7 +71,37 @@ Steps, each reported on its own line:
     float32 within 1e-5 and float64 within 1e-12 as in step 4: the H
     blocks (n=64, B=512; K4 with k=16) and the coupling systems S (n=16,
     B=8); then time the three kernels and their plain versions on the H
-    blocks.
+    blocks;
+18. hold K6 (whole-reduction cyclic-reduction factor) and K7 (its
+    multi-rhs solve) against their plain versions on the card, float32
+    and float64, on random SPD block-tridiagonal systems at (N, b, k) =
+    (256, 16, 9), (256, 16, 1), (37, 8, 3) and a batch of 32 at (256, 16,
+    9): float64 within a relative difference of 1e-10 on the factors and
+    on the solution (K7 alone on the plain factors, and K6 + K7 chained),
+    float32 within 5e-4 absolute on the solution; at (37, 8, 3) also
+    against torch.linalg.solve of the assembled dense system;
+19. run the banded+arrow slice, bench.py's bench_arrow at its defaults:
+    n=4096, bandwidth 16, tip 8 (numpy seed 0), float32, tol 1e-5,
+    through ArrowQPData.from_dense (block 16, N=256, t=8) and
+    ArrowIPM.for_data(...).solve on the card, which must converge with
+    one K6 and two K7 launches per iteration; time it with CUDA events
+    (median of 5 runs after a warm-up) and report ms per solve and per
+    iteration, launches and host syncs; the objective against the port
+    on the CPU in float64 with method='cr': |f_gpu - f_cpu| <= 1e-4
+    (1 + |f_cpu|);
+20. the same structure as a batch: solve_batch on 32 instances (the same
+    Q, c drawn from numpy seeds 1..32), all 32 converged, timed and held
+    to the CPU float64 port in the same way;
+21. time K6 and K7 (k=9 and k=1) against their plain versions and
+    against the per-level library composition (method='cr') on the
+    slice's own condensed matrices at the initial iterate, one instance
+    and the batch of 32, float32 and float64, and hold them to the plain
+    versions there too.
+
+Every kernel's entry in the kernels line carries its bound: the larger
+of the bytes it must move (inputs read once, outputs written once) over
+3.35 TB/s and its operations over the card's peak for the type (67
+TFLOP/s float32, half that in float64), at the timed shape.
 
 Any failed check raises, so the exit code is nonzero.  The line before
 the last is a JSON object describing the kernels; the last line is the
@@ -98,8 +128,22 @@ K1_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
 REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:130",
             "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
-            "fused": "ipmzoo_tpu/models/fused.py:432"}
+            "fused": "ipmzoo_tpu/models/fused.py:432",
+            "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
+            "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281"}
 K1_BATCHES = (10240, 1280)
+CR_SOURCE = "ipmzoo_tpu_torch/csrc/cr.cu"
+#: bench_arrow's defaults: variables, half-bandwidth, arrow tip; and the
+#: batch line's instances
+ARROW_N, ARROW_BW, ARROW_TIP, ARROW_BATCH = 4096, 16, 8, 32
+#: (batch, blocks, block size, right-hand sides) of step 18
+CR_SHAPES = ((1, 256, 16, 9), (1, 256, 16, 1), (1, 37, 8, 3),
+             (ARROW_BATCH, 256, 16, 9))
+#: published peaks of one H100 SXM: HBM bytes/s, and FLOP/s outside the
+#: tensor cores (float64 runs at half the float32 rate there)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 33.5e12}
+ITEMSIZE = {"float32": 4, "float64": 8}
 
 
 def check(cond, msg):
@@ -110,6 +154,81 @@ def check(cond, msg):
 def rel_diff(a, b):
     """Largest absolute difference over the largest magnitude of b."""
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def bound(elements, flops, dtype):
+    """The least time the card could take, in ms, and what binds it:
+    ``elements`` values of ``dtype`` moved once over the HBM rate against
+    ``flops`` operations over the peak rate of the type."""
+    name = str(dtype).replace("torch.", "")
+    t_bytes = elements * ITEMSIZE[name] / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ldlt_bounds(B, n, k, dtype):
+    """Bounds of K2 (factor), K3 (solve) and K4 (k-column solve) on B
+    systems of order n.  K2 reads K and writes L and D, n^3/3
+    multiply-adds; K3 reads L, D, b and writes x, n^2 multiply-adds and n
+    divisions; K4 the same for k columns."""
+    return {"K2": bound(B * (2 * n * n + n), B * 2 * n ** 3 / 3, dtype),
+            "K3": bound(B * (n * n + 3 * n), B * (2 * n * n + n), dtype),
+            "K4": bound(B * (n * n + n + 2 * n * k),
+                        B * k * (2 * n * n + n), dtype)}
+
+
+def cr_bounds(B, N, b, k, dtype):
+    """Bounds of K6 and K7 on B systems of N blocks of order b, k
+    right-hand sides.  K6 reads D and E and writes three (N, b, b)
+    factor arrays; per eliminated block an explicit inverse through the
+    Cholesky factor (about b^3 operations: b^3/3 each for L, L^-1 and the
+    symmetric product) and five b x b products (10 b^3).  K7 reads the
+    factors and r and writes x; per block six products of a b x b matrix
+    with k columns (12 b^2 k)."""
+    return {"K6": bound(B * (5 * N - 1) * b * b, B * N * 11 * b ** 3,
+                        dtype),
+            "K7": bound(B * (3 * N * b * b + 2 * N * b * k),
+                        B * N * 12 * b * b * k, dtype)}
+
+
+def time_library(what, fn, want, tol, reps):
+    """Milliseconds of one PyTorch call that computes the same function
+    (a yardstick the port never calls), or None when the call is refused
+    here or computes something else; says which."""
+    import torch
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except Exception as exc:                       # noqa: BLE001
+        print(f"library call {what}: refused ({type(exc).__name__}: "
+              f"{str(exc).splitlines()[0][:120]}); library_ms null")
+        return None
+    diff = rel_diff(got, want)
+    if not diff <= tol:
+        print(f"library call {what}: rel diff {diff:.3e} > {tol:g}, not "
+              f"the same function here; library_ms null")
+        return None
+    ms = time_cuda(fn, reps)
+    print(f"library call {what}: {ms:.4f} ms per call, rel diff to the "
+          f"plain version {diff:.3e}")
+    return ms
+
+
+def ldl_solve_call(L, D, b):
+    """torch.linalg.ldl_solve on the compact form of (L, D) with trivial
+    pivots: the same function as K3 (b a vector) and K4 (b a matrix)."""
+    import torch
+    n = L.shape[-1]
+    LD = torch.tril(L, -1) + torch.diag_embed(D)
+    piv = torch.arange(1, n + 1, dtype=torch.int32,
+                       device=L.device).expand(L.shape[0], n).contiguous()
+    rhs = b if b.dim() == 3 else b.unsqueeze(-1)
+
+    def call():
+        x = torch.linalg.ldl_solve(LD, piv, rhs)
+        return x if b.dim() == 3 else x.squeeze(-1)
+    return call
 
 
 def quasi_definite(B, n, dtype, device, seed):
@@ -299,8 +418,8 @@ def compare_cpu(data, res):
     k = 256
     sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
                    data)
-    cres = CompiledIPM(Settings(), 16, 8, dtype=torch.float64,
-                       tol=1e-8).solve_batch_compact(sub)
+    cres = CompiledIPM(Settings(), 16, 8, dtype=torch.float64, tol=1e-8,
+                       device="cpu").solve_batch_compact(sub)
     f_cpu = cres.objective
     f_gpu = res.objective[:k].cpu().double()
     both = cres.converged & res.converged[:k].cpu()
@@ -348,9 +467,15 @@ def time_kernels(dev):
             "b_to_soa": time_cuda(lambda: b.t().contiguous(), 50),
             "K2_wrapper": time_cuda(lambda: cuda_ldlt.ldlt_auto(K), 50),
         }
+        if B == B_SLICE:
+            t["K3_library"] = time_library(
+                f"torch.linalg.ldl_solve (K3's function) n={N_AUG} B={B} "
+                f"float32", ldl_solve_call(L0, D0, b),
+                solve_ldlt(L0, D0, b), 1e-4, 1)
         out[B] = t
         print(f"timing B={B} n={N_AUG} float32 (ms per call, CUDA events): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
+                          if v is not None))
     return out
 
 
@@ -371,12 +496,14 @@ def print_build(what, lib, cached, seconds):
 
 
 def build_kernels():
-    """Steps 3 and 9: build ldlt.cu and K1 with two nvcc processes started
-    together; report each build's time and ptxas' report."""
+    """Steps 3 and 9: build ldlt.cu, cr.cu and K1 with three nvcc
+    processes started together; report each build's time and ptxas'
+    report."""
     import torch
-    from ipmzoo_tpu_torch.ops import _build, cuda_fused, cuda_ldlt
+    from ipmzoo_tpu_torch.ops import _build, cuda_cr, cuda_fused, cuda_ldlt
     src = fused_solver("cpu", torch.float32).kernel_source()
     libs = {"ldlt": _build.library_path("ldlt"),
+            "cr": _build.library_path("cr"),
             "fused": _build.generated_library_path("fused_ipm", src)}
     cached = {k: p.exists() for k, p in libs.items()}
 
@@ -385,12 +512,14 @@ def build_kernels():
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         jobs = {"ldlt": pool.submit(timed, cuda_ldlt._lib),
+                "cr": pool.submit(timed, cuda_cr._lib),
                 "fused": pool.submit(timed,
                                      lambda: cuda_fused.library(src))}
         seconds = {k: j.result() for k, j in jobs.items()}
     print_build(SOURCE, libs["ldlt"], cached["ldlt"], seconds["ldlt"])
+    print_build(CR_SOURCE, libs["cr"], cached["cr"], seconds["cr"])
     print(f"build: K1 source generated for Settings(), n=16, m_ineq=8: "
           f"{len(src.splitlines())} lines")
     print_build("K1 (generated fused_ipm)", libs["fused"], cached["fused"],
@@ -551,7 +680,7 @@ def compare_cpu_fused(data, out):
     sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
                    data)
     cpu = FusedBatchedIPM(Settings(), 16, 8, dtype=torch.float64, tol=1e-8,
-                          max_iter=30).solve_fused_compact(sub)
+                          max_iter=30, device="cpu").solve_fused_compact(sub)
     f_cpu = objective(sub, cpu["x"])
     f_gpu = objective(sub, out["x"][:k])
     both = cpu["converged"] & out["converged"][:k].cpu()
@@ -568,7 +697,12 @@ def compare_cpu_fused(data, out):
 
 def time_fused(dev):
     """Step 13: K1 alone against its plain version, one cold
-    solve_fused(max_iter=14), float32, on SoA inputs made once."""
+    solve_fused(max_iter=14), float32, on SoA inputs made once.
+
+    K1's bound counts its inputs and outputs once, and for each
+    iteration this run's instances take: the LDL^T factor of the
+    augmented system (N^3/3 multiply-adds, N = n + m), two solves (N^2
+    each) and four evaluations of Q x, A x and A^T y."""
     import torch
     from ipmzoo_tpu_torch.models.convert import make_batch
     from ipmzoo_tpu_torch.ops import cuda_fused
@@ -584,6 +718,16 @@ def time_fused(dev):
                  src, soa, None, 16, total, 14, 0, params), 10),
              "K1_plain": time_cuda(lambda: solver._fused_plain(
                  soa, None, 14, 0), 2)}
+        outs = cuda_fused.fused_soa(src, soa, None, 16, total, 14, 0, params)
+        its = float(outs[2][0].sum())
+        n, m = 16, 8
+        per_it = 2 * N_AUG ** 3 / 3 + 4 * N_AUG ** 2 + \
+            4 * (2 * n * n + 4 * m * n)
+        t["bound"] = bound(sum(a.numel() for a in soa) +
+                           sum(a.numel() for a in outs), its * per_it,
+                           torch.float32)
+        print(f"K1 bound B={B}: {int(its)} instance-iterations, "
+              f"{t['bound'][0]:.6f} ms by {t['bound'][1]}")
         out[B] = t
         print(f"timing K1 cold solve_fused(max_iter=14) B={B} float32 "
               f"(ms per call, CUDA events): K1 {t['K1']:.4f}, plain "
@@ -675,7 +819,7 @@ def compare_cpu_schur(data, res):
     from ipmzoo_tpu_torch.parallel import SchurIPM
 
     cpu = SchurIPM(SCHUR_N, SCHUR_MC, dtype=torch.float64, tol=1e-8,
-                   refine=2, max_iter=60).solve_batch(
+                   refine=2, max_iter=60, device="cpu").solve_batch(
                        data.to(device="cpu", dtype=torch.float64))
     f_cpu = cpu.objective
     f_gpu = res.objective.cpu().double()
@@ -751,11 +895,307 @@ def check_schur_kernels(dev, data):
                                                                R_t), 20),
             "K4_plain": time_cuda(lambda: solve_ldlt_matrix(L0, D0, R), 3),
         }
+        if dtype == torch.float64:
+            t["K4_library"] = time_library(
+                f"torch.linalg.ldl_solve (K4's function) n={n} k={k} B={B} "
+                f"{name}", ldl_solve_call(L0, D0, R), X0, 1e-10, 2)
         out[name] = t
         print(f"timing schur shape n={n} k={k} B={B} {name} (ms per call, "
               f"CUDA events): " + ", ".join(f"{a} {v:.4f}"
-                                            for a, v in t.items()))
+                                            for a, v in t.items()
+                                            if v is not None))
     return out
+
+
+def spd_block_tridiag(B, N, b, dtype, device, seed):
+    """B well-conditioned SPD block-tridiagonal systems: diagonal blocks
+    M M^T / b + 4 I, sub-diagonal blocks of norm about 0.6."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, N, b, b))
+    D = np.einsum("anij,ankj->anik", M, M) / b + 4.0 * np.eye(b)
+    E = rng.normal(size=(B, N - 1, b, b)) * (0.3 / np.sqrt(b))
+    return (torch.tensor(D).to(dtype).to(device),
+            torch.tensor(E).to(dtype).to(device))
+
+
+def block_tridiag_dense(D, E):
+    """The dense matrix of one block-tridiagonal system."""
+    import torch
+    N, b = D.shape[0], D.shape[-1]
+    K = torch.zeros((N * b, N * b), dtype=D.dtype, device=D.device)
+    for i in range(N):
+        K[i * b:(i + 1) * b, i * b:(i + 1) * b] = D[i]
+    for i in range(N - 1):
+        K[(i + 1) * b:(i + 2) * b, i * b:(i + 1) * b] = E[i]
+        K[i * b:(i + 1) * b, (i + 1) * b:(i + 2) * b] = E[i].T
+    return K
+
+
+def hold_cr(what, D, E, r, errs=None):
+    """K6 and K7 against their plain versions on (D, E, r): the factors,
+    K7 alone on the plain factors, and K6 + K7 chained.  float64 within a
+    relative difference of 1e-10 everywhere; float32 within 5e-4 absolute
+    on the solutions.  Returns (plain factors, plain solution)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    from ipmzoo_tpu_torch.ops.cr import cr_factor_plain, cr_solve_plain
+
+    name = str(D.dtype).replace("torch.", "")
+    f0 = cr_factor_plain(D, E)
+    x0 = cr_solve_plain(f0, r)
+    f = cuda_cr.cr_factor_kernel(D, E)
+    x_alone = cuda_cr.cr_solve_kernel(f0, r)
+    x_chain = cuda_cr.cr_solve_kernel(f, r)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(x0).all()), f"{what}: plain solution not "
+          f"finite")
+    rf = max(rel_diff(a, a0) for a, a0 in zip(f, f0))
+    ra, rc = rel_diff(x_alone, x0), rel_diff(x_chain, x0)
+    aa = (x_alone - x0).abs().max().item()
+    ac = (x_chain - x0).abs().max().item()
+    af = max((a - a0).abs().max().item() for a, a0 in zip(f, f0))
+    print(f"kernels {what} {name}: K6 factors rel diff {rf:.3e} (abs "
+          f"{af:.3e}), K7 on plain factors rel diff x {ra:.3e} (abs "
+          f"{aa:.3e}), K6+K7 rel diff x {rc:.3e} (abs {ac:.3e})")
+    if D.dtype == torch.float64:
+        check(max(rf, ra, rc) <= 1e-10, f"K6/K7 disagree with their plain "
+              f"versions in float64 ({what}): {max(rf, ra, rc):.3e} > 1e-10")
+    else:
+        check(max(aa, ac) <= 5e-4, f"K6/K7 disagree with their plain "
+              f"versions in float32 ({what}): {max(aa, ac):.3e} > 5e-4")
+        check(rf <= 1e-4, f"K6's float32 factors differ from the plain "
+              f"version's by {rf:.3e} ({what})")
+    if errs is not None:
+        errs["cr_factor"], errs["cr_solve"] = af, aa
+    return f0, x0
+
+
+def check_cr(dev):
+    """Step 18: K6/K7 against their plain versions on the card."""
+    import torch
+
+    for dtype in (torch.float32, torch.float64):
+        for B, N, b, k in CR_SHAPES:
+            D, E = spd_block_tridiag(B, N, b, dtype, dev, seed=N + b + k)
+            r = torch.randn((B, N, b, k), dtype=dtype, device=dev,
+                            generator=torch.Generator(dev).manual_seed(k))
+            if B == 1:      # without the batch axis too
+                D, E, r = D[0], E[0], r[0]
+            _, x0 = hold_cr(f"B={B} N={N} b={b} k={k}", D, E, r)
+            if B == 1 and N * b <= 512:
+                from ipmzoo_tpu_torch.ops import cuda_cr
+                xd = torch.linalg.solve(block_tridiag_dense(D, E),
+                                        r.reshape(N * b, k))
+                x = cuda_cr.cr_solve_auto(cuda_cr.cr_factor_auto(D, E), r)
+                rd = rel_diff(x.reshape(N * b, k), xd)
+                tol = 1e-10 if dtype == torch.float64 else 1e-4
+                print(f"kernels N={N} b={b} k={k} "
+                      f"{str(dtype).replace('torch.', '')}: K6+K7 against "
+                      f"torch.linalg.solve of the dense system, rel diff "
+                      f"{rd:.3e} (limit {tol:g})")
+                check(rd <= tol, f"K6+K7 disagree with the dense solve: "
+                      f"{rd:.3e} > {tol:g}")
+
+
+def arrow_problem():
+    """bench.py's bench_arrow QP at its defaults (numpy seed 0): n=4096,
+    half-bandwidth 16, tip 8, float32, bounds +-1."""
+    import numpy as np
+    n, b, t = ARROW_N, ARROW_BW, ARROW_TIP
+    rng = np.random.default_rng(0)
+    nb = n - t
+    Q = np.zeros((n, n), np.float32)
+    for i in range(nb):
+        lo, hi = max(0, i - b), min(nb, i + b + 1)
+        Q[i, lo:hi] = rng.normal(size=hi - lo) * 0.1
+    Q = (Q + Q.T) / 2
+    strip = rng.normal(size=(t, n)).astype(np.float32) * 0.1
+    Q[nb:, :] = strip
+    Q[:, nb:] = strip.T
+    Q[nb:, nb:] = (strip[:, nb:] + strip[:, nb:].T) / 2
+    Q += np.eye(n, dtype=np.float32) * (2 * b + t)
+    c = rng.normal(size=n).astype(np.float32)
+    l = np.full(n, -1.0, np.float32)
+    u = np.full(n, 1.0, np.float32)
+    return Q, c, l, u
+
+
+def run_arrow(what, solve, solver, cpu_solve, n_inst):
+    """Steps 19 and 20: one line of the banded+arrow slice.  ``solve``
+    runs it on the card, ``cpu_solve`` the port on the CPU in float64."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr
+
+    cuda_cr.reset_launch_counts()
+    solver.host_syncs = 0
+    res = solve()
+    torch.cuda.synchronize()
+    launches = dict(cuda_cr.launches)
+    f64 = dict(cuda_cr.f64_launches)
+    syncs = solver.host_syncs
+
+    x = res.x.reshape(n_inst, -1)
+    check(tuple(x.shape) == (n_inst, ARROW_N), f"{what}: x shape "
+          f"{tuple(res.x.shape)}")
+    check(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+    check(bool(((x >= -1.0) & (x <= 1.0)).all()), f"{what}: x leaves its "
+          f"bounds")
+    its = res.iterations.reshape(n_inst)
+    conv = res.converged.reshape(n_inst)
+    steps = int(its.max())
+    print(f"{what}: n={ARROW_N} bandwidth={ARROW_BW} tip={ARROW_TIP} "
+          f"float32 tol=1e-5, N={solver.N} blocks of {solver.b}, "
+          f"t={solver.t}, method {solver.method}: converged "
+          f"{int(conv.sum())}/{n_inst}, diverged "
+          f"{int(res.diverged.sum())}, iterations {its.tolist()}")
+    print(f"{what}: launches K6 {launches['cr_factor']} K7 "
+          f"{launches['cr_solve']} (float64: {f64['cr_factor']} / "
+          f"{f64['cr_solve']}); host syncs {syncs}")
+    check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
+    check(launches["cr_factor"] == steps and
+          launches["cr_solve"] == 2 * steps,
+          f"{what}: expected one K6 and two K7 launches for each of the "
+          f"{steps} iterations, got {launches}")
+    check(f64["cr_factor"] == 0 and f64["cr_solve"] == 0,
+          f"{what}: float64 launches in a float32 solve")
+
+    solve()
+    med = time_solves(solve, 5)
+    print(f"{what}: wall ms per solve (CUDA events, 5 runs) median "
+          f"{med:.3f}; ms per iteration {med / steps:.3f}; useful "
+          f"iterations/s {int(its.sum()) / (med / 1e3):.1f}")
+
+    cres = cpu_solve()
+    f_cpu = cres.objective.reshape(n_inst)
+    f_gpu = res.objective.reshape(n_inst).cpu().double()
+    rel = (f_gpu - f_cpu).abs() / (1.0 + f_cpu.abs())
+    print(f"{what} cpu f64 check (method='cr'): converged "
+          f"{int(cres.converged.sum())}/{n_inst} on the CPU in "
+          f"{cres.iterations.reshape(n_inst).tolist()} iterations; largest "
+          f"|f_gpu - f_cpu| / (1 + |f_cpu|) = {rel.max().item():.3e} "
+          f"(limit 1e-4)")
+    check(bool(cres.converged.all()), f"{what}: the CPU f64 port did not "
+          f"converge")
+    check(bool((rel <= 1e-4).all()), f"{what}: objectives disagree with "
+          f"the CPU f64 port")
+    return launches
+
+
+def arrow_slice_data():
+    """The slice's data on the port's default device, the card: one
+    instance (bench_arrow's QP), its structure, and the batch of
+    ARROW_BATCH instances of that structure (the same Q, c drawn from
+    numpy seeds 1..ARROW_BATCH)."""
+    import numpy as np
+    import torch
+    from ipmzoo_tpu_torch import ArrowQPData
+
+    Q, c, l, u = arrow_problem()
+    t0 = time.perf_counter()
+    data, st, blk = ArrowQPData.from_dense(Q, c, l, u, dtype=torch.float32)
+    print(f"arrow slice: detected bandwidth {st.bandwidth}, tip {st.tip}, "
+          f"block {blk}, N={data.D.shape[0]} on {data.D.device} in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    check((st.bandwidth, st.tip, blk) == (ARROW_BW, ARROW_TIP, 16),
+          f"detector found {st.bandwidth}, {st.tip}")
+    check(data.D.device.type == "cuda", "the default device is not the card")
+    datas = []
+    for seed in range(1, ARROW_BATCH + 1):
+        ci = np.random.default_rng(seed).normal(size=ARROW_N).astype(
+            np.float32)
+        datas.append(ArrowQPData.from_dense(
+            Q, ci, l, u, structure=st, dtype=torch.float32)[0])
+    return data, st, ArrowQPData.stack(datas)
+
+
+def arrow_solver(data, st):
+    """bench_arrow's solver, on the data's device with the default
+    method."""
+    import torch
+    from ipmzoo_tpu_torch import ArrowIPM
+    solver = ArrowIPM.for_data(data, structure=st, dtype=torch.float32,
+                               tol=1e-5)
+    check(solver.device.type == "cuda" and solver.method == "auto",
+          "ArrowIPM did not take the card and the default method")
+    return solver
+
+
+def run_arrow_slice():
+    """Steps 19 and 20."""
+    import torch
+    from ipmzoo_tpu_torch import ArrowIPM
+
+    data, st, batch = arrow_slice_data()
+    solver = arrow_solver(data, st)
+
+    def cpu_twin(d):
+        d64 = d.to(device="cpu", dtype=torch.float64)
+        return ArrowIPM.for_data(d64, structure=st, tol=1e-8, method="cr"), \
+            d64
+
+    cpu1, d1 = cpu_twin(data)
+    single = run_arrow("arrow single", lambda: solver.solve(data), solver,
+                       lambda: cpu1.solve(d1), 1)
+    cpu32, d32 = cpu_twin(batch)
+    batched = run_arrow(f"arrow batch of {ARROW_BATCH}",
+                        lambda: solver.solve_batch(batch), solver,
+                        lambda: cpu32.solve_batch(d32), ARROW_BATCH)
+    return solver, data, batch, single, batched
+
+
+def time_cr(solver, data, batch):
+    """Step 21: K6 and K7 against their plain versions and against the
+    per-level library composition, on the slice's condensed matrices at
+    the initial iterate."""
+    import torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops import banded, cuda_cr
+    from ipmzoo_tpu_torch.ops.cr import cr_factor_plain, cr_solve_plain
+
+    out, errs = {}, {}
+    one = tree_map(lambda a: a[None], data)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        for d in (one, batch):
+            B = d.c.shape[0]
+            d = d.to(dtype=dtype)
+            solver_t = type(solver).for_data(d, dtype=dtype)
+            st = solver_t.init_state(d)
+            D, _ = solver_t._condensed(d, st.vars)
+            E = d.E
+            rhs = -st.rx[:, :solver.N * solver.b].reshape(
+                B, solver.N, solver.b, 1)
+            r9 = torch.cat([banded._strip_blocks(d.U, solver.N, solver.b),
+                            rhs], dim=-1).contiguous()
+            r1 = rhs.contiguous()
+            keep = errs if (dtype == torch.float32 and B == 1) else None
+            f0, _ = hold_cr(f"arrow slice B={B} N={solver.N} b={solver.b} "
+                            f"k={r9.shape[-1]}", D, E, r9, keep)
+            hold_cr(f"arrow slice B={B} N={solver.N} b={solver.b} k=1",
+                    D, E, r1)
+            f = cuda_cr.cr_factor_kernel(D, E)
+            fl = banded.cr_factor(D, E)
+            t = {
+                "K6": time_cuda(lambda: cuda_cr.cr_factor_kernel(D, E), 20),
+                "K6_plain": time_cuda(lambda: cr_factor_plain(D, E), 2),
+                "K6_cr": time_cuda(lambda: banded.cr_factor(D, E), 5),
+                "K7_k9": time_cuda(lambda: cuda_cr.cr_solve_kernel(f, r9),
+                                   20),
+                "K7_k9_plain": time_cuda(lambda: cr_solve_plain(f0, r9), 2),
+                "K7_k9_cr": time_cuda(lambda: banded.cr_solve(fl, r9), 5),
+                "K7_k1": time_cuda(lambda: cuda_cr.cr_solve_kernel(f, r1),
+                                   20),
+                "K7_k1_plain": time_cuda(lambda: cr_solve_plain(f0, r1), 2),
+                "K7_k1_cr": time_cuda(lambda: banded.cr_solve(fl, r1), 5),
+            }
+            out[(name, B)] = t
+            print(f"timing arrow shape N={solver.N} b={solver.b} B={B} "
+                  f"{name} (ms per call, CUDA events; _cr is the per-level "
+                  f"library composition): "
+                  + ", ".join(f"{a} {v:.4f}" for a, v in t.items()))
+    return out, errs
 
 
 def main():
@@ -791,35 +1231,57 @@ def main():
     run_schur(dev, s_data, 1e-5, 3)
     compare_cpu_schur(s_data, s_res)
     s_times = check_schur_kernels(dev, s_data)["float64"]
+    check_cr(dev)
+    a_solver, a_data, a_batch, a_launches, ab_launches = run_arrow_slice()
+    cr_times, cr_errs = time_cr(a_solver, a_data, a_batch)
+    errs.update(cr_errs)
 
-    loaded = [m for m in sys.modules if m == "jax" or m.startswith(
-        ("jax.", "ipmzoo_tpu.models", "ipmzoo_tpu.ops", "ipmzoo_tpu.utils",
-         "ipmzoo_tpu.parallel"))]
+    loaded = [m for m in sys.modules
+              if m in ("jax", "jaxlib", "ipmzoo_tpu")
+              or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
     check(not loaded, f"the port loaded JAX code: {loaded}")
 
+    def entry(name, source, key, n_launches, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": REPLACES[key], "launches": n_launches,
+                "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     t = times[B_SLICE]
+    b24 = ldlt_bounds(B_SLICE, N_AUG, 1, torch.float32)
+    b64 = ldlt_bounds(SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
+                      torch.float64)
+    k1 = k1_times[B_SLICE]
+    ct = cr_times[("float32", 1)]
+    cb = cr_bounds(1, a_solver.N, a_solver.b, a_solver.t + 1, torch.float32)
+    shape = f"float32, N={a_solver.N}, b={a_solver.b}"
     kernels = [
-        {"name": "K2 batched LDL^T factor", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["ldlt"],
-         "launches": launches["ldlt"], "max_abs_err": errs["ldlt"],
-         "ms": t["K2"], "plain_ms": t["K2_plain"]},
-        {"name": "K3 batched LDL^T solve", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["solve_ldlt"],
-         "launches": launches["solve_ldlt"],
-         "max_abs_err": errs["solve_ldlt"],
-         "ms": t["K3"], "plain_ms": t["K3_plain"]},
-        {"name": "K1 fused whole-solve IPM (generated)", "route": "cuda",
-         "source": K1_SOURCE, "replaces": REPLACES["fused"],
-         "launches": f_launches["fused"], "max_abs_err": errs["fused"],
-         "ms": k1_times[B_SLICE]["K1"],
-         "plain_ms": k1_times[B_SLICE]["K1_plain"]},
-        {"name": "K4 batched multi-rhs LDL^T solve (float64, n=64, k=16, "
-                 "B=512)", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["solve_ldlt_matrix"],
-         "launches": s_launches["solve_ldlt_matrix"],
-         "max_abs_err": errs["solve_ldlt_matrix"],
-         "ms": s_times["K4"], "plain_ms": s_times["K4_plain"]},
+        entry(f"K2 batched LDL^T factor (float32, n={N_AUG}, B={B_SLICE})",
+              SOURCE, "ldlt", launches["ldlt"], t["K2"], t["K2_plain"],
+              b24["K2"], None),
+        entry(f"K3 batched LDL^T solve (float32, n={N_AUG}, B={B_SLICE})",
+              SOURCE, "solve_ldlt", launches["solve_ldlt"], t["K3"],
+              t["K3_plain"], b24["K3"], t["K3_library"]),
+        entry(f"K1 fused whole-solve IPM (generated; float32, cold "
+              f"max_iter=14, B={B_SLICE})", K1_SOURCE, "fused",
+              f_launches["fused"], k1["K1"], k1["K1_plain"], k1["bound"],
+              None),
+        entry("K4 batched multi-rhs LDL^T solve (float64, n=64, k=16, "
+              "B=512)", SOURCE, "solve_ldlt_matrix",
+              s_launches["solve_ldlt_matrix"], s_times["K4"],
+              s_times["K4_plain"], b64["K4"], s_times["K4_library"]),
+        entry(f"K6 whole-reduction cyclic-reduction factor ({shape}, B=1)",
+              CR_SOURCE, "cr_factor", a_launches["cr_factor"], ct["K6"],
+              ct["K6_plain"], cb["K6"], None),
+        entry(f"K7 cyclic-reduction multi-rhs solve ({shape}, "
+              f"k={a_solver.t + 1}, B=1)", CR_SOURCE, "cr_solve",
+              a_launches["cr_solve"], ct["K7_k9"], ct["K7_k9_plain"],
+              cb["K7"], None),
     ]
+    for k in kernels:
+        print(f"bound: {k['name']}: {k['bound_ms']:.6f} ms by "
+              f"{k['bound_by']}; kernel {k['ms']:.4f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,32 +1,40 @@
 """ipmzoo_tpu_torch — the PyTorch/CUDA port of :mod:`ipmzoo_tpu`.
 
-It reuses the device-free layers of the JAX package
-(:mod:`ipmzoo_tpu.symbolic`, :mod:`ipmzoo_tpu.formulations`) and never
-imports jax.  Module names mirror the JAX package's:
+It imports torch, never jax, and nothing of the JAX package: the
+device-free layers it needs are its own copies.  Every entry point runs on
+the CUDA device unless the caller passes ``device="cpu"``.  Module names
+mirror the JAX package's:
 
+* :mod:`ipmzoo_tpu_torch.symbolic`, :mod:`ipmzoo_tpu_torch.formulations`
+  — the expression engine and the formulation lattice (Settings -> Newton
+  system -> reductions), pure Python.
 * :mod:`ipmzoo_tpu_torch.models` — ``CompiledIPM`` (batched Mehrotra
   solver, dense LDL^T mode), ``QPData``, the compaction engine, and
   ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
-  from the symbolic derivation).
+  from the symbolic derivation), and ``ArrowIPM`` (banded+arrow box QPs
+  over the cyclic-reduction kernels K6/K7).
 * :mod:`ipmzoo_tpu_torch.parallel` — ``SchurIPM``, the block-separable
   coupled-QP engine (Schur complements over K2/K3/K4), on one device.
 * :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve and
   multi-rhs solve: CUDA kernels (``csrc/ldlt.cu``) with plain torch
-  versions for CPU tensors; K1's build and launch (``cuda_fused``).
-* :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy.
+  versions for CPU tensors; K1's build and launch (``cuda_fused``); the
+  banded+arrow factorisation (``banded``) with whole-reduction block
+  cyclic reduction, factor and solve (``csrc/cr.cu``, ``cuda_cr``, plain
+  versions in ``cr``).
+* :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy and the
+  default device.
 """
 
 __version__ = "0.1.0"
 
-from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,  # noqa: E402
-                                     InequalityHandling, Settings,
-                                     VariableNames)
+from .formulations import (Bounds, EqualityHandling,  # noqa: E402
+                           InequalityHandling, Settings, VariableNames)
 
 
 def __getattr__(name):
     # torch-heavy imports stay lazy
     if name in ("CompiledIPM", "FusedBatchedIPM", "QPData", "SolveResult",
-                "IPMState"):
+                "IPMState", "ArrowIPM", "ArrowQPData", "ArrowSolveResult"):
         from . import models
         return getattr(models, name)
     raise AttributeError(name)

@@ -29,7 +29,7 @@ from typing import Callable, Dict, Union
 
 import torch
 
-from ipmzoo_tpu.symbolic.expr import Expr, Kind
+from ..symbolic.expr import Expr, Kind
 
 Value = Union[torch.Tensor, float]
 

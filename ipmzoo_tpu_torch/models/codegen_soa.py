@@ -41,7 +41,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ipmzoo_tpu.symbolic.expr import Expr, Kind
+from ..symbolic.expr import Expr, Kind
 
 #: what the safe reciprocal returns for 0, in every working dtype
 BIG = float(np.sqrt(np.finfo(np.float32).max))

@@ -9,8 +9,16 @@ engine's results and warm states are dicts already (``x``,
 ``variables``, ``iterations``, ``residual``, ``gap``, ``mu``,
 ``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.
 ``block_qp_from_numpy`` does the same for the coupled-QP data of
-``SchurIPM``.  Tests use them to pass the same data and state between
-the reference and the port.
+``SchurIPM``, ``arrow_qp_from_numpy`` / ``arrow_state_from_numpy`` for the
+data and state of ``ArrowIPM``.  Tests use them to pass the same data and
+state between the reference and the port.  ``device=None`` is the CUDA
+device, as for every entry point of the port; the tests pass
+``device="cpu"``.
+
+``settings_from_reference`` rebuilds the port's ``Settings`` from the
+JAX package's (or any object with the same fields): the two packages'
+enums are different classes and never compare equal, so a solver of the
+port refuses a foreign ``Settings`` rather than mis-reading it.
 """
 
 from __future__ import annotations
@@ -20,6 +28,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..formulations import (Bounds, EqualityHandling, InequalityHandling,
+                            Settings)
+from ..utils.device import resolve_device
+from .arrow import ArrowQPData, ArrowState
 from .data import QPData
 from .state import IPMState, SolveResult
 
@@ -28,15 +40,34 @@ _QP_FIELDS = tuple(f.name for f in dataclasses.fields(QPData))
 
 def _t(a, dtype, device) -> torch.Tensor:
     # copy and cast on the host (numpy's rounding), then move
-    return torch.tensor(np.asarray(a)).to(dtype).to(device)
+    return torch.tensor(np.asarray(a)).to(dtype).to(resolve_device(device))
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+_SETTINGS_ENUMS = {"inequalities": Bounds, "variable_bounds": Bounds,
+                   "equality_handling": EqualityHandling,
+                   "inequality_handling": InequalityHandling}
+
+
+def settings_from_reference(src) -> Settings:
+    """The port's :class:`Settings` with the field values of ``src``, an
+    object with the same field names whose enum members are matched by
+    *name* (duck-typed: the JAX package's ``Settings``, the port's own, or
+    a stand-in).  Raises ``AttributeError`` on a missing field and
+    ``KeyError`` on an enum member the port does not have."""
+    kw = {}
+    for f in dataclasses.fields(Settings):
+        v = getattr(src, f.name)
+        enum_cls = _SETTINGS_ENUMS.get(f.name)
+        kw[f.name] = bool(v) if enum_cls is None else enum_cls[v.name]
+    return Settings(**kw)
+
+
 def qpdata_from_numpy(src, *, dtype: torch.dtype = torch.float64,
-                      device="cpu") -> QPData:
+                      device=None) -> QPData:
     return QPData(**{k: _t(getattr(src, k), dtype, device)
                      for k in _QP_FIELDS})
 
@@ -46,7 +77,7 @@ def qpdata_to_numpy(data: QPData) -> dict:
 
 
 def state_from_numpy(src, *, dtype: torch.dtype = torch.float64,
-                     device="cpu") -> IPMState:
+                     device=None) -> IPMState:
     return IPMState(
         vars=tuple(_t(v, dtype, device) for v in src.vars),
         mu=_t(src.mu, dtype, device),
@@ -62,7 +93,7 @@ def state_to_numpy(state: IPMState) -> dict:
 
 
 def result_from_numpy(src, *, dtype: torch.dtype = torch.float64,
-                      device="cpu") -> SolveResult:
+                      device=None) -> SolveResult:
     return SolveResult(
         x=_t(src.x, dtype, device),
         variables={k: _t(v, dtype, device)
@@ -84,7 +115,7 @@ def result_to_numpy(res: SolveResult) -> dict:
 
 
 def fused_from_numpy(src, *, dtype: torch.dtype = torch.float64,
-                     device="cpu") -> dict:
+                     device=None) -> dict:
     """A fused-engine result or warm state (the reference's dict, or any
     subset of its keys) as tensors; ``converged`` stays boolean."""
     return {k: _t(v, torch.bool if k == "converged" else dtype, device)
@@ -96,7 +127,7 @@ def fused_to_numpy(out: dict) -> dict:
 
 
 def block_qp_from_numpy(src, *, dtype: torch.dtype = torch.float64,
-                        device="cpu"):
+                        device=None):
     """The port's ``BlockQPData`` from any object with its fields (the
     reference's ``BlockQPData`` included), with or without the instance
     axis."""
@@ -105,14 +136,37 @@ def block_qp_from_numpy(src, *, dtype: torch.dtype = torch.float64,
                           for f in dataclasses.fields(BlockQPData)})
 
 
+def arrow_qp_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                        device=None) -> ArrowQPData:
+    """The port's ``ArrowQPData`` from any object with its fields (the
+    reference's ``ArrowQPData`` included), with or without the batch
+    axis."""
+    return ArrowQPData(**{f.name: _t(getattr(src, f.name), dtype, device)
+                          for f in dataclasses.fields(ArrowQPData)})
+
+
+def arrow_state_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                           device=None) -> ArrowState:
+    """The port's ``ArrowState`` from the reference's (or any object with
+    its fields); ``iteration`` stays int32."""
+    return ArrowState(
+        vars=tuple(_t(v, dtype, device) for v in src.vars),
+        mu=_t(src.mu, dtype, device),
+        iteration=_t(src.iteration, torch.int32, device),
+        residual=_t(src.residual, dtype, device),
+        gap=_t(src.gap, dtype, device),
+        rx=_t(src.rx, dtype, device))
+
+
 def make_batch(batch: int, n: int, m: int, dtype: torch.dtype,
-               device="cpu", seed: int = 0) -> QPData:
+               device=None, seed: int = 0) -> QPData:
     """The benchmark workload: ``batch`` random strictly convex QPs with
     ``m`` two-sided inequalities and the box -5 <= x <= 5.
 
     Byte-identical to the reference benchmark's ``make_batch`` for
     ``seed=0`` (same generator, same call order, ``M`` cast to float32
     before the product)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     M = rng.normal(size=(batch, n, n)).astype(np.float32)
     Q = np.einsum("bij,bkj->bik", M, M) / n + np.eye(n, dtype=np.float32)

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class QPData:
@@ -58,8 +60,11 @@ class QPData:
     def make(Q, c, A_ineq=None, l_A_ineq=None, u_A_ineq=None, A_eq=None,
              b_eq=None, l_x=None, u_x=None, *,
              dtype: torch.dtype = torch.float64,
-             device="cpu") -> "QPData":
-        """Build QPData with absent constraint groups as size-0 tensors."""
+             device=None) -> "QPData":
+        """Build QPData with absent constraint groups as size-0 tensors,
+        on ``device`` (default: the CUDA device)."""
+        device = resolve_device(device)
+
         def arr(v):
             return torch.as_tensor(v, dtype=dtype, device=device)
 

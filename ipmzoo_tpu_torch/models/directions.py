@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ipmzoo_tpu.formulations import delta_variable
-from ipmzoo_tpu.symbolic import expr as E
+from ..formulations import delta_variable
+from ..symbolic import expr as E
 
 from . import codegen as cg
 

@@ -29,8 +29,8 @@ from typing import Optional
 
 import torch
 
-from ipmzoo_tpu.formulations import Settings, delta_variable
-from ipmzoo_tpu.symbolic import expr as E
+from ..formulations import Settings, delta_variable
+from ..symbolic import expr as E
 
 from ..ops import cuda_fused
 from . import codegen_soa as soa

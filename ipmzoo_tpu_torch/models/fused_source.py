@@ -29,7 +29,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import List
 
-from ipmzoo_tpu.symbolic import expr as E
+from ..symbolic import expr as E
 
 from . import codegen_soa as soa
 from .codegen_soa import CppSoA, CScalar

@@ -2,7 +2,7 @@
 
 Counterpart of :class:`ipmzoo_tpu.models.ipm.CompiledIPM`.  The
 constructor binds a symbolic formulation (Settings -> Newton system ->
-augmented reduction, from :mod:`ipmzoo_tpu.formulations`) to concrete
+augmented reduction, from :mod:`ipmzoo_tpu_torch.formulations`) to concrete
 sizes; each iteration then evaluates the derived system eagerly on a
 batch of QP instances:
 
@@ -30,12 +30,11 @@ from typing import Optional
 
 import torch
 
-from ipmzoo_tpu.formulations import (Settings, VariableNames,
-                                     augmented_system, build_symbols,
-                                     delta_variable, newton_system,
-                                     shorthand_rhs)
-from ipmzoo_tpu.symbolic import expr as E
-
+from ..formulations import (Settings, VariableNames, augmented_system,
+                            build_symbols, delta_variable, newton_system,
+                            shorthand_rhs)
+from ..symbolic import expr as E
+from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
 from . import codegen as cg
 from .compact import CompactScheduleMixin, _where
@@ -55,13 +54,16 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                   CompactScheduleMixin):
     """A formulation + problem-size specialised batched IPM solver.
 
-    ``device`` is where the solver's tensors live; data on any other
-    device is rejected.  ``dtype`` is the working precision (default
-    float64, as the reference)."""
+    ``device`` is where the solver's tensors live (default: the CUDA
+    device; without one that raises, pass ``device="cpu"`` for the CPU);
+    data on any other device is rejected.  ``settings`` must be the
+    port's own :class:`Settings` (``convert.settings_from_reference``
+    rebuilds one from the JAX package's).  ``dtype`` is the working
+    precision (default float64, as the reference)."""
 
     def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
                  m_eq: int = 0, *, names: VariableNames = VariableNames(),
-                 dtype: torch.dtype = torch.float64, device="cpu",
+                 dtype: torch.dtype = torch.float64, device=None,
                  tol: float = 1e-8, max_iter: int = 100,
                  fraction_to_boundary: float = 0.995, mu0: float = 1.0,
                  delta0: float = 1e-4, pivot_floor: float = 1e-8,
@@ -72,6 +74,12 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                  two_float: bool = False, mesh=None,
                  taylor: str = "staged"):
         apply_default_matmul_precision()
+        if not isinstance(settings, Settings):
+            raise TypeError(
+                f"settings must be ipmzoo_tpu_torch.formulations.Settings, "
+                f"not {type(settings).__module__}."
+                f"{type(settings).__qualname__}; convert another package's "
+                f"with models.convert.settings_from_reference")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
         if two_float or df_residuals or hybrid_refine:
@@ -91,7 +99,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.settings = settings
         self.n, self.m_ineq, self.m_eq = n, m_ineq, m_eq
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tol = tol
         self.max_iter = max_iter
         self.fraction_to_boundary = fraction_to_boundary

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ipmzoo_tpu.symbolic import expr as E
+from ..symbolic import expr as E
 
 from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto
 from . import codegen as cg

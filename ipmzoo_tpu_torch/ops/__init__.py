@@ -1,7 +1,9 @@
 """Device kernels of the port: batched LDL^T factor and solve (CUDA
-kernels K2/K3 with plain torch versions) and the wrapper of the fused
+kernels K2/K3/K4 with plain torch versions), the wrapper of the fused
 whole-solve kernel K1 (:mod:`.cuda_fused`; its plain version is
-``models/fused.py``)."""
+``models/fused.py``), and the banded+arrow factorisation (:mod:`.banded`)
+over whole-reduction block cyclic reduction (CUDA kernels K6/K7 in
+:mod:`.cuda_cr`, plain versions in :mod:`.cr`)."""
 
 from .cuda_ldlt import (launches, ldlt_auto, reset_launch_counts,
                         solve_ldlt_auto)

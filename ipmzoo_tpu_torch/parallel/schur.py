@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 
 from ..models.state import tree_map
+from ..utils.device import resolve_device
 from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto, solve_ldlt_matrix_auto
 from ..ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
 
@@ -102,7 +103,7 @@ class SchurIPM:
     on for float32 with tol < 1e-6, as the reference; it solves in
     float64 (see the module docstring)."""
 
-    def __init__(self, n: int, m_c: int, *, device="cpu",
+    def __init__(self, n: int, m_c: int, *, device=None,
                  dtype: torch.dtype = torch.float64, tol: float = 1e-8,
                  max_iter: int = 100, fraction_to_boundary: float = 0.995,
                  delta: float = 1e-8, pivot_floor: float = PIVOT_FLOOR,
@@ -113,7 +114,7 @@ class SchurIPM:
         if block_kernel not in ("auto", "pallas", "jnp"):
             raise ValueError(f"unknown block_kernel={block_kernel!r}")
         self.n, self.m_c = n, m_c
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.tol = tol
         if two_float == "auto":

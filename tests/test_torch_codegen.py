@@ -1,8 +1,11 @@
 """Batched evaluator of the port (ipmzoo_tpu_torch/models/codegen.py)
 against ``jax.vmap`` of the reference's (ipmzoo_tpu/models/codegen.py).
 
-Every augmented-system cell and right-hand side of two formulations is
-evaluated on the same random batch, float64, atol 1e-13: ``Settings()``
+Each side derives its systems with its own symbolic package (the
+reference's ``Settings`` reach the port through
+``settings_from_reference``).  Every augmented-system cell and right-hand
+side of two formulations is evaluated on the same random batch, float64,
+atol 1e-13: ``Settings()``
 and ``Settings()`` with ``m_ineq=0``, whose inequality groups are empty
 (B, 0) operands that broadcast as zeros.
 """
@@ -13,14 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+import ipmzoo_tpu.symbolic as ref_sym
+import ipmzoo_tpu_torch.symbolic as port_sym
 from ipmzoo_tpu.formulations import Settings
+from ipmzoo_tpu.models import CompiledIPM as RefIPM
 from ipmzoo_tpu.models import codegen as jcg
-from ipmzoo_tpu.symbolic import (diagonal_matrix, invert, matrix, negate,
-                                 product, sum_expr, symmetric_matrix,
-                                 transpose, variable)
-from ipmzoo_tpu.symbolic.expr import ZERO as _ZERO
 from ipmzoo_tpu_torch.models import CompiledIPM, QPData
 from ipmzoo_tpu_torch.models import codegen as cg
+from ipmzoo_tpu_torch.models.convert import settings_from_reference
+from ipmzoo_tpu_torch.symbolic import number, product, sum_expr, variable
 
 B = 5
 
@@ -69,7 +73,7 @@ def jax_outputs(solver, data, var_vals, mu):
         cells = [jcg.as_block(jcg.evaluate(c, env, memo), si, sj)
                  for row, si in zip(solver.aug.lhs, solver.aug_sizes)
                  for c, sj in zip(row, solver.aug_sizes)
-                 if c is not _ZERO]
+                 if c is not ref_sym.ZERO]
         for vec, definition, _ in solver.corrector:
             env[vec] = jcg.evaluate(definition, env, {})
         rhs = [jcg.as_vector(jcg.evaluate(r, env, {}), sz)
@@ -89,7 +93,7 @@ def torch_outputs(solver, data, var_vals, mu):
     cells = [cg.as_block(cg.evaluate(c, env, memo), si, sj)
              for row, si in zip(solver.aug.lhs, solver.aug_sizes)
              for c, sj in zip(row, solver.aug_sizes)
-             if c is not _ZERO]
+             if c is not port_sym.ZERO]
     for vec, definition, _ in solver.corrector:
         env[vec] = cg.evaluate(definition, env, {})
     rhs = [cg.as_vector(cg.evaluate(r, env, {}), sz)
@@ -99,9 +103,13 @@ def torch_outputs(solver, data, var_vals, mu):
 
 @pytest.mark.parametrize("m_ineq", [3, 0])
 def test_augmented_cells_and_rhs_match_reference(m_ineq):
-    solver = CompiledIPM(Settings(), n=4, m_ineq=m_ineq)
+    solver = CompiledIPM(settings_from_reference(Settings()), n=4,
+                         m_ineq=m_ineq, device="cpu")
+    ref = RefIPM(Settings(), n=4, m_ineq=m_ineq)
+    assert [str(v) for v in ref.full.variables] == \
+        [str(v) for v in solver.full.variables]
     inputs = random_inputs(solver, seed=m_ineq)
-    j_cells, j_rhs = jax_outputs(solver, *inputs)
+    j_cells, j_rhs = jax_outputs(ref, *inputs)
     t_cells, t_rhs = torch_outputs(solver, *inputs)
     assert len(t_cells) == len(j_cells) > 0
     assert len(t_rhs) == len(j_rhs) > 0
@@ -123,14 +131,34 @@ def test_safe_reciprocal_matches_reference(dtype):
     assert out[1].item() == float(np.sqrt(np.finfo(ref.dtype).max))
 
 
-x = variable("x")
-y = variable("y")
-Q = symmetric_matrix("Q")
-A = matrix("A")
+def expressions(sym):
+    """The leaves x, y, Q, A and the test expressions over them, built
+    with the symbolic package ``sym`` (each evaluator takes its own
+    package's expressions)."""
+    x, y = sym.variable("x"), sym.variable("y")
+    Q, A = sym.symmetric_matrix("Q"), sym.matrix("A")
+    product, sum_expr, diag = sym.product, sym.sum_expr, sym.diagonal_matrix
+    return (x, y, Q, A), {
+        "matvec": product([A, x]),
+        "quadratic_form": product([sym.transpose(x), Q, x]),
+        "dot": product([sym.transpose(x), y]),
+        "rowvec_times_matrix": product([sym.transpose(x), Q]),
+        "diag_times_vector": product([diag(x), y]),
+        "diag_times_diag": product([diag(x), diag(y)]),
+        "diag_plus_matrix": sum_expr([Q, diag(y)]),
+        "inverse_diag": sym.invert(diag(x)),
+        "sum_with_negate": sum_expr([x, sym.negate(y)]),
+        "matrix_product": product([sym.transpose(A), A]),
+    }
 
 
-def small_env(lib, wrap):
-    """One batch of two instances bound for the expressions below."""
+(x, y, Q, A), EXPRESSIONS = expressions(port_sym)
+REF_LEAVES, REF_EXPRESSIONS = expressions(ref_sym)
+
+
+def small_env(lib, wrap, leaves=(x, y, Q, A)):
+    """One batch of two instances bound for the expressions above."""
+    x, y, Q, A = leaves
     xs = np.array([[1.0, 2.0, 3.0], [0.5, -1.0, 2.0]])
     ys = np.array([[4.0, 5.0, 6.0], [1.0, 1.0, -2.0]])
     Qs = np.array([[[2.0, 1.0, 0.0], [1.0, 3.0, 1.0], [0.0, 1.0, 4.0]]] * 2)
@@ -139,30 +167,18 @@ def small_env(lib, wrap):
             Q: lib.matrix(wrap(Qs)), A: lib.matrix(wrap(As))}
 
 
-EXPRESSIONS = {
-    "matvec": product([A, x]),
-    "quadratic_form": product([transpose(x), Q, x]),
-    "dot": product([transpose(x), y]),
-    "rowvec_times_matrix": product([transpose(x), Q]),
-    "diag_times_vector": product([diagonal_matrix(x), y]),
-    "diag_times_diag": product([diagonal_matrix(x), diagonal_matrix(y)]),
-    "diag_plus_matrix": sum_expr([Q, diagonal_matrix(y)]),
-    "inverse_diag": invert(diagonal_matrix(x)),
-    "sum_with_negate": sum_expr([x, negate(y)]),
-    "matrix_product": product([transpose(A), A]),
-}
-
-
 @pytest.mark.parametrize("name", sorted(EXPRESSIONS))
 def test_expression_semantics_match_reference(name):
     e = EXPRESSIONS[name]
     t = cg.evaluate(e, small_env(cg, torch.from_numpy))
-    jenv = small_env(jcg, jnp.asarray)
+    jenv = small_env(jcg, jnp.asarray, REF_LEAVES)
+    ref_e = REF_EXPRESSIONS[name]
+    assert str(ref_e) == str(e)
 
     def one(vals):
         env = {k: jcg.TV(tv.tag, v) for (k, tv), v in
                zip(jenv.items(), vals)}
-        res = jcg.evaluate(e, env)
+        res = jcg.evaluate(ref_e, env)
         return res.val, res.tag
 
     ref_val = jax.vmap(lambda vals: one(vals)[0])(
@@ -193,7 +209,6 @@ def test_scalars_broadcast_per_instance():
 
 
 def test_literal_numbers_do_not_promote():
-    from ipmzoo_tpu.symbolic import number
     env = {x: cg.vector(torch.ones((2, 3), dtype=torch.float32))}
     v = cg.evaluate(product([number(0.5), x]), env)
     assert v.val.dtype == torch.float32

@@ -1,7 +1,9 @@
 """The port's SoA evaluator (ipmzoo_tpu_torch/models/codegen_soa.py, torch
 emitter) against the reference's ipmzoo_tpu/models/codegen_soa.py on the
 same numpy values: every derived expression of the fused engine, the
-pieces built on them, and the SoA quirks one by one."""
+pieces built on them, and the SoA quirks one by one.  Each side derives
+its expressions with its own symbolic package; the lists are built in the
+same order and their printed forms are held equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +13,11 @@ import torch
 from ipmzoo_tpu.formulations import Bounds, EqualityHandling, Settings
 from ipmzoo_tpu.models import codegen_soa as ref_soa
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
-from ipmzoo_tpu.symbolic import expr as E
+from ipmzoo_tpu.symbolic import expr as RE
 from ipmzoo_tpu_torch.models import codegen_soa as soa
+from ipmzoo_tpu_torch.models.convert import settings_from_reference
 from ipmzoo_tpu_torch.models.fused import DATA_FIELDS, FusedBatchedIPM
+from ipmzoo_tpu_torch.symbolic import expr as E
 
 BT = 5
 FORMULATIONS = [
@@ -40,8 +44,9 @@ class Pair:
 
     def __init__(self, settings, n, m, e, seed=0):
         self.ref = RefFused(settings, n, m, e, bt=BT, dtype=jnp.float64)
-        self.port = FusedBatchedIPM(settings, n, m, e, bt=BT,
-                                    dtype=torch.float64)
+        self.port = FusedBatchedIPM(settings_from_reference(settings), n, m,
+                                    e, bt=BT, dtype=torch.float64,
+                                    device="cpu")
         self.ev = soa.TorchSoA(torch.float64, "cpu", BT)
         rng = np.random.default_rng(seed)
         shapes = {"Q": (n, n), "c": (n,), "A_ineq": (m, n),
@@ -85,15 +90,19 @@ def pair(request):
 
 
 def test_every_derived_expression(pair):
-    s = pair.port
-    exprs = list(s.full.rhs)
-    exprs += [c for row in s.aug.lhs for c in row if c is not E.ZERO]
-    exprs += [d for _, d, _ in s.corrector]
+    def derived(s, zero):
+        exprs = list(s.full.rhs)
+        exprs += [c for row in s.aug.lhs for c in row if c is not zero]
+        return exprs + [d for _, d, _ in s.corrector]
+
+    port_exprs = derived(pair.port, E.ZERO)
+    ref_exprs = derived(pair.ref, RE.ZERO)
+    assert [str(e) for e in port_exprs] == [str(e) for e in ref_exprs]
     renv_ref, renv_port = pair.ref_env(), pair.port_env()
     rm, pm = {}, {}
-    for e in exprs:
+    for e, ref_e in zip(port_exprs, ref_exprs):
         close(soa.evaluate(pair.ev, e, renv_port, pm),
-              ref_soa.evaluate(e, renv_ref, rm))
+              ref_soa.evaluate(ref_e, renv_ref, rm))
 
 
 @pytest.mark.parametrize("corrector", [False, True])
@@ -114,8 +123,9 @@ def test_residual_env_and_augmented_rhs(pair, corrector):
     p = pair.port._residual_env_soa(pair.ev, pair.port_make_env,
                                     pair.port_env(), torch.tensor(mu_r),
                                     **kw_port)
-    for vec, _, _ in pair.port.corrector:
-        close(p[vec], r[vec])
+    for (vec, _, _), (ref_vec, _, _) in zip(pair.port.corrector,
+                                            pair.ref.corrector):
+        close(p[vec], r[ref_vec])
     rm = {}
     for part, (expr, sz) in zip(pair.port._aug_rhs_soa(pair.ev, p),
                                 zip(pair.ref.aug.rhs, pair.ref.aug_sizes)):
@@ -152,7 +162,7 @@ def test_safe_reciprocal_maps_zero_to_float32_sqrt_max(dtype):
 def test_literals_are_float32():
     ev = soa.TorchSoA(torch.float64, "cpu", 2)
     v = soa.evaluate(ev, E.number(0.1), {})
-    r = ref_soa.evaluate(E.number(0.1), {})
+    r = ref_soa.evaluate(RE.number(0.1), {})
     assert v.val.dtype == torch.float32
     assert v.val.item() == float(np.asarray(r.val).item()) == \
         float(np.float32(0.1))

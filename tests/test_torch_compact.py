@@ -18,6 +18,8 @@ import torch
 from ipmzoo_tpu.formulations import Settings
 from ipmzoo_tpu.models import CompiledIPM as RefIPM
 from ipmzoo_tpu.models import QPData as RefQPData
+from ipmzoo_tpu_torch.models.convert import \
+    settings_from_reference as port_settings
 from ipmzoo_tpu_torch.models import CompiledIPM, QPData
 from ipmzoo_tpu_torch.models.convert import (make_batch, qpdata_from_numpy,
                                              result_to_numpy)
@@ -41,10 +43,11 @@ def test_matches_reference_compact_engine():
     ref = RefIPM(Settings(), n=8, m_ineq=4, dtype=jnp.float64, tol=1e-8)
     r = ref.solve_batch_compact(jax.tree_util.tree_map(jnp.asarray, data),
                                 esc_cap=0)
-    port = CompiledIPM(Settings(), n=8, m_ineq=4, tol=1e-8)
+    port = CompiledIPM(port_settings(Settings()), n=8, m_ineq=4, tol=1e-8,
+                       device="cpu")
     assert port.default_schedule(128) == [(16, 1), (16, 4), (68, 32)]
-    out = result_to_numpy(port.solve_batch_compact(qpdata_from_numpy(data),
-                                                   esc_cap=0))
+    out = result_to_numpy(port.solve_batch_compact(
+        qpdata_from_numpy(data, device="cpu"), esc_cap=0))
     np.testing.assert_array_equal(out["converged"], np.asarray(r.converged))
     np.testing.assert_array_equal(out["diverged"], np.asarray(r.diverged))
     np.testing.assert_array_equal(out["iterations"],
@@ -56,8 +59,9 @@ def test_matches_reference_compact_engine():
 def test_pure_compaction_reproduces_solve_batch():
     # no tail Gondzio, no restart: compaction changes who keeps
     # stepping, never the steps themselves
-    data = qpdata_from_numpy(numpy_batch(96, 6, 3, seed=2))
-    s = CompiledIPM(Settings(), n=6, m_ineq=3, tol=1e-8)
+    data = qpdata_from_numpy(numpy_batch(96, 6, 3, seed=2), device="cpu")
+    s = CompiledIPM(port_settings(Settings()), n=6, m_ineq=3, tol=1e-8,
+                    device="cpu")
     full = s.solve_batch(data)
     comp = s.solve_batch_compact(data, schedule=[(4, 1), (40, 2)],
                                  tail_gondzio=0, tail_restart=False)
@@ -70,8 +74,9 @@ def test_pure_compaction_reproduces_solve_batch():
 def test_capacity_overflow_is_mopped_up():
     # a tail capacity of 1 cannot hold the active set; the full-batch
     # mop-up finishes the overflow
-    data = qpdata_from_numpy(numpy_batch(64, 6, 3, seed=4))
-    s = CompiledIPM(Settings(), n=6, m_ineq=3, tol=1e-8)
+    data = qpdata_from_numpy(numpy_batch(64, 6, 3, seed=4), device="cpu")
+    s = CompiledIPM(port_settings(Settings()), n=6, m_ineq=3, tol=1e-8,
+                    device="cpu")
     r = s.solve_batch_compact(data, schedule=[(1, 1), (30, 64)])
     assert bool(r.converged.all())
     # the mop-up asked the device once per step it ran, plus once to stop
@@ -85,7 +90,7 @@ class TestMehrotraCycling:
 
     @staticmethod
     def cycler():
-        full = make_batch(10240, 16, 8, torch.float64)
+        full = make_batch(10240, 16, 8, torch.float64, device="cpu")
         return QPData(**{k: getattr(full, k)[2487:2488].clone()
                          for k in ("Q", "c", "A_ineq", "l_A_ineq",
                                    "u_A_ineq", "A_eq", "b_eq", "l_x",
@@ -93,23 +98,24 @@ class TestMehrotraCycling:
 
     def test_gondzio_breaks_cycle(self):
         data = self.cycler()
-        plain = CompiledIPM(Settings(), n=16, m_ineq=8, tol=1e-8,
-                            max_iter=60)
+        plain = CompiledIPM(port_settings(Settings()), n=16, m_ineq=8,
+                            tol=1e-8, max_iter=60, device="cpu")
         assert not bool(plain.solve_batch(data).converged[0])
-        gz = CompiledIPM(Settings(), n=16, m_ineq=8, tol=1e-8, max_iter=60,
-                         gondzio=2)
+        gz = CompiledIPM(port_settings(Settings()), n=16, m_ineq=8, tol=1e-8,
+                         max_iter=60, gondzio=2, device="cpu")
         rg = gz.solve_batch(data)
         assert bool(rg.converged[0])
         assert int(rg.iterations[0]) < 20
 
     def test_compact_tail_rescues_cycler(self):
-        easy = qpdata_from_numpy(numpy_batch(63, 16, 8, seed=1))
+        easy = qpdata_from_numpy(numpy_batch(63, 16, 8, seed=1), device="cpu")
         cyc = self.cycler()
         batch = QPData(**{k: torch.cat([getattr(easy, k), getattr(cyc, k)])
                           for k in ("Q", "c", "A_ineq", "l_A_ineq",
                                     "u_A_ineq", "A_eq", "b_eq", "l_x",
                                     "u_x")})
-        s = CompiledIPM(Settings(), n=16, m_ineq=8, tol=1e-8)
+        s = CompiledIPM(port_settings(Settings()), n=16, m_ineq=8, tol=1e-8,
+                        device="cpu")
         r = s.solve_batch_compact(batch, schedule=[(12, 1), (12, 8),
                                                    (40, 16)])
         assert bool(r.converged.all())
@@ -119,10 +125,10 @@ class TestEscalationCap:
     def test_auto_cap_at_f32_tight_tol_escalates_in_f64(self):
         # esc_cap='auto' at float32 and tol 1e-6 resolves to 32 and runs
         # the float64 escalation stage
-        s = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
-                        tol=1e-6)
+        s = CompiledIPM(port_settings(Settings()), n=4, m_ineq=2,
+                        dtype=torch.float32, tol=1e-6, device="cpu")
         data = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6),
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, device="cpu")
         r = s.solve_batch_compact(data)
         assert r.x.dtype == torch.float32 and bool(r.converged.all())
         twin = s._esc_twin
@@ -132,13 +138,14 @@ class TestEscalationCap:
             assert r.x.dtype == torch.float32 and bool(r.converged.all())
 
     def test_auto_cap_is_zero_where_the_reference_needs_no_stage(self):
-        data = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6))
-        s64 = CompiledIPM(Settings(), n=4, m_ineq=2, tol=1e-6)
+        data = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6), device="cpu")
+        s64 = CompiledIPM(port_settings(Settings()), n=4, m_ineq=2, tol=1e-6,
+                          device="cpu")
         assert bool(s64.solve_batch_compact(data).converged.all())
         d32 = qpdata_from_numpy(numpy_batch(4, 4, 2, seed=6),
-                                dtype=torch.float32)
-        s32 = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
-                          tol=1e-5)
+                                dtype=torch.float32, device="cpu")
+        s32 = CompiledIPM(port_settings(Settings()), n=4, m_ineq=2,
+                          dtype=torch.float32, tol=1e-5, device="cpu")
         assert bool(s32.solve_batch_compact(d32).converged.all())
         assert not hasattr(s64, "_esc_twin")
         assert not hasattr(s32, "_esc_twin")
@@ -157,10 +164,11 @@ class TestEscalation:
         raw = numpy_batch(B, n, m, seed=5)
         ref = RefIPM(Settings(), n=n, m_ineq=m, dtype=dtype_np, tol=1e-8,
                      max_iter=3)
-        port = CompiledIPM(Settings(), n=n, m_ineq=m, dtype=dtype_t,
-                           tol=1e-8, max_iter=3)
+        port = CompiledIPM(port_settings(Settings()), n=n, m_ineq=m,
+                           dtype=dtype_t, tol=1e-8, max_iter=3, device="cpu")
         jd = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype_np), raw)
-        return ref, port, jd, qpdata_from_numpy(raw, dtype=dtype_t)
+        return ref, port, jd, qpdata_from_numpy(raw, dtype=dtype_t,
+                                                device="cpu")
 
     def test_escalation_rescues_starved_batch(self):
         # every earlier stage is starved (budget 3, no mop-up headroom),
@@ -181,8 +189,8 @@ class TestEscalation:
         assert np.abs(out["iterations"] -
                       np.asarray(r.iterations)).max() <= 2
         # and the answer is the straight solve's
-        full = CompiledIPM(Settings(), n=6, m_ineq=3,
-                           max_iter=60).solve_batch(data)
+        full = CompiledIPM(port_settings(Settings()), n=6, m_ineq=3,
+                           max_iter=60, device="cpu").solve_batch(data)
         np.testing.assert_allclose(out["x"], full.x.numpy(), rtol=1e-6,
                                    atol=1e-6)
         # an f64 solver is its own twin
@@ -207,13 +215,14 @@ class TestEscalation:
         assert port._esc_twin.mu_floor == port.mu_floor == ref.mu_floor
 
     def test_auto_cap_tied_to_dtype_and_tol(self):
-        s32 = CompiledIPM(Settings(), n=4, m_ineq=2, dtype=torch.float32,
-                          tol=1e-6)
-        s64 = CompiledIPM(Settings(), n=4, m_ineq=2, tol=1e-6)
+        s32 = CompiledIPM(port_settings(Settings()), n=4, m_ineq=2,
+                          dtype=torch.float32, tol=1e-6, device="cpu")
+        s64 = CompiledIPM(port_settings(Settings()), n=4, m_ineq=2, tol=1e-6,
+                          device="cpu")
         data = numpy_batch(4, 4, 2, seed=6)
-        s32.solve_batch_compact(qpdata_from_numpy(data,
-                                                  dtype=torch.float32))
-        s64.solve_batch_compact(qpdata_from_numpy(data))
+        s32.solve_batch_compact(qpdata_from_numpy(data, dtype=torch.float32,
+                                                  device="cpu"))
+        s64.solve_batch_compact(qpdata_from_numpy(data, device="cpu"))
         # f32 at tol 1e-6 builds the float64 twin; f64 never needs it
         assert hasattr(s32, "_esc_twin")
         assert not hasattr(s64, "_esc_twin")
@@ -245,8 +254,9 @@ class TestEscalation:
 
 
 def test_does_not_write_into_the_callers_data():
-    data = qpdata_from_numpy(numpy_batch(70, 4, 2, seed=9))
+    data = qpdata_from_numpy(numpy_batch(70, 4, 2, seed=9), device="cpu")
     before = {k: getattr(data, k).clone() for k in ("Q", "c", "l_x")}
-    CompiledIPM(Settings(), n=4, m_ineq=2).solve_batch_compact(data)
+    CompiledIPM(port_settings(Settings()), n=4, m_ineq=2,
+                device="cpu").solve_batch_compact(data)
     for k, v in before.items():
         assert torch.equal(getattr(data, k), v)

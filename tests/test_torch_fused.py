@@ -21,6 +21,8 @@ import torch
 from ipmzoo_tpu.formulations import Bounds, Settings
 from ipmzoo_tpu.models import QPData as RefQPData
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
+from ipmzoo_tpu_torch.models.convert import \
+    settings_from_reference as port_settings
 from ipmzoo_tpu_torch.models.convert import qpdata_from_numpy
 from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
 from ipmzoo_tpu_torch.ops import cuda_fused
@@ -45,8 +47,9 @@ def solvers(n, m, max_iter=100, inequalities=Bounds.BOTH):
     settings = Settings(inequalities=inequalities)
     ref = RefFused(settings, n=n, m_ineq=m, bt=8, dtype=jnp.float64,
                    max_iter=max_iter)
-    port = FusedBatchedIPM(settings, n=n, m_ineq=m, bt=8,
-                           dtype=torch.float64, max_iter=max_iter)
+    port = FusedBatchedIPM(port_settings(settings), n=n, m_ineq=m, bt=8,
+                           dtype=torch.float64, max_iter=max_iter,
+                           device="cpu")
     return ref, port
 
 
@@ -56,7 +59,7 @@ def both(entry, n, m, data, max_iter=100, inequalities=Bounds.BOTH,
     (reference, port) results as numpy dicts."""
     ref, port = solvers(n, m, max_iter, inequalities)
     r = getattr(ref, entry)(jax.tree_util.tree_map(jnp.asarray, data), **kw)
-    p = getattr(port, entry)(qpdata_from_numpy(data), **kw)
+    p = getattr(port, entry)(qpdata_from_numpy(data, device="cpu"), **kw)
     return ({k: np.asarray(v) for k, v in r.items()},
             {k: v.numpy() for k, v in p.items()})
 
@@ -106,7 +109,7 @@ def test_fused_refined_converges_full_batch():
 def test_fused_refined_tail_rescues_straggler():
     data = numpy_batch(8, 6, 3, seed=5)
     _, port = solvers(6, 3, 4)
-    core = port.solve_fused(qpdata_from_numpy(data))
+    core = port.solve_fused(qpdata_from_numpy(data, device="cpu"))
     assert not bool(core["converged"].all())
     r, p = both("solve_fused_refined", 6, 3, data, max_iter=4, tail_cap=8,
                 tail_iters=40)
@@ -126,7 +129,8 @@ def test_fused_compact_matches_refined():
     assert_parity(r, p)
     # iteration accounting is cumulative across the resume stages
     _, port = solvers(6, 3, 40)
-    ref = port.solve_fused_refined(qpdata_from_numpy(data), tail_cap=8)
+    ref = port.solve_fused_refined(qpdata_from_numpy(data, device="cpu"),
+                                   tail_cap=8)
     np.testing.assert_allclose(p["x"], ref["x"].numpy(), rtol=1e-9,
                                atol=1e-9)
     np.testing.assert_array_equal(p["iterations"], ref["iterations"].numpy())
@@ -160,7 +164,7 @@ def test_escalation_stage_runs_at_every_cap():
     # the default esc_cap=32, a smaller cap, esc_cap=0 and a cold restart
     # all solve, and an f64 solver escalates with itself
     _, port = solvers(4, 2)
-    data = qpdata_from_numpy(numpy_batch(8, 4, 2, seed=6))
+    data = qpdata_from_numpy(numpy_batch(8, 4, 2, seed=6), device="cpu")
     for kw in ({}, {"esc_cap": 8}, {"esc_cap": 0}, {"esc_warm": False}):
         assert bool(port.solve_fused_compact(data, **kw)["converged"].all())
     assert port._escalation_twin() is port
@@ -172,8 +176,8 @@ def test_fused_compact_escalation_rescues_residual_stuck():
     data = numpy_batch(8, 6, 3, seed=5)
     _, port = solvers(6, 3, 4)
     kw = dict(schedule=[(4, 1)], tail_iters=1)
-    starved = port.solve_fused_compact(qpdata_from_numpy(data), esc_cap=0,
-                                       **kw)
+    starved = port.solve_fused_compact(qpdata_from_numpy(data, device="cpu"),
+                                       esc_cap=0, **kw)
     assert not bool(starved["converged"].all())
     r, p = both("solve_fused_compact", 6, 3, data, max_iter=4,
                 esc_iters=60, **kw)
@@ -187,10 +191,11 @@ def test_fused_compact_escalation_rescues_residual_stuck():
 
 
 def test_float32_escalation_twin_is_float64():
-    fused = FusedBatchedIPM(Settings(), n=4, m_ineq=2, bt=8,
-                            dtype=torch.float32, tol=1e-6, max_iter=4)
+    fused = FusedBatchedIPM(port_settings(Settings()), n=4, m_ineq=2, bt=8,
+                            dtype=torch.float32, tol=1e-6, max_iter=4,
+                            device="cpu")
     data = qpdata_from_numpy(numpy_batch(8, 4, 2, seed=6),
-                             dtype=torch.float32)
+                             dtype=torch.float32, device="cpu")
     fused.host_syncs = 0
     out = fused.solve_fused_compact(data, tail_iters=1, esc_iters=60)
     twin = fused._escalation_twin()
@@ -202,13 +207,15 @@ def test_float32_escalation_twin_is_float64():
 
 def test_wide_augmented_system_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 11"):
-        FusedBatchedIPM(Settings(inequalities=Bounds.NONE), n=129)
+        FusedBatchedIPM(port_settings(Settings(inequalities=Bounds.NONE)),
+                        n=129, device="cpu")
 
 
 def test_cpu_solves_run_the_plain_version():
     cuda_fused.reset_launch_counts()
     _, port = solvers(4, 2)
-    out = port.solve_fused(qpdata_from_numpy(numpy_batch(8, 4, 2, seed=1)))
+    out = port.solve_fused(qpdata_from_numpy(numpy_batch(8, 4, 2, seed=1),
+                                             device="cpu"))
     assert bool(out["converged"].all())
     assert cuda_fused.launches == {"fused": 0}
     assert out["iterations"].dtype == torch.float64
@@ -228,10 +235,13 @@ def test_fused_f32_reaches_1e6_no_rollbacks():
         u_A_ineq=np.abs(rng.normal(size=(B, m))) + 1,
         A_eq=np.zeros((B, 0, n)), b_eq=np.zeros((B, 0)),
         l_x=np.full((B, n), -5.0), u_x=np.full((B, n), 5.0))
-    fused = FusedBatchedIPM(Settings(), n=n, m_ineq=m, dtype=torch.float32,
-                            tol=1e-6, bt=16, max_iter=40)
+    fused = FusedBatchedIPM(port_settings(Settings()), n=n, m_ineq=m,
+                            dtype=torch.float32, tol=1e-6, bt=16, max_iter=40,
+                            device="cpu")
     assert fused.mu_floor == float(np.finfo(np.float32).eps) ** 2
-    out = fused.solve_fused_refined(
-        qpdata_from_numpy(data, dtype=torch.float32), tail_cap=16)
+    out = fused.solve_fused_refined(qpdata_from_numpy(data,
+                                                      dtype=torch.float32,
+                                                      device="cpu"),
+                                    tail_cap=16)
     assert out["x"].dtype == torch.float32
     assert float(out["converged"].double().mean()) == 1.0

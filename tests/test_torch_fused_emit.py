@@ -21,13 +21,15 @@ import pytest
 import torch
 
 from ipmzoo_tpu.formulations import Bounds, EqualityHandling, Settings
-from ipmzoo_tpu.symbolic import expr as E
 from ipmzoo_tpu_torch.models import codegen_soa as soa
 from ipmzoo_tpu_torch.models.codegen_soa import CppSoA
-from ipmzoo_tpu_torch.models.fused_source import CUH
+from ipmzoo_tpu_torch.models.convert import \
+    settings_from_reference as port_settings
 from ipmzoo_tpu_torch.models.data import QPData
 from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+from ipmzoo_tpu_torch.models.fused_source import CUH
 from ipmzoo_tpu_torch.ops import _build, cuda_fused
+from ipmzoo_tpu_torch.symbolic import expr as E
 
 FORMULATIONS = {
     # the fused slice's formulation at its sizes
@@ -78,7 +80,7 @@ def make_data(n, m, e, B=8, seed=0):
         l_A_ineq=-np.abs(rng.normal(size=(B, m))) - 1,
         u_A_ineq=np.abs(rng.normal(size=(B, m))) + 1,
         A_eq=A_eq, b_eq=np.einsum("bij,bj->bi", A_eq, x0),
-        l_x=np.full((B, n), -5.0), u_x=np.full((B, n), 5.0))
+        l_x=np.full((B, n), -5.0), u_x=np.full((B, n), 5.0), device="cpu")
 
 
 def run_both(solver, lib, data, warm=None, max_iter=30, gondzio=0):
@@ -107,8 +109,9 @@ def assert_same(host, plain):
 @pytest.mark.parametrize("name", list(FORMULATIONS))
 def test_host_build_matches_plain_version(name, host_build):
     settings, n, m, e, kw = FORMULATIONS[name]
-    solver = FusedBatchedIPM(settings, n=n, m_ineq=m, m_eq=e,
-                             dtype=torch.float64, max_iter=40, **kw)
+    solver = FusedBatchedIPM(port_settings(settings), n=n, m_ineq=m, m_eq=e,
+                             dtype=torch.float64, max_iter=40, device="cpu",
+                             **kw)
     lib = host_build(solver.kernel_source())
     data = make_data(n, m, e)
     for gondzio in (0, 2):
@@ -120,7 +123,8 @@ def test_host_build_matches_plain_version(name, host_build):
 
 def test_host_build_warm_resume(host_build):
     settings, n, m, e, _ = FORMULATIONS["slice"]
-    solver = FusedBatchedIPM(settings, n=n, m_ineq=m, dtype=torch.float64)
+    solver = FusedBatchedIPM(port_settings(settings), n=n, m_ineq=m,
+                             dtype=torch.float64, device="cpu")
     lib = host_build(solver.kernel_source())
     data = make_data(n, m, e, B=16, seed=3)
     cold, cold_plain = run_both(solver, lib, data, max_iter=4)
@@ -163,7 +167,8 @@ def test_emitter_rounds_literals_to_float32():
 
 def test_host_build_float32_converges(host_build):
     settings, n, m, e, _ = FORMULATIONS["slice"]
-    solver = FusedBatchedIPM(settings, n=n, m_ineq=m, tol=1e-5)
+    solver = FusedBatchedIPM(port_settings(settings), n=n, m_ineq=m, tol=1e-5,
+                             device="cpu")
     lib = host_build(solver.kernel_source())
     data = make_data(n, m, e, B=16, seed=5).to(dtype=torch.float32)
     host, plain = run_both(solver, lib, data)
@@ -175,21 +180,26 @@ def test_host_build_float32_converges(host_build):
 
 
 def test_emitted_text_is_deterministic():
-    make = lambda n, m: FusedBatchedIPM(Settings(), n=n, m_ineq=m)  # noqa
+    def make(n, m):
+        return FusedBatchedIPM(port_settings(Settings()), n=n, m_ineq=m,
+                               device="cpu")
+
     a, b = make(16, 8).kernel_source(), make(16, 8).kernel_source()
     assert a == b
     assert (_build.generated_library_path("fused_ipm", a) ==
             _build.generated_library_path("fused_ipm", b))
     # the text is independent of the dtype and the scalar settings, which
     # are run-time arguments, and changes with the sizes
-    c = FusedBatchedIPM(Settings(), n=16, m_ineq=8, dtype=torch.float64,
-                        tol=1e-9, mu0=2.0).kernel_source()
+    c = FusedBatchedIPM(port_settings(Settings()), n=16, m_ineq=8,
+                        dtype=torch.float64, tol=1e-9, mu0=2.0,
+                        device="cpu").kernel_source()
     assert c == a
     assert make(16, 7).kernel_source() != a
 
 
 def test_generated_build_is_keyed_by_text_and_flags(tmp_path):
-    src = FusedBatchedIPM(Settings(), n=4, m_ineq=2).kernel_source()
+    src = FusedBatchedIPM(port_settings(Settings()), n=4, m_ineq=2,
+                          device="cpu").kernel_source()
     path = _build.generated_library_path("fused_ipm", src)
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("fused_ipm-") and path.suffix == ".so"

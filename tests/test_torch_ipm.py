@@ -22,6 +22,8 @@ from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
 from ipmzoo_tpu.models import CompiledIPM as RefIPM
 from ipmzoo_tpu.models import QPData as RefQPData
+from ipmzoo_tpu_torch.models.convert import \
+    settings_from_reference as port_settings
 from ipmzoo_tpu_torch.models import CompiledIPM, QPData
 from ipmzoo_tpu_torch.models.convert import (qpdata_from_numpy,
                                              result_to_numpy,
@@ -34,7 +36,7 @@ def demo_qp():
     return QPData.make(
         Q=[[1.0, 0.0], [0.0, 0.5]], c=[-10.0, 2.0],
         A_ineq=[[1.0, 1.0]], l_A_ineq=[1.0], u_A_ineq=[1.2],
-        l_x=[0.0, 0.0], u_x=[10.0, 10.0], dtype=torch.float64)
+        l_x=[0.0, 0.0], u_x=[10.0, 10.0], dtype=torch.float64, device="cpu")
 
 
 def numpy_batch(B, n, m, m_eq=0, seed=0):
@@ -58,8 +60,9 @@ def as_jax(data):
 class TestDemoQP:
     def test_slacked_slacks_reference_trace(self):
         """The reference oracle's trace (tests/test_ipm.py)."""
-        s = CompiledIPM(Settings(
-            inequality_handling=InequalityHandling.SLACKED_SLACKS), 2, 1)
+        s = CompiledIPM(port_settings(Settings(
+            inequality_handling=InequalityHandling.SLACKED_SLACKS)), 2, 1,
+            device="cpu")
         res = s.solve(demo_qp())
         assert bool(res.converged) and not bool(res.diverged)
         assert int(res.iterations) == 12
@@ -70,8 +73,9 @@ class TestDemoQP:
         np.testing.assert_allclose(float(res.objective), -11.28, rtol=1e-9)
 
     def test_slacks_converges_where_reference_stalls(self):
-        s = CompiledIPM(Settings(
-            inequality_handling=InequalityHandling.SLACKS), 2, 1)
+        s = CompiledIPM(port_settings(Settings(
+            inequality_handling=InequalityHandling.SLACKS)), 2, 1,
+            device="cpu")
         res = s.solve(demo_qp())
         assert bool(res.converged)
         assert int(res.iterations) <= 10
@@ -79,7 +83,7 @@ class TestDemoQP:
         np.testing.assert_allclose(float(res.objective), -11.28, rtol=1e-8)
 
     def test_warm_start_from_solution(self):
-        s = CompiledIPM(Settings(), 2, 1)
+        s = CompiledIPM(port_settings(Settings()), 2, 1, device="cpu")
         cold = s.solve(demo_qp())
         warm = s.solve(demo_qp(), warm_start=cold.variables)
         assert bool(warm.converged)
@@ -129,8 +133,8 @@ def test_five_steps_match_reference(idx, gondzio):
     jd = as_jax(data)
     r_state = jax.jit(jax.vmap(ref.init_state))(jd)
 
-    port = CompiledIPM(settings, n, m, m_eq)
-    td = qpdata_from_numpy(data)
+    port = CompiledIPM(port_settings(settings), n, m, m_eq, device="cpu")
+    td = qpdata_from_numpy(data, device="cpu")
     p_state = port.init_state(td)
     assert_state_close(p_state, r_state)
     for _ in range(5):
@@ -147,8 +151,9 @@ def test_symbolic_taylor_corrector_matches_reference():
     step = jax.jit(jax.vmap(ref._step_impl))
     jd = as_jax(data)
     r_state = jax.jit(jax.vmap(ref.init_state))(jd)
-    port = CompiledIPM(Settings(), n, m, taylor="symbolic")
-    td = qpdata_from_numpy(data)
+    port = CompiledIPM(port_settings(Settings()), n, m, taylor="symbolic",
+                       device="cpu")
+    td = qpdata_from_numpy(data, device="cpu")
     p_state = port.init_state(td)
     for _ in range(5):
         r_state, p_state = step(r_state, jd), port.step(p_state, td)
@@ -164,8 +169,9 @@ def test_step_continues_from_a_reference_state():
     jd = as_jax(data)
     r_state = jax.jit(jax.vmap(ref.init_state))(jd)
     r_state = jax.jit(jax.vmap(ref._step_impl))(r_state, jd)
-    port = CompiledIPM(Settings(), n, m)
-    p_state = port.step(state_from_numpy(r_state), qpdata_from_numpy(data))
+    port = CompiledIPM(port_settings(Settings()), n, m, device="cpu")
+    p_state = port.step(state_from_numpy(r_state, device="cpu"),
+                        qpdata_from_numpy(data, device="cpu"))
     assert_state_close(p_state,
                        jax.jit(jax.vmap(ref._step_impl))(r_state, jd))
 
@@ -176,9 +182,10 @@ def test_solve_batch_matches_reference(options):
     n, m, B = 6, 3, 16
     data = numpy_batch(B, n, m, seed=11)
     ref = RefIPM(Settings(), n, m, **options).solve_batch(as_jax(data))
-    port = CompiledIPM(Settings(), n, m, **options)
+    port = CompiledIPM(port_settings(Settings()), n, m, device="cpu",
+                       **options)
     cuda_ldlt.reset_launch_counts()
-    res = port.solve_batch(qpdata_from_numpy(data))
+    res = port.solve_batch(qpdata_from_numpy(data, device="cpu"))
     assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
                                   "solve_ldlt_matrix": 0}
     out = result_to_numpy(res)
@@ -195,19 +202,22 @@ def test_solve_batch_matches_reference(options):
 
 
 def test_mu_floor_tied_to_dtype():
-    s32 = CompiledIPM(Settings(), 4, 2, dtype=torch.float32)
-    s64 = CompiledIPM(Settings(), 4, 2)
+    s32 = CompiledIPM(port_settings(Settings()), 4, 2, dtype=torch.float32,
+                      device="cpu")
+    s64 = CompiledIPM(port_settings(Settings()), 4, 2, device="cpu")
     assert s32.mu_floor == RefIPM(Settings(), 4, 2,
                                   dtype=jnp.float32).mu_floor
     assert s64.mu_floor == pytest.approx(np.finfo(np.float64).eps ** 2)
-    assert CompiledIPM(Settings(), 4, 2, mu_floor=1e-20).mu_floor == 1e-20
+    assert CompiledIPM(port_settings(Settings()), 4, 2, mu_floor=1e-20,
+                       device="cpu").mu_floor == 1e-20
 
 
 def test_nan_data_flags_diverged():
     data = QPData.make(
         Q=[[np.nan, 0.0], [0.0, 1.0]], c=[0.0, 0.0],
-        l_x=[-1.0, -1.0], u_x=[1.0, 1.0])
-    s = CompiledIPM(Settings(inequalities=Bounds.NONE), n=2)
+        l_x=[-1.0, -1.0], u_x=[1.0, 1.0], device="cpu")
+    s = CompiledIPM(port_settings(Settings(inequalities=Bounds.NONE)), n=2,
+                    device="cpu")
     res = s.solve(data)
     assert bool(res.diverged)
     assert not bool(res.converged)
@@ -216,9 +226,11 @@ def test_nan_data_flags_diverged():
 
 def test_gondzio_rounds_keep_the_solution():
     n, m = 12, 5
-    data = qpdata_from_numpy(numpy_batch(4, n, m, seed=3))
-    r0 = CompiledIPM(Settings(), n, m).solve_batch(data)
-    r2 = CompiledIPM(Settings(), n, m, gondzio=2).solve_batch(data)
+    data = qpdata_from_numpy(numpy_batch(4, n, m, seed=3), device="cpu")
+    r0 = CompiledIPM(port_settings(Settings()), n, m,
+                     device="cpu").solve_batch(data)
+    r2 = CompiledIPM(port_settings(Settings()), n, m, gondzio=2,
+                     device="cpu").solve_batch(data)
     assert bool(r0.converged.all()) and bool(r2.converged.all())
     assert bool((r2.iterations <= r0.iterations).all())
     np.testing.assert_allclose(r2.x.numpy(), r0.x.numpy(), atol=1e-7)
@@ -232,42 +244,45 @@ class TestRejects:
                                         "nd"])
     def test_unported_kernel_modes(self, kernel):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CompiledIPM(Settings(), 4, 2, kernel=kernel)
+            CompiledIPM(port_settings(Settings()), 4, 2, kernel=kernel,
+                        device="cpu")
 
     @pytest.mark.parametrize("option", ["two_float", "df_residuals",
                                         "hybrid_refine"])
     def test_unported_precision_options(self, option):
         with pytest.raises(NotImplementedError, match="item 7"):
-            CompiledIPM(Settings(), 4, 2, **{option: True})
+            CompiledIPM(port_settings(Settings()), 4, 2, device="cpu",
+                        **{option: True})
 
     def test_mesh(self):
         with pytest.raises(NotImplementedError, match="item 16"):
-            CompiledIPM(Settings(), 4, 2, mesh=object())
+            CompiledIPM(port_settings(Settings()), 4, 2, mesh=object(),
+                        device="cpu")
 
     def test_indefinite_formulation(self):
         with pytest.raises(NotImplementedError, match="indefinite"):
-            CompiledIPM(Settings(inequalities=Bounds.NONE,
+            CompiledIPM(port_settings(Settings(inequalities=Bounds.NONE,
                                  variable_bounds=Bounds.NONE,
                                  equalities=True,
-                                 equality_handling=EqualityHandling.NONE),
-                        n=3, m_eq=1)
+                                 equality_handling=EqualityHandling.NONE)),
+                        n=3, m_eq=1, device="cpu")
 
     def test_large_auto_system(self):
         with pytest.raises(NotImplementedError, match="block mode"):
-            CompiledIPM(Settings(), 400, 8)
+            CompiledIPM(port_settings(Settings()), 400, 8, device="cpu")
 
     def test_data_on_another_device(self):
-        s = CompiledIPM(Settings(), 2, 1)
+        s = CompiledIPM(port_settings(Settings()), 2, 1, device="cpu")
         with pytest.raises(ValueError, match="meta"):
             s.solve_batch(tree_to_meta(demo_qp()))
 
     def test_data_of_other_sizes(self):
-        s = CompiledIPM(Settings(), 3, 1)
+        s = CompiledIPM(port_settings(Settings()), 3, 1, device="cpu")
         with pytest.raises(ValueError, match="sizes"):
             s.solve(demo_qp())
 
     def test_float32_data_is_cast_to_the_working_dtype(self):
-        s = CompiledIPM(Settings(), 2, 1)
+        s = CompiledIPM(port_settings(Settings()), 2, 1, device="cpu")
         res = s.solve(demo_qp().to(dtype=torch.float32))
         assert res.x.dtype == torch.float64 and bool(res.converged)
 

@@ -17,6 +17,8 @@ import torch
 
 from ipmzoo_tpu.parallel.schur import BlockQPData as RefBlockQPData
 from ipmzoo_tpu.parallel.schur import SchurIPM as RefSchurIPM
+from ipmzoo_tpu_torch.models.convert import \
+    settings_from_reference as port_settings
 from ipmzoo_tpu_torch.models.convert import block_qp_from_numpy
 from ipmzoo_tpu_torch.ops import cuda_ldlt
 from ipmzoo_tpu_torch.parallel import BlockQPData, SchurIPM
@@ -62,8 +64,9 @@ def both(raw, n, m_c, entry="solve", dtype="float64", **kw):
     ref = RefSchurIPM(n, m_c, dtype=getattr(jnp, dtype), **kw)
     r = getattr(ref, entry)(jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, getattr(jnp, dtype)), raw))
-    port = SchurIPM(n, m_c, dtype=TORCH[dtype], **kw)
-    p = getattr(port, entry)(block_qp_from_numpy(raw, dtype=TORCH[dtype]))
+    port = SchurIPM(n, m_c, dtype=TORCH[dtype], device="cpu", **kw)
+    p = getattr(port, entry)(block_qp_from_numpy(raw, dtype=TORCH[dtype],
+                                                 device="cpu"))
     fields = ("x", "nu", "objective", "iterations", "residual", "gap",
               "converged")
     return ({f: np.asarray(getattr(r, f)) for f in fields},
@@ -147,7 +150,9 @@ class TestSymbolicCrossCheck:
 
         B, n, m_c = 4, 6, 3
         raw = make_coupled(B, n, m_c, seed=5)
-        r = SchurIPM(n, m_c, tol=1e-9).solve(block_qp_from_numpy(raw))
+        r = SchurIPM(n, m_c, tol=1e-9,
+                     device="cpu").solve(block_qp_from_numpy(raw,
+                                                             device="cpu"))
         assert bool(r.converged)
         N = B * n
         Qm = np.zeros((N, N))
@@ -156,10 +161,11 @@ class TestSymbolicCrossCheck:
         mono = QPData.make(Q=Qm, c=raw.c.ravel(),
                            A_eq=np.concatenate(list(raw.F), axis=1),
                            b_eq=raw.g, l_x=raw.l_x.ravel(),
-                           u_x=raw.u_x.ravel())
+                           u_x=raw.u_x.ravel(), device="cpu")
         settings = Settings(equalities=True,
                             equality_handling=EqualityHandling.REGULARIZATION)
-        rm = CompiledIPM(settings, n=N, m_eq=m_c, tol=1e-9).solve(mono)
+        rm = CompiledIPM(port_settings(settings), n=N, m_eq=m_c, tol=1e-9,
+                         device="cpu").solve(mono)
         assert bool(rm.converged)
         np.testing.assert_allclose(r.x.numpy().ravel(), rm.x.numpy(),
                                    atol=1e-6)
@@ -204,8 +210,8 @@ class TestPallasBlockKernel:
     def test_cache_invalidation_on_mutation(self):
         # the port keeps no compiled program: a mutated tol takes effect
         data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1,
-                                                seed=12))
-        ipm = SchurIPM(3, 1, tol=1e-2, max_iter=100)
+                                                seed=12), device="cpu")
+        ipm = SchurIPM(3, 1, tol=1e-2, max_iter=100, device="cpu")
         r1 = ipm.solve(data)
         ipm.tol = 1e-9
         r2 = ipm.solve(data)
@@ -214,11 +220,12 @@ class TestPallasBlockKernel:
 
     def test_cpu_runs_leave_kernel_counts_at_zero(self):
         cuda_ldlt.reset_launch_counts()
-        ipm = SchurIPM(4, 2, block_kernel="pallas")
+        ipm = SchurIPM(4, 2, block_kernel="pallas", device="cpu")
         assert ipm.block_kernel == "pallas"
-        assert SchurIPM(4, 2).block_kernel == "jnp"
-        assert bool(ipm.solve(block_qp_from_numpy(
-            make_coupled(blocks=3, n=4, m_c=2, seed=1))).converged)
+        assert SchurIPM(4, 2, device="cpu").block_kernel == "jnp"
+        assert bool(ipm.solve(block_qp_from_numpy(make_coupled(blocks=3, n=4,
+                                                               m_c=2, seed=1),
+                                                  device="cpu")).converged)
         assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
                                       "solve_ldlt_matrix": 0}
 
@@ -228,18 +235,19 @@ class TestTwoFloat:
     float32 floors above 1e-8 still holds for the port's plain float32."""
 
     def test_f32_plain_floors_above_1e8(self):
-        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4,
-                                                seed=3), dtype=torch.float32)
+        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4, seed=3),
+                                   dtype=torch.float32, device="cpu")
         ipm = SchurIPM(16, 4, dtype=torch.float32, tol=1e-8, max_iter=40,
-                       two_float=False)
+                       two_float=False, device="cpu")
         assert ipm.compute_dtype == torch.float32
         assert not bool(ipm.solve(data).converged), \
             "plain f32 reached 1e-8: the two_float mode is redundant"
 
     def test_auto_enables_two_float_on_f32_tight_tol(self):
-        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4,
-                                                seed=3), dtype=torch.float32)
-        ipm = SchurIPM(16, 4, dtype=torch.float32, tol=1e-8, max_iter=40)
+        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4, seed=3),
+                                   dtype=torch.float32, device="cpu")
+        ipm = SchurIPM(16, 4, dtype=torch.float32, tol=1e-8, max_iter=40,
+                       device="cpu")
         assert ipm.two_float and ipm.compute_dtype == torch.float64
         res = ipm.solve(data)
         assert bool(res.converged)
@@ -247,9 +255,11 @@ class TestTwoFloat:
         assert res.residual.dtype == torch.float32
         # the mu floor stays the working dtype's, as the reference's
         assert ipm.mu_floor == float(np.finfo(np.float32).eps) ** 2
-        assert not SchurIPM(16, 4, dtype=torch.float32, tol=1e-5).two_float
-        assert not SchurIPM(16, 4, dtype=torch.float32, tol=1e-6).two_float
-        assert not SchurIPM(16, 4, dtype=torch.float64).two_float
+        assert not SchurIPM(16, 4, dtype=torch.float32, tol=1e-5,
+                            device="cpu").two_float
+        assert not SchurIPM(16, 4, dtype=torch.float32, tol=1e-6,
+                            device="cpu").two_float
+        assert not SchurIPM(16, 4, dtype=torch.float64, device="cpu").two_float
 
     def test_f32_two_float_reaches_1e8_and_matches_f64(self):
         raw = make_coupled(blocks=8, n=16, m_c=4, seed=3)
@@ -268,13 +278,15 @@ class TestTwoFloat:
         np.testing.assert_allclose(p_tf["x"], r_tf["x"], atol=5e-6)
 
     def test_two_float_pallas_kernel(self):
-        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4,
-                                                seed=7), dtype=torch.float32)
+        data = block_qp_from_numpy(make_coupled(blocks=8, n=16, m_c=4, seed=7),
+                                   dtype=torch.float32, device="cpu")
         kw = dict(dtype=torch.float32, tol=1e-8, max_iter=40,
                   two_float=True, refine=2)
-        res = SchurIPM(16, 4, block_kernel="pallas", **kw).solve(data)
+        res = SchurIPM(16, 4, block_kernel="pallas", device="cpu",
+                       **kw).solve(data)
         assert bool(res.converged)
-        res_j = SchurIPM(16, 4, block_kernel="jnp", **kw).solve(data)
+        res_j = SchurIPM(16, 4, block_kernel="jnp", device="cpu",
+                         **kw).solve(data)
         assert int(res.iterations) == int(res_j.iterations)
         np.testing.assert_allclose(res.x.numpy(), res_j.x.numpy(),
                                    atol=1e-6)
@@ -288,14 +300,14 @@ class TestSolveBatch:
                     block_kernel=block_kernel)
         assert p["converged"].all()
         assert_parity(r, p)
-        ipm = SchurIPM(6, 2, tol=1e-8, block_kernel=block_kernel)
+        ipm = SchurIPM(6, 2, tol=1e-8, block_kernel=block_kernel, device="cpu")
         ipm.host_syncs = 0
-        rb = ipm.solve_batch(block_qp_from_numpy(stack(raws)))
+        rb = ipm.solve_batch(block_qp_from_numpy(stack(raws), device="cpu"))
         # one round trip per iteration of the slowest instance, plus the
         # check that finds nothing active
         assert ipm.host_syncs == int(rb.iterations.max()) + 1
         for i, raw in enumerate(raws):
-            ri = ipm.solve(block_qp_from_numpy(raw))
+            ri = ipm.solve(block_qp_from_numpy(raw, device="cpu"))
             # a finished instance is frozen, so its lone solve is the same
             assert int(rb.iterations[i]) == int(ri.iterations)
             np.testing.assert_allclose(rb.x[i].numpy(), ri.x.numpy(),
@@ -308,27 +320,30 @@ class TestSolveBatch:
                     **kw)
         assert p["converged"].all() and r["converged"].all()
         np.testing.assert_allclose(p["x"], r["x"], atol=1e-5)
-        ipm = SchurIPM(6, 2, dtype=torch.float32, **kw)
-        r0 = ipm.solve(block_qp_from_numpy(raws[0], dtype=torch.float32))
+        ipm = SchurIPM(6, 2, dtype=torch.float32, device="cpu", **kw)
+        r0 = ipm.solve(block_qp_from_numpy(raws[0], dtype=torch.float32,
+                                           device="cpu"))
         np.testing.assert_allclose(p["x"][0], r0.x.numpy(), atol=1e-5)
 
 
 class TestRejects:
     def test_solve_sharded_is_not_ported(self):
-        data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1))
+        data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1),
+                                   device="cpu")
         with pytest.raises(NotImplementedError, match="item 16"):
-            SchurIPM(3, 1).solve_sharded(data)
+            SchurIPM(3, 1, device="cpu").solve_sharded(data)
 
     def test_data_of_other_sizes_or_devices(self):
-        data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1))
+        data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1),
+                                   device="cpu")
         with pytest.raises(ValueError, match="sizes"):
-            SchurIPM(4, 1).solve(data)
+            SchurIPM(4, 1, device="cpu").solve(data)
         with pytest.raises(ValueError, match="axes"):
-            SchurIPM(3, 1).solve_batch(data)
+            SchurIPM(3, 1, device="cpu").solve_batch(data)
         with pytest.raises(ValueError, match="meta"):
-            SchurIPM(3, 1).solve(data.to(device="meta"))
+            SchurIPM(3, 1, device="cpu").solve(data.to(device="meta"))
         with pytest.raises(ValueError, match="block_kernel"):
-            SchurIPM(3, 1, block_kernel="triton")
+            SchurIPM(3, 1, block_kernel="triton", device="cpu")
 
     def test_cuda_solver_takes_only_the_kernels(self):
         # the plain 'jnp' path is for CPU tensors; a CUDA solver (built
@@ -341,7 +356,7 @@ class TestRejects:
 
     def test_float32_data_is_cast_to_the_working_dtype(self):
         data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1),
-                                   dtype=torch.float32)
-        res = SchurIPM(3, 1).solve(data)
+                                   dtype=torch.float32, device="cpu")
+        res = SchurIPM(3, 1, device="cpu").solve(data)
         assert res.x.dtype == torch.float64 and bool(res.converged)
         assert isinstance(data, BlockQPData)
