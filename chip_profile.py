@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's four slices, on one NVIDIA GPU.
+"""Where the time goes on the port's five slices, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the repository root; needs one
                                  # CUDA card and nvcc
     python3 chip_profile.py arrow schur   # only the named sections
-                                 # (arrow, schur, fused, compact)
+                                 # (arrow, schur, fused, compact, nd)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -26,7 +26,13 @@ the same data, and prints, after the card's name and power limit:
    one instance and the batch of 32: the wall by CUDA events (median of
    5 runs after a warm-up); launches per iteration and busy share of one
    solve under torch.profiler; K6's and K7's share of device time; and
-   the host-clock time of three single iterations.
+   the host-clock time of three single iterations;
+5. the nested-dissection slice (bench_nd's defaults, float32, tol 1e-5),
+   one instance and the batch of 8: the wall by CUDA events (median of 5
+   runs after a warm-up); launches per iteration and busy share of one
+   solve under torch.profiler; K5's and K3's share of device time; the
+   host-clock time of three single iterations, of the once-per-solve
+   prework, and of one factorisation and one solve of the plan.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -125,6 +131,58 @@ def profile_arrow():
                   f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock)")
 
 
+def profile_nd():
+    import torch
+    from ipmzoo_tpu_torch.models.families import grid_qp
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops.ndiss import nd_factor_pre, nd_solve
+    solver, data = cs.nd_solver(torch.float32, 1e-5)
+    one = tree_map(lambda a: a[None], data)
+    batch = grid_qp(side=cs.ND_SIDE, batch=cs.ND_BATCH, seed=0,
+                    dtype=torch.float32).data
+
+    def host_ms(what, fn, reps=3):
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            print(f"    one {what} {1e3 * (time.perf_counter() - t0):.3f} ms "
+                  f"(host clock)")
+        return out
+
+    for label, d in (("nd single", one),
+                     (f"nd batch of {cs.ND_BATCH}", batch)):
+        res = solver.solve_batch(d)
+        steps = int(res.iterations.max())
+        med = cs.time_solves(lambda: solver.solve_batch(d), 5)
+        events = []
+        busy, launches = profiled(lambda: solver.solve_batch(d), label,
+                                  events)
+        k5 = sum(ms for key, ms in events
+                 if "ldlt_factor_solve_matrix_kernel" in key)
+        k3 = sum(ms for key, ms in events if "ldlt_solve_kernel" in key)
+        print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
+              f"launches per solve {launches}, per iteration "
+              f"{launches / steps:.1f} (prework included); busy share "
+              f"{busy / med:.4f}; K5 {k5:.3f} ms ({k5 / busy:.4f} of device "
+              f"time), K3 {k3:.3f} ms ({k3 / busy:.4f})")
+        dd = solver._check_data(d)
+        state = solver.init_state(dd)
+        pre = host_ms("_nd_prework", lambda: solver._nd_prework(dd), 2)
+        host_ms("_step_impl", lambda: solver._step_impl(state, dd,
+                                                        nd_pre=pre))
+        plan = solver._nd_plan
+        w = torch.zeros_like(pre[1])
+        factors = host_ms("nd_factor_pre", lambda: nd_factor_pre(
+            pre[0], plan, diag_delta=w))
+        host_ms("nd_solve", lambda: nd_solve(plan, factors, dd.c))
+        profiled(lambda: nd_factor_pre(pre[0], plan, diag_delta=w),
+                 f"{label}, one nd_factor_pre")
+        profiled(lambda: nd_solve(plan, factors, dd.c),
+                 f"{label}, one nd_solve")
+
+
 def profile_fused(dev, data):
     import torch
     solver = cs.fused_solver(dev, torch.float32)
@@ -191,13 +249,14 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip())
-    sections = sys.argv[1:] or ["schur", "fused", "compact", "arrow"]
-    unknown = set(sections) - {"schur", "fused", "compact", "arrow"}
+    sections = sys.argv[1:] or ["schur", "fused", "compact", "arrow", "nd"]
+    unknown = set(sections) - {"schur", "fused", "compact", "arrow", "nd"}
     if unknown:
         print(f"chip_profile: unknown sections {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    cs.build_kernels()
+    if set(sections) - {"nd", "schur"}:
+        cs.build_kernels()
     if "schur" in sections:
         profile_schur(dev)
     if {"fused", "compact"} & set(sections):
@@ -208,6 +267,8 @@ def main():
         profile_compact(dev, data)
     if "arrow" in sections:
         profile_arrow()
+    if "nd" in sections:
+        profile_nd()
     return 0
 
 

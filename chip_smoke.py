@@ -96,7 +96,41 @@ Steps, each reported on its own line:
     against the per-level library composition (method='cr') on the
     slice's own condensed matrices at the initial iterate, one instance
     and the batch of 32, float32 and float64, and hold them to the plain
-    versions there too.
+    versions there too;
+22. hold K5 (fused LDL^T factor + multi-rhs solve, one launch) against
+    its plain version on the card, float32 within 1e-5 and float64
+    within 1e-12 on L, D and X as in step 4, at (matrices, order,
+    right-hand sides) = (105, 64, 40), (28, 16, 48), (16, 16, 64) (the
+    three levels of the nd slice's plan), (10240, 32, 2) (bench.py's
+    bench_kkt point), (3, 37, 5), with an exactly-zero pivot, and at
+    (1, 328, 1), over K5's shared-memory cap, where the wrapper must run
+    K2 then K4; the plain X also against torch.linalg.solve(A, R)
+    (float32 1e-3, float64 1e-9);
+23. build the nd slice's dissection plan (host) and hold
+    nd_solve(nd_factor(K)) on the slice's own KKT matrix at the initial
+    iterate, float64 on the card, against torch.linalg.solve within
+    1e-9, with the signed merged top and with the generic top (order
+    328: K2 + K4);
+24. run the nested-dissection slice, bench.py's bench_nd at its
+    defaults: grid_qp(side=64) (n=4096, 5-point-stencil Hessian, bounds
+    +-1, numpy seed 0), float32, tol 1e-5, through
+    CompiledIPM(kernel="nd", nd_leaf=64, nd_fallback=False).solve on the
+    default device, which must converge with three K5 and six K3
+    launches per iteration and no K2 / K4; a second solve must give
+    bit-identical x; time it with CUDA events (median of 5 runs after
+    that warm-up) and report ms per solve and per iteration, launches
+    and host syncs;
+25. the same structure as a batch: solve_batch on
+    grid_qp(side=64, batch=8) (K5 at 840 blocks per launch), all
+    converged, bit-identical twice, timed, useful iterations/s;
+26. the objectives of step 24 and of step 25's first two instances
+    against the port on the CPU in float64 (the library composition
+    there): |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
+27. time K5 at (105, 64, 40) in float32 and float64 and at
+    (10240, 32, 2) in float32 against its plain version, against K2
+    followed by K4 (the wrappers, their layout transposes included) and
+    against torch.linalg.solve (the one PyTorch call that gives the same
+    X; it returns no factors).
 
 Every kernel's entry in the kernels line carries its bound: the larger
 of the bytes it must move (inputs read once, outputs written once) over
@@ -129,6 +163,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:130",
             "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "fused": "ipmzoo_tpu/models/fused.py:432",
+            "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281"}
 K1_BATCHES = (10240, 1280)
@@ -139,6 +174,15 @@ ARROW_N, ARROW_BW, ARROW_TIP, ARROW_BATCH = 4096, 16, 8, 32
 #: (batch, blocks, block size, right-hand sides) of step 18
 CR_SHAPES = ((1, 256, 16, 9), (1, 256, 16, 1), (1, 37, 8, 3),
              (ARROW_BATCH, 256, 16, 9))
+#: bench_nd's defaults: grid side (n = side^2), dissection leaf; and the
+#: batch line's instances
+ND_SIDE, ND_LEAF, ND_BATCH = 64, 64, 8
+#: (matrices, order, right-hand sides) of step 22: the three levels of the
+#: nd slice's plan, bench_kkt's fused factor + 2-rhs point, an odd shape
+K5_LEVEL, K5_KKT = (105, 64, 40), (10240, 32, 2)
+K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5))
+#: a shape over K5's shared-memory cap: the wrapper runs K2 then K4
+K5_OVER_CAP = (1, 328, 1)
 #: published peaks of one H100 SXM: HBM bytes/s, and FLOP/s outside the
 #: tensor cores (float64 runs at half the float32 rate there)
 HBM_BYTES_PER_S = 3.35e12
@@ -176,6 +220,14 @@ def ldlt_bounds(B, n, k, dtype):
             "K3": bound(B * (n * n + 3 * n), B * (2 * n * n + n), dtype),
             "K4": bound(B * (n * n + n + 2 * n * k),
                         B * k * (2 * n * n + n), dtype)}
+
+
+def k5_bound(B, n, k, dtype):
+    """Bound of K5 on B systems of order n with k right-hand sides: it
+    reads A and R and writes L, D and X; n^3/3 multiply-adds for the
+    factor and 2 n^2 for each column's two sweeps."""
+    return bound(B * (2 * n * n + n + 2 * n * k),
+                 2 * B * (n ** 3 / 3 + 2 * k * n * n), dtype)
 
 
 def cr_bounds(B, N, b, k, dtype):
@@ -1198,6 +1250,286 @@ def time_cr(solver, data, batch):
     return out, errs
 
 
+def k5_inputs(B, n, k, dtype, dev, seed):
+    import torch
+    A, _ = quasi_definite(B, n, dtype, dev, seed)
+    R = torch.randn((B, n, k), dtype=dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed))
+    return A, R
+
+
+def hold_k5(what, A, R, tol, route="ldlt_solve_matrix"):
+    """K5 (or, over its cap, K2 + K4) against the plain version on the
+    card: L, D and X within ``tol`` (largest absolute difference over the
+    largest magnitude of the plain result); returns the plain result and
+    the largest absolute difference of X."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
+
+    L0, D0, X0 = ldlt_solve_matrix(A, R)
+    before = dict(cuda_ldlt.launches)
+    L, D, X = cuda_ldlt.ldlt_solve_matrix_auto(A, R)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in cuda_ldlt.launches.items() if
+            v != before[k]}
+    want = {route: 1} if route == "ldlt_solve_matrix" else \
+        {"ldlt": 1, "solve_ldlt_matrix": 1}
+    check(made == want, f"{what}: launches {made}, expected {want}")
+    check(bool(torch.isfinite(X0).all()), f"{what}: plain X not finite")
+    rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(X, X0)
+    print(f"kernels {what}: {'K5' if len(want) == 1 else 'K2 + K4'} rel "
+          f"diff L {rl:.3e} D {rd:.3e} X {rx:.3e} (limit {tol:g})")
+    check(max(rl, rd, rx) <= tol, f"{what}: disagrees with the plain "
+          f"version: {max(rl, rd, rx):.3e} > {tol:g}")
+    return (L0, D0, X0), (X - X0).abs().max().item()
+
+
+def check_k5(dev):
+    """Step 22: K5 against its plain version on the card."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR
+
+    err = None
+    for dtype, tol, tol_lib in ((torch.float32, 1e-5, 1e-3),
+                                (torch.float64, 1e-12, 1e-9)):
+        name = str(dtype).replace("torch.", "")
+        for B, n, k in K5_SHAPES:
+            A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k)
+            what = f"{name} B={B} n={n} k={k}"
+            check(cuda_ldlt.factor_solve_matrix_fits(n, k, dtype),
+                  f"{what} does not fit K5")
+            (_, _, X0), ax = hold_k5(what, A, R, tol)
+            rs = rel_diff(X0, torch.linalg.solve(A, R))
+            print(f"kernels {what}: plain X against torch.linalg.solve, "
+                  f"rel diff {rs:.3e} (limit {tol_lib:g})")
+            check(rs <= tol_lib, f"{what}: X is not the solution")
+            if dtype == torch.float32 and (B, n, k) == K5_LEVEL:
+                err = ax
+        # an exactly-zero second pivot, as in step 4
+        B, n, k = K5_SHAPES[1]
+        A, R = k5_inputs(B, n, k, dtype, dev, seed=7)
+        A[:, :2, :] = 0.0
+        A[:, :, :2] = 0.0
+        A[:, :2, :2] = 1.0
+        (_, D0, _), _ = hold_k5(f"{name} zero pivot B={B} n={n} k={k}", A, R,
+                                tol)
+        _, D, _ = cuda_ldlt.ldlt_solve_matrix_auto(A, R)
+        floor = torch.tensor(PIVOT_FLOOR, dtype=dtype)
+        check(bool((D[:, 1].cpu() == floor).all()) and
+              bool((D0[:, 1].cpu() == floor).all()),
+              "K5 or its plain version did not put the pivot floor on an "
+              "exactly-zero pivot")
+        B, n, k = K5_OVER_CAP
+        check(not cuda_ldlt.factor_solve_matrix_fits(n, k, dtype),
+              f"{K5_OVER_CAP} fits K5 in {name}")
+        A, R = k5_inputs(B, n, k, dtype, dev, seed=11)
+        hold_k5(f"{name} over the cap B={B} n={n} k={k}", A, R, tol,
+                route="ldlt + solve_ldlt_matrix")
+    print(f"kernels K5: shared-memory cap "
+          f"{cuda_ldlt.K5_SHARED_MEMORY_CAP} bytes; largest level shape "
+          f"needs {cuda_ldlt.factor_solve_matrix_bytes(16, 64, torch.float64)}"
+          f" / {cuda_ldlt.factor_solve_matrix_bytes(64, 40, torch.float64)} "
+          f"bytes in float64")
+    return err
+
+
+def nd_solver(dtype, tol, device=None):
+    """bench_nd's solver and QP (grid_qp(side=64), numpy seed 0) on
+    ``device`` (default: the card)."""
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.models.families import grid_qp
+    fam = grid_qp(side=ND_SIDE, seed=0, dtype=dtype, device=device)
+    solver = CompiledIPM(fam.settings, fam.n, dtype=dtype, tol=tol,
+                         kernel="nd", nd_leaf=ND_LEAF, nd_fallback=False,
+                         device=device)
+    return solver, fam.data
+
+
+def check_nd_kkt():
+    """Step 23: nd_solve(nd_factor(K)) on the nd slice's own KKT at the
+    initial iterate, float64 on the card, against torch.linalg.solve;
+    with the signed merged top (two Cholesky stages) and without signs
+    (the top block of order 328 goes through K2 + K4)."""
+    import torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ndiss import nd_factor, nd_plan, nd_solve
+
+    solver, data = nd_solver(torch.float64, 1e-8)
+    one = solver._check_data(tree_map(lambda a: a[None], data))
+    t0 = time.perf_counter()
+    solver._ensure_nd_plan(one)
+    plan = solver._nd_plan
+    print(f"nd plan: n={plan.n}, {len(plan.levels)} levels, "
+          f"{plan.num_nodes} supernodes, (B, k, m, C) per level "
+          f"{[(l.idx.shape[0], l.idx.shape[1], l.bnd.shape[1], l.child_ids.shape[1]) for l in plan.levels]}, "
+          f"m_max {plan.m_max}, top_neg {plan.top_neg}, flops nd "
+          f"{plan.flops_nd:.3e} dense {plan.flops_dense:.3e}, diagonal "
+          f"split {solver._nd_diag_split}; built in "
+          f"{time.perf_counter() - t0:.2f} s (host), {solver.host_syncs} "
+          f"matrices brought to the host")
+    check([(l.idx.shape[0],) + l.idx.shape[1:] + (l.bnd.shape[1],)
+           for l in plan.levels[:3]] == [K5_SHAPES[0], K5_SHAPES[1],
+                                         K5_SHAPES[2]],
+          "the plan's levels are not the shapes K5 is held at")
+    st = solver.init_state(one)
+    K = solver._assemble_kkt(solver._env(one, st.vars, st.mu), 1)[0]
+    b = torch.randn(plan.n, dtype=K.dtype, device=K.device,
+                    generator=torch.Generator(K.device).manual_seed(3))
+    xs = torch.linalg.solve(K, b)
+    unsigned = nd_plan((K != 0).cpu().numpy(), leaf=ND_LEAF)
+    check(plan.top_neg >= 0 and unsigned.top_neg < 0, "top_neg")
+    for what, p in (("signed top", plan), ("generic top", unsigned)):
+        before = dict(cuda_ldlt.launches)
+        x = nd_solve(p, nd_factor(K, p), b)
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in cuda_ldlt.launches.items()}
+        rd = rel_diff(x, xs)
+        print(f"nd factor + solve float64 n={p.n} ({what}): rel diff to "
+              f"torch.linalg.solve {rd:.3e} (limit 1e-9); launches {made}")
+        check(rd <= 1e-9, f"nd_solve disagrees with the dense solve "
+              f"({what}): {rd:.3e}")
+        top = 0 if p is plan else 1
+        check(made == {"ldlt": top, "solve_ldlt": 3 + top,
+                       "solve_ldlt_matrix": top, "ldlt_solve_matrix": 3},
+              f"nd ({what}): launches {made}")
+
+
+def run_nd(what, solve, solver, n_inst):
+    """One line of the nd slice: solve on the card, launches, bit-equal
+    repeat, wall."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    res = solve()
+    torch.cuda.synchronize()
+    launches = dict(cuda_ldlt.launches)
+    f64 = dict(cuda_ldlt.f64_launches)
+    syncs = solver.host_syncs
+
+    n = ND_SIDE * ND_SIDE
+    x = res.x.reshape(n_inst, -1)
+    check(tuple(x.shape) == (n_inst, n), f"{what}: x shape "
+          f"{tuple(res.x.shape)}")
+    check(x.device.type == "cuda", f"{what}: x is on {x.device}")
+    check(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+    check(bool(((x >= -1.0) & (x <= 1.0)).all()), f"{what}: x leaves its "
+          f"bounds")
+    its = res.iterations.reshape(n_inst)
+    conv = res.converged.reshape(n_inst)
+    steps = int(its.max())
+    print(f"{what}: grid_qp side={ND_SIDE} n={n} float32 tol=1e-5 "
+          f"kernel='nd' leaf={ND_LEAF}: converged {int(conv.sum())}/"
+          f"{n_inst}, diverged {int(res.diverged.sum())}, iterations "
+          f"{its.tolist()}")
+    print(f"{what}: launches K5 {launches['ldlt_solve_matrix']} K3 "
+          f"{launches['solve_ldlt']} K2 {launches['ldlt']} K4 "
+          f"{launches['solve_ldlt_matrix']} (float64: "
+          f"{sum(f64.values())}); host syncs {syncs}")
+    check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
+    check(launches == {"ldlt_solve_matrix": 3 * steps,
+                       "solve_ldlt": 6 * steps, "ldlt": 0,
+                       "solve_ldlt_matrix": 0},
+          f"{what}: expected three K5 and six K3 launches for each of the "
+          f"{steps} iterations and no K2 / K4, got {launches}")
+    check(sum(f64.values()) == 0, f"{what}: float64 launches in a float32 "
+          f"solve")
+
+    again = solve()
+    torch.cuda.synchronize()
+    check(torch.equal(again.x, res.x) and
+          torch.equal(again.iterations, res.iterations),
+          f"{what}: two solves of the same data differ in x")
+    print(f"{what}: a second solve gives bit-identical x")
+    med = time_solves(solve, 5)
+    print(f"{what}: wall ms per solve (CUDA events, 5 runs) median "
+          f"{med:.3f}; ms per iteration {med / steps:.3f}; useful "
+          f"iterations/s {int(its.sum()) / (med / 1e3):.1f}")
+    return res, launches
+
+
+def run_nd_slice():
+    """Steps 24-26: bench_nd's QP through CompiledIPM(kernel='nd') on the
+    default device, one instance and a batch of ND_BATCH, and the
+    objectives against the port on the CPU in float64."""
+    import torch
+    from ipmzoo_tpu_torch.models.families import grid_qp
+    from ipmzoo_tpu_torch.models.state import tree_map
+
+    solver, data = nd_solver(torch.float32, 1e-5)
+    check(solver.device.type == "cuda" and data.Q.device.type == "cuda",
+          "the default device is not the card")
+    res, launches = run_nd("nd single", lambda: solver.solve(data), solver,
+                           1)
+    check(solver._mode == "nd" and not solver.nd_fell_back,
+          "the nd solver fell back")
+    batch = grid_qp(side=ND_SIDE, batch=ND_BATCH, seed=0,
+                    dtype=torch.float32).data
+    resb, _ = run_nd(f"nd batch of {ND_BATCH}",
+                     lambda: solver.solve_batch(batch), solver, ND_BATCH)
+
+    cpu, _ = nd_solver(torch.float64, 1e-8, device="cpu")
+    to64 = lambda d: tree_map(                                # noqa: E731
+        lambda a: a.to(device="cpu", dtype=torch.float64), d)
+    c1 = cpu.solve(to64(data))
+    c2 = cpu.solve_batch(to64(tree_map(lambda a: a[:2], batch)))
+    f_cpu = torch.cat([c1.objective[None], c2.objective])
+    f_gpu = torch.cat([res.objective[None], resb.objective[:2]]).cpu() \
+        .double()
+    rel = (f_gpu - f_cpu).abs() / (1.0 + f_cpu.abs())
+    print(f"nd cpu f64 check (method 'jnp' there): converged "
+          f"{int(c1.converged) + int(c2.converged.sum())}/3 on the CPU in "
+          f"{[int(c1.iterations)] + c2.iterations.tolist()} iterations; "
+          f"f_cpu {[round(f, 6) for f in f_cpu.tolist()]}; largest "
+          f"|f_gpu - f_cpu| / (1 + |f_cpu|) = {rel.max().item():.3e} "
+          f"(limit 1e-4)")
+    check(bool(c1.converged) and bool(c2.converged.all()),
+          "nd: the CPU f64 port did not converge")
+    check(bool((rel <= 1e-4).all()), "nd: objectives disagree with the CPU "
+          "f64 port")
+    return launches
+
+
+def time_k5(dev):
+    """Step 27: K5 against its plain version, against K2 followed by K4
+    (the wrappers, layout transposes included) and against
+    torch.linalg.solve, which gives the same X and no factors."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
+
+    def k2_k4(A, R):
+        L, D = cuda_ldlt.ldlt_auto(A)
+        return cuda_ldlt.solve_ldlt_matrix_auto(L, D, R)
+
+    out = {}
+    for (B, n, k), dtype in ((K5_LEVEL, torch.float32),
+                             (K5_LEVEL, torch.float64),
+                             (K5_KKT, torch.float32)):
+        name = str(dtype).replace("torch.", "")
+        A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k)
+        X0 = ldlt_solve_matrix(A, R)[2]
+        t = {"K5": time_cuda(
+                 lambda: cuda_ldlt.factor_solve_matrix_launch(A, R), 50),
+             "K5_plain": time_cuda(lambda: ldlt_solve_matrix(A, R), 3),
+             "K2_then_K4": time_cuda(lambda: k2_k4(A, R), 10)}
+        t["library"] = time_library(
+            f"torch.linalg.solve (K5's X, no factors) B={B} n={n} k={k} "
+            f"{name}", lambda: torch.linalg.solve(A, R), X0,
+            1e-3 if dtype == torch.float32 else 1e-9, 10)
+        t["bound"] = k5_bound(B, n, k, dtype)
+        out[(B, n, k, name)] = t
+        print(f"timing K5 B={B} n={n} k={k} {name} (ms per call, CUDA "
+              f"events): K5 {t['K5']:.4f}, plain {t['K5_plain']:.4f}, K2 "
+              f"then K4 {t['K2_then_K4']:.4f}; bound "
+              f"{t['bound'][0]:.6f} ms by {t['bound'][1]}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1235,6 +1567,10 @@ def main():
     a_solver, a_data, a_batch, a_launches, ab_launches = run_arrow_slice()
     cr_times, cr_errs = time_cr(a_solver, a_data, a_batch)
     errs.update(cr_errs)
+    errs["ldlt_solve_matrix"] = check_k5(dev)
+    check_nd_kkt()
+    nd_launches = run_nd_slice()
+    k5 = time_k5(dev)[K5_LEVEL + ("float32",)]
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu")
@@ -1271,6 +1607,10 @@ def main():
               "B=512)", SOURCE, "solve_ldlt_matrix",
               s_launches["solve_ldlt_matrix"], s_times["K4"],
               s_times["K4_plain"], b64["K4"], s_times["K4_library"]),
+        entry("K5 fused LDL^T factor + multi-rhs solve (float32, B=%d, "
+              "n=%d, k=%d)" % K5_LEVEL, SOURCE, "ldlt_solve_matrix",
+              nd_launches["ldlt_solve_matrix"], k5["K5"], k5["K5_plain"],
+              k5["bound"], k5["library"]),
         entry(f"K6 whole-reduction cyclic-reduction factor ({shape}, B=1)",
               CR_SOURCE, "cr_factor", a_launches["cr_factor"], ct["K6"],
               ct["K6_plain"], cb["K6"], None),

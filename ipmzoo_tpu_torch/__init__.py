@@ -9,15 +9,19 @@ mirror the JAX package's:
   — the expression engine and the formulation lattice (Settings -> Newton
   system -> reductions), pure Python.
 * :mod:`ipmzoo_tpu_torch.models` — ``CompiledIPM`` (batched Mehrotra
-  solver, dense LDL^T mode), ``QPData``, the compaction engine, and
+  solver; dense LDL^T mode, and nested dissection for general sparsity,
+  ``kernel="nd"``), ``QPData``, the QP ``families``, the compaction
+  engine, and
   ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
   from the symbolic derivation), and ``ArrowIPM`` (banded+arrow box QPs
   over the cyclic-reduction kernels K6/K7).
 * :mod:`ipmzoo_tpu_torch.parallel` — ``SchurIPM``, the block-separable
   coupled-QP engine (Schur complements over K2/K3/K4), on one device.
-* :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve and
-  multi-rhs solve: CUDA kernels (``csrc/ldlt.cu``) with plain torch
-  versions for CPU tensors; K1's build and launch (``cuda_fused``); the
+* :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve, multi-rhs
+  solve and fused factor + multi-rhs solve: CUDA kernels
+  (``csrc/ldlt.cu``) with plain torch versions for CPU tensors; the
+  nested-dissection factorisation over them (``ndiss``); K1's build and
+  launch (``cuda_fused``); the
   banded+arrow factorisation (``banded``) with whole-reduction block
   cyclic reduction, factor and solve (``csrc/cr.cu``, ``cuda_cr``, plain
   versions in ``cr``).

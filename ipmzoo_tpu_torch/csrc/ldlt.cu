@@ -1,6 +1,7 @@
-// Batched LDL^T factor (K2), single right-hand-side solve (K3) and
-// multi right-hand-side solve (K4) for Hopper (sm_90a), with a plain C
-// interface loaded through ctypes (ipmzoo_tpu_torch/ops/cuda_ldlt.py).
+// Batched LDL^T factor (K2), single right-hand-side solve (K3), multi
+// right-hand-side solve (K4) and fused factor + multi right-hand-side
+// solve (K5) for Hopper (sm_90a), with a plain C interface loaded through
+// ctypes (ipmzoo_tpu_torch/ops/cuda_ldlt.py).
 //
 // K2 ldlt_factor_kernel replaces the TPU kernel
 //     ipmzoo_tpu/ops/pallas_ldlt.py:_factor_kernel
@@ -8,8 +9,10 @@
 //     ipmzoo_tpu/ops/pallas_ldlt.py:_solve_kernel
 // K4 ldlt_solve_matrix_kernel replaces the TPU kernel
 //     ipmzoo_tpu/ops/pallas_ldlt.py:_solve_matrix_kernel
+// K5 ldlt_factor_solve_matrix_kernel replaces the TPU kernel
+//     ipmzoo_tpu/ops/pallas_ldlt.py:_factor_solve_matrix_kernel
 // Their plain versions are ipmzoo_tpu_torch/ops/ldlt.py:ldlt / solve_ldlt
-// / solve_ldlt_matrix.
+// / solve_ldlt_matrix / ldlt_solve_matrix.
 //
 // What bounds them on this card.  The solver factors one small augmented
 // KKT system per QP instance and per iteration: at n = 24 that is about
@@ -44,6 +47,38 @@
 // (n, k, B).  The forward sweep accumulates each row in a register in
 // the order of the plain version's column sweep; staging the factor in
 // shared memory or wgmma are later work.
+
+//
+// K5 factors each matrix and solves its k right-hand sides in one launch,
+// with the factor never leaving the chip between the two halves, as the
+// TPU kernel keeps it in VMEM.  Its callers are the levels of the
+// nested-dissection factorisation: 16 to a few hundred matrices of order
+// 16-64 with 40-64 right-hand sides each (the boundary coupling), and a
+// benchmark point of 10240 matrices of order 32 with 2.  The TPU kernel
+// puts 128 or more instances on the vector lanes; one thread per instance
+// would leave this card empty at a level's batch (K2 at n = 64 runs
+// hundreds of instances on a few SMs).  So K5 is one thread block per
+// matrix, layout (B, n, n) / (B, n, k) as the callers hold it, no
+// transpose.  What bounds it: the bytes are one read of A and R and one
+// write of L, D and X, 2/3 n^3 + 4 k n^2 operations against
+// (2 n^2 + n + 2 n k) values, about 30 operations per byte at a level's
+// shape in float32: under the card's ridge, so the bound is bytes, and
+// the time is the latency of n dependent elimination steps.
+//
+// Design.  The augmented panel [A | R], n x (n + k), sits in shared
+// memory (dynamic, up to the 227 KB a block may take; the wrapper falls
+// back to K2 + K4 above that).  A right-looking elimination runs the n
+// columns: at column j the pivot is read (an exactly-zero pivot becomes
+// pivot_floor), the column is divided by it (the unscaled column is kept
+// aside), and the rank-one update is applied to the lower triangle of
+// the trailing matrix and to every rhs column alike, so forward
+// substitution is the same elimination; two barriers per column.  Then
+// the rhs is divided by D, and the backward substitution runs column by
+// column from the last, threads over (row, rhs column), one barrier per
+// column.  Threads are (32, blockDim.y): a warp walks 32 neighbouring
+// columns of one row, so shared-memory accesses are conflict-free.  L, D
+// and X are written once.  Each entry subtracts its terms in increasing
+// j, as the plain version's column sweeps do.
 
 #include <cstdint>
 
@@ -149,6 +184,84 @@ __global__ void ldlt_solve_matrix_kernel(const T* __restrict__ L,
   }
 }
 
+template <typename T>
+__global__ void ldlt_factor_solve_matrix_kernel(
+    const T* __restrict__ A, const T* __restrict__ R, T* __restrict__ L,
+    T* __restrict__ D, T* __restrict__ X, int n, int k, T pivot_floor) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* P = reinterpret_cast<T*>(shared_raw);   // [A | R], n x w, row-major
+  const int w = n + k;
+  T* dsh = P + static_cast<size_t>(n) * w;   // D
+  T* ucol = dsh + n;                         // unscaled column j
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nx = blockDim.x, ny = blockDim.y;
+  const int tid = ty * nx + tx, nt = nx * ny;
+  const int64_t b = blockIdx.x;
+  A += b * n * n;
+  L += b * n * n;
+  D += b * n;
+  R += b * n * k;
+  X += b * n * k;
+
+  for (int i = ty; i < n; i += ny) {
+    for (int c = tx; c < n; c += nx) P[i * w + c] = A[i * n + c];
+    for (int c = tx; c < k; c += nx) P[i * w + n + c] = R[i * k + c];
+  }
+  __syncthreads();
+
+  // factor, and forward substitution of the rhs columns
+  for (int j = 0; j < n; ++j) {
+    T d = P[j * w + j];
+    if (d == T(0)) d = pivot_floor;
+    if (tid == 0) dsh[j] = d;
+    for (int i = j + 1 + tid; i < n; i += nt) {
+      const T u = P[i * w + j];
+      ucol[i] = u;
+      P[i * w + j] = u / d;
+    }
+    __syncthreads();
+    // P_ic -= L_ij u_cj on the lower triangle (j < c <= i), and
+    // R_ic -= L_ij R_jc on every rhs column
+    for (int i = j + 1 + ty; i < n; i += ny) {
+      const T l = P[i * w + j];
+      for (int c = j + 1 + tx; c < w; c += nx) {
+        if (c < n) {
+          if (c <= i) P[i * w + c] -= l * ucol[c];
+        } else {
+          P[i * w + c] -= l * P[j * w + c];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = ty; i < n; i += ny) {
+    const T d = dsh[i];
+    for (int c = tx; c < k; c += nx) P[i * w + n + c] /= d;
+  }
+  __syncthreads();
+
+  // backward substitution with L^T, column by column from the last:
+  // X_ic -= L_ji X_jc for every i < j
+  for (int j = n - 1; j > 0; --j) {
+    for (int i = ty; i < j; i += ny) {
+      const T l = P[j * w + i];
+      for (int c = tx; c < k; c += nx) {
+        P[i * w + n + c] -= l * P[j * w + n + c];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = ty; i < n; i += ny) {
+    for (int c = tx; c < n; c += nx) {
+      L[i * n + c] = c < i ? P[i * w + c] : (c == i ? T(1) : T(0));
+    }
+    for (int c = tx; c < k; c += nx) X[i * k + c] = P[i * w + n + c];
+  }
+  for (int i = tid; i < n; i += nt) D[i] = dsh[i];
+}
+
 unsigned int grid_for(int64_t B) {
   return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
 }
@@ -178,14 +291,56 @@ int launch_solve_matrix(const T* L, const T* D, const T* rhs, T* x, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_factor_solve_matrix(const T* A, const T* R, T* L, T* D, T* X,
+                               int n, int k, int64_t B, T pivot_floor,
+                               cudaStream_t stream) {
+  const size_t shared =
+      (static_cast<size_t>(n) * (n + k) + 2 * static_cast<size_t>(n)) *
+      sizeof(T);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ldlt_factor_solve_matrix_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // 32 x 4 threads up to order 32, 32 x 8 above
+  const dim3 block(32, n > 32 ? 8 : 4);
+  ldlt_factor_solve_matrix_kernel<T>
+      <<<static_cast<unsigned int>(B), block, shared, stream>>>(
+          A, R, L, D, X, n, k, pivot_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
 // cudaGetLastError() (0 on success).  Pointers are device pointers to
 // contiguous SoA arrays: A, L (n, n, B); D, rhs, x (n, B) for K2/K3, and
 // rhs, x (n, k, B) for K4.  The caller guarantees n > 0, B > 0 and
-// 0 < k <= 65535.
+// 0 < k <= 65535.  K5 takes contiguous A, L (B, n, n); D (B, n); R, X
+// (B, n, k), with n, k > 0, 0 < B < 2^31 and
+// (n (n + k) + 2 n) sizeof(T) <= 232448 bytes of shared memory.
 extern "C" {
+
+int ipmzoo_ldlt_factor_solve_matrix_f32(const float* A, const float* R,
+                                        float* L, float* D, float* X, int n,
+                                        int k, long long B,
+                                        float pivot_floor, void* stream) {
+  return launch_factor_solve_matrix<float>(
+      A, R, L, D, X, n, k, B, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_factor_solve_matrix_f64(const double* A, const double* R,
+                                        double* L, double* D, double* X,
+                                        int n, int k, long long B,
+                                        double pivot_floor, void* stream) {
+  return launch_factor_solve_matrix<double>(
+      A, R, L, D, X, n, k, B, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
 
 int ipmzoo_ldlt_factor_f32(const float* A, float* L, float* D, int n,
                            long long B, float pivot_floor, void* stream) {

@@ -187,6 +187,17 @@ def multiply_tv(x: TV, y: TV) -> TV:
     raise TypeError(f"cannot multiply {xt} and {yt}")
 
 
+def diagonal_tv(x: TV) -> TV:
+    """The diagonal of a square cell value as a ``diag`` (a scalar, which
+    stands for a multiple of the identity, stays a scalar): the diagonal
+    of a sum is the sum of these, entry by entry the same additions."""
+    if x.tag == "matrix":
+        return diag(x.val.diagonal(dim1=-2, dim2=-1))
+    if x.tag in ("diag", "scalar"):
+        return x
+    raise TypeError(f"{x.tag} has no diagonal")
+
+
 def transpose_tv(x: TV) -> TV:
     if x.tag == "matrix":
         return matrix(x.val.transpose(-1, -2))

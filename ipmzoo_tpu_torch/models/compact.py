@@ -273,6 +273,7 @@ class CompactScheduleMixin:
             eps = torch.finfo(self.dtype).eps
             esc_cap = 32 if self.tol <= eps * 20 else 0
         data = self._check_data(data)
+        self._ensure_nd_plan(data)
         if schedule is None:
             schedule = self.default_schedule(data.Q.shape[0])
         return self._compact_impl(data, schedule, tail_gondzio,

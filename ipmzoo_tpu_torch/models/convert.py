@@ -10,7 +10,8 @@ engine's results and warm states are dicts already (``x``,
 ``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.
 ``block_qp_from_numpy`` does the same for the coupled-QP data of
 ``SchurIPM``, ``arrow_qp_from_numpy`` / ``arrow_state_from_numpy`` for the
-data and state of ``ArrowIPM``.  Tests use them to pass the same data and
+data and state of ``ArrowIPM``, ``family_from_reference`` for a whole
+``families.Family`` (data and settings).  Tests use them to pass the same data and
 state between the reference and the port.  ``device=None`` is the CUDA
 device, as for every entry point of the port; the tests pass
 ``device="cpu"``.
@@ -74,6 +75,18 @@ def qpdata_from_numpy(src, *, dtype: torch.dtype = torch.float64,
 
 def qpdata_to_numpy(data: QPData) -> dict:
     return {k: _np(getattr(data, k)) for k in _QP_FIELDS}
+
+
+def family_from_reference(src, *, dtype: torch.dtype = torch.float64,
+                          device=None):
+    """The port's ``Family`` from the reference's (or any object with its
+    fields): the data through :func:`qpdata_from_numpy`, the settings
+    through :func:`settings_from_reference`."""
+    from .families import Family
+    return Family(src.name, qpdata_from_numpy(src.data, dtype=dtype,
+                                              device=device),
+                  settings_from_reference(src.settings), src.n, src.m_ineq,
+                  src.m_eq)
 
 
 def state_from_numpy(src, *, dtype: torch.dtype = torch.float64,

@@ -7,7 +7,9 @@ sizes; each iteration then evaluates the derived system eagerly on a
 batch of QP instances:
 
   1. residual norm and duality measure of the full KKT residual at mu=0
-  2. assemble the augmented KKT matrices; factor once (LDL^T, kernel K2)
+  2. assemble the augmented KKT matrices; factor once (LDL^T, kernel K2;
+     or, with kernel="nd", along a nested-dissection plan of the KKT
+     sparsity, kernel K5 per level)
   3. affine predictor: residual vectors at mu=0, solve (K3),
      back-substitute eliminated variables via the symbolic delta
      definitions
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..formulations import (Settings, VariableNames, augmented_system,
@@ -41,6 +44,7 @@ from .compact import CompactScheduleMixin, _where
 from .data import QPData
 from .directions import DirectionsMixin
 from .kernels import KernelDispatchMixin
+from .ndplan import NdPlanMixin
 from .state import IPMState, SolveResult, tree_map
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
@@ -51,7 +55,7 @@ _ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
 
 
 class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
-                  CompactScheduleMixin):
+                  CompactScheduleMixin, NdPlanMixin):
     """A formulation + problem-size specialised batched IPM solver.
 
     ``device`` is where the solver's tensors live (default: the CUDA
@@ -59,7 +63,17 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     data on any other device is rejected.  ``settings`` must be the
     port's own :class:`Settings` (``convert.settings_from_reference``
     rebuilds one from the JAX package's).  ``dtype`` is the working
-    precision (default float64, as the reference)."""
+    precision (default float64, as the reference).
+
+    ``kernel``: 'auto' / 'ldlt' factor the dense augmented system (K2,
+    K3); 'nd' factors it by nested-dissection block elimination for
+    general sparsity (``ops/ndiss.py``: K5 per tree level, K3 in the
+    solves).  The dissection plan is built on the host from the KKT
+    sparsity pattern: pass it as ``nd_pattern``, or leave None and the
+    first solve derives it from the data.  ``nd_leaf``: stop dissecting
+    below this many variables.  ``nd_fallback``: refuse a plan predicted
+    to lose to the dense path and solve with 'ldlt' instead (recorded
+    in ``nd_fell_back``); False keeps the plan."""
 
     def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
                  m_eq: int = 0, *, names: VariableNames = VariableNames(),
@@ -72,7 +86,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                  mu_floor: float | str = "auto",
                  hybrid_refine: bool = False, df_residuals: bool = False,
                  two_float: bool = False, mesh=None,
-                 taylor: str = "staged"):
+                 taylor: str = "staged", nd_pattern=None,
+                 nd_leaf: int = 32, nd_fallback: bool = True):
         apply_default_matmul_precision()
         if not isinstance(settings, Settings):
             raise TypeError(
@@ -89,10 +104,11 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         if mesh is not None:
             raise NotImplementedError(
                 f"mesh= is not ported: see {_ROADMAP_MESH}")
-        if kernel not in ("auto", "ldlt"):
+        if kernel not in ("auto", "ldlt", "nd"):
             raise NotImplementedError(
                 f"kernel={kernel!r} is not ported; the port has the dense "
-                f"LDL^T mode ('auto'/'ldlt') only: see {_ROADMAP_KERNELS}")
+                f"LDL^T mode ('auto'/'ldlt') and nested dissection ('nd') "
+                f"only: see {_ROADMAP_KERNELS}")
         if taylor not in ("staged", "symbolic"):
             raise ValueError(f"unknown taylor={taylor!r}; expected "
                              "'staged' or 'symbolic'")
@@ -154,7 +170,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.aug_dim = sum(self.aug_sizes)
         self.var_index = {v: i for i, v in enumerate(full.variables)}
         # the reference's 'auto' hands large systems to its block modes
-        can_block = (len(aug.variables) == 2 and aug.variables[0] is o.x)
+        can_block = self._can_block = (len(aug.variables) == 2 and
+                                       aug.variables[0] is o.x)
         if kernel == "auto" and ((can_block and n >= 384) or
                                  self.aug_dim >= 384):
             raise NotImplementedError(
@@ -162,6 +179,31 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 f"block mode here, which is not ported: see "
                 f"{_ROADMAP_KERNELS}; pass kernel='ldlt' for dense LDL^T")
         self.delta_to_var = {delta_variable(v): v for v in full.variables}
+
+        # structural signs of the augmented system's diagonal: +1 on
+        # primal groups, -1 on dual groups (the nd amalgamated-top split)
+        dual_groups = {o.lambda_A_ineq, o.lambda_sAineql, o.lambda_sAinequ,
+                       o.lambda_A_eq, o.lambda_sAeql, o.lambda_sAequ,
+                       o.lambda_sxl, o.lambda_sxu}
+        self.group_signs = tuple(
+            -1.0 if v in dual_groups else 1.0 for v in aug.variables)
+        self._sign_vec = np.concatenate(
+            [np.full(s, sign, dtype=np.float64)
+             for s, sign in zip(self.aug_sizes, self.group_signs)]
+        ) if self.aug_sizes else np.zeros((0,))
+        #: the kernel mode in use: 'ldlt' or 'nd'
+        self._mode = "nd" if kernel == "nd" else "ldlt"
+        if kernel == "nd":
+            self._nd_leaf = nd_leaf
+            self._nd_fallback = nd_fallback
+            #: whether the auto-fallback replaced the nd plan by 'ldlt'
+            self.nd_fell_back = False
+            self._nd_plan = None
+            if nd_pattern is not None:
+                from ..ops.ndiss import nd_plan
+                self._nd_plan = nd_plan(np.asarray(nd_pattern),
+                                        leaf=nd_leaf, signs=self._sign_vec)
+                self._maybe_nd_fallback()
 
         # complementarity rows: contain an e-vector and mu
         e_vecs = (o.e_var, o.e_ineq, o.e_eq)
@@ -339,14 +381,14 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             residual=residual, gap=gap)
 
     def _step_impl(self, state: IPMState, data: QPData,
-                   gondzio: Optional[int] = None) -> IPMState:
+                   gondzio: Optional[int] = None, nd_pre=None) -> IPMState:
         """One Mehrotra iteration of every instance of the batch."""
         B = data.Q.shape[0]
         env = self._env(data, state.vars, state.mu)
         gap = state.gap
 
         # factor the augmented KKT once
-        solve_fn = self._make_solve_dense(env, B)
+        solve_fn = self._make_solve(env, B, nd_pre=nd_pre)
 
         # affine predictor (mu = 0)
         renv = self._residual_env(env, 0.0)
@@ -399,12 +441,29 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             return self.tol * (1.0 + state.residual)
         return torch.full_like(state.residual, self.tol)
 
+    def _nd_prework(self, data: QPData):
+        """Loop-invariant prework of the nd diagonal-split path: the
+        reference KKT (at a data-derived strictly interior point) cut
+        into the plan's static slabs, plus its diagonal.  Computed once
+        OUTSIDE the solver loop."""
+        if self._mode != "nd" or not getattr(self, "_nd_diag_split",
+                                             False):
+            return None
+        from ..ops.ndiss import nd_prework
+        B = data.Q.shape[0]
+        env_ref = self._nd_ref_env(self._base_env(data, 1.0))
+        K_ref = self._assemble_kkt(env_ref, B)
+        return (nd_prework(K_ref, self._nd_plan),
+                self._assemble_diag(env_ref, B))
+
     def _solve_impl(self, data: QPData,
                     warm_start: Optional[dict] = None) -> SolveResult:
         """Solve every instance of a batch: the batched form of the
         reference's per-instance ``while_loop``."""
+        self._ensure_nd_plan(data)
         state = self.init_state(data, warm_start)
         res_tol = self._res_tol(state)
+        nd_pre = self._nd_prework(data)
 
         def bad(s):
             # the reference's while loop does not test gap for inf (its
@@ -419,7 +478,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             self.host_syncs += 1
             if not bool(active.any()):
                 break
-            new = self._step_impl(state, data)
+            new = self._step_impl(state, data, nd_pre=nd_pre)
             # divergence rollback: a failed step keeps the last good
             # iterate and flags the instance
             failed = bad(new)

@@ -1,5 +1,6 @@
 """Device kernels of the port: batched LDL^T factor and solve (CUDA
-kernels K2/K3/K4 with plain torch versions), the wrapper of the fused
+kernels K2/K3/K4/K5 with plain torch versions), the nested-dissection
+factorisation over them (:mod:`.ndiss`), the wrapper of the fused
 whole-solve kernel K1 (:mod:`.cuda_fused`; its plain version is
 ``models/fused.py``), and the banded+arrow factorisation (:mod:`.banded`)
 over whole-reduction block cyclic reduction (CUDA kernels K6/K7 in

@@ -1,16 +1,18 @@
-"""Batched LDL^T factor (K2), solve (K3) and multi-rhs solve (K4): CUDA
-kernels with plain torch versions.
+"""Batched LDL^T factor (K2), solve (K3), multi-rhs solve (K4) and fused
+factor + multi-rhs solve (K5): CUDA kernels with plain torch versions.
 
 Counterpart of :mod:`ipmzoo_tpu.ops.pallas_ldlt` (``ldlt_auto`` /
-``solve_ldlt_auto``, ``batched_solve_ldlt_matrix_pallas``).  The public
+``solve_ldlt_auto``, ``batched_solve_ldlt_matrix_pallas``,
+``batched_ldlt_solve_matrix_pallas``).  The public
 layout is the reference's: A (B, n, n), D (B, n), b (B, n),
 R (B, n, k).  For CUDA tensors the wrappers transpose to the kernels'
 structure-of-arrays layout ((n, n, B), batch fastest) and launch the
 kernels of ``csrc/ldlt.cu`` on the current stream.  The factors are
 returned as (B, n, n) / (B, n) views of their SoA storage, so a solve
-against them reads the factors without a second transpose.  For CPU
-tensors the wrappers run the plain versions of :mod:`.ldlt`.  Any other
-device raises; a failed build or launch raises too.
+against them reads the factors without a second transpose.  K5 takes
+the public layout as it is: one thread block per matrix, no transpose.
+For CPU tensors the wrappers run the plain versions of :mod:`.ldlt`.
+Any other device raises; a failed build or launch raises too.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ import functools
 import torch
 
 from . import _build
-from .ldlt import PIVOT_FLOOR, ldlt, solve_ldlt, solve_ldlt_matrix
+from .ldlt import (PIVOT_FLOOR, ldlt, ldlt_solve_matrix, solve_ldlt,
+                   solve_ldlt_matrix)
 
 #: kernel launches since the last :func:`reset_launch_counts`
-launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0}
+launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0,
+            "ldlt_solve_matrix": 0}
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
 
@@ -58,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         m = getattr(lib, f"ipmzoo_ldlt_solve_matrix_{sfx}")
         m.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
         m.restype = i32
+        fs = getattr(lib, f"ipmzoo_ldlt_factor_solve_matrix_{sfx}")
+        fs.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, _CTYPE[dt],
+                       ptr]
+        fs.restype = i32
     return lib
 
 
@@ -149,6 +157,62 @@ def solve_matrix_soa(L_t: torch.Tensor, D_t: torch.Tensor,
     return X_t
 
 
+#: K5 keeps one matrix's panel [A | R] (n x (n + k)), D and one column
+#: in the shared memory of its thread block: the most dynamic shared
+#: memory a block may take on sm_90, in bytes.  Above it the wrapper
+#: runs K2 then K4.
+K5_SHARED_MEMORY_CAP = 232448
+
+
+def factor_solve_matrix_bytes(n: int, k: int, dtype: torch.dtype) -> int:
+    """Shared memory one K5 thread block needs for order n, k columns."""
+    return (n * (n + k) + 2 * n) * torch.finfo(dtype).bits // 8
+
+
+def factor_solve_matrix_fits(n: int, k: int, dtype: torch.dtype) -> bool:
+    return factor_solve_matrix_bytes(n, k, dtype) <= K5_SHARED_MEMORY_CAP
+
+
+def factor_solve_matrix_launch(A: torch.Tensor, R: torch.Tensor,
+                               pivot_floor: float = PIVOT_FLOOR):
+    """Launch K5: A (B, n, n), R (B, n, k), both contiguous on the card ->
+    L (B, n, n) unit-lower, D (B, n), X (B, n, k) with L D L^T X = R, in
+    one launch; the factor stays in shared memory between the two
+    halves."""
+    B, n, k = R.shape
+    _check_soa(R.dtype, R.device, A=(A, (B, n, n)), R=(R, (B, n, k)))
+    if not R.is_cuda:
+        raise ValueError(f"K5 needs CUDA tensors, got {R.device}")
+    if n == 0 or k == 0 or B == 0:
+        raise ValueError(f"K5 needs B, n, k > 0, got {(B, n, k)}")
+    need = factor_solve_matrix_bytes(n, k, R.dtype)
+    if need > K5_SHARED_MEMORY_CAP:
+        raise ValueError(
+            f"K5 at n={n}, k={k} in {R.dtype} needs {need} bytes of shared "
+            f"memory, above its cap of {K5_SHARED_MEMORY_CAP}")
+    L = torch.empty_like(A)
+    D = A.new_empty((B, n))
+    X = torch.empty_like(R)
+    with torch.cuda.device(R.device):
+        err = getattr(
+            _lib(), f"ipmzoo_ldlt_factor_solve_matrix_{_SUFFIX[R.dtype]}")(
+            A.data_ptr(), R.data_ptr(), L.data_ptr(), D.data_ptr(),
+            X.data_ptr(), n, k, B, pivot_floor, _stream(R.device))
+    if err:
+        raise RuntimeError(f"LDL^T factor + multi-rhs solve kernel launch "
+                           f"failed: cudaError {err}")
+    _count("ldlt_solve_matrix", R.dtype)
+    return L, D, X
+
+
+def soa_backed(L: torch.Tensor, D: torch.Tensor):
+    """(L, D) as (B, n, n) / (B, n) views of structure-of-arrays storage,
+    the form :func:`ldlt_auto` returns: :func:`solve_ldlt_auto` and
+    :func:`solve_ldlt_matrix_auto` then read them without a transpose."""
+    return (L.permute(1, 2, 0).contiguous().permute(2, 0, 1),
+            D.t().contiguous().t())
+
+
 def _dispatch(t: torch.Tensor) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
     if t.device.type == "cuda":
@@ -190,3 +254,28 @@ def solve_ldlt_matrix_auto(L: torch.Tensor, D: torch.Tensor,
                            D.t().contiguous(),
                            R.permute(1, 2, 0).contiguous())
     return X_t.permute(2, 0, 1)
+
+
+def ldlt_solve_matrix_auto(A: torch.Tensor, R: torch.Tensor,
+                           pivot_floor: float = PIVOT_FLOOR):
+    """Batched fused factor + multi-rhs solve: A (B, n, n), R (B, n, k)
+    -> (L, D, X) with L D L^T X = R per instance.
+
+    On CUDA tensors one K5 launch; where a block's panel exceeds
+    ``K5_SHARED_MEMORY_CAP`` bytes, K2 then K4 (counted under their
+    names), and K2 alone for k = 0."""
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"expected A (B, n, n), got {tuple(A.shape)}")
+    if R.dim() != 3 or R.shape[:2] != A.shape[:2]:
+        raise ValueError(f"expected R (B, n, k) beside A "
+                         f"{tuple(A.shape)}, got {tuple(R.shape)}")
+    if not _dispatch(A):
+        return ldlt_solve_matrix(A, R, pivot_floor)
+    B, n, k = R.shape
+    if n == 0:
+        return torch.zeros_like(A), A.new_zeros((B, 0)), R
+    if k == 0 or B == 0 or not factor_solve_matrix_fits(n, k, A.dtype):
+        L, D = ldlt_auto(A, pivot_floor)
+        return L, D, (solve_ldlt_matrix_auto(L, D, R) if k else R)
+    return factor_solve_matrix_launch(A.contiguous(), R.contiguous(),
+                                      pivot_floor)

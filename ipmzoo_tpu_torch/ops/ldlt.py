@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`ipmzoo_tpu.ops.ldlt` (the column algorithm of
 ``ldlt`` and the forward / diagonal / backward sweeps of ``solve_ldlt``),
-written over a leading batch axis, and of the multi-rhs solve of
-:mod:`ipmzoo_tpu.ops.pallas_ldlt` (``solve_ldlt_matrix``).  These are the
-plain versions of the CUDA kernels in ``csrc/ldlt.cu`` (K2, K3, K4):
+written over a leading batch axis, and of the multi-rhs solve and the
+fused factor + multi-rhs solve of :mod:`ipmzoo_tpu.ops.pallas_ldlt`
+(``solve_ldlt_matrix``, ``ldlt_solve_matrix``).  These are the plain
+versions of the CUDA kernels in ``csrc/ldlt.cu`` (K2, K3, K4, K5):
 :mod:`.cuda_ldlt` runs them for CPU tensors, and the tests and
 ``chip_smoke.py`` hold the kernels to them.
 
@@ -74,3 +75,23 @@ def solve_ldlt_matrix(L: torch.Tensor, D: torch.Tensor,
         x[:, i, :] = x[:, i, :] - \
             (L[:, i + 1:, i, None] * x[:, i + 1:, :]).sum(-2)
     return x
+
+
+def ldlt_solve_matrix(A: torch.Tensor, R: torch.Tensor,
+                      pivot_floor: float = PIVOT_FLOOR):
+    """Factor and solve in one call: A (B, n, n), R (B, n, k) ->
+    (L, D, X) with L D L^T X = R per instance.
+
+    The plain version of kernel K5: the column LDL^T of :func:`ldlt`
+    followed by the sweeps of :func:`solve_ldlt_matrix`, which is what
+    the kernel computes in one launch (elimination of column j applied
+    to the trailing matrix and to the rhs columns alike, subtracted in
+    increasing j; division by D; backward sweep).  n = 0 gives empty
+    factors and R back; k = 0 the factors and R back."""
+    B, n = A.shape[0], A.shape[-1]
+    if n == 0:
+        return torch.zeros_like(A), A.new_zeros((B, 0)), R
+    L, D = ldlt(A, pivot_floor)
+    if R.shape[-1] == 0:
+        return L, D, R
+    return L, D, solve_ldlt_matrix(L, D, R)

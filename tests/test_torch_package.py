@@ -54,6 +54,11 @@ def test_port_imports_and_solves_without_jax():
                           g=torch.zeros(1))
         assert bool(SchurIPM(2, 1, dtype=torch.float32, device="cpu").solve(
             blk.to(dtype=torch.float32)).converged)
+        from ipmzoo_tpu_torch.models.families import grid_qp
+        fam = grid_qp(side=4, device="cpu")
+        nd = p.CompiledIPM(fam.settings, n=fam.n, kernel="nd", nd_leaf=4,
+                           nd_fallback=False, device="cpu")
+        assert bool(nd.solve(fam.data).converged) and nd._mode == "nd"
         jaxy = [m for m in sys.modules
                 if m in ("jax", "jaxlib", "ipmzoo_tpu")
                 or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
@@ -74,7 +79,8 @@ def test_cpu_runs_leave_launch_counters_at_zero():
     s.solve_batch_compact(data)
     s.solve_batch(data)
     assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
-                                 "solve_ldlt_matrix": 0}
+                                 "solve_ldlt_matrix": 0,
+                                 "ldlt_solve_matrix": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

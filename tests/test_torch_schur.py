@@ -227,7 +227,8 @@ class TestPallasBlockKernel:
                                                                m_c=2, seed=1),
                                                   device="cpu")).converged)
         assert cuda_ldlt.launches == {"ldlt": 0, "solve_ldlt": 0,
-                                      "solve_ldlt_matrix": 0}
+                                      "solve_ldlt_matrix": 0,
+                                      "ldlt_solve_matrix": 0}
 
 
 class TestTwoFloat:
