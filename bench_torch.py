@@ -1,0 +1,487 @@
+#!/usr/bin/env python3
+"""Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
+
+    python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd
+                           [--device cpu] [--batch B]
+
+runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
+card (``--device cpu`` asks for the CPU; there is no fallback) and prints
+one JSON line last:
+
+    {"metric": ..., "value": N, "unit": ..., "vs_baseline": null}
+
+The workloads, gates and counts are bench.py's:
+
+* ``fused`` (default) — the 10240 QPs of ``make_batch`` (seed 0, n=16,
+  m_ineq=8, float32, tol 1e-6) through
+  ``FusedBatchedIPM(max_iter=30).solve_fused_compact``; >= 99.9% must
+  converge; useful iterations/s = per-instance iterations summed over
+  the batch, over the wall of one whole-batch solve.
+* ``solve`` — the same QPs through ``CompiledIPM.solve_batch_compact``;
+  >= 99%.
+* ``steps`` — after the same gate, 10 batched ``step``s from the initial
+  state: batch x 10 over their wall.
+* ``kkt`` — the fused LDL^T factor + 2-column solve (kernel K5) on
+  BATCH systems of order N + 2 M, graded by the dense-LDL^T flop model.
+* ``schur`` — 8 block-separable coupled QPs (64 blocks, n=64, 16
+  coupling rows) through ``SchurIPM`` at tol 1e-8; >= 99%.
+* ``arrow`` — the n=4096 banded+arrow box QP (bandwidth 16, tip 8)
+  through ``ArrowIPM.solve``; must converge; useful iterations/s and ms
+  per iteration of the structured solve.
+* ``nd`` — ``grid_qp(side=64)`` (n=4096) through
+  ``CompiledIPM(kernel="nd")``; must converge.
+
+The BENCH_* environment variables of bench.py size the workloads
+(BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
+BENCH_ARROW_*, BENCH_ND_*).  Walls are CUDA-event times
+(``utils/timer.cuda_time``; the host clock with ``--device cpu``): the
+median over the runs, with the spread and every run printed on an
+earlier line.
+
+``vs_baseline`` is null: bench.py's baselines are rates of another
+program measured on another machine's host, and no number of this card.
+
+Not ported: the modes ``mpc``, ``sharded``, ``tf``, ``normal`` and
+``aug``, the dense denominators of ``arrow`` and ``nd`` (``--dense``) and
+the large-matrix point of ``kkt`` (``--large``) raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+import argparse
+import json
+import os
+import sys
+import types
+
+import numpy as np
+
+BATCH = int(os.environ.get("BENCH_BATCH", 10240))
+N = int(os.environ.get("BENCH_N", 16))
+M_INEQ = int(os.environ.get("BENCH_M", 8))
+STEPS = int(os.environ.get("BENCH_STEPS", 10))
+# the float32 convergence floor: a full solve at the tightest tolerance
+# the working precision supports
+TOL = float(os.environ.get("BENCH_TOL", 1e-6))
+
+MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd")
+#: modes of bench.py the port does not have yet, with their ROADMAP item
+REFUSED = {
+    "mpc": "ROADMAP.md Queue 1 item 14 (MPC: RiccatiIPM)",
+    "sharded": "ROADMAP.md Queue 1 item 16 (multi-device)",
+    "tf": "ROADMAP.md Queue 1 item 7 (escalation precision: two_float)",
+    "normal": "ROADMAP.md Queue 1 item 11d (kernel='normal')",
+    "aug": "ROADMAP.md Queue 1 item 11 (a: panel-blocked LDL^T, c: "
+           "'blockg')",
+}
+_ROADMAP_DENSE = ("ROADMAP.md Queue 1 item 11a (panel-blocked LDL^T: a "
+                  "dense factor that takes n=4096)")
+_ROADMAP_LARGE_KKT = "ROADMAP.md Queue 1 item 11c (ops/blockg.py)"
+
+
+def refuse(mode: str):
+    """Raise for a mode of bench.py that the port does not have."""
+    raise NotImplementedError(
+        f"bench mode {mode!r} is not ported: see {REFUSED[mode]}")
+
+
+def dense_half(mode: str):
+    """bench.py divides the structured step's time by the dense path's on
+    the same QP; the port has no dense factor for n=4096 yet."""
+    raise NotImplementedError(
+        f"the dense half of bench mode {mode!r} is not ported: see "
+        f"{_ROADMAP_DENSE}")
+
+
+def large_kkt():
+    """bench.py's second kkt point, large quasi-definite systems through
+    the signed block Cholesky."""
+    raise NotImplementedError(
+        f"the large-matrix point of bench mode 'kkt' is not ported: see "
+        f"{_ROADMAP_LARGE_KKT}")
+
+
+def timed(fn, device, runs, what):
+    """Wall of ``fn`` in seconds: median of ``runs`` runs after a
+    warm-up, by CUDA events on the card and by the host clock on the
+    CPU; prints the median, the spread and every run."""
+    from ipmzoo_tpu_torch.utils.timer import cuda_time, host_time
+    t = (cuda_time if device.type == "cuda" else host_time)(fn, runs)
+    print(f"{what}: wall ms per call ({device.type}, {runs} runs) median "
+          f"{t.ms:.3f}, spread {t.spread:.3f}, runs "
+          f"{[round(x, 3) for x in t.times]}")
+    return t.ms * 1e-3
+
+
+def backend(device):
+    import torch
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+# -- the dense-QP engines ---------------------------------------------------
+
+def compact_solver(device, dtype=None, **kw):
+    """bench.py's ``_solver``: CompiledIPM(Settings(), N, M_INEQ)."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    kw.setdefault("tol", TOL)
+    return CompiledIPM(Settings(), n=N, m_ineq=M_INEQ,
+                       dtype=dtype or torch.float32, device=device, **kw)
+
+
+def fused_solver(device, dtype=None, tol=None):
+    """bench.py's fused configuration."""
+    import torch
+    from ipmzoo_tpu_torch import Settings
+    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+    return FusedBatchedIPM(Settings(), n=N, m_ineq=M_INEQ,
+                           dtype=dtype or torch.float32,
+                           tol=TOL if tol is None else tol, max_iter=30,
+                           device=device)
+
+
+def _gate(share, floor, what):
+    if share < floor:
+        raise RuntimeError(f"{what} convergence too low: {share}")
+
+
+def bench_solve(data, device, dtype=None, runs=3):
+    """FULL batched solves (compaction-scheduled), convergence-checked:
+    useful iterations/s."""
+    solver = compact_solver(device, dtype)
+    res = solver.solve_batch_compact(data)
+    conv = res.converged.float().mean().item()
+    _gate(conv, 0.99, "solve")
+    iters = float(res.iterations.sum().item())
+    t = timed(lambda: solver.solve_batch_compact(data), device, runs, "solve")
+    batch = data.Q.shape[0]
+    label = (f"IPM iterations/s, {batch} batched QPs FULLY SOLVED to "
+             f"tol={TOL:g} ({conv * 100:.2f}% converged, compacted batch, "
+             f"n={N}, m={M_INEQ}, {backend(device)})")
+    return label, iters / t, "iterations/s", {"converged": conv,
+                                              "iterations": iters}
+
+
+def bench_steps(data, device, dtype=None, runs=3):
+    """Raw batched-step throughput, convergence-gated: the same solver
+    must first fully solve the batch (>= 99%)."""
+    solver = compact_solver(device, dtype)
+    res = solver.solve_batch_compact(data)
+    conv = res.converged.float().mean().item()
+    _gate(conv, 0.99, "step-path")
+    checked = solver._check_data(data)
+    state = solver.init_state(checked)
+
+    def k_steps():
+        s = state
+        for _ in range(STEPS):
+            s = solver._step_impl(s, checked)
+        return s
+
+    t = timed(k_steps, device, runs, f"{STEPS} steps")
+    batch = data.Q.shape[0]
+    label = (f"IPM iterations/s, {batch} batched QPs, batched step "
+             f"(convergence-gated at {conv * 100:.2f}%, n={N}, m={M_INEQ}, "
+             f"{backend(device)})")
+    return label, batch * STEPS / t, "iterations/s", {
+        "converged": conv, "iterations": float(batch * STEPS)}
+
+
+def bench_fused(data, device, dtype=None, runs=7):
+    """Full solves: the fused whole-solve kernel K1 under the compaction
+    schedule, the float64 escalation and the anti-cycling tail."""
+    fused = fused_solver(device, dtype)
+    out = fused.solve_fused_compact(data)
+    conv = out["converged"].float().mean().item()
+    _gate(conv, 0.999, "fused solver")
+    iters = float(out["iterations"].sum().item())
+    t = timed(lambda: fused.solve_fused_compact(data), device, runs, "fused")
+    batch = data.Q.shape[0]
+    label = (f"IPM iterations/s, {batch} batched QPs FULLY SOLVED to "
+             f"tol={TOL:g} in the compaction-scheduled fused engine + "
+             f"anti-cycling tail ({conv * 100:.2f}% converged, n={N}, "
+             f"m={M_INEQ}, {backend(device)})")
+    return label, iters / t, "iterations/s", {"converged": conv,
+                                              "iterations": iters}
+
+
+def flops_model(B, d, k):
+    """Dense-LDL^T-equivalent operations of B factorisations of order d
+    with k right-hand sides (bench.py's)."""
+    return B * 2.0 * (d ** 3 / 3 + 2 * k * d * d)
+
+
+def kkt_systems(device, dtype=None, batch=None):
+    """bench.py's kkt point: BATCH SPD systems of order N + 2 M_INEQ
+    with 2 right-hand sides (numpy seed 0)."""
+    import torch
+    rng = np.random.default_rng(0)
+    B, n = BATCH if batch is None else batch, N + 2 * M_INEQ
+    M = rng.normal(size=(B, n, n)).astype(np.float32)
+    A = np.einsum("bij,bkj->bik", M, M) / n + np.eye(n, dtype=np.float32)
+    R = rng.normal(size=(B, n, 2)).astype(np.float32)
+    dtype = dtype or torch.float32
+    return (torch.tensor(A).to(dtype).to(device),
+            torch.tensor(R).to(dtype).to(device))
+
+
+def bench_kkt(device, dtype=None, batch=None, runs=5, calls=20):
+    """Batched KKT factor + solve throughput: the fused factor + 2-column
+    solve (kernel K5; its plain version on the CPU), flop-graded."""
+    import torch
+    from ipmzoo_tpu_torch.ops.cuda_ldlt import ldlt_solve_matrix_auto
+    from ipmzoo_tpu_torch.utils.timer import cuda_time, host_time
+
+    A, R = kkt_systems(device, dtype, batch)
+    B, n = A.shape[0], A.shape[-1]
+    _, _, X = ldlt_solve_matrix_auto(A, R)
+    resid = ((A @ X - R).abs().max() / R.abs().max()).item()
+    if not resid <= 1e-3:
+        raise RuntimeError(f"kkt factor+solve residual too large: {resid}")
+    timer = cuda_time if device.type == "cuda" else host_time
+    t = timer(lambda: ldlt_solve_matrix_auto(A, R), runs, calls=calls)
+    print(f"kkt: {B} x dim {n}, fused factor + 2-rhs solve: ms per call "
+          f"({device.type}, {runs} runs of {calls}) median {t.ms:.4f}, "
+          f"spread {t.spread:.4f}; residual {resid:.3e}")
+    gflops = flops_model(B, n, 2) / (t.ms * 1e-3) / 1e9
+    label = (f"batched KKT factor+solve, {B} systems of dim {n} through the "
+             f"fused factor + 2-rhs solve kernel ({t.ms:.4f} ms per batch, "
+             f"{backend(device)})")
+    return label, gflops, "GFLOP/s", {"residual": resid,
+                                      "flops": flops_model(B, n, 2)}
+
+
+# -- the structured engines -------------------------------------------------
+
+def schur_sizes():
+    """(instances, blocks, block size, coupling rows, tol) of the Schur
+    mode, from the BENCH_SCHUR_* variables."""
+    return (int(os.environ.get("BENCH_SCHUR_I", 8)),
+            int(os.environ.get("BENCH_SCHUR_BLOCKS", 64)),
+            int(os.environ.get("BENCH_SCHUR_N", 64)),
+            int(os.environ.get("BENCH_SCHUR_MC", 16)),
+            float(os.environ.get("BENCH_SCHUR_TOL", 1e-8)))
+
+
+def schur_data(device, inst=None, blocks=None, n=None, m_c=None):
+    """bench.py's bench_schur instances: numpy seeds 0..inst-1, each
+    ``blocks`` blocks of order ``n`` with ``m_c`` coupling rows, cast to
+    float32, stacked on a leading instance axis."""
+    import torch
+    from ipmzoo_tpu_torch.models.convert import block_qp_from_numpy
+    d_inst, d_blocks, d_n, d_mc, _ = schur_sizes()
+    inst = d_inst if inst is None else inst
+    blocks = d_blocks if blocks is None else blocks
+    n = d_n if n is None else n
+    m_c = d_mc if m_c is None else m_c
+
+    def make(seed):
+        r = np.random.default_rng(seed)
+        M = r.normal(size=(blocks, n, n))
+        return dict(Q=np.einsum("bij,bkj->bik", M, M) / n + np.eye(n),
+                    c=r.normal(size=(blocks, n)),
+                    F=r.normal(size=(blocks, m_c, n)) / blocks,
+                    l_x=np.full((blocks, n), -3.0),
+                    u_x=np.full((blocks, n), 3.0),
+                    g=r.normal(size=(m_c,)) * 0.1)
+
+    insts = [make(s) for s in range(inst)]
+    raw = types.SimpleNamespace(**{
+        k: np.stack([d[k] for d in insts]).astype(np.float32)
+        for k in insts[0]})
+    return block_qp_from_numpy(raw, dtype=torch.float32, device=device)
+
+
+def bench_schur(device, runs=5):
+    """Block-separable coupled QPs through the Schur-complement IPM at
+    tol 1e-8 (the float32 data solved in float64)."""
+    import torch
+    from ipmzoo_tpu_torch.parallel import SchurIPM
+
+    inst, blocks, n, m_c, tol = schur_sizes()
+    datas = schur_data(device)
+    s = SchurIPM(n=n, m_c=m_c, dtype=torch.float32, tol=tol,
+                 two_float=(tol < 1e-6), refine=2, max_iter=60,
+                 device=device)
+    res = s.solve_batch(datas)
+    conv = res.converged.float().mean().item()
+    _gate(conv, 0.99, "schur")
+    iters = float(res.iterations.sum().item())
+    steps = float(res.iterations.max().item())
+    t = timed(lambda: s.solve_batch(datas), device, runs, "schur")
+    print(f"schur: {inst} instances x {blocks} blocks x n={n}, m_c={m_c}, "
+          f"tol={tol:g}: {t * 1e3:.2f} ms/solve-batch, "
+          f"{t / steps * 1e3:.3f} ms/iteration, {iters / t:.0f} useful it/s, "
+          f"{conv * 100:.0f}% converged")
+    label = (f"IPM iterations/s, {inst} block-separable coupled QPs "
+             f"({blocks} blocks x n={n}, m_c={m_c}) FULLY SOLVED to "
+             f"tol={tol:g} (float32 data, solved in "
+             f"{str(s.compute_dtype).replace('torch.', '')}) via the "
+             f"Schur-complement IPM ({conv * 100:.0f}% converged, "
+             f"{t / steps * 1e3:.2f} ms/iteration, {backend(device)})")
+    return label, iters / t, "iterations/s", {
+        "converged": conv, "iterations": iters,
+        "per_instance": res.iterations.tolist()}
+
+
+def arrow_sizes():
+    """(variables, half-bandwidth, tip) of the arrow mode."""
+    return (int(os.environ.get("BENCH_ARROW_N", 4096)),
+            int(os.environ.get("BENCH_ARROW_B", 16)),
+            int(os.environ.get("BENCH_ARROW_T", 8)))
+
+
+def arrow_problem(n=None, b=None, t=None):
+    """bench.py's bench_arrow QP (numpy seed 0): banded Hessian of
+    half-bandwidth b with a dense tip of t coupling variables, float32,
+    bounds +-1.  Returns dense (Q, c, l, u)."""
+    d_n, d_b, d_t = arrow_sizes()
+    n = d_n if n is None else n
+    b = d_b if b is None else b
+    t = d_t if t is None else t
+    rng = np.random.default_rng(0)
+    nb = n - t
+    Q = np.zeros((n, n), np.float32)
+    for i in range(nb):
+        lo, hi = max(0, i - b), min(nb, i + b + 1)
+        Q[i, lo:hi] = rng.normal(size=hi - lo) * 0.1
+    Q = (Q + Q.T) / 2
+    strip = rng.normal(size=(t, n)).astype(np.float32) * 0.1
+    Q[nb:, :] = strip
+    Q[:, nb:] = strip.T
+    Q[nb:, nb:] = (strip[:, nb:] + strip[:, nb:].T) / 2
+    Q += np.eye(n, dtype=np.float32) * (2 * b + t)
+    c = rng.normal(size=n).astype(np.float32)
+    l = np.full(n, -1.0, np.float32)
+    u = np.full(n, 1.0, np.float32)
+    return Q, c, l, u
+
+
+def bench_arrow(device, dtype=None, runs=5):
+    """The structured banded+arrow IPM on bench.py's QP: full solves,
+    convergence-gated.  (bench.py reports the step's speedup over the
+    dense path; see :func:`dense_half`.)"""
+    import torch
+    from ipmzoo_tpu_torch import ArrowIPM, ArrowQPData
+
+    n, b, t = arrow_sizes()
+    dtype = dtype or torch.float32
+    Q, c, l, u = arrow_problem()
+    blk_env = int(os.environ.get("BENCH_ARROW_BLOCK", 0))
+    data, st, blk = ArrowQPData.from_dense(Q, c, l, u, dtype=dtype,
+                                           block=blk_env or None,
+                                           device=device)
+    method = os.environ.get("BENCH_ARROW_METHOD", "auto")
+    solver = ArrowIPM.for_data(data, structure=st, dtype=dtype, tol=1e-5,
+                               method=method)
+    print(f"arrow: block={blk}, N={data.D.shape[0]}, method={method}")
+    res = solver.solve(data)
+    if not bool(res.converged):
+        raise RuntimeError("arrow solver did not converge")
+    iters = float(res.iterations)
+    wall = timed(lambda: solver.solve(data), device, runs, "arrow")
+    label = (f"IPM iterations/s, structured banded+arrow IPM FULLY SOLVED "
+             f"(n={n}, bandwidth={b}, tip={t}, {int(iters)} iterations, "
+             f"{wall / iters * 1e3:.3f} ms per iteration, "
+             f"{backend(device)}; dense denominator not ported)")
+    return label, iters / wall, "iterations/s", {
+        "converged": 1.0, "iterations": iters}
+
+
+def nd_problem(device, dtype=None, tol=1e-5):
+    """bench.py's bench_nd solver and QP: ``grid_qp`` of side BENCH_ND_G
+    (numpy seed 0) under ``CompiledIPM(kernel="nd")`` with the
+    auto-fallback off, so the nd path itself is measured."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.models.families import grid_qp
+    g = int(os.environ.get("BENCH_ND_G", 64))
+    leaf = int(os.environ.get("BENCH_ND_LEAF", 64))
+    dtype = dtype or torch.float32
+    fam = grid_qp(side=g, seed=0, dtype=dtype, device=device)
+    solver = CompiledIPM(fam.settings, n=g * g, dtype=dtype, tol=tol,
+                         kernel="nd", nd_leaf=leaf, nd_fallback=False,
+                         device=device)
+    return solver, fam.data
+
+
+def bench_nd(device, dtype=None, runs=5):
+    """The nested-dissection IPM on a 2D-grid QP: full solves,
+    convergence-gated.  (bench.py reports the step's speedup over the
+    dense path; see :func:`dense_half`.)"""
+    solver, data = nd_problem(device, dtype)
+    res = solver.solve(data)
+    if not bool(res.converged):
+        raise RuntimeError("nd solver did not converge")
+    plan = solver._nd_plan
+    print(f"nd: {len(plan.levels)} levels, flop ratio dense/nd = "
+          f"{plan.flops_dense / max(plan.flops_nd, 1):.1f}x")
+    iters = float(res.iterations)
+    wall = timed(lambda: solver.solve(data), device, runs, "nd")
+    label = (f"IPM iterations/s, nested-dissection IPM FULLY SOLVED "
+             f"(2D-grid QP, n={solver.n}, leaf={solver._nd_leaf}, "
+             f"{int(iters)} iterations, {wall / iters * 1e3:.3f} ms per "
+             f"iteration, {backend(device)}; dense denominator not ported)")
+    return label, iters / wall, "iterations/s", {
+        "converged": 1.0, "iterations": iters}
+
+
+def run_mode(mode, device, batch=None, dense=False, large=False):
+    """Run one mode; returns (label, value, unit, counts)."""
+    import torch
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    if mode in REFUSED:
+        refuse(mode)
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of "
+                         f"{MODES + tuple(REFUSED)}")
+    if dense:
+        if mode not in ("arrow", "nd"):
+            raise ValueError("--dense belongs to the modes arrow and nd")
+        dense_half(mode)
+    if large:
+        if mode != "kkt":
+            raise ValueError("--large belongs to the mode kkt")
+        large_kkt()
+    batch = BATCH if batch is None else batch
+    if mode in ("fused", "solve", "steps"):
+        data = make_batch(batch, N, M_INEQ, torch.float32, device=device)
+        fn = {"fused": bench_fused, "solve": bench_solve,
+              "steps": bench_steps}[mode]
+        return fn(data, device)
+    if mode == "kkt":
+        return bench_kkt(device, batch=batch)
+    return {"schur": bench_schur, "arrow": bench_arrow,
+            "nd": bench_nd}[mode](device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", default=os.environ.get("BENCH_MODE", "fused"),
+                    choices=MODES + tuple(REFUSED))
+    ap.add_argument("--device", default=None,
+                    help="cpu to run on the CPU; default: the CUDA card")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="instances of the dense-QP modes (BENCH_BATCH)")
+    ap.add_argument("--dense", action="store_true",
+                    help="arrow / nd: also the dense denominator")
+    ap.add_argument("--large", action="store_true",
+                    help="kkt: also the large-matrix point")
+    args = ap.parse_args(argv)
+
+    import torch
+    from ipmzoo_tpu_torch.utils.device import nvidia_smi, resolve_device
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        print(nvidia_smi())
+    print(f"torch {torch.__version__}; device {backend(device)}")
+    label, value, unit, _ = run_mode(args.mode, device, args.batch,
+                                     args.dense, args.large)
+    print(json.dumps({"metric": label, "value": round(value, 1),
+                      "unit": unit, "vs_baseline": None}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -39,7 +39,6 @@ counts are read.  It checks nothing: chip_smoke.py holds the results.
 """
 
 import functools
-import subprocess
 import sys
 import time
 
@@ -238,17 +237,11 @@ def profile_compact(dev, data):
 
 def main():
     import torch
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device is available", file=sys.stderr)
+    from chip_roofline import banner
+    dev = banner("chip_profile", "the profiles are taken")
+    if dev is None:
         return 2
     from ipmzoo_tpu_torch.models.convert import make_batch
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip())
     sections = sys.argv[1:] or ["schur", "fused", "compact", "arrow", "nd"]
     unknown = set(sections) - {"schur", "fused", "compact", "arrow", "nd"}
     if unknown:

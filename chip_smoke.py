@@ -130,7 +130,51 @@ Steps, each reported on its own line:
     (10240, 32, 2) in float32 against its plain version, against K2
     followed by K4 (the wrappers, their layout transposes included) and
     against torch.linalg.solve (the one PyTorch call that gives the same
-    X; it returns no factors).
+    X; it returns no factors);
+28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
+    T2b in-kernel factor / solve repetitions) and the five generated
+    prefixes of one fused iteration (T3), each prefix a source of its
+    own; all nvcc processes run beside those of steps 3 and 9, and each
+    build's time and ptxas' registers, stack frame and spills are
+    reported;
+29. hold T1 against its plain version at (64, 512) and at (256, 512),
+    the shape of its kernels-line entry, reps 64, chains 4 / 8 / 16
+    (float32 within 1e-5: nvcc contracts acc * a + x to one FMA; float64
+    within 1e-12), then sweep it over threads per block, blocks per SM
+    and chains: the card's measured multiply-add ceilings, float32 and
+    float64, which must not exceed the data sheet's 67 / 33.5 TFLOP/s,
+    with the SM clock and power draw beside them; then hold it again at
+    what the sweep launched: every block size at 1024 rounds and each
+    winning configuration at its own size, block size, chains and rounds
+    (float32 within 1e-2, float64 within 1e-10: thousands of contracted
+    rounds drift, a miscounted chain or round is off by factors);
+30. hold T2a and T2b against their plain versions at order 24, B=10240,
+    float32 (1e-5) and float64 (1e-12), on both outputs (the reference
+    kernel's sum and the sink that keeps the whole factorisation alive),
+    then the time of one factorisation and of one solve inside K1's
+    per-thread storage as the slope between two in-kernel repetition
+    counts, at B=10240 and B=512; their rates against step 29's ceiling;
+    one factor + two solves against K1's measured time per iteration;
+    T2a's time per factorisation at B=10240 must lie within 3x of K2's
+    at the same shape (step 8): the work was not optimised away;
+31. hold each T3 prefix against its plain version at B=10240 (float64
+    within 1e-10, float32 within 1e-4, both outputs, metrics nudge off
+    and on), then the time of each prefix per in-kernel repetition, the
+    differences (the phases' costs), one whole launch, and ptxas'
+    figures per prefix, at B=10240 and B=512, float32 and float64; the
+    float32 prefix times at B=10240 must not decrease; beside them one
+    solve_fused(max_iter=1) of K1 and one CompiledIPM.step;
+32. the library's matrix-product rates (torch.matmul, 1024^2 float32
+    with TF32 off, 2048^2 bfloat16), a yardstick;
+33. bench_torch.py's modes `steps` (10 batched steps after the
+    convergence gate) and `kkt` (K5 at (10240, 32, 2), graded by the
+    dense-LDL^T flop model) through its own functions; its other modes
+    are steps 11, 6, 14, 19 and 24 above, which build their solvers and
+    data through bench_torch.py too.
+
+Steps 29-31 are the measurement path: every launch count of T1-T3 in the
+kernels line comes from their timed sweeps, counted apart from the
+launches that compare a kernel with its plain version.
 
 Every kernel's entry in the kernels line carries its bound: the larger
 of the bytes it must move (inputs read once, outputs written once) over
@@ -143,11 +187,8 @@ JSON object {"ok": true, "device": {...}}.
 """
 
 import json
-import statistics
-import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 N_AUG, B_SLICE = 24, 10240
 SCHEDULE_BATCHES = (10240, 2560, 320)
@@ -165,9 +206,23 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "fused": "ipmzoo_tpu/models/fused.py:432",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
-            "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281"}
+            "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281",
+            "fma_chains": "tools/roofline.py:41",
+            "factor_reps": "tools/roofline.py:111",
+            "solve_reps": "tools/roofline.py:124",
+            "phase": "tools/fused_phases.py:44"}
+#: T1's shape in the kernels line: the reference sweep's largest buffer
+T1_SHAPE, T1_CHAINS, T1_REPS = (256, 512), 16, 64
+#: T2's repetitions in the kernels line: the slope's upper count
+T2_REPS = 8
+T3_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+             "ipmzoo_tpu_torch/csrc/fused_phases.cuh + "
+             "ipmzoo_tpu_torch/models/codegen_soa.py + "
+             "ipmzoo_tpu_torch/models/fused_source.py + "
+             "ipmzoo_tpu_torch/models/fused_phases.py")
 K1_BATCHES = (10240, 1280)
 CR_SOURCE = "ipmzoo_tpu_torch/csrc/cr.cu"
+ROOFLINE_SOURCE = "ipmzoo_tpu_torch/csrc/roofline.cu"
 #: bench_arrow's defaults: variables, half-bandwidth, arrow tip; and the
 #: batch line's instances
 ARROW_N, ARROW_BW, ARROW_TIP, ARROW_BATCH = 4096, 16, 8, 32
@@ -308,17 +363,8 @@ def quasi_definite(B, n, dtype, device, seed):
 def time_cuda(fn, reps):
     """Mean milliseconds per call of ``fn`` over ``reps`` calls, by CUDA
     events, after one warm-up call."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
+    return cuda_time(fn, runs=1, warmup=1, calls=reps).ms
 
 
 def check_kernels(dev):
@@ -532,11 +578,9 @@ def time_kernels(dev):
 
 
 def fused_solver(dev, dtype, tol=1e-6):
-    """The fused slice's solver: bench.py's fused configuration."""
-    from ipmzoo_tpu_torch import Settings
-    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
-    return FusedBatchedIPM(Settings(), 16, 8, dtype=dtype, tol=tol,
-                           max_iter=30, device=dev)
+    """The fused slice's solver: bench_torch.py's fused configuration."""
+    import bench_torch
+    return bench_torch.fused_solver(dev, dtype, tol)
 
 
 def print_build(what, lib, cached, seconds):
@@ -548,34 +592,44 @@ def print_build(what, lib, cached, seconds):
 
 
 def build_kernels():
-    """Steps 3 and 9: build ldlt.cu, cr.cu and K1 with three nvcc
-    processes started together; report each build's time and ptxas'
-    report."""
+    """Steps 3, 9 and 28: build ldlt.cu, cr.cu, roofline.cu, K1 and the
+    five T3 prefixes, one nvcc process each, all started together; report
+    each build's time and ptxas' report."""
     import torch
-    from ipmzoo_tpu_torch.ops import _build, cuda_cr, cuda_fused, cuda_ldlt
+    import chip_phases
+    from chip_roofline import build_all
+    from ipmzoo_tpu_torch.ops import (_build, cuda_cr, cuda_fused, cuda_ldlt,
+                                      cuda_roofline)
     src = fused_solver("cpu", torch.float32).kernel_source()
+    phase_srcs = chip_phases.phase_sources()
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
+            "roofline": _build.library_path("roofline"),
             "fused": _build.generated_library_path("fused_ipm", src)}
+    for p, text in enumerate(phase_srcs):
+        libs[f"phase{p}"] = _build.generated_library_path("fused_phase",
+                                                          text)
     cached = {k: p.exists() for k, p in libs.items()}
-
-    def timed(fn):
-        t0 = time.perf_counter()
-        fn()
-        return time.perf_counter() - t0
-
-    with ThreadPoolExecutor(3) as pool:
-        jobs = {"ldlt": pool.submit(timed, cuda_ldlt._lib),
-                "cr": pool.submit(timed, cuda_cr._lib),
-                "fused": pool.submit(timed,
-                                     lambda: cuda_fused.library(src))}
-        seconds = {k: j.result() for k, j in jobs.items()}
+    jobs = {"ldlt": cuda_ldlt._lib, "cr": cuda_cr._lib,
+            "roofline": cuda_roofline._lib,
+            "fused": lambda: cuda_fused.library(src)}
+    for p, text in enumerate(phase_srcs):
+        jobs[f"phase{p}"] = lambda t=text: cuda_fused.library(t,
+                                                              "fused_phase")
+    seconds = build_all(jobs)
     print_build(SOURCE, libs["ldlt"], cached["ldlt"], seconds["ldlt"])
     print_build(CR_SOURCE, libs["cr"], cached["cr"], seconds["cr"])
     print(f"build: K1 source generated for Settings(), n=16, m_ineq=8: "
           f"{len(src.splitlines())} lines")
     print_build("K1 (generated fused_ipm)", libs["fused"], cached["fused"],
                 seconds["fused"])
+    print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
+                seconds["roofline"])
+    for p in range(len(phase_srcs)):
+        k = f"phase{p}"
+        print(f"build: T3 prefix {p} ready in {seconds[k]:.2f} s "
+              f"({'reused' if cached[k] else 'compiled'} {libs[k].name})")
+    return chip_phases.report_ptxas()
 
 
 def _k1_and_plain(solver, data, state, max_iter, gondzio):
@@ -697,18 +751,10 @@ def run_fused_slice(dev, data):
 def time_solves(fn, runs):
     """Median milliseconds of ``runs`` calls of ``fn`` by CUDA events, each
     timed alone; the times are printed."""
-    import torch
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    print(f"timing: {runs} runs, ms {[round(t, 3) for t in times]}")
-    return statistics.median(times)
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
+    t = cuda_time(fn, runs=runs, warmup=0)
+    print(f"timing: {runs} runs, ms {[round(x, 3) for x in t.times]}")
+    return t.ms
 
 
 def objective(data, x):
@@ -788,31 +834,12 @@ def time_fused(dev):
 
 
 def schur_data(dev):
-    """bench.py's bench_schur instances: numpy seeds 0..SCHUR_I-1, each
-    SCHUR_BLOCKS blocks of n=SCHUR_N with SCHUR_MC coupling rows, cast to
-    float32, stacked on a leading instance axis."""
-    import types
-    import numpy as np
-    import torch
-    from ipmzoo_tpu_torch.models.convert import block_qp_from_numpy
-
-    blocks, n, m_c = SCHUR_BLOCKS, SCHUR_N, SCHUR_MC
-
-    def make(seed):
-        r = np.random.default_rng(seed)
-        M = r.normal(size=(blocks, n, n))
-        return dict(Q=np.einsum("bij,bkj->bik", M, M) / n + np.eye(n),
-                    c=r.normal(size=(blocks, n)),
-                    F=r.normal(size=(blocks, m_c, n)) / blocks,
-                    l_x=np.full((blocks, n), -3.0),
-                    u_x=np.full((blocks, n), 3.0),
-                    g=r.normal(size=(m_c,)) * 0.1)
-
-    insts = [make(s) for s in range(SCHUR_I)]
-    raw = types.SimpleNamespace(**{
-        k: np.stack([d[k] for d in insts]).astype(np.float32)
-        for k in insts[0]})
-    return block_qp_from_numpy(raw, dtype=torch.float32, device=dev)
+    """bench_torch.py's Schur instances (bench.py's bench_schur): numpy
+    seeds 0..SCHUR_I-1, each SCHUR_BLOCKS blocks of n=SCHUR_N with SCHUR_MC
+    coupling rows, cast to float32, stacked on a leading instance axis."""
+    import bench_torch
+    return bench_torch.schur_data(dev, SCHUR_I, SCHUR_BLOCKS, SCHUR_N,
+                                  SCHUR_MC)
 
 
 def run_schur(dev, data, tol, runs):
@@ -1052,26 +1079,11 @@ def check_cr(dev):
 
 
 def arrow_problem():
-    """bench.py's bench_arrow QP at its defaults (numpy seed 0): n=4096,
-    half-bandwidth 16, tip 8, float32, bounds +-1."""
-    import numpy as np
-    n, b, t = ARROW_N, ARROW_BW, ARROW_TIP
-    rng = np.random.default_rng(0)
-    nb = n - t
-    Q = np.zeros((n, n), np.float32)
-    for i in range(nb):
-        lo, hi = max(0, i - b), min(nb, i + b + 1)
-        Q[i, lo:hi] = rng.normal(size=hi - lo) * 0.1
-    Q = (Q + Q.T) / 2
-    strip = rng.normal(size=(t, n)).astype(np.float32) * 0.1
-    Q[nb:, :] = strip
-    Q[:, nb:] = strip.T
-    Q[nb:, nb:] = (strip[:, nb:] + strip[:, nb:].T) / 2
-    Q += np.eye(n, dtype=np.float32) * (2 * b + t)
-    c = rng.normal(size=n).astype(np.float32)
-    l = np.full(n, -1.0, np.float32)
-    u = np.full(n, 1.0, np.float32)
-    return Q, c, l, u
+    """bench_torch.py's arrow QP (bench.py's bench_arrow at its defaults,
+    numpy seed 0): n=4096, half-bandwidth 16, tip 8, float32, bounds
+    +-1."""
+    import bench_torch
+    return bench_torch.arrow_problem(ARROW_N, ARROW_BW, ARROW_TIP)
 
 
 def run_arrow(what, solve, solver, cpu_solve, n_inst):
@@ -1336,15 +1348,10 @@ def check_k5(dev):
 
 
 def nd_solver(dtype, tol, device=None):
-    """bench_nd's solver and QP (grid_qp(side=64), numpy seed 0) on
-    ``device`` (default: the card)."""
-    from ipmzoo_tpu_torch import CompiledIPM
-    from ipmzoo_tpu_torch.models.families import grid_qp
-    fam = grid_qp(side=ND_SIDE, seed=0, dtype=dtype, device=device)
-    solver = CompiledIPM(fam.settings, fam.n, dtype=dtype, tol=tol,
-                         kernel="nd", nd_leaf=ND_LEAF, nd_fallback=False,
-                         device=device)
-    return solver, fam.data
+    """bench_torch.py's nd solver and QP (bench.py's bench_nd:
+    grid_qp(side=64), numpy seed 0) on ``device`` (default: the card)."""
+    import bench_torch
+    return bench_torch.nd_problem(device, dtype, tol)
 
 
 def check_nd_kkt():
@@ -1530,24 +1537,133 @@ def time_k5(dev):
     return out
 
 
+def measure_roofline(dev, k2_ms, k1_ms):
+    """Steps 29, 30 and 32: T1, T2a and T2b held to their plain versions,
+    then the measurement itself (the FMA ceilings, the in-kernel
+    repetition slopes), whose launches are counted; ``k2_ms`` is K2's
+    time at n=24, B=10240 (step 8), ``k1_ms`` K1's cold
+    solve_fused(max_iter=14) there (step 13).  Returns the largest
+    absolute differences, the launch counts of the measurement, and the
+    kernels-line times."""
+    import torch
+    import chip_roofline as rl
+    from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+
+    rl.check_fma(dev)
+    errs = {"fma_chains": rl.check_fma(dev, T1_SHAPE)[T1_CHAINS]}
+    errs.update(rl.check_reps(dev, B_SLICE))
+
+    cr.reset_launch_counts()
+    ceilings = rl.fma_ceilings(dev)
+    reps_times = rl.time_reps(dev, ceilings)
+    launches = dict(cr.launches)
+    print(f"roofline: launches of the measurement T1 "
+          f"{launches['fma_chains']} T2a {launches['factor_reps']} T2b "
+          f"{launches['solve_reps']}")
+    for k, v in launches.items():
+        check(v > 0, f"the roofline measurement never launched {k}")
+    rl.check_fma_sweep(dev, ceilings)
+    rl.linear_algebra_share(reps_times, k1_ms / rl.K1_ITERS)
+    t2a = reps_times[(B_SLICE, "float32")]["factor_ms"]
+    print(f"roofline: T2a {t2a:.4f} ms per factorisation at n={N_AUG} "
+          f"B={B_SLICE} float32 against K2's {k2_ms:.4f} ms")
+    check(k2_ms / 3 <= t2a <= 3 * k2_ms, f"T2a's {t2a:.4f} ms per "
+          f"factorisation is not within 3x of K2's {k2_ms:.4f} ms: the "
+          f"repeated work is not what was asked for")
+    rl.matmul_peaks(dev)
+
+    # the kernels line: one launch each at a stated shape
+    fac, sol = cr.fused_flops(N_AUG)
+    S, L = T1_SHAPE
+    x = torch.linspace(0.0, 1.0, S * L, dtype=torch.float32,
+                       device=dev).reshape(S, L)
+    K0, b0 = rl.reps_inputs(B_SLICE, torch.float32, dev)
+    f32 = torch.float32
+    t = {
+        "fma_chains": (
+            time_cuda(lambda: cr.fma_chains(x, T1_CHAINS, T1_REPS), 50),
+            time_cuda(lambda: cr.fma_chains_plain(x, T1_CHAINS, T1_REPS), 3),
+            bound(2 * S * L, cr.fma_flops(S * L, T1_CHAINS, T1_REPS), f32)),
+        "factor_reps": (
+            time_cuda(lambda: cr.factor_reps(K0, T2_REPS), 20),
+            time_cuda(lambda: cr.factor_reps_plain(K0, T2_REPS), 2),
+            bound(K0.numel() + 2 * B_SLICE, T2_REPS * fac * B_SLICE, f32)),
+        "solve_reps": (
+            time_cuda(lambda: cr.solve_reps(K0, b0, T2_REPS), 20),
+            time_cuda(lambda: cr.solve_reps_plain(K0, b0, T2_REPS), 2),
+            bound(K0.numel() + b0.numel() + 2 * B_SLICE,
+                  (fac + T2_REPS * sol) * B_SLICE, f32)),
+    }
+    for k, (ms, plain_ms, bnd) in t.items():
+        print(f"timing {k} float32 (ms per launch, CUDA events): kernel "
+              f"{ms:.4f}, plain {plain_ms:.4f}; bound {bnd[0]:.6f} ms by "
+              f"{bnd[1]}")
+    return errs, launches, t
+
+
+def measure_phases(dev, ptxas):
+    """Step 31: each T3 prefix held to its plain version, then the timed
+    prefixes, whose launches are counted.  Returns the largest absolute
+    difference (last prefix, float32), the launch count and the
+    kernels-line times of the last prefix."""
+    import torch
+    import chip_phases as ph
+    from ipmzoo_tpu_torch.models import fused_phases as fp
+    from ipmzoo_tpu_torch.ops import cuda_fused
+
+    err = ph.check_phases(dev, B_SLICE)
+    cuda_fused.reset_launch_counts()
+    for B in (B_SLICE, ph.B_TILE):
+        for dtype in (torch.float32, torch.float64):
+            times = ph.time_phases(dev, B, dtype, ptxas)
+            if B == B_SLICE and dtype == torch.float32:
+                check(all(b >= 0.97 * a for a, b in zip(times, times[1:])),
+                      f"T3's prefix times decrease: {times}")
+        ph.time_reference_points(dev, B)
+    launches = cuda_fused.launches["phase"]
+    print(f"phases: launches of the measurement T3 {launches}")
+    check(launches > 0, "the phase measurement never launched T3")
+
+    last = len(fp.PHASES) - 1
+    solver = fused_solver(dev, torch.float32)
+    _, soa = ph.slice_inputs(solver, B_SLICE, dev)
+    ms = time_cuda(lambda: fp.phase(solver, soa, last, 1, 1), 20)
+    plain_ms = time_cuda(lambda: fp.phase_plain(solver, soa, last, 1, 1), 2)
+    bnd = bound(sum(a.numel() for a in soa) + 2 * B_SLICE,
+                ph.phase_flops(last) * B_SLICE, torch.float32)
+    print(f"timing T3 prefix {last} B={B_SLICE} float32 (ms per launch, "
+          f"CUDA events): kernel {ms:.4f}, plain {plain_ms:.4f}; bound "
+          f"{bnd[0]:.6f} ms by {bnd[1]}")
+    return err, launches, (ms, plain_ms, bnd)
+
+
+def run_bench_modes(dev, data):
+    """Step 33: bench_torch.py's `steps` and `kkt` modes through its own
+    functions, on the slice's data."""
+    import bench_torch
+    for mode, run in (("steps", lambda: bench_torch.bench_steps(data, dev)),
+                      ("kkt", lambda: bench_torch.bench_kkt(dev))):
+        label, value, unit, counts = run()
+        check(value > 0 and value == value, f"bench_torch {mode}: value "
+              f"{value}")
+        print(f"bench_torch --mode {mode}: " + json.dumps(
+            {"metric": label, "value": round(value, 1), "unit": unit,
+             "vs_baseline": None}))
+
+
 def main():
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available; this smoke test "
-              "runs only on a GPU", file=sys.stderr)
+    from chip_roofline import banner
+    dev = banner("chip_smoke", "this smoke test runs")
+    if dev is None:
         return 2
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"device {torch.cuda.get_device_name(0)}")
-
-    build_kernels()
+    import bench_torch
+    check((bench_torch.BATCH, bench_torch.N, bench_torch.M_INEQ,
+           bench_torch.TOL) == (B_SLICE, 16, 8, 1e-6),
+          "the BENCH_* environment resizes bench_torch.py's workload; the "
+          "smoke test runs it at its defaults")
+    ptxas = build_kernels()
     errs = check_kernels(dev)
     errs["solve_ldlt_matrix"] = check_k4(dev)
     solve_demo(dev)
@@ -1571,11 +1687,17 @@ def main():
     check_nd_kkt()
     nd_launches = run_nd_slice()
     k5 = time_k5(dev)[K5_LEVEL + ("float32",)]
+    r_errs, r_launches, r_times = measure_roofline(
+        dev, times[B_SLICE]["K2"], k1_times[B_SLICE]["K1"])
+    errs.update(r_errs)
+    errs["phase"], p_launches, p_times = measure_phases(dev, ptxas)
+    run_bench_modes(dev, data)
 
     loaded = [m for m in sys.modules
-              if m in ("jax", "jaxlib", "ipmzoo_tpu")
-              or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
-    check(not loaded, f"the port loaded JAX code: {loaded}")
+              if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
+              or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu.", "tools."))]
+    check(not loaded, f"the port loaded JAX code or the reference's "
+          f"scripts: {loaded}")
 
     def entry(name, source, key, n_launches, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": source,
@@ -1618,6 +1740,21 @@ def main():
               f"k={a_solver.t + 1}, B=1)", CR_SOURCE, "cr_solve",
               a_launches["cr_solve"], ct["K7_k9"], ct["K7_k9_plain"],
               cb["K7"], None),
+        entry("T1 FMA chains (float32, %s, chains=%d, reps=%d)"
+              % (T1_SHAPE, T1_CHAINS, T1_REPS), ROOFLINE_SOURCE,
+              "fma_chains", r_launches["fma_chains"],
+              *r_times["fma_chains"], None),
+        entry(f"T2a in-kernel LDL^T factor repetitions (float32, n={N_AUG}, "
+              f"B={B_SLICE}, reps={T2_REPS})", ROOFLINE_SOURCE,
+              "factor_reps", r_launches["factor_reps"],
+              *r_times["factor_reps"], None),
+        entry(f"T2b in-kernel LDL^T solve repetitions (float32, n={N_AUG}, "
+              f"B={B_SLICE}, one factor + reps={T2_REPS})", ROOFLINE_SOURCE,
+              "solve_reps", r_launches["solve_reps"],
+              *r_times["solve_reps"], None),
+        entry(f"T3 fused iteration prefix 4 (generated; float32, "
+              f"B={B_SLICE}, one repetition)", T3_SOURCE, "phase",
+              p_launches, *p_times, None),
     ]
     for k in kernels:
         print(f"bound: {k['name']}: {k['bound_ms']:.6f} ms by "

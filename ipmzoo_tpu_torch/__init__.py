@@ -25,8 +25,16 @@ mirror the JAX package's:
   banded+arrow factorisation (``banded``) with whole-reduction block
   cyclic reduction, factor and solve (``csrc/cr.cu``, ``cuda_cr``, plain
   versions in ``cr``).
-* :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy and the
-  default device.
+* :mod:`ipmzoo_tpu_torch.utils` — the float32 precision policy, the
+  default device, timers (``Timer``, ``cuda_time``, ``slope``,
+  ``device_trace``), ``solve_summary`` / ``IterationTrace`` and the
+  ``.npz`` checkpoints of solver states.
+* the measurement kernels: the FMA-chain ceiling and the in-kernel
+  factor / solve repetitions (``csrc/roofline.cu``,
+  :mod:`ipmzoo_tpu_torch.ops.cuda_roofline`) and the prefixes of one
+  fused iteration (``models/fused_phases.py``), driven by
+  ``chip_roofline.py``, ``chip_phases.py`` and ``bench_torch.py`` at the
+  repository root.
 """
 
 __version__ = "0.1.0"
@@ -41,4 +49,7 @@ def __getattr__(name):
                 "IPMState", "ArrowIPM", "ArrowQPData", "ArrowSolveResult"):
         from . import models
         return getattr(models, name)
+    if name == "SchurIPM":
+        from .parallel import SchurIPM
+        return SchurIPM
     raise AttributeError(name)

@@ -1,0 +1,303 @@
+// T1, T2a, T2b: the measurement kernels of the roofline report for Hopper
+// (sm_90a), with a plain C interface loaded through ctypes
+// (ipmzoo_tpu_torch/ops/cuda_roofline.py).
+//
+// T1 fma_chains_kernel replaces the TPU kernel
+//     tools/roofline.py:_fma_kernel
+// T2a factor_reps_kernel replaces the TPU kernel
+//     tools/roofline.py:_factor_bench_kernel
+// T2b solve_reps_kernel replaces the TPU kernel
+//     tools/roofline.py:_solve_bench_kernel
+// Their plain versions are ipmzoo_tpu_torch/ops/cuda_roofline.py:
+// fma_chains_plain / factor_reps_plain / solve_reps_plain.
+//
+// These kernels exist to be timed: each answers one question about the
+// fused whole-solve kernel K1 (csrc/fused_ipm.cuh).
+//
+// T1: what rate of multiply-adds does this card reach outside the tensor
+// cores?  Each thread loads one x, derives a = 0.999 x + 1e-3 and CHAINS
+// accumulators acc_i = 0.1 (i + 1) x, runs `reps` rounds of
+// acc_i = acc_i * a + x on every accumulator and stores their sum.  The
+// accumulators are a compile-time-sized array indexed by unrolled loops,
+// so they sit in registers; the loop body holds no load and no store.
+// It is bound by operations: 2 * CHAINS * reps per thread against 8 or 16
+// bytes of traffic.  A chain is a dependent sequence, so one thread keeps
+// CHAINS multiply-adds in flight; whether that, times the warps resident
+// on an SM, covers the pipeline's latency is what the sweep over CHAINS,
+// threads per block and blocks per SM finds out.  `reps` is a run-time
+// argument and the round loop is unrolled by a fixed 8, so the
+// instruction count per round is exact at any `reps`.  With x in [0, 1],
+// a <= 1 and the accumulators grow at most linearly in `reps`: they stay
+// finite in float32 up to reps ~ 1e38.
+//
+// T2: how far are K1's factorisation and triangular solves from that
+// rate, inside K1's own storage?  One thread per instance, 64 threads per
+// block as K1, the matrix read SoA (N, N, B) with the batch fastest into
+// the per-thread packed lower triangle in local memory exactly as
+// fused_step holds it, then `reps` times the very functions K1 runs:
+// ldlt_packed (T2a) or, after one factorisation, ldlt_solve_packed (T2b).
+// The input of repetition r is scaled by 1 + 1e-6 r so that no two
+// repetitions share a value.  The time per repetition is the slope
+// between two values of `reps`, which cancels the launch and the
+// prologue.  Bound: operations (about N^3/3 a factor, that is N^3/6
+// multiply-adds, and 2 N^2 a solve, against one read of the matrix per
+// repetition that L2 serves).
+//
+// Each T2 kernel writes two values per instance.  `acc` is the TPU
+// kernel's own output, the sum over repetitions of D[0] (T2a) or x[0]
+// (T2b).  D[0] is the first pivot, K0[0][0] (1 + 1e-6 r): on the TPU the
+// writes into scratch memory keep the rest of the factorisation alive,
+// here the compiler would delete everything after column 0.  So `sink`
+// sums, over the repetitions, every D[j] and the last row of L (T2a) or
+// every x[i] (T2b): it depends on the whole computation, and the
+// wrappers hold it to the plain version.
+//
+// Arithmetic is plain IEEE (no fast-math); nvcc contracts a * b + c into
+// one FMA, which is the point of T1 and a rounding-level difference to
+// the plain versions elsewhere.
+
+#include "fused_ipm.cuh"
+
+namespace ipmzoo_roofline {
+
+using ipmzoo_fused::ldlt_packed;
+using ipmzoo_fused::ldlt_solve_packed;
+using ipmzoo_fused::tri;
+
+// T1 for one element.
+template <typename T, int CHAINS>
+IPM_FN T fma_chains_value(T x, int reps) {
+  const T a = x * T(0.999) + T(1e-3);
+  T acc[CHAINS];
+#pragma unroll
+  for (int i = 0; i < CHAINS; ++i) acc[i] = x * T(0.1 * (i + 1));
+#pragma unroll 8
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int i = 0; i < CHAINS; ++i) acc[i] = acc[i] * a + x;
+  }
+  T out = acc[0];
+#pragma unroll
+  for (int i = 1; i < CHAINS; ++i) out = out + acc[i];
+  return out;
+}
+
+// The packed lower triangle of instance b of K0 (N, N, S), times `scale`.
+template <typename T, int N>
+IPM_FN void load_packed(const T* K0, int64_t S, int64_t b, T scale, T* K) {
+  for (int i = 0; i < N; ++i)
+    for (int j = 0; j <= i; ++j)
+      K[tri(i, j)] = K0[(static_cast<int64_t>(i) * N + j) * S + b] * scale;
+}
+
+// T2a for instance b: `reps` factorisations of K0 (1 + 1e-6 r).
+template <typename T, int N>
+IPM_FN void factor_reps_instance(const T* K0, int64_t S, int64_t b, int reps,
+                                 T pivot_floor, T* acc_out, T* sink_out) {
+  T K[N * (N + 1) / 2];
+  T D[N];
+  T acc = T(0), sink = T(0);
+  for (int r = 0; r < reps; ++r) {
+    load_packed<T, N>(K0, S, b, T(1.0 + 1e-6 * r), K);
+    ldlt_packed<T, N>(K, D, pivot_floor);
+    acc = acc + D[0];
+    T s = T(0);
+    for (int j = 0; j < N; ++j) s += D[j];
+    for (int k = 0; k < N - 1; ++k) s += K[tri(N - 1, k)];
+    sink = sink + s;
+  }
+  acc_out[b] = acc;
+  sink_out[b] = sink;
+}
+
+// T2b for instance b: one factorisation of K0, then `reps` solves against
+// b0 (1 + 1e-6 r).
+template <typename T, int N>
+IPM_FN void solve_reps_instance(const T* K0, const T* b0, int64_t S,
+                                int64_t b, int reps, T pivot_floor,
+                                T* acc_out, T* sink_out) {
+  T K[N * (N + 1) / 2];
+  T D[N];
+  T x[N];
+  load_packed<T, N>(K0, S, b, T(1), K);
+  ldlt_packed<T, N>(K, D, pivot_floor);
+  T acc = T(0), sink = T(0);
+  for (int r = 0; r < reps; ++r) {
+    const T scale = T(1.0 + 1e-6 * r);
+    for (int i = 0; i < N; ++i) x[i] = b0[i * S + b] * scale;
+    ldlt_solve_packed<T, N>(K, D, x);
+    acc = acc + x[0];
+    T s = T(0);
+    for (int i = 0; i < N; ++i) s += x[i];
+    sink = sink + s;
+  }
+  acc_out[b] = acc;
+  sink_out[b] = sink;
+}
+
+#ifdef __CUDACC__
+// K1's block size (ipmzoo_fused::kThreads).
+constexpr int kInstanceThreads = 64;
+
+template <typename T, int CHAINS>
+__global__ void fma_chains_kernel(const T* __restrict__ x,
+                                  T* __restrict__ out, int64_t n, int reps) {
+  const int64_t i =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = fma_chains_value<T, CHAINS>(x[i], reps);
+}
+
+template <typename T, int N>
+__global__ void factor_reps_kernel(const T* __restrict__ K0, int64_t S,
+                                   int reps, T pivot_floor,
+                                   T* __restrict__ acc, T* __restrict__ sink) {
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= S) return;
+  factor_reps_instance<T, N>(K0, S, b, reps, pivot_floor, acc, sink);
+}
+
+template <typename T, int N>
+__global__ void solve_reps_kernel(const T* __restrict__ K0,
+                                  const T* __restrict__ b0, int64_t S,
+                                  int reps, T pivot_floor,
+                                  T* __restrict__ acc, T* __restrict__ sink) {
+  const int64_t b =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= S) return;
+  solve_reps_instance<T, N>(K0, b0, S, b, reps, pivot_floor, acc, sink);
+}
+#endif
+
+// Entry points.  With nvcc each enqueues one launch on `stream` and
+// returns cudaGetLastError(); without it (the host build of the tests)
+// the same per-element code runs in a loop and 0 is returned.  -1: a
+// template argument (chains, n) that is not instantiated.
+
+template <typename T, int CHAINS>
+int fma_chains_launch(const T* x, T* out, long long n, int reps, int threads,
+                      void* stream) {
+#ifdef __CUDACC__
+  const unsigned grid = static_cast<unsigned>((n + threads - 1) / threads);
+  fma_chains_kernel<T, CHAINS>
+      <<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n,
+                                                                reps);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)threads;
+  (void)stream;
+  for (long long i = 0; i < n; ++i)
+    out[i] = fma_chains_value<T, CHAINS>(x[i], reps);
+  return 0;
+#endif
+}
+
+template <typename T>
+int fma_chains_entry(const T* x, T* out, long long n, int chains, int reps,
+                     int threads, void* stream) {
+  switch (chains) {
+    case 4:
+      return fma_chains_launch<T, 4>(x, out, n, reps, threads, stream);
+    case 8:
+      return fma_chains_launch<T, 8>(x, out, n, reps, threads, stream);
+    case 16:
+      return fma_chains_launch<T, 16>(x, out, n, reps, threads, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T, int N>
+int factor_reps_launch(const T* K0, T* acc, T* sink, long long B, int reps,
+                       T pivot_floor, void* stream) {
+#ifdef __CUDACC__
+  const unsigned grid =
+      static_cast<unsigned>((B + kInstanceThreads - 1) / kInstanceThreads);
+  factor_reps_kernel<T, N>
+      <<<grid, kInstanceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          K0, B, reps, pivot_floor, acc, sink);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)stream;
+  for (long long b = 0; b < B; ++b)
+    factor_reps_instance<T, N>(K0, B, b, reps, pivot_floor, acc, sink);
+  return 0;
+#endif
+}
+
+template <typename T, int N>
+int solve_reps_launch(const T* K0, const T* b0, T* acc, T* sink, long long B,
+                      int reps, T pivot_floor, void* stream) {
+#ifdef __CUDACC__
+  const unsigned grid =
+      static_cast<unsigned>((B + kInstanceThreads - 1) / kInstanceThreads);
+  solve_reps_kernel<T, N>
+      <<<grid, kInstanceThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          K0, b0, B, reps, pivot_floor, acc, sink);
+  return static_cast<int>(cudaGetLastError());
+#else
+  (void)stream;
+  for (long long b = 0; b < B; ++b)
+    solve_reps_instance<T, N>(K0, b0, B, b, reps, pivot_floor, acc, sink);
+  return 0;
+#endif
+}
+
+// The orders instantiated: the fused slice's augmented order 24, and 8
+// for small checks.
+template <typename T>
+int factor_reps_entry(const T* K0, T* acc, T* sink, int n, long long B,
+                      int reps, T pivot_floor, void* stream) {
+  switch (n) {
+    case 8:
+      return factor_reps_launch<T, 8>(K0, acc, sink, B, reps, pivot_floor,
+                                      stream);
+    case 24:
+      return factor_reps_launch<T, 24>(K0, acc, sink, B, reps, pivot_floor,
+                                       stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int solve_reps_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
+                     long long B, int reps, T pivot_floor, void* stream) {
+  switch (n) {
+    case 8:
+      return solve_reps_launch<T, 8>(K0, b0, acc, sink, B, reps, pivot_floor,
+                                     stream);
+    case 24:
+      return solve_reps_launch<T, 24>(K0, b0, acc, sink, B, reps,
+                                      pivot_floor, stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace ipmzoo_roofline
+
+#define IPMZOO_ROOFLINE_ENTRY_POINTS(T, SFX)                                  \
+  extern "C" int ipmzoo_fma_chains_##SFX(const T* x, T* out, long long n,     \
+                                         int chains, int reps, int threads,   \
+                                         void* stream) {                      \
+    return ipmzoo_roofline::fma_chains_entry<T>(x, out, n, chains, reps,      \
+                                                threads, stream);             \
+  }                                                                           \
+  extern "C" int ipmzoo_factor_reps_##SFX(const T* K0, T* acc, T* sink,       \
+                                          int n, long long B, int reps,       \
+                                          T pivot_floor, void* stream) {      \
+    return ipmzoo_roofline::factor_reps_entry<T>(K0, acc, sink, n, B, reps,   \
+                                                 pivot_floor, stream);        \
+  }                                                                           \
+  extern "C" int ipmzoo_solve_reps_##SFX(const T* K0, const T* b0, T* acc,    \
+                                         T* sink, int n, long long B,         \
+                                         int reps, T pivot_floor,             \
+                                         void* stream) {                      \
+    return ipmzoo_roofline::solve_reps_entry<T>(K0, b0, acc, sink, n, B,      \
+                                                reps, pivot_floor, stream);   \
+  }
+
+IPMZOO_ROOFLINE_ENTRY_POINTS(float, f32)
+IPMZOO_ROOFLINE_ENTRY_POINTS(double, f64)

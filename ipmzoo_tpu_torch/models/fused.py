@@ -124,6 +124,9 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
                 f"not ported: see {_ROADMAP_KERNELS}")
         self.bt = bt
         self._kernel_source: Optional[str] = None
+        #: generated sources of the fused-iteration prefixes (kernel T3,
+        #: ``models/fused_phases.py``), by prefix
+        self._phase_sources: dict = {}
 
     # -- pieces generated from the derivation (shared by both emitters) --
 

@@ -278,24 +278,35 @@ class _Generator:
         ]
 
 
+def form_struct(solver):
+    """The generated ``struct Form`` of ``solver``'s formulation and
+    sizes, as lines, and the total number of variables."""
+    g = _Generator(solver)
+    body = (["struct Form {"] + g.constants() + g.init() + g.metrics()
+            + g.assemble() + g.residuals() + g.corrector() + g.aug_rhs()
+            + g.back_substitute() + g.gondzio_targets() + ["};", ""])
+    return body, g.total
+
+
+def describe(solver, total: int):
+    """The comment lines that name what a generated source was printed
+    for."""
+    s = solver
+    return [f"// formulation: {s.settings!r}",
+            f"// names: {s.names!r}",
+            f"// n={s.n} m_ineq={s.m_ineq} m_eq={s.m_eq} "
+            f"aug_dim={s.aug_dim} variables={total} taylor={s.taylor}"]
+
+
 def fused_source(solver) -> str:
     """K1's complete C++ source for ``solver``'s formulation and sizes:
     the hand-written ``csrc/fused_ipm.cuh`` followed by the generated
     ``struct Form`` and the entry points.  Deterministic: the same
     formulation and sizes give the same text."""
-    g = _Generator(solver)
-    s = solver
-    body = (["struct Form {"] + g.constants() + g.init() + g.metrics()
-            + g.assemble() + g.residuals() + g.corrector() + g.aug_rhs()
-            + g.back_substitute() + g.gondzio_targets() + ["};", ""])
-    head = [
-        "// Kernel K1, generated by ipmzoo_tpu_torch/models/fused_source.py.",
-        f"// formulation: {s.settings!r}",
-        f"// names: {s.names!r}",
-        f"// n={s.n} m_ineq={s.m_ineq} m_eq={s.m_eq} "
-        f"aug_dim={s.aug_dim} variables={g.total} taylor={s.taylor}",
-        '#line 1 "fused_ipm.cuh"',
-    ]
+    body, total = form_struct(solver)
+    head = (["// Kernel K1, generated by "
+             "ipmzoo_tpu_torch/models/fused_source.py."]
+            + describe(solver, total) + ['#line 1 "fused_ipm.cuh"'])
     return "\n".join(
         head + [CUH.read_text(), '#line 1 "generated"',
                 "namespace ipmzoo_fused {", ""] + body

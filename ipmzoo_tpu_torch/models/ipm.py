@@ -52,6 +52,8 @@ __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 _ROADMAP_KERNELS = "ROADMAP.md Queue 1 item 11 (remaining kernel modes)"
 _ROADMAP_TWO_FLOAT = "ROADMAP.md Queue 1 item 7 (escalation precision)"
 _ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
+_ROADMAP_BLOCKED = "ROADMAP.md Queue 1 item 11a (panel-blocked LDL^T)"
+_ROADMAP_BLOCK = "ROADMAP.md Queue 1 item 11c ('block' / 'blockg' modes)"
 
 
 class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
@@ -86,6 +88,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                  mu_floor: float | str = "auto",
                  hybrid_refine: bool = False, df_residuals: bool = False,
                  two_float: bool = False, mesh=None,
+                 mesh_axis: Optional[str] = None,
+                 panel: Optional[int] = None, block_inv=None,
                  taylor: str = "staged", nd_pattern=None,
                  nd_leaf: int = 32, nd_fallback: bool = True):
         apply_default_matmul_precision()
@@ -101,9 +105,18 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             raise NotImplementedError(
                 "two_float / df_residuals / hybrid_refine are not ported: "
                 f"see {_ROADMAP_TWO_FLOAT}")
-        if mesh is not None:
+        if mesh is not None or mesh_axis is not None or kernel == "sharded":
             raise NotImplementedError(
-                f"mesh= is not ported: see {_ROADMAP_MESH}")
+                "mesh= / mesh_axis= / kernel='sharded' are not ported: see "
+                f"{_ROADMAP_MESH}")
+        if panel is not None:
+            raise NotImplementedError(
+                "panel= belongs to the panel-blocked LDL^T, which is not "
+                f"ported: see {_ROADMAP_BLOCKED}")
+        if block_inv is not None:
+            raise NotImplementedError(
+                "block_inv= belongs to kernel='block', which is not ported: "
+                f"see {_ROADMAP_BLOCK}")
         if kernel not in ("auto", "ldlt", "nd"):
             raise NotImplementedError(
                 f"kernel={kernel!r} is not ported; the port has the dense "

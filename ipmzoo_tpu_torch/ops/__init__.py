@@ -6,6 +6,11 @@ whole-solve kernel K1 (:mod:`.cuda_fused`; its plain version is
 over whole-reduction block cyclic reduction (CUDA kernels K6/K7 in
 :mod:`.cuda_cr`, plain versions in :mod:`.cr`)."""
 
+from ..utils.precision import apply_default_matmul_precision
+
+apply_default_matmul_precision()
+del apply_default_matmul_precision
+
 from .cuda_ldlt import (launches, ldlt_auto, reset_launch_counts,
                         solve_ldlt_auto)
 from .ldlt import PIVOT_FLOOR, ldlt, solve_ldlt

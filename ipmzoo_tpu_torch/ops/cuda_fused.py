@@ -10,6 +10,11 @@ to the plain version: tensors off the card, a failed build or a failed
 launch raise.  The plain version is
 ``models/fused.py:FusedBatchedIPM._fused_plain``; the solver calls it for
 CPU tensors.
+
+Kernel T3 (the prefixes of one fused iteration,
+``models/fused_phases.py``) is generated around the same header and is
+launched here the same way: :func:`phase_soa`, with :func:`bind_phase` /
+:func:`call_phase` for a host build.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from . import _build
 
 #: kernel launches since the last :func:`reset_launch_counts`
-launches = {"fused": 0}
+launches = {"fused": 0, "phase": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -34,11 +39,13 @@ def reset_launch_counts() -> None:
         launches[k] = 0
 
 
-def library(source: str) -> ctypes.CDLL:
-    """The built and loaded K1 for ``source`` (built at first use)."""
+def library(source: str, name: str = "fused_ipm") -> ctypes.CDLL:
+    """The built and loaded library of the generated ``source`` (built at
+    first use): K1 under its default name, a prefix of T3 under
+    ``fused_phase``."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = _LIBS[source] = _build.load_generated("fused_ipm", source)
+        lib = _LIBS[source] = _build.load_generated(name, source)
     return lib
 
 
@@ -120,5 +127,58 @@ def fused_soa(source: str, data: Sequence[torch.Tensor],
                          stream)
     if err:
         raise RuntimeError(f"K1 (fused IPM) launch failed: cudaError {err}")
-    launches["fused"] += 1
+    if data[0].shape[-1]:   # an empty batch launches nothing
+        launches["fused"] += 1
+    return outs
+
+
+def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype):
+    """T3's entry point in ``lib`` for ``dtype``, with its ctypes
+    signature."""
+    if dtype not in _SUFFIX:
+        raise TypeError(f"T3 takes float32/float64, not {dtype}")
+    fn = getattr(lib, f"ipmzoo_phase_{_SUFFIX[dtype]}")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr]
+    fn.restype = i32
+    return fn
+
+
+def call_phase(fn, data: Sequence[torch.Tensor], params: Sequence[float],
+               reps: int = 1, perturb: int = 0, stream=None):
+    """Check the SoA data (as :func:`call`), allocate (acc, sink), each
+    (1, B), on its device and call T3's entry point ``fn`` once; returns
+    the outputs and the entry's status."""
+    dtype, device = data[0].dtype, data[0].device
+    B = data[0].shape[-1]
+    for i, t in enumerate(data):
+        _check(f"data[{i}]", t, t.shape[:-1] + (B,), dtype, device)
+    outs = (torch.zeros((1, B), dtype=dtype, device=device),
+            torch.zeros((1, B), dtype=dtype, device=device))
+    if B == 0:
+        return outs, 0
+    ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() if t.numel() else None
+                                   for t in data))
+    prm = (_CTYPE[dtype] * 6)(*params)
+    err = fn(ptrs, outs[0].data_ptr(), outs[1].data_ptr(), B, prm, reps,
+             perturb, stream)
+    return outs, err
+
+
+def phase_soa(source: str, data: Sequence[torch.Tensor],
+              params: Sequence[float], reps: int = 1, perturb: int = 0):
+    """Launch the prefix of T3 built from ``source`` on SoA tensors of one
+    CUDA device on the current stream; (acc, sink), each (1, B)."""
+    device = data[0].device
+    if device.type != "cuda":
+        raise ValueError(f"T3 needs CUDA tensors, got {device}")
+    fn = bind_phase(library(source, "fused_phase"), data[0].dtype)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        outs, err = call_phase(fn, data, params, reps, perturb, stream)
+    if err:
+        raise RuntimeError(f"T3 (fused phases) launch failed: cudaError "
+                           f"{err}")
+    if data[0].shape[-1]:
+        launches["phase"] += 1
     return outs

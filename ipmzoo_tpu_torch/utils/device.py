@@ -8,6 +8,8 @@ on the CPU unless the caller passes ``device="cpu"`` (as the tests do).
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -20,3 +22,13 @@ def resolve_device(device=None) -> torch.device:
     dev = torch.device("cuda")
     torch.empty(0, device=dev)
     return dev
+
+
+def nvidia_smi(fields: str = "name,power.limit") -> str:
+    """What ``nvidia-smi --query-gpu=<fields> --format=csv,noheader``
+    reads of the first card: by default its name and power limit, which
+    belong beside every time measured on it."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]

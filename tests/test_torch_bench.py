@@ -1,0 +1,324 @@
+"""bench_torch.py, the port's benchmark program, against bench.py's
+function of the same mode, both on the CPU at a small size.
+
+Both programs are sized by the same module constants and BENCH_*
+variables and both timers are replaced by a constant second, so a
+mode's ``value`` is the count it divides by the wall: the same converged
+share and the same counts must come out.  float32 iteration totals may
+part by rounding (2%); in float64 the port's function is held to the
+reference's solver iteration for iteration.  The modes the port refuses
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+import functools
+import itertools
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bench
+import bench_torch
+import ipmzoo_tpu.utils.timing as ref_timing
+from ipmzoo_tpu.formulations import Settings
+from ipmzoo_tpu.models import ArrowIPM as RefArrowIPM
+from ipmzoo_tpu.models import CompiledIPM as RefIPM
+from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
+from ipmzoo_tpu.parallel.schur import SchurIPM as RefSchurIPM
+from ipmzoo_tpu_torch.models.convert import make_batch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = torch.device("cpu")
+BATCH, N, M, TOL = 48, 8, 4, 1e-5
+
+
+@pytest.fixture
+def small(monkeypatch):
+    """The same small workload on both sides and both timers at one
+    second, so that a value is the count it is computed from."""
+    for mod in (bench, bench_torch):
+        monkeypatch.setattr(mod, "BATCH", BATCH)
+        monkeypatch.setattr(mod, "N", N)
+        monkeypatch.setattr(mod, "M_INEQ", M)
+        monkeypatch.setattr(mod, "TOL", TOL)
+    ticks = itertools.count(1)
+    # bench.py divides two differences of times in its arrow and nd modes:
+    # distinct values keep those finite
+    monkeypatch.setattr(ref_timing, "measure_call",
+                        lambda fn, *a, **k: 1.0)
+    monkeypatch.setattr(ref_timing, "measure_chain",
+                        lambda fn, init, **k: 1.0)
+    monkeypatch.setattr(bench_torch, "timed",
+                        lambda fn, device, runs, what: 1.0)
+    return ticks
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    """Record what a reference solver's method returns inside bench.py."""
+    def install(cls, method):
+        seen = []
+        orig = getattr(cls, method)
+
+        @functools.wraps(orig)
+        def wrapped(self, *a, **k):
+            out = orig(self, *a, **k)
+            seen.append(out)
+            return out
+        monkeypatch.setattr(cls, method, wrapped)
+        return seen
+    return install
+
+
+def test_solve_mode(small, spy):
+    seen = spy(RefIPM, "solve_batch_compact")
+    ref_label, ref_value, ref_unit, _ = bench.bench_solve(
+        bench.make_batch(BATCH, N, M, jnp.float32), "cpu")
+    label, value, unit, counts = bench_torch.bench_solve(
+        make_batch(BATCH, N, M, torch.float32, device="cpu"), CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert counts["converged"] == 1.0 and "100.00% converged" in ref_label
+    assert "100.00% converged" in label and f"{BATCH} batched QPs" in label
+    assert value == counts["iterations"]
+    assert abs(value - ref_value) <= 0.02 * ref_value
+    assert float(np.asarray(seen[0].iterations).sum()) == ref_value
+
+
+def test_solve_mode_float64_iterations_equal(small):
+    ref = RefIPM(Settings(), n=N, m_ineq=M, dtype=jnp.float64, tol=TOL)
+    want = ref.solve_batch_compact(bench.make_batch(BATCH, N, M,
+                                                    jnp.float64))
+    _, value, _, counts = bench_torch.bench_solve(
+        make_batch(BATCH, N, M, torch.float64, device="cpu"), CPU,
+        dtype=torch.float64)
+    assert counts["converged"] == float(np.asarray(want.converged).mean())
+    assert value == float(np.asarray(want.iterations).sum())
+
+
+def test_steps_mode(small, monkeypatch):
+    monkeypatch.setattr(bench_torch, "STEPS", 10)
+    ref_label, ref_value, ref_unit, _ = bench.bench_steps(
+        bench.make_batch(BATCH, N, M, jnp.float32), "cpu")
+    label, value, unit, counts = bench_torch.bench_steps(
+        make_batch(BATCH, N, M, torch.float32, device="cpu"), CPU)
+    # bench.py counts BATCH * 10 steps over their wall
+    assert value == ref_value == BATCH * 10
+    assert unit == ref_unit
+    assert "convergence-gated at 100.00%" in label
+    assert "convergence-gated at 100.00%" in ref_label
+
+
+def test_steps_mode_steps_from_the_initial_state(monkeypatch, small):
+    """What is timed is STEPS batched steps from the initial state."""
+    taken = []
+    monkeypatch.setattr(bench_torch, "STEPS", 3)
+    monkeypatch.setattr(bench_torch, "timed",
+                        lambda fn, device, runs, what: taken.append(fn())
+                        or 1.0)
+    data = make_batch(8, N, M, torch.float64, device="cpu")
+    _, value, _, _ = bench_torch.bench_steps(data, CPU, dtype=torch.float64)
+    assert value == 8 * 3
+    assert taken[0].iteration.tolist() == [3] * 8
+    ref = RefIPM(Settings(), n=N, m_ineq=M, dtype=jnp.float64, tol=TOL)
+    rdata = bench.make_batch(8, N, M, jnp.float64)
+    state = jax.vmap(ref.init_state)(rdata)
+    for _ in range(3):
+        state = jax.vmap(ref._step_impl)(state, rdata)
+    for a, b in zip(taken[0].vars, state.vars):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_fused_mode(small, monkeypatch, spy):
+    # the reference's tile is cut to the batch, and its escalation stage
+    # is left out: traced into the program it compiles its double-single
+    # pipeline for minutes on the CPU, and with every instance converged
+    # before it (asserted below) it changes nothing
+    init, solve = RefFused.__init__, RefFused.solve_fused_compact
+    monkeypatch.setattr(
+        RefFused, "__init__",
+        lambda self, *a, **k: init(self, *a, **{**k, "bt": BATCH}))
+    monkeypatch.setattr(
+        RefFused, "solve_fused_compact",
+        lambda self, data, **k: solve(self, data, **{**k, "esc_cap": 0}))
+    seen = spy(RefFused, "solve_fused_compact")
+    ref_label, ref_value, ref_unit, _ = bench.bench_fused(
+        bench.make_batch(BATCH, N, M, jnp.float32), "cpu")
+    label, value, unit, counts = bench_torch.bench_fused(
+        make_batch(BATCH, N, M, torch.float32, device="cpu"), CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert counts["converged"] == 1.0 and "100.00% converged" in ref_label
+    assert value == counts["iterations"]
+    assert abs(value - ref_value) <= 0.02 * ref_value
+    assert float(np.asarray(seen[0]["iterations"]).sum()) == ref_value
+
+
+def test_fused_gate_refuses_a_batch_that_does_not_converge(small,
+                                                           monkeypatch):
+    monkeypatch.setattr(bench_torch, "TOL", 1e-30)
+    with pytest.raises(RuntimeError, match="convergence too low"):
+        bench_torch.bench_fused(
+            make_batch(8, N, M, torch.float32, device="cpu"), CPU)
+
+
+def test_kkt_mode(small, monkeypatch):
+    monkeypatch.setenv("BENCH_KKT_DIMS", "32")
+    monkeypatch.setenv("BENCH_KKT_B", "2")
+    _, ref_value, ref_unit, _ = bench.bench_kkt(
+        bench.make_batch(BATCH, N, M, jnp.float32), "cpu")
+    label, value, unit, counts = bench_torch.bench_kkt(CPU, runs=1, calls=1)
+    d = N + 2 * M
+    assert unit == ref_unit == "GFLOP/s" and value > 0
+    assert counts["flops"] == BATCH * 2.0 * (d ** 3 / 3 + 2 * 2 * d * d)
+    assert bench_torch.flops_model(3, 5, 2) == 3 * 2.0 * (125 / 3 + 100)
+    assert f"{BATCH} systems of dim {d}" in label
+    # the systems are bench.py's: same generator, same call order
+    rng = np.random.default_rng(0)
+    Mx = rng.normal(size=(BATCH, d, d)).astype(np.float32)
+    A = np.einsum("bij,bkj->bik", Mx, Mx) / d + np.eye(d, dtype=np.float32)
+    R = rng.normal(size=(BATCH, d, 2)).astype(np.float32)
+    ours_A, ours_R = bench_torch.kkt_systems(CPU)
+    assert ours_A.numpy().tobytes() == A.tobytes()
+    assert ours_R.numpy().tobytes() == R.tobytes()
+    # and what is timed solves them
+    from ipmzoo_tpu_torch.ops.cuda_ldlt import ldlt_solve_matrix_auto
+    X = ldlt_solve_matrix_auto(ours_A, ours_R)[2].numpy()
+    np.testing.assert_allclose(np.einsum("bij,bjk->bik", A, X), R,
+                               atol=1e-4)
+    assert counts["residual"] <= 1e-5
+
+
+def test_schur_mode(small, monkeypatch, spy):
+    for k, v in (("I", 2), ("BLOCKS", 4), ("N", 8), ("MC", 2)):
+        monkeypatch.setenv(f"BENCH_SCHUR_{k}", str(v))
+    seen = spy(RefSchurIPM, "solve_batch")
+    ref_label, ref_value, ref_unit, _ = bench.bench_schur("cpu")
+    label, value, unit, counts = bench_torch.bench_schur(CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert counts["converged"] == 1.0 and "100% converged" in ref_label
+    assert "2 block-separable coupled QPs (4 blocks x n=8, m_c=2)" in label
+    assert value == counts["iterations"] == sum(counts["per_instance"])
+    # the reference iterates in double-single pairs, the port in float64
+    ref_its = np.asarray(seen[0].iterations)
+    assert float(ref_its.sum()) == ref_value
+    assert np.abs(np.asarray(counts["per_instance"]) - ref_its).max() <= 2
+
+
+def test_arrow_mode(small, monkeypatch, spy):
+    for k, v in (("N", 136), ("B", 4), ("T", 8)):
+        monkeypatch.setenv(f"BENCH_ARROW_{k}", str(v))
+    monkeypatch.setattr(ref_timing, "measure_call",
+                        lambda fn, *a, **k: float(next(small)))
+    seen = spy(RefArrowIPM, "solve")
+    _, _, ref_unit, _ = bench.bench_arrow("cpu")
+    label, value, unit, counts = bench_torch.bench_arrow(CPU)
+    assert ref_unit == "x speedup" and unit == "iterations/s"
+    assert bool(seen[0].converged) and counts["converged"] == 1.0
+    assert abs(value - int(seen[0].iterations)) <= 1
+    assert "n=136, bandwidth=4, tip=8" in label
+    assert "dense denominator not ported" in label
+    # the QP is bench.py's
+    Q, c, l, u = bench_torch.arrow_problem()
+    assert Q.shape == (136, 136) and Q.dtype == np.float32
+    np.testing.assert_array_equal(Q, Q.T)
+    assert (l == -1).all() and (u == 1).all() and c.shape == (136,)
+
+
+def test_arrow_mode_float64_iterations_equal(small, monkeypatch):
+    from ipmzoo_tpu.models import ArrowQPData as RefArrowQPData
+    for k, v in (("N", 136), ("B", 4), ("T", 8)):
+        monkeypatch.setenv(f"BENCH_ARROW_{k}", str(v))
+    Q, c, l, u = bench_torch.arrow_problem()
+    data, st, _ = RefArrowQPData.from_dense(Q, c, l, u, dtype=jnp.float64)
+    want = RefArrowIPM.for_data(data, structure=st, dtype=jnp.float64,
+                                tol=1e-5).solve(data)
+    _, value, _, _ = bench_torch.bench_arrow(CPU, dtype=torch.float64)
+    assert bool(want.converged) and value == int(want.iterations)
+
+
+def test_nd_mode(small, monkeypatch, spy):
+    monkeypatch.setenv("BENCH_ND_G", "12")
+    monkeypatch.setenv("BENCH_ND_LEAF", "16")
+    monkeypatch.setattr(ref_timing, "measure_call",
+                        lambda fn, *a, **k: float(next(small)))
+    seen = spy(RefIPM, "solve")
+    _, _, ref_unit, _ = bench.bench_nd("cpu")
+    label, value, unit, counts = bench_torch.bench_nd(CPU)
+    assert ref_unit == "x speedup" and unit == "iterations/s"
+    assert bool(seen[0].converged) and counts["converged"] == 1.0
+    assert abs(value - int(seen[0].iterations)) <= 1
+    assert "n=144, leaf=16" in label
+    # float64: iteration for iteration
+    from ipmzoo_tpu.models.families import grid_qp
+    fam = grid_qp(side=12, seed=0, dtype=jnp.float64)
+    want = RefIPM(fam.settings, n=144, dtype=jnp.float64, tol=1e-5,
+                  kernel="nd", nd_leaf=16, nd_fallback=False).solve(fam.data)
+    _, value64, _, _ = bench_torch.bench_nd(CPU, dtype=torch.float64)
+    assert value64 == int(want.iterations)
+
+
+@pytest.mark.parametrize("mode,item", [
+    ("mpc", "item 14"), ("sharded", "item 16"), ("tf", "item 7"),
+    ("normal", "item 11d"), ("aug", "item 11")])
+def test_refused_modes_name_their_item(mode, item):
+    with pytest.raises(NotImplementedError, match=item) as exc:
+        bench_torch.run_mode(mode, CPU)
+    assert f"bench mode {mode!r}" in str(exc.value)
+    assert "ROADMAP.md Queue 1" in str(exc.value)
+
+
+@pytest.mark.parametrize("mode,flags,item", [
+    ("arrow", dict(dense=True), "item 11a"),
+    ("nd", dict(dense=True), "item 11a"),
+    ("kkt", dict(large=True), "item 11c")])
+def test_refused_halves_name_their_item(mode, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        bench_torch.run_mode(mode, CPU, **flags)
+    with pytest.raises(ValueError, match="belongs to"):
+        bench_torch.run_mode("solve", CPU, **flags)
+
+
+def test_unknown_mode_and_the_lists_of_modes():
+    with pytest.raises(ValueError, match="unknown mode"):
+        bench_torch.run_mode("nope", CPU)
+    assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
+                                 "arrow", "nd")
+    assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
+
+
+def test_main_prints_one_json_line_last(capsys):
+    assert bench_torch.main(["--mode", "kkt", "--device", "cpu", "--batch",
+                             "8"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    rec = json.loads(lines[-1])
+    assert list(rec) == ["metric", "value", "unit", "vs_baseline"]
+    assert rec["unit"] == "GFLOP/s" and rec["vs_baseline"] is None
+    assert "8 systems of dim" in rec["metric"]
+    # the wall's median and spread stand on an earlier line
+    assert any("median" in ln and "spread" in ln for ln in lines[:-1])
+
+
+def test_environment_sizes_the_workload_and_the_default_device_is_the_card():
+    env = dict(os.environ, BENCH_BATCH="8", BENCH_N="4", BENCH_M="2",
+               BENCH_STEPS="2", BENCH_TOL="1e-5", BENCH_MODE="steps",
+               PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "bench_torch.py", "--device",
+                          "cpu"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "8 batched QPs, batched step" in rec["metric"]
+    assert "n=4, m=2" in rec["metric"] and rec["vs_baseline"] is None
+    # no --device: the card, and without one it fails rather than fall
+    # back to the CPU
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0 and "metric" not in out.stdout

@@ -217,7 +217,7 @@ def test_cpu_solves_run_the_plain_version():
     out = port.solve_fused(qpdata_from_numpy(numpy_batch(8, 4, 2, seed=1),
                                              device="cpu"))
     assert bool(out["converged"].all())
-    assert cuda_fused.launches == {"fused": 0}
+    assert cuda_fused.launches == {"fused": 0, "phase": 0}
     assert out["iterations"].dtype == torch.float64
 
 

@@ -5,9 +5,12 @@ conversions round-trip the reference's containers."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import textwrap
+import tomllib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from ipmzoo_tpu_torch.models import CompiledIPM, QPData, validate
 from ipmzoo_tpu_torch.models import convert
 from ipmzoo_tpu_torch.models.state import tree_map
 from ipmzoo_tpu_torch.ops import _build, cuda_ldlt
+from ipmzoo_tpu_torch.utils import precision
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -184,3 +188,230 @@ def test_kernel_build_is_keyed_by_source_and_flags():
     assert "arch=compute_90a,code=sm_90a" in flags
     for bad in ("--use_fast_math", "-ftz=true", "-prec-div=false"):
         assert bad not in flags
+
+
+def test_schur_ipm_resolves_at_the_top_level():
+    import ipmzoo_tpu_torch as port
+    from ipmzoo_tpu_torch.parallel.schur import SchurIPM
+    assert port.SchurIPM is SchurIPM
+    # the reference exports no BlockQPData at the top level either
+    import ipmzoo_tpu as ref
+    for name in ("BlockQPData", "NoSuchSolver"):
+        assert not hasattr(port, name) and not hasattr(ref, name)
+
+
+# -- the float32 precision policy (mirrors tests/test_precision_policy.py) --
+
+def test_import_pins_full_float32_precision():
+    # importing models / parallel / ops (above) applied the policy
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    for sub in ("models", "parallel", "ops"):
+        text = (Path(ROOT) / "ipmzoo_tpu_torch" / sub /
+                "__init__.py").read_text()
+        assert "apply_default_matmul_precision()" in text, sub
+
+
+def test_apply_is_idempotent_and_respects_user_choice(monkeypatch):
+    # once applied, a second call is a no-op even if the user has since
+    # chosen something else
+    torch.set_float32_matmul_precision("high")
+    try:
+        precision.apply_default_matmul_precision()
+        assert torch.get_float32_matmul_precision() == "high"
+        # and a fresh (unapplied) module run also defers to a choice the
+        # process has already made
+        monkeypatch.setattr(precision, "_APPLIED", False)
+        precision.apply_default_matmul_precision()
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_env_opt_out(monkeypatch):
+    monkeypatch.setenv("IPMZOO_MATMUL_PRECISION", "default")
+    monkeypatch.setattr(precision, "_APPLIED", False)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        precision.apply_default_matmul_precision()
+        assert torch.backends.cudnn.allow_tf32 is True
+        # without the variable the same fresh run turns TF32 off
+        monkeypatch.delenv("IPMZOO_MATMUL_PRECISION")
+        monkeypatch.setattr(precision, "_APPLIED", False)
+        precision.apply_default_matmul_precision()
+        assert torch.backends.cudnn.allow_tf32 is False
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def test_env_typo_warns_and_leaves_the_default(monkeypatch):
+    monkeypatch.setenv("IPMZOO_MATMUL_PRECISION", "hihgest")
+    monkeypatch.setattr(precision, "_APPLIED", False)
+    with pytest.warns(UserWarning, match="not accepted"):
+        precision.apply_default_matmul_precision()
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+# -- options the port does not have raise, naming their item ---------------
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(mesh_axis="tp"), "item 16"),
+    (dict(panel=64), "item 11a"),
+    (dict(block_inv="auto"), "item 11c"),
+    (dict(kernel="sharded"), "item 16"),
+])
+def test_unported_constructor_options_name_their_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
+
+
+# -- the build ---------------------------------------------------------------
+
+def test_build_key_covers_the_headers_a_source_may_include(tmp_path):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\nint f() { return H; }')
+    (tmp_path / "h.cuh").write_text("#define H 1\n")
+    first = _build.library_path("k", csrc=tmp_path)
+    assert first == _build.library_path("k", csrc=tmp_path)
+    (tmp_path / "h.cuh").write_text("#define H 2\n")
+    second = _build.library_path("k", csrc=tmp_path)
+    assert second != first
+    # a header of another name counts too; a file that is no header not
+    (tmp_path / "other.cuh").write_text("")
+    third = _build.library_path("k", csrc=tmp_path)
+    assert third != second
+    (tmp_path / "notes.txt").write_text("x")
+    assert _build.library_path("k", csrc=tmp_path) == third
+    # the shipped measurement kernels include K1's header
+    assert '#include "fused_ipm.cuh"' in (_build.CSRC /
+                                          "roofline.cu").read_text()
+
+
+def test_build_directory_can_be_named_by_the_environment(monkeypatch,
+                                                         tmp_path):
+    monkeypatch.delenv(_build.BUILD_DIR_ENV, raising=False)
+    assert _build.resolve_build_dir() == Path(ROOT) / "build" / \
+        "ipmzoo_tpu_torch"
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "kernels"))
+    assert _build.resolve_build_dir() == tmp_path / "kernels"
+
+
+def test_ptxas_report_reads_the_build_log(tmp_path):
+    lib = tmp_path / "k-0.so"
+    lib.with_suffix(".log").write_text(textwrap.dedent("""\
+        ptxas info    : 0 bytes gmem
+        ptxas info    : Compiling entry function '_Z1kIfLi2EEvv' for 'sm_90a'
+        ptxas info    : Function properties for _Z1kIfLi2EEvv
+            1392 bytes stack frame, 56 bytes spill stores, 60 bytes spill loads
+        ptxas info    : Used 255 registers, used 0 barriers, 1392 bytes cumulative stack size
+        ptxas info    : Compiling entry function '_Z1kIdLi2EEvv' for 'sm_90a'
+        ptxas info    : Function properties for _Z1kIdLi2EEvv
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 40 registers, used 0 barriers
+        """))
+    assert _build.ptxas_report(lib) == [
+        {"name": "_Z1kIfLi2EEvv", "registers": 255, "stack": 1392,
+         "spill_stores": 56, "spill_loads": 60},
+        {"name": "_Z1kIdLi2EEvv", "registers": 40, "stack": 0,
+         "spill_stores": 0, "spill_loads": 0}]
+
+
+def test_packaging_ships_the_headers_and_names_torch():
+    meta = tomllib.loads((Path(ROOT) / "pyproject.toml").read_text())
+    shipped = meta["tool"]["setuptools"]["package-data"]["ipmzoo_tpu_torch"]
+    assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
+    assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
+    for f in _build.CSRC.iterdir():
+        assert f.suffix in (".cu", ".cuh"), f.name
+
+
+# -- the import guard over the whole port -----------------------------------
+
+PORT_SCRIPTS = ("bench_torch.py", "chip_smoke.py", "chip_profile.py",
+                "chip_roofline.py", "chip_phases.py")
+
+
+def test_no_port_file_imports_the_jax_side():
+    files = [Path(ROOT) / f for f in PORT_SCRIPTS] + sorted(
+        (Path(ROOT) / "ipmzoo_tpu_torch").rglob("*.py"))
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ipmzoo_tpu|bench|"
+                     r"tools)(\.|\s|$)", re.M)
+    for f in files:
+        found = bad.findall(f.read_text())
+        assert not found, (f.name, found)
+
+
+def test_measurement_modules_import_and_run_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        import bench_torch, chip_phases, chip_profile, chip_roofline
+        import chip_smoke
+        import ipmzoo_tpu_torch.utils as u
+        from ipmzoo_tpu_torch.models import fused_phases as fp
+        from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+        dev = torch.device("cpu")
+        bench_torch.BATCH = 16
+        label, value, unit, counts = bench_torch.run_mode("steps", dev,
+                                                          batch=16)
+        assert unit == "iterations/s" and counts["converged"] >= 0.99
+        assert bench_torch.run_mode("kkt", dev, batch=8)[2] == "GFLOP/s"
+        K0 = torch.tensor(cr.quasidef_tile(8, 4))
+        assert cr.factor_reps(K0, 2)[1].shape == (1, 4)
+        s = chip_phases.fused_solver("cpu", torch.float64)
+        assert "IPMZOO_PHASE_ENTRY_POINTS" in fp.phase_source(s, 2)
+        assert u.slope(lambda k: float(k), 1, 3) == 1.0
+        assert chip_roofline.main() == 2 and chip_phases.main() == 2
+        loaded = [m for m in sys.modules
+                  if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
+                  or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu.",
+                                   "tools."))]
+        print("LOADED", loaded)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_phase_operations_count_the_factor_and_solves_as_fused_flops():
+    """T3's operation count takes its factor and its solves from the
+    count T2 is graded by, so the two kernels' bounds agree."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_phases
+    finally:
+        sys.path.remove(ROOT)
+    from ipmzoo_tpu_torch.ops.cuda_roofline import fused_flops
+    fac, sol = fused_flops(24)
+    flops = [chip_phases.phase_flops(p) for p in range(5)]
+    mv = chip_phases.MATVEC_FLOPS
+    assert flops[0] == 0 and flops[1] == mv
+    assert flops[2] - flops[1] == fac
+    assert flops[3] - flops[2] == 2 * sol + 2 * mv
+    assert flops[4] - flops[3] == 3 * mv
+    assert flops == sorted(flops)
+
+
+def test_all_four_scripts_refuse_a_machine_without_a_card(capsys):
+    """One banner serves every chip script: without a CUDA device each
+    says so on the standard error and returns 2."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_phases
+        import chip_profile
+        import chip_roofline
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    for mod in (chip_smoke, chip_roofline, chip_phases, chip_profile):
+        assert mod.main() == 2
+        captured = capsys.readouterr()
+        assert captured.out == ""
+        assert f"{mod.__name__}: no CUDA device" in captured.err
