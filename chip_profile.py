@@ -14,7 +14,8 @@ the same data, and prints, after the card's name and power limit:
    runs after a warm-up); the kernel launches and device busy time of
    one solve under torch.profiler, as launches per iteration and busy
    share (busy time over the un-profiled median); the largest entries of
-   device time; and the host-clock time of three single iterations;
+   device time; K2 (by route), K3 and K4's device time and share; and
+   the host-clock time of three single iterations;
 2. the fused slice with esc_cap=32 and with esc_cap=0, twice each: the
    wall and the host-clock time of every stage (K1's solve_fused calls,
    the escalation, the safety-net tail; each stage ends in a
@@ -30,9 +31,10 @@ the same data, and prints, after the card's name and power limit:
 5. the nested-dissection slice (bench_nd's defaults, float32, tol 1e-5),
    one instance and the batch of 8: the wall by CUDA events (median of 5
    runs after a warm-up); launches per iteration and busy share of one
-   solve under torch.profiler; K5's and K3's share of device time; the
-   host-clock time of three single iterations, of the once-per-solve
-   prework, and of one factorisation and one solve of the plan.
+   solve under torch.profiler; K5's (by route) and K3's share of device
+   time; the host-clock time of three single iterations, of the
+   once-per-solve prework, and of one factorisation and one solve of the
+   plan.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -72,6 +74,30 @@ def profiled(fn, label, per_kernel=None):
     return busy, launches
 
 
+#: the device-time attribution of the LDL^T kernels: (label, a substring
+#: of the kernel's name, a substring it must not have); each second route
+#: is named after its kernel with a suffix
+SCHUR_KERNELS = (("K2", "ldlt_factor_kernel", None),
+                 ("K2 SoA route", "ldlt_factor_kernel", "_block"),
+                 ("K2 block route", "ldlt_factor_kernel_block", None),
+                 ("K3", "ldlt_solve_kernel", None),
+                 ("K4", "ldlt_solve_matrix_kernel", None))
+ND_KERNELS = (("K5", "ldlt_factor_solve_matrix_kernel", None),
+              ("K5 block route", "ldlt_factor_solve_matrix_kernel", "_warp"),
+              ("K5 warp route", "ldlt_factor_solve_matrix_kernel_warp", None),
+              ("K3", "ldlt_solve_kernel", None))
+
+
+def shares(events, busy, kernels):
+    """Each kernel's device ms and share of ``busy``, by name."""
+    out = []
+    for label, key, unless in kernels:
+        ms = sum(t for name, t in events
+                 if key in name and (unless is None or unless not in name))
+        out.append(f"{label} {ms:.3f} ms ({ms / busy:.4f} of device time)")
+    return ", ".join(out)
+
+
 def profile_schur(dev):
     import torch
     from ipmzoo_tpu_torch.parallel import SchurIPM
@@ -82,12 +108,13 @@ def profile_schur(dev):
         res = solver.solve_batch(data)
         steps = int(res.iterations.max())
         med = cs.time_solves(lambda: solver.solve_batch(data), 5)
+        events = []
         busy, launches = profiled(lambda: solver.solve_batch(data),
-                                  f"schur tol={tol:g}")
+                                  f"schur tol={tol:g}", events)
         print(f"schur tol={tol:g} (solved in {solver.compute_dtype}): wall "
               f"median {med:.3f} ms; iterations {steps}; launches per "
               f"iteration {launches / steps:.1f}; busy share "
-              f"{busy / med:.4f}")
+              f"{busy / med:.4f}; " + shares(events, busy, SCHUR_KERNELS))
         d = solver._check(data, 1)
         st = solver.init_state(d)
         for _ in range(3):
@@ -158,14 +185,10 @@ def profile_nd():
         events = []
         busy, launches = profiled(lambda: solver.solve_batch(d), label,
                                   events)
-        k5 = sum(ms for key, ms in events
-                 if "ldlt_factor_solve_matrix_kernel" in key)
-        k3 = sum(ms for key, ms in events if "ldlt_solve_kernel" in key)
         print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
               f"launches per solve {launches}, per iteration "
               f"{launches / steps:.1f} (prework included); busy share "
-              f"{busy / med:.4f}; K5 {k5:.3f} ms ({k5 / busy:.4f} of device "
-              f"time), K3 {k3:.3f} ms ({k3 / busy:.4f})")
+              f"{busy / med:.4f}; " + shares(events, busy, ND_KERNELS))
         dd = solver._check_data(d)
         state = solver.init_state(dd)
         pre = host_ms("_nd_prework", lambda: solver._nd_prework(dd), 2)

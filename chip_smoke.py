@@ -16,7 +16,13 @@ Steps, each reported on its own line:
    exactly-zero pivot replaced by the floor exactly in both; then K4
    (multi-rhs LDL^T solve) against its plain version at the Schur
    slice's n=64, k=16, B=512, at n=24, k=2, B=10240 and at n=13, k=5,
-   B=1000, in the same measure and limits;
+   B=1000, in the same measure and limits; then each route of K2 alone
+   (the SoA route, a thread per matrix, and the block route, a thread
+   block per matrix) at every (order, matrices) of K2_SHAPES: the
+   compact slice's batches and its float64 escalation, the Schur slice's
+   H and S blocks, odd orders, n=1, batches that fill no whole block;
+   the SoA route also at (328, 1), over the block route's shared memory;
+   and both on an exactly-zero pivot;
 5. solve the README's demo QP on the card (float64, tol 1e-8);
 6. run the slice: CompiledIPM(Settings(), n=16, m_ineq=8, float32,
    tol=1e-6).solve_batch_compact on 10240 QPs of the benchmark workload
@@ -29,7 +35,11 @@ Steps, each reported on its own line:
 7. check the slice's objectives against the port on the CPU in float64
    on the first 256 instances: |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
 8. time K2 and K3 against their plain versions at the slice's batch
-   sizes (10240, 2560, 320) with CUDA events;
+   sizes (10240, 2560, 320) with CUDA events, and both K2 routes there
+   (each with its caller's layout work), at the float64 escalation's
+   B=32 and at (328, 1), by CUDA events and by their kernels' device
+   time under torch.profiler; fail where k2_route picks a route whose
+   device time is more than 5% (timing noise) above the other's;
 9. build kernel K1 (the fused whole-solve IPM), generated for the fused
    slice's formulation (Settings(), n=16, m_ineq=8), and report its
    build time and ptxas' registers, stack frame and spills (the build
@@ -59,9 +69,9 @@ Steps, each reported on its own line:
     them (numpy seeds 0-7, float32), through SchurIPM(64, 16, float32,
     tol=1e-8, refine=2, max_iter=60).solve_batch, which solves in
     float64 (two_float='auto'); >= 99% converged and K2, K3 and K4
-    launched by that run; time it with CUDA events (median of 5 runs
-    after a warm-up) and report ms per solve, ms per iteration and
-    useful iterations/s as bench.py counts them;
+    launched by that run, K2's launches by route; time it with CUDA
+    events (median of 5 runs after a warm-up) and report ms per solve,
+    ms per iteration and useful iterations/s as bench.py counts them;
 15. the same slice in plain float32 at tol 1e-5 (two_float off, so the
     float32 kernels), >= 99% converged;
 16. check step 14's objectives against the port on the CPU in float64:
@@ -70,8 +80,10 @@ Steps, each reported on its own line:
     Schur slice gives them, on its own matrices at the initial iterate,
     float32 within 1e-5 and float64 within 1e-12 as in step 4: the H
     blocks (n=64, B=512; K4 with k=16) and the coupling systems S (n=16,
-    B=8); then time the three kernels and their plain versions on the H
-    blocks;
+    B=8); then time the route ldlt_auto takes for the H blocks, both K2
+    routes on H and on S (with the check of step 8), K3, K4 and the plain
+    versions, and torch.linalg.cholesky_ex on H (the nearest library
+    call, not the same function: LL^T, SPD only);
 18. hold K6 (whole-reduction cyclic-reduction factor) and K7 (its
     multi-rhs solve) against their plain versions on the card, float32
     and float64, on random SPD block-tridiagonal systems at (N, b, k) =
@@ -104,8 +116,13 @@ Steps, each reported on its own line:
     three levels of the nd slice's plan), (10240, 32, 2) (bench.py's
     bench_kkt point), (3, 37, 5), with an exactly-zero pivot, and at
     (1, 328, 1), over K5's shared-memory cap, where the wrapper must run
-    K2 then K4; the plain X also against torch.linalg.solve(A, R)
-    (float32 1e-3, float64 1e-9);
+    K2 then K4, all through the wrapper, which must take the route
+    k5_route picks; the plain X also against torch.linalg.solve(A, R)
+    (float32 1e-3, float64 1e-9); then each route of K5 alone (the block
+    route, a thread block per matrix, and the warp route, a warp per
+    matrix of order <= 32) at those shapes and at K5_EDGES (n=1, odd
+    orders, batches that fill no whole block), and on an exactly-zero
+    pivot at (28, 16, 48), (10240, 32, 2) and (3, 37, 5);
 23. build the nd slice's dissection plan (host) and hold
     nd_solve(nd_factor(K)) on the slice's own KKT matrix at the initial
     iterate, float64 on the card, against torch.linalg.solve within
@@ -119,18 +136,21 @@ Steps, each reported on its own line:
     launches per iteration and no K2 / K4; a second solve must give
     bit-identical x; time it with CUDA events (median of 5 runs after
     that warm-up) and report ms per solve and per iteration, launches
-    and host syncs;
+    K5's launches by route, and host syncs;
 25. the same structure as a batch: solve_batch on
     grid_qp(side=64, batch=8) (K5 at 840 blocks per launch), all
     converged, bit-identical twice, timed, useful iterations/s;
 26. the objectives of step 24 and of step 25's first two instances
     against the port on the CPU in float64 (the library composition
     there): |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
-27. time K5 at (105, 64, 40) in float32 and float64 and at
-    (10240, 32, 2) in float32 against its plain version, against K2
+27. time each K5 route at every shape of step 22's paths (the three nd
+    levels, (10240, 32, 2) and (3, 37, 5) in float32; (105, 64, 40) and
+    (10240, 32, 2) also in float64) against its plain version, against K2
     followed by K4 (the wrappers, their layout transposes included) and
     against torch.linalg.solve (the one PyTorch call that gives the same
-    X; it returns no factors);
+    X; it returns no factors), by CUDA events and by device time as in
+    step 8; fail where k5_route picks a route whose device time is more
+    than 5% above the other's;
 28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
     T2b in-kernel factor / solve repetitions) and the five generated
     prefixes of one fused iteration (T3), each prefix a source of its
@@ -168,7 +188,8 @@ Steps, each reported on its own line:
     with TF32 off, 2048^2 bfloat16), a yardstick;
 33. bench_torch.py's modes `steps` (10 batched steps after the
     convergence gate) and `kkt` (K5 at (10240, 32, 2), graded by the
-    dense-LDL^T flop model) through its own functions; its other modes
+    dense-LDL^T flop model) through its own functions, launches counted
+    by route (the kkt mode is the K5 warp route's path); its other modes
     are steps 11, 6, 14, 19 and 24 above, which build their solvers and
     data through bench_torch.py too.
 
@@ -238,6 +259,18 @@ K5_LEVEL, K5_KKT = (105, 64, 40), (10240, 32, 2)
 K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5))
 #: a shape over K5's shared-memory cap: the wrapper runs K2 then K4
 K5_OVER_CAP = (1, 328, 1)
+#: more shapes at which each K5 route is held to plain (step 22): n = 1,
+#: odd orders, batches that fill no whole block of either route
+K5_EDGES = ((1, 1, 1), (5, 13, 3), (7, 8, 2), (33, 20, 9), (1, 37, 2))
+#: (order, matrices) at which both K2 routes are held to plain (step 4)
+#: and timed (steps 8, 17): the compact slice's batches and its float64
+#: escalation of at most 32 stragglers, the Schur slice's H and S blocks,
+#: odd orders, n = 1, batches that fill no whole block; and one order
+#: over the block route's shared memory (the nd slice's generic top)
+K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
+             (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
+             (13, 1000), (37, 77), (1, 5))
+K2_OVER_CAP = (328, 1)
 #: published peaks of one H100 SXM: HBM bytes/s, and FLOP/s outside the
 #: tensor cores (float64 runs at half the float32 rate there)
 HBM_BYTES_PER_S = 3.35e12
@@ -367,6 +400,26 @@ def time_cuda(fn, reps):
     return cuda_time(fn, runs=1, warmup=1, calls=reps).ms
 
 
+def device_ms(fn, reps):
+    """Device milliseconds per call of ``fn``: the time of the CUDA
+    kernels it launches, summed under torch.profiler over ``reps`` calls
+    after one warm-up call.  Unlike time_cuda it leaves out the host's
+    time between launches, which at a few tens of microseconds a call
+    hides the difference between two short kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA")
+    check(busy > 0, "torch.profiler saw no device time")
+    return busy / 1e3 / reps
+
+
 def check_kernels(dev):
     """Step 4: K2/K3 against their plain versions on the card."""
     import torch
@@ -444,6 +497,113 @@ def check_k4(dev):
     return err
 
 
+def k2_call(route, A):
+    """One launch of K2's ``route`` on A (B, n, n), with the layout work
+    its caller does (the SoA route's transpose); returns the SoA storage
+    L_t (n, n, B), D_t (n, B)."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    if route == "block":
+        return cuda_ldlt.factor_block(A.contiguous())
+    return cuda_ldlt.factor_soa(A.permute(1, 2, 0).contiguous())
+
+
+def k2_routes(n, dtype):
+    """The K2 routes that can run order n in ``dtype``."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    return ("soa", "block") if cuda_ldlt.factor_block_fits(n, dtype) \
+        else ("soa",)
+
+
+def hold_k2(what, A, route, tol):
+    """K2's ``route`` against the plain version on A: L and D within
+    ``tol`` (step 4's measure); returns (plain L, plain D, the route's D,
+    largest absolute difference)."""
+    import torch
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+    L0, D0 = ldlt(A)
+    L_t, D_t = k2_call(route, A)
+    torch.cuda.synchronize()
+    L, D = L_t.permute(2, 0, 1), D_t.t()
+    rl, rd = rel_diff(L, L0), rel_diff(D, D0)
+    print(f"kernels {what}: K2 {route} route rel diff L {rl:.3e} D "
+          f"{rd:.3e} (limit {tol:g})")
+    check(max(rl, rd) <= tol, f"K2's {route} route disagrees with its plain "
+          f"version ({what}): {max(rl, rd):.3e} > {tol:g}")
+    return L0, D0, D, max((L - L0).abs().max().item(),
+                          (D - D0).abs().max().item())
+
+
+def check_k2_routes(dev):
+    """Step 4, K2's routes: each held to the plain version at every shape
+    of K2_SHAPES (and the SoA route over the block route's cap), float32
+    within 1e-5 and float64 within 1e-12, and on an exactly-zero pivot;
+    returns the largest absolute differences by (route, n, B, type)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        name = str(dtype).replace("torch.", "")
+        for n, B in K2_SHAPES + (K2_OVER_CAP,):
+            A, _ = quasi_definite(B, n, dtype, dev, seed=n + B)
+            for route in k2_routes(n, dtype):
+                errs[(route, n, B, name)] = hold_k2(
+                    f"{name} n={n} B={B}", A, route, tol)[-1]
+            print(f"kernels {name} n={n} B={B}: k2_route picks "
+                  f"{cuda_ldlt.k2_route(n, B, dtype)}")
+        check(K2_OVER_CAP[0] > 0 and k2_routes(K2_OVER_CAP[0], dtype) ==
+              ("soa",), f"order {K2_OVER_CAP[0]} fits the block route")
+        # an exactly-zero second pivot, as in step 4
+        for n, B in ((N_AUG, B_SLICE), (SCHUR_N, SCHUR_I * SCHUR_BLOCKS)):
+            A, _ = quasi_definite(B, n, dtype, dev, seed=2)
+            A[:, :2, :] = 0.0
+            A[:, :, :2] = 0.0
+            A[:, :2, :2] = 1.0
+            floor = torch.tensor(PIVOT_FLOOR, dtype=dtype)
+            for route in k2_routes(n, dtype):
+                _, D0, D, _ = hold_k2(f"{name} zero pivot n={n} B={B}", A,
+                                      route, tol)
+                check(bool((D[:, 1].cpu() == floor).all()) and
+                      bool((D0[:, 1].cpu() == floor).all()),
+                      f"K2's {route} route or its plain version did not put "
+                      f"the pivot floor on an exactly-zero pivot")
+    return errs
+
+
+def time_k2_routes(dev, n, B, dtype, A=None, reps=20):
+    """Both K2 routes (each with its caller's layout work), the plain
+    version and the bound at (n, B), on A or on quasi-definite matrices;
+    prints which the rule picks and that it is no slower."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+    if A is None:
+        A, _ = quasi_definite(B, n, dtype, dev, seed=n + B)
+    name = str(dtype).replace("torch.", "")
+    routes = k2_routes(n, dtype)
+    t = {f"K2_{r}": time_cuda(lambda r=r: k2_call(r, A), reps)
+         for r in routes}
+    dev_t = {r: device_ms(lambda r=r: k2_call(r, A), reps) for r in routes} \
+        if len(routes) > 1 else {routes[0]: t[f"K2_{routes[0]}"]}
+    t.update({f"K2_{r}_device": v for r, v in dev_t.items()})
+    t["K2_plain"] = time_cuda(lambda: ldlt(A), 3)
+    t["bound"] = ldlt_bounds(B, n, 1, dtype)["K2"]
+    pick = cuda_ldlt.k2_route(n, B, dtype)
+    best = min(routes, key=lambda r: dev_t[r])
+    print(f"timing K2 routes n={n} B={B} {name} (ms per call, CUDA events; "
+          f"_device: kernel time under torch.profiler; layout work "
+          f"included): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in t.items() if k != "bound") +
+          f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; k2_route "
+          f"picks {pick}, the faster on the device is {best}")
+    check(dev_t[pick] <= 1.05 * dev_t[best],
+          f"k2_route picks the {pick} route at n={n} B={B} {name}: "
+          f"{dev_t[pick]:.4f} ms of device time against {best}'s "
+          f"{dev_t[best]:.4f}")
+    return t
+
+
 def solve_demo(dev):
     """Step 5: the README's demo QP on the card."""
     import torch
@@ -479,6 +639,7 @@ def run_slice(dev):
     torch.cuda.synchronize()
     launches = dict(cuda_ldlt.launches)
     f64 = dict(cuda_ldlt.f64_launches)
+    routes = dict(cuda_ldlt.route_launches)
     syncs = solver.host_syncs
     twin_syncs = solver._esc_twin.host_syncs
     escalated = int(solver.escalated)
@@ -497,6 +658,8 @@ def run_slice(dev):
           f"{f64['solve_ldlt']}); escalated instances {escalated}; host "
           f"syncs {syncs} ({twin_syncs} in the escalation stage, "
           f"{syncs - twin_syncs} in the mop-up)")
+    print(f"slice: K2 routes: SoA {routes['ldlt soa']}, block "
+          f"{routes['ldlt block']}")
     check(conv >= 0.99, f"slice convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt"):
         check(launches[k] > 0, f"the slice never launched kernel {k}")
@@ -504,7 +667,7 @@ def run_slice(dev):
     med = time_solves(lambda: solver.solve_batch_compact(data), 3)
     print(f"slice: wall ms per solve (CUDA events, 3 runs) median "
           f"{med:.3f}; useful iterations/s {iters / (med / 1e3):.1f}")
-    return data, res, launches
+    return data, res, {**launches, **routes}
 
 
 def compare_cpu(data, res):
@@ -565,6 +728,7 @@ def time_kernels(dev):
             "b_to_soa": time_cuda(lambda: b.t().contiguous(), 50),
             "K2_wrapper": time_cuda(lambda: cuda_ldlt.ldlt_auto(K), 50),
         }
+        t.update(time_k2_routes(dev, N_AUG, B, torch.float32, A=K))
         if B == B_SLICE:
             t["K3_library"] = time_library(
                 f"torch.linalg.ldl_solve (K3's function) n={N_AUG} B={B} "
@@ -573,7 +737,12 @@ def time_kernels(dev):
         out[B] = t
         print(f"timing B={B} n={N_AUG} float32 (ms per call, CUDA events): "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
-                          if v is not None))
+                          if isinstance(v, float)))
+    # the float64 escalation of at most 32 stragglers, and the nd slice's
+    # generic top (over the block route's shared memory)
+    time_k2_routes(dev, N_AUG, 32, torch.float64)
+    out[K2_OVER_CAP] = time_k2_routes(dev, *K2_OVER_CAP, torch.float64,
+                                      reps=2)
     return out
 
 
@@ -857,6 +1026,7 @@ def run_schur(dev, data, tol, runs):
     torch.cuda.synchronize()
     launches = dict(cuda_ldlt.launches)
     f64 = dict(cuda_ldlt.f64_launches)
+    routes = dict(cuda_ldlt.route_launches)
     syncs = solver.host_syncs
 
     shape = (SCHUR_I, SCHUR_BLOCKS, SCHUR_N)
@@ -876,6 +1046,13 @@ def run_schur(dev, data, tol, runs):
           f"{launches['solve_ldlt']} K4 {launches['solve_ldlt_matrix']} "
           f"(float64: {f64['ldlt']} / {f64['solve_ldlt']} / "
           f"{f64['solve_ldlt_matrix']}); host syncs {syncs}")
+    work_t = solver.compute_dtype
+    print(f"schur slice: K2 routes: SoA {routes['ldlt soa']}, block "
+          f"{routes['ldlt block']} (k2_route at the H blocks: "
+          f"{cuda_ldlt.k2_route(SCHUR_N, SCHUR_I * SCHUR_BLOCKS, work_t)}, "
+          f"at S: {cuda_ldlt.k2_route(SCHUR_MC, SCHUR_I, work_t)})")
+    check(routes["ldlt soa"] + routes["ldlt block"] == launches["ldlt"],
+          "schur slice: K2's route counts do not add up")
     check(conv >= 0.99, f"schur convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt", "solve_ldlt_matrix"):
         check(launches[k] > 0, f"the schur slice never launched {k}")
@@ -888,7 +1065,7 @@ def run_schur(dev, data, tol, runs):
     print(f"schur slice tol={tol:g}: wall ms per solve (CUDA events, "
           f"{runs} runs) median {med:.3f}; ms per iteration "
           f"{med / steps:.3f}; useful iterations/s {iters / (med / 1e3):.1f}")
-    return res, launches
+    return res, {**launches, **routes}
 
 
 def compare_cpu_schur(data, res):
@@ -962,27 +1139,38 @@ def check_schur_kernels(dev, data):
                   f"version at the Schur shape in {name} ({what}): "
                   f"{v:.3e} > {tol:g}")
 
-        H_t = H.permute(1, 2, 0).contiguous()
-        L_t, D_t = cuda_ldlt.factor_soa(H_t)
+        # K2 by the route ldlt_auto takes, and both routes alone
+        L, D = cuda_ldlt.ldlt_auto(H)
+        L_t, D_t = L.permute(1, 2, 0), D.t()
+        check(L_t.is_contiguous() and D_t.is_contiguous(),
+              "ldlt_auto's factors are not views of SoA storage")
         R_t, r_t = R.permute(1, 2, 0).contiguous(), r.t().contiguous()
-        t = {
-            "K2": time_cuda(lambda: cuda_ldlt.factor_soa(H_t), 20),
-            "K2_plain": time_cuda(lambda: ldlt(H), 3),
+        t = time_k2_routes(dev, n, B, dtype, A=H)
+        t["route"] = cuda_ldlt.k2_route(n, B, dtype)
+        t["K2"] = time_cuda(lambda: cuda_ldlt.ldlt_auto(H), 20)
+        t["S"] = time_k2_routes(dev, k, SCHUR_I, dtype, A=S)
+        chol = torch.linalg.cholesky_ex(H)
+        check(int(chol.info.abs().max()) == 0, "the H blocks are not SPD")
+        t["K2_library"] = time_cuda(lambda: torch.linalg.cholesky_ex(H), 20)
+        print(f"library call torch.linalg.cholesky_ex n={n} B={B} {name}: "
+              f"{t['K2_library']:.4f} ms per call (nearest library call, not "
+              f"the same function: LL^T, SPD only)")
+        t.update({
             "K3": time_cuda(lambda: cuda_ldlt.solve_soa(L_t, D_t, r_t), 20),
             "K3_plain": time_cuda(lambda: solve_ldlt(L0, D0, r), 3),
             "K4": time_cuda(lambda: cuda_ldlt.solve_matrix_soa(L_t, D_t,
                                                                R_t), 20),
             "K4_plain": time_cuda(lambda: solve_ldlt_matrix(L0, D0, R), 3),
-        }
+        })
         if dtype == torch.float64:
             t["K4_library"] = time_library(
                 f"torch.linalg.ldl_solve (K4's function) n={n} k={k} B={B} "
                 f"{name}", ldl_solve_call(L0, D0, R), X0, 1e-10, 2)
         out[name] = t
         print(f"timing schur shape n={n} k={k} B={B} {name} (ms per call, "
-              f"CUDA events): " + ", ".join(f"{a} {v:.4f}"
-                                            for a, v in t.items()
-                                            if v is not None))
+              f"CUDA events; K2 by ldlt_auto's {t['route']} route): " +
+              ", ".join(f"{a} {v:.4f}" for a, v in t.items()
+                        if isinstance(v, float)))
     return out
 
 
@@ -1270,81 +1458,132 @@ def k5_inputs(B, n, k, dtype, dev, seed):
     return A, R
 
 
-def hold_k5(what, A, R, tol, route="ldlt_solve_matrix"):
-    """K5 (or, over its cap, K2 + K4) against the plain version on the
-    card: L, D and X within ``tol`` (largest absolute difference over the
-    largest magnitude of the plain result); returns the plain result and
-    the largest absolute difference of X."""
+def hold_k5(what, A, R, tol, route):
+    """K5 through the wrapper (``route``: what k5_route picks, "warp",
+    "block" or, over the block's cap, "k2+k4") against the plain version
+    on the card: the launches of that route only, and L, D and X within
+    ``tol`` (largest absolute difference over the largest magnitude of the
+    plain result); returns the plain result and the largest absolute
+    difference of X."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
 
     L0, D0, X0 = ldlt_solve_matrix(A, R)
     before = dict(cuda_ldlt.launches)
+    by_route = dict(cuda_ldlt.route_launches)
     L, D, X = cuda_ldlt.ldlt_solve_matrix_auto(A, R)
     torch.cuda.synchronize()
     made = {k: v - before[k] for k, v in cuda_ldlt.launches.items() if
             v != before[k]}
-    want = {route: 1} if route == "ldlt_solve_matrix" else \
-        {"ldlt": 1, "solve_ldlt_matrix": 1}
+    want = {"ldlt": 1, "solve_ldlt_matrix": 1} if route == "k2+k4" else \
+        {"ldlt_solve_matrix": 1}
     check(made == want, f"{what}: launches {made}, expected {want}")
+    if route != "k2+k4":
+        key = f"ldlt_solve_matrix {route}"
+        check(cuda_ldlt.route_launches[key] == by_route[key] + 1,
+              f"{what}: the wrapper did not take K5's {route} route")
     check(bool(torch.isfinite(X0).all()), f"{what}: plain X not finite")
     rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(X, X0)
-    print(f"kernels {what}: {'K5' if len(want) == 1 else 'K2 + K4'} rel "
-          f"diff L {rl:.3e} D {rd:.3e} X {rx:.3e} (limit {tol:g})")
+    print(f"kernels {what}: {'K2 + K4' if route == 'k2+k4' else 'K5 ' + route}"
+          f" rel diff L {rl:.3e} D {rd:.3e} X {rx:.3e} (limit {tol:g})")
     check(max(rl, rd, rx) <= tol, f"{what}: disagrees with the plain "
           f"version: {max(rl, rd, rx):.3e} > {tol:g}")
     return (L0, D0, X0), (X - X0).abs().max().item()
 
 
+def k5_call(route, A, R):
+    """One launch of K5's ``route`` on contiguous A, R."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    if route == "warp":
+        return cuda_ldlt.factor_solve_matrix_warp(A, R)
+    return cuda_ldlt.factor_solve_matrix_launch(A, R)
+
+
+def k5_routes(n, k, dtype):
+    """The K5 routes that can run order n with k columns in ``dtype``."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    routes = ("block",) if cuda_ldlt.factor_solve_matrix_fits(n, k, dtype) \
+        else ()
+    return routes + (("warp",) if n <= cuda_ldlt.K5_WARP_MAX_ORDER else ())
+
+
+def hold_k5_route(what, A, R, route, tol):
+    """K5's ``route`` launched alone against the plain version: L, D and
+    X within ``tol``; returns (plain D, the route's D, largest absolute
+    difference of X)."""
+    import torch
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
+    L0, D0, X0 = ldlt_solve_matrix(A, R)
+    L, D, X = k5_call(route, A, R)
+    torch.cuda.synchronize()
+    rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(X, X0)
+    print(f"kernels {what}: K5 {route} route rel diff L {rl:.3e} D {rd:.3e} "
+          f"X {rx:.3e} (limit {tol:g})")
+    check(max(rl, rd, rx) <= tol, f"K5's {route} route disagrees with the "
+          f"plain version ({what}): {max(rl, rd, rx):.3e} > {tol:g}")
+    return D0, D, (X - X0).abs().max().item()
+
+
 def check_k5(dev):
-    """Step 22: K5 against its plain version on the card."""
+    """Step 22: K5 against its plain version on the card: through the
+    wrapper (the route k5_route picks) at the path shapes, then each
+    route alone at the path shapes and at K5_EDGES, and on an
+    exactly-zero pivot; returns the wrapper's largest absolute difference
+    at K5_LEVEL in float32 and the routes' by (route, B, n, k, type)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR
 
-    err = None
+    err, route_errs = None, {}
     for dtype, tol, tol_lib in ((torch.float32, 1e-5, 1e-3),
                                 (torch.float64, 1e-12, 1e-9)):
         name = str(dtype).replace("torch.", "")
         for B, n, k in K5_SHAPES:
             A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k)
             what = f"{name} B={B} n={n} k={k}"
-            check(cuda_ldlt.factor_solve_matrix_fits(n, k, dtype),
-                  f"{what} does not fit K5")
-            (_, _, X0), ax = hold_k5(what, A, R, tol)
+            route = cuda_ldlt.k5_route(B, n, k, dtype)
+            check(route != "k2+k4", f"{what} does not fit K5")
+            (_, _, X0), ax = hold_k5(what, A, R, tol, route)
             rs = rel_diff(X0, torch.linalg.solve(A, R))
             print(f"kernels {what}: plain X against torch.linalg.solve, "
                   f"rel diff {rs:.3e} (limit {tol_lib:g})")
             check(rs <= tol_lib, f"{what}: X is not the solution")
             if dtype == torch.float32 and (B, n, k) == K5_LEVEL:
                 err = ax
-        # an exactly-zero second pivot, as in step 4
-        B, n, k = K5_SHAPES[1]
-        A, R = k5_inputs(B, n, k, dtype, dev, seed=7)
-        A[:, :2, :] = 0.0
-        A[:, :, :2] = 0.0
-        A[:, :2, :2] = 1.0
-        (_, D0, _), _ = hold_k5(f"{name} zero pivot B={B} n={n} k={k}", A, R,
-                                tol)
-        _, D, _ = cuda_ldlt.ldlt_solve_matrix_auto(A, R)
+        for B, n, k in K5_SHAPES + K5_EDGES:
+            A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k + 1)
+            for route in k5_routes(n, k, dtype):
+                route_errs[(route, B, n, k, name)] = hold_k5_route(
+                    f"{name} B={B} n={n} k={k}", A, R, route, tol)[-1]
+        # an exactly-zero second pivot, as in step 4, through every route
         floor = torch.tensor(PIVOT_FLOOR, dtype=dtype)
-        check(bool((D[:, 1].cpu() == floor).all()) and
-              bool((D0[:, 1].cpu() == floor).all()),
-              "K5 or its plain version did not put the pivot floor on an "
-              "exactly-zero pivot")
+        for B, n, k in (K5_SHAPES[1], K5_KKT, (3, 37, 5)):
+            A, R = k5_inputs(B, n, k, dtype, dev, seed=7)
+            A[:, :2, :] = 0.0
+            A[:, :, :2] = 0.0
+            A[:, :2, :2] = 1.0
+            what = f"{name} zero pivot B={B} n={n} k={k}"
+            (_, D0, _), _ = hold_k5(what, A, R, tol,
+                                    cuda_ldlt.k5_route(B, n, k, dtype))
+            Ds = [hold_k5_route(what, A, R, route, tol)[1]
+                  for route in k5_routes(n, k, dtype)]
+            check(all(bool((D[:, 1].cpu() == floor).all())
+                      for D in Ds + [D0]),
+                  "K5 or its plain version did not put the pivot floor on "
+                  "an exactly-zero pivot")
         B, n, k = K5_OVER_CAP
-        check(not cuda_ldlt.factor_solve_matrix_fits(n, k, dtype),
+        check(cuda_ldlt.k5_route(B, n, k, dtype) == "k2+k4",
               f"{K5_OVER_CAP} fits K5 in {name}")
         A, R = k5_inputs(B, n, k, dtype, dev, seed=11)
         hold_k5(f"{name} over the cap B={B} n={n} k={k}", A, R, tol,
-                route="ldlt + solve_ldlt_matrix")
+                "k2+k4")
     print(f"kernels K5: shared-memory cap "
           f"{cuda_ldlt.K5_SHARED_MEMORY_CAP} bytes; largest level shape "
           f"needs {cuda_ldlt.factor_solve_matrix_bytes(16, 64, torch.float64)}"
           f" / {cuda_ldlt.factor_solve_matrix_bytes(64, 40, torch.float64)} "
           f"bytes in float64")
-    return err
+    return err, route_errs
 
 
 def nd_solver(dtype, tol, device=None):
@@ -1358,7 +1597,9 @@ def check_nd_kkt():
     """Step 23: nd_solve(nd_factor(K)) on the nd slice's own KKT at the
     initial iterate, float64 on the card, against torch.linalg.solve;
     with the signed merged top (two Cholesky stages) and without signs
-    (the top block of order 328 goes through K2 + K4)."""
+    (the top block of order 328 goes through K2 + K4, K2 by its SoA
+    route: over the block route's shared memory).  Returns the generic
+    top's launches by route."""
     import torch
     from ipmzoo_tpu_torch.models.state import tree_map
     from ipmzoo_tpu_torch.ops import cuda_ldlt
@@ -1389,19 +1630,24 @@ def check_nd_kkt():
     unsigned = nd_plan((K != 0).cpu().numpy(), leaf=ND_LEAF)
     check(plan.top_neg >= 0 and unsigned.top_neg < 0, "top_neg")
     for what, p in (("signed top", plan), ("generic top", unsigned)):
-        before = dict(cuda_ldlt.launches)
+        cuda_ldlt.reset_launch_counts()
         x = nd_solve(p, nd_factor(K, p), b)
         torch.cuda.synchronize()
-        made = {k: v - before[k] for k, v in cuda_ldlt.launches.items()}
+        made = dict(cuda_ldlt.launches)
+        routes = dict(cuda_ldlt.route_launches)
         rd = rel_diff(x, xs)
         print(f"nd factor + solve float64 n={p.n} ({what}): rel diff to "
-              f"torch.linalg.solve {rd:.3e} (limit 1e-9); launches {made}")
+              f"torch.linalg.solve {rd:.3e} (limit 1e-9); launches {made}, "
+              f"by route {routes}")
         check(rd <= 1e-9, f"nd_solve disagrees with the dense solve "
               f"({what}): {rd:.3e}")
         top = 0 if p is plan else 1
         check(made == {"ldlt": top, "solve_ldlt": 3 + top,
                        "solve_ldlt_matrix": top, "ldlt_solve_matrix": 3},
               f"nd ({what}): launches {made}")
+        check(routes["ldlt soa"] == top, f"nd ({what}): the top of order "
+              f"{K2_OVER_CAP[0]} did not take K2's SoA route")
+    return routes
 
 
 def run_nd(what, solve, solver, n_inst):
@@ -1416,6 +1662,7 @@ def run_nd(what, solve, solver, n_inst):
     torch.cuda.synchronize()
     launches = dict(cuda_ldlt.launches)
     f64 = dict(cuda_ldlt.f64_launches)
+    routes = dict(cuda_ldlt.route_launches)
     syncs = solver.host_syncs
 
     n = ND_SIDE * ND_SIDE
@@ -1437,6 +1684,11 @@ def run_nd(what, solve, solver, n_inst):
           f"{launches['solve_ldlt']} K2 {launches['ldlt']} K4 "
           f"{launches['solve_ldlt_matrix']} (float64: "
           f"{sum(f64.values())}); host syncs {syncs}")
+    print(f"{what}: K5 routes: block {routes['ldlt_solve_matrix block']}, "
+          f"warp {routes['ldlt_solve_matrix warp']}")
+    check(routes["ldlt_solve_matrix block"] +
+          routes["ldlt_solve_matrix warp"] == launches["ldlt_solve_matrix"],
+          f"{what}: K5's route counts do not add up")
     check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
     check(launches == {"ldlt_solve_matrix": 3 * steps,
                        "solve_ldlt": 6 * steps, "ldlt": 0,
@@ -1456,7 +1708,7 @@ def run_nd(what, solve, solver, n_inst):
     print(f"{what}: wall ms per solve (CUDA events, 5 runs) median "
           f"{med:.3f}; ms per iteration {med / steps:.3f}; useful "
           f"iterations/s {int(its.sum()) / (med / 1e3):.1f}")
-    return res, launches
+    return res, {**launches, **routes}
 
 
 def run_nd_slice():
@@ -1502,9 +1754,12 @@ def run_nd_slice():
 
 
 def time_k5(dev):
-    """Step 27: K5 against its plain version, against K2 followed by K4
-    (the wrappers, layout transposes included) and against
-    torch.linalg.solve, which gives the same X and no factors."""
+    """Step 27: each K5 route alone at every shape the paths give K5
+    (K5_SHAPES in float32, K5_LEVEL and K5_KKT also in float64), against
+    the plain version, against K2 followed by K4 (the wrappers, layout
+    transposes included) and against torch.linalg.solve, which gives the
+    same X and no factors; prints which route k5_route picks and which is
+    faster, and fails where the rule picks the slower route."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
@@ -1514,27 +1769,59 @@ def time_k5(dev):
         return cuda_ldlt.solve_ldlt_matrix_auto(L, D, R)
 
     out = {}
-    for (B, n, k), dtype in ((K5_LEVEL, torch.float32),
-                             (K5_LEVEL, torch.float64),
-                             (K5_KKT, torch.float32)):
+    cases = [(s, torch.float32) for s in K5_SHAPES] + \
+        [(K5_LEVEL, torch.float64), (K5_KKT, torch.float64)]
+    for (B, n, k), dtype in cases:
         name = str(dtype).replace("torch.", "")
         A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k)
         X0 = ldlt_solve_matrix(A, R)[2]
-        t = {"K5": time_cuda(
-                 lambda: cuda_ldlt.factor_solve_matrix_launch(A, R), 50),
-             "K5_plain": time_cuda(lambda: ldlt_solve_matrix(A, R), 3),
-             "K2_then_K4": time_cuda(lambda: k2_k4(A, R), 10)}
+        routes = k5_routes(n, k, dtype)
+        t = {f"K5_{r}": time_cuda(lambda r=r: k5_call(r, A, R), 50)
+             for r in routes}
+        dev_t = {r: device_ms(lambda r=r: k5_call(r, A, R), 50)
+                 for r in routes}
+        t.update({f"K5_{r}_device": v for r, v in dev_t.items()})
+        t["K5_plain"] = time_cuda(lambda: ldlt_solve_matrix(A, R), 3)
+        t["K2_then_K4"] = time_cuda(lambda: k2_k4(A, R), 10)
         t["library"] = time_library(
             f"torch.linalg.solve (K5's X, no factors) B={B} n={n} k={k} "
             f"{name}", lambda: torch.linalg.solve(A, R), X0,
             1e-3 if dtype == torch.float32 else 1e-9, 10)
         t["bound"] = k5_bound(B, n, k, dtype)
+        pick = cuda_ldlt.k5_route(B, n, k, dtype)
+        best = min(routes, key=lambda r: dev_t[r])
         out[(B, n, k, name)] = t
         print(f"timing K5 B={B} n={n} k={k} {name} (ms per call, CUDA "
-              f"events): K5 {t['K5']:.4f}, plain {t['K5_plain']:.4f}, K2 "
-              f"then K4 {t['K2_then_K4']:.4f}; bound "
-              f"{t['bound'][0]:.6f} ms by {t['bound'][1]}")
+              f"events; _device: kernel time under torch.profiler): " +
+              ", ".join(f"{a} {v:.4f}" for a, v in t.items()
+                        if a.startswith("K")) +
+              f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; k5_route "
+              f"picks {pick}, the faster on the device is {best}")
+        check(dev_t[pick] <= 1.05 * dev_t[best],
+              f"k5_route picks the {pick} route at B={B} n={n} k={k} {name}: "
+              f"{dev_t[pick]:.4f} ms of device time against {best}'s "
+              f"{dev_t[best]:.4f}")
     return out
+
+
+def sweep_k5(dev=None):
+    """Both K5 routes' device time (device_ms) over k = 2..64 right-hand
+    sides at orders 8, 16 and 32 and batches from 28 to 10240, float32
+    and float64: the measurement behind k5_route's k <= n / 2.  Not part
+    of main(); run it alone (about a minute with the ldlt.cu build)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    dev = dev or torch.device("cuda")
+    for dt in (torch.float32, torch.float64):
+        for n, B in ((16, 28), (16, 224), (32, 105), (32, 10240), (8, 1024)):
+            for k in (2, 4, 8, 12, 16, 24, 32, 48, 64):
+                A, R = k5_inputs(B, n, k, dt, dev, seed=k)
+                d = {r: device_ms(lambda r=r: k5_call(r, A, R), 20)
+                     for r in ("block", "warp")}
+                print(f"sweep {str(dt)[6:]} B={B} n={n} k={k}: device ms "
+                      f"block {d['block']:.4f} warp {d['warp']:.4f} ratio "
+                      f"{d['warp'] / d['block']:.3f}; k5_route picks "
+                      f"{cuda_ldlt.k5_route(B, n, k, dt)}", flush=True)
 
 
 def measure_roofline(dev, k2_ms, k1_ms):
@@ -1641,14 +1928,20 @@ def run_bench_modes(dev, data):
     """Step 33: bench_torch.py's `steps` and `kkt` modes through its own
     functions, on the slice's data."""
     import bench_torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    routes = {}
     for mode, run in (("steps", lambda: bench_torch.bench_steps(data, dev)),
                       ("kkt", lambda: bench_torch.bench_kkt(dev))):
+        cuda_ldlt.reset_launch_counts()
         label, value, unit, counts = run()
+        routes[mode] = dict(cuda_ldlt.route_launches)
+        print(f"bench_torch --mode {mode}: launches by route {routes[mode]}")
         check(value > 0 and value == value, f"bench_torch {mode}: value "
               f"{value}")
         print(f"bench_torch --mode {mode}: " + json.dumps(
             {"metric": label, "value": round(value, 1), "unit": unit,
              "vs_baseline": None}))
+    return routes
 
 
 def main():
@@ -1665,6 +1958,7 @@ def main():
           "smoke test runs it at its defaults")
     ptxas = build_kernels()
     errs = check_kernels(dev)
+    k2_errs = check_k2_routes(dev)
     errs["solve_ldlt_matrix"] = check_k4(dev)
     solve_demo(dev)
     data, res, launches = run_slice(dev)
@@ -1683,15 +1977,16 @@ def main():
     a_solver, a_data, a_batch, a_launches, ab_launches = run_arrow_slice()
     cr_times, cr_errs = time_cr(a_solver, a_data, a_batch)
     errs.update(cr_errs)
-    errs["ldlt_solve_matrix"] = check_k5(dev)
-    check_nd_kkt()
+    errs["ldlt_solve_matrix"], k5_errs = check_k5(dev)
+    top_routes = check_nd_kkt()
     nd_launches = run_nd_slice()
-    k5 = time_k5(dev)[K5_LEVEL + ("float32",)]
+    k5_times = time_k5(dev)
+    k5 = k5_times[K5_LEVEL + ("float32",)]
     r_errs, r_launches, r_times = measure_roofline(
         dev, times[B_SLICE]["K2"], k1_times[B_SLICE]["K1"])
     errs.update(r_errs)
     errs["phase"], p_launches, p_times = measure_phases(dev, ptxas)
-    run_bench_modes(dev, data)
+    bench_routes = run_bench_modes(dev, data)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
@@ -1699,25 +1994,37 @@ def main():
     check(not loaded, f"the port loaded JAX code or the reference's "
           f"scripts: {loaded}")
 
-    def entry(name, source, key, n_launches, ms, plain_ms, bnd, library_ms):
+    def entry(name, source, key, n_launches, ms, plain_ms, bnd, library_ms,
+              err=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[key], "launches": n_launches,
-                "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                "max_abs_err": errs[key] if err is None else err, "ms": ms,
+                "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
     t = times[B_SLICE]
+    top = times[K2_OVER_CAP]
     b24 = ldlt_bounds(B_SLICE, N_AUG, 1, torch.float32)
     b64 = ldlt_bounds(SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
                       torch.float64)
     k1 = k1_times[B_SLICE]
+    kw = k5_times[K5_KKT + ("float32",)]
     ct = cr_times[("float32", 1)]
     cb = cr_bounds(1, a_solver.N, a_solver.b, a_solver.t + 1, torch.float32)
     shape = f"float32, N={a_solver.N}, b={a_solver.b}"
     kernels = [
-        entry(f"K2 batched LDL^T factor (float32, n={N_AUG}, B={B_SLICE})",
-              SOURCE, "ldlt", launches["ldlt"], t["K2"], t["K2_plain"],
-              b24["K2"], None),
+        entry("K2 batched LDL^T factor, SoA route (float64, n=%d, B=%d: "
+              "the nd generic top, over the block route's shared memory)"
+              % K2_OVER_CAP, SOURCE, "ldlt", top_routes["ldlt soa"],
+              top["K2_soa"], top["K2_plain"], top["bound"], None,
+              k2_errs[("soa",) + K2_OVER_CAP + ("float64",)]),
+        entry(f"K2 block route (float64, n={SCHUR_N}, B="
+              f"{SCHUR_I * SCHUR_BLOCKS})", SOURCE, "ldlt",
+              s_launches["ldlt block"], s_times["K2_block"],
+              s_times["K2_plain"], s_times["bound"], s_times["K2_library"],
+              k2_errs[("block", SCHUR_N, SCHUR_I * SCHUR_BLOCKS,
+                       "float64")]),
         entry(f"K3 batched LDL^T solve (float32, n={N_AUG}, B={B_SLICE})",
               SOURCE, "solve_ldlt", launches["solve_ldlt"], t["K3"],
               t["K3_plain"], b24["K3"], t["K3_library"]),
@@ -1729,10 +2036,15 @@ def main():
               "B=512)", SOURCE, "solve_ldlt_matrix",
               s_launches["solve_ldlt_matrix"], s_times["K4"],
               s_times["K4_plain"], b64["K4"], s_times["K4_library"]),
-        entry("K5 fused LDL^T factor + multi-rhs solve (float32, B=%d, "
-              "n=%d, k=%d)" % K5_LEVEL, SOURCE, "ldlt_solve_matrix",
-              nd_launches["ldlt_solve_matrix"], k5["K5"], k5["K5_plain"],
-              k5["bound"], k5["library"]),
+        entry("K5 fused LDL^T factor + multi-rhs solve, block route "
+              "(float32, B=%d, n=%d, k=%d)" % K5_LEVEL, SOURCE,
+              "ldlt_solve_matrix", nd_launches["ldlt_solve_matrix block"],
+              k5["K5_block"], k5["K5_plain"], k5["bound"], k5["library"]),
+        entry("K5 small-order route (float32, %d, %d, %d)" % K5_KKT, SOURCE,
+              "ldlt_solve_matrix",
+              bench_routes["kkt"]["ldlt_solve_matrix warp"], kw["K5_warp"],
+              kw["K5_plain"], kw["bound"], kw["library"],
+              k5_errs[("warp",) + K5_KKT + ("float32",)]),
         entry(f"K6 whole-reduction cyclic-reduction factor ({shape}, B=1)",
               CR_SOURCE, "cr_factor", a_launches["cr_factor"], ct["K6"],
               ct["K6_plain"], cb["K6"], None),

@@ -79,7 +79,50 @@
 // columns of one row, so shared-memory accesses are conflict-free.  L, D
 // and X are written once.  Each entry subtracts its terms in increasing
 // j, as the plain version's column sweeps do.
+//
+// Second routes, chosen per call by ops/cuda_ldlt.py (k5_route, k2_route)
+// from times measured on an H100 (PERF.md):
+//
+// K5 warp route, ldlt_factor_solve_matrix_kernel_warp, replaces the same
+// TPU kernel (pallas_ldlt.py:_factor_solve_matrix_kernel) at orders
+// n <= 32.  The block route above spends an order-32 matrix's ~11k
+// multiply-adds between ~95 block barriers, and at 2 right-hand sides 30
+// of 32 lanes idle in its back substitution: it is bound by barrier
+// latency, not by bytes (the bytes of (10240, 32, 2) in float32 take
+// 0.027 ms at 3.35 TB/s).  Here one warp (or a 8- / 16-lane segment of
+// one, several matrices a warp) holds a matrix and has no block barrier
+// at all.  Lane i keeps row i of A in registers (the padded order NP is a
+// template parameter so every register index is static; instantiated
+// for NP = 8, 16, 32).  At column j the pivot is the shuffle of lane j's
+// diagonal, lane i > j scales its entry, and the rank-one update of row i
+// takes each other row's unscaled column-j entry by shuffle: ~n^2/2
+// shuffles and FMAs, no shared memory.  Then the right-hand sides go in
+// chunks of KP = 2 or 8 columns (template parameter; any k): forward
+// sweep by shuffling row j of the chunk (lane i's own L_ij is a[j]),
+// division by D, and backward sweep reading L_ji from the factor staged
+// in shared memory.  Every load and store of A, R, L and X goes through
+// shared memory with consecutive lanes on consecutive addresses (a lane
+// reading its own row from device memory would stride n values across
+// the warp).  Four warps a block (no block barrier; only __syncwarp).
+//
+// K2 block route, ldlt_factor_kernel_block, replaces the same TPU kernel
+// as K2 (pallas_ldlt.py:_factor_kernel) where one thread per matrix
+// starves the card: at the Schur slice's H blocks (n = 64, B = 512) the
+// SoA route runs 512 threads on 4 SMs, each a left-looking loop of n^3/3
+// dependent reads.  It is K5's block structure with no right-hand side:
+// one thread block per matrix, the matrix in dynamic shared memory
+// ((n^2 + 2n) values, so n <= 169 in float64 and <= 240 in float32 under
+// the 227 KB a block may take), right-looking elimination with two
+// barriers per column, 32 x 4 threads up to order 32 and 32 x 8 above.
+// It reads A in the public layout (B, n, n), so the caller's transpose
+// to SoA is gone, and writes L (n, n, B) and D (n, B) in the SoA layout
+// that K3 and K4 read.  Those stores are strided by B: each value takes a
+// 32-byte sector of its own, 4x (float64) or 8x (float32) the bytes of
+// the outputs (about 20 us at the Schur shape), chosen over a transpose
+// kernel after it because the Schur iteration is bound by launches, not
+// by device time.
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -262,8 +305,213 @@ __global__ void ldlt_factor_solve_matrix_kernel(
   for (int i = tid; i < n; i += nt) D[i] = dsh[i];
 }
 
+template <typename T>
+__global__ void ldlt_factor_kernel_block(const T* __restrict__ A,
+                                         T* __restrict__ L,
+                                         T* __restrict__ D, int n, int64_t B,
+                                         T pivot_floor) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* P = reinterpret_cast<T*>(shared_raw);   // A, n x n, row-major
+  T* dsh = P + static_cast<size_t>(n) * n;   // D
+  T* ucol = dsh + n;                         // unscaled column j
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nx = blockDim.x, ny = blockDim.y;
+  const int tid = ty * nx + tx, nt = nx * ny;
+  const int nn = n * n;
+  const int64_t b = blockIdx.x;
+  A += b * nn;
+
+  for (int e = tid; e < nn; e += nt) P[e] = A[e];
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    T d = P[j * n + j];
+    if (d == T(0)) d = pivot_floor;
+    if (tid == 0) dsh[j] = d;
+    for (int i = j + 1 + tid; i < n; i += nt) {
+      const T u = P[i * n + j];
+      ucol[i] = u;
+      P[i * n + j] = u / d;
+    }
+    __syncthreads();
+    // P_ic -= L_ij u_cj on the lower triangle of the trailing matrix
+    for (int i = j + 1 + ty; i < n; i += ny) {
+      const T l = P[i * n + j];
+      for (int c = j + 1 + tx; c <= i; c += nx) P[i * n + c] -= l * ucol[c];
+    }
+    __syncthreads();
+  }
+
+  // L (n, n, B) and D (n, B): element (i, c) of matrix b at (i n + c) B + b
+  for (int e = tid; e < nn; e += nt) {
+    const int i = e / n, c = e - i * n;
+    L[static_cast<int64_t>(e) * B + b] =
+        c < i ? P[e] : (c == i ? T(1) : T(0));
+  }
+  for (int i = tid; i < n; i += nt) {
+    D[static_cast<int64_t>(i) * B + b] = dsh[i];
+  }
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpsPerBlock = 4;
+
+// The warp route's staging area for one matrix: the n x n factor panel at
+// row stride NP + 1 and one chunk of right-hand sides at row stride KP + 1
+// (odd strides: lane i reading row i hits its own bank).
+template <int NP, int KP>
+__host__ __device__ constexpr int warp_segment() {
+  return NP * (NP + 1) + NP * (KP + 1);
+}
+
+template <typename T, int NP, int KP>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+ldlt_factor_solve_matrix_kernel_warp(const T* __restrict__ A,
+                                     const T* __restrict__ R,
+                                     T* __restrict__ L, T* __restrict__ D,
+                                     T* __restrict__ X, int n, int k,
+                                     int64_t B, T pivot_floor) {
+  constexpr int G = 32 / NP;   // matrices a warp, one per NP-lane segment
+  constexpr int S = NP + 1, SK = KP + 1, SEG = warp_segment<NP, KP>();
+  __shared__ T stage[kWarpsPerBlock][G * SEG];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int seg = lane / NP, i = lane % NP;
+  const int64_t b0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp) * G;
+  if (b0 >= B) return;   // the whole warp alike
+  const int nb = static_cast<int>(B - b0 < G ? B - b0 : G);
+  T* Pw = stage[warp];
+  T* P = Pw + seg * SEG;   // this lane's matrix: factor panel
+  T* Q = P + NP * S;       // and rhs chunk
+  const bool live = seg < nb && i < n;
+  const int nn = n * n;
+
+  // the warp's nb matrices are contiguous in A: coalesced into the stage
+  const T* Aw = A + b0 * nn;
+  for (int e = lane; e < nb * nn; e += 32) {
+    const int m = e / nn, r = e - m * nn, row = r / n;
+    Pw[m * SEG + row * S + (r - row * n)] = Aw[e];
+  }
+  __syncwarp();
+  T a[NP];
+#pragma unroll
+  for (int c = 0; c < NP; ++c) a[c] = (live && c < n) ? P[i * S + c] : T(0);
+
+  // factor: right-looking, the pivot and each row's unscaled column-j
+  // entry broadcast by shuffle; rows i > j update every column c > j
+  // (the part of row i above the diagonal is never read)
+  T dmine = T(1);
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    if (j >= n) break;
+    T d = __shfl_sync(kFullMask, a[j], j, NP);
+    if (d == T(0)) d = pivot_floor;
+    if (i == j) dmine = d;
+    const T u = a[j];
+    const bool below = i > j;
+    const T l = below ? u / d : T(0);
+    if (below) a[j] = l;
+#pragma unroll
+    for (int c = j + 1; c < NP; ++c) {
+      const T uc = __shfl_sync(kFullMask, u, c, NP);
+      if (below) a[c] -= l * uc;
+    }
+  }
+
+  // L through the stage: row i, exact zeros above the diagonal, ones on it
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int c = 0; c < NP; ++c) {
+      if (c < n) P[i * S + c] = c < i ? a[c] : (c == i ? T(1) : T(0));
+    }
+  }
+  __syncwarp();
+  T* Lw = L + b0 * nn;
+  for (int e = lane; e < nb * nn; e += 32) {
+    const int m = e / nn, r = e - m * nn, row = r / n;
+    Lw[e] = Pw[m * SEG + row * S + (r - row * n)];
+  }
+  if (live) D[(b0 + seg) * n + i] = dmine;
+
+  // the right-hand sides, KP columns at a time
+  for (int c0 = 0; c0 < k; c0 += KP) {
+    const int kc = k - c0 < KP ? k - c0 : KP, w = n * kc;
+    for (int e = lane; e < nb * w; e += 32) {
+      const int m = e / w, r = e - m * w, row = r / kc, col = r - row * kc;
+      Pw[m * SEG + NP * S + row * SK + col] =
+          R[((b0 + m) * n + row) * k + c0 + col];
+    }
+    __syncwarp();
+    T x[KP];
+#pragma unroll
+    for (int c = 0; c < KP; ++c) {
+      x[c] = (live && c < kc) ? Q[i * SK + c] : T(0);
+    }
+    // forward sweep, in increasing j: x_i -= L_ij x_j
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (j >= n) break;
+      const T l = i > j ? a[j] : T(0);
+#pragma unroll
+      for (int c = 0; c < KP; ++c) {
+        const T xj = __shfl_sync(kFullMask, x[c], j, NP);
+        if (i > j) x[c] -= l * xj;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KP; ++c) x[c] /= dmine;
+    // backward sweep, from the last row: x_i -= L_ji x_j, L_ji staged
+#pragma unroll
+    for (int j = NP - 1; j > 0; --j) {
+      if (j >= n) continue;
+      const T l = i < j ? P[j * S + i] : T(0);
+#pragma unroll
+      for (int c = 0; c < KP; ++c) {
+        const T xj = __shfl_sync(kFullMask, x[c], j, NP);
+        if (i < j) x[c] -= l * xj;
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int c = 0; c < KP; ++c) {
+        if (c < kc) Q[i * SK + c] = x[c];
+      }
+    }
+    __syncwarp();
+    for (int e = lane; e < nb * w; e += 32) {
+      const int m = e / w, r = e - m * w, row = r / kc, col = r - row * kc;
+      X[((b0 + m) * n + row) * k + c0 + col] =
+          Pw[m * SEG + NP * S + row * SK + col];
+    }
+    __syncwarp();
+  }
+}
+
 unsigned int grid_for(int64_t B) {
   return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
+}
+
+// The most dynamic shared memory a block may take on sm_90, in bytes.
+constexpr int kSharedCap = 232448;
+
+// Raise `kernel`'s dynamic shared-memory limit to kSharedCap once per
+// device (bit d of `done`), at its first launch there that needs more than
+// the default 48 KB, so a launch captured in a CUDA graph makes no such
+// call.
+template <typename Kernel>
+int allow_shared_cap(Kernel kernel, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load() & bit) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSharedCap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done.fetch_or(bit);
+  return 0;
 }
 
 template <typename T>
@@ -295,15 +543,14 @@ template <typename T>
 int launch_factor_solve_matrix(const T* A, const T* R, T* L, T* D, T* X,
                                int n, int k, int64_t B, T pivot_floor,
                                cudaStream_t stream) {
+  static std::atomic<unsigned> cap_set{0};
   const size_t shared =
       (static_cast<size_t>(n) * (n + k) + 2 * static_cast<size_t>(n)) *
       sizeof(T);
   if (shared > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ldlt_factor_solve_matrix_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const int err =
+        allow_shared_cap(ldlt_factor_solve_matrix_kernel<T>, cap_set);
+    if (err) return err;
   }
   // 32 x 4 threads up to order 32, 32 x 8 above
   const dim3 block(32, n > 32 ? 8 : 4);
@@ -311,6 +558,56 @@ int launch_factor_solve_matrix(const T* A, const T* R, T* L, T* D, T* X,
       <<<static_cast<unsigned int>(B), block, shared, stream>>>(
           A, R, L, D, X, n, k, pivot_floor);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_factor_block(const T* A, T* L, T* D, int n, int64_t B,
+                        T pivot_floor, cudaStream_t stream) {
+  static std::atomic<unsigned> cap_set{0};
+  const size_t shared =
+      (static_cast<size_t>(n) * n + 2 * static_cast<size_t>(n)) * sizeof(T);
+  if (shared > 48 * 1024) {
+    const int err = allow_shared_cap(ldlt_factor_kernel_block<T>, cap_set);
+    if (err) return err;
+  }
+  const dim3 block(32, n > 32 ? 8 : 4);
+  ldlt_factor_kernel_block<T>
+      <<<static_cast<unsigned int>(B), block, shared, stream>>>(
+          A, L, D, n, B, pivot_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NP, int KP>
+int launch_warp(const T* A, const T* R, T* L, T* D, T* X, int n, int k,
+                int64_t B, T pivot_floor, cudaStream_t stream) {
+  const int64_t per_block = kWarpsPerBlock * (32 / NP);
+  const unsigned int grid =
+      static_cast<unsigned int>((B + per_block - 1) / per_block);
+  ldlt_factor_solve_matrix_kernel_warp<T, NP, KP>
+      <<<grid, 32 * kWarpsPerBlock, 0, stream>>>(A, R, L, D, X, n, k, B,
+                                                 pivot_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the smallest padded order NP that holds n, and KP = 2 for k <= 2, else 8
+template <typename T>
+int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
+                                    T* X, int n, int k, int64_t B,
+                                    T pivot_floor, cudaStream_t stream) {
+  if (n > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 2) {
+    if (n <= 8) return launch_warp<T, 8, 2>(A, R, L, D, X, n, k, B,
+                                            pivot_floor, stream);
+    if (n <= 16) return launch_warp<T, 16, 2>(A, R, L, D, X, n, k, B,
+                                              pivot_floor, stream);
+    return launch_warp<T, 32, 2>(A, R, L, D, X, n, k, B, pivot_floor,
+                                 stream);
+  }
+  if (n <= 8) return launch_warp<T, 8, 8>(A, R, L, D, X, n, k, B,
+                                          pivot_floor, stream);
+  if (n <= 16) return launch_warp<T, 16, 8>(A, R, L, D, X, n, k, B,
+                                            pivot_floor, stream);
+  return launch_warp<T, 32, 8>(A, R, L, D, X, n, k, B, pivot_floor, stream);
 }
 
 }  // namespace
@@ -321,8 +618,46 @@ int launch_factor_solve_matrix(const T* A, const T* R, T* L, T* D, T* X,
 // rhs, x (n, k, B) for K4.  The caller guarantees n > 0, B > 0 and
 // 0 < k <= 65535.  K5 takes contiguous A, L (B, n, n); D (B, n); R, X
 // (B, n, k), with n, k > 0, 0 < B < 2^31 and
-// (n (n + k) + 2 n) sizeof(T) <= 232448 bytes of shared memory.
+// (n (n + k) + 2 n) sizeof(T) <= 232448 bytes of shared memory; its warp
+// route the same arrays with 0 < n <= 32 and any k > 0.  The K2 block
+// route takes contiguous A (B, n, n) and writes SoA L (n, n, B), D (n, B),
+// with 0 < B < 2^31 and (n^2 + 2 n) sizeof(T) <= 232448.
 extern "C" {
+
+int ipmzoo_ldlt_factor_solve_matrix_warp_f32(const float* A, const float* R,
+                                             float* L, float* D, float* X,
+                                             int n, int k, long long B,
+                                             float pivot_floor,
+                                             void* stream) {
+  return launch_factor_solve_matrix_warp<float>(
+      A, R, L, D, X, n, k, B, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_factor_solve_matrix_warp_f64(const double* A,
+                                             const double* R, double* L,
+                                             double* D, double* X, int n,
+                                             int k, long long B,
+                                             double pivot_floor,
+                                             void* stream) {
+  return launch_factor_solve_matrix_warp<double>(
+      A, R, L, D, X, n, k, B, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_factor_block_f32(const float* A, float* L, float* D, int n,
+                                 long long B, float pivot_floor,
+                                 void* stream) {
+  return launch_factor_block<float>(A, L, D, n, B, pivot_floor,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_factor_block_f64(const double* A, double* L, double* D,
+                                 int n, long long B, double pivot_floor,
+                                 void* stream) {
+  return launch_factor_block<double>(A, L, D, n, B, pivot_floor,
+                                     static_cast<cudaStream_t>(stream));
+}
 
 int ipmzoo_ldlt_factor_solve_matrix_f32(const float* A, const float* R,
                                         float* L, float* D, float* X, int n,

@@ -10,9 +10,25 @@ structure-of-arrays layout ((n, n, B), batch fastest) and launch the
 kernels of ``csrc/ldlt.cu`` on the current stream.  The factors are
 returned as (B, n, n) / (B, n) views of their SoA storage, so a solve
 against them reads the factors without a second transpose.  K5 takes
-the public layout as it is: one thread block per matrix, no transpose.
+the public layout as it is, no transpose.
 For CPU tensors the wrappers run the plain versions of :mod:`.ldlt`.
 Any other device raises; a failed build or launch raises too.
+
+K2 and K5 each have two routes, picked per call by pure functions of the
+shape and type (:func:`k2_route`, :func:`k5_route`) whose thresholds come
+from both routes timed on an H100 (PERF.md):
+
+- K2 ``"soa"``: one thread per matrix on SoA data (the QP slices' many
+  small systems); ``"block"``: one thread block per matrix, the matrix in
+  shared memory, read in the public layout and written as SoA (few,
+  larger systems: the Schur slice's H blocks).
+- K5 ``"block"``: one thread block per matrix (the nested-dissection
+  levels); ``"warp"``: one warp, or an 8- / 16-lane part of one, per
+  matrix of order <= 32, no block barrier; ``"k2+k4"``: K2 then K4 where
+  a block's panel exceeds its shared memory.
+
+``launches`` counts each TPU kernel's launches whatever the route;
+``route_launches`` counts them per route.
 """
 
 from __future__ import annotations
@@ -31,6 +47,9 @@ launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0,
             "ldlt_solve_matrix": 0}
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
+#: ``launches`` of K2 ("ldlt") and K5 ("ldlt_solve_matrix") by route
+route_launches = {"ldlt soa": 0, "ldlt block": 0,
+                  "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -40,12 +59,16 @@ def reset_launch_counts() -> None:
     for k in launches:
         launches[k] = 0
         f64_launches[k] = 0
+    for k in route_launches:
+        route_launches[k] = 0
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
+def _count(name: str, dtype: torch.dtype, route: str = None) -> None:
     launches[name] += 1
     if dtype == torch.float64:
         f64_launches[name] += 1
+    if route is not None:
+        route_launches[f"{name} {route}"] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +89,12 @@ def _lib() -> ctypes.CDLL:
         fs.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, _CTYPE[dt],
                        ptr]
         fs.restype = i32
+        fw = getattr(lib, f"ipmzoo_ldlt_factor_solve_matrix_warp_{sfx}")
+        fw.argtypes = fs.argtypes
+        fw.restype = i32
+        fb = getattr(lib, f"ipmzoo_ldlt_factor_block_{sfx}")
+        fb.argtypes = f.argtypes
+        fb.restype = i32
     return lib
 
 
@@ -104,7 +133,7 @@ def factor_soa(A_t: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
     if err:
         raise RuntimeError(f"LDL^T factor kernel launch failed: "
                            f"cudaError {err}")
-    _count("ldlt", A_t.dtype)
+    _count("ldlt", A_t.dtype, "soa")
     return L_t, D_t
 
 
@@ -201,8 +230,126 @@ def factor_solve_matrix_launch(A: torch.Tensor, R: torch.Tensor,
     if err:
         raise RuntimeError(f"LDL^T factor + multi-rhs solve kernel launch "
                            f"failed: cudaError {err}")
-    _count("ldlt_solve_matrix", R.dtype)
+    _count("ldlt_solve_matrix", R.dtype, "block")
     return L, D, X
+
+
+#: the K5 warp route's largest order (its largest padded instantiation)
+K5_WARP_MAX_ORDER = 32
+#: the K5 warp route's thread blocks: warps each
+K5_WARP_WARPS = 4
+
+
+def _warp_padding(n: int, k: int):
+    """The warp route's instantiation for order n, k columns: the padded
+    order NP (8, 16 or 32) and the rhs chunk KP (2 for k <= 2, else 8)."""
+    return next(p for p in (8, 16, 32) if n <= p), (2 if k <= 2 else 8)
+
+
+def factor_solve_matrix_warp_bytes(n: int, k: int,
+                                   dtype: torch.dtype) -> int:
+    """Static shared memory of one K5 warp-route thread block for order
+    n <= 32: per matrix the factor at row stride NP + 1 and one rhs chunk
+    at row stride KP + 1, 32 / NP matrices a warp, four warps."""
+    p, q = _warp_padding(n, k)
+    return (K5_WARP_WARPS * (32 // p) * (p * (p + 1) + p * (q + 1))
+            * torch.finfo(dtype).bits // 8)
+
+
+def factor_block_bytes(n: int, dtype: torch.dtype) -> int:
+    """Shared memory one K2 block-route thread block needs for order n:
+    the matrix, D and one column."""
+    return (n * n + 2 * n) * torch.finfo(dtype).bits // 8
+
+
+def factor_block_fits(n: int, dtype: torch.dtype) -> bool:
+    return factor_block_bytes(n, dtype) <= K5_SHARED_MEMORY_CAP
+
+
+def k2_route(n: int, B: int, dtype: torch.dtype) -> str:
+    """K2's route for B matrices of order n: ``"block"`` (a thread block
+    per matrix) wherever the matrix fits a block's shared memory, else
+    ``"soa"`` (a thread per matrix).  On an H100 the block route was the
+    faster at every shape the paths give K2, the SoA route's transpose
+    included, from n=24, B=10240 (0.18 against 0.25 ms) to the Schur
+    slice's n=64, B=512 (0.10 against 7.4 ms in float64; PERF.md §6),
+    so the batch size does not enter the rule today."""
+    return "block" if factor_block_fits(n, dtype) else "soa"
+
+
+def k5_route(B: int, n: int, k: int, dtype: torch.dtype) -> str:
+    """K5's route for B matrices of order n with k right-hand sides:
+    ``"warp"`` for n <= K5_WARP_MAX_ORDER and k <= n / 2, else
+    ``"block"`` while the panel fits a block's shared memory, else
+    ``"k2+k4"``.  A warp's lanes walk the k columns one chunk of 8 after
+    another while the block route spreads them over its threads, so the
+    warp route wins while k is small against n: on an H100 it was the
+    faster at every measured shape with k <= n / 2 (bench_kkt's
+    (10240, 32, 2): 0.089 against 0.434 ms of device time), the block
+    route at the nd levels' (16, 48) and (16, 64) (PERF.md §6)."""
+    if n <= K5_WARP_MAX_ORDER and 2 * k <= n:
+        return "warp"
+    if factor_solve_matrix_fits(n, k, dtype):
+        return "block"
+    return "k2+k4"
+
+
+def factor_solve_matrix_warp(A: torch.Tensor, R: torch.Tensor,
+                             pivot_floor: float = PIVOT_FLOOR):
+    """Launch K5's warp route: A (B, n, n), R (B, n, k), both contiguous
+    on the card, n <= 32 -> L (B, n, n) unit-lower, D (B, n), X (B, n, k)
+    with L D L^T X = R."""
+    B, n, k = R.shape
+    _check_soa(R.dtype, R.device, A=(A, (B, n, n)), R=(R, (B, n, k)))
+    if n == 0 or k == 0 or B == 0:
+        raise ValueError(f"K5 needs B, n, k > 0, got {(B, n, k)}")
+    if n > K5_WARP_MAX_ORDER:
+        raise ValueError(f"K5's warp route takes orders up to "
+                         f"{K5_WARP_MAX_ORDER}, got {n}")
+    if not R.is_cuda:
+        raise ValueError(f"K5 needs CUDA tensors, got {R.device}")
+    L = torch.empty_like(A)
+    D = A.new_empty((B, n))
+    X = torch.empty_like(R)
+    with torch.cuda.device(R.device):
+        err = getattr(
+            _lib(),
+            f"ipmzoo_ldlt_factor_solve_matrix_warp_{_SUFFIX[R.dtype]}")(
+            A.data_ptr(), R.data_ptr(), L.data_ptr(), D.data_ptr(),
+            X.data_ptr(), n, k, B, pivot_floor, _stream(R.device))
+    if err:
+        raise RuntimeError(f"LDL^T factor + multi-rhs solve (warp route) "
+                           f"kernel launch failed: cudaError {err}")
+    _count("ldlt_solve_matrix", R.dtype, "warp")
+    return L, D, X
+
+
+def factor_block(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """Launch K2's block route: A (B, n, n) contiguous on the card ->
+    L_t (n, n, B), D_t (n, B), the SoA storage :func:`factor_soa`
+    returns."""
+    B, n = A.shape[0], A.shape[-1]
+    _check_soa(A.dtype, A.device, A=(A, (B, n, n)))
+    need = factor_block_bytes(n, A.dtype)
+    if need > K5_SHARED_MEMORY_CAP:
+        raise ValueError(
+            f"K2's block route at n={n} in {A.dtype} needs {need} bytes of "
+            f"shared memory, above its cap of {K5_SHARED_MEMORY_CAP}")
+    if not A.is_cuda:
+        raise ValueError(f"K2 needs a CUDA tensor, got {A.device}")
+    L_t = A.new_empty((n, n, B))
+    D_t = A.new_empty((n, B))
+    if n == 0 or B == 0:
+        return L_t, D_t
+    with torch.cuda.device(A.device):
+        err = getattr(_lib(), f"ipmzoo_ldlt_factor_block_{_SUFFIX[A.dtype]}")(
+            A.data_ptr(), L_t.data_ptr(), D_t.data_ptr(), n, B, pivot_floor,
+            _stream(A.device))
+    if err:
+        raise RuntimeError(f"LDL^T factor (block route) kernel launch "
+                           f"failed: cudaError {err}")
+    _count("ldlt", A.dtype, "block")
+    return L_t, D_t
 
 
 def soa_backed(L: torch.Tensor, D: torch.Tensor):
@@ -228,7 +375,10 @@ def ldlt_auto(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
         raise ValueError(f"expected (B, n, n), got {tuple(A.shape)}")
     if not _dispatch(A):
         return ldlt(A, pivot_floor)
-    L_t, D_t = factor_soa(A.permute(1, 2, 0).contiguous(), pivot_floor)
+    if k2_route(A.shape[-1], A.shape[0], A.dtype) == "block":
+        L_t, D_t = factor_block(A.contiguous(), pivot_floor)
+    else:
+        L_t, D_t = factor_soa(A.permute(1, 2, 0).contiguous(), pivot_floor)
     return L_t.permute(2, 0, 1), D_t.t()
 
 
@@ -261,9 +411,9 @@ def ldlt_solve_matrix_auto(A: torch.Tensor, R: torch.Tensor,
     """Batched fused factor + multi-rhs solve: A (B, n, n), R (B, n, k)
     -> (L, D, X) with L D L^T X = R per instance.
 
-    On CUDA tensors one K5 launch; where a block's panel exceeds
-    ``K5_SHARED_MEMORY_CAP`` bytes, K2 then K4 (counted under their
-    names), and K2 alone for k = 0."""
+    On CUDA tensors one K5 launch by the route :func:`k5_route` picks;
+    where a block's panel exceeds ``K5_SHARED_MEMORY_CAP`` bytes, K2 then
+    K4 (counted under their names), and K2 alone for k = 0."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"expected A (B, n, n), got {tuple(A.shape)}")
     if R.dim() != 3 or R.shape[:2] != A.shape[:2]:
@@ -274,8 +424,10 @@ def ldlt_solve_matrix_auto(A: torch.Tensor, R: torch.Tensor,
     B, n, k = R.shape
     if n == 0:
         return torch.zeros_like(A), A.new_zeros((B, 0)), R
-    if k == 0 or B == 0 or not factor_solve_matrix_fits(n, k, A.dtype):
+    route = k5_route(B, n, k, A.dtype)
+    if k == 0 or B == 0 or route == "k2+k4":
         L, D = ldlt_auto(A, pivot_floor)
         return L, D, (solve_ldlt_matrix_auto(L, D, R) if k else R)
-    return factor_solve_matrix_launch(A.contiguous(), R.contiguous(),
-                                      pivot_floor)
+    launch = factor_solve_matrix_warp if route == "warp" else \
+        factor_solve_matrix_launch
+    return launch(A.contiguous(), R.contiguous(), pivot_floor)
