@@ -19,8 +19,10 @@ the same data, and prints, after the card's name and power limit:
 2. the fused slice with esc_cap=32 and with esc_cap=0, twice each: the
    wall and the host-clock time of every stage (K1's solve_fused calls,
    the escalation, the safety-net tail; each stage ends in a
-   synchronize), converged instances and host syncs; then the profiled
-   launches and busy time of one esc_cap=32 solve;
+   synchronize), beside each K1 launch's route, batch and device time
+   (CUDA events around the launch alone) and K1's device time by route,
+   converged instances and host syncs; then the profiled launches and
+   busy time of one esc_cap=32 solve;
 3. the compact slice with esc_cap 'auto', 0, 0, 'auto' in turns: the
    wall by CUDA events (median of 2 runs after the first);
 4. the banded+arrow slice (bench_arrow's defaults, float32, tol 1e-5),
@@ -207,38 +209,68 @@ def profile_nd():
 
 def profile_fused(dev, data):
     import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused
     solver = cs.fused_solver(dev, torch.float32)
     stages = []
+    k1 = []   # (route, batch, start event, end event) of each K1 launch
+    fused_soa = cuda_fused.fused_soa
+
+    def traced(source, data_soa, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fused_soa(source, data_soa, *args, **kw)
+        end.record()
+        # (warm, n, total, max_iter, gondzio, params, route)
+        route = args[6] if len(args) > 6 else kw.get("route", "thread")
+        k1.append((route, data_soa[0].shape[-1], start, end))
+        return out
 
     def timed(name, fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
+            first = len(k1)
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            stages.append((name, 1e3 * (time.perf_counter() - t0)))
+            ms = 1e3 * (time.perf_counter() - t0)
+            stages.append((name, ms, [(r, b, s.elapsed_time(e))
+                                      for r, b, s, e in k1[first:]]))
             return out
         return wrapper
 
+    cuda_fused.fused_soa = traced
     for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
         setattr(solver, name, timed(name, getattr(solver, name)))
-    for esc in (32, 0):
-        for rep in range(2):
-            stages.clear()
-            solver.host_syncs = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = solver.solve_fused_compact(data, esc_cap=esc)
-            torch.cuda.synchronize()
-            print(f"fused esc_cap={esc} run {rep}: wall "
-                  f"{1e3 * (time.perf_counter() - t0):.3f} ms (host clock), "
-                  f"converged {int(out['converged'].sum())}, host syncs "
-                  f"{solver.host_syncs}")
-            for name, ms in stages:
-                print(f"    {ms:10.3f} ms  {name}")
-    for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
-        delattr(solver, name)
+    try:
+        for esc in (32, 0):
+            for rep in range(2):
+                stages.clear()
+                solver.host_syncs = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = solver.solve_fused_compact(data, esc_cap=esc)
+                torch.cuda.synchronize()
+                print(f"fused esc_cap={esc} run {rep}: wall "
+                      f"{1e3 * (time.perf_counter() - t0):.3f} ms (host "
+                      f"clock), converged {int(out['converged'].sum())}, "
+                      f"host syncs {solver.host_syncs}")
+                k1_ms = {}
+                for name, ms, launches in stages:
+                    dev_ms = "".join(
+                        f"; K1 {r} route B={b}: {t:.3f} ms device"
+                        for r, b, t in launches)
+                    print(f"    {ms:10.3f} ms  {name}{dev_ms}")
+                    for r, _, t in launches:
+                        k1_ms[r] = k1_ms.get(r, 0.0) + t
+                print("    K1 device ms by route (CUDA events around each "
+                      "launch): " + ", ".join(f"{r} {t:.3f}"
+                                              for r, t in k1_ms.items()))
+    finally:
+        cuda_fused.fused_soa = fused_soa
+        for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
+            delattr(solver, name)
     profiled(lambda: solver.solve_fused_compact(data, esc_cap=32),
              "fused esc_cap=32")
 

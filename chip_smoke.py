@@ -41,29 +41,41 @@ Steps, each reported on its own line:
    time under torch.profiler; fail where k2_route picks a route whose
    device time is more than 5% (timing noise) above the other's;
 9. build kernel K1 (the fused whole-solve IPM), generated for the fused
-   slice's formulation (Settings(), n=16, m_ineq=8), and report its
-   build time and ptxas' registers, stack frame and spills (the build
-   runs beside step 3's, both nvcc processes started together);
-10. hold K1 against its plain version on the card at B=10240: a cold
-    solve_fused(max_iter=14), a warm resume of its output and a cold
-    solve with gondzio=2; float64 iterations equal on every instance and
-    x within 1e-10 relative; float32 at tol 1e-6 x within 1e-4 relative
-    on the instances converged in both, and at tol 1e-5 iterations equal
-    on >= 99% (see check_fused for why not at 1e-6);
+   slice's formulation (Settings(), n=16, m_ineq=8), on both routes: the
+   thread route (one thread per instance) and the team route (a team of
+   lanes per instance, state in shared memory) at 16 and at 32 lanes;
+   report each build's time and ptxas' registers, stack frame and
+   spills, and for the team route its threads a block, bytes of shared
+   memory a team and teams resident per SM, float32 and float64 (the
+   builds run beside step 3's, all nvcc processes started together);
+10. hold K1's thread route against its plain version on the card at
+    B=10240: a cold solve_fused(max_iter=14), a warm resume of its
+    output and a cold solve with gondzio=2; float64 iterations equal on
+    every instance and x within 1e-10 relative; float32 at tol 1e-6 x
+    within 1e-4 relative on the instances converged in both, and at tol
+    1e-5 iterations equal on >= 99% (see check_fused for why not at
+    1e-6); step 34 holds the team route the same way;
 11. run the fused slice: FusedBatchedIPM(Settings(), n=16, m_ineq=8,
     float32, tol=1e-6, max_iter=30).solve_fused_compact(esc_cap=32), the
     reference's default, on the 10240 QPs, with >= 99.9% converged,
-    finite x and K1 launched by that run; report the share converged,
-    the instances escalated, launches (float64 K2/K3 apart), the host
-    syncs of the escalation stage and of the safety-net tail, the wall
-    by CUDA events (median of 7 runs after the first) and useful
-    iterations/s; then, on a line of its own, the same solve with
+    finite x and K1 launched by that run on the routes k1_route picks,
+    the team route at least once; report the share converged, the
+    instances escalated, launches (K1 by route, float64 K2/K3 apart),
+    the host syncs of the escalation stage and of the safety-net tail,
+    the wall by CUDA events (median of 7 runs after the first) and
+    useful iterations/s; then, on a line of its own, the same solve with
     esc_cap=0 (median of 3 runs);
 12. check the fused slice's objectives against the fused port on the
     CPU in float64 on the first 256 instances: |f_gpu - f_cpu| <=
     1e-4 (1 + |f_cpu|);
-13. time K1 alone against its plain version: one cold
-    solve_fused(max_iter=14) at B=10240 and at 1280, float32;
+13. time K1's routes alone: the thread route, the team route and the
+    plain version at one cold solve_fused(max_iter=14), float32, at
+    B=10240, 1536 and 512 (CUDA events); then the thread route and the
+    team route at 16 and 32 lanes at the fused slice's four launches
+    and at a cold B=32, float32 and float64, by device time (CUDA events
+    behind a leading launch); fail where
+    k1_route picks a route whose device time is more than 5% above the
+    other's;
 14. run the Schur slice, bench.py's bench_schur at its defaults: 8
     coupled QPs of 64 blocks, n=64, m_c=16, built as bench.py builds
     them (numpy seeds 0-7, float32), through SchurIPM(64, 16, float32,
@@ -192,6 +204,12 @@ Steps, each reported on its own line:
     by route (the kkt mode is the K5 warp route's path); its other modes
     are steps 11, 6, 14, 19 and 24 above, which build their solvers and
     data through bench_torch.py too.
+34. hold K1's team route (16 and 32 lanes) against its plain version at
+    the fused slice's four launches, recorded from its
+    solve_fused_compact(esc_cap=32): B=10240 cold max_iter=14 (8 at tol
+    1e-5), 1536 warm, the 10240 warm mop-up and the 512 tile cold with
+    gondzio=2 and max_iter=30, by step 10's limits (float64 at tol 1e-6,
+    float32 at 1e-6 and at 1e-5); it runs after step 10.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -225,6 +243,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:130",
             "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "fused": "ipmzoo_tpu/models/fused.py:432",
+            "fused team": "ipmzoo_tpu/models/fused.py:432",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281",
@@ -241,7 +260,16 @@ T3_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
              "ipmzoo_tpu_torch/models/codegen_soa.py + "
              "ipmzoo_tpu_torch/models/fused_source.py + "
              "ipmzoo_tpu_torch/models/fused_phases.py")
-K1_BATCHES = (10240, 1280)
+#: the fused slice's K1 batches: the cold full batch and its warm mop-up,
+#: the 1/8 stage (round_up(10240 // 8, 512)) and the Gondzio tile
+K1_BATCHES = (10240, 1536, 512)
+K1_TEAM_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                  "ipmzoo_tpu_torch/models/codegen_soa.py + "
+                  "ipmzoo_tpu_torch/models/codegen_team.py + "
+                  "ipmzoo_tpu_torch/models/fused_source.py")
+#: the team sizes timed against each other (step 13)
+K1_LANES = (16, 32)
 CR_SOURCE = "ipmzoo_tpu_torch/csrc/cr.cu"
 ROOFLINE_SOURCE = "ipmzoo_tpu_torch/csrc/roofline.cu"
 #: bench_arrow's defaults: variables, half-bandwidth, arrow tip; and the
@@ -405,7 +433,12 @@ def device_ms(fn, reps):
     kernels it launches, summed under torch.profiler over ``reps`` calls
     after one warm-up call.  Unlike time_cuda it leaves out the host's
     time between launches, which at a few tens of microseconds a call
-    hides the difference between two short kernels."""
+    hides the difference between two short kernels.
+
+    The sum is divided by the calls the trace holds, counted by the
+    launches of the kernel under test (the one with the most device
+    time): on the H100 with torch 2.11 a trace kept 19 of 20 launches,
+    and once 2 of 5 after many short profiled runs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -414,10 +447,17 @@ def device_ms(fn, reps):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in kernels)
     check(busy > 0, "torch.profiler saw no device time")
-    return busy / 1e3 / reps
+    main = max(kernels, key=lambda e: e.self_device_time_total)
+    per_call = max(1, round(main.count / reps))
+    calls = main.count / per_call
+    if main.count != per_call * reps:
+        print(f"device_ms: the trace holds {main.count} launches of "
+              f"{main.key[:60]} over {reps} calls; dividing by {calls:g}")
+    return busy / 1e3 / calls
 
 
 def check_kernels(dev):
@@ -769,12 +809,17 @@ def build_kernels():
     from chip_roofline import build_all
     from ipmzoo_tpu_torch.ops import (_build, cuda_cr, cuda_fused, cuda_ldlt,
                                       cuda_roofline)
-    src = fused_solver("cpu", torch.float32).kernel_source()
+    cpu_solver = fused_solver("cpu", torch.float32)
+    src = cpu_solver.kernel_source()
+    team_srcs = team_sources(cpu_solver)
     phase_srcs = chip_phases.phase_sources()
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
             "roofline": _build.library_path("roofline"),
             "fused": _build.generated_library_path("fused_ipm", src)}
+    for lanes, text in team_srcs.items():
+        libs[f"team{lanes}"] = _build.generated_library_path("fused_team",
+                                                             text)
     for p, text in enumerate(phase_srcs):
         libs[f"phase{p}"] = _build.generated_library_path("fused_phase",
                                                           text)
@@ -782,6 +827,9 @@ def build_kernels():
     jobs = {"ldlt": cuda_ldlt._lib, "cr": cuda_cr._lib,
             "roofline": cuda_roofline._lib,
             "fused": lambda: cuda_fused.library(src)}
+    for lanes, text in team_srcs.items():
+        jobs[f"team{lanes}"] = lambda t=text: cuda_fused.library(
+            t, "fused_team")
     for p, text in enumerate(phase_srcs):
         jobs[f"phase{p}"] = lambda t=text: cuda_fused.library(t,
                                                               "fused_phase")
@@ -792,6 +840,19 @@ def build_kernels():
           f"{len(src.splitlines())} lines")
     print_build("K1 (generated fused_ipm)", libs["fused"], cached["fused"],
                 seconds["fused"])
+    for lanes, text in team_srcs.items():
+        k = f"team{lanes}"
+        print_build(f"K1 team route, {lanes} lanes (generated fused_team, "
+                    f"{len(text.splitlines())} lines)", libs[k], cached[k],
+                    seconds[k])
+        lib = cuda_fused.library(text, "fused_team")
+        for dtype in (torch.float32, torch.float64):
+            sh = cuda_fused.team_shape(lib, dtype)
+            print(f"build: K1 team route, {lanes} lanes, "
+                  f"{str(dtype).replace('torch.', '')}: {sh['threads']} "
+                  f"threads a block, {sh['team_bytes']} bytes of shared "
+                  f"memory a team, {sh['teams_per_sm']} teams resident per "
+                  f"SM")
     print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
                 seconds["roofline"])
     for p in range(len(phase_srcs)):
@@ -801,20 +862,9 @@ def build_kernels():
     return chip_phases.report_ptxas()
 
 
-def _k1_and_plain(solver, data, state, max_iter, gondzio):
-    """One solve_fused of ``data`` with K1 and with its plain version,
-    on the same inputs; returns (kernel dict, plain dict)."""
-    import torch
-    kern = solver.solve_fused(data, state=state, max_iter=max_iter,
-                              gondzio=gondzio)
-    plain = solver.soa_result(solver._fused_plain(
-        *solver.soa_inputs(data, state), max_iter, gondzio))
-    torch.cuda.synchronize()
-    return kern, plain
-
-
 def check_fused(dev):
-    """Step 10: K1 against its plain version on the card, B=10240.
+    """Step 10: K1's thread route against its plain version on the card,
+    B=10240.
 
     float64: iterations equal on every instance, x within 1e-10 of the
     largest |x|.  float32 at the slice's tol 1e-6: x within 1e-4 on the
@@ -833,36 +883,142 @@ def check_fused(dev):
         name = f"{str(dtype).replace('torch.', '')} tol={tol:g}"
         solver = fused_solver(dev, dtype, tol)
         data = make_batch(B_SLICE, 16, 8, dtype, device=dev)
-        cold, cold_p = _k1_and_plain(solver, data, None, 14, 0)
+        cold_call = (data, None, 14, 0)
+        cold = solver.soa_result(k1_launcher(solver, cold_call, "thread")())
         state = {k: cold[k] for k in ("variables", "mu", "iterations")}
-        runs = {"cold max_iter=14": (cold, cold_p),
-                "warm resume max_iter=16": _k1_and_plain(solver, data, state,
-                                                         16, 0),
-                "cold gondzio=2": _k1_and_plain(solver, data, None, 14, 2)}
-        for what, (k, p) in runs.items():
-            n_same = int((k["iterations"] == p["iterations"]).sum())
-            conv = (k["converged"] & p["converged"]).cpu()
-            dx = (k["x"] - p["x"]).abs().cpu()
-            scale = p["x"].abs().max().item()
-            rel_all = dx.max().item() / scale
-            rel_conv = (dx[conv].max().item() / scale) if conv.any() else 0.0
-            print(f"K1 vs plain {name} B={B_SLICE} {what}: iterations "
-                  f"equal on {n_same}/{B_SLICE}, converged in both "
-                  f"{int(conv.sum())}, rel diff x all {rel_all:.3e}, on "
-                  f"converged {rel_conv:.3e}")
-            if dtype == torch.float64:
-                check(n_same == B_SLICE, f"K1 iterations differ from its "
-                      f"plain version ({name}, {what})")
-                check(rel_all <= 1e-10, f"K1 x differs from its plain "
-                      f"version by {rel_all:.3e} ({name}, {what})")
-            elif tol == 1e-5:
-                check(n_same >= 0.99 * B_SLICE, f"K1 iterations equal on "
-                      f"only {n_same} instances ({name}, {what})")
-            else:
-                check(rel_conv <= 1e-4, f"K1 x differs by {rel_conv:.3e} "
-                      f"on converged instances ({name}, {what})")
-                if what == "cold max_iter=14":
-                    err32 = dx[conv].max().item()
+        for what, call in (("cold max_iter=14", cold_call),
+                           ("warm resume max_iter=16", (data, state, 16, 0)),
+                           ("cold gondzio=2", (data, None, 14, 2))):
+            k = solver.soa_result(k1_launcher(solver, call, "thread")())
+            p = solver.soa_result(solver._fused_plain(
+                *solver.soa_inputs(*call[:2]), *call[2:]))
+            torch.cuda.synchronize()
+            err = hold_k1(f"K1 vs plain {name} B={B_SLICE} {what}", k, p,
+                          dtype, tol)
+            if what == "cold max_iter=14" and dtype == torch.float32 and \
+                    tol == 1e-6:
+                err32 = err
+    return err32
+
+
+def team_sources(solver):
+    """The team route's sources for ``solver`` at each size of
+    K1_LANES."""
+    from ipmzoo_tpu_torch.models.fused_source import fused_team_source
+    return {lanes: fused_team_source(solver, lanes) for lanes in K1_LANES}
+
+
+def record_k1_calls(solver, data):
+    """The fused slice's K1 launches: (data, state, max_iter, gondzio) of
+    each solve_fused call that solve_fused_compact(esc_cap=32) makes on
+    ``data``, in order (its escalation stage and safety-net tail launch
+    no K1)."""
+    calls = []
+    run = solver.solve_fused
+
+    def record(d, state=None, max_iter=None, gondzio=0):
+        calls.append((d, None if state is None else
+                      {k: v.clone() for k, v in state.items()},
+                      solver.max_iter if max_iter is None else max_iter,
+                      gondzio))
+        return run(d, state, max_iter, gondzio)
+
+    solver.solve_fused = record
+    try:
+        solver.solve_fused_compact(data, esc_cap=32)
+    finally:
+        del solver.solve_fused
+    return calls
+
+
+def k1_call_name(call):
+    d, state, max_iter, gondzio = call
+    return (f"B={d.Q.shape[0]} {'warm' if state else 'cold'} "
+            f"max_iter={max_iter}" + (f" gondzio={gondzio}" if gondzio
+                                      else ""))
+
+
+def k1_launcher(solver, call, route, source=None):
+    """One K1 launch of ``call`` on ``route`` (built from ``source``,
+    default the solver's), through the wrapper: a function of no
+    arguments returning the outputs."""
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    d, state, max_iter, gondzio = call
+    soa, warm = solver.soa_inputs(d, state)
+    src = source or solver.kernel_source(route)
+    total = sum(solver.var_sizes)
+    return lambda: cuda_fused.fused_soa(src, soa, warm, solver.n, total,
+                                        max_iter, gondzio,
+                                        solver.kernel_params(), route)
+
+
+def hold_k1(label, k, p, dtype, tol):
+    """Hold one K1 result dict to the plain version's by step 10's
+    limits; prints the reading and returns the largest absolute x
+    difference on the instances converged in both."""
+    import torch
+    B = k["x"].shape[0]
+    n_same = int((k["iterations"] == p["iterations"]).sum())
+    conv = (k["converged"] & p["converged"]).cpu()
+    dx = (k["x"] - p["x"]).abs().cpu()
+    scale = p["x"].abs().max().item()
+    rel_all = dx.max().item() / scale
+    rel_conv = (dx[conv].max().item() / scale) if conv.any() else 0.0
+    print(f"{label}: iterations equal on {n_same}/{B}, converged in both "
+          f"{int(conv.sum())}, rel diff x all {rel_all:.3e}, on converged "
+          f"{rel_conv:.3e}")
+    check(bool(torch.isfinite(k["x"]).all()), f"{label}: non-finite x")
+    if dtype == torch.float64:
+        check(n_same == B, f"{label}: iterations differ from the plain "
+              f"version")
+        check(rel_all <= 1e-10, f"{label}: x differs from the plain version "
+              f"by {rel_all:.3e}")
+    elif tol == 1e-5:
+        check(n_same >= 0.99 * B, f"{label}: iterations equal on only "
+              f"{n_same} instances")
+    else:
+        check(rel_conv <= 1e-4, f"{label}: x differs by {rel_conv:.3e} on "
+              f"converged instances")
+    return dx[conv].max().item() if conv.any() else 0.0
+
+
+def check_fused_team(dev):
+    """Step 34: K1's team route against its plain version on the card at
+    the fused slice's four launches (B=10240 cold max_iter=14, 1536 warm,
+    the 10240 warm mop-up and the 512 tile with gondzio=2, recorded from
+    solve_fused_compact(esc_cap=32) on the slice's QPs), at each size of
+    K1_LANES, by step 10's limits.  Returns the largest float32 x
+    difference of the cold B=10240 launch at the default lanes."""
+    import torch
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.models.fused_source import team_lanes
+
+    err32 = None
+    for dtype, tol in ((torch.float64, 1e-6), (torch.float32, 1e-6),
+                       (torch.float32, 1e-5)):
+        name = f"{str(dtype).replace('torch.', '')} tol={tol:g}"
+        solver = fused_solver(dev, dtype, tol)
+        calls = record_k1_calls(solver, make_batch(B_SLICE, 16, 8, dtype,
+                                                   device=dev))
+        check([c[0].Q.shape[0] for c in calls] == [B_SLICE, K1_BATCHES[1],
+                                                   B_SLICE, K1_BATCHES[2]],
+              f"the fused slice's K1 launches changed: "
+              f"{[k1_call_name(c) for c in calls]}")
+        srcs = team_sources(solver)
+        for i, call in enumerate(calls):
+            d, state, max_iter, gondzio = call
+            p = solver.soa_result(solver._fused_plain(
+                *solver.soa_inputs(d, state), max_iter, gondzio))
+            for lanes, src in srcs.items():
+                k = solver.soa_result(k1_launcher(solver, call, "team",
+                                                  src)())
+                torch.cuda.synchronize()
+                err = hold_k1(f"K1 team route ({lanes} lanes) vs plain "
+                              f"{name} {k1_call_name(call)}", k, p, dtype,
+                              tol)
+                if (i == 0 and dtype == torch.float32 and tol == 1e-6
+                        and lanes == team_lanes(solver)):
+                    err32 = err
     return err32
 
 
@@ -878,7 +1034,8 @@ def run_fused_slice(dev, data):
     solver.host_syncs = 0
     out = solver.solve_fused_compact(data, esc_cap=32)
     torch.cuda.synchronize()
-    launches = {**cuda_fused.launches, **cuda_ldlt.launches}
+    launches = {**cuda_fused.launches, **cuda_fused.route_launches,
+                **cuda_ldlt.launches}
     f64 = dict(cuda_ldlt.f64_launches)
     syncs = solver.host_syncs
     twin_syncs = solver._esc_twin.host_syncs
@@ -893,7 +1050,9 @@ def run_fused_slice(dev, data):
           f"max_iter=30 schedule {solver.default_fused_schedule(B_SLICE)} "
           f"esc_cap=32: converged {conv:.6f} "
           f"({int(out['converged'].sum())}/{B_SLICE}), iterations {iters}")
-    print(f"fused slice: launches K1 {launches['fused']} K2 "
+    print(f"fused slice: launches K1 {launches['fused']} (team route "
+          f"{launches['fused team']}, thread route "
+          f"{launches['fused thread']}, as k1_route picks) K2 "
           f"{launches['ldlt']} K3 {launches['solve_ldlt']} (float64: K2 "
           f"{f64['ldlt']} K3 {f64['solve_ldlt']}); escalated instances "
           f"{escalated}; host syncs {syncs} ({twin_syncs} in the "
@@ -901,6 +1060,8 @@ def run_fused_slice(dev, data):
           f"tail)")
     check(conv >= 0.999, f"fused slice convergence {conv} < 0.999")
     check(launches["fused"] > 0, "the fused slice never launched K1")
+    check(launches["fused team"] > 0, "the fused slice never launched K1's "
+          "team route")
 
     med = time_solves(lambda: solver.solve_fused_compact(data, esc_cap=32),
                       7)
@@ -963,29 +1124,40 @@ def compare_cpu_fused(data, out):
 
 
 def time_fused(dev):
-    """Step 13: K1 alone against its plain version, one cold
-    solve_fused(max_iter=14), float32, on SoA inputs made once.
+    """Step 13: K1's routes alone.
 
-    K1's bound counts its inputs and outputs once, and for each
-    iteration this run's instances take: the LDL^T factor of the
+    (a) The thread route, the team route (at its default lanes) and the
+    plain version at one cold solve_fused(max_iter=14), float32, at each
+    batch of K1_BATCHES, by CUDA events, on SoA inputs made once, with
+    K1's bound.  The bound counts its inputs and outputs once, and for
+    each iteration this run's instances take: the LDL^T factor of the
     augmented system (N^3/3 multiply-adds, N = n + m), two solves (N^2
-    each) and four evaluations of Q x, A x and A^T y."""
+    each) and four evaluations of Q x, A x and A^T y.
+
+    (b) The thread route and the team route at each size of K1_LANES at
+    the fused slice's four launches (recorded as in step 34) and at a
+    cold B=32, float32 and float64, by device time: CUDA events around
+    three calls behind a leading one, so the host's launch latency hides
+    behind the device's work (every launch takes more than 0.1 ms);
+    fails where k1_route picks a route whose device time is more than 5%
+    (timing noise) above the other's."""
     import torch
     from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.models.fused_source import team_lanes
     from ipmzoo_tpu_torch.ops import cuda_fused
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
 
     solver = fused_solver(dev, torch.float32)
-    src, params = solver.kernel_source(), solver.kernel_params()
-    total = sum(solver.var_sizes)
     out = {}
     for B in K1_BATCHES:
-        soa, _ = solver.soa_inputs(make_batch(B, 16, 8, torch.float32,
-                                              device=dev))
-        t = {"K1": time_cuda(lambda: cuda_fused.fused_soa(
-                 src, soa, None, 16, total, 14, 0, params), 10),
+        call = (make_batch(B, 16, 8, torch.float32, device=dev), None, 14, 0)
+        soa, _ = solver.soa_inputs(call[0])
+        thread = k1_launcher(solver, call, "thread")
+        t = {"K1": time_cuda(thread, 10),
+             "K1_team": time_cuda(k1_launcher(solver, call, "team"), 10),
              "K1_plain": time_cuda(lambda: solver._fused_plain(
                  soa, None, 14, 0), 2)}
-        outs = cuda_fused.fused_soa(src, soa, None, 16, total, 14, 0, params)
+        outs = thread()
         its = float(outs[2][0].sum())
         n, m = 16, 8
         per_it = 2 * N_AUG ** 3 / 3 + 4 * N_AUG ** 2 + \
@@ -997,8 +1169,37 @@ def time_fused(dev):
               f"{t['bound'][0]:.6f} ms by {t['bound'][1]}")
         out[B] = t
         print(f"timing K1 cold solve_fused(max_iter=14) B={B} float32 "
-              f"(ms per call, CUDA events): K1 {t['K1']:.4f}, plain "
-              f"{t['K1_plain']:.4f}")
+              f"(ms per call, CUDA events): thread route {t['K1']:.4f}, "
+              f"team route {t['K1_team']:.4f}, plain {t['K1_plain']:.4f}")
+
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        solver = fused_solver(dev, dtype)
+        calls = record_k1_calls(solver, make_batch(B_SLICE, 16, 8, dtype,
+                                                   device=dev))
+        calls.append((make_batch(32, 16, 8, dtype, device=dev), None, 14, 0))
+        srcs = {"thread": solver.kernel_source("thread")}
+        srcs.update({f"team{lanes}": src
+                     for lanes, src in team_sources(solver).items()})
+        default = f"team{team_lanes(solver)}"
+        for call in calls:
+            t = {k: cuda_time(k1_launcher(
+                     solver, call, "thread" if k == "thread" else "team",
+                     src), runs=5, calls=3, lead=1).ms
+                 for k, src in srcs.items()}
+            B = call[0].Q.shape[0]
+            route = cuda_fused.k1_route(B, solver.k1_sizes(), dtype)
+            print(f"timing K1 routes {name} {k1_call_name(call)} (device ms"
+                  f", CUDA events behind a leading launch, median of 5): "
+                  + ", ".join(
+                      f"{k} {v:.4f}" for k, v in t.items())
+                  + f"; k1_route picks {route}")
+            picked, other = ((t[default], t["thread"]) if route == "team"
+                             else (t["thread"], t[default]))
+            check(picked <= 1.05 * other, f"k1_route picks the {route} route "
+                  f"at {name} {k1_call_name(call)}, {picked:.4f} ms against "
+                  f"{other:.4f}")
+            out[(name, k1_call_name(call))] = t
     return out
 
 
@@ -1947,6 +2148,7 @@ def run_bench_modes(dev, data):
 def main():
     import torch
     from chip_roofline import banner
+    from ipmzoo_tpu_torch.models.fused_source import team_lanes
     dev = banner("chip_smoke", "this smoke test runs")
     if dev is None:
         return 2
@@ -1965,6 +2167,7 @@ def main():
     compare_cpu(data, res)
     times = time_kernels(dev)
     errs["fused"] = check_fused(dev)
+    errs["fused team"] = check_fused_team(dev)
     f_out, f_launches = run_fused_slice(dev, data)
     compare_cpu_fused(data, f_out)
     k1_times = time_fused(dev)
@@ -2009,6 +2212,7 @@ def main():
     b64 = ldlt_bounds(SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
                       torch.float64)
     k1 = k1_times[B_SLICE]
+    k1_lanes = team_lanes(fused_solver("cpu", torch.float32))
     kw = k5_times[K5_KKT + ("float32",)]
     ct = cr_times[("float32", 1)]
     cb = cr_bounds(1, a_solver.N, a_solver.b, a_solver.t + 1, torch.float32)
@@ -2028,10 +2232,16 @@ def main():
         entry(f"K3 batched LDL^T solve (float32, n={N_AUG}, B={B_SLICE})",
               SOURCE, "solve_ldlt", launches["solve_ldlt"], t["K3"],
               t["K3_plain"], b24["K3"], t["K3_library"]),
-        entry(f"K1 fused whole-solve IPM (generated; float32, cold "
-              f"max_iter=14, B={B_SLICE})", K1_SOURCE, "fused",
-              f_launches["fused"], k1["K1"], k1["K1_plain"], k1["bound"],
-              None),
+        # the thread route's launches on the slice's path: k1_route takes
+        # it only where a block of teams overflows the shared memory
+        entry(f"K1 fused whole-solve IPM, thread route (generated; "
+              f"float32, cold max_iter=14, B={B_SLICE})", K1_SOURCE, "fused",
+              f_launches["fused thread"], k1["K1"], k1["K1_plain"],
+              k1["bound"], None),
+        entry(f"K1 team route ({k1_lanes} lanes; generated; "
+              f"float32, cold max_iter=14, B={B_SLICE})", K1_TEAM_SOURCE,
+              "fused team", f_launches["fused team"], k1["K1_team"],
+              k1["K1_plain"], k1["bound"], None),
         entry("K4 batched multi-rhs LDL^T solve (float64, n=64, k=16, "
               "B=512)", SOURCE, "solve_ldlt_matrix",
               s_launches["solve_ldlt_matrix"], s_times["K4"],

@@ -1,10 +1,13 @@
 """The fused whole-solve engine: the entire Mehrotra IPM of each instance
 in one kernel launch (counterpart of :mod:`ipmzoo_tpu.models.fused`).
 
-``FusedBatchedIPM.solve_fused`` runs kernel K1 for CUDA tensors: one
-thread per QP instance reads its data once and runs every iteration (KKT
-assembly, in-place LDL^T, predictor, ratio tests, centering, corrector,
-Gondzio rounds, update, convergence test) without returning to the host.
+``FusedBatchedIPM.solve_fused`` runs kernel K1 for CUDA tensors: each QP
+instance reads its data once and runs every iteration (KKT assembly,
+in-place LDL^T, predictor, ratio tests, centering, corrector, Gondzio
+rounds, update, convergence test) without returning to the host, on one
+of two routes that ``ops/cuda_fused.k1_route`` picks per launch: a thread
+per instance (``csrc/fused_ipm.cuh``) or a team of 16 or 32 lanes per
+instance with its state in shared memory (``csrc/fused_team.cuh``).
 For CPU tensors it runs K1's plain version, :meth:`_fused_plain`, which
 evaluates the same steps on the whole batch with the batch on the
 trailing axis (SoA), as the reference's kernel body does for a tile.
@@ -15,9 +18,9 @@ residual environments with the Taylor corrector, the augmented
 right-hand side, back-substitution, Gondzio targets) take an emitter:
 :class:`.codegen_soa.TorchSoA` runs them on tensors, and
 :mod:`.fused_source` passes :class:`.codegen_soa.CppSoA` to print them as
-K1's generated C++.  The hand-written parts (the LDL^T, the ratio tests,
-the step and the loop) are written twice: here in torch and in
-``csrc/fused_ipm.cuh``.
+K1's generated C++ (:class:`.codegen_team.CppTeam` for the team route).
+The hand-written parts (the LDL^T, the ratio tests, the step and the
+loop) are written here in torch and for each route in its header.
 
 Converged instances are frozen: their state re-enters unchanged, so a
 lane's result does not depend on the other lanes of its batch.
@@ -36,7 +39,7 @@ from ..ops import cuda_fused
 from . import codegen_soa as soa
 from .data import QPData
 from .fused_compact import FusedCompactMixin
-from .fused_source import fused_source
+from .fused_source import fused_source, fused_team_source
 from .ipm import CompiledIPM
 from .state import tree_map
 
@@ -123,7 +126,8 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
                 f"switches to its panel-blocked LDL^T above 128, which is "
                 f"not ported: see {_ROADMAP_KERNELS}")
         self.bt = bt
-        self._kernel_source: Optional[str] = None
+        #: K1's generated sources, by route
+        self._kernel_sources: dict = {}
         #: generated sources of the fused-iteration prefixes (kernel T3,
         #: ``models/fused_phases.py``), by prefix
         self._phase_sources: dict = {}
@@ -446,12 +450,22 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
 
     # -- K1 ---------------------------------------------------------------
 
-    def kernel_source(self) -> str:
-        """K1's C++ source for this formulation and these sizes
-        (generated once per solver)."""
-        if self._kernel_source is None:
-            self._kernel_source = fused_source(self)
-        return self._kernel_source
+    def kernel_source(self, route: str = "thread") -> str:
+        """K1's C++ source of ``route`` ("thread" or "team") for this
+        formulation and these sizes (generated once per solver)."""
+        src = self._kernel_sources.get(route)
+        if src is None:
+            make = {"thread": fused_source, "team": fused_team_source}
+            if route not in make:
+                raise ValueError(f"K1 has no route {route!r}")
+            src = self._kernel_sources[route] = make[route](self)
+        return src
+
+    def k1_sizes(self):
+        """What :func:`..ops.cuda_fused.k1_route` reads of the sizes: (n,
+        m_ineq, m_eq, variables, augmented order)."""
+        return (self.n, self.m_ineq, self.m_eq, sum(self.var_sizes),
+                self.aug_dim)
 
     def kernel_params(self):
         """K1's scalar settings, in the order of ``Params`` in
@@ -496,10 +510,11 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
 
         data_soa, warm = self.soa_inputs(data, state)
         if self.device.type == "cuda":
-            outs = cuda_fused.fused_soa(self.kernel_source(), data_soa, warm,
-                                        self.n, sum(self.var_sizes),
+            route = cuda_fused.k1_route(B, self.k1_sizes(), self.dtype)
+            outs = cuda_fused.fused_soa(self.kernel_source(route), data_soa,
+                                        warm, self.n, sum(self.var_sizes),
                                         max_iter, gondzio,
-                                        self.kernel_params())
+                                        self.kernel_params(), route)
         elif self.device.type == "cpu":
             outs = self._fused_plain(data_soa, warm, max_iter, gondzio)
         else:

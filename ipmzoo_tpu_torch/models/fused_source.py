@@ -6,7 +6,11 @@ version, through the same pieces of :class:`.fused.FusedBatchedIPM`
 back-substitution, Gondzio targets), with the C++ emitter
 :class:`.codegen_soa.CppSoA`.  The result is a ``struct Form`` of
 ``__host__ __device__`` functions for one instance, appended to the
-hand-written ``csrc/fused_ipm.cuh`` together with the entry points.
+hand-written ``csrc/fused_ipm.cuh`` together with the entry points: the
+thread route.  :func:`fused_team_source` makes the same walk with
+:class:`.codegen_team.CppTeam` (the same functions for a team of lanes,
+the data staged in shared memory) around ``csrc/fused_team.cuh``: the
+team route.
 The text depends only on the formulation and the sizes (and
 ``taylor``), never on the dtype or the solver's scalar settings, which
 are run-time arguments: one build serves both float32 and float64.
@@ -33,10 +37,14 @@ from ..symbolic import expr as E
 
 from . import codegen_soa as soa
 from .codegen_soa import CppSoA, CScalar
+from .codegen_team import CppTeam, staged_matrix, staged_stride
 
 CUH = Path(__file__).resolve().parents[1] / "csrc" / "fused_ipm.cuh"
+TEAM_CUH = CUH.with_name("fused_team.cuh")
 
 _PARAMS = "const Data<T>& dat, const Params<T>& prm"
+_TEAM_PARAMS = ("const Team<T>& tm, const Staged<T>& dat, "
+                "const Params<T>& prm")
 
 
 def _function(name: str, args: str, ev: CppSoA) -> List[str]:
@@ -60,6 +68,39 @@ class _Generator:
             self.aug_offsets.append(off)
             off += sz
 
+    # -- the dialect: one thread per instance, data in global SoA memory --
+
+    #: the arguments every generated function takes first, and those of
+    #: init
+    params = _PARAMS
+    init_params = "const Data<T>& dat"
+
+    @staticmethod
+    def emitter():
+        return CppSoA()
+
+    @staticmethod
+    def data_vec(name: str, size: int):
+        return soa.vector(soa.array_vec(f"dat.{name}", size,
+                                        stride="dat.S"))
+
+    @staticmethod
+    def data_matrix(name: str, rows: int, cols: int):
+        return soa.data_matrix(name, rows, cols)
+
+    @staticmethod
+    def data_entry(name: str) -> str:
+        """Entry ``i`` of a data vector, in a loop over ``i``."""
+        return f"dat.{name}[i * dat.S]"
+
+    @staticmethod
+    def row_loop(size: int) -> str:
+        """The head of a loop over the rows ``i`` < ``size``."""
+        return f"for (int i = 0; i < {size}; ++i)"
+
+    def function(self, name: str, args: str, ev) -> List[str]:
+        return _function(name, args, ev)
+
     # -- environments ------------------------------------------------------
 
     def split(self, array: str):
@@ -73,17 +114,14 @@ class _Generator:
         o = s.symbols
         n, m, e = s.n, s.m_ineq, s.m_eq
 
-        def data_vec(name, size):
-            return soa.vector(soa.array_vec(f"dat.{name}", size,
-                                            stride="dat.S"))
-
+        data_vec = self.data_vec
         env = {
-            o.Q: soa.matrix(soa.data_matrix("Q", n, n)),
+            o.Q: soa.matrix(self.data_matrix("Q", n, n)),
             o.c: data_vec("c", n),
-            o.A_ineq: soa.matrix(soa.data_matrix("A_ineq", m, n)),
+            o.A_ineq: soa.matrix(self.data_matrix("A_ineq", m, n)),
             o.l_A_ineq: data_vec("l_A_ineq", m),
             o.u_A_ineq: data_vec("u_A_ineq", m),
-            o.A_eq: soa.matrix(soa.data_matrix("A_eq", e, n)),
+            o.A_eq: soa.matrix(self.data_matrix("A_eq", e, n)),
             o.b_eq: data_vec("b_eq", e),
             o.l_x: data_vec("l_x", n),
             o.u_x: data_vec("u_x", n),
@@ -120,7 +158,7 @@ class _Generator:
 
     def init(self) -> List[str]:
         o = self.s.symbols
-        ev = CppSoA()
+        ev = self.emitter()
         mids = {o.x: ("l_x", "u_x"), o.s_A_ineq: ("l_A_ineq", "u_A_ineq")}
         for var, size, off in zip(self.s.full.variables, self.s.var_sizes,
                                   self.offsets):
@@ -128,34 +166,33 @@ class _Generator:
                 continue
             if var in mids:
                 lo, hi = mids[var]
-                elem = (f"T(0.5) * (dat.{lo}[i * dat.S] + "
-                        f"dat.{hi}[i * dat.S])")
+                elem = (f"T(0.5) * ({self.data_entry(lo)} + "
+                        f"{self.data_entry(hi)})")
             else:
                 elem = "T(1)"
-            ev.lines.append(f"for (int i = 0; i < {size}; ++i) "
-                            f"v[{off} + i] = {elem};")
-        return _function("init", "const Data<T>& dat, T* v", ev)
+            ev.lines.append(f"{self.row_loop(size)} v[{off} + i] = {elem};")
+        return self.function("init", f"{self.init_params}, T* v", ev)
 
     def metrics(self) -> List[str]:
-        ev = CppSoA()
+        ev = self.emitter()
         env0 = self.env(self.split("v"), CScalar("T(0)"))
         residual, gap = self.s._metrics_soa(ev, env0)
         ev.lines.append(f"residual = {residual.expr};")
         ev.lines.append(f"gap = {gap.expr};")
-        return _function("metrics", f"{_PARAMS}, const T* v, T& residual, "
-                         "T& gap", ev)
+        return self.function("metrics", f"{self.params}, const T* v, "
+                             "T& residual, T& gap", ev)
 
     def assemble(self) -> List[str]:
         s = self.s
-        ev = CppSoA()
+        ev = self.emitter()
         env = self.env(self.split("v"), CScalar("mu"))
         memo = {}
         nblk = len(s.aug.variables)
         for bi in range(nblk):
             for bj in range(bi + 1):
                 self._write_block(ev, env, memo, bi, bj)
-        return _function("assemble", f"{_PARAMS}, const T* v, T mu, T* K",
-                         ev)
+        return self.function("assemble", f"{self.params}, const T* v, T mu, "
+                             "T* K", ev)
 
     def _write_block(self, ev, env, memo, bi: int, bj: int) -> None:
         """Write block (bi, bj), bj <= bi, of the augmented matrix into the
@@ -179,43 +216,43 @@ class _Generator:
                 elem = f"(i == j ? {d} : T(0))"
             else:
                 raise TypeError(f"cell {cell!r} -> {v.tag}")
-        ev.lines.append(f"for (int i = 0; i < {si}; ++i)")
+        ev.lines.append(self.row_loop(si))
         ev.lines.append(f"  for (int j = 0; j < {cols}; ++j)")
         ev.lines.append(f"    K[tri({r0} + i, {c0} + j)] = {elem};")
 
     def residuals(self) -> List[str]:
-        ev = CppSoA()
+        ev = self.emitter()
         env = self.env(self.split("v"), CScalar("mu_r"))
         renv = self.s._residual_env_soa(ev, self.env, env,
                                         CScalar("mu_r"))
         self.store_residuals(ev, renv, "r")
-        return _function("residuals", f"{_PARAMS}, const T* v, T mu_r, T* r",
-                         ev)
+        return self.function("residuals", f"{self.params}, const T* v, "
+                             "T mu_r, T* r", ev)
 
     def corrector(self) -> List[str]:
-        ev = CppSoA()
+        ev = self.emitter()
         var_vals = self.split("v")
         env = self.env(var_vals, CScalar("mu"))
         renv = self.s._residual_env_soa(ev, self.env, env,
                                         CScalar("mu_r"), var_vals=var_vals,
                                         affine_deltas=self.split("d_aff"))
         self.store_residuals(ev, renv, "r")
-        return _function("corrector", f"{_PARAMS}, const T* v, T mu, T mu_r, "
-                         "const T* d_aff, T* r", ev)
+        return self.function("corrector", f"{self.params}, const T* v, "
+                             "T mu, T mu_r, const T* d_aff, T* r", ev)
 
     def aug_rhs(self) -> List[str]:
-        ev = CppSoA()
+        ev = self.emitter()
         renv = self.bind_residuals(self.env(self.split("v"),
                                             CScalar("mu_r")), "r")
         for part, off in zip(self.s._aug_rhs_soa(ev, renv),
                              self.aug_offsets):
             ev.store("b", off, part)
-        return _function("aug_rhs", f"{_PARAMS}, const T* v, T mu_r, "
-                         "const T* r, T* b", ev)
+        return self.function("aug_rhs", f"{self.params}, const T* v, "
+                             "T mu_r, const T* r, T* b", ev)
 
     def back_substitute(self) -> List[str]:
         s = self.s
-        ev = CppSoA()
+        ev = self.emitter()
         renv = self.bind_residuals(self.env(self.split("v"),
                                             CScalar("mu_r")), "r")
         sol = [soa.array_vec("sol", sz, off)
@@ -226,17 +263,18 @@ class _Generator:
                 raise NotImplementedError(
                     f"no delta for variable {s.full.variables[i]!r}")
             ev.store("delta", self.offsets[i], val)
-        return _function("back_substitute", f"{_PARAMS}, const T* v, "
-                         "T mu_r, const T* r, const T* sol, T* delta", ev)
+        return self.function("back_substitute", f"{self.params}, "
+                             "const T* v, T mu_r, const T* r, const T* sol, "
+                             "T* delta", ev)
 
     def gondzio_targets(self) -> List[str]:
-        ev = CppSoA()
+        ev = self.emitter()
         tenv = self.env(self.split("trial"), CScalar("T(0)"))
         for val, off in zip(self.s._gondzio_targets_soa(
                 ev, tenv, CScalar("mu_t")), self.offsets):
             ev.store("r", off, val)
-        return _function("gondzio_targets", f"{_PARAMS}, const T* trial, "
-                         "T mu_t, T* r", ev)
+        return self.function("gondzio_targets", f"{self.params}, "
+                             "const T* trial, T mu_t, T* r", ev)
 
     # -- the struct ------------------------------------------------------
 
@@ -278,14 +316,72 @@ class _Generator:
         ]
 
 
+class _TeamGenerator(_Generator):
+    """The same walk for the team route: :class:`.codegen_team.CppTeam`,
+    the data staged row-major in the team's shared memory, every
+    function between two team barriers (its inputs were written by other
+    lanes; its outputs are read by them)."""
+
+    params = _TEAM_PARAMS
+    init_params = "const Team<T>& tm, const Staged<T>& dat"
+
+    def __init__(self, solver):
+        super().__init__(solver)
+        self.ld = staged_stride(solver.n)
+        self.slots = 0
+
+    @staticmethod
+    def emitter():
+        return CppTeam()
+
+    @staticmethod
+    def data_vec(name: str, size: int):
+        return soa.vector(soa.array_vec(f"dat.{name}", size))
+
+    def data_matrix(self, name: str, rows: int, cols: int):
+        return staged_matrix(name, rows, cols, self.ld)
+
+    @staticmethod
+    def data_entry(name: str) -> str:
+        return f"dat.{name}[i]"
+
+    @staticmethod
+    def row_loop(size: int) -> str:
+        return f"IPM_FOR({size})"
+
+    def function(self, name: str, args: str, ev) -> List[str]:
+        self.slots = max(self.slots, ev.slots)
+        ev.lines[:0] = ["team_sync(tm);"]
+        ev.lines.append("team_sync(tm);")
+        return _function(name, args, ev)
+
+    def constants(self) -> List[str]:
+        return super().constants()[:-1] + [
+            f"  static constexpr int kE = {self.s.m_eq};",
+            f"  static constexpr int kLd = {self.ld};",
+            f"  static constexpr int kSlots = {self.slots};",
+            ""]
+
+
+def _struct(g: _Generator) -> List[str]:
+    # the functions first: the team's constants count their slots
+    funcs = (g.init() + g.metrics() + g.assemble() + g.residuals()
+             + g.corrector() + g.aug_rhs() + g.back_substitute()
+             + g.gondzio_targets())
+    return ["struct Form {"] + g.constants() + funcs + ["};", ""]
+
+
 def form_struct(solver):
     """The generated ``struct Form`` of ``solver``'s formulation and
     sizes, as lines, and the total number of variables."""
     g = _Generator(solver)
-    body = (["struct Form {"] + g.constants() + g.init() + g.metrics()
-            + g.assemble() + g.residuals() + g.corrector() + g.aug_rhs()
-            + g.back_substitute() + g.gondzio_targets() + ["};", ""])
-    return body, g.total
+    return _struct(g), g.total
+
+
+def team_lanes(solver) -> int:
+    """The team route's lanes for ``solver``'s sizes: the smallest of 16
+    and 32 that holds the largest variable block."""
+    return 16 if max(solver.var_sizes) <= 16 else 32
 
 
 def describe(solver, total: int):
@@ -312,3 +408,29 @@ def fused_source(solver) -> str:
                 "namespace ipmzoo_fused {", ""] + body
         + ["}  // namespace ipmzoo_fused", "",
            "IPMZOO_FUSED_ENTRY_POINTS(ipmzoo_fused::Form)", ""])
+
+
+def fused_team_source(solver, lanes: int = None) -> str:
+    """K1's team route for ``solver``'s formulation and sizes:
+    ``csrc/fused_ipm.cuh`` (types and scalar helpers),
+    ``csrc/fused_team.cuh``, the ``struct Form`` of the same walk printed
+    by :class:`.codegen_team.CppTeam`, and the entry points
+    ``ipmzoo_fused_team_*``.  ``lanes`` (16 or 32; default
+    :func:`team_lanes`) is a constant of the text; the host build takes
+    one lane whatever it says."""
+    lanes = team_lanes(solver) if lanes is None else lanes
+    if lanes not in (16, 32):
+        raise ValueError(f"a team is 16 or 32 lanes, not {lanes}")
+    g = _TeamGenerator(solver)
+    body = _struct(g)
+    head = (["// Kernel K1, team route, generated by "
+             "ipmzoo_tpu_torch/models/fused_source.py."]
+            + describe(solver, g.total)
+            + [f"#define IPMZOO_TEAM_LANES {lanes}",
+               '#line 1 "fused_ipm.cuh"'])
+    return "\n".join(
+        head + [CUH.read_text(), '#line 1 "fused_team.cuh"',
+                TEAM_CUH.read_text(), '#line 1 "generated"',
+                "namespace ipmzoo_fused {", ""] + body
+        + ["}  // namespace ipmzoo_fused", "",
+           "IPMZOO_FUSED_TEAM_ENTRY_POINTS(ipmzoo_fused::Form)", ""])

@@ -1,12 +1,16 @@
 """Kernel K1, the fused whole-solve IPM: the ctypes wrapper.
 
-K1's source is generated per formulation (``models/fused_source.py``
-prints it around ``csrc/fused_ipm.cuh``), built with nvcc at first use
-and loaded here.  :func:`fused_soa` takes SoA tensors on a CUDA device
-(batch on the last axis, as the solver lays them out), allocates the
-outputs and launches K1 once on the current stream (:func:`call` packs
-the arguments; the tests call it on a host build of the same source).  It never falls back
-to the plain version: tensors off the card, a failed build or a failed
+K1 has two routes, each a source generated per formulation
+(``models/fused_source.py``): the thread route, one thread per instance,
+printed around ``csrc/fused_ipm.cuh``, and the team route, a team of 16
+or 32 lanes per instance with its state in shared memory, printed around
+``csrc/fused_team.cuh``.  :func:`k1_route` picks one per launch.  Each is
+built with nvcc at first use and loaded here.  :func:`fused_soa` takes
+SoA tensors on a CUDA device (batch on the last axis, as the solver lays
+them out), allocates the outputs and launches K1 once on the current
+stream (:func:`call` packs the arguments; the tests call it on a host
+build of the same source).  It never falls back to the plain version or
+to the other route: tensors off the card, a failed build or a failed
 launch raise.  The plain version is
 ``models/fused.py:FusedBatchedIPM._fused_plain``; the solver calls it for
 CPU tensors.
@@ -26,8 +30,17 @@ import torch
 
 from . import _build
 
-#: kernel launches since the last :func:`reset_launch_counts`
+#: kernel launches since the last :func:`reset_launch_counts`, per TPU
+#: kernel: K1 on either route ("fused") and T3; ``route_launches`` counts
+#: K1's per route
 launches = {"fused": 0, "phase": 0}
+route_launches = {"fused thread": 0, "fused team": 0}
+
+#: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``) or a team
+#: of lanes per instance (``csrc/fused_team.cuh``): entry points and
+#: library names
+_ENTRY = {"thread": "ipmzoo_fused", "team": "ipmzoo_fused_team"}
+_LIB_NAME = {"thread": "fused_ipm", "team": "fused_team"}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -35,8 +48,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, route_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def library(source: str, name: str = "fused_ipm") -> ctypes.CDLL:
@@ -60,12 +74,13 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def bind(lib: ctypes.CDLL, dtype: torch.dtype):
-    """K1's entry point in ``lib`` for ``dtype``, with its ctypes
-    signature."""
+def bind(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
+    """K1's entry point in ``lib`` (built from the ``route``'s source) for
+    ``dtype``, with its ctypes signature; both routes take the same
+    arguments."""
     if dtype not in _SUFFIX:
         raise TypeError(f"K1 takes float32/float64, not {dtype}")
-    fn = getattr(lib, f"ipmzoo_fused_{_SUFFIX[dtype]}")
+    fn = getattr(lib, f"{_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32,
                    i32, ptr]
@@ -114,22 +129,75 @@ def call(fn, data: Sequence[torch.Tensor],
 
 def fused_soa(source: str, data: Sequence[torch.Tensor],
               warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
-              max_iter: int, gondzio: int, params: Sequence[float]):
-    """Launch K1, built from ``source``, on SoA tensors of one CUDA device
-    (arguments and outputs as :func:`call`) on the current stream."""
+              max_iter: int, gondzio: int, params: Sequence[float],
+              route: str = "thread"):
+    """Launch K1, built from ``source`` (the text of ``route``), on SoA
+    tensors of one CUDA device (arguments and outputs as :func:`call`) on
+    the current stream.  A failed build or launch raises: there is no
+    other route to fall back on."""
     device = data[0].device
     if device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {device}")
-    fn = bind(library(source), data[0].dtype)
+    fn = bind(library(source, _LIB_NAME[route]), data[0].dtype, route)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         outs, err = call(fn, data, warm, n, total, max_iter, gondzio, params,
                          stream)
     if err:
-        raise RuntimeError(f"K1 (fused IPM) launch failed: cudaError {err}")
+        raise RuntimeError(f"K1 (fused IPM, {route} route) launch failed: "
+                           f"cudaError {err}")
     if data[0].shape[-1]:   # an empty batch launches nothing
         launches["fused"] += 1
+        route_launches[f"fused {route}"] += 1
     return outs
+
+
+#: the most dynamic shared memory a block may take on sm_90, in bytes
+SHARED_CAP = 232448
+
+
+def team_values(sizes: Tuple[int, int, int, int, int]) -> int:
+    """An upper bound on the values one team keeps in shared memory
+    (``csrc/fused_team.cuh``: TeamLayout) for ``sizes`` = (n, m_ineq,
+    m_eq, variables, augmented order): the staged data, seven work
+    vectors, the packed factor, D, b, and team slots for at most four
+    vectors of variables, plus the padding."""
+    n, m, e, total, aug = sizes
+    ld = n | 1
+    data = (n + m + e) * ld + n + 2 * m + e + 2 * n
+    return data + 7 * total + aug * (aug + 1) // 2 + 2 * aug + 4 * total + 48
+
+
+def k1_route(B: int, sizes: Tuple[int, int, int, int, int],
+             dtype: torch.dtype) -> str:
+    """K1's route for a launch of ``B`` instances of ``sizes`` = (n,
+    m_ineq, m_eq, variables, augmented order): ``"team"`` wherever a
+    block of four teams fits the shared memory, else ``"thread"``.  On an
+    H100 the team route was the faster at every launch of the fused
+    slice (B=10240 cold and warm, 1536, the 512 Gondzio tile) and at
+    B=32, in float32 and float64, by 3.5-8.5x (PERF.md section 6), so the
+    batch size does not enter the rule today.  Pure: the same arguments
+    give the same route."""
+    itemsize = torch.finfo(dtype).bits // 8
+    teams_per_block = 4     # 64 threads of 16 lanes: the largest block
+    fits = teams_per_block * team_values(sizes) * itemsize <= SHARED_CAP
+    return "team" if fits else "thread"
+
+
+def team_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
+    """What a team build is for ``dtype``: lanes a team, threads a block,
+    bytes of shared memory a team and teams resident per SM (0 in a host
+    build)."""
+    fn = lib.ipmzoo_fused_team_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(torch.finfo(dtype).bits // 8, out)
+    if err:
+        raise RuntimeError(f"K1 team route: occupancy query failed: "
+                           f"cudaError {err}")
+    return dict(zip(("lanes", "threads", "team_bytes", "teams_per_sm"),
+                    out))
 
 
 def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype):
