@@ -14,8 +14,10 @@ the same data, and prints, after the card's name and power limit:
    runs after a warm-up); the kernel launches and device busy time of
    one solve under torch.profiler, as launches per iteration and busy
    share (busy time over the un-profiled median); the largest entries of
-   device time; K2 (by route), K3 and K4's device time and share; and
-   the host-clock time of three single iterations;
+   device time; K2 and K3 (by route) and K4's device time and share;
+   K3's launches by (route, order, systems, type), each shape's device
+   ms per launch timed alone and their product; and the host-clock time
+   of three single iterations;
 2. the fused slice with esc_cap=32 and with esc_cap=0, twice each: the
    wall and the host-clock time of every stage (K1's solve_fused calls,
    the escalation, the safety-net tail; each stage ends in a
@@ -28,13 +30,14 @@ the same data, and prints, after the card's name and power limit:
 4. the banded+arrow slice (bench_arrow's defaults, float32, tol 1e-5),
    one instance and the batch of 32: the wall by CUDA events (median of
    5 runs after a warm-up); launches per iteration and busy share of one
-   solve under torch.profiler; K6's and K7's share of device time; and
-   the host-clock time of three single iterations;
+   solve under torch.profiler; K6's (by route) and K7's share of device
+   time; and the host-clock time of three single iterations;
 5. the nested-dissection slice (bench_nd's defaults, float32, tol 1e-5),
    one instance and the batch of 8: the wall by CUDA events (median of 5
    runs after a warm-up); launches per iteration and busy share of one
-   solve under torch.profiler; K5's (by route) and K3's share of device
-   time; the host-clock time of three single iterations, of the
+   solve under torch.profiler; K5's and K3's (by route) share of device
+   time, K3's launches and device ms by shape as for the Schur slice;
+   the host-clock time of three single iterations, of the
    once-per-solve prework, and of one factorisation and one solve of the
    plan.
 
@@ -83,11 +86,57 @@ SCHUR_KERNELS = (("K2", "ldlt_factor_kernel", None),
                  ("K2 SoA route", "ldlt_factor_kernel", "_block"),
                  ("K2 block route", "ldlt_factor_kernel_block", None),
                  ("K3", "ldlt_solve_kernel", None),
+                 ("K3 thread route", "ldlt_solve_kernel", "_warp"),
+                 ("K3 warp route", "ldlt_solve_kernel_warp", None),
                  ("K4", "ldlt_solve_matrix_kernel", None))
 ND_KERNELS = (("K5", "ldlt_factor_solve_matrix_kernel", None),
               ("K5 block route", "ldlt_factor_solve_matrix_kernel", "_warp"),
               ("K5 warp route", "ldlt_factor_solve_matrix_kernel_warp", None),
-              ("K3", "ldlt_solve_kernel", None))
+              ("K3", "ldlt_solve_kernel", None),
+              ("K3 thread route", "ldlt_solve_kernel", "_warp"),
+              ("K3 warp route", "ldlt_solve_kernel_warp", None))
+
+
+def k3_split(fn, label):
+    """K3's launches in one call of ``fn``, by (route, order, systems,
+    type), recorded at its two launchers, each shape's device ms per
+    launch (chip_smoke.launch_ms, every shape in one trace) on factors of
+    that shape, and their product: where K3's time goes per shape."""
+    import collections
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    calls = collections.Counter()
+    saved = {r: getattr(cuda_ldlt, f) for r, f in
+             (("thread", "solve_soa"), ("warp", "solve_soa_warp"))}
+
+    def recording(route):
+        def launch(L_t, D_t, b_t):
+            calls[(route,) + tuple(b_t.shape) + (b_t.dtype,)] += 1
+            return saved[route](L_t, D_t, b_t)
+        return launch
+    try:
+        for r, f in (("thread", "solve_soa"), ("warp", "solve_soa_warp")):
+            setattr(cuda_ldlt, f, recording(r))
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        cuda_ldlt.solve_soa = saved["thread"]
+        cuda_ldlt.solve_soa_warp = saved["warp"]
+    total = 0.0
+    shapes = sorted(calls, key=lambda k: -k[1])
+    groups = []
+    for route, n, B, dtype in shapes:
+        soa = cs.k3_inputs(n, B, dtype, torch.device("cuda"), seed=n + B)[3]
+        groups.append((lambda route=route, soa=soa: cs.k3_call(route, *soa),
+                       {route: cs.K3_KERNELS[route]}))
+    for (route, n, B, dtype), t in zip(shapes, cs.launch_ms(groups, 20)):
+        count, ms = calls[(route, n, B, dtype)], t[route]
+        total += count * ms
+        print(f"    {label}: K3 {route} route n={n} B={B} "
+              f"{str(dtype).replace('torch.', '')}: {count} launches x "
+              f"{ms:.4f} device ms = {count * ms:.3f} ms")
+    print(f"    {label}: K3 {sum(calls.values())} launches, "
+          f"{total:.3f} device ms by the split")
 
 
 def shares(events, busy, kernels):
@@ -117,6 +166,7 @@ def profile_schur(dev):
               f"median {med:.3f} ms; iterations {steps}; launches per "
               f"iteration {launches / steps:.1f}; busy share "
               f"{busy / med:.4f}; " + shares(events, busy, SCHUR_KERNELS))
+        k3_split(lambda: solver.solve_batch(data), f"schur tol={tol:g}")
         d = solver._check(data, 1)
         st = solver.init_state(d)
         for _ in range(3):
@@ -143,11 +193,14 @@ def profile_arrow():
         busy, launches = profiled(lambda: solver.solve_batch(d), label,
                                   events)
         k6 = sum(ms for key, ms in events if "cr_factor_kernel" in key)
+        k6c = sum(ms for key, ms in events
+                  if "cr_factor_kernel_cluster" in key)
         k7 = sum(ms for key, ms in events if "cr_solve_kernel" in key)
         print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
               f"launches per iteration {launches / steps:.1f}; busy share "
               f"{busy / med:.4f}; K6 {k6:.3f} ms ({k6 / busy:.4f} of device "
-              f"time), K7 {k7:.3f} ms ({k7 / busy:.4f})")
+              f"time; cluster route {k6c:.3f} ms, block route "
+              f"{k6 - k6c:.3f}), K7 {k7:.3f} ms ({k7 / busy:.4f})")
         dd = solver._check_data(d)
         state = solver.init_state(dd)
         for _ in range(3):
@@ -191,6 +244,7 @@ def profile_nd():
               f"launches per solve {launches}, per iteration "
               f"{launches / steps:.1f} (prework included); busy share "
               f"{busy / med:.4f}; " + shares(events, busy, ND_KERNELS))
+        k3_split(lambda: solver.solve_batch(d), label)
         dd = solver._check_data(d)
         state = solver.init_state(dd)
         pre = host_ms("_nd_prework", lambda: solver._nd_prework(dd), 2)

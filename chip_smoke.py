@@ -8,7 +8,12 @@ Steps, each reported on its own line:
 
 1. refuse to run without a CUDA device (there is no CPU fallback);
 2. print the card's name and power limit (nvidia-smi);
-3. build the CUDA kernels from ipmzoo_tpu_torch/csrc/ and report the time;
+3. build the CUDA kernels from ipmzoo_tpu_torch/csrc/ and report the time,
+   with ptxas' registers, stack frame, spills and static shared memory of
+   each instantiation of K3's warp route and K6's cluster route, and for
+   the cluster route at the arrow shape (N=256, b=16) each cluster size's
+   threads a block, dynamic shared memory and
+   cudaOccupancyMaxActiveClusters (which must be > 0);
 4. hold kernels K2 (LDL^T factor) and K3 (LDL^T solve) against their
    plain torch versions on the card at n=24, B=10240: float32 within a
    relative difference of 1e-5, float64 within 1e-12 (largest absolute
@@ -22,7 +27,16 @@ Steps, each reported on its own line:
    compact slice's batches and its float64 escalation, the Schur slice's
    H and S blocks, odd orders, n=1, batches that fill no whole block;
    the SoA route also at (328, 1), over the block route's shared memory;
-   and both on an exactly-zero pivot;
+   and both on an exactly-zero pivot; then each route of K3 alone (the
+   thread route, a thread per matrix, and the warp route, a tile of
+   instances staged in shared memory and a warp or a segment of one per
+   matrix) at every (order, systems) of K3_SHAPES (the compact slice's
+   batches, its float64 escalation, the Schur slice's H and S blocks, the
+   nd slice's levels and its generic top, over the warp route's cap) and
+   of K3_EDGES in both types (n=1, odd orders, a batch that fills no
+   tile, the cap 83 and 84), float32 within 1e-5 and float64 within
+   1e-12, the largest difference between the two routes' x, and
+   solve_ldlt_auto taking the route k3_route picks;
 5. solve the README's demo QP on the card (float64, tol 1e-8);
 6. run the slice: CompiledIPM(Settings(), n=16, m_ineq=8, float32,
    tol=1e-6).solve_batch_compact on 10240 QPs of the benchmark workload
@@ -39,7 +53,11 @@ Steps, each reported on its own line:
    (each with its caller's layout work), at the float64 escalation's
    B=32 and at (328, 1), by CUDA events and by their kernels' device
    time under torch.profiler; fail where k2_route picks a route whose
-   device time is more than 5% (timing noise) above the other's;
+   device time is more than 5% (timing noise) above the other's; the same
+   for both K3 routes at every shape of step 4's K3 check, all in one
+   torch.profiler trace (k3_route; two launches within 0.2 us tie, as at
+   n=1 where both take the launch's 1.3-1.7 us), with CUDA events behind
+   a leading launch printed beside;
 9. build kernel K1 (the fused whole-solve IPM), generated for the fused
    slice's formulation (Settings(), n=16, m_ineq=8), on both routes: the
    thread route (one thread per instance) and the team route (a team of
@@ -95,20 +113,28 @@ Steps, each reported on its own line:
     B=8); then time the route ldlt_auto takes for the H blocks, both K2
     routes on H and on S (with the check of step 8), K3, K4 and the plain
     versions, and torch.linalg.cholesky_ex on H (the nearest library
-    call, not the same function: LL^T, SPD only);
+    call, not the same function: LL^T, SPD only); K3's warp route and
+    torch.linalg.ldl_solve (K3's function) on H in float64;
 18. hold K6 (whole-reduction cyclic-reduction factor) and K7 (its
     multi-rhs solve) against their plain versions on the card, float32
     and float64, on random SPD block-tridiagonal systems at (N, b, k) =
     (256, 16, 9), (256, 16, 1), (37, 8, 3) and a batch of 32 at (256, 16,
     9): float64 within a relative difference of 1e-10 on the factors and
     on the solution (K7 alone on the plain factors, and K6 + K7 chained),
-    float32 within 5e-4 absolute on the solution; at (37, 8, 3) also
-    against torch.linalg.solve of the assembled dense system;
+    float32 within 5e-4 absolute on the solution; each K6 route so (the
+    block route and the cluster route at each cluster size that fits),
+    and cr_factor_auto taking the route k6_route picks; at (37, 8, 3)
+    also against torch.linalg.solve of the assembled dense system; then
+    every K6 route's device time at each (B, N, b) of K6_ROUTE_SHAPES
+    (those systems, small chains and the edges of k6_route's rows),
+    float32 and float64, in one torch.profiler trace a type: fail where
+    k6_route picks a route more than 5% slower than the fastest;
 19. run the banded+arrow slice, bench.py's bench_arrow at its defaults:
     n=4096, bandwidth 16, tip 8 (numpy seed 0), float32, tol 1e-5,
     through ArrowQPData.from_dense (block 16, N=256, t=8) and
     ArrowIPM.for_data(...).solve on the card, which must converge with
-    one K6 and two K7 launches per iteration; time it with CUDA events
+    one K6 (on the route k6_route picks, the cluster route) and two K7
+    launches per iteration; time it with CUDA events
     (median of 5 runs after a warm-up) and report ms per solve and per
     iteration, launches and host syncs; the objective against the port
     on the CPU in float64 with method='cr': |f_gpu - f_cpu| <= 1e-4
@@ -120,7 +146,9 @@ Steps, each reported on its own line:
     against the per-level library composition (method='cr') on the
     slice's own condensed matrices at the initial iterate, one instance
     and the batch of 32, float32 and float64, and hold them to the plain
-    versions there too;
+    versions there too; each K6 route by CUDA events behind a leading
+    launch; fail where k6_route picks a route more than 5% slower than
+    the best;
 22. hold K5 (fused LDL^T factor + multi-rhs solve, one launch) against
     its plain version on the card, float32 within 1e-5 and float64
     within 1e-12 on L, D and X as in step 4, at (matrices, order,
@@ -246,6 +274,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "fused team": "ipmzoo_tpu/models/fused.py:432",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
+            "cr_factor cluster": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281",
             "fma_chains": "tools/roofline.py:41",
             "factor_reps": "tools/roofline.py:111",
@@ -278,6 +307,11 @@ ARROW_N, ARROW_BW, ARROW_TIP, ARROW_BATCH = 4096, 16, 8, 32
 #: (batch, blocks, block size, right-hand sides) of step 18
 CR_SHAPES = ((1, 256, 16, 9), (1, 256, 16, 1), (1, 37, 8, 3),
              (ARROW_BATCH, 256, 16, 9))
+#: (B, N, b) of step 18's K6 route timing: CR_SHAPES' systems and
+#: small N, where a level holds few pivots for the cluster's blocks
+K6_ROUTE_SHAPES = ((1, 256, 16), (1, 37, 8), (ARROW_BATCH, 256, 16),
+                   (1, 1, 16), (1, 2, 8), (1, 4, 16), (4, 8, 8),
+                   (16, 64, 16), (24, 256, 16), (1, 128, 8))
 #: bench_nd's defaults: grid side (n = side^2), dissection leaf; and the
 #: batch line's instances
 ND_SIDE, ND_LEAF, ND_BATCH = 64, 64, 8
@@ -299,6 +333,19 @@ K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
              (13, 1000), (37, 77), (1, 5))
 K2_OVER_CAP = (328, 1)
+#: (order, systems, type) at which both K3 routes are held to plain
+#: (step 4) and timed (step 8): the compact slice's batches and its
+#: float64 escalation, the Schur slice's H and S blocks, the nd slice's
+#: three levels and its generic top (order 328, over the warp route's
+#: shared memory)
+K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
+             (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
+             (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
+             (SCHUR_MC, SCHUR_I, "float64"), (64, 105, "float32"),
+             (16, 28, "float32"), (16, 16, "float32"), (328, 1, "float32"))
+#: more (order, systems), in both types: n = 1, odd orders, batches that
+#: fill no tile, the warp route's cap (83) and one past it
+K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
 #: published peaks of one H100 SXM: HBM bytes/s, and FLOP/s outside the
 #: tensor cores (float64 runs at half the float32 rate there)
 HBM_BYTES_PER_S = 3.35e12
@@ -330,12 +377,15 @@ def bound(elements, flops, dtype):
 def ldlt_bounds(B, n, k, dtype):
     """Bounds of K2 (factor), K3 (solve) and K4 (k-column solve) on B
     systems of order n.  K2 reads K and writes L and D, n^3/3
-    multiply-adds; K3 reads L, D, b and writes x, n^2 multiply-adds and n
-    divisions; K4 the same for k columns."""
+    multiply-adds.  K3 reads the strict lower triangle of L (the unit
+    diagonal and the upper triangle are never read), D and b and writes
+    x: n(n-1) multiply-adds over the two sweeps and n divisions; K4 the
+    same for k columns."""
+    tri = n * (n - 1) // 2
     return {"K2": bound(B * (2 * n * n + n), B * 2 * n ** 3 / 3, dtype),
-            "K3": bound(B * (n * n + 3 * n), B * (2 * n * n + n), dtype),
-            "K4": bound(B * (n * n + n + 2 * n * k),
-                        B * k * (2 * n * n + n), dtype)}
+            "K3": bound(B * (tri + 3 * n), B * (4 * tri + n), dtype),
+            "K4": bound(B * (tri + n + 2 * n * k),
+                        B * k * (4 * tri + n), dtype)}
 
 
 def k5_bound(B, n, k, dtype):
@@ -428,36 +478,112 @@ def time_cuda(fn, reps):
     return cuda_time(fn, runs=1, warmup=1, calls=reps).ms
 
 
-def device_ms(fn, reps):
-    """Device milliseconds per call of ``fn``: the time of the CUDA
-    kernels it launches, summed under torch.profiler over ``reps`` calls
-    after one warm-up call.  Unlike time_cuda it leaves out the host's
-    time between launches, which at a few tens of microseconds a call
-    hides the difference between two short kernels.
-
-    The sum is divided by the calls the trace holds, counted by the
-    launches of the kernel under test (the one with the most device
-    time): on the H100 with torch 2.11 a trace kept 19 of 20 launches,
-    and once 2 of 5 after many short profiled runs."""
+def trace_kernels(run, kept):
+    """The device's kernels, as (name, start us, duration us) in the order
+    they ran, in one torch.profiler trace of ``run()``.  A trace for which
+    ``kept(events)`` is false (it lost launches: on the H100 with torch
+    2.11 a trace kept 19 of 20 launches, once 2 of 5, and after a few
+    hundred sessions three came back empty) is taken again, at most
+    twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = sorted(((e.name, e.time_range.start,
+                          e.time_range.elapsed_us()) for e in prof.events()
+                         if e.device_type.name == "CUDA" and
+                         not getattr(e, "is_user_annotation", False)),
+                        key=lambda e: e[1])
+        if kept(events):
+            return events
+    raise AssertionError("three torch.profiler traces lost the launches "
+                         "under test")
+
+
+def device_ms(fn, reps):
+    """Device milliseconds per call of ``fn``: the time of the CUDA
+    kernels it launches, summed in one trace (trace_kernels) of ``reps``
+    calls after one warm-up call.  Unlike time_cuda it leaves out the
+    host's time between launches, which at a few tens of microseconds a
+    call hides the difference between two short kernels.  The sum is
+    divided by the calls the trace holds, counted by the launches of the
+    kernel with the most device time."""
+    import collections
+    import torch
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in kernels)
-    check(busy > 0, "torch.profiler saw no device time")
-    main = max(kernels, key=lambda e: e.self_device_time_total)
-    per_call = max(1, round(main.count / reps))
-    calls = main.count / per_call
-    if main.count != per_call * reps:
-        print(f"device_ms: the trace holds {main.count} launches of "
-              f"{main.key[:60]} over {reps} calls; dividing by {calls:g}")
-    return busy / 1e3 / calls
+    events = trace_kernels(lambda: [fn() for _ in range(reps)], bool)
+    busy, count = collections.Counter(), collections.Counter()
+    for name, _, us in events:
+        busy[name] += us
+        count[name] += 1
+    main = max(busy, key=busy.get)
+    per_call = max(1, round(count[main] / reps))
+    calls = count[main] / per_call
+    if count[main] != per_call * reps:
+        print(f"device_ms: the trace holds {count[main]} launches of "
+              f"{main[:60]} over {reps} calls; dividing by {calls:g}")
+    return sum(busy.values()) / 1e3 / calls
+
+
+#: the device's idle time between two groups of launch_ms, and the
+#: shortest gap in a trace that separates them (a group's own launches
+#: follow each other within the host's launch time, tens of us)
+GROUP_GAP_S, GROUP_SPLIT_US = 0.02, 1e4
+
+
+def launch_ms(groups, reps):
+    """Device milliseconds per launch of each kernel of each group, all
+    in one trace (trace_kernels), so a whole sweep opens one profiler
+    session.  ``groups`` is a list of (fn, kernels): ``reps`` calls of
+    ``fn``, and ``kernels`` a name -> (substring of the kernel's name, a
+    substring it must not have) map.  The groups run one after another
+    with the device idle GROUP_GAP_S before each, and the trace is split
+    at those gaps.  Each kernel's time is its traced time over its
+    traced launches, so a launch the trace lost changes no reading; a
+    trace that lost a group or every launch of a kernel of one is taken
+    again.  Returns one name -> ms map per group."""
+    import time
+    import torch
+    for fn, _ in groups:
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for fn, _ in groups:
+            torch.cuda.synchronize()
+            time.sleep(GROUP_GAP_S)
+            for _ in range(reps):
+                fn()
+
+    def split(events):
+        parts, end = [], None
+        for ev in events:
+            if end is None or ev[1] - end > GROUP_SPLIT_US:
+                parts.append([])
+            parts[-1].append(ev)
+            end = max(end or 0.0, ev[1] + ev[2])
+        return parts
+
+    def times(events):
+        parts = split(events)
+        if len(parts) != len(groups):
+            return None
+        out = []
+        for part, (_, kernels) in zip(parts, groups):
+            ms = {}
+            for name, (key, unless) in kernels.items():
+                hits = [us for k, _, us in part if key in k and
+                        (unless is None or unless not in k)]
+                if not hits:
+                    return None
+                ms[name] = sum(hits) / 1e3 / len(hits)
+            out.append(ms)
+        return out
+
+    return times(trace_kernels(run, lambda ev: times(ev) is not None))
 
 
 def check_kernels(dev):
@@ -644,6 +770,135 @@ def time_k2_routes(dev, n, B, dtype, A=None, reps=20):
     return t
 
 
+#: K3's kernels by route, as launch_ms matches them
+K3_KERNELS = {"thread": ("ldlt_solve_kernel<", None),
+              "warp": ("ldlt_solve_kernel_warp<", None)}
+
+
+def k3_call(route, L_t, D_t, b_t):
+    """One launch of K3's ``route`` on SoA factors and right-hand side."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    launch = cuda_ldlt.solve_soa_warp if route == "warp" else \
+        cuda_ldlt.solve_soa
+    return launch(L_t, D_t, b_t)
+
+
+def k3_routes(n, dtype):
+    """The K3 routes that can run order n in ``dtype``."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    return ("thread", "warp") if cuda_ldlt.solve_warp_fits(n, dtype) \
+        else ("thread",)
+
+
+def k3_inputs(n, B, dtype, dev, seed):
+    """Plain factors of B quasi-definite systems of order n, a right-hand
+    side, and the SoA storage K3 reads."""
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+    K, b = quasi_definite(B, n, dtype, dev, seed)
+    L, D = ldlt(K)
+    soa = (L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
+           b.t().contiguous())
+    return L, D, b, soa
+
+
+def k3_cases():
+    """(n, B, dtype) of K3_SHAPES, then K3_EDGES in both types."""
+    import torch
+    dt = {"float32": torch.float32, "float64": torch.float64}
+    return [(n, B, dt[t]) for n, B, t in K3_SHAPES] + \
+        [(n, B, d) for d in dt.values() for n, B in K3_EDGES]
+
+
+def check_k3_routes(dev):
+    """Step 4, K3's routes: each route alone against the plain solve at
+    every shape of k3_cases (float32 within 1e-5, float64 within 1e-12,
+    step 4's measure), the two routes' x against each other, and the
+    wrapper solve_ldlt_auto taking the route k3_route picks, one launch;
+    returns the largest absolute differences by (route, n, B, type)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import solve_ldlt
+
+    errs, between = {}, 0.0
+    for n, B, dtype in k3_cases():
+        name = str(dtype).replace("torch.", "")
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        L, D, b, soa = k3_inputs(n, B, dtype, dev, seed=n + B)
+        x0 = solve_ldlt(L, D, b)
+        xs = {}
+        for route in k3_routes(n, dtype):
+            x = k3_call(route, *soa).t()
+            torch.cuda.synchronize()
+            r = rel_diff(x, x0)
+            print(f"kernels {name} n={n} B={B}: K3 {route} route rel diff x "
+                  f"{r:.3e} (limit {tol:g})")
+            check(r <= tol, f"K3's {route} route disagrees with the plain "
+                  f"solve ({name} n={n} B={B}): {r:.3e} > {tol:g}")
+            xs[route] = x
+            errs[(route, n, B, name)] = (x - x0).abs().max().item()
+        if len(xs) == 2:
+            d = (xs["warp"] - xs["thread"]).abs().max().item()
+            between = max(between, d / max(x0.abs().max().item(), 1e-300))
+        pick = cuda_ldlt.k3_route(n, B, dtype)
+        before = dict(cuda_ldlt.route_launches)
+        x = cuda_ldlt.solve_ldlt_auto(L, D, b)
+        torch.cuda.synchronize()
+        made = {k: v - before[k] for k, v in cuda_ldlt.route_launches.items()
+                if v != before[k]}
+        check(made == {f"solve_ldlt {pick}": 1}, f"solve_ldlt_auto at n={n} "
+              f"B={B} {name}: launches {made}, k3_route picks {pick}")
+        check(torch.equal(x, xs[pick]), f"solve_ldlt_auto at n={n} B={B} "
+              f"{name} differs from its route launched alone")
+    print(f"kernels K3: largest difference between the two routes' x, over "
+          f"the largest |x|: {between:.3e}")
+    return errs
+
+
+#: device time below which two K3 launches tie: at n = 1 both routes take
+#: the launch's 1.3-1.7 us, and which is faster flipped between runs
+K3_TIE_MS = 2e-4
+
+
+def time_k3_routes(dev):
+    """Step 8, K3's routes: device time of each route at every shape of
+    k3_cases, all in one trace (launch_ms: at a few microseconds a call
+    CUDA events time the Python wrapper), with CUDA events behind a
+    leading launch beside it; fails where k3_route picks a route whose
+    device time is more than 5% and K3_TIE_MS above the other's.
+    Returns the times by (n, B, type)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
+    cases = [(n, B, dtype, k3_routes(n, dtype),
+              k3_inputs(n, B, dtype, dev, seed=n + B)[3])
+             for n, B, dtype in k3_cases()]
+    dev_ts = launch_ms([(lambda routes=routes, soa=soa:
+                         [k3_call(r, *soa) for r in routes],
+                         {r: K3_KERNELS[r] for r in routes})
+                        for _, _, _, routes, soa in cases], 20)
+    out = {}
+    for (n, B, dtype, routes, soa), dev_t in zip(cases, dev_ts):
+        name = str(dtype).replace("torch.", "")
+        ev_t = {r: cuda_time(lambda r=r: k3_call(r, *soa), runs=5, calls=3,
+                             lead=1).ms for r in routes}
+        pick = cuda_ldlt.k3_route(n, B, dtype)
+        best = min(routes, key=lambda r: dev_t[r])
+        bnd = ldlt_bounds(B, n, 1, dtype)["K3"]
+        out[(n, B, name)] = {"device": dev_t, "events": ev_t, "bound": bnd}
+        print(f"timing K3 routes n={n} B={B} {name} (ms per call; device: "
+              f"kernel time under torch.profiler; events: CUDA events "
+              f"behind a leading launch): " + ", ".join(
+                  f"{r} device {dev_t[r]:.5f} events {ev_t[r]:.4f}"
+                  for r in routes) + f"; bound {bnd[0]:.6f} ms by {bnd[1]};"
+              f" k3_route picks {pick}, the faster on the device is {best}")
+        check(dev_t[pick] <= max(1.05 * dev_t[best],
+                                 dev_t[best] + K3_TIE_MS),
+              f"k3_route picks the {pick} route at n={n} B={B} {name}: "
+              f"{dev_t[pick]:.4f} ms of device time against {best}'s "
+              f"{dev_t[best]:.4f}")
+    return out
+
+
 def solve_demo(dev):
     """Step 5: the README's demo QP on the card."""
     import torch
@@ -699,7 +954,10 @@ def run_slice(dev):
           f"syncs {syncs} ({twin_syncs} in the escalation stage, "
           f"{syncs - twin_syncs} in the mop-up)")
     print(f"slice: K2 routes: SoA {routes['ldlt soa']}, block "
-          f"{routes['ldlt block']}")
+          f"{routes['ldlt block']}; K3 routes: thread "
+          f"{routes['solve_ldlt thread']}, warp {routes['solve_ldlt warp']}")
+    check(routes["solve_ldlt thread"] + routes["solve_ldlt warp"] ==
+          launches["solve_ldlt"], "slice: K3's route counts do not add up")
     check(conv >= 0.99, f"slice convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt"):
         check(launches[k] > 0, f"the slice never launched kernel {k}")
@@ -860,6 +1118,41 @@ def build_kernels():
         print(f"build: T3 prefix {p} ready in {seconds[k]:.2f} s "
               f"({'reused' if cached[k] else 'compiled'} {libs[k].name})")
     return chip_phases.report_ptxas()
+
+
+def report_route_builds():
+    """Step 3, the second routes of K3 and K6: ptxas' registers, stack
+    frame, spills and static shared memory per instantiation, and for
+    K6's cluster route at the arrow slice's shape (N=256, b=16) the
+    threads a block, dynamic shared memory and
+    cudaOccupancyMaxActiveClusters per cluster size and type."""
+    import torch
+    from ipmzoo_tpu_torch.ops import _build, cuda_cr
+    for name, key in (("ldlt", "ldlt_solve_kernel_warp"),
+                      ("cr", "cr_factor_kernel_cluster")):
+        lib = _build.library_path(name)
+        smem = _build.ptxas_shared(lib)
+        for k in _build.ptxas_report(lib):
+            if key in k["name"]:
+                inst = k["name"][k["name"].index(key) + len(key):]
+                print(f"build: {key}{inst[:24]}: {k['registers']} registers, "
+                      f"{k['stack']} B stack frame, {k['spill_stores']} / "
+                      f"{k['spill_loads']} B spill stores / loads, "
+                      f"{smem.get(k['name'], 0)} B static shared memory")
+    N, b = ARROW_N // 16, 16
+    for dtype in (torch.float32, torch.float64):
+        for C in cuda_cr.CLUSTER_SIZES:
+            if not cuda_cr.cluster_fits(N, b, C, dtype):
+                continue
+            occ = cuda_cr.cluster_occupancy(N, b, C, dtype)
+            print(f"build: K6 cluster route N={N} b={b} "
+                  f"{str(dtype).replace('torch.', '')}: cluster of {C} "
+                  f"blocks, {occ['threads']} threads a block, "
+                  f"{occ['shared_bytes']} B of dynamic shared memory a "
+                  f"block, cudaOccupancyMaxActiveClusters "
+                  f"{occ['max_active_clusters']}")
+            check(occ["max_active_clusters"] > 0, f"no cluster of {C} fits "
+                  f"the card at N={N} b={b} {dtype}")
 
 
 def check_fused(dev):
@@ -1252,8 +1545,17 @@ def run_schur(dev, data, tol, runs):
           f"{routes['ldlt block']} (k2_route at the H blocks: "
           f"{cuda_ldlt.k2_route(SCHUR_N, SCHUR_I * SCHUR_BLOCKS, work_t)}, "
           f"at S: {cuda_ldlt.k2_route(SCHUR_MC, SCHUR_I, work_t)})")
+    print(f"schur slice: K3 routes: thread {routes['solve_ldlt thread']}, "
+          f"warp {routes['solve_ldlt warp']} (k3_route at the H blocks: "
+          f"{cuda_ldlt.k3_route(SCHUR_N, SCHUR_I * SCHUR_BLOCKS, work_t)}, "
+          f"at S: {cuda_ldlt.k3_route(SCHUR_MC, SCHUR_I, work_t)})")
     check(routes["ldlt soa"] + routes["ldlt block"] == launches["ldlt"],
           "schur slice: K2's route counts do not add up")
+    check(routes["solve_ldlt thread"] + routes["solve_ldlt warp"] ==
+          launches["solve_ldlt"], "schur slice: K3's route counts do not "
+          "add up")
+    check(routes["solve_ldlt warp"] > 0, "schur slice: K3's warp route "
+          "never launched")
     check(conv >= 0.99, f"schur convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt", "solve_ldlt_matrix"):
         check(launches[k] > 0, f"the schur slice never launched {k}")
@@ -1358,12 +1660,17 @@ def check_schur_kernels(dev, data):
               f"the same function: LL^T, SPD only)")
         t.update({
             "K3": time_cuda(lambda: cuda_ldlt.solve_soa(L_t, D_t, r_t), 20),
+            "K3_warp": time_cuda(
+                lambda: cuda_ldlt.solve_soa_warp(L_t, D_t, r_t), 20),
             "K3_plain": time_cuda(lambda: solve_ldlt(L0, D0, r), 3),
             "K4": time_cuda(lambda: cuda_ldlt.solve_matrix_soa(L_t, D_t,
                                                                R_t), 20),
             "K4_plain": time_cuda(lambda: solve_ldlt_matrix(L0, D0, R), 3),
         })
         if dtype == torch.float64:
+            t["K3_library"] = time_library(
+                f"torch.linalg.ldl_solve (K3's function) n={n} B={B} {name}",
+                ldl_solve_call(L0, D0, r), solve_ldlt(L0, D0, r), 1e-10, 2)
             t["K4_library"] = time_library(
                 f"torch.linalg.ldl_solve (K4's function) n={n} k={k} B={B} "
                 f"{name}", ldl_solve_call(L0, D0, R), X0, 1e-10, 2)
@@ -1401,42 +1708,94 @@ def block_tridiag_dense(D, E):
     return K
 
 
+def k6_calls(N, b, dtype):
+    """K6's routes that can run N blocks of order b in ``dtype``, by
+    name: "block", and "cluster8" / "cluster16" for each cluster size
+    that fits."""
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    calls = {"block": cuda_cr.cr_factor_kernel}
+    for C in cuda_cr.CLUSTER_SIZES:
+        if cuda_cr.cluster_fits(N, b, C, dtype):
+            calls[f"cluster{C}"] = (lambda D, E, C=C:
+                                    cuda_cr.cr_factor_cluster(D, E, C))
+    return calls
+
+
+def k6_pick(N, b, B, dtype):
+    """The K6 route, by k6_calls' names, that k6_route and k6_cluster
+    pick."""
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    if cuda_cr.k6_route(N, b, B, dtype) == "block":
+        return "block"
+    return f"cluster{cuda_cr.k6_cluster(N, b, B, dtype)}"
+
+
 def hold_cr(what, D, E, r, errs=None):
-    """K6 and K7 against their plain versions on (D, E, r): the factors,
-    K7 alone on the plain factors, and K6 + K7 chained.  float64 within a
-    relative difference of 1e-10 everywhere; float32 within 5e-4 absolute
-    on the solutions.  Returns (plain factors, plain solution)."""
+    """K6 (each route) and K7 against their plain versions on (D, E, r):
+    the factors, K7 alone on the plain factors, and each K6 route + K7
+    chained.  float64 within a relative difference of 1e-10 everywhere;
+    float32 within 5e-4 absolute on the solutions and 1e-4 relative on
+    the factors.  Returns (plain factors, plain solution)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_cr
     from ipmzoo_tpu_torch.ops.cr import cr_factor_plain, cr_solve_plain
 
     name = str(D.dtype).replace("torch.", "")
+    N, b = D.shape[-3], D.shape[-1]
+    B = D.numel() // (N * b * b)
     f0 = cr_factor_plain(D, E)
     x0 = cr_solve_plain(f0, r)
-    f = cuda_cr.cr_factor_kernel(D, E)
     x_alone = cuda_cr.cr_solve_kernel(f0, r)
-    x_chain = cuda_cr.cr_solve_kernel(f, r)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(x0).all()), f"{what}: plain solution not "
           f"finite")
-    rf = max(rel_diff(a, a0) for a, a0 in zip(f, f0))
-    ra, rc = rel_diff(x_alone, x0), rel_diff(x_chain, x0)
+    ra = rel_diff(x_alone, x0)
     aa = (x_alone - x0).abs().max().item()
-    ac = (x_chain - x0).abs().max().item()
-    af = max((a - a0).abs().max().item() for a, a0 in zip(f, f0))
-    print(f"kernels {what} {name}: K6 factors rel diff {rf:.3e} (abs "
-          f"{af:.3e}), K7 on plain factors rel diff x {ra:.3e} (abs "
-          f"{aa:.3e}), K6+K7 rel diff x {rc:.3e} (abs {ac:.3e})")
-    if D.dtype == torch.float64:
-        check(max(rf, ra, rc) <= 1e-10, f"K6/K7 disagree with their plain "
-              f"versions in float64 ({what}): {max(rf, ra, rc):.3e} > 1e-10")
-    else:
-        check(max(aa, ac) <= 5e-4, f"K6/K7 disagree with their plain "
-              f"versions in float32 ({what}): {max(aa, ac):.3e} > 5e-4")
-        check(rf <= 1e-4, f"K6's float32 factors differ from the plain "
-              f"version's by {rf:.3e} ({what})")
+    print(f"kernels {what} {name}: K7 on plain factors rel diff x {ra:.3e} "
+          f"(abs {aa:.3e})")
+    pick = k6_pick(N, b, B, D.dtype)
+    xs = {}
+    for route, call in k6_calls(N, b, D.dtype).items():
+        f = call(D, E)
+        x_chain = cuda_cr.cr_solve_kernel(f, r)
+        torch.cuda.synchronize()
+        xs[route] = x_chain
+        rf = max(rel_diff(a, a0) for a, a0 in zip(f, f0))
+        rc = rel_diff(x_chain, x0)
+        ac = (x_chain - x0).abs().max().item()
+        af = max((a - a0).abs().max().item() for a, a0 in zip(f, f0))
+        print(f"kernels {what} {name}: K6 {route} route factors rel diff "
+              f"{rf:.3e} (abs {af:.3e}), K6+K7 rel diff x {rc:.3e} (abs "
+              f"{ac:.3e})")
+        if D.dtype == torch.float64:
+            check(max(rf, ra, rc) <= 1e-10, f"K6 ({route})/K7 disagree with "
+                  f"their plain versions in float64 ({what}): "
+                  f"{max(rf, ra, rc):.3e} > 1e-10")
+        else:
+            check(max(aa, ac) <= 5e-4, f"K6 ({route})/K7 disagree with their "
+                  f"plain versions in float32 ({what}): {max(aa, ac):.3e} > "
+                  f"5e-4")
+            check(rf <= 1e-4, f"K6's {route} float32 factors differ from the "
+                  f"plain version's by {rf:.3e} ({what})")
+        if errs is not None:
+            key = "cr_factor" if route == "block" else \
+                ("cr_factor cluster" if route == pick else None)
+            if key:
+                errs[key] = af
     if errs is not None:
-        errs["cr_factor"], errs["cr_solve"] = af, aa
+        errs["cr_solve"] = aa
+    # through the wrapper: the route k6_route picks, one launch
+    before = dict(cuda_cr.route_launches)
+    f = cuda_cr.cr_factor_auto(D, E)
+    x = cuda_cr.cr_solve_auto(f, r)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in cuda_cr.route_launches.items()
+            if v != before[k]}
+    want = "cluster" if pick != "block" else "block"
+    check(made == {f"cr_factor {want}": 1}, f"{what}: cr_factor_auto "
+          f"launched {made}, k6_route picks {pick}")
+    check(torch.equal(x, xs[pick]), f"{what}: cr_factor_auto differs from "
+          f"its route {pick} launched alone")
     return f0, x0
 
 
@@ -1503,9 +1862,15 @@ def run_arrow(what, solve, solver, cpu_solve, n_inst):
           f"t={solver.t}, method {solver.method}: converged "
           f"{int(conv.sum())}/{n_inst}, diverged "
           f"{int(res.diverged.sum())}, iterations {its.tolist()}")
+    routes = dict(cuda_cr.route_launches)
     print(f"{what}: launches K6 {launches['cr_factor']} K7 "
           f"{launches['cr_solve']} (float64: {f64['cr_factor']} / "
-          f"{f64['cr_solve']}); host syncs {syncs}")
+          f"{f64['cr_solve']}); host syncs {syncs}; K6 routes: block "
+          f"{routes['cr_factor block']}, cluster "
+          f"{routes['cr_factor cluster']} (k6_route picks "
+          f"{k6_pick(solver.N, solver.b, n_inst, torch.float32)})")
+    check(routes["cr_factor block"] + routes["cr_factor cluster"] ==
+          launches["cr_factor"], f"{what}: K6's route counts do not add up")
     check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
     check(launches["cr_factor"] == steps and
           launches["cr_solve"] == 2 * steps,
@@ -1513,6 +1878,7 @@ def run_arrow(what, solve, solver, cpu_solve, n_inst):
           f"{steps} iterations, got {launches}")
     check(f64["cr_factor"] == 0 and f64["cr_solve"] == 0,
           f"{what}: float64 launches in a float32 solve")
+    launches.update(routes)
 
     solve()
     med = time_solves(solve, 5)
@@ -1606,6 +1972,7 @@ def time_cr(solver, data, batch):
     from ipmzoo_tpu_torch.models.state import tree_map
     from ipmzoo_tpu_torch.ops import banded, cuda_cr
     from ipmzoo_tpu_torch.ops.cr import cr_factor_plain, cr_solve_plain
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
 
     out, errs = {}, {}
     one = tree_map(lambda a: a[None], data)
@@ -1643,11 +2010,28 @@ def time_cr(solver, data, batch):
                 "K7_k1_plain": time_cuda(lambda: cr_solve_plain(f0, r1), 2),
                 "K7_k1_cr": time_cuda(lambda: banded.cr_solve(fl, r1), 5),
             }
+            # K6's routes by CUDA events behind a leading launch (0.28
+            # ms and more a call, so the host's launch time hides)
+            calls = k6_calls(solver.N, solver.b, dtype)
+            ev_t = {r: cuda_time(lambda c=c: c(D, E), runs=5, calls=3,
+                                 lead=1).ms for r, c in calls.items()}
+            for r in calls:
+                t[f"K6_{r}_events"] = ev_t[r]
+            pick = k6_pick(solver.N, solver.b, B, dtype)
+            best = min(ev_t, key=ev_t.get)
+            t["K6_cluster"] = t[f"K6_{pick}_events"] if pick != "block" \
+                else None
             out[(name, B)] = t
             print(f"timing arrow shape N={solver.N} b={solver.b} B={B} "
                   f"{name} (ms per call, CUDA events; _cr is the per-level "
-                  f"library composition): "
-                  + ", ".join(f"{a} {v:.4f}" for a, v in t.items()))
+                  f"library composition; _events: CUDA events behind a "
+                  f"leading launch): " + ", ".join(f"{a} {v:.4f}" for a, v in
+                                            t.items() if v is not None) +
+                  f"; k6_route picks {pick}, the faster by CUDA events is "
+                  f"{best}")
+            check(ev_t[pick] <= 1.05 * ev_t[best],
+                  f"k6_route picks {pick} at B={B} {name}: {ev_t[pick]:.4f} "
+                  f"ms by CUDA events against {best}'s {ev_t[best]:.4f}")
     return out, errs
 
 
@@ -1848,6 +2232,10 @@ def check_nd_kkt():
               f"nd ({what}): launches {made}")
         check(routes["ldlt soa"] == top, f"nd ({what}): the top of order "
               f"{K2_OVER_CAP[0]} did not take K2's SoA route")
+        check(routes["solve_ldlt warp"] == 3 and
+              routes["solve_ldlt thread"] == top, f"nd ({what}): K3 routes "
+              f"{routes}, expected the three levels on the warp route and "
+              f"the top of order {K2_OVER_CAP[0]} on the thread route")
     return routes
 
 
@@ -1886,7 +2274,10 @@ def run_nd(what, solve, solver, n_inst):
           f"{launches['solve_ldlt_matrix']} (float64: "
           f"{sum(f64.values())}); host syncs {syncs}")
     print(f"{what}: K5 routes: block {routes['ldlt_solve_matrix block']}, "
-          f"warp {routes['ldlt_solve_matrix warp']}")
+          f"warp {routes['ldlt_solve_matrix warp']}; K3 routes: thread "
+          f"{routes['solve_ldlt thread']}, warp {routes['solve_ldlt warp']}")
+    check(routes["solve_ldlt thread"] + routes["solve_ldlt warp"] ==
+          launches["solve_ldlt"], f"{what}: K3's route counts do not add up")
     check(routes["ldlt_solve_matrix block"] +
           routes["ldlt_solve_matrix warp"] == launches["ldlt_solve_matrix"],
           f"{what}: K5's route counts do not add up")
@@ -2025,6 +2416,68 @@ def sweep_k5(dev=None):
                       f"{cuda_ldlt.k5_route(B, n, k, dt)}", flush=True)
 
 
+#: K6's kernels by route, as launch_ms matches them
+K6_KERNELS = {"block": ("cr_factor_kernel<", None),
+              "cluster": ("cr_factor_kernel_cluster<", None)}
+#: (N, b) and batches of sweep_k6
+K6_SWEEP_NB = tuple((N, b) for b in (4, 8, 16)
+                    for N in (1, 2, 3, 4, 8, 16, 37, 64, 128, 256))
+K6_SWEEP_B = (1, 4, 8, 16, 24, 32)
+
+
+def k6_device_ms(dev, shapes, dtype, reps):
+    """Device ms of every K6 route of k6_calls at each (B, N, b) of
+    ``shapes``, in one trace (launch_ms), on random SPD block-tridiagonal
+    systems; a list of route -> ms maps."""
+    groups, names = [], []
+    for B, N, b in shapes:
+        D, E = spd_block_tridiag(B, N, b, dtype, dev, seed=N + b + B)
+        calls = k6_calls(N, b, dtype)
+        names.append(list(calls))
+        for r, c in calls.items():
+            groups.append((lambda c=c, D=D, E=E: c(D, E),
+                           {r: K6_KERNELS[r.rstrip("0123456789")]}))
+    got = iter(launch_ms(groups, reps))
+    return [{r: next(got)[r] for r in routes} for routes in names]
+
+
+def time_k6_routes(dev):
+    """Step 18, K6's route rule: device time of each K6 route at every
+    (B, N, b) of K6_ROUTE_SHAPES in both types, in one trace; fails where
+    k6_route (and k6_cluster) pick a route more than 5% slower than the
+    fastest."""
+    import torch
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        for (B, N, b), t in zip(K6_ROUTE_SHAPES,
+                                k6_device_ms(dev, K6_ROUTE_SHAPES, dtype,
+                                             10)):
+            pick = k6_pick(N, b, B, dtype)
+            best = min(t, key=t.get)
+            print(f"timing K6 routes B={B} N={N} b={b} {name} (device ms "
+                  f"per call): " + ", ".join(f"{r} {v:.4f}"
+                                             for r, v in t.items()) +
+                  f"; k6_route picks {pick}, the faster is {best}")
+            check(t[pick] <= 1.05 * t[best], f"k6_route picks {pick} at "
+                  f"B={B} N={N} b={b} {name}: {t[pick]:.4f} ms of device "
+                  f"time against {best}'s {t[best]:.4f}")
+
+
+def sweep_k6(dev=None):
+    """Both K6 routes' device time over K6_SWEEP_NB x K6_SWEEP_B in
+    float32 and float64, one trace a type: the measurement behind
+    k6_route.  Not part of main(); run it alone (about a minute with the
+    cr.cu build)."""
+    import torch
+    dev = dev or torch.device("cuda")
+    shapes = [(B, N, b) for N, b in K6_SWEEP_NB for B in K6_SWEEP_B]
+    for dt in (torch.float32, torch.float64):
+        for (B, N, b), t in zip(shapes, k6_device_ms(dev, shapes, dt, 10)):
+            print(f"sweep K6 {str(dt)[6:]} B={B} N={N} b={b}: device ms " +
+                  ", ".join(f"{r} {v:.4f}" for r, v in t.items()) +
+                  f"; k6_route picks {k6_pick(N, b, B, dt)}", flush=True)
+
+
 def measure_roofline(dev, k2_ms, k1_ms):
     """Steps 29, 30 and 32: T1, T2a and T2b held to their plain versions,
     then the measurement itself (the FMA ceilings, the in-kernel
@@ -2159,13 +2612,16 @@ def main():
           "the BENCH_* environment resizes bench_torch.py's workload; the "
           "smoke test runs it at its defaults")
     ptxas = build_kernels()
+    report_route_builds()
     errs = check_kernels(dev)
     k2_errs = check_k2_routes(dev)
+    k3_errs = check_k3_routes(dev)
     errs["solve_ldlt_matrix"] = check_k4(dev)
     solve_demo(dev)
     data, res, launches = run_slice(dev)
     compare_cpu(data, res)
     times = time_kernels(dev)
+    time_k3_routes(dev)
     errs["fused"] = check_fused(dev)
     errs["fused team"] = check_fused_team(dev)
     f_out, f_launches = run_fused_slice(dev, data)
@@ -2177,7 +2633,10 @@ def main():
     compare_cpu_schur(s_data, s_res)
     s_times = check_schur_kernels(dev, s_data)["float64"]
     check_cr(dev)
+    time_k6_routes(dev)
     a_solver, a_data, a_batch, a_launches, ab_launches = run_arrow_slice()
+    check(a_launches["cr_factor cluster"] > 0, "the arrow slice never "
+          "launched K6's cluster route")
     cr_times, cr_errs = time_cr(a_solver, a_data, a_batch)
     errs.update(cr_errs)
     errs["ldlt_solve_matrix"], k5_errs = check_k5(dev)
@@ -2214,9 +2673,12 @@ def main():
     k1 = k1_times[B_SLICE]
     k1_lanes = team_lanes(fused_solver("cpu", torch.float32))
     kw = k5_times[K5_KKT + ("float32",)]
-    ct = cr_times[("float32", 1)]
+    ct, ct32 = cr_times[("float32", 1)], cr_times[("float32", ARROW_BATCH)]
     cb = cr_bounds(1, a_solver.N, a_solver.b, a_solver.t + 1, torch.float32)
+    cb32 = cr_bounds(ARROW_BATCH, a_solver.N, a_solver.b, a_solver.t + 1,
+                     torch.float32)
     shape = f"float32, N={a_solver.N}, b={a_solver.b}"
+    k6_name = k6_pick(a_solver.N, a_solver.b, 1, torch.float32)
     kernels = [
         entry("K2 batched LDL^T factor, SoA route (float64, n=%d, B=%d: "
               "the nd generic top, over the block route's shared memory)"
@@ -2229,9 +2691,22 @@ def main():
               s_times["K2_plain"], s_times["bound"], s_times["K2_library"],
               k2_errs[("block", SCHUR_N, SCHUR_I * SCHUR_BLOCKS,
                        "float64")]),
-        entry(f"K3 batched LDL^T solve (float32, n={N_AUG}, B={B_SLICE})",
-              SOURCE, "solve_ldlt", launches["solve_ldlt"], t["K3"],
-              t["K3_plain"], b24["K3"], t["K3_library"]),
+        # the thread route's launches on the slices' paths: k3_route
+        # takes it only over the warp route's shared memory (n > 83) and
+        # at n = 1, which no slice gives K3
+        entry(f"K3 batched LDL^T solve, thread route (float32, n={N_AUG}, "
+              f"B={B_SLICE})", SOURCE, "solve_ldlt",
+              launches["solve_ldlt thread"] +
+              s_launches["solve_ldlt thread"] +
+              nd_launches["solve_ldlt thread"], t["K3"], t["K3_plain"],
+              b24["K3"], t["K3_library"],
+              k3_errs[("thread", N_AUG, B_SLICE, "float32")]),
+        entry(f"K3 warp route (float64, n={SCHUR_N}, "
+              f"B={SCHUR_I * SCHUR_BLOCKS})", SOURCE, "solve_ldlt",
+              s_launches["solve_ldlt warp"], s_times["K3_warp"],
+              s_times["K3_plain"], b64["K3"], s_times["K3_library"],
+              k3_errs[("warp", SCHUR_N, SCHUR_I * SCHUR_BLOCKS,
+                       "float64")]),
         # the thread route's launches on the slice's path: k1_route takes
         # it only where a block of teams overflows the shared memory
         entry(f"K1 fused whole-solve IPM, thread route (generated; "
@@ -2255,9 +2730,15 @@ def main():
               bench_routes["kkt"]["ldlt_solve_matrix warp"], kw["K5_warp"],
               kw["K5_plain"], kw["bound"], kw["library"],
               k5_errs[("warp",) + K5_KKT + ("float32",)]),
-        entry(f"K6 whole-reduction cyclic-reduction factor ({shape}, B=1)",
-              CR_SOURCE, "cr_factor", a_launches["cr_factor"], ct["K6"],
-              ct["K6_plain"], cb["K6"], None),
+        # the block route's launches on the slice: the batch of
+        # ARROW_BATCH, past the cluster route's largest batch
+        entry(f"K6 whole-reduction cyclic-reduction factor, block route "
+              f"({shape}, B={ARROW_BATCH})", CR_SOURCE, "cr_factor",
+              ab_launches["cr_factor block"], ct32["K6"], ct32["K6_plain"],
+              cb32["K6"], None),
+        entry(f"K6 cluster route ({k6_name}; {shape}, B=1)", CR_SOURCE,
+              "cr_factor cluster", a_launches["cr_factor cluster"],
+              ct["K6_cluster"], ct["K6_plain"], cb["K6"], None),
         entry(f"K7 cyclic-reduction multi-rhs solve ({shape}, "
               f"k={a_solver.t + 1}, B=1)", CR_SOURCE, "cr_solve",
               a_launches["cr_solve"], ct["K7_k9"], ct["K7_k9_plain"],

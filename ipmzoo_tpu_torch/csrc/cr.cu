@@ -46,10 +46,42 @@
 // keeps coherent within the block.  b and k are run-time arguments.
 //
 // Arithmetic is plain IEEE: no fast-math flags.
+//
+// K6 cluster route, cr_factor_kernel_cluster, replaces the same TPU kernel
+// (cr_pallas.py:_factor_kernel), picked per call by ops/cuda_cr.py
+// (k6_route) from times measured on an H100.  The block route above runs
+// an instance on one SM with its working blocks in the L2, and waits on
+// an L2 round trip and a block barrier at every Cholesky column: 0.71 ms
+// at N = 256, b = 16, whatever the batch.  Here a thread-block cluster of
+// C = 8 or 16 blocks (cudaLaunchKernelEx with a cluster dimension; 16
+// needs the non-portable size) holds one instance, and the three working
+// blocks of every position live in the shared memory of the rank that
+// owns it (the map is stated once, above cr_factor_kernel_cluster).  A
+// neighbour's blocks are read through distributed shared memory
+// (cluster.map_shared_rank): a segment copies a neighbour's block it
+// reads by broadcast into its own scratch first.  A segment of BP = 8 or
+// 16 lanes (template parameter, b <= BP) handles one b x b block: the
+// Cholesky, the triangular inverse and Pinv = X^T X in registers by
+// shuffles, the b x b products of the coupling and update phases a
+// column a lane over shared memory, one output block a segment.  Each
+// element keeps this file's formula and
+// order of accumulation (diagonal stored as 1 / L_jj, sqrt, dot products
+// from their first term in increasing k), so ops/cr.py stays the plain
+// version of both routes.  Two cluster barriers a level (after the
+// pivots' inverses and couplings, after the even positions' updates) and
+// none inside a block's Cholesky.  Pinv, Eb and Ea leave in the block
+// route's (B, N, b, b) layout, which K7 reads unchanged; the route needs
+// no global scratch.  What bounds it: a level's chain of dependent steps
+// on one warp (the 16 x 16 inverse alone takes ~9 us), nine levels at
+// N = 256 (PERF.md §6).
 
+#include <atomic>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -217,6 +249,349 @@ cr_factor_kernel(const T* __restrict__ D, const T* __restrict__ E, T* Pinv,
   chol_inv_phase(Dw, Xw, Pinv, 1, 0, 1, b);
 }
 
+// ---------------------------------------------------------------------
+// K6 cluster route.
+//
+// Ownership, the one place it is stated: position p > 0 is eliminated at
+// level l = ctz(p) as that level's pivot m = p >> (l + 1); position 0 is
+// the root, counted as level L (the number of levels) with m = 0.  Block
+// rank m % C of the instance's cluster of C blocks owns p and keeps its
+// three working blocks (Dw, Ew, and Xw, which holds T at p's level) in
+// slot slot_base[m % C][l] + m / C of its shared memory, where
+// slot_base[r][l] counts rank r's positions at the levels before l.  So
+// every level's pivots are spread over the cluster's ranks, a rank's
+// pivots at level l are its slots slot_base[r][l] .. slot_base[r][l+1],
+// and the even positions at level l (every position eliminated later)
+// are its slots from slot_base[r][l+1] on.  ops/cuda_cr.py mirrors the
+// map (cluster_owner, cluster_slots) and its tests check it.
+
+constexpr int kMaxCluster = 16;
+constexpr int kMaxLevels = 32;
+constexpr int kTableInts = kMaxCluster * (kMaxLevels + 2);
+
+// Bytes before the working blocks: the slot table and `slots` positions,
+// rounded up to 16.
+__host__ __device__ inline size_t cluster_head(int slots) {
+  return (static_cast<size_t>(kTableInts + slots) * sizeof(int) + 15) / 16
+         * 16;
+}
+
+__host__ __device__ inline int cr_levels(int N) {
+  int L = 0;
+  while ((1LL << L) < N) ++L;
+  return L;
+}
+
+__host__ __device__ inline int cr_pivots(int N, int l, int L) {
+  if (l == L) return 1;
+  const long long s = 1LL << l;
+  return static_cast<int>((N + s - 1) / (2 * s));
+}
+
+__host__ __device__ inline int cr_count(int N, int l, int L, int r, int C) {
+  const int np = cr_pivots(N, l, L);
+  return np > r ? (np - r - 1) / C + 1 : 0;
+}
+
+// Slots of rank r (rank 0 holds the most) and its positions at levels
+// 1 .. L, the even positions of level 0.
+__host__ __device__ inline int cr_slots(int N, int r, int C, int from) {
+  const int L = cr_levels(N);
+  int n = 0;
+  for (int l = from; l <= L; ++l) n += cr_count(N, l, L, r, C);
+  return n;
+}
+
+// One segment of BP lanes (BP = 8 or 16, b <= BP) per b x b block.  The
+// inverse runs in registers (below); the products of the coupling and
+// update phases run a column a lane, the other operand read from shared
+// memory by all lanes at once (a broadcast), over a loop of rows.
+// Padding lanes (>= b) compute on zeros and store nothing.  Blocks sit in
+// shared memory at row stride R = b + 1.
+
+// Explicit inverse of the SPD block P in cr_factor_kernel's arithmetic,
+// row i in lane i's registers: the Cholesky factor right-looking (each
+// entry subtracts its terms in increasing k, the diagonal kept as
+// 1 / L_jj), X = L^-1 a column a lane, Pinv = X^T X, every operand of
+// another lane taken by shuffle.  Leaves Pinv in S1 (lane j writes row
+// j, which is column j: the sums are symmetric term by term); ends with
+// a warp barrier.  (A shared-memory version of the same sums, a row or
+// column a lane with a broadcast operand, took 12.1 us against these
+// 8.7 us for b = 16 in float32 on an H100: PERF.md §6.)
+template <typename T, int BP>
+__device__ void chol_inv_seg(const T* P, T* S1, int b, int lane,
+                             unsigned mask) {
+  const int R = b + 1;
+  T a[BP], lr[BP];
+#pragma unroll
+  for (int c = 0; c < BP; ++c) {
+    a[c] = (lane < b && c < b) ? P[lane * R + c] : T(0);
+    lr[c] = T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < BP; ++j) {
+    if (j >= b) break;
+    const T idj = T(1) / root(__shfl_sync(mask, a[j], j, BP));
+    if (lane == j) lr[j] = idj;
+    if (lane > j) lr[j] = a[j] * idj;
+#pragma unroll
+    for (int c = j + 1; c < BP; ++c) {
+      const T lc = __shfl_sync(mask, lr[j], c, BP);   // L[c][j]
+      if (lane > j && c <= lane) a[c] -= lr[j] * lc;
+    }
+  }
+  // X = L^-1, lane j down column j: X[r][j] = (0 - L[r][j] X[j][j] -
+  // sum_{j < k < r} L[r][k] X[k][j]) / L[r][r]
+  T xc[BP];
+#pragma unroll
+  for (int k = 0; k < BP; ++k) xc[k] = k == lane ? lr[k] : T(0);
+#pragma unroll
+  for (int r = 1; r < BP; ++r) {
+    if (r >= b) break;
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < r; ++k) {
+      const T lrk = __shfl_sync(mask, lr[k], r, BP);   // L[r][k]
+      if (k == lane) acc = lrk * xc[k];
+      if (k > lane) acc += lrk * xc[k];
+    }
+    const T lrr = __shfl_sync(mask, lr[r], r, BP);
+    if (r > lane) xc[r] = (T(0) - acc) * lrr;
+  }
+  // Pinv[c][j] = sum_{k >= max(c, j)} X[k][c] X[k][j], column j in lane j
+#pragma unroll
+  for (int k = 0; k < BP; ++k) {
+    if (k >= b) break;
+#pragma unroll
+    for (int c = 0; c <= k; ++c) {
+      const T xkc = __shfl_sync(mask, xc[k], c, BP);   // X[k][c]
+      const int lo = c > lane ? c : lane;
+      if (k == lo) a[c] = xkc * xc[k];
+      if (k > lo) a[c] += xkc * xc[k];
+    }
+  }
+  if (lane < b) {
+#pragma unroll
+    for (int c = 0; c < BP; ++c) {
+      if (c < b) S1[lane * R + c] = a[c];
+    }
+  }
+  __syncwarp(mask);
+}
+
+// At most 256 threads a block.
+constexpr int kClusterThreads = 256;
+// Scratch blocks a segment: Pinv at the pivots and a copy of the right
+// odd's Ea at the even positions; a copy of the left odd's G; the new
+// couplings until Ew may be overwritten.
+constexpr int kScratch = 3;
+
+template <typename T, int BP>
+__global__ void __launch_bounds__(kClusterThreads)
+cr_factor_kernel_cluster(const T* __restrict__ D, const T* __restrict__ E,
+                         T* __restrict__ Pinv, T* __restrict__ Eb,
+                         T* __restrict__ Ea, int N, int b) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  // dynamic shared memory: the slot table, rank 0's slot positions, the
+  // working blocks of rank 0's number of slots, each segment's scratch
+  auto slot_base = reinterpret_cast<int(*)[kMaxLevels + 2]>(shared_raw);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int L = cr_levels(N);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid % BP, seg = tid / BP, nseg = nt / BP;
+  const unsigned mask = (BP == 32 ? 0xffffffffu : ((1u << BP) - 1u))
+                        << ((tid & 31) & ~(BP - 1));
+  const int bb = b * b, R = b + 1, BS = b * R;
+  const bool col = lane < b;
+  const int64_t inst = static_cast<int64_t>(blockIdx.x) / C;
+  const int64_t total = static_cast<int64_t>(N) * bb;
+  D += inst * total;
+  E += inst * (total - bb);
+  Pinv += inst * total;
+  Eb += inst * total;
+  Ea += inst * total;
+
+  for (int r = tid; r < C; r += nt) {
+    int acc = 0;
+    for (int l = 0; l <= L; ++l) {
+      slot_base[r][l] = acc;
+      acc += cr_count(N, l, L, r, C);
+    }
+    slot_base[r][L + 1] = acc;
+  }
+  __syncthreads();
+  const int nslots = slot_base[rank][L + 1];
+  const int mine0 = cr_slots(N, 0, C, 0);   // rank 0's slots: the layout
+  int* slot_pos = reinterpret_cast<int*>(shared_raw) + kTableInts;
+  T* V = reinterpret_cast<T*>(shared_raw + cluster_head(mine0));
+  T* S1 = V + (static_cast<int64_t>(mine0) * 3 + seg * kScratch) * BS;
+  T* S2 = S1 + BS;
+  T* S3 = S2 + BS;
+  for (int k = tid; k < nslots; k += nt) {
+    int l = 0;
+    while (slot_base[rank][l + 1] <= k) ++l;
+    const int m = rank + C * (k - slot_base[rank][l]);
+    slot_pos[k] = l == L ? 0 : (2 * m + 1) << l;
+  }
+  __syncthreads();
+  // the working blocks of a slot: 0 Dw, 1 Ew, 2 Xw (T at its level)
+  auto blk = [&](T* base, int slot, int which) {
+    return base + (static_cast<int64_t>(slot) * 3 + which) * BS;
+  };
+  // block `which` of position p, in the shared memory of its owner
+  auto remote = [&](int p, int which) {
+    int r = 0, k = slot_base[0][L];
+    if (p > 0) {
+      const int l = __ffs(p) - 1, m = p >> (l + 1);
+      r = m % C;
+      k = slot_base[r][l] + m / C;
+    }
+    return blk(cluster.map_shared_rank(V, r), k, which);
+  };
+
+  for (int k = seg; k < nslots; k += nseg) {
+    const int64_t p = slot_pos[k];
+    T* Dk = blk(V, k, 0);
+    T* Ek = blk(V, k, 1);
+#pragma unroll
+    for (int i = 0; i < BP; ++i) {
+      if (!col || i >= b) continue;
+      Dk[i * R + lane] = D[p * bb + i * b + lane];
+      Ek[i * R + lane] = p < N - 1 ? E[p * bb + i * b + lane] : T(0);
+    }
+  }
+  if (rank == 0) {
+    for (int e = tid; e < bb; e += nt) {
+      Eb[e] = T(0);
+      Ea[e] = T(0);
+    }
+  }
+  cluster.sync();
+
+  for (int l = 0; l < L; ++l) {
+    const int s = 1 << l;
+    // the pivots: inverse, couplings, T = Pinv Eb -> Xw, G = Ea Pinv -> Dw
+    for (int k = slot_base[rank][l] + seg; k < slot_base[rank][l + 1];
+         k += nseg) {
+      const int64_t go = static_cast<int64_t>(slot_pos[k]) * bb;
+      T* Dp = blk(V, k, 0);
+      const T* Ep = blk(V, k, 1);
+      T* Xp = blk(V, k, 2);
+      chol_inv_seg<T, BP>(Dp, S1, b, lane, mask);
+      const T* Er = remote(slot_pos[k] - s, 1);
+      T pc[BP], ec[BP];   // column `lane` of Pinv and of Eb
+#pragma unroll
+      for (int kk = 0; kk < BP; ++kk) {
+        pc[kk] = (col && kk < b) ? S1[kk * R + lane] : T(0);
+        ec[kk] = (col && kk < b) ? Er[kk * R + lane] : T(0);
+        if (col && kk < b) {
+          Pinv[go + kk * b + lane] = pc[kk];
+          Eb[go + kk * b + lane] = ec[kk];
+          Ea[go + kk * b + lane] = Ep[kk * R + lane];
+        }
+      }
+#pragma unroll 2
+      for (int i = 0; i < b; ++i) {
+        T t = T(0), g = T(0);
+#pragma unroll
+        for (int kk = 0; kk < BP; ++kk) {
+          if (kk >= b) break;
+          const T pik = S1[i * R + kk], eik = Ep[i * R + kk];
+          t = kk == 0 ? pik * ec[0] : t + pik * ec[kk];
+          g = kk == 0 ? eik * pc[0] : g + eik * pc[kk];
+        }
+        if (col) {
+          Xp[i * R + lane] = t;
+          Dp[i * R + lane] = g;
+        }
+      }
+      __syncwarp(mask);
+    }
+    cluster.sync();
+
+    // the even positions: D[q] -= Eb^T T of the right odd, then G Ea^T of
+    // the left odd; the new coupling of q to q + 2s is -Ea T
+    for (int k = slot_base[rank][l + 1] + seg; k < nslots; k += nseg) {
+      const int q = slot_pos[k];
+      T* Dq = blk(V, k, 0);
+      T* Eq = blk(V, k, 1);   // Eb of q + s, read before it is replaced
+      const int pr = q + s;
+      const bool has_r = pr < N, right = pr + s < N, has_l = q > 0;
+      T tc[BP], ac[BP];   // column `lane` of T[pr]; row `lane` of Ea[q - s]
+      const T* Tr = has_r ? remote(pr, 2) : nullptr;
+      const T* Ar = right ? remote(pr, 1) : nullptr;
+      const T* Gl = has_l ? remote(q - s, 0) : nullptr;
+      const T* Al = has_l ? remote(q - s, 1) : nullptr;
+#pragma unroll
+      for (int kk = 0; kk < BP; ++kk) {
+        const bool in = col && kk < b;
+        tc[kk] = (in && has_r) ? Tr[kk * R + lane] : T(0);
+        ac[kk] = (in && has_l) ? Al[lane * R + kk] : T(0);
+      }
+      // the broadcast operands, copied from their owners: Ea[pr] -> S1,
+      // G[q - s] -> S2
+#pragma unroll
+      for (int i = 0; i < BP; ++i) {
+        if (!col || i >= b) continue;
+        if (right) S1[i * R + lane] = Ar[i * R + lane];
+        if (has_l) S2[i * R + lane] = Gl[i * R + lane];
+      }
+      __syncwarp(mask);
+#pragma unroll 2
+      for (int i = 0; i < b; ++i) {
+        T de = col ? Dq[i * R + lane] : T(0), en = T(0);
+        if (has_r) {
+          T acc = T(0), a2 = T(0);
+#pragma unroll
+          for (int kk = 0; kk < BP; ++kk) {
+            if (kk >= b) break;
+            const T ebki = Eq[kk * R + i];
+            acc = kk == 0 ? ebki * tc[0] : acc + ebki * tc[kk];
+            if (right) {
+              const T aik = S1[i * R + kk];
+              a2 = kk == 0 ? aik * tc[0] : a2 + aik * tc[kk];
+            }
+          }
+          de -= acc;
+          if (right) en = -a2;
+        }
+        if (has_l) {
+          T acc = T(0);
+#pragma unroll
+          for (int kk = 0; kk < BP; ++kk) {
+            if (kk >= b) break;
+            const T gik = S2[i * R + kk];
+            acc = kk == 0 ? gik * ac[0] : acc + gik * ac[kk];
+          }
+          de -= acc;
+        }
+        if (col) {
+          Dq[i * R + lane] = de;
+          S3[i * R + lane] = en;
+        }
+      }
+      __syncwarp(mask);
+#pragma unroll
+      for (int i = 0; i < BP; ++i) {
+        if (col && i < b) Eq[i * R + lane] = S3[i * R + lane];
+      }
+      __syncwarp(mask);
+    }
+    cluster.sync();
+  }
+
+  // the root, position 0, on rank 0
+  if (rank == 0 && seg == 0) {
+    chol_inv_seg<T, BP>(blk(V, slot_base[0][L], 0), S1, b, lane, mask);
+#pragma unroll
+    for (int i = 0; i < BP; ++i) {
+      if (col && i < b) Pinv[i * b + lane] = S1[i * R + lane];
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
 cr_solve_kernel(const T* __restrict__ Pinv, const T* __restrict__ Eb,
@@ -360,6 +735,140 @@ int launch_solve(const T* Pinv, const T* Eb, const T* Ea, const T* r, T* x,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The most dynamic shared memory a block may take on sm_90, in bytes.
+constexpr int kSharedCap = 232448;
+
+// The cluster route's launch: threads a block and dynamic shared memory
+// (rank 0's slot positions, then its slots' three working blocks at row
+// stride b + 1).
+struct ClusterShape {
+  int threads;
+  size_t shared;
+};
+
+template <typename T, int BP>
+ClusterShape cluster_shape(int N, int b, int C) {
+  const int slots = cr_slots(N, 0, C, 0);
+  const int pivots0 = cr_slots(N, 0, C, 0) - cr_slots(N, 0, C, 1);
+  const int evens0 = cr_slots(N, 0, C, 1);
+  int seg = pivots0 > evens0 ? pivots0 : evens0;
+  if (seg < 1) seg = 1;
+  if (seg > kClusterThreads / BP) seg = kClusterThreads / BP;
+  return {seg * BP,
+          cluster_head(slots) + static_cast<size_t>(slots * 3 + seg *
+                                                    kScratch) *
+                                    b * (b + 1) * sizeof(T)};
+}
+
+template <typename T, int BP>
+cudaLaunchConfig_t cluster_config(int N, int b, int C, int64_t B,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  const ClusterShape sh = cluster_shape<T, BP>(N, b, C);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(B * C), 1, 1);
+  cfg.blockDim = dim3(sh.threads, 1, 1);
+  cfg.dynamicSmemBytes = sh.shared;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Raise the kernel's dynamic shared-memory limit and allow clusters of 16
+// once per device (bit d of `done`), so a launch captured in a CUDA graph
+// makes no such call.
+template <typename Kernel>
+int allow_cluster(Kernel kernel, std::atomic<unsigned>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load() & bit) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSharedCap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done.fetch_or(bit);
+  return 0;
+}
+
+template <typename T, int BP>
+int launch_factor_cluster_at(const T* D, const T* E, T* Pinv, T* Eb, T* Ea,
+                             int N, int b, int64_t B, int C,
+                             cudaStream_t stream) {
+  static std::atomic<unsigned> done{0};
+  const int err = allow_cluster(cr_factor_kernel_cluster<T, BP>, done);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config<T, BP>(N, b, C, B, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cr_factor_kernel_cluster<T, BP>, D, E, Pinv, Eb, Ea, N, b);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+bool cluster_fits(int N, int b, int C) {
+  if (b < 1 || b > 16 || C < 1 || C > kMaxCluster || N < 1) return false;
+  const size_t shared = b <= 8 ? cluster_shape<T, 8>(N, b, C).shared
+                               : cluster_shape<T, 16>(N, b, C).shared;
+  return shared <= static_cast<size_t>(kSharedCap);
+}
+
+template <typename T>
+int launch_factor_cluster(const T* D, const T* E, T* Pinv, T* Eb, T* Ea,
+                          int N, int b, int64_t B, int C,
+                          cudaStream_t stream) {
+  if (!cluster_fits<T>(N, b, C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b <= 8) {
+    return launch_factor_cluster_at<T, 8>(D, E, Pinv, Eb, Ea, N, b, B, C,
+                                          stream);
+  }
+  return launch_factor_cluster_at<T, 16>(D, E, Pinv, Eb, Ea, N, b, B, C,
+                                         stream);
+}
+
+// What the cluster route's launch at (N, b, C) takes: threads a block,
+// dynamic shared memory, and cudaOccupancyMaxActiveClusters.
+template <typename T, int BP>
+int cluster_occupancy_at(int N, int b, int C, int* out) {
+  static std::atomic<unsigned> done{0};
+  const int err = allow_cluster(cr_factor_kernel_cluster<T, BP>, done);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config<T, BP>(N, b, C, 1, nullptr, &attr);
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &clusters, reinterpret_cast<const void*>(
+                     cr_factor_kernel_cluster<T, BP>), &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = static_cast<int>(cfg.blockDim.x);
+  out[1] = static_cast<int>(cfg.dynamicSmemBytes);
+  out[2] = clusters;
+  return 0;
+}
+
+template <typename T>
+int cluster_occupancy(int N, int b, int C, int* out) {
+  if (!cluster_fits<T>(N, b, C)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return b <= 8 ? cluster_occupancy_at<T, 8>(N, b, C, out)
+                : cluster_occupancy_at<T, 16>(N, b, C, out);
+}
+
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
@@ -384,6 +893,33 @@ int ipmzoo_cr_factor_f64(const double* D, const double* E, double* Pinv,
                          void* stream) {
   return launch_factor<double>(D, E, Pinv, Eb, Ea, Dw, Ew, Xw, N, b, B,
                                static_cast<cudaStream_t>(stream));
+}
+
+// The K6 cluster route takes the block route's D, E, Pinv, Eb, Ea and no
+// scratch, with 1 <= b <= 16, 1 <= C <= 16, B C < 2^31 and the shared
+// memory of cluster_shape within 232448 bytes.  The occupancy functions
+// write threads a block, dynamic shared bytes and
+// cudaOccupancyMaxActiveClusters into out[0..2].
+int ipmzoo_cr_factor_cluster_f32(const float* D, const float* E,
+                                 float* Pinv, float* Eb, float* Ea, int N,
+                                 int b, long long B, int C, void* stream) {
+  return launch_factor_cluster<float>(D, E, Pinv, Eb, Ea, N, b, B, C,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_cr_factor_cluster_f64(const double* D, const double* E,
+                                 double* Pinv, double* Eb, double* Ea, int N,
+                                 int b, long long B, int C, void* stream) {
+  return launch_factor_cluster<double>(D, E, Pinv, Eb, Ea, N, b, B, C,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_cr_factor_cluster_occupancy_f32(int N, int b, int C, int* out) {
+  return cluster_occupancy<float>(N, b, C, out);
+}
+
+int ipmzoo_cr_factor_cluster_occupancy_f64(int N, int b, int C, int* out) {
+  return cluster_occupancy<double>(N, b, C, out);
 }
 
 int ipmzoo_cr_solve_f32(const float* Pinv, const float* Eb, const float* Ea,

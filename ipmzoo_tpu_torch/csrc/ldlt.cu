@@ -121,6 +121,30 @@
 // the outputs (about 20 us at the Schur shape), chosen over a transpose
 // kernel after it because the Schur iteration is bound by launches, not
 // by device time.
+//
+// K3 warp route, ldlt_solve_kernel_warp, replaces the same TPU kernel as
+// K3 (pallas_ldlt.py:_solve_kernel).  The thread route above gives each
+// matrix one thread: n^2 dependent loads from the SoA factor, x read and
+// written in device memory inside the loop, and at the Schur slice's H
+// blocks (n = 64, B = 512) four blocks on four SMs.  What bounds the
+// solve is one read of L, D and b and one write of x (2 n^2 operations
+// against n^2 / 2 + 3 n values: far under the ridge), so the design is
+// about latency and sectors.  A thread block owns a tile of G consecutive
+// instances, G values of one SoA element filling a 32-byte sector (8 in
+// float32, 4 in float64): consecutive threads load consecutive instances
+// of the strict lower triangle, D and b into dynamic shared memory, each
+// instance a padded row-major matrix at row stride n + 1.  Then SEG lanes
+// (8, 16 or 32, template parameter) hold one matrix, lane l rows l, l +
+// SEG, ... (R rows, template parameter, up to order 96), x in registers:
+// the forward sweep takes x_j by shuffle from its owner and lanes i > j
+// subtract L_ij x_j (the thread route's order per row), the division by
+// D, and the backward sweep column by column from the last (each row
+// subtracts its terms in decreasing j: rounding differs from the thread
+// route's row sums).  Only the segment's mask in the sweeps; one block
+// barrier after the staging and one before x leaves, coalesced, through
+// the same tile.  Shared memory is G n (n + 3) values, so the route takes
+// n <= 83 in both types (232448 bytes); ops/cuda_ldlt.py:k3_route keeps
+// the thread route above that.
 
 #include <atomic>
 #include <cstdint>
@@ -488,6 +512,123 @@ ldlt_factor_solve_matrix_kernel_warp(const T* __restrict__ A,
   }
 }
 
+// The K3 warp route's tile: G consecutive instances a thread block, G
+// values of one SoA element filling a 32-byte sector (G = 8 float32, 4
+// float64).
+template <typename T>
+__host__ __device__ constexpr int solve_tile() {
+  return static_cast<int>(32 / sizeof(T));
+}
+
+// Lane mask of the SEG-lane segment that holds `lane`.
+template <int SEG>
+__device__ __forceinline__ unsigned segment_mask(int lane) {
+  if (SEG == 32) return kFullMask;
+  return ((1u << SEG) - 1u) << (lane & ~(SEG - 1));
+}
+
+// Row of entry s of a strict lower triangle stored row by row (row i
+// holds entries i (i - 1) / 2 .. i (i + 1) / 2 - 1).
+__device__ __forceinline__ int tri_row(int s) {
+  int i = static_cast<int>((1.0f + sqrtf(8.0f * s + 1.0f)) * 0.5f);
+  while (i * (i - 1) / 2 > s) --i;
+  while (i * (i + 1) / 2 <= s) ++i;
+  return i;
+}
+
+// K3 warp route.  SEG lanes (8, 16 or 32) a matrix, R rows a lane (lane l
+// holds rows l, l + SEG, ...), so the padded order is SEG * R and every
+// register index is static.  The block's G instances are staged once,
+// coalesced, into dynamic shared memory: per instance the strict lower
+// triangle of L at row stride n + 1 (lane i reading column j hits its own
+// bank), then D, then b (overwritten by x).  Two block barriers (after
+// staging, before the coalesced store of x); the sweeps run inside the
+// segment with its own mask.
+template <typename T, int SEG, int R>
+__global__ void __launch_bounds__(solve_tile<T>() * SEG)
+ldlt_solve_kernel_warp(const T* __restrict__ L, const T* __restrict__ D,
+                       const T* __restrict__ rhs, T* __restrict__ x, int n,
+                       int64_t B) {
+  constexpr int G = solve_tile<T>();
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* tile = reinterpret_cast<T*>(shared_raw);
+  const int S = n + 1, per = n * (n + 3);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int nb = static_cast<int>(B - b0 < G ? B - b0 : G);
+
+  // staging: thread t loads instance t % G, so consecutive threads read
+  // consecutive instances of one element
+  const int g = tid % G, slot0 = tid / G, nslots = nt / G;
+  if (g < nb) {
+    T* P = tile + g * per;
+    const int tri = n * (n - 1) / 2;
+    for (int s = slot0; s < tri; s += nslots) {
+      const int i = tri_row(s), j = s - i * (i - 1) / 2;
+      P[i * S + j] = L[static_cast<int64_t>(i * n + j) * B + b0 + g];
+    }
+    for (int i = slot0; i < n; i += nslots) {
+      P[n * S + i] = D[static_cast<int64_t>(i) * B + b0 + g];
+      P[n * S + n + i] = rhs[static_cast<int64_t>(i) * B + b0 + g];
+    }
+  }
+  __syncthreads();
+
+  const int m = tid / SEG, l = tid % SEG;
+  if (m < nb) {
+    const T* P = tile + m * per;
+    T* xs = tile + m * per + n * S + n;
+    const unsigned mask = segment_mask<SEG>(tid & 31);
+    T v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+      v[r] = row < n ? xs[row] : T(0);
+    }
+    // forward sweep with the unit-lower L, in increasing j:
+    // x_i -= L_ij x_j, x_j shuffled from its owner
+#pragma unroll
+    for (int j = 0; j < SEG * R; ++j) {
+      if (j >= n) break;
+      const T y = __shfl_sync(mask, v[j / SEG], j % SEG, SEG);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+        if (row > j && row < n) v[r] -= P[row * S + j] * y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+      if (row < n) v[r] = v[r] / P[n * S + row];
+    }
+    // backward sweep with L^T, column by column from the last:
+    // x_i -= L_ji x_j for every i < j
+#pragma unroll
+    for (int j = SEG * R - 1; j > 0; --j) {
+      if (j >= n) continue;
+      const T y = __shfl_sync(mask, v[j / SEG], j % SEG, SEG);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+        if (row < j) v[r] -= P[j * S + row] * y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+      if (row < n) xs[row] = v[r];
+    }
+  }
+  __syncthreads();
+  if (g < nb) {
+    const T* xs = tile + g * per + n * S + n;
+    for (int i = slot0; i < n; i += nslots) {
+      x[static_cast<int64_t>(i) * B + b0 + g] = xs[i];
+    }
+  }
+}
+
 unsigned int grid_for(int64_t B) {
   return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
 }
@@ -589,6 +730,43 @@ int launch_warp(const T* A, const T* R, T* L, T* D, T* X, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int SEG, int R>
+int launch_solve_warp_at(const T* L, const T* D, const T* rhs, T* x, int n,
+                         int64_t B, size_t shared, cudaStream_t stream) {
+  static std::atomic<unsigned> cap_set{0};
+  if (shared > 48 * 1024) {
+    const int err = allow_shared_cap(ldlt_solve_kernel_warp<T, SEG, R>,
+                                     cap_set);
+    if (err) return err;
+  }
+  constexpr int G = solve_tile<T>();
+  const unsigned int grid = static_cast<unsigned int>((B + G - 1) / G);
+  ldlt_solve_kernel_warp<T, SEG, R>
+      <<<grid, G * SEG, shared, stream>>>(L, D, rhs, x, n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the K3 warp route: SEG lanes a matrix for n <= 32 (the smallest of 8,
+// 16, 32 that holds n), else a warp with 2 or 3 rows a lane
+template <typename T>
+int launch_solve_warp(const T* L, const T* D, const T* rhs, T* x, int n,
+                      int64_t B, cudaStream_t stream) {
+  const size_t shared = static_cast<size_t>(solve_tile<T>()) * n * (n + 3) *
+                        sizeof(T);
+  if (n > 96 || shared > static_cast<size_t>(kSharedCap)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 8) return launch_solve_warp_at<T, 8, 1>(L, D, rhs, x, n, B,
+                                                  shared, stream);
+  if (n <= 16) return launch_solve_warp_at<T, 16, 1>(L, D, rhs, x, n, B,
+                                                    shared, stream);
+  if (n <= 32) return launch_solve_warp_at<T, 32, 1>(L, D, rhs, x, n, B,
+                                                    shared, stream);
+  if (n <= 64) return launch_solve_warp_at<T, 32, 2>(L, D, rhs, x, n, B,
+                                                    shared, stream);
+  return launch_solve_warp_at<T, 32, 3>(L, D, rhs, x, n, B, shared, stream);
+}
+
 // the smallest padded order NP that holds n, and KP = 2 for k <= 2, else 8
 template <typename T>
 int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
@@ -621,7 +799,9 @@ int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
 // (n (n + k) + 2 n) sizeof(T) <= 232448 bytes of shared memory; its warp
 // route the same arrays with 0 < n <= 32 and any k > 0.  The K2 block
 // route takes contiguous A (B, n, n) and writes SoA L (n, n, B), D (n, B),
-// with 0 < B < 2^31 and (n^2 + 2 n) sizeof(T) <= 232448.
+// with 0 < B < 2^31 and (n^2 + 2 n) sizeof(T) <= 232448.  The K3 warp
+// route takes K3's SoA arrays with 0 < n <= 96 and
+// G n (n + 3) sizeof(T) <= 232448 (G = 32 / sizeof(T)).
 extern "C" {
 
 int ipmzoo_ldlt_factor_solve_matrix_warp_f32(const float* A, const float* R,
@@ -700,6 +880,20 @@ int ipmzoo_ldlt_solve_f64(const double* L, const double* D,
                           void* stream) {
   return launch_solve<double>(L, D, rhs, x, n, B,
                               static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_warp_f32(const float* L, const float* D,
+                               const float* rhs, float* x, int n,
+                               long long B, void* stream) {
+  return launch_solve_warp<float>(L, D, rhs, x, n, B,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_warp_f64(const double* L, const double* D,
+                               const double* rhs, double* x, int n,
+                               long long B, void* stream) {
+  return launch_solve_warp<double>(L, D, rhs, x, n, B,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 int ipmzoo_ldlt_solve_matrix_f32(const float* L, const float* D,

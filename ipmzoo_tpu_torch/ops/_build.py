@@ -141,3 +141,20 @@ def ptxas_report(lib: Path):
         if m:
             cur["registers"] = int(m.group(1))
     return out
+
+
+def ptxas_shared(lib: Path):
+    """Bytes of static shared memory ptxas reports for each kernel of a
+    built library (its ``.log``), by (mangled) entry name; a kernel whose
+    line names none takes 0."""
+    out, cur = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+            continue
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur is not None:
+            out[cur] = int(m.group(1))
+    return out

@@ -14,14 +14,19 @@ the public layout as it is, no transpose.
 For CPU tensors the wrappers run the plain versions of :mod:`.ldlt`.
 Any other device raises; a failed build or launch raises too.
 
-K2 and K5 each have two routes, picked per call by pure functions of the
-shape and type (:func:`k2_route`, :func:`k5_route`) whose thresholds come
-from both routes timed on an H100 (PERF.md):
+K2, K3 and K5 each have two routes, picked per call by pure functions of
+the shape and type (:func:`k2_route`, :func:`k3_route`, :func:`k5_route`)
+whose thresholds come from both routes timed on an H100 (PERF.md):
 
 - K2 ``"soa"``: one thread per matrix on SoA data (the QP slices' many
   small systems); ``"block"``: one thread block per matrix, the matrix in
   shared memory, read in the public layout and written as SoA (few,
   larger systems: the Schur slice's H blocks).
+- K3 ``"thread"``: one thread per matrix on SoA data; ``"warp"``: a
+  thread block stages a tile of 8 (float32) or 4 (float64) instances in
+  shared memory, coalesced from the same SoA arrays, and one warp, or an
+  8- / 16-lane part of one, solves each matrix with x in registers, for
+  every order from 2 whose tile fits a block's shared memory (n <= 83).
 - K5 ``"block"``: one thread block per matrix (the nested-dissection
   levels); ``"warp"``: one warp, or an 8- / 16-lane part of one, per
   matrix of order <= 32, no block barrier; ``"k2+k4"``: K2 then K4 where
@@ -47,8 +52,10 @@ launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0,
             "ldlt_solve_matrix": 0}
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
-#: ``launches`` of K2 ("ldlt") and K5 ("ldlt_solve_matrix") by route
+#: ``launches`` of K2 ("ldlt"), K3 ("solve_ldlt") and K5
+#: ("ldlt_solve_matrix") by route
 route_launches = {"ldlt soa": 0, "ldlt block": 0,
+                  "solve_ldlt thread": 0, "solve_ldlt warp": 0,
                   "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -82,6 +89,9 @@ def _lib() -> ctypes.CDLL:
         s = getattr(lib, f"ipmzoo_ldlt_solve_{sfx}")
         s.argtypes = [ptr, ptr, ptr, ptr, i32, i64, ptr]
         s.restype = i32
+        sw = getattr(lib, f"ipmzoo_ldlt_solve_warp_{sfx}")
+        sw.argtypes = s.argtypes
+        sw.restype = i32
         m = getattr(lib, f"ipmzoo_ldlt_solve_matrix_{sfx}")
         m.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
         m.restype = i32
@@ -156,7 +166,65 @@ def solve_soa(L_t: torch.Tensor, D_t: torch.Tensor,
     if err:
         raise RuntimeError(f"LDL^T solve kernel launch failed: "
                            f"cudaError {err}")
-    _count("solve_ldlt", b_t.dtype)
+    _count("solve_ldlt", b_t.dtype, "thread")
+    return x_t
+
+
+#: the K3 warp route's tile: consecutive instances a thread block, one
+#: 32-byte sector of each SoA element
+K3_TILE = {torch.float32: 8, torch.float64: 4}
+#: the K3 warp route's largest padded order (a warp, three rows a lane)
+K3_WARP_MAX_ORDER = 96
+
+
+def solve_warp_bytes(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K3 warp-route thread block for order
+    n: per instance of the tile, L at row stride n + 1, D and b."""
+    return K3_TILE[dtype] * n * (n + 3) * torch.finfo(dtype).bits // 8
+
+
+def solve_warp_fits(n: int, dtype: torch.dtype) -> bool:
+    return n <= K3_WARP_MAX_ORDER and \
+        solve_warp_bytes(n, dtype) <= K5_SHARED_MEMORY_CAP
+
+
+def k3_route(n: int, B: int, dtype: torch.dtype) -> str:
+    """K3's route for B systems of order n: ``"warp"`` for 2 <= n while
+    the tile fits a block's shared memory (n <= 83 in both types), else
+    ``"thread"``.  On an H100 the warp route was the faster at every
+    shape the paths give K3 (n=64, B=512 float64: 0.0258 against 0.4322
+    ms of device time; n=24, B=10240 float32: 0.0163 against 0.0343),
+    and the thread route at n = 1, where both take the launch's 1.4 us
+    and the warp route adds its staging (PERF.md §6)."""
+    return "warp" if n >= 2 and solve_warp_fits(n, dtype) else "thread"
+
+
+def solve_soa_warp(L_t: torch.Tensor, D_t: torch.Tensor,
+                   b_t: torch.Tensor) -> torch.Tensor:
+    """Launch K3's warp route on the SoA data :func:`solve_soa` takes:
+    L_t (n, n, B), D_t (n, B), b_t (n, B) -> x_t (n, B)."""
+    n, B = b_t.shape
+    _check_soa(b_t.dtype, b_t.device, L_t=(L_t, (n, n, B)),
+               D_t=(D_t, (n, B)), b_t=(b_t, (n, B)))
+    if not solve_warp_fits(n, b_t.dtype):
+        raise ValueError(
+            f"K3's warp route at n={n} in {b_t.dtype} needs "
+            f"{solve_warp_bytes(n, b_t.dtype)} bytes of shared memory, "
+            f"above its cap of {K5_SHARED_MEMORY_CAP} (or n > "
+            f"{K3_WARP_MAX_ORDER})")
+    if not b_t.is_cuda:
+        raise ValueError(f"K3 needs CUDA tensors, got {b_t.device}")
+    x_t = torch.empty_like(b_t)
+    if n == 0 or B == 0:
+        return x_t
+    with torch.cuda.device(b_t.device):
+        err = getattr(_lib(), f"ipmzoo_ldlt_solve_warp_{_SUFFIX[b_t.dtype]}")(
+            L_t.data_ptr(), D_t.data_ptr(), b_t.data_ptr(), x_t.data_ptr(),
+            n, B, _stream(b_t.device))
+    if err:
+        raise RuntimeError(f"LDL^T solve (warp route) kernel launch failed: "
+                           f"cudaError {err}")
+    _count("solve_ldlt", b_t.dtype, "warp")
     return x_t
 
 
@@ -387,8 +455,11 @@ def solve_ldlt_auto(L: torch.Tensor, D: torch.Tensor,
     """Batched solve against ``ldlt_auto``'s factors: b (B, n) -> x."""
     if not _dispatch(b):
         return solve_ldlt(L, D, b)
-    x_t = solve_soa(L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
-                    b.t().contiguous())
+    B, n = b.shape
+    launch = solve_soa_warp if k3_route(n, B, b.dtype) == "warp" else \
+        solve_soa
+    x_t = launch(L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
+                 b.t().contiguous())
     return x_t.t()
 
 
