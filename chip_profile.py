@@ -14,7 +14,7 @@ the same data, and prints, after the card's name and power limit:
    runs after a warm-up); the kernel launches and device busy time of
    one solve under torch.profiler, as launches per iteration and busy
    share (busy time over the un-profiled median); the largest entries of
-   device time; K2 and K3 (by route) and K4's device time and share;
+   device time; K2, K3 and K4 (by route) device time and share;
    K3's launches by (route, order, systems, type), each shape's device
    ms per launch timed alone and their product; and the host-clock time
    of three single iterations;
@@ -30,7 +30,7 @@ the same data, and prints, after the card's name and power limit:
 4. the banded+arrow slice (bench_arrow's defaults, float32, tol 1e-5),
    one instance and the batch of 32: the wall by CUDA events (median of
    5 runs after a warm-up); launches per iteration and busy share of one
-   solve under torch.profiler; K6's (by route) and K7's share of device
+   solve under torch.profiler; K6's and K7's (by route) share of device
    time; and the host-clock time of three single iterations;
 5. the nested-dissection slice (bench_nd's defaults, float32, tol 1e-5),
    one instance and the batch of 8: the wall by CUDA events (median of 5
@@ -88,7 +88,9 @@ SCHUR_KERNELS = (("K2", "ldlt_factor_kernel", None),
                  ("K3", "ldlt_solve_kernel", None),
                  ("K3 thread route", "ldlt_solve_kernel", "_warp"),
                  ("K3 warp route", "ldlt_solve_kernel_warp", None),
-                 ("K4", "ldlt_solve_matrix_kernel", None))
+                 ("K4", "ldlt_solve_matrix_kernel", None),
+                 ("K4 thread route", "ldlt_solve_matrix_kernel", "_warp"),
+                 ("K4 warp route", "ldlt_solve_matrix_kernel_warp", None))
 ND_KERNELS = (("K5", "ldlt_factor_solve_matrix_kernel", None),
               ("K5 block route", "ldlt_factor_solve_matrix_kernel", "_warp"),
               ("K5 warp route", "ldlt_factor_solve_matrix_kernel_warp", None),
@@ -196,11 +198,14 @@ def profile_arrow():
         k6c = sum(ms for key, ms in events
                   if "cr_factor_kernel_cluster" in key)
         k7 = sum(ms for key, ms in events if "cr_solve_kernel" in key)
+        k7s = sum(ms for key, ms in events
+                  if "cr_solve_kernel_shared" in key)
         print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
               f"launches per iteration {launches / steps:.1f}; busy share "
               f"{busy / med:.4f}; K6 {k6:.3f} ms ({k6 / busy:.4f} of device "
               f"time; cluster route {k6c:.3f} ms, block route "
-              f"{k6 - k6c:.3f}), K7 {k7:.3f} ms ({k7 / busy:.4f})")
+              f"{k6 - k6c:.3f}), K7 {k7:.3f} ms ({k7 / busy:.4f}; shared "
+              f"route {k7s:.3f} ms, block route {k7 - k7s:.3f})")
         dd = solver._check_data(d)
         state = solver.init_state(dd)
         for _ in range(3):

@@ -10,7 +10,8 @@ Steps, each reported on its own line:
 2. print the card's name and power limit (nvidia-smi);
 3. build the CUDA kernels from ipmzoo_tpu_torch/csrc/ and report the time,
    with ptxas' registers, stack frame, spills and static shared memory of
-   each instantiation of K3's warp route and K6's cluster route, and for
+   each instantiation of K3's and K4's warp routes, K6's cluster route and
+   K7's shared route, and for
    the cluster route at the arrow shape (N=256, b=16) each cluster size's
    threads a block, dynamic shared memory and
    cudaOccupancyMaxActiveClusters (which must be > 0);
@@ -21,7 +22,14 @@ Steps, each reported on its own line:
    exactly-zero pivot replaced by the floor exactly in both; then K4
    (multi-rhs LDL^T solve) against its plain version at the Schur
    slice's n=64, k=16, B=512, at n=24, k=2, B=10240 and at n=13, k=5,
-   B=1000, in the same measure and limits; then each route of K2 alone
+   B=1000, in the same measure and limits, through solve_ldlt_matrix_auto
+   and each route alone (the thread route, a thread per (matrix, column),
+   and the warp route, a staged tile of the factor and segments of a warp
+   across the right-hand sides) there and at K4_EDGES in both types (n=1,
+   the smallest orders, odd n, a batch that fills no tile, k=1, k over a
+   segment's 4 columns and over a block's chunk, the route's cap 96 and
+   97), with the largest difference between the two routes' X and the
+   wrapper taking the route k4_route picks; then each route of K2 alone
    (the SoA route, a thread per matrix, and the block route, a thread
    block per matrix) at every (order, matrices) of K2_SHAPES: the
    compact slice's batches and its float64 escalation, the Schur slice's
@@ -57,7 +65,10 @@ Steps, each reported on its own line:
    for both K3 routes at every shape of step 4's K3 check, all in one
    torch.profiler trace (k3_route; two launches within 0.2 us tie, as at
    n=1 where both take the launch's 1.3-1.7 us), with CUDA events behind
-   a leading launch printed beside;
+   a leading launch printed beside; and both K4 routes at every shape of
+   step 4's K4 check, in one trace: fail where k4_route picks a route
+   more than 5% slower at K4_SHAPES (the Schur slice's H blocks among
+   them);
 9. build kernel K1 (the fused whole-solve IPM), generated for the fused
    slice's formulation (Settings(), n=16, m_ineq=8), on both routes: the
    thread route (one thread per instance) and the team route (a team of
@@ -111,30 +122,41 @@ Steps, each reported on its own line:
     float32 within 1e-5 and float64 within 1e-12 as in step 4: the H
     blocks (n=64, B=512; K4 with k=16) and the coupling systems S (n=16,
     B=8); then time the route ldlt_auto takes for the H blocks, both K2
-    routes on H and on S (with the check of step 8), K3, K4 and the plain
-    versions, and torch.linalg.cholesky_ex on H (the nearest library
-    call, not the same function: LL^T, SPD only); K3's warp route and
-    torch.linalg.ldl_solve (K3's function) on H in float64;
+    routes on H and on S (with the check of step 8), K3, both K4 routes
+    (each alone held to plain there too) and the plain versions, and
+    torch.linalg.cholesky_ex on H (the nearest library call, not the same
+    function: LL^T, SPD only); K3's warp route and torch.linalg.ldl_solve
+    (K3's and K4's function) on H in float64;
 18. hold K6 (whole-reduction cyclic-reduction factor) and K7 (its
     multi-rhs solve) against their plain versions on the card, float32
     and float64, on random SPD block-tridiagonal systems at (N, b, k) =
     (256, 16, 9), (256, 16, 1), (37, 8, 3) and a batch of 32 at (256, 16,
-    9): float64 within a relative difference of 1e-10 on the factors and
-    on the solution (K7 alone on the plain factors, and K6 + K7 chained),
-    float32 within 5e-4 absolute on the solution; each K6 route so (the
-    block route and the cluster route at each cluster size that fits),
-    and cr_factor_auto taking the route k6_route picks; at (37, 8, 3)
-    also against torch.linalg.solve of the assembled dense system; then
-    every K6 route's device time at each (B, N, b) of K6_ROUTE_SHAPES
-    (those systems, small chains and the edges of k6_route's rows),
-    float32 and float64, in one torch.profiler trace a type: fail where
-    k6_route picks a route more than 5% slower than the fastest;
+    9), and at CR_EDGES (N = 1, 2, 37; b = 8 and 3; k = 1 and k over one
+    group's columns): float64 within a relative difference of 1e-10 on
+    the factors and on the solution (each K7 route alone on the plain
+    factors, and each K6 route + each K7 route chained), float32 within
+    5e-4 absolute on the solution; the K6 routes are the block route and
+    the cluster route at each cluster size that fits, the K7 routes the
+    block route and the shared route (a block per instance and group of
+    columns, the group's right-hand sides in shared memory) at the
+    columns k7_route picks and at one group; cr_factor_auto and
+    cr_solve_auto taking the routes k6_route and k7_route pick; at (37,
+    8, 3) also against torch.linalg.solve of the assembled dense system;
+    then every K6 route's device time at each (B, N, b) of
+    K6_ROUTE_SHAPES (those systems, small chains and the edges of
+    k6_route's rows), float32 and float64, in one torch.profiler trace a
+    type: fail where k6_route picks a route more than 5% slower than the
+    fastest; then both K7 routes (the shared route at each group width)
+    at the arrow slice's N=256, b=16, k = 9 and 1, B = 1 and 32, float32
+    and float64, in one trace: fail where k7_route picks a route more
+    than 5% slower than the other;
 19. run the banded+arrow slice, bench.py's bench_arrow at its defaults:
     n=4096, bandwidth 16, tip 8 (numpy seed 0), float32, tol 1e-5,
     through ArrowQPData.from_dense (block 16, N=256, t=8) and
     ArrowIPM.for_data(...).solve on the card, which must converge with
     one K6 (on the route k6_route picks, the cluster route) and two K7
-    launches per iteration; time it with CUDA events
+    launches per iteration (on the route k7_route picks, the shared
+    route); time it with CUDA events
     (median of 5 runs after a warm-up) and report ms per solve and per
     iteration, launches and host syncs; the objective against the port
     on the CPU in float64 with method='cr': |f_gpu - f_cpu| <= 1e-4
@@ -142,7 +164,8 @@ Steps, each reported on its own line:
 20. the same structure as a batch: solve_batch on 32 instances (the same
     Q, c drawn from numpy seeds 1..32), all 32 converged, timed and held
     to the CPU float64 port in the same way;
-21. time K6 and K7 (k=9 and k=1) against their plain versions and
+21. time K6 and K7 (k=9 and k=1; K7's block and shared routes) against
+    their plain versions and
     against the per-level library composition (method='cr') on the
     slice's own condensed matrices at the initial iterate, one instance
     and the batch of 32, float32 and float64, and hold them to the plain
@@ -264,6 +287,13 @@ SOURCE = "ipmzoo_tpu_torch/csrc/ldlt.cu"
 SCHUR_I, SCHUR_BLOCKS, SCHUR_N, SCHUR_MC = 8, 64, 64, 16
 K4_SHAPES = ((SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS), (24, 2, 10240),
              (13, 5, 1000))
+#: more (order, right-hand sides, systems) at which both K4 routes are held
+#: to plain (step 4) and timed (step 8), in both types: n = 1 and the
+#: orders around the warp route's smallest (6), odd orders, batches that
+#: fill no tile, k = 1, k over a segment's 4 columns and over a block's
+#: chunk of 16, the warp route's cap (96) and one past it
+K4_EDGES = ((1, 1, 5), (5, 2, 9), (6, 2, 9), (13, 5, 7), (37, 9, 77),
+            (64, 40, 105), (96, 5, 3), (97, 3, 2))
 K1_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
              "ipmzoo_tpu_torch/models/codegen_soa.py + "
              "ipmzoo_tpu_torch/models/fused_source.py")
@@ -272,10 +302,12 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "fused": "ipmzoo_tpu/models/fused.py:432",
             "fused team": "ipmzoo_tpu/models/fused.py:432",
+            "solve_ldlt_matrix warp": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_factor cluster": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281",
+            "cr_solve shared": "ipmzoo_tpu/ops/cr_pallas.py:281",
             "fma_chains": "tools/roofline.py:41",
             "factor_reps": "tools/roofline.py:111",
             "solve_reps": "tools/roofline.py:124",
@@ -307,6 +339,15 @@ ARROW_N, ARROW_BW, ARROW_TIP, ARROW_BATCH = 4096, 16, 8, 32
 #: (batch, blocks, block size, right-hand sides) of step 18
 CR_SHAPES = ((1, 256, 16, 9), (1, 256, 16, 1), (1, 37, 8, 3),
              (ARROW_BATCH, 256, 16, 9))
+#: more (batch, blocks, block size, right-hand sides) of step 18: N = 1,
+#: 2 and 37, b = 8 and 3, k = 1 and k over one group's columns (40
+#: instances: groups of 3)
+CR_EDGES = ((1, 1, 16, 1), (1, 2, 8, 3), (2, 37, 3, 5), (1, 37, 8, 1),
+            (40, 37, 8, 9))
+#: (batch, right-hand sides) of step 18's K7 route timing, at the arrow
+#: slice's N and b: its two solves, one instance and the batch
+K7_ROUTE_SHAPES = ((1, ARROW_TIP + 1), (1, 1), (ARROW_BATCH, ARROW_TIP + 1),
+                   (ARROW_BATCH, 1))
 #: (B, N, b) of step 18's K6 route timing: CR_SHAPES' systems and
 #: small N, where a level holds few pivots for the cluster's blocks
 K6_ROUTE_SHAPES = ((1, 256, 16), (1, 37, 8), (ARROW_BATCH, 256, 16),
@@ -634,33 +675,136 @@ def check_kernels(dev):
     return errs
 
 
+#: K4's kernels by route, as launch_ms matches them
+K4_KERNELS = {"thread": ("ldlt_solve_matrix_kernel<", None),
+              "warp": ("ldlt_solve_matrix_kernel_warp<", None)}
+
+
+def k4_call(route, L_t, D_t, R):
+    """One launch of K4's ``route`` on the SoA factors and R (B, n, k),
+    with the layout work its caller does (the thread route's transposes
+    of R and X); returns X (B, n, k)."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    if route == "warp":
+        return cuda_ldlt.solve_matrix_warp(L_t, D_t, R)
+    return cuda_ldlt.solve_matrix_soa(
+        L_t, D_t, R.permute(1, 2, 0).contiguous()).permute(2, 0, 1)
+
+
+def k4_routes(n, k, dtype):
+    """The K4 routes that can run order n with k columns in ``dtype``."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    return ("thread", "warp") if cuda_ldlt.k4_warp_shape(n, k, dtype) \
+        else ("thread",)
+
+
+def k4_inputs(n, k, B, dtype, dev):
+    """Plain factors of B quasi-definite systems of order n, k random
+    right-hand sides, and the SoA factors K4 reads."""
+    import torch
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+    K, _ = quasi_definite(B, n, dtype, dev, seed=n + k)
+    R = torch.randn((B, n, k), dtype=dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(k))
+    L, D = ldlt(K)
+    return L, D, R, (L.permute(1, 2, 0).contiguous(), D.t().contiguous())
+
+
+def k4_cases():
+    """(n, k, B, dtype) of K4_SHAPES and K4_EDGES, in both types."""
+    import torch
+    return [(n, k, B, dt) for dt in (torch.float32, torch.float64)
+            for n, k, B in K4_SHAPES + K4_EDGES]
+
+
 def check_k4(dev):
-    """Step 4, K4: the multi-rhs solve against its plain version on the
-    card, on the factors of quasi-definite systems; returns the float64
-    largest absolute difference at the Schur shape."""
+    """Step 4, K4: the multi-rhs solve through solve_ldlt_matrix_auto and
+    each route alone against the plain version on the card, on the
+    factors of quasi-definite systems, at every shape of k4_cases; the
+    two routes' X against each other, and the wrapper taking the route
+    k4_route picks, one launch.  Returns the largest absolute differences
+    by (route, n, k, B, type)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
-    from ipmzoo_tpu_torch.ops.ldlt import ldlt, solve_ldlt_matrix
+    from ipmzoo_tpu_torch.ops.ldlt import solve_ldlt_matrix
 
-    err = None
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    errs, between = {}, 0.0
+    for n, k, B, dtype in k4_cases():
         name = str(dtype).replace("torch.", "")
-        for n, k, B in K4_SHAPES:
-            K, _ = quasi_definite(B, n, dtype, dev, seed=n + k)
-            R = torch.randn((B, n, k), dtype=dtype, device=dev,
-                            generator=torch.Generator(dev).manual_seed(k))
-            L, D = ldlt(K)
-            X0 = solve_ldlt_matrix(L, D, R)
-            X = cuda_ldlt.solve_ldlt_matrix_auto(L, D, R)
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        L, D, R, soa = k4_inputs(n, k, B, dtype, dev)
+        X0 = solve_ldlt_matrix(L, D, R)
+        xs = {}
+        for route in k4_routes(n, k, dtype):
+            X = k4_call(route, *soa, R)
             torch.cuda.synchronize()
             rx = rel_diff(X, X0)
-            print(f"kernels {name} n={n} k={k} B={B}: K4 rel diff X "
-                  f"{rx:.3e} (limit {tol:g})")
-            check(rx <= tol, f"K4 disagrees with its plain version in "
-                  f"{name} at n={n} k={k} B={B}: {rx:.3e} > {tol:g}")
-            if dtype == torch.float64 and (n, k, B) == K4_SHAPES[0]:
-                err = (X - X0).abs().max().item()
-    return err
+            print(f"kernels {name} n={n} k={k} B={B}: K4 {route} route rel "
+                  f"diff X {rx:.3e} (limit {tol:g})")
+            check(rx <= tol, f"K4's {route} route disagrees with its plain "
+                  f"version in {name} at n={n} k={k} B={B}: {rx:.3e} > "
+                  f"{tol:g}")
+            xs[route] = X
+            errs[(route, n, k, B, name)] = (X - X0).abs().max().item()
+        if len(xs) == 2:
+            d = (xs["warp"] - xs["thread"]).abs().max().item()
+            between = max(between, d / max(X0.abs().max().item(), 1e-300))
+        pick = cuda_ldlt.k4_route(n, k, B, dtype)
+        before = dict(cuda_ldlt.route_launches)
+        X = cuda_ldlt.solve_ldlt_matrix_auto(L, D, R)
+        torch.cuda.synchronize()
+        made = {a: v - before[a] for a, v in cuda_ldlt.route_launches.items()
+                if v != before[a]}
+        check(made == {f"solve_ldlt_matrix {pick}": 1},
+              f"solve_ldlt_matrix_auto at n={n} k={k} B={B} {name}: "
+              f"launches {made}, k4_route picks {pick}")
+        check(torch.equal(X, xs[pick]), f"solve_ldlt_matrix_auto at n={n} "
+              f"k={k} B={B} {name} differs from its route launched alone")
+    print(f"kernels K4: largest difference between the two routes' X, over "
+          f"the largest |X|: {between:.3e}")
+    return errs
+
+
+def k4_device_ms(dev, cases, reps):
+    """Device ms of each K4 route that can run each (n, k, B, dtype) of
+    ``cases`` (k4_routes; the thread route with its caller's transposes),
+    on the inputs of k4_inputs, all in one trace (launch_ms); a list of
+    route -> ms maps."""
+    groups = []
+    for n, k, B, dtype in cases:
+        _, _, R, soa = k4_inputs(n, k, B, dtype, dev)
+        routes = k4_routes(n, k, dtype)
+        groups.append((lambda routes=routes, soa=soa, R=R:
+                       [k4_call(r, *soa, R) for r in routes],
+                       {r: K4_KERNELS[r] for r in routes}))
+    return launch_ms(groups, reps)
+
+
+def time_k4_routes(dev):
+    """Step 8, K4's routes: device time of each route at every shape of
+    k4_cases, all in one trace (k4_device_ms); fails where k4_route picks
+    a route more than 5% slower than the other at K4_SHAPES.  Returns the
+    times by (n, k, B, type)."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    cases = k4_cases()
+    out = {}
+    for (n, k, B, dtype), dev_t in zip(cases, k4_device_ms(dev, cases, 20)):
+        name = str(dtype).replace("torch.", "")
+        routes = list(dev_t)
+        pick = cuda_ldlt.k4_route(n, k, B, dtype)
+        best = min(routes, key=lambda r: dev_t[r])
+        bnd = ldlt_bounds(B, n, k, dtype)["K4"]
+        out[(n, k, B, name)] = dev_t
+        print(f"timing K4 routes n={n} k={k} B={B} {name} (device ms per "
+              f"call): " + ", ".join(f"{r} {dev_t[r]:.5f}" for r in routes) +
+              f"; bound {bnd[0]:.6f} ms by {bnd[1]}; k4_route picks {pick}, "
+              f"the faster is {best}")
+        if (n, k, B) in K4_SHAPES:
+            check(dev_t[pick] <= 1.05 * dev_t[best],
+                  f"k4_route picks the {pick} route at n={n} k={k} B={B} "
+                  f"{name}: {dev_t[pick]:.5f} ms of device time against "
+                  f"{best}'s {dev_t[best]:.5f}")
+    return out
 
 
 def k2_call(route, A):
@@ -1121,15 +1265,17 @@ def build_kernels():
 
 
 def report_route_builds():
-    """Step 3, the second routes of K3 and K6: ptxas' registers, stack
-    frame, spills and static shared memory per instantiation, and for
+    """Step 3, the second routes of K3, K4, K6 and K7: ptxas' registers,
+    stack frame, spills and static shared memory per instantiation, and for
     K6's cluster route at the arrow slice's shape (N=256, b=16) the
     threads a block, dynamic shared memory and
     cudaOccupancyMaxActiveClusters per cluster size and type."""
     import torch
     from ipmzoo_tpu_torch.ops import _build, cuda_cr
     for name, key in (("ldlt", "ldlt_solve_kernel_warp"),
-                      ("cr", "cr_factor_kernel_cluster")):
+                      ("ldlt", "ldlt_solve_matrix_kernel_warp"),
+                      ("cr", "cr_factor_kernel_cluster"),
+                      ("cr", "cr_solve_kernel_shared")):
         lib = _build.library_path(name)
         smem = _build.ptxas_shared(lib)
         for k in _build.ptxas_report(lib):
@@ -1556,6 +1702,15 @@ def run_schur(dev, data, tol, runs):
           "add up")
     check(routes["solve_ldlt warp"] > 0, "schur slice: K3's warp route "
           "never launched")
+    k4_pick = cuda_ldlt.k4_route(SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS,
+                                 work_t)
+    print(f"schur slice: K4 routes: thread "
+          f"{routes['solve_ldlt_matrix thread']}, warp "
+          f"{routes['solve_ldlt_matrix warp']} (k4_route at the H blocks: "
+          f"{k4_pick})")
+    check(routes[f"solve_ldlt_matrix {k4_pick}"] ==
+          launches["solve_ldlt_matrix"], "schur slice: K4's launches are "
+          f"not all on the route k4_route picks ({k4_pick})")
     check(conv >= 0.99, f"schur convergence {conv} < 0.99")
     for k in ("ldlt", "solve_ldlt", "solve_ldlt_matrix"):
         check(launches[k] > 0, f"the schur slice never launched {k}")
@@ -1629,6 +1784,10 @@ def check_schur_kernels(dev, data):
                 cuda_ldlt.solve_ldlt_auto(L0, D0, r), solve_ldlt(L0, D0, r)),
             f"K4 n={n} k={k} B={B} X": rel_diff(
                 cuda_ldlt.solve_ldlt_matrix_auto(L0, D0, R), X0),
+            **{f"K4 {route} route n={n} k={k} B={B} X": rel_diff(
+                k4_call(route, L0.permute(1, 2, 0).contiguous(),
+                        D0.t().contiguous(), R.contiguous()), X0)
+               for route in k4_routes(n, k, dtype)},
             f"K2 S n={k} B={SCHUR_I} L": rel_diff(LS, LS0),
             f"K2 S n={k} B={SCHUR_I} D": rel_diff(DS, DS0),
             f"K3 S n={k} B={SCHUR_I} x": rel_diff(
@@ -1648,6 +1807,7 @@ def check_schur_kernels(dev, data):
         check(L_t.is_contiguous() and D_t.is_contiguous(),
               "ldlt_auto's factors are not views of SoA storage")
         R_t, r_t = R.permute(1, 2, 0).contiguous(), r.t().contiguous()
+        R_c = R.contiguous()
         t = time_k2_routes(dev, n, B, dtype, A=H)
         t["route"] = cuda_ldlt.k2_route(n, B, dtype)
         t["K2"] = time_cuda(lambda: cuda_ldlt.ldlt_auto(H), 20)
@@ -1665,6 +1825,8 @@ def check_schur_kernels(dev, data):
             "K3_plain": time_cuda(lambda: solve_ldlt(L0, D0, r), 3),
             "K4": time_cuda(lambda: cuda_ldlt.solve_matrix_soa(L_t, D_t,
                                                                R_t), 20),
+            "K4_warp": time_cuda(
+                lambda: cuda_ldlt.solve_matrix_warp(L_t, D_t, R_c), 20),
             "K4_plain": time_cuda(lambda: solve_ldlt_matrix(L0, D0, R), 3),
         })
         if dtype == torch.float64:
@@ -1730,72 +1892,104 @@ def k6_pick(N, b, B, dtype):
     return f"cluster{cuda_cr.k6_cluster(N, b, B, dtype)}"
 
 
+def k7_calls(N, b, k, B, dtype):
+    """K7's routes that can run (N, b, k) in ``dtype``, by name: "block",
+    and "shared" at the columns k7_route picks and "shared kc" at one
+    group of every column that fits (where that differs)."""
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    calls = {"block": cuda_cr.cr_solve_kernel}
+    route, kc = cuda_cr.k7_route(N, b, k, B, dtype)
+    if route == "shared":
+        calls["shared"] = lambda f, r, kc=kc: cuda_cr.cr_solve_shared(f, r,
+                                                                      kc)
+        top = min(k, cuda_cr.solve_shared_max_kc(N, b, dtype))
+        if top != kc:
+            calls[f"shared kc={top}"] = (
+                lambda f, r, kc=top: cuda_cr.cr_solve_shared(f, r, kc))
+    return calls
+
+
 def hold_cr(what, D, E, r, errs=None):
-    """K6 (each route) and K7 against their plain versions on (D, E, r):
-    the factors, K7 alone on the plain factors, and each K6 route + K7
-    chained.  float64 within a relative difference of 1e-10 everywhere;
-    float32 within 5e-4 absolute on the solutions and 1e-4 relative on
-    the factors.  Returns (plain factors, plain solution)."""
+    """K6 (each route) and K7 (each route) against their plain versions
+    on (D, E, r): the factors, each K7 route alone on the plain factors,
+    and each K6 route + each K7 route chained.  float64 within a relative
+    difference of 1e-10 everywhere; float32 within 5e-4 absolute on the
+    solutions and 1e-4 relative on the factors.  Returns (plain factors,
+    plain solution)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_cr
     from ipmzoo_tpu_torch.ops.cr import cr_factor_plain, cr_solve_plain
 
     name = str(D.dtype).replace("torch.", "")
-    N, b = D.shape[-3], D.shape[-1]
+    N, b, k = r.shape[-3:]
     B = D.numel() // (N * b * b)
     f0 = cr_factor_plain(D, E)
     x0 = cr_solve_plain(f0, r)
-    x_alone = cuda_cr.cr_solve_kernel(f0, r)
-    torch.cuda.synchronize()
     check(bool(torch.isfinite(x0).all()), f"{what}: plain solution not "
           f"finite")
-    ra = rel_diff(x_alone, x0)
-    aa = (x_alone - x0).abs().max().item()
-    print(f"kernels {what} {name}: K7 on plain factors rel diff x {ra:.3e} "
-          f"(abs {aa:.3e})")
-    pick = k6_pick(N, b, B, D.dtype)
-    xs = {}
-    for route, call in k6_calls(N, b, D.dtype).items():
-        f = call(D, E)
-        x_chain = cuda_cr.cr_solve_kernel(f, r)
-        torch.cuda.synchronize()
-        xs[route] = x_chain
-        rf = max(rel_diff(a, a0) for a, a0 in zip(f, f0))
-        rc = rel_diff(x_chain, x0)
-        ac = (x_chain - x0).abs().max().item()
-        af = max((a - a0).abs().max().item() for a, a0 in zip(f, f0))
-        print(f"kernels {what} {name}: K6 {route} route factors rel diff "
-              f"{rf:.3e} (abs {af:.3e}), K6+K7 rel diff x {rc:.3e} (abs "
-              f"{ac:.3e})")
+
+    def held(label, x, rf=0.0):
+        rx = rel_diff(x, x0)
+        ax = (x - x0).abs().max().item()
         if D.dtype == torch.float64:
-            check(max(rf, ra, rc) <= 1e-10, f"K6 ({route})/K7 disagree with "
+            check(max(rf, rx) <= 1e-10, f"K6/K7 ({label}) disagree with "
                   f"their plain versions in float64 ({what}): "
-                  f"{max(rf, ra, rc):.3e} > 1e-10")
+                  f"{max(rf, rx):.3e} > 1e-10")
         else:
-            check(max(aa, ac) <= 5e-4, f"K6 ({route})/K7 disagree with their "
-                  f"plain versions in float32 ({what}): {max(aa, ac):.3e} > "
-                  f"5e-4")
-            check(rf <= 1e-4, f"K6's {route} float32 factors differ from the "
+            check(ax <= 5e-4, f"K6/K7 ({label}) disagree with their plain "
+                  f"versions in float32 ({what}): {ax:.3e} > 5e-4")
+        return rx, ax
+
+    solves = k7_calls(N, b, k, B, D.dtype)
+    alone = {}
+    for r7, solve in solves.items():
+        x = solve(f0, r)
+        torch.cuda.synchronize()
+        alone[r7] = held(f"K7 {r7} alone", x)
+        print(f"kernels {what} {name}: K7 {r7} route on plain factors rel "
+              f"diff x {alone[r7][0]:.3e} (abs {alone[r7][1]:.3e})")
+    pick6 = k6_pick(N, b, B, D.dtype)
+    xs = {}
+    for r6, call in k6_calls(N, b, D.dtype).items():
+        f = call(D, E)
+        torch.cuda.synchronize()
+        rf = max(rel_diff(a, a0) for a, a0 in zip(f, f0))
+        af = max((a - a0).abs().max().item() for a, a0 in zip(f, f0))
+        if D.dtype == torch.float32:
+            check(rf <= 1e-4, f"K6's {r6} float32 factors differ from the "
                   f"plain version's by {rf:.3e} ({what})")
+        chained = []
+        for r7, solve in solves.items():
+            xs[(r6, r7)] = solve(f, r)
+            torch.cuda.synchronize()
+            rc, ac = held(f"{r6} + K7 {r7}", xs[(r6, r7)], rf)
+            chained.append(f"+ K7 {r7} rel diff x {rc:.3e} (abs {ac:.3e})")
+        print(f"kernels {what} {name}: K6 {r6} route factors rel diff "
+              f"{rf:.3e} (abs {af:.3e}); " + ", ".join(chained))
         if errs is not None:
-            key = "cr_factor" if route == "block" else \
-                ("cr_factor cluster" if route == pick else None)
+            key = "cr_factor" if r6 == "block" else \
+                ("cr_factor cluster" if r6 == pick6 else None)
             if key:
                 errs[key] = af
     if errs is not None:
-        errs["cr_solve"] = aa
-    # through the wrapper: the route k6_route picks, one launch
+        errs["cr_solve"] = alone["block"][1]
+        if "shared" in alone:
+            errs["cr_solve shared"] = alone["shared"][1]
+    # through the wrappers: the routes k6_route and k7_route pick, one
+    # launch each
     before = dict(cuda_cr.route_launches)
     f = cuda_cr.cr_factor_auto(D, E)
     x = cuda_cr.cr_solve_auto(f, r)
     torch.cuda.synchronize()
-    made = {k: v - before[k] for k, v in cuda_cr.route_launches.items()
-            if v != before[k]}
-    want = "cluster" if pick != "block" else "block"
-    check(made == {f"cr_factor {want}": 1}, f"{what}: cr_factor_auto "
-          f"launched {made}, k6_route picks {pick}")
-    check(torch.equal(x, xs[pick]), f"{what}: cr_factor_auto differs from "
-          f"its route {pick} launched alone")
+    made = {a: v - before[a] for a, v in cuda_cr.route_launches.items()
+            if v != before[a]}
+    want6 = "cluster" if pick6 != "block" else "block"
+    pick7 = cuda_cr.k7_route(N, b, k, B, D.dtype)[0]
+    check(made == {f"cr_factor {want6}": 1, f"cr_solve {pick7}": 1},
+          f"{what}: cr_factor_auto / cr_solve_auto launched {made}, "
+          f"k6_route picks {pick6} and k7_route {pick7}")
+    check(torch.equal(x, xs[(pick6, pick7)]), f"{what}: the wrappers differ "
+          f"from their routes {pick6} and {pick7} launched alone")
     return f0, x0
 
 
@@ -1804,7 +1998,7 @@ def check_cr(dev):
     import torch
 
     for dtype in (torch.float32, torch.float64):
-        for B, N, b, k in CR_SHAPES:
+        for B, N, b, k in CR_SHAPES + CR_EDGES:
             D, E = spd_block_tridiag(B, N, b, dtype, dev, seed=N + b + k)
             r = torch.randn((B, N, b, k), dtype=dtype, device=dev,
                             generator=torch.Generator(dev).manual_seed(k))
@@ -1871,6 +2065,17 @@ def run_arrow(what, solve, solver, cpu_solve, n_inst):
           f"{k6_pick(solver.N, solver.b, n_inst, torch.float32)})")
     check(routes["cr_factor block"] + routes["cr_factor cluster"] ==
           launches["cr_factor"], f"{what}: K6's route counts do not add up")
+    picks7 = {k: cuda_cr.k7_route(solver.N, solver.b, k, n_inst,
+                                  torch.float32)[0]
+              for k in (solver.t + 1, 1)}
+    print(f"{what}: K7 routes: block {routes['cr_solve block']}, shared "
+          f"{routes['cr_solve shared']} (k7_route picks "
+          f"{picks7[solver.t + 1]} at k={solver.t + 1}, {picks7[1]} at k=1)")
+    for route in ("block", "shared"):
+        want = steps * sum(p == route for p in picks7.values())
+        check(routes[f"cr_solve {route}"] == want, f"{what}: "
+              f"{routes[f'cr_solve {route}']} K7 launches on the {route} "
+              f"route, k7_route's picks give {want}")
     check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
     check(launches["cr_factor"] == steps and
           launches["cr_solve"] == 2 * steps,
@@ -1965,9 +2170,10 @@ def run_arrow_slice():
 
 
 def time_cr(solver, data, batch):
-    """Step 21: K6 and K7 against their plain versions and against the
-    per-level library composition, on the slice's condensed matrices at
-    the initial iterate."""
+    """Step 21: K6 and K7 (K7s: its shared route, at the columns k7_route
+    picks) against their plain versions and against the per-level library
+    composition, on the slice's condensed matrices at the initial
+    iterate."""
     import torch
     from ipmzoo_tpu_torch.models.state import tree_map
     from ipmzoo_tpu_torch.ops import banded, cuda_cr
@@ -2009,6 +2215,10 @@ def time_cr(solver, data, batch):
                                    20),
                 "K7_k1_plain": time_cuda(lambda: cr_solve_plain(f0, r1), 2),
                 "K7_k1_cr": time_cuda(lambda: banded.cr_solve(fl, r1), 5),
+                "K7s_k9": time_cuda(lambda: cuda_cr.cr_solve_shared(f, r9),
+                                    20),
+                "K7s_k1": time_cuda(lambda: cuda_cr.cr_solve_shared(f, r1),
+                                    20),
             }
             # K6's routes by CUDA events behind a leading launch (0.28
             # ms and more a call, so the host's launch time hides)
@@ -2463,6 +2673,76 @@ def time_k6_routes(dev):
                   f"time against {best}'s {t[best]:.4f}")
 
 
+#: K7's kernels by route, as launch_ms matches them
+K7_KERNELS = {"block": ("cr_solve_kernel<", None),
+              "shared": ("cr_solve_kernel_shared<", None)}
+
+
+def k7_device_ms(dev, cases, widths):
+    """Device ms of K7's block route and of its shared route at each group
+    width of ``widths(N, b, k, dtype)``, at each (B, N, b, k, dtype) of
+    ``cases``, on K6's factors of random SPD systems, all in one trace
+    (launch_ms); a list of name -> ms maps ("block", "shared kc=w")."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    groups, names = [], []
+    for B, N, b, k, dtype in cases:
+        D, E = spd_block_tridiag(B, N, b, dtype, dev, seed=N + b + k)
+        r = torch.randn((B, N, b, k), dtype=dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(k))
+        f = cuda_cr.cr_factor_kernel(D, E)
+        calls = {"block": (lambda f=f, r=r: cuda_cr.cr_solve_kernel(f, r),
+                           K7_KERNELS["block"])}
+        for w in widths(N, b, k, dtype):
+            calls[f"shared kc={w}"] = (
+                lambda f=f, r=r, w=w: cuda_cr.cr_solve_shared(f, r, w),
+                K7_KERNELS["shared"])
+        names.append(list(calls))
+        groups += [(fn, {name: key}) for name, (fn, key) in calls.items()]
+    got = iter(launch_ms(groups, 10))
+    return [{name: next(got)[name] for name in ns} for ns in names]
+
+
+def k7_widths(N, b, k, dtype):
+    """The shared route's group widths that fit, up to k."""
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    return range(1, min(k, cuda_cr.solve_shared_max_kc(N, b, dtype)) + 1)
+
+
+def time_k7_routes(dev):
+    """Step 18, K7's route rule: device time of the block route and of the
+    shared route at every group width that fits (k7_device_ms) at the
+    arrow slice's N and b and each (B, k) of K7_ROUTE_SHAPES, float32 and
+    float64, all in one trace; fails where k7_route picks a route more
+    than 5% slower than the other (the shared route at the columns it
+    picks against the block route).  Returns the times by (B, k, type)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    N, b = ARROW_N // 16, 16
+    cases = [(B, N, b, k, dtype) for dtype in (torch.float32, torch.float64)
+             for B, k in K7_ROUTE_SHAPES]
+    out = {}
+    for (B, _, _, k, dtype), t in zip(cases,
+                                      k7_device_ms(dev, cases, k7_widths)):
+        name = str(dtype).replace("torch.", "")
+        route, kc = cuda_cr.k7_route(N, b, k, B, dtype)
+        pick = "block" if route == "block" else f"shared kc={kc}"
+        other = f"shared kc={kc}" if route == "block" else "block"
+        best = min(t, key=t.get)
+        bnd = cr_bounds(B, N, b, k, dtype)["K7"]
+        out[(B, k, name)] = t
+        print(f"timing K7 routes B={B} N={N} b={b} k={k} {name} (device ms "
+              f"per call): " + ", ".join(f"{a} {v:.5f}" for a, v in
+                                         t.items()) +
+              f"; bound {bnd[0]:.6f} ms by {bnd[1]}; k7_route picks {pick}, "
+              f"the fastest is {best}")
+        if other in t:
+            check(t[pick] <= 1.05 * t[other], f"k7_route picks {pick} at "
+                  f"B={B} k={k} {name}: {t[pick]:.5f} ms of device time "
+                  f"against {other}'s {t[other]:.5f}")
+    return out
+
+
 def sweep_k6(dev=None):
     """Both K6 routes' device time over K6_SWEEP_NB x K6_SWEEP_B in
     float32 and float64, one trace a type: the measurement behind
@@ -2476,6 +2756,64 @@ def sweep_k6(dev=None):
             print(f"sweep K6 {str(dt)[6:]} B={B} N={N} b={b}: device ms " +
                   ", ".join(f"{r} {v:.4f}" for r, v in t.items()) +
                   f"; k6_route picks {k6_pick(N, b, B, dt)}", flush=True)
+
+
+def sweep_k4(dev=None):
+    """Both K4 routes' device time over orders 1..16, 24 and 64 with k =
+    1, 2, 4, 16 right-hand sides at 9, 512, 2048 and 10240 systems (order
+    64 up to 2048), float32 and float64, one trace a type: the
+    measurement behind k4_route's smallest orders.  Not part of main();
+    run it alone (about a minute with the ldlt.cu build)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    dev = dev or torch.device("cuda")
+    cases = [(n, k, B) for n in list(range(1, 17)) + [24, 64]
+             for k in (1, 2, 4, 16) for B in (9, 512, 2048, 10240)
+             if n <= 24 or B < 10240]
+    for dt in (torch.float32, torch.float64):
+        times = k4_device_ms(dev, [c + (dt,) for c in cases], 10)
+        for (n, k, B), t in zip(cases, times):
+            print(f"sweep K4 {str(dt)[6:]} n={n} k={k} B={B}: device ms "
+                  f"thread {t['thread']:.5f} warp {t['warp']:.5f}; k4_route "
+                  f"picks {cuda_ldlt.k4_route(n, k, B, dt)}", flush=True)
+        # the warp route's tile: each of 8, 4, 2 and 1 instances a block
+        # where it fits, at the Schur shape and where shared memory cuts
+        # a tile of 4 to fewer column groups
+        for n, k, B in ((64, 16, 512), (81, 16, 9), (24, 2, 10240)):
+            _, _, R, soa = k4_inputs(n, k, B, dt, dev)
+            tiles = [g for g in (8, 4, 2, 1)
+                     if cuda_ldlt.k4_warp_shape(n, k, dt, g) is not None]
+            times = launch_ms([(lambda g=g: cuda_ldlt.solve_matrix_warp(
+                *soa, R, g), {"warp": K4_KERNELS["warp"]}) for g in tiles],
+                10)
+            print(f"sweep K4 tiles {str(dt)[6:]} n={n} k={k} B={B}: device "
+                  f"ms " + ", ".join(
+                      f"tile {g} {cuda_ldlt.k4_warp_shape(n, k, dt, g)} "
+                      f"{t['warp']:.5f}" for g, t in zip(tiles, times)) +
+                  f"; k4_warp_shape picks {cuda_ldlt.k4_warp_shape(n, k, dt)}",
+                  flush=True)
+
+
+def sweep_k7(dev=None):
+    """Both K7 routes' device time (the shared route at every group width
+    from 1 to what fits) at the arrow slice's N=256, b=16 with k = 9 and
+    1 over batches 1..64, and at N = 37, 64, 128, 256 with b = 3, 4, 8, 16
+    for one instance, float32 and float64, one trace a type: the
+    measurement behind k7_route.  Not part of main(); run it alone
+    (about a minute with the cr.cu build)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr
+    dev = dev or torch.device("cuda")
+    cases = [(B, 256, 16, k) for k in (9, 1)
+             for B in (1, 2, 4, 8, 12, 16, 24, 32, 48, 64)] + \
+        [(1, N, b, 9) for N in (37, 64, 128, 256) for b in (3, 4, 8, 16)]
+    for dt in (torch.float32, torch.float64):
+        times = k7_device_ms(dev, [c + (dt,) for c in cases], k7_widths)
+        for (B, N, b, k), t in zip(cases, times):
+            print(f"sweep K7 {str(dt)[6:]} B={B} N={N} b={b} k={k}: device "
+                  f"ms " + ", ".join(f"{a} {v:.5f}" for a, v in t.items()) +
+                  f"; k7_route picks {cuda_cr.k7_route(N, b, k, B, dt)}",
+                  flush=True)
 
 
 def measure_roofline(dev, k2_ms, k1_ms):
@@ -2599,6 +2937,7 @@ def run_bench_modes(dev, data):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     from chip_roofline import banner
     from ipmzoo_tpu_torch.models.fused_source import team_lanes
@@ -2616,12 +2955,16 @@ def main():
     errs = check_kernels(dev)
     k2_errs = check_k2_routes(dev)
     k3_errs = check_k3_routes(dev)
-    errs["solve_ldlt_matrix"] = check_k4(dev)
+    k4_errs = check_k4(dev)
+    h64 = (SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS, "float64")
+    errs["solve_ldlt_matrix"] = k4_errs[("thread",) + h64]
+    errs["solve_ldlt_matrix warp"] = k4_errs[("warp",) + h64]
     solve_demo(dev)
     data, res, launches = run_slice(dev)
     compare_cpu(data, res)
     times = time_kernels(dev)
     time_k3_routes(dev)
+    time_k4_routes(dev)
     errs["fused"] = check_fused(dev)
     errs["fused team"] = check_fused_team(dev)
     f_out, f_launches = run_fused_slice(dev, data)
@@ -2632,11 +2975,16 @@ def main():
     run_schur(dev, s_data, 1e-5, 3)
     compare_cpu_schur(s_data, s_res)
     s_times = check_schur_kernels(dev, s_data)["float64"]
+    check(s_launches["solve_ldlt_matrix warp"] > 0, "the Schur slice never "
+          "launched K4's warp route")
     check_cr(dev)
     time_k6_routes(dev)
+    time_k7_routes(dev)
     a_solver, a_data, a_batch, a_launches, ab_launches = run_arrow_slice()
     check(a_launches["cr_factor cluster"] > 0, "the arrow slice never "
           "launched K6's cluster route")
+    check(a_launches["cr_solve shared"] > 0, "the arrow slice never "
+          "launched K7's shared route")
     cr_times, cr_errs = time_cr(a_solver, a_data, a_batch)
     errs.update(cr_errs)
     errs["ldlt_solve_matrix"], k5_errs = check_k5(dev)
@@ -2717,10 +3065,17 @@ def main():
               f"float32, cold max_iter=14, B={B_SLICE})", K1_TEAM_SOURCE,
               "fused team", f_launches["fused team"], k1["K1_team"],
               k1["K1_plain"], k1["bound"], None),
-        entry("K4 batched multi-rhs LDL^T solve (float64, n=64, k=16, "
-              "B=512)", SOURCE, "solve_ldlt_matrix",
-              s_launches["solve_ldlt_matrix"], s_times["K4"],
+        # the thread route's launches on the slice's path: k4_route takes
+        # it only at small orders (below 6, more at large batches) and
+        # over the warp route's 96 rows
+        entry("K4 batched multi-rhs LDL^T solve, thread route (float64, "
+              "n=64, k=16, B=512)", SOURCE, "solve_ldlt_matrix",
+              s_launches["solve_ldlt_matrix thread"], s_times["K4"],
               s_times["K4_plain"], b64["K4"], s_times["K4_library"]),
+        entry("K4 warp route (float64, n=64, k=16, B=512)", SOURCE,
+              "solve_ldlt_matrix warp", s_launches["solve_ldlt_matrix warp"],
+              s_times["K4_warp"], s_times["K4_plain"], b64["K4"],
+              s_times["K4_library"]),
         entry("K5 fused LDL^T factor + multi-rhs solve, block route "
               "(float32, B=%d, n=%d, k=%d)" % K5_LEVEL, SOURCE,
               "ldlt_solve_matrix", nd_launches["ldlt_solve_matrix block"],
@@ -2739,10 +3094,15 @@ def main():
         entry(f"K6 cluster route ({k6_name}; {shape}, B=1)", CR_SOURCE,
               "cr_factor cluster", a_launches["cr_factor cluster"],
               ct["K6_cluster"], ct["K6_plain"], cb["K6"], None),
-        entry(f"K7 cyclic-reduction multi-rhs solve ({shape}, "
+        # the block route's launches on the slice: k7_route takes it only
+        # where no group of columns fits a block's shared memory
+        entry(f"K7 cyclic-reduction multi-rhs solve, block route ({shape}, "
               f"k={a_solver.t + 1}, B=1)", CR_SOURCE, "cr_solve",
-              a_launches["cr_solve"], ct["K7_k9"], ct["K7_k9_plain"],
+              a_launches["cr_solve block"], ct["K7_k9"], ct["K7_k9_plain"],
               cb["K7"], None),
+        entry(f"K7 shared route ({shape}, k={a_solver.t + 1}, B=1)",
+              CR_SOURCE, "cr_solve shared", a_launches["cr_solve shared"],
+              ct["K7s_k9"], ct["K7_k9_plain"], cb["K7"], None),
         entry("T1 FMA chains (float32, %s, chains=%d, reps=%d)"
               % (T1_SHAPE, T1_CHAINS, T1_REPS), ROOFLINE_SOURCE,
               "fma_chains", r_launches["fma_chains"],
@@ -2762,6 +3122,8 @@ def main():
     for k in kernels:
         print(f"bound: {k['name']}: {k['bound_ms']:.6f} ms by "
               f"{k['bound_by']}; kernel {k['ms']:.4f} ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

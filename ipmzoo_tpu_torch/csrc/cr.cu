@@ -74,6 +74,34 @@
 // no global scratch.  What bounds it: a level's chain of dependent steps
 // on one warp (the 16 x 16 inverse alone takes ~9 us), nine levels at
 // N = 256 (PERF.md §6).
+//
+// K7 shared route, cr_solve_kernel_shared, replaces the same TPU kernel
+// (cr_pallas.py:_solve_kernel), picked per call by ops/cuda_cr.py
+// (k7_route) from times measured on an H100.  The block route above runs
+// an instance on one SM and keeps the working right-hand sides, the
+// per-level products and x in global scratch, so each of its 2 log2 N
+// phases waits on L2 round trips for them before its barrier, and its
+// b-long dot products (b and k run-time, nothing __restrict__) do not
+// unroll.  The work is small (6 b^2 k (N - 1) multiply-adds, 3.5 M at
+// N = 256, b = 16, k = 9) and the k columns are independent, as the TPU
+// kernel's batch axis over them says.  So here a thread block takes one
+// (instance, group of kc columns), grid (B, ceil(k / kc)): at one
+// instance the solve spreads over several SMs, each block reading the
+// factors (0.79 MB at the slice's shape in float32, in the L2 after K6)
+// through const __restrict__ pointers.  The group's working right-hand
+// sides and the level scratch live in shared memory, (N + N / 2) b kc
+// values, and x overwrites them in place.  b is bounded by a template
+// parameter (BP = 8 or 16, b <= BP), so the dot products unroll and a
+// factor row's loads issue back to back.  Two barriers a level, as the
+// block route, with no L2 round trip for the right-hand sides between
+// them.  What bounds it: the load pipe of the one SM a group runs on.  A
+// row product gives each lane its own factor row, so a warp's load of one
+// column touches a cache line per pair of rows: the rows are read in
+// 16-byte pieces where b = BP and the factors are aligned, and W's
+// columns likewise where a group holds one column.  Then the chain of
+// 2 log2 N + 2 phases, each an L2 round trip, b dependent multiply-adds
+// and a barrier (PERF.md §6).  At most 512 threads a block, so a thread's
+// factor row and W column stay in registers.
 
 #include <atomic>
 #include <cstdint>
@@ -706,12 +734,195 @@ cr_solve_kernel(const T* __restrict__ Pinv, const T* __restrict__ Eb,
   }
 }
 
+// ---------------------------------------------------------------------
+// K7 shared route.
+//
+// BP consecutive values at a 16-byte aligned F (a factor row in device
+// memory, or a column of one in shared memory), in 16-byte loads.
+template <int BP>
+__device__ __forceinline__ void load_row(const float* F, float (&f)[BP]) {
+#pragma unroll
+  for (int q = 0; q < BP / 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(F)[q];
+    f[4 * q] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+}
+
+template <int BP>
+__device__ __forceinline__ void load_row(const double* F, double (&f)[BP]) {
+#pragma unroll
+  for (int q = 0; q < BP / 2; ++q) {
+    const double2 v = reinterpret_cast<const double2*>(F)[q];
+    f[2 * q] = v.x;
+    f[2 * q + 1] = v.y;
+  }
+}
+
+// acc = F[0] W[0] + F[fs] W[ws] + ... over b terms, in increasing order
+// from the first product (cr_solve_kernel's order), along a row of the
+// factor block (ROW: fs = 1) or down a column (fs = b).  The factor's b
+// values are loaded first, back to back; BP >= b bounds the unrolling.
+// A row of b = BP values, 16-byte aligned (`vec`), comes in 16-byte
+// loads: with a lane a row, a warp's scalar loads of one column touch as
+// many cache lines as it has rows, 4 (float32) or 2 (float64) times the
+// lines of the same row read in 16-byte pieces.  So does W's column from
+// shared memory where it is contiguous (ws = 1, one column a group), each
+// 16-byte load a broadcast to the lanes of one position.
+template <typename T, int BP, bool ROW>
+__device__ __forceinline__ T dot_bp(const T* __restrict__ F, const T* W,
+                                    int ws, int b, bool vec) {
+  T f[BP];
+  if (ROW && vec) {
+    load_row<BP>(F, f);
+  } else {
+    const int fs = ROW ? 1 : b;
+#pragma unroll
+    for (int j = 0; j < BP; ++j) f[j] = j < b ? F[j * fs] : T(0);
+  }
+  if (b == BP && ws == 1) {
+    T wv[BP];
+    load_row<BP>(W, wv);
+    T acc = f[0] * wv[0];
+#pragma unroll
+    for (int j = 1; j < BP; ++j) acc += f[j] * wv[j];
+    return acc;
+  }
+  T acc = f[0] * W[0];
+#pragma unroll
+  for (int j = 1; j < BP; ++j) {
+    if (j < b) acc += f[j] * W[j * ws];
+  }
+  return acc;
+}
+
+// One thread block per (instance, group of kc columns): blockIdx.y takes
+// columns c0 = y kc .. c0 + w - 1.  The group's working right-hand sides
+// W (N, b, w) sit in dynamic shared memory and the up-sweep overwrites
+// them with x in place: every position p >= 1 is a pivot at exactly one
+// level, so an odd entry keeps its down-sweep value until its level of
+// the up-sweep, and by then its neighbours p -+ s (multiples of 2s) hold
+// their x.  G ((N + 1) / 2, b, w) holds the down-sweep's Pinv W and the
+// up-sweep's right-hand sides by pivot rank within the level; the root
+// uses it as a temporary.  Each output element keeps cr_solve_kernel's
+// formula and order, its lane map too (column fastest, then row, then
+// position: row products read one factor row broadcast over the columns,
+// transposed products contiguous rows across lanes).
+// At most 512 threads a block: a thread keeps a factor row and a column
+// of W in registers (2 BP values), which at 1024 threads (64 registers)
+// spilled.
+constexpr int kSharedThreads = 512;
+
+template <typename T, int BP>
+__global__ void __launch_bounds__(kSharedThreads)
+cr_solve_kernel_shared(const T* __restrict__ Pinv, const T* __restrict__ Eb,
+                       const T* __restrict__ Ea, const T* __restrict__ r,
+                       T* __restrict__ x, int N, int b, int k, int kc,
+                       bool vec) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int bb = b * b;
+  const int c0 = static_cast<int>(blockIdx.y) * kc;
+  const int w = k - c0 < kc ? k - c0 : kc;
+  const int bw = b * w;
+  T* W = reinterpret_cast<T*>(shared_raw);
+  T* G = W + static_cast<size_t>(N) * bw;
+  const int64_t inst = static_cast<int64_t>(blockIdx.x);
+  Pinv += inst * N * bb;
+  Eb += inst * N * bb;
+  Ea += inst * N * bb;
+  r += inst * N * b * k;
+  x += inst * N * b * k;
+
+  for (int e = tid; e < N * bw; e += nt) {
+    const int row = e / w;
+    W[e] = r[static_cast<int64_t>(row) * k + c0 + (e - row * w)];
+  }
+  __syncthreads();
+
+  // down-sweep
+  int top = 0;
+  for (int s = 1; s < N; s <<= 1) {
+    top = s;
+    const int npiv = (N + s - 1) / (2 * s);
+    for (int e = tid; e < npiv * bw; e += nt) {
+      const int piv = e / bw, rem = e - piv * bw;
+      const int i = rem / w, c = rem - i * w;
+      const int p = (2 * piv + 1) * s;
+      G[e] = dot_bp<T, BP, true>(Pinv + p * bb + i * b, W + p * bw + c, w,
+                                 b, vec);
+    }
+    __syncthreads();
+    const int neven = (N + 2 * s - 1) / (2 * s);
+    for (int e = tid; e < neven * bw; e += nt) {
+      const int m = e / bw, rem = e - m * bw;
+      const int i = rem / w, c = rem - i * w;
+      const int q = 2 * s * m;
+      T v = W[q * bw + rem];
+      if (q + s < N) {
+        v -= dot_bp<T, BP, false>(Eb + (q + s) * bb + i, G + m * bw + c, w,
+                                  b, vec);
+      }
+      if (q > 0) {
+        v -= dot_bp<T, BP, true>(Ea + (q - s) * bb + i * b,
+                                 G + (m - 1) * bw + c, w, b, vec);
+      }
+      W[q * bw + rem] = v;
+    }
+    __syncthreads();
+  }
+
+  // root, through G
+  for (int e = tid; e < bw; e += nt) {
+    const int i = e / w, c = e - i * w;
+    G[e] = dot_bp<T, BP, true>(Pinv + i * b, W + c, w, b, vec);
+  }
+  __syncthreads();
+  for (int e = tid; e < bw; e += nt) W[e] = G[e];
+  __syncthreads();
+
+  // up-sweep
+  for (int s = top; s >= 1; s >>= 1) {
+    const int npiv = (N + s - 1) / (2 * s);
+    for (int e = tid; e < npiv * bw; e += nt) {
+      const int piv = e / bw, rem = e - piv * bw;
+      const int i = rem / w, c = rem - i * w;
+      const int p = (2 * piv + 1) * s;
+      T v = W[p * bw + rem];
+      v -= dot_bp<T, BP, true>(Eb + p * bb + i * b, W + (p - s) * bw + c, w,
+                               b, vec);
+      if (p + s < N) {
+        v -= dot_bp<T, BP, false>(Ea + p * bb + i, W + (p + s) * bw + c, w,
+                                  b, vec);
+      }
+      G[e] = v;
+    }
+    __syncthreads();
+    for (int e = tid; e < npiv * bw; e += nt) {
+      const int piv = e / bw, rem = e - piv * bw;
+      const int i = rem / w, c = rem - i * w;
+      const int p = (2 * piv + 1) * s;
+      W[p * bw + rem] =
+          dot_bp<T, BP, true>(Pinv + p * bb + i * b, G + piv * bw + c, w, b,
+                              vec);
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < N * bw; e += nt) {
+    const int row = e / w;
+    x[static_cast<int64_t>(row) * k + c0 + (e - row * w)] = W[e];
+  }
+}
+
 // Threads for one instance: the widest phase's element count rounded up
-// to a warp, at most kMaxThreads.
-int threads_for(int64_t elements) {
+// to a warp, at most `most`.
+int threads_for(int64_t elements, int most = kMaxThreads) {
   int64_t t = (elements + 31) / 32 * 32;
   if (t < 32) t = 32;
-  if (t > kMaxThreads) t = kMaxThreads;
+  if (t > most) t = most;
   return static_cast<int>(t);
 }
 
@@ -779,11 +990,11 @@ cudaLaunchConfig_t cluster_config(int N, int b, int C, int64_t B,
   return cfg;
 }
 
-// Raise the kernel's dynamic shared-memory limit and allow clusters of 16
-// once per device (bit d of `done`), so a launch captured in a CUDA graph
-// makes no such call.
+// Raise the kernel's dynamic shared-memory limit, and with `cluster` allow
+// clusters of 16, once per device (bit d of `done`), so a launch captured
+// in a CUDA graph makes no such call.
 template <typename Kernel>
-int allow_cluster(Kernel kernel, std::atomic<unsigned>& done) {
+int allow_limits(Kernel kernel, std::atomic<unsigned>& done, bool cluster) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -793,9 +1004,11 @@ int allow_cluster(Kernel kernel, std::atomic<unsigned>& done) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSharedCap);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cluster) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   done.fetch_or(bit);
   return 0;
 }
@@ -805,7 +1018,8 @@ int launch_factor_cluster_at(const T* D, const T* E, T* Pinv, T* Eb, T* Ea,
                              int N, int b, int64_t B, int C,
                              cudaStream_t stream) {
   static std::atomic<unsigned> done{0};
-  const int err = allow_cluster(cr_factor_kernel_cluster<T, BP>, done);
+  const int err =
+      allow_limits(cr_factor_kernel_cluster<T, BP>, done, true);
   if (err) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -844,7 +1058,8 @@ int launch_factor_cluster(const T* D, const T* E, T* Pinv, T* Eb, T* Ea,
 template <typename T, int BP>
 int cluster_occupancy_at(int N, int b, int C, int* out) {
   static std::atomic<unsigned> done{0};
-  const int err = allow_cluster(cr_factor_kernel_cluster<T, BP>, done);
+  const int err =
+      allow_limits(cr_factor_kernel_cluster<T, BP>, done, true);
   if (err) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -867,6 +1082,53 @@ int cluster_occupancy(int N, int b, int C, int* out) {
   }
   return b <= 8 ? cluster_occupancy_at<T, 8>(N, b, C, out)
                 : cluster_occupancy_at<T, 16>(N, b, C, out);
+}
+
+template <typename T, int BP>
+int launch_solve_shared_at(const T* Pinv, const T* Eb, const T* Ea,
+                           const T* r, T* x, int N, int b, int k, int kc,
+                           int64_t B, size_t shared, cudaStream_t stream) {
+  static std::atomic<unsigned> done{0};
+  if (shared > 48 * 1024) {
+    const int err = allow_limits(cr_solve_kernel_shared<T, BP>, done, false);
+    if (err) return err;
+  }
+  const int threads = threads_for(static_cast<int64_t>((N + 1) / 2) * b * kc,
+                                  kSharedThreads);
+  const dim3 grid(static_cast<unsigned int>(B),
+                  static_cast<unsigned int>((k + kc - 1) / kc));
+  // 16-byte row loads where a row is BP values and the factors are
+  // aligned (so is every row then: b^2 and b are multiples of 4)
+  const auto aligned = [](const T* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = b == BP && aligned(Pinv) && aligned(Eb) && aligned(Ea);
+  cr_solve_kernel_shared<T, BP><<<grid, threads, shared, stream>>>(
+      Pinv, Eb, Ea, r, x, N, b, k, kc, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The K7 shared route: the working right-hand sides of kc columns and the
+// scratch G, (N + (N + 1) / 2) b kc values, in shared memory.
+template <typename T>
+int launch_solve_shared(const T* Pinv, const T* Eb, const T* Ea, const T* r,
+                        T* x, int N, int b, int k, int kc, int64_t B,
+                        cudaStream_t stream) {
+  if (N < 1 || b < 1 || b > 16 || kc < 1 || kc > k ||
+      (k + kc - 1) / kc > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared = static_cast<size_t>(N + (N + 1) / 2) * b * kc *
+                        sizeof(T);
+  if (shared > static_cast<size_t>(kSharedCap)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b <= 8) {
+    return launch_solve_shared_at<T, 8>(Pinv, Eb, Ea, r, x, N, b, k, kc, B,
+                                        shared, stream);
+  }
+  return launch_solve_shared_at<T, 16>(Pinv, Eb, Ea, r, x, N, b, k, kc, B,
+                                       shared, stream);
 }
 
 }  // namespace
@@ -927,6 +1189,25 @@ int ipmzoo_cr_solve_f32(const float* Pinv, const float* Eb, const float* Ea,
                         int N, int b, int k, long long B, void* stream) {
   return launch_solve<float>(Pinv, Eb, Ea, r, x, Rw, Gw, N, b, k, B,
                              static_cast<cudaStream_t>(stream));
+}
+
+// The K7 shared route takes the block route's Pinv, Eb, Ea, r and x and no
+// scratch, with 1 <= b <= 16, 1 <= kc <= k, ceil(k / kc) <= 65535 groups
+// and (N + (N + 1) / 2) b kc sizeof(T) <= 232448 bytes of shared memory.
+int ipmzoo_cr_solve_shared_f32(const float* Pinv, const float* Eb,
+                               const float* Ea, const float* r, float* x,
+                               int N, int b, int k, int kc, long long B,
+                               void* stream) {
+  return launch_solve_shared<float>(Pinv, Eb, Ea, r, x, N, b, k, kc, B,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_cr_solve_shared_f64(const double* Pinv, const double* Eb,
+                               const double* Ea, const double* r, double* x,
+                               int N, int b, int k, int kc, long long B,
+                               void* stream) {
+  return launch_solve_shared<double>(Pinv, Eb, Ea, r, x, N, b, k, kc, B,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int ipmzoo_cr_solve_f64(const double* Pinv, const double* Eb,

@@ -45,8 +45,29 @@
 // serve after the first column (an f32 factor panel of 512 instances at
 // n = 64 is 8 MB, far inside the 50 MB L2).  Rhs and solution are SoA
 // (n, k, B).  The forward sweep accumulates each row in a register in
-// the order of the plain version's column sweep; staging the factor in
-// shared memory or wgmma are later work.
+// the order of the plain version's column sweep.  This thread route stays
+// above the warp route's shared memory (ops/cuda_ldlt.py:k4_route).
+//
+// K4 warp route, ldlt_solve_matrix_kernel_warp, replaces the same TPU
+// kernel (pallas_ldlt.py:_solve_matrix_kernel).  The thread route reads
+// the factor k times, once per column, each thread n^2 dependent loads
+// with x read and written in device memory inside its loops: a chain of
+// L2 round trips, not bytes (16.9 MB at the Schur shape take 5 us) nor
+// multiply-adds.  Here, as the TPU kernel, each factor is read once for
+// all k columns: a block stages a tile of G instances of L's strict lower
+// triangle and D as K3's warp route does (stage_factor), and segments of
+// a warp (SEG lanes, R rows a lane) each solve one matrix's group of
+// KC = 4 right-hand sides in registers: several warps share one staged
+// factor (at n = 64, k = 16: four warps a matrix).  R is read and X
+// written in the public layout (B, n, k) through the tile, so the caller
+// needs no transpose.  The forward sweep shuffles x_j from its owner
+// (the thread route's order per row), then the division by D, then the
+// backward sweep column by column from the last (rounding differs from
+// the plain version's row sums).  Where the tile's right-hand sides do not
+// fit beside the factor the block walks column chunks against it.  What
+// bounds it: one dependent shuffle-FMA step per row and sweep, 2 n steps
+// of KC columns, and the staging of a 168 KB tile per SM at the Schur
+// shape.
 
 //
 // K5 factors each matrix and solves its k right-hand sides in one launch,
@@ -536,6 +557,32 @@ __device__ __forceinline__ int tri_row(int s) {
   return i;
 }
 
+// Stage instances b0 .. b0 + nb - 1 of the SoA factor (L (n, n, B), D (n,
+// B)) into a tile of shared memory, instance g at tile + g * per: the
+// strict lower triangle of L at row stride n + 1, then D at offset
+// n (n + 1).  Thread t loads instance t % G, so consecutive threads read
+// consecutive instances of one element (a 32-byte sector for G = 32 /
+// sizeof(T)).  blockDim.x is a multiple of G.  No barrier.
+template <typename T>
+__device__ __forceinline__ void stage_factor(const T* __restrict__ L,
+                                             const T* __restrict__ D,
+                                             T* tile, int per, int n,
+                                             int64_t B, int64_t b0, int nb,
+                                             int G) {
+  const int tid = threadIdx.x;
+  const int g = tid % G, slot0 = tid / G, nslots = blockDim.x / G;
+  if (g >= nb) return;
+  T* P = tile + g * per;
+  const int S = n + 1, tri = n * (n - 1) / 2;
+  for (int s = slot0; s < tri; s += nslots) {
+    const int i = tri_row(s), j = s - i * (i - 1) / 2;
+    P[i * S + j] = L[static_cast<int64_t>(i * n + j) * B + b0 + g];
+  }
+  for (int i = slot0; i < n; i += nslots) {
+    P[n * S + i] = D[static_cast<int64_t>(i) * B + b0 + g];
+  }
+}
+
 // K3 warp route.  SEG lanes (8, 16 or 32) a matrix, R rows a lane (lane l
 // holds rows l, l + SEG, ...), so the padded order is SEG * R and every
 // register index is static.  The block's G instances are staged once,
@@ -560,16 +607,11 @@ ldlt_solve_kernel_warp(const T* __restrict__ L, const T* __restrict__ D,
   // staging: thread t loads instance t % G, so consecutive threads read
   // consecutive instances of one element
   const int g = tid % G, slot0 = tid / G, nslots = nt / G;
+  stage_factor(L, D, tile, per, n, B, b0, nb, G);
   if (g < nb) {
-    T* P = tile + g * per;
-    const int tri = n * (n - 1) / 2;
-    for (int s = slot0; s < tri; s += nslots) {
-      const int i = tri_row(s), j = s - i * (i - 1) / 2;
-      P[i * S + j] = L[static_cast<int64_t>(i * n + j) * B + b0 + g];
-    }
     for (int i = slot0; i < n; i += nslots) {
-      P[n * S + i] = D[static_cast<int64_t>(i) * B + b0 + g];
-      P[n * S + n + i] = rhs[static_cast<int64_t>(i) * B + b0 + g];
+      tile[g * per + n * S + n + i] =
+          rhs[static_cast<int64_t>(i) * B + b0 + g];
     }
   }
   __syncthreads();
@@ -626,6 +668,133 @@ ldlt_solve_kernel_warp(const T* __restrict__ L, const T* __restrict__ D,
     for (int i = slot0; i < n; i += nslots) {
       x[static_cast<int64_t>(i) * B + b0 + g] = xs[i];
     }
+  }
+}
+
+// The K4 warp route's right-hand sides a segment, and its most threads a
+// block (512 leaves a thread 128 registers: at 1024 the float64
+// instantiations spilled).
+constexpr int kK4Cols = 4;
+constexpr int kK4Threads = 512;
+
+// K4 warp route.  A block owns a tile of G consecutive instances (stage_
+// factor: L's strict lower triangle and D, once for all k columns) and
+// NG column groups of KC right-hand sides a matrix: segment m * NG + q of
+// SEG lanes solves matrix m's columns q KC .. q KC + KC - 1 of the chunk,
+// lane l rows l, l + SEG, ... (R rows), so every register index is static.
+// The chunk of CH = NG KC columns of the tile's R sits after each
+// instance's D at row stride CH | 1 (odd: lane l reading row l hits its
+// own bank) and X overwrites it; R and X are the public (B, n, k) layout,
+// the tile's G n k values contiguous, so both cross device memory
+// coalesced.  Where k > CH the block walks the chunks against the staged
+// factor.  One block barrier after staging, one before X leaves.
+template <typename T, int SEG, int R, int KC>
+__global__ void __launch_bounds__(kK4Threads)
+ldlt_solve_matrix_kernel_warp(const T* __restrict__ L,
+                              const T* __restrict__ D,
+                              const T* __restrict__ rhs, T* __restrict__ x,
+                              int n, int k, int64_t B, int G, int NG) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* tile = reinterpret_cast<T*>(shared_raw);
+  const int S = n + 1, CH = NG * KC, SR = CH | 1;
+  const int per = n * S + n + n * SR;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int nb = static_cast<int>(B - b0 < G ? B - b0 : G);
+  const int64_t nk = static_cast<int64_t>(n) * k;
+  stage_factor(L, D, tile, per, n, B, b0, nb, G);
+
+  const int seg = tid / SEG, l = tid % SEG;
+  const int m = seg / NG, col0 = (seg % NG) * KC;
+  const T* P = tile + m * per;
+  T* xs = tile + m * per + n * S + n;
+  const unsigned mask = segment_mask<SEG>(tid & 31);
+
+  for (int c0 = 0; c0 < k; c0 += CH) {
+    const int kc = k - c0 < CH ? k - c0 : CH, w = n * kc;
+    for (int e = tid; e < nb * w; e += nt) {
+      const int mm = e / w, r = e - mm * w, row = r / kc, c = r - row * kc;
+      tile[mm * per + n * S + n + row * SR + c] =
+          rhs[(b0 + mm) * nk + static_cast<int64_t>(row) * k + c0 + c];
+    }
+    __syncthreads();
+
+    if (m < nb) {   // the whole segment alike
+      T v[R][KC];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          v[r][c] = (row < n && col0 + c < kc) ? xs[row * SR + col0 + c]
+                                               : T(0);
+        }
+      }
+      // forward sweep with the unit-lower L, in increasing j:
+      // x_i -= L_ij x_j, row j shuffled from its owner
+#pragma unroll
+      for (int j = 0; j < SEG * R; ++j) {
+        if (j >= n) break;
+        T y[KC];
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          y[c] = __shfl_sync(mask, v[j / SEG][c], j % SEG, SEG);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = r * SEG + l;
+          if (row > j && row < n) {
+            const T lij = P[row * S + j];
+#pragma unroll
+            for (int c = 0; c < KC; ++c) v[r][c] -= lij * y[c];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+        if (row < n) {
+          const T d = P[n * S + row];
+#pragma unroll
+          for (int c = 0; c < KC; ++c) v[r][c] = v[r][c] / d;
+        }
+      }
+      // backward sweep with L^T, column by column from the last:
+      // x_i -= L_ji x_j for every i < j
+#pragma unroll
+      for (int j = SEG * R - 1; j > 0; --j) {
+        if (j >= n) continue;
+        T y[KC];
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          y[c] = __shfl_sync(mask, v[j / SEG][c], j % SEG, SEG);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = r * SEG + l;
+          if (row < j) {
+            const T lji = P[j * S + row];
+#pragma unroll
+            for (int c = 0; c < KC; ++c) v[r][c] -= lji * y[c];
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          if (row < n && col0 + c < kc) xs[row * SR + col0 + c] = v[r][c];
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < nb * w; e += nt) {
+      const int mm = e / w, r = e - mm * w, row = r / kc, c = r - row * kc;
+      x[(b0 + mm) * nk + static_cast<int64_t>(row) * k + c0 + c] =
+          tile[mm * per + n * S + n + row * SR + c];
+    }
+    if (c0 + CH < k) __syncthreads();
   }
 }
 
@@ -767,6 +936,52 @@ int launch_solve_warp(const T* L, const T* D, const T* rhs, T* x, int n,
   return launch_solve_warp_at<T, 32, 3>(L, D, rhs, x, n, B, shared, stream);
 }
 
+template <typename T, int SEG, int R>
+int launch_solve_matrix_warp_at(const T* L, const T* D, const T* rhs, T* x,
+                                int n, int k, int64_t B, int G, int NG,
+                                size_t shared, cudaStream_t stream) {
+  static std::atomic<unsigned> cap_set{0};
+  if (shared > 48 * 1024) {
+    const int err = allow_shared_cap(
+        ldlt_solve_matrix_kernel_warp<T, SEG, R, kK4Cols>, cap_set);
+    if (err) return err;
+  }
+  const unsigned int grid = static_cast<unsigned int>((B + G - 1) / G);
+  ldlt_solve_matrix_kernel_warp<T, SEG, R, kK4Cols>
+      <<<grid, G * NG * SEG, shared, stream>>>(L, D, rhs, x, n, k, B, G, NG);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the K4 warp route: segments as K3's warp route's (8, 16 or 32 lanes up
+// to order 32, then a warp with 2 or 3 rows a lane), G instances a block
+// and NG groups of kK4Cols columns a matrix, as the caller sizes them
+template <typename T>
+int launch_solve_matrix_warp(const T* L, const T* D, const T* rhs, T* x,
+                             int n, int k, int64_t B, int G, int NG,
+                             cudaStream_t stream) {
+  const int seg = n <= 8 ? 8 : (n <= 16 ? 16 : 32);
+  if (n < 1 || n > 96 || k < 1 || G < 1 || NG < 1 ||
+      static_cast<int64_t>(G) * NG * seg > kK4Threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t per = static_cast<size_t>(n) * (n + 2) +
+                     static_cast<size_t>(n) * ((NG * kK4Cols) | 1);
+  const size_t shared = static_cast<size_t>(G) * per * sizeof(T);
+  if (shared > static_cast<size_t>(kSharedCap)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 8) return launch_solve_matrix_warp_at<T, 8, 1>(
+      L, D, rhs, x, n, k, B, G, NG, shared, stream);
+  if (n <= 16) return launch_solve_matrix_warp_at<T, 16, 1>(
+      L, D, rhs, x, n, k, B, G, NG, shared, stream);
+  if (n <= 32) return launch_solve_matrix_warp_at<T, 32, 1>(
+      L, D, rhs, x, n, k, B, G, NG, shared, stream);
+  if (n <= 64) return launch_solve_matrix_warp_at<T, 32, 2>(
+      L, D, rhs, x, n, k, B, G, NG, shared, stream);
+  return launch_solve_matrix_warp_at<T, 32, 3>(L, D, rhs, x, n, k, B, G, NG,
+                                               shared, stream);
+}
+
 // the smallest padded order NP that holds n, and KP = 2 for k <= 2, else 8
 template <typename T>
 int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
@@ -801,7 +1016,12 @@ int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
 // route takes contiguous A (B, n, n) and writes SoA L (n, n, B), D (n, B),
 // with 0 < B < 2^31 and (n^2 + 2 n) sizeof(T) <= 232448.  The K3 warp
 // route takes K3's SoA arrays with 0 < n <= 96 and
-// G n (n + 3) sizeof(T) <= 232448 (G = 32 / sizeof(T)).
+// G n (n + 3) sizeof(T) <= 232448 (G = 32 / sizeof(T)).  The K4 warp
+// route takes K4's SoA L (n, n, B) and D (n, B) and contiguous R, X in the
+// public layout (B, n, k), with 0 < n <= 96, k > 0, 0 < B, a tile of
+// G >= 1 instances a block and NG >= 1 groups of 4 columns a matrix,
+// G NG SEG <= 512 threads (SEG = 8, 16 or 32 by n) and
+// G (n (n + 2) + n (4 NG | 1)) sizeof(T) <= 232448 bytes of shared memory.
 extern "C" {
 
 int ipmzoo_ldlt_factor_solve_matrix_warp_f32(const float* A, const float* R,
@@ -894,6 +1114,22 @@ int ipmzoo_ldlt_solve_warp_f64(const double* L, const double* D,
                                long long B, void* stream) {
   return launch_solve_warp<double>(L, D, rhs, x, n, B,
                                    static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_matrix_warp_f32(const float* L, const float* D,
+                                      const float* rhs, float* x, int n,
+                                      int k, long long B, int G, int NG,
+                                      void* stream) {
+  return launch_solve_matrix_warp<float>(L, D, rhs, x, n, k, B, G, NG,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_solve_matrix_warp_f64(const double* L, const double* D,
+                                      const double* rhs, double* x, int n,
+                                      int k, long long B, int G, int NG,
+                                      void* stream) {
+  return launch_solve_matrix_warp<double>(L, D, rhs, x, n, k, B, G, NG,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 int ipmzoo_ldlt_solve_matrix_f32(const float* L, const float* D,

@@ -17,7 +17,12 @@ block per instance with its working blocks in global scratch, and
 :func:`k6_cluster` blocks per instance with every position's working
 blocks in the shared memory of the rank that owns it
 (:func:`cluster_owner`).  Both write the same factors, so K7 reads either.
-``launches`` counts K6 whatever the route, ``route_launches`` per route.
+K7 has two routes too, picked by :func:`k7_route`: ``"block"``, one
+thread block per instance with its working right-hand sides in global
+scratch, and ``"shared"`` (:func:`cr_solve_shared`), one thread block per
+(instance, group of kc columns) with that group's working right-hand
+sides in shared memory.  ``launches`` counts K6 and K7 whatever the
+route, ``route_launches`` per route.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ from .cr import CRKernelFactors, cr_factor_plain, cr_solve_plain
 launches = {"cr_factor": 0, "cr_solve": 0}
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
-#: ``launches`` of K6 ("cr_factor") by route
-route_launches = {"cr_factor block": 0, "cr_factor cluster": 0}
+#: ``launches`` of K6 ("cr_factor") and K7 ("cr_solve") by route
+route_launches = {"cr_factor block": 0, "cr_factor cluster": 0,
+                  "cr_solve block": 0, "cr_solve shared": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: the kernels index one instance's arrays with 32-bit offsets
@@ -75,6 +81,9 @@ def _lib() -> ctypes.CDLL:
         o = getattr(lib, f"ipmzoo_cr_factor_cluster_occupancy_{sfx}")
         o.argtypes = [i32, i32, i32, ptr]
         o.restype = i32
+        h = getattr(lib, f"ipmzoo_cr_solve_shared_{sfx}")
+        h.argtypes = [ptr] * 5 + [i32, i32, i32, i32, i64, ptr]
+        h.restype = i32
     return lib
 
 
@@ -359,7 +368,107 @@ def cr_solve_kernel(f: CRKernelFactors, r: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"cyclic-reduction solve kernel launch failed: "
                            f"cudaError {err}")
-    _count("cr_solve", r.dtype)
+    _count("cr_solve", r.dtype, "block")
+    return x
+
+
+# ----------------------------------------------------------------------
+# K7's shared route
+# ----------------------------------------------------------------------
+
+#: the largest block order the shared route takes (its dot products
+#: unroll to 8 or 16 terms)
+SHARED_MAX_B = 16
+#: the most column groups a launch takes (gridDim.y)
+MAX_GROUPS = 65535
+
+
+def solve_shared_bytes(N: int, b: int, kc: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one shared-route block: the working
+    right-hand sides of kc columns (N, b, kc) and the level scratch
+    (ceil(N / 2), b, kc)."""
+    return (N + (N + 1) // 2) * b * kc * torch.finfo(dtype).bits // 8
+
+
+def solve_shared_max_kc(N: int, b: int, dtype: torch.dtype) -> int:
+    """The most columns a shared-route block holds at (N, b): 0 where not
+    one fits, or b is over SHARED_MAX_B."""
+    if not 1 <= b <= SHARED_MAX_B or N < 1:
+        return 0
+    return SHARED_MEMORY_CAP // solve_shared_bytes(N, b, 1, dtype)
+
+
+def shared_fits(N: int, b: int, k: int, kc: int, dtype: torch.dtype) -> bool:
+    """Whether the shared route takes k columns in groups of kc."""
+    return (1 <= kc <= min(k, solve_shared_max_kc(N, b, dtype)) and
+            -(-k // kc) <= MAX_GROUPS)
+
+
+#: the SMs of the H100 the shared route's column groups are sized for: a
+#: block's time is its SM's load pipe, so two groups on one SM take about
+#: twice as long (PERF.md §6)
+K7_SMS = 132
+
+
+def k7_route(N: int, b: int, k: int, B: int, dtype: torch.dtype):
+    """K7's route for B instances of N blocks of order b with k columns:
+    ``("shared", kc)``, a thread block per (instance, group of kc
+    columns), wherever a group fits a block's shared memory, else
+    ``("block", None)``.  kc is the fewest columns that keep the B
+    instances' groups within one block per SM (K7_SMS), as many as fit
+    where B alone fills the card.  On an H100 the shared route won at
+    every measured point (chip_smoke.sweep_k7: N = 37..256, b = 3..16,
+    B = 1..64, both types), at the arrow slice's N=256, b=16, k=9 in
+    float32 0.0530 ms of device time against the block route's 0.2925 at
+    B=1 (kc=1) and 0.1232 against 0.3388 at B=32 (kc=3; PERF.md §6)."""
+    if min(N, b, k, B) < 1:
+        return "block", None
+    top = min(k, solve_shared_max_kc(N, b, dtype))
+    if top < 1:
+        return "block", None
+    kc = min(top, -(-k // max(1, K7_SMS // B)))
+    if not shared_fits(N, b, k, kc, dtype):
+        return "block", None
+    return "shared", kc
+
+
+def cr_solve_shared(f: CRKernelFactors, r: torch.Tensor,
+                    kc: int = None) -> torch.Tensor:
+    """Launch K7's shared route: solve against K6's factors for
+    r (..., N, b, k) on a CUDA device, one thread block per (instance,
+    group of ``kc`` columns; default :func:`k7_route`'s)."""
+    if r.dim() < 3:
+        raise ValueError(f"expected r (..., N, b, k), got {tuple(r.shape)}")
+    lead, (N, b, k) = tuple(r.shape[:-3]), r.shape[-3:]
+    shape = lead + (N, b, b)
+    _check(r.dtype, r.device, Pinv=(f.Pinv, shape), Eb=(f.Eb, shape),
+           Ea=(f.Ea, shape))
+    _check_size(N, b, k)
+    B = 1
+    for d in lead:
+        B *= d
+    if kc is None:
+        kc = k7_route(N, b, k, B, r.dtype)[1]
+    if kc is None or not shared_fits(N, b, k, kc, r.dtype):
+        raise ValueError(
+            f"K7's shared route does not take N={N}, b={b}, k={k} in "
+            f"{r.dtype} with groups of {kc} columns: 1 <= b <= "
+            f"{SHARED_MAX_B}, 1 <= kc <= k and "
+            f"{solve_shared_bytes(N, b, kc or 1, r.dtype)} bytes within "
+            f"{SHARED_MEMORY_CAP}")
+    r = r.contiguous()
+    Pinv, Eb, Ea = (a.contiguous() for a in f)
+    x = torch.empty_like(r)
+    if B == 0:
+        return x
+    with torch.cuda.device(r.device):
+        err = getattr(_lib(), f"ipmzoo_cr_solve_shared_{_SUFFIX[r.dtype]}")(
+            Pinv.data_ptr(), Eb.data_ptr(), Ea.data_ptr(), r.data_ptr(),
+            x.data_ptr(), N, b, k, kc, B, _stream(r.device))
+    if err:
+        raise RuntimeError(f"cyclic-reduction solve (shared route) kernel "
+                           f"launch failed: cudaError {err}")
+    _count("cr_solve", r.dtype, "shared")
     return x
 
 
@@ -388,7 +497,15 @@ def cr_factor_auto(D: torch.Tensor, E: torch.Tensor) -> CRKernelFactors:
 
 
 def cr_solve_auto(f: CRKernelFactors, r: torch.Tensor) -> torch.Tensor:
-    """K7 for CUDA tensors, its plain version for CPU tensors."""
+    """K7 for CUDA tensors, by the route :func:`k7_route` picks; its plain
+    version for CPU tensors."""
     if r.dim() < 3:
         raise ValueError(f"expected r (..., N, b, k), got {tuple(r.shape)}")
-    return cr_solve_kernel(f, r) if _dispatch(r) else cr_solve_plain(f, r)
+    if not _dispatch(r):
+        return cr_solve_plain(f, r)
+    N, b, k = r.shape[-3:]
+    B = r.numel() // max(N * b * k, 1)
+    route, kc = k7_route(N, b, k, B, r.dtype)
+    if route == "shared":
+        return cr_solve_shared(f, r, kc)
+    return cr_solve_kernel(f, r)

@@ -14,8 +14,9 @@ the public layout as it is, no transpose.
 For CPU tensors the wrappers run the plain versions of :mod:`.ldlt`.
 Any other device raises; a failed build or launch raises too.
 
-K2, K3 and K5 each have two routes, picked per call by pure functions of
-the shape and type (:func:`k2_route`, :func:`k3_route`, :func:`k5_route`)
+K2, K3, K4 and K5 each have two routes, picked per call by pure functions
+of the shape and type (:func:`k2_route`, :func:`k3_route`,
+:func:`k4_route`, :func:`k5_route`)
 whose thresholds come from both routes timed on an H100 (PERF.md):
 
 - K2 ``"soa"``: one thread per matrix on SoA data (the QP slices' many
@@ -27,6 +28,11 @@ whose thresholds come from both routes timed on an H100 (PERF.md):
   shared memory, coalesced from the same SoA arrays, and one warp, or an
   8- / 16-lane part of one, solves each matrix with x in registers, for
   every order from 2 whose tile fits a block's shared memory (n <= 83).
+- K4 ``"thread"``: one thread per (matrix, column) on SoA data;
+  ``"warp"``: a thread block stages K3's tile of the SoA factor once for
+  all columns, segments of a warp each solve one matrix's group of four
+  columns in registers, R and X in the public layout (no transpose),
+  wherever the tile fits a block's shared memory (n <= 81).
 - K5 ``"block"``: one thread block per matrix (the nested-dissection
   levels); ``"warp"``: one warp, or an 8- / 16-lane part of one, per
   matrix of order <= 32, no block barrier; ``"k2+k4"``: K2 then K4 where
@@ -52,10 +58,11 @@ launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0,
             "ldlt_solve_matrix": 0}
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
-#: ``launches`` of K2 ("ldlt"), K3 ("solve_ldlt") and K5
-#: ("ldlt_solve_matrix") by route
+#: ``launches`` of K2 ("ldlt"), K3 ("solve_ldlt"), K4
+#: ("solve_ldlt_matrix") and K5 ("ldlt_solve_matrix") by route
 route_launches = {"ldlt soa": 0, "ldlt block": 0,
                   "solve_ldlt thread": 0, "solve_ldlt warp": 0,
+                  "solve_ldlt_matrix thread": 0, "solve_ldlt_matrix warp": 0,
                   "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -95,6 +102,9 @@ def _lib() -> ctypes.CDLL:
         m = getattr(lib, f"ipmzoo_ldlt_solve_matrix_{sfx}")
         m.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, ptr]
         m.restype = i32
+        mw = getattr(lib, f"ipmzoo_ldlt_solve_matrix_warp_{sfx}")
+        mw.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i32, i32, ptr]
+        mw.restype = i32
         fs = getattr(lib, f"ipmzoo_ldlt_factor_solve_matrix_{sfx}")
         fs.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, _CTYPE[dt],
                        ptr]
@@ -250,8 +260,126 @@ def solve_matrix_soa(L_t: torch.Tensor, D_t: torch.Tensor,
     if err:
         raise RuntimeError(f"LDL^T multi-rhs solve kernel launch failed: "
                            f"cudaError {err}")
-    _count("solve_ldlt_matrix", R_t.dtype)
+    _count("solve_ldlt_matrix", R_t.dtype, "thread")
     return X_t
+
+
+#: the K4 warp route's right-hand sides a segment and its most threads a
+#: block (kK4Cols, kK4Threads in csrc/ldlt.cu)
+K4_WARP_COLS, K4_WARP_THREADS = 4, 512
+#: the K4 warp route's tiles, in the order tried: 4 instances a block in
+#: both types (on an H100 at the Schur shape a tile of 8 in float32, one
+#: 32-byte sector of each SoA element, took 0.0438 ms of device time
+#: against 0.0233 for 4: half the column groups in 512 threads), 2 or 1
+#: where a smaller tile leaves room for more column groups (n=81, k=16 in
+#: float64: 0.0564 against 0.1589 ms; chip_smoke.sweep_k4, PERF.md §6)
+K4_TILES = (4, 2, 1)
+#: where the warp route beat the thread route on an H100 (device time over
+#: n = 1..16, 24, 64, k = 1, 2, 4, 16 and B = 9, 512, 2048, 10240 in both
+#: types: chip_smoke.sweep_k4, PERF.md §6): type -> rows (B_max, k_max,
+#: n_min), the first row with B <= B_max and k <= k_max (None: any) gives
+#: the smallest order the warp route takes.  Below order 6 the thread
+#: route's one pass of n^2 loads wins (n = 1: 1.5 against 2.9 us); at
+#: 10240 systems its B k threads fill the card and win to larger orders,
+#: the more the more columns.
+K4_WARP_RULE = {
+    torch.float32: ((2048, None, 6), (None, 4, 7), (None, None, 15)),
+    torch.float64: ((2048, None, 6), (None, 4, 11), (None, None, 16)),
+}
+
+
+def _segment(n: int) -> int:
+    """Lanes a matrix in the K3 and K4 warp routes: 8, 16 or 32."""
+    return 8 if n <= 8 else (16 if n <= 16 else 32)
+
+
+def solve_matrix_warp_bytes(n: int, groups: int, dtype: torch.dtype,
+                            tile: int) -> int:
+    """Dynamic shared memory of one K4 warp-route thread block: per
+    instance of the tile, L at row stride n + 1, D, and a chunk of
+    ``groups`` x K4_WARP_COLS right-hand sides at an odd row stride."""
+    chunk = groups * K4_WARP_COLS
+    return tile * (n * (n + 2) + n * (chunk | 1)) * \
+        torch.finfo(dtype).bits // 8
+
+
+def k4_warp_shape(n: int, k: int, dtype: torch.dtype, tile: int = None):
+    """The K4 warp route's launch at order n, k right-hand sides:
+    (instances a block, column groups a matrix), as many groups as the
+    columns need while the block keeps within K4_WARP_THREADS threads and
+    its tile within a block's shared memory; None where one group does
+    not fit.  Without a ``tile``, the first of K4_TILES whose shared
+    memory does not cut its groups, else the one with the most groups."""
+    if tile is None:
+        shapes = []
+        for t in K4_TILES:
+            shape = k4_warp_shape(n, k, dtype, t)
+            if shape is not None and shape[1] == _k4_groups(n, k, t):
+                return shape
+            shapes += [shape] if shape is not None else []
+        return max(shapes, key=lambda s: s[1]) if shapes else None
+    if not 1 <= n <= K3_WARP_MAX_ORDER or k < 1 or tile < 1:
+        return None
+    groups = _k4_groups(n, k, tile)
+    while groups >= 1 and solve_matrix_warp_bytes(
+            n, groups, dtype, tile) > K5_SHARED_MEMORY_CAP:
+        groups -= 1
+    return (tile, groups) if groups >= 1 else None
+
+
+def _k4_groups(n: int, k: int, tile: int) -> int:
+    """The K4 warp route's column groups a matrix before its shared
+    memory is counted: as many as the columns need, within the block's
+    threads."""
+    return min(-(-k // K4_WARP_COLS),
+               K4_WARP_THREADS // (tile * _segment(n)))
+
+
+def k4_route(n: int, k: int, B: int, dtype: torch.dtype) -> str:
+    """K4's route for B systems of order n with k right-hand sides:
+    ``"warp"`` from the order K4_WARP_RULE gives wherever
+    :func:`k4_warp_shape` fits (n <= 96), else ``"thread"``.  On an H100
+    the warp route took the Schur slice's H blocks (n=64, k=16, B=512) in
+    0.0295 ms of device time in float64 against 0.2836 (float32: 0.0234
+    against 0.2959; PERF.md §6)."""
+    if k4_warp_shape(n, k, dtype) is None:
+        return "thread"
+    for B_max, k_max, n_min in K4_WARP_RULE[dtype]:
+        if (B_max is None or B <= B_max) and (k_max is None or k <= k_max):
+            return "warp" if n >= n_min else "thread"
+    return "thread"
+
+
+def solve_matrix_warp(L_t: torch.Tensor, D_t: torch.Tensor, R: torch.Tensor,
+                      tile: int = None) -> torch.Tensor:
+    """Launch K4's warp route: the SoA factors :func:`solve_matrix_soa`
+    takes, L_t (n, n, B), D_t (n, B), and R (B, n, k) in the public layout
+    -> X (B, n, k) with L D L^T X = R per instance; ``tile`` instances a
+    block (default :func:`k4_warp_shape`'s)."""
+    B, n, k = R.shape
+    _check_soa(R.dtype, R.device, L_t=(L_t, (n, n, B)), D_t=(D_t, (n, B)),
+               R=(R, (B, n, k)))
+    shape = k4_warp_shape(n, k, R.dtype, tile)
+    if shape is None:
+        raise ValueError(
+            f"K4's warp route does not take n={n}, k={k} in {R.dtype} with "
+            f"a tile of {tile}: 1 <= n <= {K3_WARP_MAX_ORDER}, k >= 1 and "
+            f"the tile within {K5_SHARED_MEMORY_CAP} bytes of shared memory")
+    if not R.is_cuda:
+        raise ValueError(f"K4 needs CUDA tensors, got {R.device}")
+    X = torch.empty_like(R)
+    if B == 0:
+        return X
+    with torch.cuda.device(R.device):
+        err = getattr(_lib(),
+                      f"ipmzoo_ldlt_solve_matrix_warp_{_SUFFIX[R.dtype]}")(
+            L_t.data_ptr(), D_t.data_ptr(), R.data_ptr(), X.data_ptr(), n, k,
+            B, *shape, _stream(R.device))
+    if err:
+        raise RuntimeError(f"LDL^T multi-rhs solve (warp route) kernel launch "
+                           f"failed: cudaError {err}")
+    _count("solve_ldlt_matrix", R.dtype, "warp")
+    return X
 
 
 #: K5 keeps one matrix's panel [A | R] (n x (n + k)), D and one column
@@ -471,9 +599,11 @@ def solve_ldlt_matrix_auto(L: torch.Tensor, D: torch.Tensor,
         raise ValueError(f"expected R (B, n, k), got {tuple(R.shape)}")
     if not _dispatch(R):
         return solve_ldlt_matrix(L, D, R)
-    X_t = solve_matrix_soa(L.permute(1, 2, 0).contiguous(),
-                           D.t().contiguous(),
-                           R.permute(1, 2, 0).contiguous())
+    B, n, k = R.shape
+    L_t, D_t = L.permute(1, 2, 0).contiguous(), D.t().contiguous()
+    if k4_route(n, k, B, R.dtype) == "warp":
+        return solve_matrix_warp(L_t, D_t, R.contiguous())
+    X_t = solve_matrix_soa(L_t, D_t, R.permute(1, 2, 0).contiguous())
     return X_t.permute(2, 0, 1)
 
 

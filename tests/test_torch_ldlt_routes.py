@@ -226,6 +226,7 @@ def test_reset_clears_the_route_counts():
     cuda_ldlt.reset_launch_counts()
     assert set(cuda_ldlt.route_launches) == {
         "ldlt soa", "ldlt block", "solve_ldlt thread", "solve_ldlt warp",
+        "solve_ldlt_matrix thread", "solve_ldlt_matrix warp",
         "ldlt_solve_matrix block", "ldlt_solve_matrix warp"}
     assert not any(cuda_ldlt.route_launches.values())
 

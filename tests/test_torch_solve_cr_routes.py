@@ -401,7 +401,9 @@ def test_reset_clears_the_k6_route_counts():
         cuda_cr.route_launches[key] = 3
     cuda_cr.reset_launch_counts()
     assert set(cuda_cr.route_launches) == {"cr_factor block",
-                                           "cr_factor cluster"}
+                                           "cr_factor cluster",
+                                           "cr_solve block",
+                                           "cr_solve shared"}
     assert not any(cuda_cr.route_launches.values())
 
 
