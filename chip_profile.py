@@ -92,8 +92,11 @@ SCHUR_KERNELS = (("K2", "ldlt_factor_kernel", None),
                  ("K4 thread route", "ldlt_solve_matrix_kernel", "_warp"),
                  ("K4 warp route", "ldlt_solve_matrix_kernel_warp", None))
 ND_KERNELS = (("K5", "ldlt_factor_solve_matrix_kernel", None),
-              ("K5 block route", "ldlt_factor_solve_matrix_kernel", "_warp"),
-              ("K5 warp route", "ldlt_factor_solve_matrix_kernel_warp", None),
+              ("K5 block route", "ldlt_factor_solve_matrix_kernel<", None),
+              ("K5 warp route", "ldlt_factor_solve_matrix_kernel_warp<",
+               None),
+              ("K5 split route", "ldlt_factor_solve_matrix_kernel_split<",
+               None),
               ("K3", "ldlt_solve_kernel", None),
               ("K3 thread route", "ldlt_solve_kernel", "_warp"),
               ("K3 warp route", "ldlt_solve_kernel_warp", None))

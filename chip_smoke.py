@@ -182,9 +182,14 @@ Steps, each reported on its own line:
     K2 then K4, all through the wrapper, which must take the route
     k5_route picks; the plain X also against torch.linalg.solve(A, R)
     (float32 1e-3, float64 1e-9); then each route of K5 alone (the block
-    route, a thread block per matrix, and the warp route, a warp per
-    matrix of order <= 32) at those shapes and at K5_EDGES (n=1, odd
-    orders, batches that fill no whole block), and on an exactly-zero
+    route, a thread block per matrix; the warp route, a warp per matrix
+    of order <= 32; the split route, a block per matrix of order <= 64,
+    the factor on one segment of lanes and the right-hand sides split
+    across the block's segments) at those shapes, at the batch of 8's
+    levels (840, 64, 40), (224, 16, 48), (128, 16, 64) and at K5_EDGES
+    (n=1, odd orders, batches that fill no whole block, n = 17, 33, 63,
+    64, k = 1 and k not a multiple of the split route's 4 columns a
+    group), L exactly unit-lower; and every route on an exactly-zero
     pivot at (28, 16, 48), (10240, 32, 2) and (3, 37, 5);
 23. build the nd slice's dissection plan (host) and hold
     nd_solve(nd_factor(K)) on the slice's own KKT matrix at the initial
@@ -198,8 +203,9 @@ Steps, each reported on its own line:
     default device, which must converge with three K5 and six K3
     launches per iteration and no K2 / K4; a second solve must give
     bit-identical x; time it with CUDA events (median of 5 runs after
-    that warm-up) and report ms per solve and per iteration, launches
-    K5's launches by route, and host syncs;
+    that warm-up) and report ms per solve and per iteration, launches,
+    K5's launches by route (which must add up to its launches; the split
+    route must have run), and host syncs;
 25. the same structure as a batch: solve_batch on
     grid_qp(side=64, batch=8) (K5 at 840 blocks per launch), all
     converged, bit-identical twice, timed, useful iterations/s;
@@ -207,13 +213,15 @@ Steps, each reported on its own line:
     against the port on the CPU in float64 (the library composition
     there): |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
 27. time each K5 route at every shape of step 22's paths (the three nd
-    levels, (10240, 32, 2) and (3, 37, 5) in float32; (105, 64, 40) and
-    (10240, 32, 2) also in float64) against its plain version, against K2
-    followed by K4 (the wrappers, their layout transposes included) and
-    against torch.linalg.solve (the one PyTorch call that gives the same
-    X; it returns no factors), by CUDA events and by device time as in
-    step 8; fail where k5_route picks a route whose device time is more
-    than 5% above the other's;
+    levels, one instance and the batch of 8, (10240, 32, 2) and
+    (3, 37, 5) in float32; (105, 64, 40) and (10240, 32, 2) also in
+    float64) against its plain version, against K2 followed by K4 (the
+    wrappers, their layout transposes included) and against
+    torch.linalg.solve (the one PyTorch call that gives the same X; it
+    returns no factors), by CUDA events and by device time (the routes of
+    a shape in one trace; torch.linalg.solve's at the nd levels too);
+    fail where k5_route picks a route whose device time is more than 5%
+    above the fastest;
 28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
     T2b in-kernel factor / solve repetitions) and the five generated
     prefixes of one fused iteration (T3), each prefix a source of its
@@ -304,6 +312,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "fused team": "ipmzoo_tpu/models/fused.py:432",
             "solve_ldlt_matrix warp": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
+            "ldlt_solve_matrix split": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "cr_factor": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_factor cluster": "ipmzoo_tpu/ops/cr_pallas.py:182",
             "cr_solve": "ipmzoo_tpu/ops/cr_pallas.py:281",
@@ -359,12 +368,21 @@ ND_SIDE, ND_LEAF, ND_BATCH = 64, 64, 8
 #: (matrices, order, right-hand sides) of step 22: the three levels of the
 #: nd slice's plan, bench_kkt's fused factor + 2-rhs point, an odd shape
 K5_LEVEL, K5_KKT = (105, 64, 40), (10240, 32, 2)
-K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5))
+#: the nd levels of the batch of 8 (step 25)
+K5_BATCH_LEVELS = ((840, 64, 40), (224, 16, 48), (128, 16, 64))
+K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5)) + \
+    K5_BATCH_LEVELS
+#: the nd levels, one instance and the batch of 8
+K5_ND_LEVELS = K5_SHAPES[:3] + K5_BATCH_LEVELS
 #: a shape over K5's shared-memory cap: the wrapper runs K2 then K4
 K5_OVER_CAP = (1, 328, 1)
 #: more shapes at which each K5 route is held to plain (step 22): n = 1,
-#: odd orders, batches that fill no whole block of either route
-K5_EDGES = ((1, 1, 1), (5, 13, 3), (7, 8, 2), (33, 20, 9), (1, 37, 2))
+#: odd orders, batches that fill no whole block of the block or warp
+#: route; for the split route n = 17, 33 and 63 (one past a segment's
+#: rows, one short of two rows a lane) and 64 (its largest), k = 1 and
+#: k = 2, 5, 9 and 41 (not a multiple of its 4 columns a group)
+K5_EDGES = ((1, 1, 1), (5, 13, 3), (7, 8, 2), (33, 20, 9), (1, 37, 2),
+            (3, 17, 9), (2, 33, 41), (5, 63, 1), (4, 63, 2), (9, 64, 5))
 #: (order, matrices) at which both K2 routes are held to plain (step 4)
 #: and timed (steps 8, 17): the compact slice's batches and its float64
 #: escalation of at most 32 stragglers, the Schur slice's H and S blocks,
@@ -432,9 +450,10 @@ def ldlt_bounds(B, n, k, dtype):
 def k5_bound(B, n, k, dtype):
     """Bound of K5 on B systems of order n with k right-hand sides: it
     reads A and R and writes L, D and X; n^3/3 multiply-adds for the
-    factor and 2 n^2 for each column's two sweeps."""
+    factor and n^2 for each column's two sweeps (n^2/2 each), two
+    operations a multiply-add."""
     return bound(B * (2 * n * n + n + 2 * n * k),
-                 2 * B * (n ** 3 / 3 + 2 * k * n * n), dtype)
+                 2 * B * (n ** 3 / 3 + k * n * n), dtype)
 
 
 def cr_bounds(B, N, b, k, dtype):
@@ -1265,7 +1284,8 @@ def build_kernels():
 
 
 def report_route_builds():
-    """Step 3, the second routes of K3, K4, K6 and K7: ptxas' registers,
+    """Step 3, the second routes of K3, K4, K6 and K7 and K5's split
+    route: ptxas' registers,
     stack frame, spills and static shared memory per instantiation, and for
     K6's cluster route at the arrow slice's shape (N=256, b=16) the
     threads a block, dynamic shared memory and
@@ -1274,6 +1294,7 @@ def report_route_builds():
     from ipmzoo_tpu_torch.ops import _build, cuda_cr
     for name, key in (("ldlt", "ldlt_solve_kernel_warp"),
                       ("ldlt", "ldlt_solve_matrix_kernel_warp"),
+                      ("ldlt", "ldlt_factor_solve_matrix_kernel_split"),
                       ("cr", "cr_factor_kernel_cluster"),
                       ("cr", "cr_solve_kernel_shared")):
         lib = _build.library_path(name)
@@ -2287,34 +2308,41 @@ def hold_k5(what, A, R, tol, route):
     return (L0, D0, X0), (X - X0).abs().max().item()
 
 
-def k5_call(route, A, R):
-    """One launch of K5's ``route`` on contiguous A, R."""
+def k5_call(route, A, R, **kw):
+    """One launch of K5's ``route`` on contiguous A, R (``kw``: the split
+    route's groups)."""
     from ipmzoo_tpu_torch.ops import cuda_ldlt
-    if route == "warp":
-        return cuda_ldlt.factor_solve_matrix_warp(A, R)
-    return cuda_ldlt.factor_solve_matrix_launch(A, R)
+    return {"warp": cuda_ldlt.factor_solve_matrix_warp,
+            "split": cuda_ldlt.factor_solve_matrix_split,
+            "block": cuda_ldlt.factor_solve_matrix_launch}[route](A, R, **kw)
 
 
-def k5_routes(n, k, dtype):
-    """The K5 routes that can run order n with k columns in ``dtype``."""
+def k5_routes(B, n, k, dtype):
+    """The K5 routes that can run B matrices of order n with k columns in
+    ``dtype``."""
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     routes = ("block",) if cuda_ldlt.factor_solve_matrix_fits(n, k, dtype) \
         else ()
-    return routes + (("warp",) if n <= cuda_ldlt.K5_WARP_MAX_ORDER else ())
+    routes += ("warp",) if n <= cuda_ldlt.K5_WARP_MAX_ORDER else ()
+    return routes + (("split",) if cuda_ldlt.k5_split_shape(
+        B, n, k, dtype) is not None else ())
 
 
-def hold_k5_route(what, A, R, route, tol):
+def hold_k5_route(what, A, R, route, tol, **kw):
     """K5's ``route`` launched alone against the plain version: L, D and
-    X within ``tol``; returns (plain D, the route's D, largest absolute
-    difference of X)."""
+    X within ``tol``, L exactly unit-lower; returns (plain D, the route's
+    D, largest absolute difference of X)."""
     import torch
     from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
     L0, D0, X0 = ldlt_solve_matrix(A, R)
-    L, D, X = k5_call(route, A, R)
+    L, D, X = k5_call(route, A, R, **kw)
     torch.cuda.synchronize()
     rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(X, X0)
-    print(f"kernels {what}: K5 {route} route rel diff L {rl:.3e} D {rd:.3e} "
-          f"X {rx:.3e} (limit {tol:g})")
+    print(f"kernels {what}: K5 {route} route{' ' + str(kw) if kw else ''} "
+          f"rel diff L {rl:.3e} D {rd:.3e} X {rx:.3e} (limit {tol:g})")
+    check(torch.equal(torch.triu(L, 1), torch.zeros_like(L)) and
+          bool((torch.diagonal(L, dim1=1, dim2=2) == 1).all()),
+          f"K5's {route} route: L is not exactly unit-lower ({what})")
     check(max(rl, rd, rx) <= tol, f"K5's {route} route disagrees with the "
           f"plain version ({what}): {max(rl, rd, rx):.3e} > {tol:g}")
     return D0, D, (X - X0).abs().max().item()
@@ -2323,7 +2351,7 @@ def hold_k5_route(what, A, R, route, tol):
 def check_k5(dev):
     """Step 22: K5 against its plain version on the card: through the
     wrapper (the route k5_route picks) at the path shapes, then each
-    route alone at the path shapes and at K5_EDGES, and on an
+    route alone at the path shapes and at K5_EDGES, and every route on an
     exactly-zero pivot; returns the wrapper's largest absolute difference
     at K5_LEVEL in float32 and the routes' by (route, B, n, k, type)."""
     import torch
@@ -2348,7 +2376,7 @@ def check_k5(dev):
                 err = ax
         for B, n, k in K5_SHAPES + K5_EDGES:
             A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k + 1)
-            for route in k5_routes(n, k, dtype):
+            for route in k5_routes(B, n, k, dtype):
                 route_errs[(route, B, n, k, name)] = hold_k5_route(
                     f"{name} B={B} n={n} k={k}", A, R, route, tol)[-1]
         # an exactly-zero second pivot, as in step 4, through every route
@@ -2362,7 +2390,7 @@ def check_k5(dev):
             (_, D0, _), _ = hold_k5(what, A, R, tol,
                                     cuda_ldlt.k5_route(B, n, k, dtype))
             Ds = [hold_k5_route(what, A, R, route, tol)[1]
-                  for route in k5_routes(n, k, dtype)]
+                  for route in k5_routes(B, n, k, dtype)]
             check(all(bool((D[:, 1].cpu() == floor).all())
                       for D in Ds + [D0]),
                   "K5 or its plain version did not put the pivot floor on "
@@ -2484,12 +2512,14 @@ def run_nd(what, solve, solver, n_inst):
           f"{launches['solve_ldlt_matrix']} (float64: "
           f"{sum(f64.values())}); host syncs {syncs}")
     print(f"{what}: K5 routes: block {routes['ldlt_solve_matrix block']}, "
-          f"warp {routes['ldlt_solve_matrix warp']}; K3 routes: thread "
+          f"warp {routes['ldlt_solve_matrix warp']}, split "
+          f"{routes['ldlt_solve_matrix split']}; K3 routes: thread "
           f"{routes['solve_ldlt thread']}, warp {routes['solve_ldlt warp']}")
     check(routes["solve_ldlt thread"] + routes["solve_ldlt warp"] ==
           launches["solve_ldlt"], f"{what}: K3's route counts do not add up")
     check(routes["ldlt_solve_matrix block"] +
-          routes["ldlt_solve_matrix warp"] == launches["ldlt_solve_matrix"],
+          routes["ldlt_solve_matrix warp"] +
+          routes["ldlt_solve_matrix split"] == launches["ldlt_solve_matrix"],
           f"{what}: K5's route counts do not add up")
     check(bool(conv.all()), f"{what}: {int(conv.sum())}/{n_inst} converged")
     check(launches == {"ldlt_solve_matrix": 3 * steps,
@@ -2555,13 +2585,30 @@ def run_nd_slice():
     return launches
 
 
+#: K5's kernels by route, as launch_ms matches them
+K5_KERNELS = {"block": ("ldlt_factor_solve_matrix_kernel<", None),
+              "warp": ("ldlt_factor_solve_matrix_kernel_warp<", None),
+              "split": ("ldlt_factor_solve_matrix_kernel_split<", None)}
+
+
+def k5_device_ms(cases, reps):
+    """Device ms per launch of each K5 route of each (A, R, routes) of
+    ``cases``, all in one trace (launch_ms)."""
+    groups = [(lambda r=r, A=A, R=R: k5_call(r, A, R), {r: K5_KERNELS[r]})
+              for A, R, routes in cases for r in routes]
+    ms = iter(launch_ms(groups, reps))
+    return [{r: next(ms)[r] for r in routes} for _, _, routes in cases]
+
+
 def time_k5(dev):
     """Step 27: each K5 route alone at every shape the paths give K5
     (K5_SHAPES in float32, K5_LEVEL and K5_KKT also in float64), against
     the plain version, against K2 followed by K4 (the wrappers, layout
     transposes included) and against torch.linalg.solve, which gives the
-    same X and no factors; prints which route k5_route picks and which is
-    faster, and fails where the rule picks the slower route."""
+    same X and no factors (at the nd levels also its device time); the
+    routes' device time in one trace a shape; prints which route k5_route
+    picks and which is faster, and fails where the rule picks a route
+    more than 5% slower on the device."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     from ipmzoo_tpu_torch.ops.ldlt import ldlt_solve_matrix
@@ -2577,11 +2624,10 @@ def time_k5(dev):
         name = str(dtype).replace("torch.", "")
         A, R = k5_inputs(B, n, k, dtype, dev, seed=n + k)
         X0 = ldlt_solve_matrix(A, R)[2]
-        routes = k5_routes(n, k, dtype)
+        routes = k5_routes(B, n, k, dtype)
         t = {f"K5_{r}": time_cuda(lambda r=r: k5_call(r, A, R), 50)
              for r in routes}
-        dev_t = {r: device_ms(lambda r=r: k5_call(r, A, R), 50)
-                 for r in routes}
+        dev_t = k5_device_ms([(A, R, routes)], 50)[0]
         t.update({f"K5_{r}_device": v for r, v in dev_t.items()})
         t["K5_plain"] = time_cuda(lambda: ldlt_solve_matrix(A, R), 3)
         t["K2_then_K4"] = time_cuda(lambda: k2_k4(A, R), 10)
@@ -2589,6 +2635,9 @@ def time_k5(dev):
             f"torch.linalg.solve (K5's X, no factors) B={B} n={n} k={k} "
             f"{name}", lambda: torch.linalg.solve(A, R), X0,
             1e-3 if dtype == torch.float32 else 1e-9, 10)
+        if (B, n, k) in K5_ND_LEVELS and t["library"] is not None:
+            t["library_device"] = device_ms(
+                lambda: torch.linalg.solve(A, R), 10)
         t["bound"] = k5_bound(B, n, k, dtype)
         pick = cuda_ldlt.k5_route(B, n, k, dtype)
         best = min(routes, key=lambda r: dev_t[r])
@@ -2596,7 +2645,8 @@ def time_k5(dev):
         print(f"timing K5 B={B} n={n} k={k} {name} (ms per call, CUDA "
               f"events; _device: kernel time under torch.profiler): " +
               ", ".join(f"{a} {v:.4f}" for a, v in t.items()
-                        if a.startswith("K")) +
+                        if a.startswith(("K", "library_")) and
+                        v is not None) +
               f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; k5_route "
               f"picks {pick}, the faster on the device is {best}")
         check(dev_t[pick] <= 1.05 * dev_t[best],
@@ -2606,24 +2656,101 @@ def time_k5(dev):
     return out
 
 
-def sweep_k5(dev=None):
-    """Both K5 routes' device time (device_ms) over k = 2..64 right-hand
-    sides at orders 8, 16 and 32 and batches from 28 to 10240, float32
-    and float64: the measurement behind k5_route's k <= n / 2.  Not part
-    of main(); run it alone (about a minute with the ldlt.cu build)."""
+#: (B, n, k) of scan_k5_split: the nd slice's levels, one instance and
+#: the batch of 8
+K5_SCAN_SHAPES = ((105, 64, 40), (28, 16, 48), (16, 16, 64), (840, 64, 40),
+                  (224, 16, 48), (128, 16, 64))
+
+
+def scan_k5_split(dev=None):
+    """The split route's device time at K5_SCAN_SHAPES in both types for
+    every number of column groups a block holds, beside the other routes,
+    one trace a shape (launch_ms): the measurement behind k5_split_shape.
+    Where the blocks fit one wave (B up to 132), one group against all
+    groups splits the time into the staging with the factor (F) and one
+    group's sweeps (S): one group walks all g of them, F + g S, all groups
+    take F + S.  Not part of main(); run it alone (a minute with the
+    ldlt.cu build)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
     dev = dev or torch.device("cuda")
     for dt in (torch.float32, torch.float64):
-        for n, B in ((16, 28), (16, 224), (32, 105), (32, 10240), (8, 1024)):
-            for k in (2, 4, 8, 12, 16, 24, 32, 48, 64):
-                A, R = k5_inputs(B, n, k, dt, dev, seed=k)
-                d = {r: device_ms(lambda r=r: k5_call(r, A, R), 20)
-                     for r in ("block", "warp")}
-                print(f"sweep {str(dt)[6:]} B={B} n={n} k={k}: device ms "
-                      f"block {d['block']:.4f} warp {d['warp']:.4f} ratio "
-                      f"{d['warp'] / d['block']:.3f}; k5_route picks "
-                      f"{cuda_ldlt.k5_route(B, n, k, dt)}", flush=True)
+        name = str(dt).replace("torch.", "")
+        for B, n, k in K5_SCAN_SHAPES:
+            A, R = k5_inputs(B, n, k, dt, dev, seed=n + k)
+            groups, labels = [], []
+            for r in k5_routes(B, n, k, dt):
+                if r != "split":
+                    groups.append((lambda r=r: k5_call(r, A, R),
+                                   {r: K5_KERNELS[r]}))
+                    labels.append(r)
+            need = -(-k // cuda_ldlt.K5_SPLIT_COLS)
+            for g in range(1, need + 1):
+                if cuda_ldlt.k5_split_shape(B, n, k, dt, g):
+                    groups.append((lambda g=g: k5_call(
+                        "split", A, R, groups=g),
+                        {"split": K5_KERNELS["split"]}))
+                    labels.append(f"split groups={g}")
+            ms = {lab: next(iter(t.values())) for lab, t in
+                  zip(labels, launch_ms(groups, 20))}
+            pick = cuda_ldlt.k5_split_shape(B, n, k, dt)
+            print(f"scan {name} B={B} n={n} k={k}: device ms " +
+                  ", ".join(f"{lab} {v:.4f}" for lab, v in ms.items()) +
+                  f"; k5_split_shape gives {pick} groups", flush=True)
+            one, full = (ms.get(f"split groups={g}") for g in (1, need))
+            if B <= 132 and need > 1 and one is not None and \
+                    full is not None:
+                S = (one - full) / (need - 1)
+                print(f"scan {name} B={B} n={n} k={k}: staging + factor "
+                      f"{full - S:.4f} ms, one group's sweeps {S:.4f} ms "
+                      f"({need} groups)", flush=True)
+
+
+#: sweep_k5's orders, right-hand sides and batches
+K5_SWEEP_N = (8, 16, 24, 32, 48, 64)
+K5_SWEEP_K = (1, 2, 4, 8, 16, 24, 32, 40, 48, 64)
+K5_SWEEP_B = (16, 105, 840, 10240)
+
+
+def sweep_k5(dev=None):
+    """Every K5 route's device time over K5_SWEEP_N x K5_SWEEP_K x
+    K5_SWEEP_B, float32 and float64, one trace an order and type
+    (launch_ms): the measurement behind k5_route.  Prints each point, the
+    points where k5_route's pick is more than 5% slower than the fastest
+    route, and their count.  Not part of main(); run it alone (a few
+    minutes with the ldlt.cu build)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    dev = dev or torch.device("cuda")
+    points, misses = 0, []
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        for n in K5_SWEEP_N:
+            shapes = [(B, k) for B in K5_SWEEP_B for k in K5_SWEEP_K]
+            cases = []
+            for B in K5_SWEEP_B:
+                A = k5_inputs(B, n, 1, dt, dev, seed=n)[0]
+                for k in K5_SWEEP_K:
+                    R = torch.randn((B, n, k), dtype=dt, device=dev,
+                                    generator=torch.Generator(
+                                        dev).manual_seed(k))
+                    cases.append((A, R, k5_routes(B, n, k, dt)))
+            for (B, k), d in zip(shapes, k5_device_ms(cases, 20)):
+                pick = cuda_ldlt.k5_route(B, n, k, dt)
+                best = min(d, key=d.get)
+                points += 1
+                miss = d[pick] > 1.05 * d[best]
+                if miss:
+                    misses.append((name, B, n, k, pick, d[pick], best,
+                                   d[best]))
+                print(f"sweep {name} B={B} n={n} k={k}: device ms " +
+                      " ".join(f"{r} {v:.4f}" for r, v in d.items()) +
+                      f"; k5_route picks {pick}, fastest {best}"
+                      f"{' MISS' if miss else ''}", flush=True)
+            del cases
+    print(f"sweep_k5: k5_route within 5% of the fastest route at "
+          f"{points - len(misses)} of {points} points; misses: {misses}")
+    return misses
 
 
 #: K6's kernels by route, as launch_ms matches them
@@ -2990,6 +3117,8 @@ def main():
     errs["ldlt_solve_matrix"], k5_errs = check_k5(dev)
     top_routes = check_nd_kkt()
     nd_launches = run_nd_slice()
+    check(nd_launches["ldlt_solve_matrix split"] > 0, "the nd slice never "
+          "launched K5's split route")
     k5_times = time_k5(dev)
     k5 = k5_times[K5_LEVEL + ("float32",)]
     r_errs, r_launches, r_times = measure_roofline(
@@ -3076,10 +3205,19 @@ def main():
               "solve_ldlt_matrix warp", s_launches["solve_ldlt_matrix warp"],
               s_times["K4_warp"], s_times["K4_plain"], b64["K4"],
               s_times["K4_library"]),
+        # the block route's launches on the slice's path: k5_route takes
+        # it only where the split route's shared memory does not hold a
+        # matrix with its right-hand sides
         entry("K5 fused LDL^T factor + multi-rhs solve, block route "
               "(float32, B=%d, n=%d, k=%d)" % K5_LEVEL, SOURCE,
               "ldlt_solve_matrix", nd_launches["ldlt_solve_matrix block"],
-              k5["K5_block"], k5["K5_plain"], k5["bound"], k5["library"]),
+              k5["K5_block"], k5["K5_plain"], k5["bound"], k5["library"],
+              k5_errs[("block",) + K5_LEVEL + ("float32",)]),
+        entry("K5 split route (float32, B=%d, n=%d, k=%d)" % K5_LEVEL,
+              SOURCE, "ldlt_solve_matrix split",
+              nd_launches["ldlt_solve_matrix split"], k5["K5_split"],
+              k5["K5_plain"], k5["bound"], k5["library"],
+              k5_errs[("split",) + K5_LEVEL + ("float32",)]),
         entry("K5 small-order route (float32, %d, %d, %d)" % K5_KKT, SOURCE,
               "ldlt_solve_matrix",
               bench_routes["kkt"]["ldlt_solve_matrix warp"], kw["K5_warp"],

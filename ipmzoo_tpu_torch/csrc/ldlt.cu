@@ -166,6 +166,45 @@
 // the same tile.  Shared memory is G n (n + 3) values, so the route takes
 // n <= 83 in both types (232448 bytes); ops/cuda_ldlt.py:k3_route keeps
 // the thread route above that.
+//
+// K5 split route, ldlt_factor_solve_matrix_kernel_split, replaces the same
+// TPU kernel (pallas_ldlt.py:_factor_solve_matrix_kernel) at the nested-
+// dissection levels (orders 16-64, 40-64 right-hand sides, 16 to a few
+// hundred matrices).  The block route above spends a level's matrix of
+// order 64 between ~190 block barriers, each separating a few multiply-
+// adds a thread: at 105 matrices, one 256-thread block an SM, nothing
+// hides them, and it runs at ~80x its bound.  Here a thread block owns one
+// matrix (so that every SM gets work at a level's batch) with three block
+// barriers in all.  (1) A and R are copied into dynamic shared memory by
+// asynchronous copies (cp.async), consecutive threads on consecutive
+// addresses: A at row stride n + 1 in a group of its own, then R at the
+// odd row stride k | 1, whose copies land while the factor runs; a
+// barrier once A is in.  (2) One SEG-lane segment (16 lanes for n <= 16,
+// else a warp; lane l holds rows l, l + SEG, ..., R rows, a template
+// parameter so every register index is static) factors the matrix with
+// no block barrier: right-looking, column by column, each lane setting
+// its unscaled column-j entries aside in shared memory, the pivot read
+// back (an exactly-zero pivot becomes pivot_floor), each lane scaling its
+// own entries and updating its rows of the trailing lower triangle with
+// the other rows' unscaled entries.  Where the rows fit in registers
+// (float32 up to order 64, float64 up to 32) they stay there, each moved
+// one register down a column so that the column loop runs at run time
+// while every register index is static (a loop over both, unrolled, is
+// past what the compiler unrolls); otherwise the lanes update the staged
+// panel in chunks of 8 columns.  Only __syncwarp.  (3) After a barrier
+// the k right-hand sides are split across the block's segments, KC = 4
+// columns a segment (more column groups than segments are walked in
+// turn): the forward sweep with row j shuffled from its owner, the
+// division by D and the backward sweep column by column from the last, L
+// read from the staged factor with no branch around the loads, X
+// overwriting R's tile in place.  (4) After a barrier L, D and X leave
+// coalesced through the tile in the public layout.  Every entry subtracts
+// its terms in the block route's order (the factor's rank-one updates and
+// the forward elimination in increasing j, the backward sweep from the
+// last column).  Shared memory is n (n + 3) + n (k | 1) values; the route
+// takes orders up to 64 (two rows a lane) within the 232448 bytes a block
+// may take, and ops/cuda_ldlt.py:k5_route keeps the block route and
+// K2 + K4 beyond.
 
 #include <atomic>
 #include <cstdint>
@@ -798,6 +837,299 @@ ldlt_solve_matrix_kernel_warp(const T* __restrict__ L,
   }
 }
 
+// The K5 split route's right-hand sides a segment, its most threads a
+// block (384 leaves a thread 170 registers: the float32 factor of order
+// 64 keeps 96 values of its rows in them) and its largest order (a warp,
+// two rows a lane).
+constexpr int kK5SplitCols = 4;
+constexpr int kK5SplitThreads = 384;
+constexpr int kK5SplitMaxOrder = 64;
+
+// One value copied from device to shared memory by cp.async (sm_80 and
+// later): it lands while the thread goes on, and wait_async_copies<N>
+// waits until at most N of this thread's committed groups are in flight.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(static_cast<int>(sizeof(T))));
+}
+
+__device__ __forceinline__ void commit_async_copies() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Whether the split route's factor keeps a lane's rows in registers: row
+// slot r holds (r + 1) SEG values (the rest of the padded row lies above
+// the diagonal), at most 96 32-bit registers' worth, so float32 up to
+// order 64 and float64 up to 32.
+template <typename T, int SEG, int R>
+__host__ __device__ constexpr bool split_rows_in_registers() {
+  return SEG * R * (R + 1) / 2 * sizeof(T) <= 96 * 4;
+}
+
+// The split route's factor, rows in registers.  Lane l of the segment
+// holds rows l, l + SEG, ... of the staged panel P (row stride S), slot r
+// row r SEG + l, from the current column on: at column j register c of a
+// slot holds column j + c, so the column loop runs at run time while every
+// register index is static, and each update moves its entry one register
+// down.  At column j the lanes set their unscaled column-j entries aside
+// in ucol, the pivot is row j's, each lane scales its entries below the
+// diagonal (written to P as L at once) and updates the rest of its rows
+// with the other rows' unscaled entries read back from ucol.  Slot r's
+// rows end at column (r + 1) SEG - 1, so it holds (r + 1) SEG registers
+// and takes part in column blocks 0..r only.
+template <typename T, int SEG, int R>
+__device__ __forceinline__ void split_factor_registers(
+    T* P, T* dsh, T* ucol, int n, int S, int l, unsigned mask,
+    T pivot_floor) {
+  T a[R][SEG * R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = r * SEG + l;
+#pragma unroll
+    for (int c = 0; c < (r + 1) * SEG; ++c) {
+      a[r][c] = (row < n && c < n) ? P[row * S + c] : T(0);
+    }
+  }
+#pragma unroll
+  for (int jb = 0; jb < R; ++jb) {
+    const int jend = n < (jb + 1) * SEG ? n : (jb + 1) * SEG;
+    for (int j = jb * SEG; j < jend; ++j) {
+      __syncwarp(mask);   // the last column's reads of ucol are done
+#pragma unroll
+      for (int r = jb; r < R; ++r) {
+        const int row = r * SEG + l;
+        if (row >= j && row < n) ucol[row] = a[r][0];
+      }
+      __syncwarp(mask);
+      T d = ucol[j];
+      if (d == T(0)) d = pivot_floor;
+      if (l == 0) dsh[j] = d;
+      T lij[R];
+#pragma unroll
+      for (int r = jb; r < R; ++r) {
+        const int row = r * SEG + l;
+        lij[r] = T(0);
+        if (row > j && row < n) {
+          lij[r] = a[r][0] / d;
+          P[row * S + j] = lij[r];
+        }
+      }
+      // a_ic -= l_ij u_c for every c > j (rows i <= j have l_ij = 0, and
+      // the part of a row above its diagonal is never read)
+#pragma unroll
+      for (int c = 1; c < (R - jb) * SEG; ++c) {
+        const int col = j + c;
+        const T uc = col < n ? ucol[col] : T(0);
+#pragma unroll
+        for (int r = jb; r < R; ++r) {
+          if (c < (r + 1 - jb) * SEG) a[r][c - 1] = a[r][c] - lij[r] * uc;
+        }
+      }
+    }
+  }
+}
+
+// The split route's factor in the staged panel, where the rows do not fit
+// in registers: the same steps, each lane updating its rows of P in place
+// (the unscaled column set aside in ucol), kSplitChunk columns at a time,
+// all of a chunk's loads issued before its stores.
+constexpr int kSplitChunk = 8;
+
+template <typename T, int SEG, int R>
+__device__ __forceinline__ void split_factor_shared(
+    T* P, T* dsh, T* ucol, int n, int S, int l, unsigned mask,
+    T pivot_floor) {
+  for (int j = 0; j < n; ++j) {
+    T d = P[j * S + j];
+    if (d == T(0)) d = pivot_floor;
+    if (l == 0) dsh[j] = d;
+    T lij[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+      lij[r] = T(0);
+      if (row > j && row < n) {
+        const T u = P[row * S + j];
+        ucol[row] = u;
+        lij[r] = u / d;
+        P[row * S + j] = lij[r];
+      }
+    }
+    __syncwarp(mask);
+    // P_ic -= l_ij u_c on the lower triangle (j < c <= i)
+    for (int c0 = j + 1; c0 < n; c0 += kSplitChunk) {
+      T uc[kSplitChunk], p[R][kSplitChunk];
+#pragma unroll
+      for (int t = 0; t < kSplitChunk; ++t) {
+        uc[t] = c0 + t < n ? ucol[c0 + t] : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+#pragma unroll
+        for (int t = 0; t < kSplitChunk; ++t) {
+          p[r][t] = (c0 + t <= row && row < n) ? P[row * S + c0 + t] : T(0);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int row = r * SEG + l;
+#pragma unroll
+        for (int t = 0; t < kSplitChunk; ++t) {
+          if (c0 + t <= row && row < n) {
+            P[row * S + c0 + t] = p[r][t] - lij[r] * uc[t];
+          }
+        }
+      }
+    }
+    __syncwarp(mask);
+  }
+}
+
+// K5 split route.  A block owns one matrix; the tile holds its panel (A,
+// then L's strict lower triangle) at row stride n + 1, D, the unscaled
+// column, and R (then X) at row stride k | 1.  Segment 0 of SEG lanes
+// factors the matrix, then segment q solves column groups q, q + NG, ...
+// of KC columns.
+template <typename T, int SEG, int R, int KC>
+__global__ void __launch_bounds__(kK5SplitThreads)
+ldlt_factor_solve_matrix_kernel_split(const T* __restrict__ A,
+                                      const T* __restrict__ rhs,
+                                      T* __restrict__ L, T* __restrict__ D,
+                                      T* __restrict__ X, int n, int k,
+                                      int NG, T pivot_floor) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  T* P = reinterpret_cast<T*>(shared_raw);
+  const int S = n + 1, SR = k | 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nn = n * n, nk = n * k;
+  T* dsh = P + n * S;
+  T* Xt = dsh + 2 * n;
+
+  // stage A, then R, each a contiguous run of the public layout
+  const T* Ab = A + static_cast<int64_t>(blockIdx.x) * nn;
+  for (int e = tid; e < nn; e += nt) {
+    const int row = e / n;
+    copy_async(P + row * S + (e - row * n), Ab + e);
+  }
+  commit_async_copies();
+  const T* Rb = rhs + static_cast<int64_t>(blockIdx.x) * nk;
+  for (int e = tid; e < nk; e += nt) {
+    const int row = e / k;
+    copy_async(Xt + row * SR + (e - row * k), Rb + e);
+  }
+  commit_async_copies();
+  wait_async_copies<1>();   // this thread's copies of A
+  __syncthreads();
+
+  const int q = tid / SEG, l = tid % SEG;
+  const unsigned mask = segment_mask<SEG>(tid & 31);
+  if (q == 0) {   // the whole segment alike
+    if (split_rows_in_registers<T, SEG, R>()) {
+      split_factor_registers<T, SEG, R>(P, dsh, dsh + n, n, S, l, mask,
+                                        pivot_floor);
+    } else {
+      split_factor_shared<T, SEG, R>(P, dsh, dsh + n, n, S, l, mask,
+                                     pivot_floor);
+    }
+  }
+  wait_async_copies<0>();   // and of R
+  __syncthreads();
+
+  // the sweeps read L and D at clamped rows, so a lane of a row past n
+  // reads in bounds and no load waits on a branch; its values are never
+  // stored
+  int rowc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    rowc[r] = r * SEG + l < n ? r * SEG + l : n - 1;
+  }
+  for (int c0 = q * KC; c0 < k; c0 += NG * KC) {
+    T v[R][KC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        v[r][c] = (row < n && c0 + c < k) ? Xt[row * SR + c0 + c] : T(0);
+      }
+    }
+    // forward sweep with the unit-lower L, in increasing j:
+    // x_i -= L_ij x_j, row j shuffled from its owner
+#pragma unroll
+    for (int j = 0; j < SEG * R; ++j) {
+      if (j >= n) break;
+      T y[KC];
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        y[c] = __shfl_sync(mask, v[j / SEG][c], j % SEG, SEG);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if ((r + 1) * SEG - 1 <= j) continue;   // static: no row below j
+        const T lij = r * SEG + l > j ? P[rowc[r] * S + j] : T(0);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) v[r][c] -= lij * y[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T d = dsh[rowc[r]];
+#pragma unroll
+      for (int c = 0; c < KC; ++c) v[r][c] = v[r][c] / d;
+    }
+    // backward sweep with L^T, column by column from the last:
+    // x_i -= L_ji x_j for every i < j
+#pragma unroll
+    for (int j = SEG * R - 1; j > 0; --j) {
+      if (j >= n) continue;
+      T y[KC];
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        y[c] = __shfl_sync(mask, v[j / SEG][c], j % SEG, SEG);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r * SEG >= j) continue;   // static: no row above j
+        const T lji = r * SEG + l < j ? P[j * S + rowc[r]] : T(0);
+#pragma unroll
+        for (int c = 0; c < KC; ++c) v[r][c] -= lji * y[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = r * SEG + l;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        if (row < n && c0 + c < k) Xt[row * SR + c0 + c] = v[r][c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // L with exact zeros above the diagonal and ones on it, D and X
+  T* Lb = L + static_cast<int64_t>(blockIdx.x) * nn;
+  for (int e = tid; e < nn; e += nt) {
+    const int row = e / n, c = e - row * n;
+    Lb[e] = c < row ? P[row * S + c] : (c == row ? T(1) : T(0));
+  }
+  for (int i = tid; i < n; i += nt) {
+    D[static_cast<int64_t>(blockIdx.x) * n + i] = dsh[i];
+  }
+  T* Xb = X + static_cast<int64_t>(blockIdx.x) * nk;
+  for (int e = tid; e < nk; e += nt) {
+    const int row = e / k;
+    Xb[e] = Xt[row * SR + (e - row * k)];
+  }
+}
+
 unsigned int grid_for(int64_t B) {
   return static_cast<unsigned int>((B + kThreads - 1) / kThreads);
 }
@@ -1003,6 +1335,51 @@ int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
   return launch_warp<T, 32, 8>(A, R, L, D, X, n, k, B, pivot_floor, stream);
 }
 
+template <typename T, int SEG, int R>
+int launch_split_at(const T* A, const T* rhs, T* L, T* D, T* X, int n,
+                    int k, int64_t B, int NG, T pivot_floor, size_t shared,
+                    cudaStream_t stream) {
+  static std::atomic<unsigned> cap_set{0};
+  if (shared > 48 * 1024) {
+    const int err = allow_shared_cap(
+        ldlt_factor_solve_matrix_kernel_split<T, SEG, R, kK5SplitCols>,
+        cap_set);
+    if (err) return err;
+  }
+  ldlt_factor_solve_matrix_kernel_split<T, SEG, R, kK5SplitCols>
+      <<<static_cast<unsigned int>(B), NG * SEG, shared, stream>>>(
+          A, rhs, L, D, X, n, k, NG, pivot_floor);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the K5 split route: a block per matrix, 16 lanes a matrix up to order
+// 16, else a warp with one or two rows a lane; NG column groups of
+// kK5SplitCols a matrix, as the caller sizes them
+template <typename T>
+int launch_factor_solve_matrix_split(const T* A, const T* rhs, T* L, T* D,
+                                     T* X, int n, int k, int64_t B, int NG,
+                                     T pivot_floor, cudaStream_t stream) {
+  const int seg = n <= 16 ? 16 : 32;
+  if (n < 1 || n > kK5SplitMaxOrder || k < 1 || B < 1 ||
+      B > 0x7fffffff || NG < 1 || NG * seg > kK5SplitThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared =
+      (static_cast<size_t>(n) * (n + 3) + static_cast<size_t>(n) * (k | 1)) *
+      sizeof(T);
+  if (shared > static_cast<size_t>(kSharedCap)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 16) return launch_split_at<T, 16, 1>(A, rhs, L, D, X, n, k, B,
+                                                NG, pivot_floor, shared,
+                                                stream);
+  if (n <= 32) return launch_split_at<T, 32, 1>(A, rhs, L, D, X, n, k, B,
+                                                NG, pivot_floor, shared,
+                                                stream);
+  return launch_split_at<T, 32, 2>(A, rhs, L, D, X, n, k, B, NG,
+                                   pivot_floor, shared, stream);
+}
+
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
@@ -1022,7 +1399,33 @@ int launch_factor_solve_matrix_warp(const T* A, const T* R, T* L, T* D,
 // G >= 1 instances a block and NG >= 1 groups of 4 columns a matrix,
 // G NG SEG <= 512 threads (SEG = 8, 16 or 32 by n) and
 // G (n (n + 2) + n (4 NG | 1)) sizeof(T) <= 232448 bytes of shared memory.
+// The K5 split route takes K5's contiguous A (B, n, n) and R, X (B, n, k)
+// with 0 < n <= 64, k > 0, 0 < B < 2^31 and NG >= 1 column groups of 4 a
+// matrix, NG SEG <= 384 threads (SEG = 16 for n <= 16, else 32) and
+// (n (n + 3) + n (k | 1)) sizeof(T) <= 232448 bytes of shared memory; it
+// writes L (B, n, n) and D (B, n).
 extern "C" {
+
+int ipmzoo_ldlt_factor_solve_matrix_split_f32(const float* A, const float* R,
+                                              float* L, float* D, float* X,
+                                              int n, int k, long long B,
+                                              int NG, float pivot_floor,
+                                              void* stream) {
+  return launch_factor_solve_matrix_split<float>(
+      A, R, L, D, X, n, k, B, NG, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
+
+int ipmzoo_ldlt_factor_solve_matrix_split_f64(const double* A,
+                                              const double* R, double* L,
+                                              double* D, double* X, int n,
+                                              int k, long long B, int NG,
+                                              double pivot_floor,
+                                              void* stream) {
+  return launch_factor_solve_matrix_split<double>(
+      A, R, L, D, X, n, k, B, NG, pivot_floor,
+      static_cast<cudaStream_t>(stream));
+}
 
 int ipmzoo_ldlt_factor_solve_matrix_warp_f32(const float* A, const float* R,
                                              float* L, float* D, float* X,

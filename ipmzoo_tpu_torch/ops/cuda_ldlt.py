@@ -14,10 +14,10 @@ the public layout as it is, no transpose.
 For CPU tensors the wrappers run the plain versions of :mod:`.ldlt`.
 Any other device raises; a failed build or launch raises too.
 
-K2, K3, K4 and K5 each have two routes, picked per call by pure functions
-of the shape and type (:func:`k2_route`, :func:`k3_route`,
+K2, K3 and K4 have two routes each and K5 three, picked per call by pure
+functions of the shape and type (:func:`k2_route`, :func:`k3_route`,
 :func:`k4_route`, :func:`k5_route`)
-whose thresholds come from both routes timed on an H100 (PERF.md):
+whose thresholds come from the routes timed on an H100 (PERF.md):
 
 - K2 ``"soa"``: one thread per matrix on SoA data (the QP slices' many
   small systems); ``"block"``: one thread block per matrix, the matrix in
@@ -33,10 +33,14 @@ whose thresholds come from both routes timed on an H100 (PERF.md):
   all columns, segments of a warp each solve one matrix's group of four
   columns in registers, R and X in the public layout (no transpose),
   wherever the tile fits a block's shared memory (n <= 81).
-- K5 ``"block"``: one thread block per matrix (the nested-dissection
-  levels); ``"warp"``: one warp, or an 8- / 16-lane part of one, per
-  matrix of order <= 32, no block barrier; ``"k2+k4"``: K2 then K4 where
-  a block's panel exceeds its shared memory.
+- K5 ``"block"``: one thread block per matrix, a block barrier a step;
+  ``"warp"``: one warp, or an 8- / 16-lane part of one, per matrix of
+  order <= 32, no block barrier; ``"split"``: a thread block per matrix
+  of order <= 64 staged by asynchronous copies, the factor on one segment of
+  lanes with no block barrier, then the right-hand sides split across the
+  block's segments in groups of four (the nested-dissection levels);
+  ``"k2+k4"``: K2 then K4 where no K5 route's shared memory holds the
+  matrix and its right-hand sides.
 
 ``launches`` counts each TPU kernel's launches whatever the route;
 ``route_launches`` counts them per route.
@@ -63,7 +67,8 @@ f64_launches = dict(launches)
 route_launches = {"ldlt soa": 0, "ldlt block": 0,
                   "solve_ldlt thread": 0, "solve_ldlt warp": 0,
                   "solve_ldlt_matrix thread": 0, "solve_ldlt_matrix warp": 0,
-                  "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0}
+                  "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0,
+                  "ldlt_solve_matrix split": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -112,6 +117,10 @@ def _lib() -> ctypes.CDLL:
         fw = getattr(lib, f"ipmzoo_ldlt_factor_solve_matrix_warp_{sfx}")
         fw.argtypes = fs.argtypes
         fw.restype = i32
+        fp = getattr(lib, f"ipmzoo_ldlt_factor_solve_matrix_split_{sfx}")
+        fp.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i32,
+                       _CTYPE[dt], ptr]
+        fp.restype = i32
         fb = getattr(lib, f"ipmzoo_ldlt_factor_block_{sfx}")
         fb.argtypes = f.argtypes
         fb.restype = i32
@@ -473,18 +482,66 @@ def k2_route(n: int, B: int, dtype: torch.dtype) -> str:
     return "block" if factor_block_fits(n, dtype) else "soa"
 
 
+#: where the K5 warp route was within 5% of the fastest route on an H100
+#: (device time, chip_smoke.sweep_k5 at 16, 105, 840 and 10240 systems;
+#: k5_route is within 5% of the fastest at 469 of its 480 points, PERF.md
+#: §6): type -> rows (B_max, (k_max at the warp route's padded order 8,
+#: 16, 32)), the first row with B <= B_max (None: any) gives the most
+#: right-hand sides it takes (None: any).  A warp walks its columns in
+#: chunks while the split route spreads them over its block's segments,
+#: so the warp route wins at few columns, and at many systems, which fill
+#: the card without the split.
+K5_WARP_RULE = {
+    torch.float32: ((264, (2, 4, 4)), (1024, (8, 8, 48)),
+                    (4096, (16, 64, None)), (None, (None, None, None))),
+    torch.float64: ((264, (2, 2, 2)), (1024, (4, 8, 16)),
+                    (4096, (16, 32, 0)), (None, (None, None, 0))),
+}
+def _warp_takes(B: int, n: int, k: int, dtype: torch.dtype) -> bool:
+    """Whether K5_WARP_RULE gives B systems of order n, k columns to the
+    warp route.  It runs its padded order (8, 16, 32) whatever n: from a
+    quarter of padding at order 32 (n = 17..24) the split route's n-wide
+    loops won, so those orders never take it."""
+    if n > K5_WARP_MAX_ORDER:
+        return False
+    pad = 0 if n <= 8 else (1 if n <= 16 else 2)
+    if pad == 2 and n <= 24:
+        return False
+    for B_max, k_max in K5_WARP_RULE[dtype]:
+        if B_max is None or B <= B_max:
+            return k_max[pad] is None or k <= k_max[pad]
+    return False
+
+
+def _block_takes(B: int, n: int, k: int, dtype: torch.dtype) -> bool:
+    """Where the block route beat the split route on an H100: from 512
+    systems, where the split route gives a matrix few column groups and
+    its block's threads take all the columns at once.  Orders up to 8
+    with k >= 24; in float64, where the split route factors orders over 32
+    in shared memory, k >= 32 there, and orders 9-24 with k >= 64."""
+    f64 = dtype == torch.float64
+    if B < 512:
+        return False
+    return (n <= 8 and k >= 24) or (f64 and n > 32 and k >= 32) or \
+        (f64 and 8 < n <= 24 and k >= 64)
+
+
 def k5_route(B: int, n: int, k: int, dtype: torch.dtype) -> str:
     """K5's route for B matrices of order n with k right-hand sides:
-    ``"warp"`` for n <= K5_WARP_MAX_ORDER and k <= n / 2, else
+    ``"warp"`` where K5_WARP_RULE takes the shape, else ``"split"``
+    wherever :func:`k5_split_shape` takes it and the block route did not
+    win there (:func:`_block_takes`), else
     ``"block"`` while the panel fits a block's shared memory, else
-    ``"k2+k4"``.  A warp's lanes walk the k columns one chunk of 8 after
-    another while the block route spreads them over its threads, so the
-    warp route wins while k is small against n: on an H100 it was the
-    faster at every measured shape with k <= n / 2 (bench_kkt's
-    (10240, 32, 2): 0.089 against 0.434 ms of device time), the block
-    route at the nd levels' (16, 48) and (16, 64) (PERF.md §6)."""
-    if n <= K5_WARP_MAX_ORDER and 2 * k <= n:
+    ``"k2+k4"``.  On an H100 the split route took the nd slice's level
+    (105, 64, 40) in 0.0371 ms of device time in float32 against the block
+    route's 0.1398, and (28, 16, 48) in 0.0086 against 0.0198; the warp
+    route bench_kkt's (10240, 32, 2) in 0.1015 against 0.1362 (PERF.md
+    §6)."""
+    if _warp_takes(B, n, k, dtype):
         return "warp"
+    if k5_split_shape(B, n, k, dtype) is not None and \
+            not _block_takes(B, n, k, dtype):
+        return "split"
     if factor_solve_matrix_fits(n, k, dtype):
         return "block"
     return "k2+k4"
@@ -517,6 +574,98 @@ def factor_solve_matrix_warp(A: torch.Tensor, R: torch.Tensor,
         raise RuntimeError(f"LDL^T factor + multi-rhs solve (warp route) "
                            f"kernel launch failed: cudaError {err}")
     _count("ldlt_solve_matrix", R.dtype, "warp")
+    return L, D, X
+
+
+#: the K5 split route's right-hand sides a segment, its most threads a
+#: block and its largest order, a warp with two rows a lane (kK5SplitCols,
+#: kK5SplitThreads, kK5SplitMaxOrder in csrc/ldlt.cu).  Three rows a lane
+#: (orders 65-96) lost to the block route at most points of
+#: chip_smoke.sweep_k5 on an H100 and took 168 registers with a 48-byte
+#: stack in float32 and 44 bytes of spills in float64, so the route stops
+#: at 64.
+K5_SPLIT_COLS, K5_SPLIT_THREADS, K5_SPLIT_MAX_ORDER = 4, 384, 64
+#: the SMs of an H100 and the threads an SM the split route's column
+#: groups are sized to, up to order 32 and above (where a thread holds 130
+#: registers in float32 and 151 in float64).  Past one such wave a matrix
+#: gets fewer groups, each walking more of its columns: at (840, 64, 40) in float32 one group a
+#: matrix took 0.1203 ms of device time against 0.1508 for two and 0.2426
+#: for all ten, while at a level's 105 matrices all ten took 0.0354
+#: against one group's 0.1074 (chip_smoke.scan_k5_split, PERF.md §6)
+K5_SMS, K5_SPLIT_SM_THREADS = 132, (512, 384)
+
+
+def _split_segment(n: int) -> int:
+    """Lanes a matrix in the K5 split route: 16 up to order 16, else 32."""
+    return 16 if n <= 16 else 32
+
+
+def factor_solve_matrix_split_bytes(n: int, k: int,
+                                    dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one K5 split-route thread block: the
+    matrix's panel at row stride n + 1, D, the unscaled column and the
+    right-hand sides at the odd row stride k | 1."""
+    return (n * (n + 3) + n * (k | 1)) * torch.finfo(dtype).bits // 8
+
+
+def k5_split_shape(B: int, n: int, k: int, dtype: torch.dtype,
+                   groups: int = None):
+    """The K5 split route's column groups a matrix (one matrix a block) for
+    B matrices of order n with k right-hand sides, or None where the route
+    does not take the shape (n over K5_SPLIT_MAX_ORDER, k < 1, or the
+    matrix over a block's shared memory).  By default as many groups of
+    K5_SPLIT_COLS columns as the columns need within the block's threads
+    and one wave of the card (K5_SMS x K5_SPLIT_SM_THREADS), evened out so
+    that every segment walks the same number of groups; ``groups`` given
+    (chip_smoke.scan_k5_split) is taken as it is if it fits."""
+    if not 1 <= n <= K5_SPLIT_MAX_ORDER or k < 1:
+        return None
+    seg = _split_segment(n)
+    most = K5_SPLIT_THREADS // seg
+    if groups is None:
+        need = -(-k // K5_SPLIT_COLS)
+        wave = K5_SMS * K5_SPLIT_SM_THREADS[n > 32]
+        room = max(1, min(need, most, wave // (B * seg)))
+        groups = -(-need // -(-need // room))
+    if not 1 <= groups <= most or factor_solve_matrix_split_bytes(
+            n, k, dtype) > K5_SHARED_MEMORY_CAP:
+        return None
+    return groups
+
+
+def factor_solve_matrix_split(A: torch.Tensor, R: torch.Tensor,
+                              pivot_floor: float = PIVOT_FLOOR,
+                              groups: int = None):
+    """Launch K5's split route: A (B, n, n), R (B, n, k), both contiguous
+    on the card, n <= K5_SPLIT_MAX_ORDER -> L (B, n, n) unit-lower,
+    D (B, n), X (B, n, k) with L D L^T X = R; ``groups`` column groups a
+    matrix as :func:`k5_split_shape` gives them."""
+    B, n, k = R.shape
+    _check_soa(R.dtype, R.device, A=(A, (B, n, n)), R=(R, (B, n, k)))
+    if n == 0 or k == 0 or B == 0:
+        raise ValueError(f"K5 needs B, n, k > 0, got {(B, n, k)}")
+    ng = k5_split_shape(B, n, k, R.dtype, groups)
+    if ng is None:
+        raise ValueError(
+            f"K5's split route does not take n={n}, k={k} in {R.dtype} with "
+            f"{groups} column groups: n <= {K5_SPLIT_MAX_ORDER}, at most "
+            f"{K5_SPLIT_THREADS} threads and {K5_SHARED_MEMORY_CAP} bytes "
+            f"of shared memory a block")
+    if not R.is_cuda:
+        raise ValueError(f"K5 needs CUDA tensors, got {R.device}")
+    L = torch.empty_like(A)
+    D = A.new_empty((B, n))
+    X = torch.empty_like(R)
+    with torch.cuda.device(R.device):
+        err = getattr(
+            _lib(),
+            f"ipmzoo_ldlt_factor_solve_matrix_split_{_SUFFIX[R.dtype]}")(
+            A.data_ptr(), R.data_ptr(), L.data_ptr(), D.data_ptr(),
+            X.data_ptr(), n, k, B, ng, pivot_floor, _stream(R.device))
+    if err:
+        raise RuntimeError(f"LDL^T factor + multi-rhs solve (split route) "
+                           f"kernel launch failed: cudaError {err}")
+    _count("ldlt_solve_matrix", R.dtype, "split")
     return L, D, X
 
 
@@ -629,6 +778,7 @@ def ldlt_solve_matrix_auto(A: torch.Tensor, R: torch.Tensor,
     if k == 0 or B == 0 or route == "k2+k4":
         L, D = ldlt_auto(A, pivot_floor)
         return L, D, (solve_ldlt_matrix_auto(L, D, R) if k else R)
-    launch = factor_solve_matrix_warp if route == "warp" else \
-        factor_solve_matrix_launch
+    launch = {"warp": factor_solve_matrix_warp,
+              "split": factor_solve_matrix_split,
+              "block": factor_solve_matrix_launch}[route]
     return launch(A.contiguous(), R.contiguous(), pivot_floor)

@@ -1,4 +1,5 @@
-"""The second routes of K2 (block per matrix) and K5 (warp per matrix) in
+"""The second routes of K2 (block per matrix) and K5 (warp per matrix; the
+third, the split route, in test_torch_k5_split_route.py) in
 ipmzoo_tpu_torch/ops/cuda_ldlt.py, on the CPU: the route rules as pure
 functions pinned at the shapes the port's paths give the kernels, the
 shared-memory byte counts, the launchers' refusals before the CUDA
@@ -50,12 +51,12 @@ def quasi_definite(B, n, seed):
 #: slice's three levels (one instance and the batch of 8), bench_kkt's
 #: point, the odd shape of chip_smoke, and the nd generic top over the cap
 K5_PATH_ROUTES = [
-    ((105, 64, 40, f32), "block"), ((105, 64, 40, f64), "block"),
-    ((28, 16, 48, f32), "block"), ((16, 16, 64, f32), "block"),
-    ((840, 64, 40, f32), "block"), ((224, 16, 48, f32), "block"),
-    ((128, 16, 64, f32), "block"),
-    ((10240, 32, 2, f32), "warp"), ((10240, 32, 2, f64), "warp"),
-    ((3, 37, 5, f32), "block"),
+    ((105, 64, 40, f32), "split"), ((105, 64, 40, f64), "split"),
+    ((28, 16, 48, f32), "split"), ((16, 16, 64, f32), "split"),
+    ((840, 64, 40, f32), "split"), ((224, 16, 48, f32), "split"),
+    ((128, 16, 64, f32), "split"),
+    ((10240, 32, 2, f32), "warp"), ((10240, 32, 2, f64), "split"),
+    ((3, 37, 5, f32), "split"),
     ((1, 328, 1, f32), "k2+k4"), ((1, 328, 1, f64), "k2+k4"),
 ]
 
@@ -93,15 +94,22 @@ def test_routes_never_exceed_what_a_route_holds(dtype):
         for k in (1, 2, 3, 8, 9, 40, 64, 200):
             for B in (1, 8, 512, 10240):
                 r = cuda_ldlt.k5_route(B, n, k, dtype)
-                assert r in ("warp", "block", "k2+k4")
+                assert r in ("warp", "split", "block", "k2+k4")
                 if r == "warp":
+                    # a warp walks its columns in chunks: at batches of
+                    # up to a level's few hundred systems it takes at most
+                    # 4 right-hand sides (the split route spreads more)
                     assert n <= cuda_ldlt.K5_WARP_MAX_ORDER == 32
-                    assert 2 * k <= n
+                    assert B > 264 or k <= 4
+                if r == "split":
+                    assert cuda_ldlt.k5_split_shape(B, n, k, dtype) \
+                        is not None
                 if r == "block":
                     assert cuda_ldlt.factor_solve_matrix_fits(n, k, dtype)
                 if r == "k2+k4":
                     assert not cuda_ldlt.factor_solve_matrix_fits(n, k,
                                                                   dtype)
+                    assert cuda_ldlt.k5_split_shape(B, n, k, dtype) is None
         for B in (1, 8, 32, 320, 512, 2560, 10240):
             r = cuda_ldlt.k2_route(n, B, dtype)
             assert r in ("soa", "block")
@@ -227,7 +235,8 @@ def test_reset_clears_the_route_counts():
     assert set(cuda_ldlt.route_launches) == {
         "ldlt soa", "ldlt block", "solve_ldlt thread", "solve_ldlt warp",
         "solve_ldlt_matrix thread", "solve_ldlt_matrix warp",
-        "ldlt_solve_matrix block", "ldlt_solve_matrix warp"}
+        "ldlt_solve_matrix block", "ldlt_solve_matrix warp",
+        "ldlt_solve_matrix split"}
     assert not any(cuda_ldlt.route_launches.values())
 
 
