@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
 
-    python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd
-                           [--device cpu] [--batch B]
+    python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd|
+                                  normal|aug
+                           [--device cpu] [--batch B] [--dense] [--large]
 
 runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
 card (``--device cpu`` asks for the CPU; there is no fallback) and prints
@@ -22,28 +23,40 @@ The workloads, gates and counts are bench.py's:
 * ``steps`` — after the same gate, 10 batched ``step``s from the initial
   state: batch x 10 over their wall.
 * ``kkt`` — the fused LDL^T factor + 2-column solve (kernel K5) on
-  BATCH systems of order N + 2 M, graded by the dense-LDL^T flop model.
+  BATCH systems of order N + 2 M, graded by the dense-LDL^T flop model;
+  with ``--large`` also the signed block Cholesky (``ops/blockg.py``)
+  with two solves on quasi-definite systems of order 1024 and 4096
+  (BENCH_KKT_DIMS), the best of which is the value.
 * ``schur`` — 8 block-separable coupled QPs (64 blocks, n=64, 16
   coupling rows) through ``SchurIPM`` at tol 1e-8; >= 99%.
 * ``arrow`` — the n=4096 banded+arrow box QP (bandwidth 16, tip 8)
   through ``ArrowIPM.solve``; must converge; useful iterations/s and ms
-  per iteration of the structured solve.
+  per iteration of the structured solve; with ``--dense`` the value is
+  the structured step's speed-up over the dense ``CompiledIPM`` step
+  (``'auto'``, here ``'blockg'``) on the same QP, ms per step of each by
+  the slope between two step counts.
 * ``nd`` — ``grid_qp(side=64)`` (n=4096) through
-  ``CompiledIPM(kernel="nd")``; must converge.
+  ``CompiledIPM(kernel="nd")``; must converge; ``--dense`` as for arrow.
+* ``normal`` — 16 QPs of ``make_batch`` at n=1024, m=128 (float32, tol
+  1e-5 scaled, gondzio=2) through the normal-equations stagings
+  ``'blockg'``, ``'block'`` and ``'normal'``: the fastest of those with
+  >= 99% converged is the value, with bench.py's flop model.
+* ``aug`` — 64 equality + inequality QPs (n=256, m_ineq=64, m_eq=32,
+  REGULARIZATION, aug_dim 352; float32, tol 1e-5 scaled, refine=2,
+  gondzio=2) through ``'blockg'`` and ``'auto'`` (dense LDL^T, the
+  panel-blocked path at this order); the faster with >= 99% converged.
 
 The BENCH_* environment variables of bench.py size the workloads
 (BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
-BENCH_ARROW_*, BENCH_ND_*).  Walls are CUDA-event times
-(``utils/timer.cuda_time``; the host clock with ``--device cpu``): the
-median over the runs, with the spread and every run printed on an
-earlier line.
+BENCH_ARROW_*, BENCH_ND_*, BENCH_NORMAL_*, BENCH_AUG_*, BENCH_KKT_*).
+Walls are CUDA-event times (``utils/timer.cuda_time``; the host clock
+with ``--device cpu``): the median over the runs, with the spread and
+every run printed on an earlier line.
 
 ``vs_baseline`` is null: bench.py's baselines are rates of another
 program measured on another machine's host, and no number of this card.
 
-Not ported: the modes ``mpc``, ``sharded``, ``tf``, ``normal`` and
-``aug``, the dense denominators of ``arrow`` and ``nd`` (``--dense``) and
-the large-matrix point of ``kkt`` (``--large``) raise
+Not ported: the modes ``mpc``, ``sharded`` and ``tf`` raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -63,41 +76,20 @@ STEPS = int(os.environ.get("BENCH_STEPS", 10))
 # the working precision supports
 TOL = float(os.environ.get("BENCH_TOL", 1e-6))
 
-MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd")
+MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd", "normal",
+         "aug")
 #: modes of bench.py the port does not have yet, with their ROADMAP item
 REFUSED = {
     "mpc": "ROADMAP.md Queue 1 item 14 (MPC: RiccatiIPM)",
     "sharded": "ROADMAP.md Queue 1 item 16 (multi-device)",
     "tf": "ROADMAP.md Queue 1 item 7 (escalation precision: two_float)",
-    "normal": "ROADMAP.md Queue 1 item 11d (kernel='normal')",
-    "aug": "ROADMAP.md Queue 1 item 11 (a: panel-blocked LDL^T, c: "
-           "'blockg')",
 }
-_ROADMAP_DENSE = ("ROADMAP.md Queue 1 item 11a (panel-blocked LDL^T: a "
-                  "dense factor that takes n=4096)")
-_ROADMAP_LARGE_KKT = "ROADMAP.md Queue 1 item 11c (ops/blockg.py)"
 
 
 def refuse(mode: str):
     """Raise for a mode of bench.py that the port does not have."""
     raise NotImplementedError(
         f"bench mode {mode!r} is not ported: see {REFUSED[mode]}")
-
-
-def dense_half(mode: str):
-    """bench.py divides the structured step's time by the dense path's on
-    the same QP; the port has no dense factor for n=4096 yet."""
-    raise NotImplementedError(
-        f"the dense half of bench mode {mode!r} is not ported: see "
-        f"{_ROADMAP_DENSE}")
-
-
-def large_kkt():
-    """bench.py's second kkt point, large quasi-definite systems through
-    the signed block Cholesky."""
-    raise NotImplementedError(
-        f"the large-matrix point of bench mode 'kkt' is not ported: see "
-        f"{_ROADMAP_LARGE_KKT}")
 
 
 def timed(fn, device, runs, what):
@@ -252,6 +244,85 @@ def bench_kkt(device, dtype=None, batch=None, runs=5, calls=20):
                                       "flops": flops_model(B, n, 2)}
 
 
+def kkt_large_systems(device, d, dtype=None):
+    """bench.py's large kkt point at order d: max(2, 16384 // d) (or
+    BENCH_KKT_B) quasi-definite systems [[H, A^T], [A, -I]], H of order
+    d - d // 8 positive definite, A (d // 8, d - d // 8), with two
+    right-hand sides; drawn from numpy seed 0 after the small point's
+    draws, one order after another as bench.py draws them (BENCH_KKT_DIMS);
+    H's product is taken on ``device`` (float32 with TF32 off: 184 GFLOP
+    at order 4096, minutes for the host).  Returns the lower blocks
+    [[H], [A, -I]] and R (B, d, 2)."""
+    import torch
+    rng = np.random.default_rng(0)
+    n = N + 2 * M_INEQ
+    rng.normal(size=(BATCH, n, n))
+    rng.normal(size=(BATCH, n, 2))
+    dtype = dtype or torch.float32
+    for dim in kkt_dims():
+        Bm = int(os.environ.get("BENCH_KKT_B", 0)) or max(2, 16384 // dim)
+        m = dim // 8
+        nq = dim - m
+        Mq = rng.normal(size=(Bm, nq, nq)).astype(np.float32)
+        A = rng.normal(size=(Bm, m, nq)).astype(np.float32)
+        R = rng.normal(size=(Bm, dim, 2)).astype(np.float32)
+        if dim == d:
+            def t(a):
+                return torch.tensor(a).to(device)
+            Mt = t(Mq)
+            H = torch.matmul(Mt, Mt.transpose(-1, -2)) / nq + \
+                torch.eye(nq, device=device)
+            S = -torch.eye(m, dtype=dtype, device=device).expand(Bm, m, m)
+            return [[H.to(dtype)], [t(A).to(dtype), S]], t(R).to(dtype)
+    raise ValueError(f"order {d} is not among BENCH_KKT_DIMS {kkt_dims()}")
+
+
+def kkt_dims():
+    return [int(x) for x in
+            os.environ.get("BENCH_KKT_DIMS", "1024,4096").split(",")]
+
+
+def blockg_two_solves(blocks, R):
+    """bench.py's large-point work: the signed block Cholesky of K and
+    one solve for each of the two columns of R."""
+    import torch
+    from ipmzoo_tpu_torch.ops.blockg import blockg_factor, blockg_solve
+    fact = blockg_factor(blocks, (1.0, -1.0))
+    return torch.stack([blockg_solve(fact, R[:, :, 0]),
+                        blockg_solve(fact, R[:, :, 1])], dim=-1)
+
+
+def bench_kkt_large(device, dtype=None, runs=5, calls=5):
+    """The large kkt point: at each order of BENCH_KKT_DIMS, the signed
+    block Cholesky factor and two solves, residual-checked and graded by
+    the dense-LDL^T flop model; returns {order: (B, GFLOP/s, ms)}."""
+    import torch
+    from ipmzoo_tpu_torch.utils.timer import cuda_time, host_time
+    timer = cuda_time if device.type == "cuda" else host_time
+    out = {}
+    for d in kkt_dims():
+        blocks, R = kkt_large_systems(device, d, dtype)
+        B = R.shape[0]
+        X = blockg_two_solves(blocks, R)
+        H, A = blocks[0][0], blocks[1][0]
+        m = A.shape[-2]
+        top = torch.matmul(H, X[:, :-m]) + torch.matmul(A.transpose(-1, -2),
+                                                        X[:, -m:])
+        bot = torch.matmul(A, X[:, :-m]) - X[:, -m:]
+        resid = ((torch.cat([top, bot], dim=1) - R).abs().max() /
+                 R.abs().max()).item()
+        if not resid <= 1e-3:
+            raise RuntimeError(f"kkt order {d}: blockg residual {resid}")
+        t = timer(lambda: blockg_two_solves(blocks, R), runs, calls=calls)
+        gflops = flops_model(B, d, 2) / (t.ms * 1e-3) / 1e9
+        print(f"kkt large point: {B} x dim {d} (blockg, n={d - m}+m={m}): "
+              f"{gflops:.1f} GFLOP/s ({t.ms:.3f} ms per batch, "
+              f"{device.type}, {runs} runs of {calls}, spread "
+              f"{t.spread:.3f}); residual {resid:.3e}")
+        out[d] = (B, gflops, t.ms)
+    return out
+
+
 # -- the structured engines -------------------------------------------------
 
 def schur_sizes():
@@ -358,12 +429,63 @@ def arrow_problem(n=None, b=None, t=None):
     return Q, c, l, u
 
 
-def bench_arrow(device, dtype=None, runs=5):
+def step_walls(solver, data, device):
+    """k -> the wall in ms of k IPM steps of ``solver`` from its initial
+    state on one instance ``data`` (fields without a batch axis); the nd
+    path's loop-invariant prework runs inside, as in bench.py's loop."""
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.utils.timer import cuda_time, host_time
+    one = solver._check_data(tree_map(lambda a: a.unsqueeze(0), data))
+    state = solver.init_state(one)
+    nd = getattr(solver, "_mode", None) == "nd"
+    timer = cuda_time if device.type == "cuda" else host_time
+
+    def run(k):
+        def steps():
+            kw = dict(nd_pre=solver._nd_prework(one)) if nd else {}
+            s = state
+            for _ in range(k):
+                s = solver._step_impl(s, one, **kw)
+            return s
+        return timer(steps, runs=1, warmup=0).ms
+    return run
+
+
+def dense_speedup(what, solver, data, dense, ddata, device, ks, dks):
+    """bench.py's dense half: ms per step of the structured ``solver``
+    and of the ``dense`` CompiledIPM on the same QP, each the slope of the
+    walls of two step counts (``ks``, ``dks``) after a warm-up of both,
+    in three interleaved rounds; the dense solver must converge.
+    Returns (structured ms, dense ms)."""
+    res = dense.solve(ddata)
+    if not bool(res.converged):
+        raise RuntimeError(f"{what}: the dense path did not converge")
+    runs = [(step_walls(solver, data, device), ks),
+            (step_walls(dense, ddata, device), dks)]
+    for run, (k1, k2) in runs:
+        run(k1)
+        run(k2)
+    rounds = [[(run(k2) - run(k1)) / (k2 - k1) for run, (k1, k2) in runs]
+              for _ in range(3)]
+    t_s, t_d = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
+    print(f"{what} rounds (ms/step): structured "
+          f"{[round(r[0], 4) for r in rounds]}, dense "
+          f"{[round(r[1], 4) for r in rounds]} (kernel "
+          f"{dense._mode!r}, {res.iterations.item()} iterations)")
+    print(f"{what}: {t_s:.3f} ms/step structured vs {t_d:.3f} ms/step "
+          f"dense = {t_d / t_s:.1f}x")
+    return t_s, t_d
+
+
+def bench_arrow(device, dtype=None, runs=5, dense=False):
     """The structured banded+arrow IPM on bench.py's QP: full solves,
-    convergence-gated.  (bench.py reports the step's speedup over the
-    dense path; see :func:`dense_half`.)"""
+    convergence-gated; with ``dense`` the step's speed-up over the dense
+    CompiledIPM step on the same QP, as bench.py reports it."""
     import torch
-    from ipmzoo_tpu_torch import ArrowIPM, ArrowQPData
+    from ipmzoo_tpu_torch import (ArrowIPM, ArrowQPData, CompiledIPM,
+                                  QPData)
+    from ipmzoo_tpu_torch.formulations import (Bounds, InequalityHandling,
+                                               Settings)
 
     n, b, t = arrow_sizes()
     dtype = dtype or torch.float32
@@ -380,11 +502,27 @@ def bench_arrow(device, dtype=None, runs=5):
     if not bool(res.converged):
         raise RuntimeError("arrow solver did not converge")
     iters = float(res.iterations)
+    if dense:
+        dsolver = CompiledIPM(
+            Settings(inequalities=Bounds.NONE,
+                     inequality_handling=InequalityHandling.SLACKS),
+            n=n, dtype=dtype, tol=1e-5, device=device)
+        ddata = QPData.make(Q=Q, c=c, l_x=l, u_x=u, dtype=dtype,
+                            device=device)
+        t_s, t_d = dense_speedup("arrow", solver, data, dsolver, ddata,
+                                 device, (4, 16), (2, 6))
+        label = (f"structured banded+arrow IPM step speedup vs dense path "
+                 f"(n={n}, bandwidth={b}, tip={t}, {backend(device)}; "
+                 f"{t_s:.3f} ms vs {t_d:.3f} ms per iteration, dense "
+                 f"kernel '{dsolver._mode}')")
+        return label, t_d / t_s, "x speedup", {
+            "converged": 1.0, "iterations": iters, "ms_structured": t_s,
+            "ms_dense": t_d}
     wall = timed(lambda: solver.solve(data), device, runs, "arrow")
     label = (f"IPM iterations/s, structured banded+arrow IPM FULLY SOLVED "
              f"(n={n}, bandwidth={b}, tip={t}, {int(iters)} iterations, "
              f"{wall / iters * 1e3:.3f} ms per iteration, "
-             f"{backend(device)}; dense denominator not ported)")
+             f"{backend(device)})")
     return label, iters / wall, "iterations/s", {
         "converged": 1.0, "iterations": iters}
 
@@ -406,10 +544,12 @@ def nd_problem(device, dtype=None, tol=1e-5):
     return solver, fam.data
 
 
-def bench_nd(device, dtype=None, runs=5):
+def bench_nd(device, dtype=None, runs=5, dense=False):
     """The nested-dissection IPM on a 2D-grid QP: full solves,
-    convergence-gated.  (bench.py reports the step's speedup over the
-    dense path; see :func:`dense_half`.)"""
+    convergence-gated; with ``dense`` the step's speed-up over the dense
+    CompiledIPM ('auto') step on the same QP, as bench.py reports it."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM
     solver, data = nd_problem(device, dtype)
     res = solver.solve(data)
     if not bool(res.converged):
@@ -418,13 +558,167 @@ def bench_nd(device, dtype=None, runs=5):
     print(f"nd: {len(plan.levels)} levels, flop ratio dense/nd = "
           f"{plan.flops_dense / max(plan.flops_nd, 1):.1f}x")
     iters = float(res.iterations)
+    if dense:
+        dsolver = CompiledIPM(solver.settings, n=solver.n,
+                              dtype=dtype or torch.float32, tol=1e-5,
+                              device=device)
+        t_s, t_d = dense_speedup("nd", solver, data, dsolver, data, device,
+                                 (2, 8), (2, 8))
+        label = (f"nested-dissection IPM step speedup vs dense path "
+                 f"(2D-grid QP, n={solver.n}, leaf={solver._nd_leaf}, "
+                 f"{backend(device)}; {t_s:.3f} ms vs {t_d:.3f} ms per "
+                 f"iteration, dense kernel '{dsolver._mode}')")
+        return label, t_d / t_s, "x speedup", {
+            "converged": 1.0, "iterations": iters, "ms_structured": t_s,
+            "ms_dense": t_d}
     wall = timed(lambda: solver.solve(data), device, runs, "nd")
     label = (f"IPM iterations/s, nested-dissection IPM FULLY SOLVED "
              f"(2D-grid QP, n={solver.n}, leaf={solver._nd_leaf}, "
              f"{int(iters)} iterations, {wall / iters * 1e3:.3f} ms per "
-             f"iteration, {backend(device)}; dense denominator not ported)")
+             f"iteration, {backend(device)})")
     return label, iters / wall, "iterations/s", {
         "converged": 1.0, "iterations": iters}
+
+
+# -- the dense reductions ---------------------------------------------------
+
+def race(what, kernels, make, data, device, runs):
+    """Solve ``data`` with each kernel mode's solver (``make(kernel)``),
+    gate at >= 99% converged, and time each that passes; returns
+    {kernel: (share converged, iterations summed, wall s, result)} and
+    the winner (most useful iterations/s).  A mode that raises fails the
+    run."""
+    results = {}
+    for kernel in kernels:
+        s = make(kernel)
+        res = s.solve_batch(data)
+        conv = res.converged.float().mean().item()
+        iters = float(res.iterations.sum().item())
+        t = timed(lambda: s.solve_batch(data), device, runs,
+                  f"{what} kernel={kernel}") if conv >= 0.99 else None
+        results[kernel] = (conv, iters, t, res)
+    ok = {k: v for k, v in results.items() if v[2] is not None}
+    print(f"{what} stagings: " + ", ".join(
+        f"{k}: {i / t:.1f} it/s ({c * 100:.1f}% conv)" if t else
+        f"{k}: {c * 100:.1f}% conv" for k, (c, i, t, _) in results.items()))
+    if not ok:
+        raise RuntimeError(f"{what}: convergence too low: "
+                           f"{ {k: v[0] for k, v in results.items()} }")
+    return results, max(ok, key=lambda k: ok[k][1] / ok[k][2])
+
+
+def normal_sizes():
+    """(n, m, batch, tol) of the normal mode."""
+    return (int(os.environ.get("BENCH_NORMAL_N", 1024)),
+            int(os.environ.get("BENCH_NORMAL_M", 128)),
+            int(os.environ.get("BENCH_NORMAL_B", 16)),
+            float(os.environ.get("BENCH_NORMAL_TOL", 1e-5)))
+
+
+def normal_solver(kernel, device, dtype=None):
+    """bench.py's bench_normal solver: Settings(), scale_tol, gondzio=2."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    n, m, _, tol = normal_sizes()
+    return CompiledIPM(Settings(), n=n, m_ineq=m,
+                       dtype=dtype or torch.float32, tol=tol, kernel=kernel,
+                       scale_tol=True, gondzio=2, device=device)
+
+
+def bench_normal(device, dtype=None, runs=3):
+    """Dense QPs through the normal-equations reduction: the stagings
+    'blockg', 'block' and 'normal' race on the same batch and the winner
+    is the value, with bench.py's flop model for its GFLOP/s."""
+    import torch
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    n, m, B, tol = normal_sizes()
+    data = make_batch(B, n, m, dtype or torch.float32, device=device)
+    it_flops = {
+        "normal": 2 * (n ** 3 / 3 + n ** 3 + n * n * m + m * m * n
+                       + m ** 3 / 3),
+        "block": 2 * (n ** 3 / 3 + n * n * m + m * m * n + m ** 3 / 3
+                      + 2 * (n * n + n * m + m * m)),
+    }
+    it_flops["blockg"] = it_flops["block"]
+    results, kernel = race("normal", ("blockg", "block", "normal"),
+                           lambda k: normal_solver(k, device, dtype), data,
+                           device, runs)
+    conv, iters, t, _ = results[kernel]
+    gflops = iters * it_flops[kernel] / t / 1e9
+    label = (f"IPM iterations/s, {B} dense QPs (n={n}, m={m}) FULLY "
+             f"SOLVED to rel tol={tol:g} via the normal-equations "
+             f"reduction, kernel='{kernel}' ({conv * 100:.1f}% "
+             f"converged, ~{gflops:.0f} GFLOP/s, {backend(device)})")
+    return label, iters / t, "iterations/s", {
+        k: {"converged": c, "iterations": i,
+            "its_per_s": (i / w if w else None), "result": r}
+        for k, (c, i, w, r) in results.items()}
+
+
+def aug_sizes():
+    """(n, m_ineq, m_eq, batch, tol) of the aug mode."""
+    return (int(os.environ.get("BENCH_AUG_N", 256)),
+            int(os.environ.get("BENCH_AUG_M", 64)),
+            int(os.environ.get("BENCH_AUG_ME", 32)),
+            int(os.environ.get("BENCH_AUG_B", 64)),
+            float(os.environ.get("BENCH_AUG_TOL", 1e-5)))
+
+
+def aug_data(device, dtype=None):
+    """bench.py's bench_aug QPs (numpy seed 0, float32 values):
+    consistent equalities b = A_eq x0, two-sided inequalities, box +-5."""
+    import torch
+    from ipmzoo_tpu_torch import QPData
+    n, m, me, B, _ = aug_sizes()
+    rng = np.random.default_rng(0)
+    Mx = rng.normal(size=(B, n, n)).astype(np.float32)
+    Q = np.einsum("bij,bkj->bik", Mx, Mx) / n + np.eye(n, dtype=np.float32)
+    x0 = rng.normal(size=(B, n)).astype(np.float32)
+    A_eq = rng.normal(size=(B, me, n)).astype(np.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    data = QPData.make(
+        Q=Q, c=rng.normal(size=(B, n)),
+        A_ineq=rng.normal(size=(B, m, n)),
+        l_A_ineq=-np.abs(rng.normal(size=(B, m))) - 1,
+        u_A_ineq=np.abs(rng.normal(size=(B, m))) + 1,
+        A_eq=A_eq, b_eq=np.einsum("bmn,bn->bm", A_eq, x0),
+        l_x=np.full((B, n), -5.0), u_x=np.full((B, n), 5.0), **f32)
+    return data.to(dtype=dtype or torch.float32)
+
+
+def aug_solver(kernel, device, dtype=None):
+    """bench.py's bench_aug solver: REGULARIZATION equality handling,
+    scale_tol, refine=2, gondzio=2."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.formulations import EqualityHandling, Settings
+    n, m, me, _, tol = aug_sizes()
+    return CompiledIPM(
+        Settings(equalities=True,
+                 equality_handling=EqualityHandling.REGULARIZATION),
+        n=n, m_ineq=m, m_eq=me, dtype=dtype or torch.float32, tol=tol,
+        scale_tol=True, refine=2, gondzio=2, kernel=kernel, device=device)
+
+
+def bench_aug(device, dtype=None, runs=3):
+    """Equality + inequality QPs through the augmented system with
+    iterative refinement: 'blockg' races 'auto' (the dense LDL^T) on the
+    same batch, and the winner is the value."""
+    n, m, me, B, tol = aug_sizes()
+    data = aug_data(device, dtype)
+    results, kernel = race("aug", ("blockg", "auto"),
+                           lambda k: aug_solver(k, device, dtype), data,
+                           device, runs)
+    conv, iters, t, _ = results[kernel]
+    label = (f"IPM iterations/s, {B} equality+inequality QPs (n={n}, "
+             f"m_ineq={m}, m_eq={me}, aug_dim={n + m + me}) FULLY SOLVED to "
+             f"rel tol={tol:g} via the augmented system + iterative "
+             f"refinement (refine=2, kernel='{kernel}', {conv * 100:.1f}% "
+             f"converged, {backend(device)})")
+    return label, iters / t, "iterations/s", {
+        k: {"converged": c, "iterations": i,
+            "its_per_s": (i / w if w else None), "result": r}
+        for k, (c, i, w, r) in results.items()}
 
 
 def run_mode(mode, device, batch=None, dense=False, large=False):
@@ -436,14 +730,10 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of "
                          f"{MODES + tuple(REFUSED)}")
-    if dense:
-        if mode not in ("arrow", "nd"):
-            raise ValueError("--dense belongs to the modes arrow and nd")
-        dense_half(mode)
-    if large:
-        if mode != "kkt":
-            raise ValueError("--large belongs to the mode kkt")
-        large_kkt()
+    if dense and mode not in ("arrow", "nd"):
+        raise ValueError("--dense belongs to the modes arrow and nd")
+    if large and mode != "kkt":
+        raise ValueError("--large belongs to the mode kkt")
     batch = BATCH if batch is None else batch
     if mode in ("fused", "solve", "steps"):
         data = make_batch(batch, N, M_INEQ, torch.float32, device=device)
@@ -451,9 +741,24 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
               "steps": bench_steps}[mode]
         return fn(data, device)
     if mode == "kkt":
-        return bench_kkt(device, batch=batch)
-    return {"schur": bench_schur, "arrow": bench_arrow,
-            "nd": bench_nd}[mode](device)
+        label, value, unit, counts = bench_kkt(device, batch=batch)
+        if not large:
+            return label, value, unit, counts
+        pts = bench_kkt_large(device)
+        d = max(pts, key=lambda k: pts[k][1])
+        others = "; ".join(f"dim {k} x{b}: {g:.0f} GFLOP/s"
+                           for k, (b, g, _) in sorted(pts.items()) if k != d)
+        label = (f"batched KKT factor+solve, {pts[d][0]} quasi-definite "
+                 f"systems of dim {d} via signed block-Cholesky "
+                 f"({backend(device)}; {others}; small point: {batch} x dim "
+                 f"{N + 2 * M_INEQ} fused factor + 2-rhs solve at "
+                 f"{value:.0f} GFLOP/s)")
+        return label, pts[d][1], "GFLOP/s", {"points": pts, **counts}
+    if mode in ("arrow", "nd"):
+        return {"arrow": bench_arrow, "nd": bench_nd}[mode](device,
+                                                            dense=dense)
+    return {"schur": bench_schur, "normal": bench_normal,
+            "aug": bench_aug}[mode](device)
 
 
 def main(argv=None):
@@ -465,7 +770,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=None,
                     help="instances of the dense-QP modes (BENCH_BATCH)")
     ap.add_argument("--dense", action="store_true",
-                    help="arrow / nd: also the dense denominator")
+                    help="arrow / nd: the step's speed-up over the dense "
+                    "path")
     ap.add_argument("--large", action="store_true",
                     help="kkt: also the large-matrix point")
     args = ap.parse_args(argv)

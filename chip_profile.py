@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's five slices, on one NVIDIA GPU.
+"""Where the time goes on the port's slices, on one NVIDIA GPU.
 
     python3 chip_profile.py      # from the repository root; needs one
                                  # CUDA card and nvcc
     python3 chip_profile.py arrow schur   # only the named sections
-                                 # (arrow, schur, fused, compact, nd)
+                                 # (arrow, schur, fused, compact, nd,
+                                 # dense)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -39,7 +40,15 @@ the same data, and prints, after the card's name and power limit:
    time, K3's launches and device ms by shape as for the Schur slice;
    the host-clock time of three single iterations, of the
    once-per-solve prework, and of one factorisation and one solve of the
-   plan.
+   plan;
+6. the dense modes (section ``dense``): bench_aug's QPs through 'auto'
+   (the dense LDL^T, the blocked route at aug_dim 352) and 'blockg',
+   bench_normal's through 'blockg', 'block' and 'normal': the wall by
+   CUDA events (median of 3 runs after a warm-up), launches per
+   iteration, busy share and K2's (block route: the blocked LDL^T's
+   panels) share of one solve under torch.profiler; one dense
+   CompiledIPM step ('blockg') on bench_arrow's and bench_nd's QPs; and
+   one blockg factor with two solves at bench_kkt's large orders.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -269,6 +278,67 @@ def profile_nd():
                  f"{label}, one nd_solve")
 
 
+#: the LDL^T kernel of the dense modes: K2's block route (the blocked
+#: LDL^T's diagonal panels and the 'normal' mode's H^-1)
+DENSE_KERNELS = (("K2 block route", "ldlt_factor_kernel_block", None),)
+
+
+def profile_dense(dev):
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch import CompiledIPM, QPData
+    from ipmzoo_tpu_torch.formulations import (Bounds, InequalityHandling,
+                                               Settings)
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    aug = bench_torch.aug_data(dev)
+    n, m, B, _ = bench_torch.normal_sizes()
+    normal = make_batch(B, n, m, torch.float32, device=dev)
+    cases = [("aug", k, bench_torch.aug_solver(k, dev), aug)
+             for k in ("auto", "blockg")] + \
+        [("normal", k, bench_torch.normal_solver(k, dev), normal)
+         for k in ("blockg", "block", "normal")]
+    for what, k, s, d in cases:
+        label = f"{what} kernel={k} ({s._mode})"
+        res = s.solve_batch(d)
+        steps = int(res.iterations.max())
+        med = cs.time_solves(lambda: s.solve_batch(d), 3)
+        events = []
+        busy, launches = profiled(lambda: s.solve_batch(d), label, events)
+        print(f"{label}: wall median {med:.3f} ms; iterations {steps}; "
+              f"launches per iteration {launches / steps:.1f}; busy share "
+              f"{busy / med:.4f}; " + shares(events, busy, DENSE_KERNELS))
+
+    Q, c, lo, hi = bench_torch.arrow_problem()
+    arrow = CompiledIPM(Settings(inequalities=Bounds.NONE,
+                                 inequality_handling=InequalityHandling.SLACKS),
+                        n=Q.shape[0], dtype=torch.float32, tol=1e-5,
+                        device=dev)
+    a_data = QPData.make(Q=Q, c=c, l_x=lo, u_x=hi, dtype=torch.float32,
+                         device=dev)
+    nd, n_data = bench_torch.nd_problem(dev)
+    n_dense = CompiledIPM(nd.settings, n=nd.n, dtype=torch.float32,
+                          tol=1e-5, device=dev)
+    for what, s, d in (("arrow dense", arrow, a_data),
+                       ("nd dense", n_dense, n_data)):
+        one = s._check_data(tree_map(lambda a: a[None], d))
+        state = s.init_state(one)
+        med = cs.time_solves(lambda: s._step_impl(state, one), 5)
+        events = []
+        busy, launches = profiled(lambda: s._step_impl(state, one),
+                                  f"{what} step ({s._mode})", events)
+        print(f"{what} step ({s._mode}): wall median {med:.3f} ms; "
+              f"launches {launches}; busy share {busy / med:.4f}")
+
+    for d in bench_torch.kkt_dims():
+        blocks, R = bench_torch.kkt_large_systems(dev, d)
+        fn = functools.partial(bench_torch.blockg_two_solves, blocks, R)
+        med = cs.time_solves(fn, 5)
+        busy, launches = profiled(fn, f"kkt large order {d} B={R.shape[0]}")
+        print(f"kkt large order {d}: wall median {med:.3f} ms; launches "
+              f"{launches}; busy share {busy / med:.4f}")
+
+
 def profile_fused(dev, data):
     import torch
     from ipmzoo_tpu_torch.ops import cuda_fused
@@ -359,13 +429,14 @@ def main():
     if dev is None:
         return 2
     from ipmzoo_tpu_torch.models.convert import make_batch
-    sections = sys.argv[1:] or ["schur", "fused", "compact", "arrow", "nd"]
-    unknown = set(sections) - {"schur", "fused", "compact", "arrow", "nd"}
+    known = ["schur", "fused", "compact", "arrow", "nd", "dense"]
+    sections = sys.argv[1:] or known
+    unknown = set(sections) - set(known)
     if unknown:
         print(f"chip_profile: unknown sections {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if set(sections) - {"nd", "schur"}:
+    if set(sections) - {"nd", "schur", "dense"}:
         cs.build_kernels()
     if "schur" in sections:
         profile_schur(dev)
@@ -379,6 +450,8 @@ def main():
         profile_arrow()
     if "nd" in sections:
         profile_nd()
+    if "dense" in sections:
+        profile_dense(dev)
     return 0
 
 

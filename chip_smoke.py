@@ -33,18 +33,22 @@ Steps, each reported on its own line:
    (the SoA route, a thread per matrix, and the block route, a thread
    block per matrix) at every (order, matrices) of K2_SHAPES: the
    compact slice's batches and its float64 escalation, the Schur slice's
-   H and S blocks, odd orders, n=1, batches that fill no whole block;
+   H and S blocks, the equality_qp slice's KKT (30, 64), the normal
+   slice's order-128 panels (128, 16), odd orders, n=1, batches that
+   fill no whole block;
    the SoA route also at (328, 1), over the block route's shared memory;
    and both on an exactly-zero pivot; then each route of K3 alone (the
    thread route, a thread per matrix, and the warp route, a tile of
    instances staged in shared memory and a warp or a segment of one per
    matrix) at every (order, systems) of K3_SHAPES (the compact slice's
    batches, its float64 escalation, the Schur slice's H and S blocks, the
-   nd slice's levels and its generic top, over the warp route's cap) and
+   nd slice's levels, the equality_qp slice's KKT (30, 64, float64) and
+   the nd slice's generic top, over the warp route's cap) and
    of K3_EDGES in both types (n=1, odd orders, a batch that fills no
    tile, the cap 83 and 84), float32 within 1e-5 and float64 within
    1e-12, the largest difference between the two routes' x, and
-   solve_ldlt_auto taking the route k3_route picks;
+   solve_ldlt_auto taking the route k3_route picks (at order 328 the
+   blocked route's library solve that ldlt_route picks);
 5. solve the README's demo QP on the card (float64, tol 1e-8);
 6. run the slice: CompiledIPM(Settings(), n=16, m_ineq=8, float32,
    tol=1e-6).solve_batch_compact on 10240 QPs of the benchmark workload
@@ -179,8 +183,9 @@ Steps, each reported on its own line:
     three levels of the nd slice's plan), (10240, 32, 2) (bench.py's
     bench_kkt point), (3, 37, 5), with an exactly-zero pivot, and at
     (1, 328, 1), over K5's shared-memory cap, where the wrapper must run
-    K2 then K4, all through the wrapper, which must take the route
-    k5_route picks; the plain X also against torch.linalg.solve(A, R)
+    ldlt_auto then solve_ldlt_matrix_auto by the route ldlt_route picks
+    (the blocked LDL^T, its three panels on K2), all through the
+    wrapper, which must take the route k5_route picks; the plain X also against torch.linalg.solve(A, R)
     (float32 1e-3, float64 1e-9); then each route of K5 alone (the block
     route, a thread block per matrix; the warp route, a warp per matrix
     of order <= 32; the split route, a block per matrix of order <= 64,
@@ -195,7 +200,7 @@ Steps, each reported on its own line:
     nd_solve(nd_factor(K)) on the slice's own KKT matrix at the initial
     iterate, float64 on the card, against torch.linalg.solve within
     1e-9, with the signed merged top and with the generic top (order
-    328: K2 + K4);
+    328: the blocked LDL^T that ldlt_route picks, its panels on K2);
 24. run the nested-dissection slice, bench.py's bench_nd at its
     defaults: grid_qp(side=64) (n=4096, 5-point-stencil Hessian, bounds
     +-1, numpy seed 0), float32, tol 1e-5, through
@@ -261,7 +266,7 @@ Steps, each reported on its own line:
     convergence gate) and `kkt` (K5 at (10240, 32, 2), graded by the
     dense-LDL^T flop model) through its own functions, launches counted
     by route (the kkt mode is the K5 warp route's path); its other modes
-    are steps 11, 6, 14, 19 and 24 above, which build their solvers and
+    are steps 11, 6, 14, 19, 24 and 37-40, which build their solvers and
     data through bench_torch.py too.
 34. hold K1's team route (16 and 32 lanes) against its plain version at
     the fused slice's four launches, recorded from its
@@ -269,6 +274,42 @@ Steps, each reported on its own line:
     1e-5), 1536 warm, the 10240 warm mop-up and the 512 tile cold with
     gondzio=2 and max_iter=30, by step 10's limits (float64 at tol 1e-6,
     float32 at 1e-6 and at 1e-5); it runs after step 10.
+35. hold the panel-blocked LDL^T (ops/blocked_ldlt.py: its diagonal
+    panels on K2's block route, block columns and trailing updates by the
+    library) and its solve against the plain column LDL^T and the plain
+    sweeps on the card at (B, n) = (3, 352) in both types, (64, 352)
+    float32, (1, 328) float64 and (2, 200) with panels of 64 (an uneven
+    last panel) in both types: L, D and x within 1e-10 in float64 and
+    1e-4 in float32 (step 4's measure), one K2 block-route launch a
+    panel, and an exactly-zero pivot in the second panel put on the
+    floor in both;
+36. time every LDL^T route (K2's SoA route, up to order 352, and its
+    block route where it fits, each with K3; the blocked path with its
+    library solve), a factor and one solve by CUDA events, at bench_aug's
+    (64, 352) float32, the nd generic top (1, 328) float64 and
+    bench_normal's H (16, 1024) float32, beside torch.linalg.cholesky_ex
+    on SPD matrices of the same shape (the nearest library call): fail
+    where ldlt_route picks a route more than 5% slower than the fastest;
+    then K2's block route at the aug slice's panel (64, 128) float32
+    against its plain version (1e-5), timed for the kernels line;
+37. bench_torch.py's aug mode (64 QPs, n=256, m_ineq=64, m_eq=32,
+    aug_dim 352, float32, tol 1e-5 scaled, refine=2, gondzio=2): 'blockg'
+    and 'auto' (the dense LDL^T, the blocked route at this order), each
+    >= 99% converged, the objectives of the first 8 instances against the
+    CPU float64 port within 1e-4 (1 + |f|), its JSON line; then one 'auto'
+    solve with the launch counts set to 0 just before and read just after
+    (K2's panel launches on the block route);
+38. bench_torch.py's normal mode (16 QPs, n=1024, m=128, float32):
+    'blockg', 'block' and 'normal', each >= 99% converged, the objectives
+    of the first 4 against the CPU float64 port, K2 launched (the
+    'normal' mode's H^-1), its JSON line;
+39. equality_qp(batch=64) (an indefinite augmented system), float64,
+    through 'auto' (= 'regldlt', K2 and K3 launched) and 'lu', all
+    converged, x within 1e-6 of each other;
+40. bench_torch.py's arrow --dense and nd --dense (the structured step
+    against the dense CompiledIPM step, 'blockg' at n=4096, ms per step
+    by the slope of two step counts) and kkt --large (the signed block
+    Cholesky with two solves at orders 1024 and 4096), their JSON lines.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -386,22 +427,27 @@ K5_EDGES = ((1, 1, 1), (5, 13, 3), (7, 8, 2), (33, 20, 9), (1, 37, 2),
 #: (order, matrices) at which both K2 routes are held to plain (step 4)
 #: and timed (steps 8, 17): the compact slice's batches and its float64
 #: escalation of at most 32 stragglers, the Schur slice's H and S blocks,
-#: odd orders, n = 1, batches that fill no whole block; and one order
-#: over the block route's shared memory (the nd slice's generic top)
+#: the equality_qp slice's KKT (order 30, 64 systems: 'regldlt'), the
+#: normal slice's order-128 normal equations and H's panels (16
+#: matrices), odd orders, n = 1, batches that fill no whole block; and
+#: one order over the block route's shared memory (the nd slice's
+#: generic top)
 K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
-             (13, 1000), (37, 77), (1, 5))
+             (30, 64), (128, 16), (13, 1000), (37, 77), (1, 5))
 K2_OVER_CAP = (328, 1)
 #: (order, systems, type) at which both K3 routes are held to plain
 #: (step 4) and timed (step 8): the compact slice's batches and its
 #: float64 escalation, the Schur slice's H and S blocks, the nd slice's
-#: three levels and its generic top (order 328, over the warp route's
-#: shared memory)
+#: three levels, the equality_qp slice's KKT ('regldlt', float64), and
+#: the nd slice's generic top (order 328, over the warp route's shared
+#: memory)
 K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
              (SCHUR_MC, SCHUR_I, "float64"), (64, 105, "float32"),
-             (16, 28, "float32"), (16, 16, "float32"), (328, 1, "float32"))
+             (16, 28, "float32"), (16, 16, "float32"), (30, 64, "float64"),
+             (328, 1, "float32"))
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
@@ -976,7 +1022,9 @@ def check_k3_routes(dev):
     """Step 4, K3's routes: each route alone against the plain solve at
     every shape of k3_cases (float32 within 1e-5, float64 within 1e-12,
     step 4's measure), the two routes' x against each other, and the
-    wrapper solve_ldlt_auto taking the route k3_route picks, one launch;
+    wrapper solve_ldlt_auto taking the route k3_route picks, one launch
+    (above K2_ORDERS, where ldlt_route picks the blocked route, its
+    library solve instead, within the same limit);
     returns the largest absolute differences by (route, n, B, type)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_ldlt
@@ -1002,16 +1050,20 @@ def check_k3_routes(dev):
         if len(xs) == 2:
             d = (xs["warp"] - xs["thread"]).abs().max().item()
             between = max(between, d / max(x0.abs().max().item(), 1e-300))
-        pick = cuda_ldlt.k3_route(n, B, dtype)
+        blocked = cuda_ldlt.ldlt_route(n) == "blocked"
+        pick = "blocked" if blocked else cuda_ldlt.k3_route(n, B, dtype)
         before = dict(cuda_ldlt.route_launches)
         x = cuda_ldlt.solve_ldlt_auto(L, D, b)
         torch.cuda.synchronize()
         made = {k: v - before[k] for k, v in cuda_ldlt.route_launches.items()
                 if v != before[k]}
-        check(made == {f"solve_ldlt {pick}": 1}, f"solve_ldlt_auto at n={n} "
-              f"B={B} {name}: launches {made}, k3_route picks {pick}")
-        check(torch.equal(x, xs[pick]), f"solve_ldlt_auto at n={n} B={B} "
-              f"{name} differs from its route launched alone")
+        # above K2_ORDERS the blocked route's library solve, no K3
+        check(made == ({} if blocked else {f"solve_ldlt {pick}": 1}),
+              f"solve_ldlt_auto at n={n} B={B} {name}: launches {made}, "
+              f"the route picked is {pick}")
+        check(rel_diff(x, x0) <= tol if blocked else
+              torch.equal(x, xs[pick]), f"solve_ldlt_auto at n={n} B={B} "
+              f"{name} differs from its route ({pick}) alone")
     print(f"kernels K3: largest difference between the two routes' x, over "
           f"the largest |x|: {between:.3e}")
     return errs
@@ -2276,7 +2328,9 @@ def k5_inputs(B, n, k, dtype, dev, seed):
 
 def hold_k5(what, A, R, tol, route):
     """K5 through the wrapper (``route``: what k5_route picks, "warp",
-    "block" or, over the block's cap, "k2+k4") against the plain version
+    "block" or, over the block's cap, "k2+k4": K2 then K4, or above
+    K2_ORDERS the blocked route if ldlt_route picks it, its panels on K2)
+    against the plain version
     on the card: the launches of that route only, and L, D and X within
     ``tol`` (largest absolute difference over the largest magnitude of the
     plain result); returns the plain result and the largest absolute
@@ -2292,16 +2346,24 @@ def hold_k5(what, A, R, tol, route):
     torch.cuda.synchronize()
     made = {k: v - before[k] for k, v in cuda_ldlt.launches.items() if
             v != before[k]}
-    want = {"ldlt": 1, "solve_ldlt_matrix": 1} if route == "k2+k4" else \
-        {"ldlt_solve_matrix": 1}
+    n = A.shape[1]
+    blocked = cuda_ldlt.ldlt_route(n) == "blocked"
+    want = {"ldlt_solve_matrix": 1} if route != "k2+k4" else \
+        {"ldlt": -(-n // 128)} if blocked else \
+        {"ldlt": 1, "solve_ldlt_matrix": 1}
     check(made == want, f"{what}: launches {made}, expected {want}")
+    if route == "k2+k4" and blocked:
+        check(cuda_ldlt.route_launches["ldlt blocked"] ==
+              by_route["ldlt blocked"] + 1, f"{what}: ldlt_route picks the "
+              f"blocked route, which the wrapper did not take")
     if route != "k2+k4":
         key = f"ldlt_solve_matrix {route}"
         check(cuda_ldlt.route_launches[key] == by_route[key] + 1,
               f"{what}: the wrapper did not take K5's {route} route")
     check(bool(torch.isfinite(X0).all()), f"{what}: plain X not finite")
     rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(X, X0)
-    print(f"kernels {what}: {'K2 + K4' if route == 'k2+k4' else 'K5 ' + route}"
+    over = "blocked LDL^T (K2 panels)" if blocked else "K2 + K4"
+    print(f"kernels {what}: {over if route == 'k2+k4' else 'K5 ' + route}"
           f" rel diff L {rl:.3e} D {rd:.3e} X {rx:.3e} (limit {tol:g})")
     check(max(rl, rd, rx) <= tol, f"{what}: disagrees with the plain "
           f"version: {max(rl, rd, rx):.3e} > {tol:g}")
@@ -2420,9 +2482,10 @@ def check_nd_kkt():
     """Step 23: nd_solve(nd_factor(K)) on the nd slice's own KKT at the
     initial iterate, float64 on the card, against torch.linalg.solve;
     with the signed merged top (two Cholesky stages) and without signs
-    (the top block of order 328 goes through K2 + K4, K2 by its SoA
-    route: over the block route's shared memory).  Returns the generic
-    top's launches by route."""
+    (the top block of order 328 goes through the route ldlt_route picks:
+    the panel-blocked LDL^T, its panels on K2's block route, or K2 by its
+    SoA route, over the block route's shared memory, + K4).  Returns the
+    generic top's launches by route."""
     import torch
     from ipmzoo_tpu_torch.models.state import tree_map
     from ipmzoo_tpu_torch.ops import cuda_ldlt
@@ -2452,6 +2515,7 @@ def check_nd_kkt():
     xs = torch.linalg.solve(K, b)
     unsigned = nd_plan((K != 0).cpu().numpy(), leaf=ND_LEAF)
     check(plan.top_neg >= 0 and unsigned.top_neg < 0, "top_neg")
+    blocked = cuda_ldlt.ldlt_route(K2_OVER_CAP[0]) == "blocked"
     for what, p in (("signed top", plan), ("generic top", unsigned)):
         cuda_ldlt.reset_launch_counts()
         x = nd_solve(p, nd_factor(K, p), b)
@@ -2465,6 +2529,20 @@ def check_nd_kkt():
         check(rd <= 1e-9, f"nd_solve disagrees with the dense solve "
               f"({what}): {rd:.3e}")
         top = 0 if p is plan else 1
+        if blocked:
+            # the top takes the panel-blocked LDL^T, its panels on K2
+            check(made == {"ldlt": -(-K2_OVER_CAP[0] // 128) * top,
+                           "solve_ldlt": 3, "solve_ldlt_matrix": 0,
+                           "ldlt_solve_matrix": 3},
+                  f"nd ({what}): launches {made}")
+            check(routes["ldlt blocked"] == top and routes["ldlt soa"] == 0,
+                  f"nd ({what}): the top of order {K2_OVER_CAP[0]} did not "
+                  f"take the blocked route ldlt_route picks")
+            check(routes["solve_ldlt warp"] == 3 and
+                  routes["solve_ldlt thread"] == 0, f"nd ({what}): K3 "
+                  f"routes {routes}, expected the three levels on the warp "
+                  f"route")
+            continue
         check(made == {"ldlt": top, "solve_ldlt": 3 + top,
                        "solve_ldlt_matrix": top, "ldlt_solve_matrix": 3},
               f"nd ({what}): launches {made}")
@@ -3043,6 +3121,431 @@ def measure_phases(dev, ptxas):
     return err, launches, (ms, plain_ms, bnd)
 
 
+#: (B, n, type, panel) at which step 35 holds the panel-blocked LDL^T to
+#: the plain column LDL^T: bench_aug's KKT order 352 (three systems in
+#: both types, its batch of 64 in float32), step 22's over-cap order 328,
+#: and an uneven last panel (200 = 3 x 64 + 8)
+BLOCKED_SHAPES = ((3, 352, "float64", 128), (3, 352, "float32", 128),
+                  (64, 352, "float32", 128), (1, 328, "float64", 128),
+                  (2, 200, "float64", 64), (2, 200, "float32", 64))
+#: (B, n, type) at which step 36 times every LDL^T route and holds
+#: ldlt_route to the fastest: bench_aug's KKT, the nd slice's generic top
+#: and bench_normal's H (whose H^-1 the 'normal' mode binds)
+LDLT_ROUTE_SHAPES = ((64, 352, "float32"), (1, 328, "float64"),
+                     (16, 1024, "float32"))
+#: the largest order at which step 36 times K2's SoA route (a thread per
+#: matrix): at (16, 1024) float32 one call took 25.4 s on an H100, and
+#: sweep_ldlt finds it 16-90x slower than the fastest route from n = 129
+LDLT_SOA_TIMED = 352
+#: K2's panel launch on the aug slice (B, panel order, type)
+K2_PANEL = (64, 128, "float32")
+#: sweep_ldlt's orders and batches, both types, and the most bytes one
+#: batch of matrices may take
+LDLT_SWEEP_N = (129, 160, 169, 192, 240, 256, 328, 352, 512, 1024)
+LDLT_SWEEP_B = (1, 3, 16, 64, 512)
+LDLT_SWEEP_BYTES = 2 ** 31
+
+
+def card():
+    """The card's name and power limit, for the lines that carry times."""
+    from ipmzoo_tpu_torch.utils.device import nvidia_smi
+    return nvidia_smi()
+
+
+def quasi_definite_on(B, n, dtype, device, seed):
+    """quasi_definite's matrices drawn on ``device`` by torch (the host's
+    product takes minutes at sweep_ldlt's largest shapes): [[H, A^T],
+    [A, -C]], H = M M^T / n1 + I, C diagonal in [0.5, ...), and b."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+    n1 = (2 * n) // 3
+    n2 = n - n1
+
+    def randn(*shape):
+        return torch.randn(shape, dtype=dtype, device=device, generator=g)
+    M = randn(B, n1, n1)
+    K = torch.zeros((B, n, n), dtype=dtype, device=device)
+    K[:, :n1, :n1] = torch.matmul(M, M.transpose(1, 2)) / n1 + \
+        torch.eye(n1, dtype=dtype, device=device)
+    del M
+    A = randn(B, n2, n1)
+    K[:, n1:, :n1] = A
+    K[:, :n1, n1:] = A.transpose(1, 2)
+    K[:, n1:, n1:] = -torch.diag_embed(randn(B, n2).abs() + 0.5)
+    return K, randn(B, n)
+
+
+def check_blocked(dev):
+    """Step 35: the panel-blocked LDL^T (ldlt_blocked, its panels on K2)
+    and its solve against the plain column LDL^T and the plain sweeps on
+    the card at BLOCKED_SHAPES: L, D and x within 1e-10 in float64, 1e-4
+    in float32; one K2 launch a panel, on the block route; and an
+    exactly-zero pivot at the second column of the second panel put on
+    the floor in both.  Returns the largest absolute difference of x by
+    shape."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.blocked_ldlt import (ldlt_blocked,
+                                                   solve_ldlt_blocked)
+    from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
+
+    print(f"step 35 on {card()}")
+    errs = {}
+    for B, n, name, panel in BLOCKED_SHAPES:
+        dtype = getattr(torch, name)
+        tol = 1e-10 if dtype == torch.float64 else 1e-4
+        panels = -(-n // panel)
+        for zero in (False, True):
+            K, b = quasi_definite(B, n, dtype, dev, seed=n + B)
+            what = f"{name} B={B} n={n} panel={panel}"
+            if zero:
+                # rows and columns panel, panel + 1 hold only a block of
+                # ones: the second pivot is exactly zero after the first
+                # panel's trailing update, in both orderings
+                K[:, panel:panel + 2, :] = 0.0
+                K[:, :, panel:panel + 2] = 0.0
+                K[:, panel:panel + 2, panel:panel + 2] = 1.0
+                what += " zero pivot"
+            cuda_ldlt.reset_launch_counts()
+            L, D = ldlt_blocked(K, panel=panel)
+            x = solve_ldlt_blocked(L, D, b)
+            torch.cuda.synchronize()
+            made = dict(cuda_ldlt.launches)
+            routes = dict(cuda_ldlt.route_launches)
+            check(made == {"ldlt": panels, "solve_ldlt": 0,
+                           "solve_ldlt_matrix": 0, "ldlt_solve_matrix": 0}
+                  and routes["ldlt block"] == panels and
+                  routes["ldlt blocked"] == 1,
+                  f"blocked LDL^T {what}: launches {made}, by route "
+                  f"{routes}, expected {panels} K2 block-route panels")
+            L0, D0 = ldlt(K)
+            x0 = solve_ldlt(L0, D0, b)
+            rl, rd, rx = rel_diff(L, L0), rel_diff(D, D0), rel_diff(x, x0)
+            print(f"kernels blocked LDL^T {what}: {panels} K2 panel "
+                  f"launches; rel diff L {rl:.3e} D {rd:.3e} x {rx:.3e} "
+                  f"(limit {tol:g})")
+            check(max(rl, rd, rx) <= tol, f"the blocked LDL^T disagrees "
+                  f"with the plain version ({what}): {max(rl, rd, rx):.3e}")
+            if zero:
+                floor = torch.tensor(PIVOT_FLOOR, dtype=dtype)
+                check(bool((D[:, panel + 1].cpu() == floor).all()) and
+                      bool((D0[:, panel + 1].cpu() == floor).all()),
+                      f"{what}: the floor is not on the zero pivot")
+            else:
+                errs[(B, n, name, panel)] = (x - x0).abs().max().item()
+    return errs
+
+
+def ldlt_route_call(route, A, b):
+    """A factor and one solve by an LDL^T route: "soa" / "block" (K2 by
+    that route with its caller's layout work, the solve by K3 on the
+    route k3_route picks) or "blocked" (ldlt_blocked and its library
+    solve)."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.blocked_ldlt import (ldlt_blocked,
+                                                   solve_ldlt_blocked)
+    if route == "blocked":
+        L, D = ldlt_blocked(A)
+        return solve_ldlt_blocked(L, D, b)
+    L_t, D_t = k2_call(route, A)
+    B, n = b.shape
+    return k3_call(cuda_ldlt.k3_route(n, B, b.dtype), L_t, D_t,
+                   b.t().contiguous()).t()
+
+
+def ldlt_pick(n, B, dtype):
+    """The route ldlt_auto takes: "blocked", or K2's "soa" / "block"."""
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    if cuda_ldlt.ldlt_route(n) == "blocked":
+        return "blocked"
+    return cuda_ldlt.k2_route(n, B, dtype)
+
+
+def route_ms(fn, budget_ms=150.0, most=20):
+    """Milliseconds per call of ``fn`` by CUDA events, back to back (the
+    host's launch work counts where it is longer than the device's): one
+    call after a warm-up, then as many as fit ``budget_ms`` (at most
+    ``most``)."""
+    one = time_cuda(fn, 1)
+    reps = max(1, min(most, int(budget_ms / max(one, 1e-3))))
+    return time_cuda(fn, reps) if reps > 1 else one
+
+
+def ldlt_route_times(n, B, dtype, dev, skip=()):
+    """Each LDL^T route's factor + one solve at (B, n) on quasi-definite
+    matrices, ms per call (route_ms); the routes of ``skip`` are left
+    out."""
+    A, b = quasi_definite_on(B, n, dtype, dev, seed=n + B)
+    routes = ("blocked",) + tuple(r for r in k2_routes(n, dtype)
+                                  if r not in skip)
+    return {r: route_ms(lambda r=r: ldlt_route_call(r, A, b))
+            for r in routes}
+
+
+def check_ldlt_routes(dev):
+    """Step 36: every LDL^T route's factor + one solve at
+    LDLT_ROUTE_SHAPES (CUDA events; K2's SoA route up to order
+    LDLT_SOA_TIMED), beside torch.linalg.cholesky_ex on
+    SPD matrices of the same shape (the nearest library call, not the
+    same function); fail where ldlt_route's pick is more than 5% above
+    the fastest route; then K2's block route at the aug slice's panel
+    K2_PANEL against its plain version (1e-5), timed for the kernels
+    line.  Returns that panel's times."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+
+    print(f"step 36 on {card()}")
+    for B, n, name in LDLT_ROUTE_SHAPES:
+        dtype = getattr(torch, name)
+        t = ldlt_route_times(n, B, dtype, dev, skip=(
+            ("soa",) if n > LDLT_SOA_TIMED else ()))
+        M = torch.randn((B, n, n), dtype=dtype, device=dev,
+                        generator=torch.Generator(dev).manual_seed(n))
+        H = torch.matmul(M, M.transpose(1, 2)) / n + \
+            torch.eye(n, dtype=dtype, device=dev)
+        del M
+        check(int(torch.linalg.cholesky_ex(H).info.abs().max()) == 0,
+              "not SPD")
+        lib = route_ms(lambda: torch.linalg.cholesky_ex(H))
+        del H
+        pick = ldlt_pick(n, B, dtype)
+        best = min(t, key=t.get)
+        print(f"timing LDL^T routes B={B} n={n} {name} (factor + one "
+              f"solve, ms per call, CUDA events): " +
+              ", ".join(f"{r} {v:.4f}" for r, v in t.items()) +
+              f"; torch.linalg.cholesky_ex on SPD matrices of the shape "
+              f"{lib:.4f}; ldlt_route picks {pick}, the fastest is {best}")
+        check(t[pick] <= 1.05 * t[best],
+              f"ldlt_route picks {pick} at B={B} n={n} {name}: "
+              f"{t[pick]:.4f} ms against {best}'s {t[best]:.4f}")
+
+    B, n, name = K2_PANEL
+    dtype = getattr(torch, name)
+    A, _ = quasi_definite(B, n, dtype, dev, seed=5)
+    L_t, D_t = cuda_ldlt.factor_block(A)
+    L0, D0 = ldlt(A)
+    err = max(rel_diff(L_t.permute(2, 0, 1), L0), rel_diff(D_t.t(), D0))
+    print(f"kernels K2 block route at the aug slice's panel B={B} n={n} "
+          f"{name}: rel diff {err:.3e} (limit 1e-5)")
+    check(err <= 1e-5, f"K2 disagrees with its plain version at the panel "
+          f"shape: {err:.3e}")
+    M = torch.randn((B, n, n), dtype=dtype, device=dev,
+                    generator=torch.Generator(dev).manual_seed(2))
+    H = torch.matmul(M, M.transpose(1, 2)) / n + \
+        torch.eye(n, dtype=dtype, device=dev)
+    out = {"K2": time_cuda(lambda: cuda_ldlt.factor_block(A), 50),
+           "K2_device": device_ms(lambda: cuda_ldlt.factor_block(A), 50),
+           "K2_plain": time_cuda(lambda: ldlt(A), 3),
+           "K2_library": time_cuda(lambda: torch.linalg.cholesky_ex(H), 50),
+           "bound": ldlt_bounds(B, n, 1, dtype)["K2"],
+           "err": (D_t.t() - D0).abs().max().item()}
+    print(f"timing K2 block route at the panel B={B} n={n} {name} (ms per "
+          f"call, CUDA events; _device: under torch.profiler): K2 "
+          f"{out['K2']:.4f}, K2_device {out['K2_device']:.4f}, plain "
+          f"{out['K2_plain']:.4f}, torch.linalg.cholesky_ex (SPD, nearest "
+          f"library call) {out['K2_library']:.4f}; bound "
+          f"{out['bound'][0]:.6f} ms by {out['bound'][1]}")
+    return out
+
+
+def sweep_ldlt(dev=None):
+    """Every LDL^T route's factor + one solve (ldlt_route_times) over
+    LDLT_SWEEP_N x LDLT_SWEEP_B, float32 and float64, shapes whose
+    matrices take more than LDLT_SWEEP_BYTES left out: the measurement
+    behind ldlt_route.  K2's SoA route (a thread per matrix, its time
+    growing as n^3) is timed at a batch until it is 10x slower than the
+    fastest route, and left out at larger orders there.  Prints each
+    point, the points where ldlt_route's pick is more than 5% slower than
+    the fastest (or was left out), and their count.  Not part of main();
+    run it alone (about ten seconds after the ldlt.cu build; its output
+    is long: send it to a file)."""
+    import torch
+    dev = dev or torch.device("cuda")
+    print(f"sweep_ldlt on {card()}")
+    points, misses = 0, []
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        lost = set()
+        for n in LDLT_SWEEP_N:
+            for B in LDLT_SWEEP_B:
+                if B * n * n * ITEMSIZE[name] > LDLT_SWEEP_BYTES:
+                    print(f"sweep {name} B={B} n={n}: left out (over "
+                          f"{LDLT_SWEEP_BYTES} bytes)")
+                    continue
+                t = ldlt_route_times(n, B, dt, dev,
+                                     skip=("soa",) if B in lost else ())
+                best = min(t, key=t.get)
+                if t.get("soa", 0.0) > 10 * t[best]:
+                    lost.add(B)
+                pick = ldlt_pick(n, B, dt)
+                points += 1
+                miss = pick not in t or t[pick] > 1.05 * t[best]
+                if miss:
+                    misses.append((name, B, n, pick, t.get(pick), best,
+                                   t[best]))
+                print(f"sweep {name} B={B} n={n}: ms " +
+                      " ".join(f"{r} {v:.4f}" for r, v in t.items()) +
+                      f"; ldlt_route picks {pick}, fastest {best}"
+                      f"{' MISS' if miss else ''}", flush=True)
+                torch.cuda.empty_cache()
+    print(f"sweep_ldlt: ldlt_route within 5% of the fastest route at "
+          f"{points - len(misses)} of {points} points; misses: {misses}")
+    return misses
+
+
+def cpu_reference(what, cpu_solver, data, n_inst):
+    """``cpu_solver`` (float64 on the CPU) on the first ``n_inst``
+    instances of ``data``, all converged."""
+    import torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    sub = tree_map(lambda a: a[:n_inst].to("cpu", torch.float64), data)
+    ref = cpu_solver.solve_batch(sub)
+    check(bool(ref.converged.all()), f"{what}: the CPU float64 port did "
+          f"not converge")
+    return ref
+
+
+def objectives_vs_cpu(what, res, ref, tol):
+    """The objectives of ``res``'s first instances against ``ref`` (the
+    CPU float64 port on the same data): |f_gpu - f_cpu| <= tol
+    (1 + |f_cpu|)."""
+    n_inst = ref.objective.shape[0]
+    f_gpu = res.objective[:n_inst].double().cpu()
+    diff = ((f_gpu - ref.objective).abs() /
+            (1 + ref.objective.abs())).max().item()
+    print(f"{what}: objectives of {n_inst} instances against the CPU "
+          f"float64 port, largest |f_gpu - f_cpu| / (1 + |f_cpu|) "
+          f"{diff:.3e} (limit {tol:g})")
+    check(diff <= tol, f"{what}: objectives disagree with the CPU port")
+
+
+def print_bench(mode, label, value, unit):
+    print(f"bench_torch --mode {mode}: " + json.dumps(
+        {"metric": label, "value": round(value, 1), "unit": unit,
+         "vs_baseline": None}))
+
+
+def run_aug_slice(dev):
+    """Step 37: bench_torch.py's aug mode (64 QPs, n=256, m_ineq=64,
+    m_eq=32, aug_dim 352, float32, refine=2, gondzio=2): 'blockg' and
+    'auto' (the dense LDL^T on the route ldlt_route picks), each >= 99%
+    converged; the objectives of the first 8 instances of each against
+    the CPU float64 port ('blockg'); then one 'auto' solve with the
+    launch counts set to 0 just before and read just after (K2's panel
+    launches).  Returns those launches by route and the iterations."""
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    print(f"step 37 on {card()}")
+    label, value, unit, counts = bench_torch.bench_aug(dev)
+    data = bench_torch.aug_data(dev)
+    ref = cpu_reference("aug", bench_torch.aug_solver(
+        "blockg", "cpu", torch.float64), data, 8)
+    for k in ("blockg", "auto"):
+        check(counts[k]["converged"] >= 0.99, f"aug kernel={k}: "
+              f"{counts[k]['converged']} converged")
+        objectives_vs_cpu(f"aug kernel={k}", counts[k]["result"], ref, 1e-4)
+    print_bench("aug", label, value, unit)
+    solver = bench_torch.aug_solver("auto", dev)
+    check(solver._mode == "ldlt", f"aug 'auto' picks {solver._mode}")
+    cuda_ldlt.reset_launch_counts()
+    res = solver.solve_batch(data)
+    torch.cuda.synchronize()
+    routes = dict(cuda_ldlt.route_launches)
+    iters = int(res.iterations.max().item())
+    print(f"aug kernel=auto: one solve, {iters} iterations, ldlt_route "
+          f"picks {cuda_ldlt.ldlt_route(solver.aug_dim)}"
+          f"; launches {dict(cuda_ldlt.launches)}, by route {routes}")
+    check(routes["ldlt block"] > 0, "the aug slice never launched K2")
+    return routes, iters
+
+
+def run_normal_slice(dev):
+    """Step 38: bench_torch.py's normal mode (16 QPs, n=1024, m=128,
+    float32, gondzio=2): 'blockg', 'block' and 'normal', each >= 99%
+    converged, the objectives of the first 4 instances of each against
+    the CPU float64 port ('block'); the 'normal' mode binds H^-1 through
+    the blocked LDL^T, its panels on K2."""
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    print(f"step 38 on {card()}")
+    cuda_ldlt.reset_launch_counts()
+    label, value, unit, counts = bench_torch.bench_normal(dev)
+    print(f"normal: launches of the race {dict(cuda_ldlt.launches)}, by "
+          f"route {dict(cuda_ldlt.route_launches)}")
+    check(cuda_ldlt.route_launches["ldlt block"] > 0, "the normal mode "
+          "never launched K2")
+    n, m, B, _ = bench_torch.normal_sizes()
+    data = make_batch(B, n, m, torch.float32, device=dev)
+    ref = cpu_reference("normal", bench_torch.normal_solver(
+        "block", "cpu", torch.float64), data, 4)
+    for k in ("blockg", "block", "normal"):
+        check(counts[k]["converged"] >= 0.99, f"normal kernel={k}: "
+              f"{counts[k]['converged']} converged")
+        objectives_vs_cpu(f"normal kernel={k}", counts[k]["result"], ref,
+                          1e-4)
+    print_bench("normal", label, value, unit)
+
+
+def run_equality(dev):
+    """Step 39: equality_qp(batch=64) (EqualityHandling.NONE, an
+    indefinite augmented system) in float64 through 'auto' (= 'regldlt':
+    K2 / K3 launched) and 'lu', all converged, x within 1e-6."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.models.families import equality_qp
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    print(f"step 39 on {card()}")
+    fam = equality_qp(batch=64, device=dev)
+    out = {}
+    for kernel in ("auto", "lu"):
+        s = CompiledIPM(fam.settings, n=fam.n, m_eq=fam.m_eq, kernel=kernel,
+                        device=dev)
+        cuda_ldlt.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = s.solve_batch(fam.data)
+        torch.cuda.synchronize()
+        made = dict(cuda_ldlt.launches)
+        print(f"equality_qp kernel={kernel} ({s._mode}): "
+              f"{int(res.converged.sum())} of 64 converged, iterations "
+              f"{int(res.iterations.max())}, {time.perf_counter() - t0:.3f} "
+              f"s (host clock, first call); launches {made}")
+        check(bool(res.converged.all()), f"equality_qp {kernel}")
+        want = "regldlt" if kernel == "auto" else "lu"
+        launched = made["ldlt"] > 0 and made["solve_ldlt"] > 0
+        check(s._mode == want and launched == (kernel == "auto"),
+              f"equality_qp kernel={kernel}: mode {s._mode}, launches "
+              f"{made}; expected {want}, K2 and K3 launched by 'regldlt' "
+              f"alone")
+        out[kernel] = res.x
+    d = (out["auto"] - out["lu"]).abs().max().item()
+    print(f"equality_qp: regldlt against lu, largest |x| difference {d:.3e} "
+          f"(limit 1e-6)")
+    check(d <= 1e-6, f"regldlt and lu disagree: {d:.3e}")
+
+
+def run_dense_modes(dev):
+    """Step 40: bench_torch.py's arrow --dense, nd --dense and kkt --large
+    through run_mode, each JSON line printed."""
+    import bench_torch
+    print(f"step 40 on {card()}")
+    for mode, kw in (("arrow", dict(dense=True)), ("nd", dict(dense=True)),
+                     ("kkt", dict(large=True))):
+        t0 = time.perf_counter()
+        label, value, unit, _ = bench_torch.run_mode(mode, dev, **kw)
+        check(value > 0 and value == value, f"bench_torch {mode} {kw}: "
+              f"value {value}")
+        print(f"bench_torch --mode {mode} {kw}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        print_bench(mode, label, value, unit)
+
+
 def run_bench_modes(dev, data):
     """Step 33: bench_torch.py's `steps` and `kkt` modes through its own
     functions, on the slice's data."""
@@ -3126,6 +3629,12 @@ def main():
     errs.update(r_errs)
     errs["phase"], p_launches, p_times = measure_phases(dev, ptxas)
     bench_routes = run_bench_modes(dev, data)
+    blocked_errs = check_blocked(dev)
+    panel = check_ldlt_routes(dev)
+    aug_routes, aug_iters = run_aug_slice(dev)
+    run_normal_slice(dev)
+    run_equality(dev)
+    run_dense_modes(dev)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
@@ -3162,6 +3671,13 @@ def main():
               % K2_OVER_CAP, SOURCE, "ldlt", top_routes["ldlt soa"],
               top["K2_soa"], top["K2_plain"], top["bound"], None,
               k2_errs[("soa",) + K2_OVER_CAP + ("float64",)]),
+        # the aug slice's K2 launches: the diagonal panels of the blocked
+        # LDL^T that ldlt_route picks at its order 352
+        entry("K2 block route, the panels of the blocked LDL^T (float32, "
+              "n=%d, B=%d: the aug slice, %d iterations)"
+              % (K2_PANEL[1], K2_PANEL[0], aug_iters), SOURCE, "ldlt",
+              aug_routes["ldlt block"], panel["K2"], panel["K2_plain"],
+              panel["bound"], panel["K2_library"], panel["err"]),
         entry(f"K2 block route (float64, n={SCHUR_N}, B="
               f"{SCHUR_I * SCHUR_BLOCKS})", SOURCE, "ldlt",
               s_launches["ldlt block"], s_times["K2_block"],

@@ -9,7 +9,8 @@ mirror the JAX package's:
   — the expression engine and the formulation lattice (Settings -> Newton
   system -> reductions), pure Python.
 * :mod:`ipmzoo_tpu_torch.models` — ``CompiledIPM`` (batched Mehrotra
-  solver; dense LDL^T mode, and nested dissection for general sparsity,
+  solver; dense LDL^T, block Cholesky, normal-equations, regularised
+  LDL^T and LU modes, and nested dissection for general sparsity,
   ``kernel="nd"``), ``QPData``, the QP ``families``, the compaction
   engine, and
   ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
@@ -20,6 +21,8 @@ mirror the JAX package's:
 * :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve, multi-rhs
   solve and fused factor + multi-rhs solve: CUDA kernels
   (``csrc/ldlt.cu``) with plain torch versions for CPU tensors; the
+  panel-blocked LDL^T over K2 (``blocked_ldlt``) and the block Cholesky
+  eliminations (``block_solve``, ``blockg``); the
   nested-dissection factorisation over them (``ndiss``); K1's build and
   launch (``cuda_fused``); the
   banded+arrow factorisation (``banded``) with whole-reduction block

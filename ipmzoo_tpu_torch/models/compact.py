@@ -94,7 +94,9 @@ class CompactScheduleMixin:
         """The float64 twin of this solver for the escalation stage (the
         solver itself when it works in float64).  It keeps this solver's
         settings, ``mu_floor`` included, as the reference's pair twin
-        does."""
+        does, and factors the dense augmented system as the reference's
+        pair twin does: by LDL^T, signed-regularised where the system is
+        indefinite."""
         if self.dtype == torch.float64:
             return self
         esc = getattr(self, "_esc_twin", None)
@@ -107,7 +109,8 @@ class CompactScheduleMixin:
                 delta0=self.delta0, pivot_floor=self.pivot_floor,
                 fraction_to_boundary=self.fraction_to_boundary,
                 mu_floor=self.mu_floor, scale_tol=self.scale_tol,
-                gondzio=self.gondzio, kernel="ldlt")
+                gondzio=self.gondzio,
+                kernel="regldlt" if self._indefinite else "ldlt")
             self._esc_twin = esc
         return esc
 

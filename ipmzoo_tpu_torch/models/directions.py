@@ -100,23 +100,24 @@ class DirectionsMixin:
         return renv
 
     def _search_direction(self, solve_fn, renv):
-        """Solve the augmented system and back-substitute eliminated
-        variables via the symbolic delta definitions."""
+        """Solve the consumed reduction (the augmented system, or the
+        normal equations) and back-substitute eliminated variables via
+        the symbolic delta definitions."""
         memo = {}
         parts = [cg.as_vector(cg.evaluate(r, renv, memo), sz)
-                 for r, sz in zip(self.aug.rhs, self.aug_sizes)]
+                 for r, sz in zip(self.red.rhs, self.red_sizes)]
         sol = solve_fn(torch.cat(parts, dim=-1))
 
         deltas = [None] * len(self.full.variables)
         denv = dict(renv)
         offset = 0
-        for var, sz in zip(self.aug.variables, self.aug_sizes):
+        for var, sz in zip(self.red.variables, self.red_sizes):
             val = sol[:, offset:offset + sz]
             offset += sz
             deltas[self.var_index[var]] = val
             denv[delta_variable(var)] = cg.vector(val)
         memo2 = {}
-        for dvar, ddef in reversed(self.aug.delta_definitions):
+        for dvar, ddef in reversed(self.red.delta_definitions):
             var = self.delta_to_var[dvar]
             val = cg.as_vector(cg.evaluate(ddef, denv, memo2),
                                self.size_of[var])

@@ -244,10 +244,10 @@ def equality_qp(n: int = 24, m_eq: int = 6, batch: int = 0,
 
         minimize 1/2 x^T Q x + c^T x   subject to   C x = d.
 
-    The augmented system is genuinely indefinite (zero dual diagonal) —
-    the reference factors it with its signed-regularised LDL^T
-    (kernel='regldlt'), a mode the port does not have yet: ``CompiledIPM``
-    raises ``NotImplementedError`` for these settings.
+    The augmented system is genuinely indefinite (zero dual diagonal):
+    ``CompiledIPM``'s 'auto' solves it through the signed-regularised
+    LDL^T refined against the true system (kernel='regldlt'), as the
+    reference does; kernel='lu' takes a pivoted LU instead.
     """
     rng = _rng(seed)
     shape = (batch,) if batch else ()

@@ -43,7 +43,8 @@ from .fused_source import fused_source, fused_team_source
 from .ipm import CompiledIPM
 from .state import tree_map
 
-_ROADMAP_KERNELS = "ROADMAP.md Queue 1 item 11 (remaining kernel modes)"
+_ROADMAP_WIDE = ("ROADMAP.md Queue 1 item 11f (the fused engine at "
+                 "aug_dim > 128)")
 
 #: the QPData fields, in the order of the kernel's data arguments
 DATA_FIELDS = ("Q", "c", "A_ineq", "l_A_ineq", "u_A_ineq", "A_eq", "b_eq",
@@ -123,8 +124,8 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
         if self.aug_dim > 128:
             raise NotImplementedError(
                 f"aug_dim={self.aug_dim}: the reference's tail solver "
-                f"switches to its panel-blocked LDL^T above 128, which is "
-                f"not ported: see {_ROADMAP_KERNELS}")
+                f"switches to its panel-blocked LDL^T above 128, and K1 has "
+                f"no route at that size: see {_ROADMAP_WIDE}")
         self.bt = bt
         #: K1's generated sources, by route
         self._kernel_sources: dict = {}

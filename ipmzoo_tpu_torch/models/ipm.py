@@ -7,10 +7,12 @@ sizes; each iteration then evaluates the derived system eagerly on a
 batch of QP instances:
 
   1. residual norm and duality measure of the full KKT residual at mu=0
-  2. assemble the augmented KKT matrices; factor once (LDL^T, kernel K2;
-     or, with kernel="nd", along a nested-dissection plan of the KKT
-     sparsity, kernel K5 per level)
-  3. affine predictor: residual vectors at mu=0, solve (K3),
+  2. assemble the consumed reduction (the augmented KKT system, or the
+     normal equations); factor once by the kernel mode (dense LDL^T on
+     kernel K2, the panel-blocked LDL^T, block Cholesky, regularised
+     LDL^T or LU; or, with kernel="nd", along a nested-dissection plan
+     of the KKT sparsity, kernel K5 per level)
+  3. affine predictor: residual vectors at mu=0, solve (K3 or library),
      back-substitute eliminated variables via the symbolic delta
      definitions
   4. ratio test, trial step, mu_aff, sigma = (mu_aff/mu)^3
@@ -35,7 +37,9 @@ import torch
 
 from ..formulations import (Settings, VariableNames, augmented_system,
                             build_symbols, delta_variable, newton_system,
-                            shorthand_rhs)
+                            normal_equations, shorthand_rhs)
+from ..ops.blocked_ldlt import ldlt_blocked, solve_ldlt_blocked
+from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto
 from ..symbolic import expr as E
 from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
@@ -49,11 +53,10 @@ from .state import IPMState, SolveResult, tree_map
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
-_ROADMAP_KERNELS = "ROADMAP.md Queue 1 item 11 (remaining kernel modes)"
 _ROADMAP_TWO_FLOAT = "ROADMAP.md Queue 1 item 7 (escalation precision)"
 _ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
-_ROADMAP_BLOCKED = "ROADMAP.md Queue 1 item 11a (panel-blocked LDL^T)"
-_ROADMAP_BLOCK = "ROADMAP.md Queue 1 item 11c ('block' / 'blockg' modes)"
+_KERNELS = ("auto", "ldlt", "jnp", "block", "blockg", "lu", "regldlt",
+            "normal", "sharded", "nd")
 
 
 class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
@@ -68,13 +71,25 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     precision (default float64, as the reference).
 
     ``kernel``: 'auto' / 'ldlt' factor the dense augmented system (K2,
-    K3); 'nd' factors it by nested-dissection block elimination for
+    K3; the panel-blocked LDL^T above the orders
+    ``ops/cuda_ldlt.ldlt_route`` gives K2); 'jnp' the same with the
+    panel-blocked LDL^T and library triangular solves at every order;
+    'block' / 'blockg' by block Cholesky elimination of the 2x2 / G x G
+    augmented system (``ops/block_solve.py``, ``ops/blockg.py``);
+    'normal' factors the normal equations, binding each dense H^-1 once
+    per iteration; 'regldlt' the signed-regularised LDL^T refined
+    against the true system and 'lu' a pivoted LU, for genuinely
+    indefinite systems; 'nd' by nested-dissection block elimination for
     general sparsity (``ops/ndiss.py``: K5 per tree level, K3 in the
-    solves).  The dissection plan is built on the host from the KKT
-    sparsity pattern: pass it as ``nd_pattern``, or leave None and the
-    first solve derives it from the data.  ``nd_leaf``: stop dissecting
-    below this many variables.  ``nd_fallback``: refuse a plan predicted
-    to lose to the dense path and solve with 'ldlt' instead (recorded
+    solves).  'auto' picks 'regldlt' for an indefinite system, 'block'
+    for a 2x2 system from n = 384, 'blockg' from aug_dim = 384, else
+    'ldlt', as the reference.  ``block_inv``: the 'block' mode binds
+    explicit H^-1 / S^-1 ('auto' = off).  The dissection plan is built
+    on the host from the KKT sparsity pattern: pass it as
+    ``nd_pattern``, or leave None and the first solve derives it from
+    the data.  ``nd_leaf``: stop dissecting below this many variables.
+    ``nd_fallback``: refuse a plan predicted to lose to the dense path
+    and solve with the mode the dense auto rule picks instead (recorded
     in ``nd_fell_back``); False keeps the plan."""
 
     def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
@@ -89,7 +104,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                  hybrid_refine: bool = False, df_residuals: bool = False,
                  two_float: bool = False, mesh=None,
                  mesh_axis: Optional[str] = None,
-                 panel: Optional[int] = None, block_inv=None,
+                 panel: Optional[int] = None, block_inv="auto",
                  taylor: str = "staged", nd_pattern=None,
                  nd_leaf: int = 32, nd_fallback: bool = True):
         apply_default_matmul_precision()
@@ -111,17 +126,11 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 f"{_ROADMAP_MESH}")
         if panel is not None:
             raise NotImplementedError(
-                "panel= belongs to the panel-blocked LDL^T, which is not "
-                f"ported: see {_ROADMAP_BLOCKED}")
-        if block_inv is not None:
-            raise NotImplementedError(
-                "block_inv= belongs to kernel='block', which is not ported: "
-                f"see {_ROADMAP_BLOCK}")
-        if kernel not in ("auto", "ldlt", "nd"):
-            raise NotImplementedError(
-                f"kernel={kernel!r} is not ported; the port has the dense "
-                f"LDL^T mode ('auto'/'ldlt') and nested dissection ('nd') "
-                f"only: see {_ROADMAP_KERNELS}")
+                "panel= sets the panel of kernel='sharded', which is not "
+                f"ported: see {_ROADMAP_MESH}")
+        if kernel not in _KERNELS:
+            raise ValueError(f"unknown kernel={kernel!r}; expected one of "
+                             f"{_KERNELS}")
         if taylor not in ("staged", "symbolic"):
             raise ValueError(f"unknown taylor={taylor!r}; expected "
                              "'staged' or 'symbolic'")
@@ -163,11 +172,18 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         reduced.rhs = list(sh.shorthand_rhs)
         aug = augmented_system(reduced)
         self.full, self.sh, self.aug = full, sh, aug
-        if any(aug.lhs[i][i] is E.ZERO for i in range(len(aug.lhs))):
+        # the normal-equations reduction (one more elimination: the
+        # leading Q/x block), which kernel='normal' factors
+        self.norm = normal_equations(reduced) if kernel == "normal" else None
+        # a symbolically zero diagonal block: the augmented system is
+        # genuinely indefinite, and only 'regldlt' / 'lu' factor it
+        self._indefinite = any(aug.lhs[i][i] is E.ZERO
+                               for i in range(len(aug.lhs)))
+        if self._indefinite and kernel not in ("auto", "lu", "regldlt"):
             raise NotImplementedError(
                 "augmented system has a symbolically zero diagonal block "
-                "(indefinite); its 'regldlt'/'lu' modes are not ported: "
-                f"see {_ROADMAP_KERNELS}")
+                "(indefinite); use kernel='regldlt' / 'lu' (or 'auto'), or "
+                "a formulation with a quasi-definite augmented system")
 
         size_of = {
             o.x: n, o.s_x_l: n, o.s_x_u: n, o.lambda_sxl: n, o.lambda_sxu: n,
@@ -182,19 +198,23 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.aug_sizes = [size_of[v] for v in aug.variables]
         self.aug_dim = sum(self.aug_sizes)
         self.var_index = {v: i for i, v in enumerate(full.variables)}
-        # the reference's 'auto' hands large systems to its block modes
-        can_block = self._can_block = (len(aug.variables) == 2 and
-                                       aug.variables[0] is o.x)
-        if kernel == "auto" and ((can_block and n >= 384) or
-                                 self.aug_dim >= 384):
-            raise NotImplementedError(
-                f"aug_dim={self.aug_dim}: the reference's 'auto' picks a "
-                f"block mode here, which is not ported: see "
-                f"{_ROADMAP_KERNELS}; pass kernel='ldlt' for dense LDL^T")
+        # the reduction the linear solver consumes: the normal equations
+        # for kernel='normal', else the augmented system
+        self.red = self.norm if self.norm is not None else aug
+        self.red_sizes = [size_of[v] for v in self.red.variables]
+        self.red_dim = sum(self.red_sizes)
+        # the dense-matrix inverses the normal equations hold (H^-1, H =
+        # aug.lhs[0][0]), bound once per iteration
+        self._matrix_inverts = tuple(
+            self._collect_matrix_inverts()) if self.norm is not None else ()
         self.delta_to_var = {delta_variable(v): v for v in full.variables}
 
         # structural signs of the augmented system's diagonal: +1 on
-        # primal groups, -1 on dual groups (the nd amalgamated-top split)
+        # primal groups, -1 on dual groups (the 'regldlt' row
+        # regularisation, the 'blockg' stage signs and the nd
+        # amalgamated-top split)
+        can_block = self._can_block = (len(aug.variables) == 2 and
+                                       aug.variables[0] is o.x)
         dual_groups = {o.lambda_A_ineq, o.lambda_sAineql, o.lambda_sAinequ,
                        o.lambda_A_eq, o.lambda_sAeql, o.lambda_sAequ,
                        o.lambda_sxl, o.lambda_sxu}
@@ -204,12 +224,20 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             [np.full(s, sign, dtype=np.float64)
              for s, sign in zip(self.aug_sizes, self.group_signs)]
         ) if self.aug_sizes else np.zeros((0,))
-        #: the kernel mode in use: 'ldlt' or 'nd'
-        self._mode = "nd" if kernel == "nd" else "ldlt"
-        if kernel == "nd":
+
+        # --- linear-solver mode --------------------------------------------
+        #: the kernel mode in use (the reference's selection, without
+        #: 'sharded' and two-float)
+        if self._indefinite:
+            self._mode = "lu" if kernel == "lu" else "regldlt"
+        elif kernel in ("lu", "regldlt", "blockg", "normal"):
+            self._mode = kernel
+        elif kernel == "nd":
+            self._mode = "nd"
             self._nd_leaf = nd_leaf
             self._nd_fallback = nd_fallback
-            #: whether the auto-fallback replaced the nd plan by 'ldlt'
+            #: whether the auto-fallback replaced the nd plan by the mode
+            #: the dense auto rule picks
             self.nd_fell_back = False
             self._nd_plan = None
             if nd_pattern is not None:
@@ -217,6 +245,28 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 self._nd_plan = nd_plan(np.asarray(nd_pattern),
                                         leaf=nd_leaf, signs=self._sign_vec)
                 self._maybe_nd_fallback()
+        elif kernel == "block":
+            if not can_block:
+                raise ValueError("kernel='block' needs a 2x2 augmented "
+                                 "system with x in the leading block")
+            self._mode = "block"
+        elif kernel == "auto":
+            self._mode = self._dense_auto_mode()
+        else:
+            self._mode = "ldlt"
+        # the dense factor of 'ldlt' / 'regldlt' (also after an nd
+        # fallback): the cut-over of ldlt_auto, K2 with K3 up to
+        # K2_ORDERS, at any pivot floor; 'jnp' and the reduced system of
+        # 'normal' take the panel-blocked LDL^T with library solves
+        if kernel == "jnp" or self._mode == "normal":
+            self._factor = lambda K: ldlt_blocked(K, self.pivot_floor)
+            self._solve_kernel = solve_ldlt_blocked
+        else:
+            self._factor = lambda K: ldlt_auto(K, self.pivot_floor)
+            self._solve_kernel = solve_ldlt_auto
+        #: 'block' mode: bind explicit H^-1 / S^-1 each iteration ('auto'
+        #: = off, as the reference)
+        self._block_inv = bool(block_inv) if block_inv != "auto" else False
 
         # complementarity rows: contain an e-vector and mu
         e_vecs = (o.e_var, o.e_ineq, o.e_eq)
@@ -258,6 +308,15 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     # ------------------------------------------------------------------
     # environment plumbing
     # ------------------------------------------------------------------
+
+    def _dense_auto_mode(self) -> str:
+        """The reference's dense auto rule: 'block' for a 2x2 augmented
+        system from n = 384, 'blockg' from aug_dim = 384, else 'ldlt'."""
+        if self._can_block and self.n >= 384:
+            return "block"
+        if self.aug_dim >= 384:
+            return "blockg"
+        return "ldlt"
 
     def _bscalar(self, v, B: int) -> torch.Tensor:
         """A per-instance scalar as a (B,) tensor; a constant becomes an

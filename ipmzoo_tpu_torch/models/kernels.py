@@ -1,14 +1,24 @@
-"""Linear-solver staging for :class:`CompiledIPM`: KKT assembly, the
-dense LDL^T factor-and-solve and the nested-dissection factor-and-solve
-(counterpart of :mod:`ipmzoo_tpu.models.kernels`, modes ``'ldlt'`` and
-``'nd'``).
+"""Linear-solver staging for :class:`CompiledIPM`: KKT assembly from the
+consumed reduction, the kernel-mode dispatch (``_make_solve``) and the
+dense-matrix-inverse binding the normal-equations reduction needs
+(counterpart of :mod:`ipmzoo_tpu.models.kernels`, without its
+``'sharded'`` and two-float modes).
 
-The dense factorisation and solves go through :mod:`..ops.cuda_ldlt`:
-the CUDA kernels K2/K3 for CUDA tensors, their plain versions for CPU
-tensors.  The ``'nd'`` mode factors along a dissection plan
-(:mod:`..ops.ndiss`: K5 per level, K3 in the solves).  The reference's
-other kernel modes are not ported yet; the constructor of
-:class:`CompiledIPM` rejects them.
+The modes:
+
+- ``'ldlt'``: dense LDL^T of the assembled reduction by
+  :mod:`..ops.cuda_ldlt` (K2/K3 on the card, the panel-blocked path of
+  :mod:`..ops.blocked_ldlt` above the orders :func:`ldlt_route` gives
+  it; the plain versions on CPU tensors) at any pivot floor, or by
+  ``ldlt_blocked`` with library triangular solves for ``kernel='jnp'``;
+- ``'regldlt'``: that factor of K + delta diag(signs), refined against K;
+- ``'lu'``: batched partial-pivoting LU (library);
+- ``'block'`` / ``'blockg'``: block Cholesky elimination of the 2x2 /
+  G x G augmented system (:mod:`..ops.block_solve`, :mod:`..ops.blockg`);
+- ``'normal'``: the panel-blocked LDL^T of the normal equations (K2 on
+  its panels), with each dense H^-1 bound once per iteration;
+- ``'nd'``: nested dissection along a plan (:mod:`..ops.ndiss`: K5 per
+  level, K3 in the solves).
 """
 
 from __future__ import annotations
@@ -17,24 +27,84 @@ import torch
 
 from ..symbolic import expr as E
 
-from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto
 from . import codegen as cg
 
 
 class KernelDispatchMixin:
-    """Factor/solve staging of the ``'ldlt'`` and ``'nd'`` kernel modes."""
+    """Factor/solve staging shared by every CompiledIPM kernel mode."""
+
+    def _collect_matrix_inverts(self):
+        """All distinct Invert subexpressions over dense-matrix operands
+        in the condensed system (lhs cells, rhs, delta definitions).
+
+        Eliminating the leading Q/x block introduces H^-1 with
+        H = aug.lhs[0][0] (a Sum containing the symmetric matrix Q);
+        elementwise inversion is unsound for those, so the solver binds a
+        factored inverse per iteration instead."""
+        K = E.Kind
+        seen, out = set(), []
+        hm_memo = {}
+
+        def has_matrix(e):
+            # memoised: the expression DAG is hash-consed with heavy
+            # sharing, so unmemoised recursion is exponential
+            hit = hm_memo.get(e)
+            if hit is not None:
+                return hit
+            r = (e.kind in (K.MATRIX, K.SYMMETRIC_MATRIX) or
+                 any(has_matrix(c) for c in e.children))
+            hm_memo[e] = r
+            return r
+
+        def walk(e):
+            if e in seen:
+                return
+            seen.add(e)
+            if E.is_invert(e) and has_matrix(e.child):
+                out.append(e)
+            for c in e.children:
+                walk(c)
+
+        for row in self.red.lhs:
+            for cell in row:
+                walk(cell)
+        for r in self.red.rhs:
+            walk(r)
+        for _, d in self.red.delta_definitions:
+            walk(d)
+        return out
+
+    def _bind_matrix_inverts(self, env) -> None:
+        """Evaluate each dense-matrix inverse once (panel-blocked LDL^T
+        with the pivot floor, solved against I) and bind it into ``env``
+        IN PLACE, so every later evaluation of the condensed system this
+        iteration short-circuits on the env hit."""
+        from ..ops.blocked_ldlt import ldlt_blocked, solve_ldlt_matrix_blocked
+        for ie in self._matrix_inverts:
+            if ie in env:
+                continue
+            child = cg.evaluate(ie.child, env, {})
+            if child.tag != "matrix":
+                env[ie] = cg.invert_tv(child)
+                continue
+            H = child.val
+            L, D = ldlt_blocked(H, self.pivot_floor)
+            eye = torch.eye(H.shape[-1], dtype=H.dtype,
+                            device=H.device).expand_as(H)
+            env[ie] = cg.matrix(solve_ldlt_matrix_blocked(L, D, eye))
 
     def _assemble_blocks(self, env, B: int):
-        """Each cell of the augmented system as a dense (B, si, sj)
-        block."""
+        """Each cell of the consumed reduction (the augmented system, or
+        the condensed normal equations for kernel='normal') as a dense
+        (B, si, sj) block."""
         memo = {}
         blocks = []
-        for i in range(len(self.aug.variables)):
-            si = self.aug_sizes[i]
+        for i in range(len(self.red.variables)):
+            si = self.red_sizes[i]
             row_blocks = []
-            for j in range(len(self.aug.variables)):
-                sj = self.aug_sizes[j]
-                cell = self.aug.lhs[i][j]
+            for j in range(len(self.red.variables)):
+                sj = self.red_sizes[j]
+                cell = self.red.lhs[i][j]
                 if cell is E.ZERO:
                     row_blocks.append(torch.zeros(
                         (1, si, sj), dtype=self.dtype,
@@ -46,32 +116,104 @@ class KernelDispatchMixin:
         return blocks
 
     def _assemble_kkt(self, env, B: int) -> torch.Tensor:
-        """The augmented KKT matrices, (B, aug_dim, aug_dim)."""
+        """The consumed reduction's matrices, (B, red_dim, red_dim)."""
         rows = [torch.cat(rb, dim=-1) for rb in self._assemble_blocks(env, B)]
         return torch.cat(rows, dim=-2)
 
-    def _refined(self, solve_once, K):
-        """``solve_once`` followed by ``refine`` iterative-refinement
-        sweeps against K (assembled by ``K()`` only if any are asked
-        for)."""
-        Kmat = K() if self.refine else None
+    def _refined(self, solve_once, K, sweeps=None, matvec=None):
+        """``solve_once`` followed by ``sweeps`` (default ``refine``)
+        iterative-refinement sweeps against K (assembled by ``K()`` only
+        if any are asked for), or against ``matvec`` where given."""
+        sweeps = self.refine if sweeps is None else sweeps
+        if matvec is None and sweeps:
+            Kmat = K()
+
+            def matvec(x):
+                return torch.matmul(Kmat, x.unsqueeze(-1)).squeeze(-1)
 
         def solve(b):
             if b.shape[-1] == 0:
                 return b
             sol = solve_once(b)
-            for _ in range(self.refine):
-                r = b - torch.matmul(Kmat, sol.unsqueeze(-1)).squeeze(-1)
-                sol = sol + solve_once(r)
+            for _ in range(sweeps):
+                sol = sol + solve_once(b - matvec(sol))
             return sol
 
         return solve
 
     def _make_solve(self, env, B: int, nd_pre=None):
-        """Factor the augmented KKT once by the solver's kernel mode;
-        return solve(b) -> sol for b (B, aug_dim)."""
-        if self._mode != "nd":
-            return self._make_solve_dense(env, B)
+        """Factor the consumed reduction once by the solver's kernel
+        mode; return solve(b) -> sol for b (B, red_dim)."""
+        mode = self._mode
+        if mode == "nd":
+            return self._make_solve_nd(env, B, nd_pre)
+        if mode == "lu":
+            K = self._assemble_kkt(env, B)
+            LU, piv, _ = torch.linalg.lu_factor_ex(K)
+            return self._refined(
+                lambda b: torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0],
+                lambda: K)
+        if mode == "regldlt":
+            # signed proximal regularisation K + delta diag(signs): the
+            # perturbed system is quasi-definite (Vanderbei 1995), so the
+            # unpivoted LDL^T is sound; refinement against the TRUE K
+            # removes the O(delta) perturbation.  delta per instance, as
+            # the reference computes it under vmap.
+            K = self._assemble_kkt(env, B)
+            eps = torch.finfo(self.dtype).eps
+            scale = K.diagonal(dim1=-2, dim2=-1).abs().amax(-1).clamp(min=1.0)
+            delta = eps ** (2.0 / 3.0) * scale
+            signs = torch.as_tensor(self._sign_vec, dtype=self.dtype,
+                                    device=self.device)
+            L, D = self._factor(K + torch.diag_embed(delta[:, None] * signs))
+            return self._refined(lambda b: self._solve_kernel(L, D, b),
+                                 lambda: K, sweeps=max(self.refine, 3))
+        if mode == "blockg":
+            from ..ops.blockg import blockg_factor, blockg_matvec, blockg_solve
+            blocks = self._assemble_blocks(env, B)
+            factors = blockg_factor(blocks, self.group_signs)
+            sizes = self.red_sizes
+
+            def matvec(x):
+                parts = torch.split(x, sizes, dim=-1)
+                return torch.cat(blockg_matvec(blocks, parts), dim=-1)
+
+            return self._refined(lambda b: blockg_solve(factors, b), None,
+                                 matvec=matvec)
+        if mode == "block":
+            from ..ops.block_solve import (block2_factor, block2_factor_inv,
+                                           block2_matvec, block2_solve,
+                                           block2_solve_inv)
+            blocks = self._assemble_blocks(env, B)
+            H, Bm, C = blocks[0][0], blocks[1][0], -blocks[1][1]
+            if self._block_inv:
+                # explicit H^-1 / S^-1: one n-rhs solve pair up front, so
+                # the direction solves of the iteration are products
+                factors = block2_factor_inv(H, Bm, C)
+                solve2 = block2_solve_inv
+            else:
+                factors = block2_factor(H, Bm, C)
+                solve2 = block2_solve
+            n1 = self.red_sizes[0]
+
+            def once(b):
+                return torch.cat(solve2(factors, b[:, :n1], b[:, n1:]),
+                                 dim=-1)
+
+            def matvec(x):
+                return torch.cat(block2_matvec(H, Bm, C, x[:, :n1],
+                                               x[:, n1:]), dim=-1)
+
+            return self._refined(once, None, matvec=matvec)
+        if mode == "normal":
+            # bind H^-1 first (mutates env: the residual / corrector envs
+            # derive from this env by dict copy, so the binding reaches
+            # every rhs and back-substitution of this iteration)
+            self._bind_matrix_inverts(env)
+        return self._make_solve_dense(env, B)
+
+    def _make_solve_nd(self, env, B: int, nd_pre):
+        """The nested-dissection factor and solve along the plan."""
         from ..ops.ndiss import nd_factor, nd_factor_pre, nd_solve
         if self._nd_plan is None:
             raise RuntimeError(
@@ -123,15 +265,15 @@ class KernelDispatchMixin:
         return renv
 
     def _assemble_diag(self, env, B: int) -> torch.Tensor:
-        """Concatenated diagonal (B, aug_dim) of the augmented system's
+        """Concatenated diagonal (B, red_dim) of the consumed reduction's
         diagonal cells (the only cells an IPM iteration changes when the
         nd diagonal split is valid).  The diagonal of a sum is taken
         term by term, in the order the dense assembly adds them, so no
         cell is materialised and the values are the dense assembly's."""
         memo = {}
         parts = []
-        for i, si in enumerate(self.aug_sizes):
-            cell = self.aug.lhs[i][i]
+        for i, si in enumerate(self.red_sizes):
+            cell = self.red.lhs[i][i]
             if cell is E.ZERO:
                 parts.append(torch.zeros((B, si), dtype=self.dtype,
                                          device=self.device))
@@ -150,8 +292,11 @@ class KernelDispatchMixin:
         return torch.cat(parts, dim=-1)
 
     def _make_solve_dense(self, env, B: int):
-        """Factor the augmented KKT once; return solve(b) -> sol for
-        b (B, aug_dim), with ``refine`` iterative-refinement sweeps."""
+        """Factor the assembled reduction once (the default path; also
+        consumes the bound H^-1 of mode 'normal'); return solve(b) -> sol
+        for b (B, red_dim), with ``refine`` iterative-refinement
+        sweeps."""
         K = self._assemble_kkt(env, B)
-        L, D = ldlt_auto(K, self.pivot_floor)
-        return self._refined(lambda b: solve_ldlt_auto(L, D, b), lambda: K)
+        L, D = self._factor(K)
+        return self._refined(lambda b: self._solve_kernel(L, D, b),
+                             lambda: K)

@@ -17,9 +17,6 @@ import torch
 from .data import QPData
 from .state import tree_map
 
-_ROADMAP_KERNELS = "ROADMAP.md Queue 1 item 11 (remaining kernel modes)"
-
-
 class NdPlanMixin:
     """Plan derivation + auto-fallback for the nested-dissection kernel."""
 
@@ -28,25 +25,17 @@ class NdPlanMixin:
 
         When the time model (``ops/ndiss.py::nd_predicted_speedup``)
         predicts < 1.05x over the dense factorisation, or the plan is
-        below the model's range (n < 192), switch to the kernel the
-        dense auto rule would choose and record ``nd_fell_back``.  The
-        port has the dense LDL^T mode only: where the reference would
-        fall back to one of its block modes, this raises."""
+        below the model's range (n < 192), switch to the mode the dense
+        auto rule picks ('block', 'blockg' or 'ldlt') and record
+        ``nd_fell_back``."""
         from ..ops.ndiss import nd_predicted_speedup
         if not self._nd_fallback or self._nd_plan is None:
             return
         if self._nd_plan.n >= 192 and \
                 nd_predicted_speedup(self._nd_plan) >= 1.05:
             return
-        if (self._can_block and self.n >= 384) or self.aug_dim >= 384:
-            raise NotImplementedError(
-                f"kernel='nd': the plan for aug_dim={self.aug_dim} is "
-                f"predicted to lose to the dense path, and the "
-                f"reference falls back to a block mode here, which is "
-                f"not ported: see {_ROADMAP_KERNELS}; pass "
-                f"nd_fallback=False to keep the plan")
         self.nd_fell_back = True
-        self._mode = "ldlt"
+        self._mode = self._dense_auto_mode()
 
     def _kkt_to_host(self, data: QPData, var_vals, mu_val) -> np.ndarray:
         """The first instance's assembled KKT matrix as a numpy array."""

@@ -1,5 +1,8 @@
 """Device kernels of the port: batched LDL^T factor and solve (CUDA
-kernels K2/K3/K4/K5 with plain torch versions), the nested-dissection
+kernels K2/K3/K4/K5 with plain torch versions), the panel-blocked LDL^T
+over K2 (:mod:`.blocked_ldlt`), the block Cholesky eliminations of the
+'block' / 'blockg' modes (:mod:`.block_solve`, :mod:`.blockg`), the
+nested-dissection
 factorisation over them (:mod:`.ndiss`), the wrapper of the fused
 whole-solve kernel K1 (:mod:`.cuda_fused`; its plain version is
 ``models/fused.py``), and the banded+arrow factorisation (:mod:`.banded`)

@@ -42,6 +42,11 @@ whose thresholds come from the routes timed on an H100 (PERF.md):
   ``"k2+k4"``: K2 then K4 where no K5 route's shared memory holds the
   matrix and its right-hand sides.
 
+Above K2_ORDERS, :func:`ldlt_route` sends a factor and its solves to the
+panel-blocked path of :mod:`.blocked_ldlt` where it beat K2 with K3 / K4
+on an H100: its diagonal panels on K2, the rest library calls, the
+factors plain (B, n, n) tensors, which the solves read as they are.
+
 ``launches`` counts each TPU kernel's launches whatever the route;
 ``route_launches`` counts them per route.
 """
@@ -63,12 +68,14 @@ launches = {"ldlt": 0, "solve_ldlt": 0, "solve_ldlt_matrix": 0,
 #: the float64 instantiations' share of ``launches``
 f64_launches = dict(launches)
 #: ``launches`` of K2 ("ldlt"), K3 ("solve_ldlt"), K4
-#: ("solve_ldlt_matrix") and K5 ("ldlt_solve_matrix") by route
+#: ("solve_ldlt_matrix") and K5 ("ldlt_solve_matrix") by route, and the
+#: panel-blocked factorisations of :mod:`.blocked_ldlt` ("ldlt blocked",
+#: whose K2 panel launches count under K2's route)
 route_launches = {"ldlt soa": 0, "ldlt block": 0,
                   "solve_ldlt thread": 0, "solve_ldlt warp": 0,
                   "solve_ldlt_matrix thread": 0, "solve_ldlt_matrix warp": 0,
                   "ldlt_solve_matrix block": 0, "ldlt_solve_matrix warp": 0,
-                  "ldlt_solve_matrix split": 0}
+                  "ldlt_solve_matrix split": 0, "ldlt blocked": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -714,10 +721,32 @@ def _dispatch(t: torch.Tensor) -> bool:
     raise ValueError(f"no LDL^T implementation for device {t.device}")
 
 
-def ldlt_auto(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
-    """Batched LDL^T: A (B, n, n) -> L (B, n, n) unit-lower, D (B, n)."""
-    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
-        raise ValueError(f"expected (B, n, n), got {tuple(A.shape)}")
+#: the orders K2 keeps whatever the batch: one panel of the blocked path,
+#: which holds every order the reference runs its Pallas kernels at (its
+#: ``_pl_fits``: n <= 112 in float32, 80 in float64)
+K2_ORDERS = 128
+
+
+def ldlt_route(n: int) -> str:
+    """The route of :func:`ldlt_auto` and of its solves for systems of
+    order n on the card: ``"k2"`` (K2 by :func:`k2_route`, the solves by
+    K3 / K4) up to K2_ORDERS, else ``"blocked"``
+    (:func:`.blocked_ldlt.ldlt_blocked`, its panels on K2, the solves two
+    library triangular solves).  On an H100 the blocked path with one
+    solve was within 5% of the fastest route at all 99 points of
+    chip_smoke.sweep_ldlt (n = 129-1024, B = 1-512, both types; 40 of
+    them timed more than the blocked route, the others having no K2
+    route left that fits or is within 10x; 0.9719 against 223.3779 ms
+    for K2's SoA route with K3 at (1, 328) float64, and at B = 512 below
+    K2's block route's by 1.7-4.9x), so the batch and the type do not
+    enter the rule (PERF.md §6)."""
+    return "k2" if n <= K2_ORDERS else "blocked"
+
+
+def ldlt_k2(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """K2 on CUDA tensors by the route :func:`k2_route` picks, the plain
+    column LDL^T on CPU tensors: A (B, n, n) -> L (B, n, n) unit-lower,
+    D (B, n); on the card views of K2's SoA storage."""
     if not _dispatch(A):
         return ldlt(A, pivot_floor)
     if k2_route(A.shape[-1], A.shape[0], A.dtype) == "block":
@@ -727,12 +756,34 @@ def ldlt_auto(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
     return L_t.permute(2, 0, 1), D_t.t()
 
 
+def _blocked(t: torch.Tensor, n: int) -> bool:
+    """Whether a call on ``t`` at order n takes the blocked route: on the
+    card where :func:`ldlt_route` says so; CPU tensors take the plain
+    versions."""
+    return _dispatch(t) and ldlt_route(n) == "blocked"
+
+
+def ldlt_auto(A: torch.Tensor, pivot_floor: float = PIVOT_FLOOR):
+    """Batched LDL^T: A (B, n, n) -> L (B, n, n) unit-lower, D (B, n), by
+    the route :func:`ldlt_route` picks (CUDA) or the plain version
+    (CPU)."""
+    if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"expected (B, n, n), got {tuple(A.shape)}")
+    if _blocked(A, A.shape[-1]):
+        from .blocked_ldlt import ldlt_blocked
+        return ldlt_blocked(A, pivot_floor)
+    return ldlt_k2(A, pivot_floor)
+
+
 def solve_ldlt_auto(L: torch.Tensor, D: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """Batched solve against ``ldlt_auto``'s factors: b (B, n) -> x."""
     if not _dispatch(b):
         return solve_ldlt(L, D, b)
     B, n = b.shape
+    if _blocked(b, n):
+        from .blocked_ldlt import solve_ldlt_blocked
+        return solve_ldlt_blocked(L, D, b)
     launch = solve_soa_warp if k3_route(n, B, b.dtype) == "warp" else \
         solve_soa
     x_t = launch(L.permute(1, 2, 0).contiguous(), D.t().contiguous(),
@@ -749,6 +800,9 @@ def solve_ldlt_matrix_auto(L: torch.Tensor, D: torch.Tensor,
     if not _dispatch(R):
         return solve_ldlt_matrix(L, D, R)
     B, n, k = R.shape
+    if _blocked(R, n):
+        from .blocked_ldlt import solve_ldlt_matrix_blocked
+        return solve_ldlt_matrix_blocked(L, D, R)
     L_t, D_t = L.permute(1, 2, 0).contiguous(), D.t().contiguous()
     if k4_route(n, k, B, R.dtype) == "warp":
         return solve_matrix_warp(L_t, D_t, R.contiguous())
@@ -762,8 +816,10 @@ def ldlt_solve_matrix_auto(A: torch.Tensor, R: torch.Tensor,
     -> (L, D, X) with L D L^T X = R per instance.
 
     On CUDA tensors one K5 launch by the route :func:`k5_route` picks;
-    where a block's panel exceeds ``K5_SHARED_MEMORY_CAP`` bytes, K2 then
-    K4 (counted under their names), and K2 alone for k = 0."""
+    where a block's panel exceeds ``K5_SHARED_MEMORY_CAP`` bytes,
+    :func:`ldlt_auto` then :func:`solve_ldlt_matrix_auto` (K2 then K4, or
+    the blocked route :func:`ldlt_route` picks; counted under their
+    names), and the factor alone for k = 0."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"expected A (B, n, n), got {tuple(A.shape)}")
     if R.dim() != 3 or R.shape[:2] != A.shape[:2]:

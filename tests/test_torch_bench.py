@@ -7,9 +7,11 @@ mode's ``value`` is the count it divides by the wall: the same converged
 share and the same counts must come out.  float32 iteration totals may
 part by rounding (2%); in float64 the port's function is held to the
 reference's solver iteration for iteration.  The modes the port refuses
-raise ``NotImplementedError`` naming their ROADMAP item.
+(mpc, sharded, tf) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -29,6 +31,7 @@ import ipmzoo_tpu.utils.timing as ref_timing
 from ipmzoo_tpu.formulations import Settings
 from ipmzoo_tpu.models import ArrowIPM as RefArrowIPM
 from ipmzoo_tpu.models import CompiledIPM as RefIPM
+from ipmzoo_tpu.models import QPData as RefQPData
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
 from ipmzoo_tpu.parallel.schur import SchurIPM as RefSchurIPM
 from ipmzoo_tpu_torch.models.convert import make_batch
@@ -222,7 +225,7 @@ def test_arrow_mode(small, monkeypatch, spy):
     assert bool(seen[0].converged) and counts["converged"] == 1.0
     assert abs(value - int(seen[0].iterations)) <= 1
     assert "n=136, bandwidth=4, tip=8" in label
-    assert "dense denominator not ported" in label
+    assert "speedup" not in label and counts["iterations"] == value
     # the QP is bench.py's
     Q, c, l, u = bench_torch.arrow_problem()
     assert Q.shape == (136, 136) and Q.dtype == np.float32
@@ -264,8 +267,7 @@ def test_nd_mode(small, monkeypatch, spy):
 
 
 @pytest.mark.parametrize("mode,item", [
-    ("mpc", "item 14"), ("sharded", "item 16"), ("tf", "item 7"),
-    ("normal", "item 11d"), ("aug", "item 11")])
+    ("mpc", "item 14"), ("sharded", "item 16"), ("tf", "item 7")])
 def test_refused_modes_name_their_item(mode, item):
     with pytest.raises(NotImplementedError, match=item) as exc:
         bench_torch.run_mode(mode, CPU)
@@ -273,22 +275,154 @@ def test_refused_modes_name_their_item(mode, item):
     assert "ROADMAP.md Queue 1" in str(exc.value)
 
 
-@pytest.mark.parametrize("mode,flags,item", [
-    ("arrow", dict(dense=True), "item 11a"),
-    ("nd", dict(dense=True), "item 11a"),
-    ("kkt", dict(large=True), "item 11c")])
-def test_refused_halves_name_their_item(mode, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        bench_torch.run_mode(mode, CPU, **flags)
+def aug_env(monkeypatch):
+    # aug_dim 6 + 4 + 2 = 12: no interpret-mode compile above n = 13 on
+    # the reference's 'auto' side
+    for k, v in (("N", 6), ("M", 4), ("ME", 2), ("B", 8)):
+        monkeypatch.setenv(f"BENCH_AUG_{k}", str(v))
+
+
+def test_aug_mode(small, monkeypatch, spy):
+    aug_env(monkeypatch)
+    seen = spy(RefIPM, "solve_batch")
+    ref_label, ref_value, ref_unit, _ = bench.bench_aug("cpu")
+    label, value, unit, counts = bench_torch.bench_aug(CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert "8 equality+inequality QPs (n=6, m_ineq=4, m_eq=2" in label
+    assert "aug_dim=12" in label and "refine=2" in label
+    # the races in bench.py's order, blockg then auto: the same counts
+    for k, ref in zip(("blockg", "auto"), seen):
+        assert counts[k]["converged"] == 1.0
+        ref_its = float(np.asarray(ref.iterations).sum())
+        assert abs(counts[k]["iterations"] - ref_its) <= 0.02 * ref_its
+    assert value == max(c["iterations"] for c in counts.values())
+    # the QPs are bench.py's
+    rng = np.random.default_rng(0)
+    Mx = rng.normal(size=(8, 6, 6)).astype(np.float32)
+    Q = np.einsum("bij,bkj->bik", Mx, Mx) / 6 + np.eye(6, dtype=np.float32)
+    x0 = rng.normal(size=(8, 6)).astype(np.float32)
+    A_eq = rng.normal(size=(8, 2, 6)).astype(np.float32)
+    data = bench_torch.aug_data(CPU)
+    assert data.Q.numpy().tobytes() == Q.tobytes()
+    np.testing.assert_array_equal(
+        data.b_eq.numpy(), np.einsum("bmn,bn->bm", A_eq, x0))
+
+
+def test_aug_mode_float64_iterations_equal(small, monkeypatch):
+    from ipmzoo_tpu.formulations import EqualityHandling
+    aug_env(monkeypatch)
+    data = bench_torch.aug_data(CPU, torch.float64)
+    ref_data = RefQPData(**{f.name: jnp.asarray(getattr(data, f.name)
+                                                .numpy())
+                            for f in dataclasses.fields(RefQPData)})
+    for kernel in ("blockg", "auto"):
+        ref = RefIPM(Settings(equalities=True,
+                              equality_handling=EqualityHandling
+                              .REGULARIZATION), n=6, m_ineq=4, m_eq=2,
+                     dtype=jnp.float64, tol=1e-5, scale_tol=True, refine=2,
+                     gondzio=2, kernel=kernel).solve_batch(ref_data)
+        res = bench_torch.aug_solver(kernel, CPU,
+                                     torch.float64).solve_batch(data)
+        assert res.iterations.tolist() == np.asarray(
+            ref.iterations).tolist()
+        np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x),
+                                   atol=1e-8)
+
+
+def test_normal_mode(small, monkeypatch, spy):
+    for k, v in (("N", 12), ("M", 4), ("B", 4)):
+        monkeypatch.setenv(f"BENCH_NORMAL_{k}", str(v))
+    seen = spy(RefIPM, "solve_batch")
+    _, _, ref_unit, _ = bench.bench_normal("cpu")
+    label, value, unit, counts = bench_torch.bench_normal(CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert "4 dense QPs (n=12, m=4)" in label
+    # 'blockg' and 'block' iterate as the reference's; the reference's
+    # 'normal' binds an inexact H^-1 (tests/test_torch_block_modes.py),
+    # the port's takes the augmented path's iterations
+    for k, ref in zip(("blockg", "block"), seen):
+        ref_its = float(np.asarray(ref.iterations).sum())
+        assert counts[k]["converged"] == 1.0
+        assert abs(counts[k]["iterations"] - ref_its) <= 0.02 * ref_its
+    assert counts["normal"]["converged"] == 1.0
+    assert abs(counts["normal"]["iterations"] - counts["block"][
+        "iterations"]) <= 0.05 * counts["block"]["iterations"]
+    assert value == max(c["iterations"] for c in counts.values())
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("arrow", dict(dense=True)), ("nd", dict(dense=True)),
+    ("kkt", dict(large=True))])
+def test_dense_halves_and_large_point(mode, flags, small, monkeypatch):
+    """--dense and --large on a small size: the unit bench.py reports,
+    the dense solver's mode the reference's, and the dense solve held to
+    the reference's in float64 (kkt: the systems and the solve)."""
+    from ipmzoo_tpu_torch import CompiledIPM, QPData
+    env = {"arrow": (("BENCH_ARROW_N", 60), ("BENCH_ARROW_B", 4),
+                     ("BENCH_ARROW_T", 4)),
+           "nd": (("BENCH_ND_G", 8), ("BENCH_ND_LEAF", 8)),
+           "kkt": (("BENCH_KKT_DIMS", "64,128"), ("BENCH_KKT_B", 3))}[mode]
+    for k, v in env:
+        monkeypatch.setenv(k, str(v))
+    monkeypatch.setattr(ref_timing, "measure_call",
+                        lambda fn, *a, **k: float(next(small)))
+    ref_fn = {"arrow": lambda: bench.bench_arrow("cpu"),
+              "nd": lambda: bench.bench_nd("cpu"),
+              "kkt": lambda: bench.bench_kkt(
+                  bench.make_batch(BATCH, N, M, jnp.float32), "cpu")}[mode]
+    _, _, ref_unit, _ = ref_fn()
+    label, value, unit, counts = bench_torch.run_mode(mode, CPU, **flags)
+    assert unit == ref_unit and value > 0
     with pytest.raises(ValueError, match="belongs to"):
         bench_torch.run_mode("solve", CPU, **flags)
+    if mode == "kkt":
+        assert "via signed block-Cholesky" in label
+        assert sorted(counts["points"]) == [64, 128]
+        blocks, R = bench_torch.kkt_large_systems(CPU, 64, torch.float64)
+        X = bench_torch.blockg_two_solves(blocks, R)
+        from ipmzoo_tpu.ops.blockg import blockg_factor, blockg_solve
+        H, A, S = (np.asarray(b) for b in (blocks[0][0][0], blocks[1][0][0],
+                                           blocks[1][1][0]))
+        fact = blockg_factor([[jnp.asarray(H)], [jnp.asarray(A),
+                                                 jnp.asarray(S)]],
+                             (1.0, -1.0))
+        for j in range(2):
+            np.testing.assert_allclose(
+                X[0, :, j].numpy(),
+                np.asarray(blockg_solve(fact, jnp.asarray(R[0, :, j]))),
+                atol=1e-10)
+        return
+    assert "dense kernel 'ldlt'" in label and "speedup" in label
+    assert counts["ms_dense"] > 0 and counts["ms_structured"] > 0
+    if mode == "arrow":
+        from ipmzoo_tpu.formulations import Bounds, InequalityHandling
+        Q, c, lo, hi = bench_torch.arrow_problem()
+        settings = Settings(inequalities=Bounds.NONE,
+                            inequality_handling=InequalityHandling.SLACKS)
+        ref = RefIPM(settings, n=60, dtype=jnp.float64, tol=1e-5).solve(
+            RefQPData.make(Q=Q, c=c, l_x=lo, u_x=hi, dtype=jnp.float64))
+        from ipmzoo_tpu_torch.models.convert import settings_from_reference
+        port = CompiledIPM(settings_from_reference(settings), n=60,
+                           tol=1e-5, device="cpu").solve(QPData.make(
+                               Q=Q, c=c, l_x=lo, u_x=hi, device="cpu"))
+    else:
+        from ipmzoo_tpu.models.families import grid_qp as ref_grid_qp
+        from ipmzoo_tpu_torch.models.families import grid_qp
+        rfam = ref_grid_qp(side=8, seed=0, dtype=jnp.float64)
+        ref = RefIPM(rfam.settings, n=64, dtype=jnp.float64,
+                     tol=1e-5).solve(rfam.data)
+        fam = grid_qp(side=8, seed=0, device="cpu")
+        port = CompiledIPM(fam.settings, n=64, tol=1e-5,
+                           device="cpu").solve(fam.data)
+    assert int(port.iterations) == int(ref.iterations)
+    np.testing.assert_allclose(port.x.numpy(), np.asarray(ref.x), atol=1e-8)
 
 
 def test_unknown_mode_and_the_lists_of_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bench_torch.run_mode("nope", CPU)
     assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
-                                 "arrow", "nd")
+                                 "arrow", "nd", "normal", "aug")
     assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
 
 

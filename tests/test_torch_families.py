@@ -75,22 +75,17 @@ def test_float32_data_rounds_as_the_reference():
 @pytest.mark.parametrize("name", list(FAMILIES))
 def test_single_instance_solves(name):
     fam = FAMILIES[name](seed=1, **CPU)
-    if name == "equality_qp":
-        # an indefinite augmented system: the reference's 'regldlt' mode
-        # is not ported, and the port says so instead of solving
-        with pytest.raises(NotImplementedError, match="item 11"):
-            _solver(fam, tol=1e-8)
-        return
-    # the reference's 'auto' picks a block mode from aug_dim 384 on
-    kernel = "ldlt" if name == "grid_qp" else "auto"
-    res = _solver(fam, tol=1e-8, kernel=kernel).solve(fam.data)
+    # 'auto' as the reference picks it: 'regldlt' for equality_qp's
+    # indefinite system, 'blockg' for grid_qp's aug_dim 576
+    solver = _solver(fam, tol=1e-8)
+    res = solver.solve(fam.data)
     assert bool(res.converged), name
     assert not bool(res.diverged)
     ref = ref_families.FAMILIES[name](seed=1, dtype=jnp.float64)
-    r = RefIPM(ref.settings, n=ref.n, m_ineq=ref.m_ineq, m_eq=ref.m_eq,
-               dtype=jnp.float64, tol=1e-8,
-               kernel="ldlt" if name == "grid_qp" else "auto").solve(
-                   ref.data)
+    rs = RefIPM(ref.settings, n=ref.n, m_ineq=ref.m_ineq, m_eq=ref.m_eq,
+                dtype=jnp.float64, tol=1e-8)
+    assert solver._mode == rs._mode
+    r = rs.solve(ref.data)
     assert int(res.iterations) == int(r.iterations)
     np.testing.assert_allclose(res.x.numpy(), np.asarray(r.x), atol=1e-8)
 
@@ -167,13 +162,17 @@ def test_elastic_net_matches_sklearn_like_oracle():
                                atol=1e-6)
 
 
-def test_equality_qp_is_refused_until_regldlt_is_ported():
-    # the reference solves this family with kernel='regldlt'; the port
-    # builds the same data and refuses the indefinite system by name
+def test_equality_qp_solves_through_regldlt():
+    # the reference solves this family with kernel='regldlt'; so does the
+    # port's 'auto', and 'lu' gives the same x
     fam = equality_qp(n=12, m_eq=3, seed=7, **CPU)
     assert (fam.m_eq, tuple(fam.data.A_eq.shape)) == (3, (3, 12))
-    with pytest.raises(NotImplementedError, match="regldlt"):
-        _solver(fam)
+    s = _solver(fam)
+    assert s._mode == "regldlt"
+    res = s.solve(fam.data)
+    lu = _solver(fam, kernel="lu").solve(fam.data)
+    assert bool(res.converged) and bool(lu.converged)
+    np.testing.assert_allclose(res.x.numpy(), lu.x.numpy(), atol=1e-8)
 
 
 def test_arrow_chain_detector_and_structured_solver():

@@ -206,7 +206,7 @@ def test_float32_escalation_twin_is_float64():
 
 
 def test_wide_augmented_system_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11f"):
         FusedBatchedIPM(port_settings(Settings(inequalities=Bounds.NONE)),
                         n=129, device="cpu")
 

@@ -238,21 +238,37 @@ def test_gondzio_rounds_keep_the_solution():
 
 
 class TestRejects:
-    """What the port does not have raises, naming its ROADMAP item."""
+    """What the port does not have raises, naming its ROADMAP item; the
+    kernel modes it has solve."""
 
-    @pytest.mark.parametrize("kernel", ["jnp", "block", "blockg", "lu",
-                                        "regldlt", "normal", "sharded",
-                                        "nd"])
+    @pytest.mark.parametrize("kernel", ["sharded"])
     def test_unported_kernel_modes(self, kernel):
-        # 'nd' itself is ported; what it still lacks is the block mode
-        # its auto-fallback would pick for a large plan that cannot win
-        kw = dict(n=4, m_ineq=2)
-        if kernel == "nd":
-            kw = dict(n=400, m_ineq=2,
-                      nd_pattern=np.ones((402, 402), bool))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CompiledIPM(port_settings(Settings()), kernel=kernel,
+                        device="cpu", n=4, m_ineq=2)
+
+    @pytest.mark.parametrize("kernel", ["jnp", "block", "blockg", "lu",
+                                        "regldlt", "normal", "nd"])
+    def test_kernel_modes_solve(self, kernel):
+        # every mode the reference has besides 'sharded' solves the
+        # batch as the dense LDL^T mode does ('nd' on a dense pattern of
+        # order 400 falls back to the block mode the auto rule picks)
+        kw = dict(n=6, m_ineq=2)
+        if kernel == "nd":
+            kw = dict(n=398, m_ineq=2,
+                      nd_pattern=np.ones((400, 400), bool))
+        s = CompiledIPM(port_settings(Settings()), kernel=kernel,
                         device="cpu", **kw)
+        if kernel == "nd":
+            assert s.nd_fell_back and s._mode == "block"
+            return
+        data = qpdata_from_numpy(numpy_batch(3, 6, 2, seed=4), device="cpu")
+        res = s.solve_batch(data)
+        want = CompiledIPM(port_settings(Settings()), 6, 2,
+                           device="cpu").solve_batch(data)
+        assert bool(res.converged.all())
+        np.testing.assert_allclose(res.x.numpy(), want.x.numpy(),
+                                   atol=1e-7)
 
     @pytest.mark.parametrize("option", ["two_float", "df_residuals",
                                         "hybrid_refine"])
@@ -267,16 +283,23 @@ class TestRejects:
                         device="cpu")
 
     def test_indefinite_formulation(self):
-        with pytest.raises(NotImplementedError, match="indefinite"):
-            CompiledIPM(port_settings(Settings(inequalities=Bounds.NONE,
-                                 variable_bounds=Bounds.NONE,
-                                 equalities=True,
-                                 equality_handling=EqualityHandling.NONE)),
-                        n=3, m_eq=1, device="cpu")
+        # 'auto' takes the signed-regularised LDL^T, as the reference
+        settings = Settings(inequalities=Bounds.NONE,
+                            variable_bounds=Bounds.NONE, equalities=True,
+                            equality_handling=EqualityHandling.NONE)
+        s = CompiledIPM(port_settings(settings), n=3, m_eq=1, device="cpu")
+        assert s._mode == RefIPM(settings, n=3, m_eq=1)._mode == "regldlt"
+        res = s.solve(QPData.make(Q=np.eye(3), c=[-1.0, 0.0, 0.0],
+                                  A_eq=np.ones((1, 3)), b_eq=[1.0],
+                                  device="cpu"))
+        assert bool(res.converged)
+        np.testing.assert_allclose(res.x.numpy(), [1.0, 0.0, 0.0],
+                                   atol=1e-9)
 
     def test_large_auto_system(self):
-        with pytest.raises(NotImplementedError, match="block mode"):
-            CompiledIPM(port_settings(Settings()), 400, 8, device="cpu")
+        # the reference's 'auto' hands a 2x2 system from n = 384 to 'block'
+        s = CompiledIPM(port_settings(Settings()), 400, 8, device="cpu")
+        assert s._mode == RefIPM(Settings(), 400, 8)._mode == "block"
 
     def test_data_on_another_device(self):
         s = CompiledIPM(port_settings(Settings()), 2, 1, device="cpu")

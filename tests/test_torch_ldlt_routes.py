@@ -236,7 +236,7 @@ def test_reset_clears_the_route_counts():
         "ldlt soa", "ldlt block", "solve_ldlt thread", "solve_ldlt warp",
         "solve_ldlt_matrix thread", "solve_ldlt_matrix warp",
         "ldlt_solve_matrix block", "ldlt_solve_matrix warp",
-        "ldlt_solve_matrix split"}
+        "ldlt_solve_matrix split", "ldlt blocked"}
     assert not any(cuda_ldlt.route_launches.values())
 
 

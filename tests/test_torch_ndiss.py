@@ -443,14 +443,17 @@ class TestAutoFallback:
         np.testing.assert_allclose(r_fb.x.numpy(), r_nd.x.numpy(),
                                    atol=1e-6)
 
-    def test_fallback_to_a_block_mode_is_refused_by_name(self):
+    def test_fallback_to_a_block_mode(self):
         # a dense pattern of order 400: the plan cannot win, and the
-        # reference's dense auto rule picks 'block' from n = 384 on
-        with pytest.raises(NotImplementedError,
-                           match="item 11.*nd_fallback=False"):
-            CompiledIPM(grid_qp(side=2, device="cpu").settings, n=400,
-                        kernel="nd", nd_pattern=np.ones((400, 400), bool),
-                        device="cpu")
+        # dense auto rule picks 'blockg' from aug_dim 384 on (x alone: no
+        # 2x2 structure), as the reference's does
+        fb = CompiledIPM(grid_qp(side=2, device="cpu").settings, n=400,
+                         kernel="nd", nd_pattern=np.ones((400, 400), bool),
+                         device="cpu")
+        ref = RefIPM(ref_grid_qp(side=2).settings, n=400, kernel="nd",
+                     nd_pattern=np.ones((400, 400), bool))
+        assert fb.nd_fell_back and ref.nd_fell_back
+        assert fb._mode == ref._mode == "blockg"
         s = CompiledIPM(grid_qp(side=2, device="cpu").settings, n=400,
                         kernel="nd", nd_pattern=np.ones((400, 400), bool),
                         nd_fallback=False, device="cpu")
@@ -588,9 +591,16 @@ def test_nd_compact_and_step_paths():
                                r_d.x.numpy(), atol=1e-7)
 
 
-def test_other_kernel_modes_still_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_solver(8, 2, kernel="blockg")
+def test_other_kernel_modes_solve_as_nd():
+    # the block mode gives the nd path's solution on the same batch
+    n, m = 8, 2
+    _, data = both(batch_qp(n, m))
+    r_g = port_solver(n, m, kernel="blockg", tol=1e-8).solve_batch(data)
+    r_nd = port_solver(n, m, kernel="nd", nd_leaf=4, tol=1e-8,
+                       nd_fallback=False).solve_batch(data)
+    assert bool(r_g.converged.all()) and bool(r_nd.converged.all())
+    assert torch.equal(r_g.iterations, r_nd.iterations)
+    np.testing.assert_allclose(r_g.x.numpy(), r_nd.x.numpy(), atol=1e-8)
 
 
 @pytest.mark.parametrize("family", ["mpc", "portfolio", "svm_dual",

@@ -258,13 +258,22 @@ def test_env_typo_warns_and_leaves_the_default(monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh_axis="tp"), "item 16"),
-    (dict(panel=64), "item 11a"),
-    (dict(block_inv="auto"), "item 11c"),
+    # panel= sets kernel='sharded''s panel in the reference
+    (dict(panel=64), "item 16"),
     (dict(kernel="sharded"), "item 16"),
 ])
 def test_unported_constructor_options_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
+
+
+def test_block_inv_option():
+    # 'auto' = off, as the reference; True binds H^-1 / S^-1 in 'block'
+    assert not CompiledIPM(port_settings(Settings()), 4, 2, kernel="block",
+                           device="cpu")._block_inv
+    s = CompiledIPM(port_settings(Settings()), 4, 2, kernel="block",
+                    block_inv=True, device="cpu")
+    assert s._block_inv and s._mode == "block"
 
 
 # -- the build ---------------------------------------------------------------
