@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
 
     python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd|
-                                  normal|aug
+                                  normal|aug|mpc
                            [--device cpu] [--batch B] [--dense] [--large]
 
 runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
@@ -45,10 +45,15 @@ The workloads, gates and counts are bench.py's:
   REGULARIZATION, aug_dim 352; float32, tol 1e-5 scaled, refine=2,
   gondzio=2) through ``'blockg'`` and ``'auto'`` (dense LDL^T, the
   panel-blocked path at this order); the faster with >= 99% converged.
+* ``mpc`` — 256 random stable tracking MPC instances (``random_mpc``,
+  seed 0, horizon T=32, ns=8 states, nu=4 controls, float32) through
+  ``RiccatiIPM(tol=1e-5, max_iter=40).solve_batch``; >= 95% must
+  converge; useful iterations/s.
 
 The BENCH_* environment variables of bench.py size the workloads
 (BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
-BENCH_ARROW_*, BENCH_ND_*, BENCH_NORMAL_*, BENCH_AUG_*, BENCH_KKT_*).
+BENCH_ARROW_*, BENCH_ND_*, BENCH_NORMAL_*, BENCH_AUG_*, BENCH_KKT_*,
+BENCH_MPC_*).
 Walls are CUDA-event times (``utils/timer.cuda_time``; the host clock
 with ``--device cpu``): the median over the runs, with the spread and
 every run printed on an earlier line.
@@ -56,7 +61,7 @@ every run printed on an earlier line.
 ``vs_baseline`` is null: bench.py's baselines are rates of another
 program measured on another machine's host, and no number of this card.
 
-Not ported: the modes ``mpc``, ``sharded`` and ``tf`` raise
+Not ported: the modes ``sharded`` and ``tf`` raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -77,10 +82,9 @@ STEPS = int(os.environ.get("BENCH_STEPS", 10))
 TOL = float(os.environ.get("BENCH_TOL", 1e-6))
 
 MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd", "normal",
-         "aug")
+         "aug", "mpc")
 #: modes of bench.py the port does not have yet, with their ROADMAP item
 REFUSED = {
-    "mpc": "ROADMAP.md Queue 1 item 14 (MPC: RiccatiIPM)",
     "sharded": "ROADMAP.md Queue 1 item 16 (multi-device)",
     "tf": "ROADMAP.md Queue 1 item 7 (escalation precision: two_float)",
 }
@@ -721,6 +725,50 @@ def bench_aug(device, dtype=None, runs=3):
         for k, (c, i, w, r) in results.items()}
 
 
+def mpc_sizes():
+    """(horizon, states, controls, instances) of the mpc mode, from the
+    BENCH_MPC_* variables."""
+    return (int(os.environ.get("BENCH_MPC_T", 32)),
+            int(os.environ.get("BENCH_MPC_NS", 8)),
+            int(os.environ.get("BENCH_MPC_NU", 4)),
+            int(os.environ.get("BENCH_MPC_BATCH", 256)))
+
+
+def mpc_problem(device, dtype=None):
+    """bench.py's bench_mpc batch and solver: ``random_mpc`` seed 0 and
+    ``RiccatiIPM(tol=1e-5, max_iter=40)``, float32 unless ``dtype``."""
+    import torch
+    from ipmzoo_tpu_torch.models.mpc import RiccatiIPM, random_mpc
+    T, ns, nu, batch = mpc_sizes()
+    dtype = dtype or torch.float32
+    data = random_mpc(horizon=T, n_states=ns, n_controls=nu, batch=batch,
+                      seed=0, dtype=dtype, device=device)
+    solver = RiccatiIPM(T, ns, nu, dtype=dtype, tol=1e-5, max_iter=40,
+                        device=device)
+    return data, solver
+
+
+def bench_mpc(device, dtype=None, runs=5):
+    """Structured MPC: batched Riccati IPM solves (block-tridiagonal KKT,
+    O(T) per iteration), convergence-gated at 95%."""
+    T, ns, nu, batch = mpc_sizes()
+    data, solver = mpc_problem(device, dtype)
+    res = solver.solve_batch(data)
+    conv = res.converged.float().mean().item()
+    _gate(conv, 0.95, "mpc")
+    iters = float(res.iterations.sum().item())
+    t = timed(lambda: solver.solve_batch(data), device, runs, "mpc")
+    steps = int(res.iterations.max().item())
+    label = (f"IPM iterations/s, {batch} structured MPC QPs fully solved "
+             f"(Riccati, T={T}, ns={ns}, nu={nu}, "
+             f"{str(solver.dtype).replace('torch.', '')}, tol=1e-05, "
+             f"{conv * 100:.1f}% converged, {t / steps * 1e3:.3f} "
+             f"ms/iteration, {backend(device)})")
+    return label, iters / t, "iterations/s", {
+        "converged": conv, "iterations": iters, "wall_ms": t * 1e3,
+        "result": res}
+
+
 def run_mode(mode, device, batch=None, dense=False, large=False):
     """Run one mode; returns (label, value, unit, counts)."""
     import torch
@@ -758,7 +806,7 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
         return {"arrow": bench_arrow, "nd": bench_nd}[mode](device,
                                                             dense=dense)
     return {"schur": bench_schur, "normal": bench_normal,
-            "aug": bench_aug}[mode](device)
+            "aug": bench_aug, "mpc": bench_mpc}[mode](device)
 
 
 def main(argv=None):

@@ -5,7 +5,7 @@
                                  # CUDA card and nvcc
     python3 chip_profile.py arrow schur   # only the named sections
                                  # (arrow, schur, fused, compact, nd,
-                                 # dense)
+                                 # dense, mpc)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -48,7 +48,16 @@ the same data, and prints, after the card's name and power limit:
    iteration, busy share and K2's (block route: the blocked LDL^T's
    panels) share of one solve under torch.profiler; one dense
    CompiledIPM step ('blockg') on bench_arrow's and bench_nd's QPs; and
-   one blockg factor with two solves at bench_kkt's large orders.
+   one blockg factor with two solves at bench_kkt's large orders;
+7. the MPC slice (section ``mpc``: bench_mpc's 256 instances, T=32,
+   ns=8, nu=4, float32, tol 1e-5) through RiccatiIPM.solve_batch: the
+   wall by CUDA events (median of 5 runs after a warm-up), launches per
+   iteration and busy share of one solve under torch.profiler, the
+   launches of one riccati_factor and of one riccati_solve; and the
+   host-clock time of three single iterations as they run, then three
+   split into the riccati_factor call, the riccati_solve calls (two,
+   more with gondzio) and the rest (a synchronize around each call),
+   both before the first torch.profiler session.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -59,33 +68,7 @@ import sys
 import time
 
 import chip_smoke as cs
-
-
-def profiled(fn, label, per_kernel=None):
-    """Device busy ms and kernel launches of one call of ``fn`` (after
-    one untraced call) under torch.profiler; prints the largest entries
-    and appends every (kernel name, ms) to ``per_kernel`` if given."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA"]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    launches = sum(e.count for e in events)
-    if per_kernel is not None:
-        per_kernel += [(e.key, e.self_device_time_total / 1e3)
-                       for e in events]
-    print(f"{label}: profiled device busy {busy:.3f} ms, kernel launches "
-          f"{launches}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"    {e.self_device_time_total / 1e3:10.3f} ms  "
-              f"x{e.count:6d}  {e.key[:90]}")
-    return busy, launches
+from chip_smoke import profiled
 
 
 #: the device-time attribution of the LDL^T kernels: (label, a substring
@@ -422,6 +405,70 @@ def profile_compact(dev, data):
               f"{int(res.iterations.sum())}, wall median {med:.3f} ms")
 
 
+def profile_mpc(dev):
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.models import mpc
+    data, solver = bench_torch.mpc_problem(dev)
+    res = solver.solve_batch(data)
+    steps = int(res.iterations.max())
+    med = cs.time_solves(lambda: solver.solve_batch(data), 5)
+    dd = solver._check_data(data)
+    state = solver.init_state(dd)
+
+    def step_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver._step_impl(state, dd)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    # the host-clock split first: a torch.profiler session may leave
+    # the launches of this process slower
+    print("    one _step_impl " + ", ".join(
+        f"{step_ms():.3f}" for _ in range(3)) + " ms (host clock, no "
+        "synchronize inside)")
+    spent = {"riccati_factor": 0.0, "riccati_solve": 0.0}
+    saved = {name: getattr(mpc, name) for name in spent}
+
+    def timing(name):
+        def call(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[name](*a)
+            torch.cuda.synchronize()
+            spent[name] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return call
+    try:
+        for name in spent:
+            setattr(mpc, name, timing(name))
+        for _ in range(3):
+            for name in spent:
+                spent[name] = 0.0
+            total = step_ms()
+            rest = total - sum(spent.values())
+            print(f"    one _step_impl {total:.3f} ms (host clock, a "
+                  f"synchronize around each call): riccati_factor "
+                  f"{spent['riccati_factor']:.3f}, riccati_solve "
+                  f"{spent['riccati_solve']:.3f}, the rest {rest:.3f}")
+    finally:
+        for name, fn in saved.items():
+            setattr(mpc, name, fn)
+    busy, launches = profiled(lambda: solver.solve_batch(data), "mpc")
+    print(f"mpc: wall median {med:.3f} ms; iterations {steps} (summed "
+          f"{int(res.iterations.sum())}); launches per iteration "
+          f"{launches / steps:.1f}; busy share {busy / med:.4f}")
+    g, h, _, _ = solver._slacks(dd, state.vars[0], state.vars[1])
+    Rt = mpc._add_diag(dd.R, state.vars[3] / g + state.vars[4] / h)
+    factors = mpc.riccati_factor(dd.Q, Rt, dd.A, dd.B)
+    ru, rx, rd = state.res
+    profiled(lambda: mpc.riccati_factor(dd.Q, Rt, dd.A, dd.B),
+             "mpc, one riccati_factor")
+    profiled(lambda: mpc.riccati_solve(factors, dd.A, dd.B, rx, ru, -rd),
+             "mpc, one riccati_solve")
+
+
 def main():
     import torch
     from chip_roofline import banner
@@ -429,14 +476,14 @@ def main():
     if dev is None:
         return 2
     from ipmzoo_tpu_torch.models.convert import make_batch
-    known = ["schur", "fused", "compact", "arrow", "nd", "dense"]
+    known = ["schur", "fused", "compact", "arrow", "nd", "dense", "mpc"]
     sections = sys.argv[1:] or known
     unknown = set(sections) - set(known)
     if unknown:
         print(f"chip_profile: unknown sections {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if set(sections) - {"nd", "schur", "dense"}:
+    if set(sections) - {"nd", "schur", "dense", "mpc"}:
         cs.build_kernels()
     if "schur" in sections:
         profile_schur(dev)
@@ -452,6 +499,8 @@ def main():
         profile_nd()
     if "dense" in sections:
         profile_dense(dev)
+    if "mpc" in sections:
+        profile_mpc(dev)
     return 0
 
 

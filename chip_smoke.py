@@ -34,16 +34,17 @@ Steps, each reported on its own line:
    block per matrix) at every (order, matrices) of K2_SHAPES: the
    compact slice's batches and its float64 escalation, the Schur slice's
    H and S blocks, the equality_qp slice's KKT (30, 64), the normal
-   slice's order-128 panels (128, 16), odd orders, n=1, batches that
-   fill no whole block;
+   slice's order-128 panels (128, 16), the condensed MPC QP of step 43
+   (96, 8), odd orders, n=1, batches that fill no whole block;
    the SoA route also at (328, 1), over the block route's shared memory;
    and both on an exactly-zero pivot; then each route of K3 alone (the
    thread route, a thread per matrix, and the warp route, a tile of
    instances staged in shared memory and a warp or a segment of one per
    matrix) at every (order, systems) of K3_SHAPES (the compact slice's
    batches, its float64 escalation, the Schur slice's H and S blocks, the
-   nd slice's levels, the equality_qp slice's KKT (30, 64, float64) and
-   the nd slice's generic top, over the warp route's cap) and
+   nd slice's levels, the equality_qp slice's KKT (30, 64, float64),
+   the condensed MPC QP of step 43 (96, 8, float64) and the nd slice's
+   generic top, both over the warp route's cap) and
    of K3_EDGES in both types (n=1, odd orders, a batch that fills no
    tile, the cap 83 and 84), float32 within 1e-5 and float64 within
    1e-12, the largest difference between the two routes' x, and
@@ -63,7 +64,8 @@ Steps, each reported on its own line:
 8. time K2 and K3 against their plain versions at the slice's batch
    sizes (10240, 2560, 320) with CUDA events, and both K2 routes there
    (each with its caller's layout work), at the float64 escalation's
-   B=32 and at (328, 1), by CUDA events and by their kernels' device
+   B=32, at step 43's condensed MPC QP (96, 8) float64 and at (328, 1),
+   by CUDA events and by their kernels' device
    time under torch.profiler; fail where k2_route picks a route whose
    device time is more than 5% (timing noise) above the other's; the same
    for both K3 routes at every shape of step 4's K3 check, all in one
@@ -310,6 +312,37 @@ Steps, each reported on its own line:
     against the dense CompiledIPM step, 'blockg' at n=4096, ms per step
     by the slope of two step counts) and kkt --large (the signed block
     Cholesky with two solves at orders 1024 and 4096), their JSON lines.
+41. bench_torch.py's mpc mode, bench.py's bench_mpc at its defaults: 256
+    random stable tracking MPC instances (random_mpc seed 0, horizon
+    T=32, ns=8 states, nu=4 controls, float32) through RiccatiIPM(tol=1e-5,
+    max_iter=40).solve_batch on the card, >= 95% converged (the share
+    printed); each instance's objective against the port on the CPU in
+    float64 at tol 1e-8 within 1e-4 (1 + |f_cpu|), and u and x (unique:
+    each instance is strictly convex) within 1e-3 (1 + |v_cpu|) on the
+    instances both converge; the wall by CUDA
+    events (median and spread of 5 warm calls), the summed iterations,
+    the host syncs of one solve, launches per iteration and the busy
+    share (device busy time over the median wall) under torch.profiler,
+    and its JSON line.  No kernel of the kernels line runs here: the
+    Riccati recursion is batched library calls, as it was XLA code in
+    the reference;
+42. RiccatiIPM in float64 at tol 1e-8 on the card against the port on
+    the CPU: one solve of random_mpc() (T=16, ns=4, nu=2, seed 0), then
+    solve_batch of random_mpc(batch=8, state_bounds=True) with gondzio=2:
+    converged and diverged equal on every instance, and on every
+    instance the CPU brings to convergence iterations equal and u, x, y
+    within 1e-8 (1 + |v_cpu|); the iterations of the instances that
+    diverge (infeasible state bounds) are printed, not held: the
+    iteration at which a divergent iterate overflows follows rounding;
+43. the condensed QP through the dense engine: condense() of that batch
+    of 8 (state bounds as general inequality rows) through
+    CompiledIPM(Settings(), n=T*nu=32, m_ineq=T*ns=64) in float64 on the
+    card, aug_dim 96, where 'auto' takes 'ldlt' (K2 on the route k2_route
+    picks, K3 on the route k3_route picks, both counted by route from
+    zero just before the solve and printed); the same instances converge
+    as in RiccatiIPM's solve, and on those u within 1e-6 of RiccatiIPM's
+    and the objectives equal within 1e-6 (1 + |f|) up to the eliminated
+    states' constant (the check of tests/test_mpc.py).
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -424,30 +457,40 @@ K5_OVER_CAP = (1, 328, 1)
 #: k = 2, 5, 9 and 41 (not a multiple of its 4 columns a group)
 K5_EDGES = ((1, 1, 1), (5, 13, 3), (7, 8, 2), (33, 20, 9), (1, 37, 2),
             (3, 17, 9), (2, 33, 41), (5, 63, 1), (4, 63, 2), (9, 64, 5))
+#: bench_mpc's defaults: horizon, states, controls, instances
+MPC_T, MPC_NS, MPC_NU, MPC_BATCH = 32, 8, 4, 256
+#: the float64 MPC checks (steps 42-43): random_mpc's default sizes and
+#: the state-bounded batch
+MPC_SMALL, MPC_SMALL_BATCH = (16, 4, 2), 8
+#: step 43's condensed MPC QP: order of its augmented system (n = T nu,
+#: m_ineq = T ns, no equalities)
+MPC_AUG = MPC_SMALL[0] * (MPC_SMALL[1] + MPC_SMALL[2])
 #: (order, matrices) at which both K2 routes are held to plain (step 4)
 #: and timed (steps 8, 17): the compact slice's batches and its float64
 #: escalation of at most 32 stragglers, the Schur slice's H and S blocks,
 #: the equality_qp slice's KKT (order 30, 64 systems: 'regldlt'), the
 #: normal slice's order-128 normal equations and H's panels (16
-#: matrices), odd orders, n = 1, batches that fill no whole block; and
-#: one order over the block route's shared memory (the nd slice's
-#: generic top)
+#: matrices), the condensed MPC QP of step 43 (order 96, 8 systems), odd
+#: orders, n = 1, batches that fill no whole block; and one order over
+#: the block route's shared memory (the nd slice's generic top)
 K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
-             (30, 64), (128, 16), (13, 1000), (37, 77), (1, 5))
+             (30, 64), (128, 16), (MPC_AUG, MPC_SMALL_BATCH), (13, 1000),
+             (37, 77), (1, 5))
 K2_OVER_CAP = (328, 1)
 #: (order, systems, type) at which both K3 routes are held to plain
 #: (step 4) and timed (step 8): the compact slice's batches and its
 #: float64 escalation, the Schur slice's H and S blocks, the nd slice's
-#: three levels, the equality_qp slice's KKT ('regldlt', float64), and
-#: the nd slice's generic top (order 328, over the warp route's shared
-#: memory)
+#: three levels, the equality_qp slice's KKT ('regldlt', float64), the
+#: condensed MPC QP of step 43 (order 96, float64, over the warp route's
+#: cap) and the nd slice's generic top (order 328, over the warp route's
+#: shared memory)
 K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
              (SCHUR_MC, SCHUR_I, "float64"), (64, 105, "float32"),
              (16, 28, "float32"), (16, 16, "float32"), (30, 64, "float64"),
-             (328, 1, "float32"))
+             (MPC_AUG, MPC_SMALL_BATCH, "float64"), (328, 1, "float32"))
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
@@ -1251,9 +1294,11 @@ def time_kernels(dev):
         print(f"timing B={B} n={N_AUG} float32 (ms per call, CUDA events): "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
                           if isinstance(v, float)))
-    # the float64 escalation of at most 32 stragglers, and the nd slice's
-    # generic top (over the block route's shared memory)
+    # the float64 escalation of at most 32 stragglers, step 43's condensed
+    # MPC QP and the nd slice's generic top (over the block route's shared
+    # memory)
     time_k2_routes(dev, N_AUG, 32, torch.float64)
+    time_k2_routes(dev, MPC_AUG, MPC_SMALL_BATCH, torch.float64)
     out[K2_OVER_CAP] = time_k2_routes(dev, *K2_OVER_CAP, torch.float64,
                                       reps=2)
     return out
@@ -3566,6 +3611,195 @@ def run_bench_modes(dev, data):
     return routes
 
 
+def profiled(fn, label, per_kernel=None):
+    """Device busy ms and kernel launches of one call of ``fn`` (after
+    one untraced call) under torch.profiler; prints the largest entries
+    and appends every (kernel name, ms) to ``per_kernel`` if given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    if per_kernel is not None:
+        per_kernel += [(e.key, e.self_device_time_total / 1e3)
+                       for e in events]
+    print(f"{label}: profiled device busy {busy:.3f} ms, kernel launches "
+          f"{launches}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:10.3f} ms  "
+              f"x{e.count:6d}  {e.key[:90]}")
+    return busy, launches
+
+
+def run_mpc_slice(dev):
+    """Step 41: bench_torch.py's mpc mode at bench_mpc's defaults, >= 95%
+    converged, objectives, u and x against the CPU float64 port at tol
+    1e-8; wall, iterations, host syncs, launches per iteration and busy
+    share."""
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.models.mpc import RiccatiIPM
+
+    print(f"step 41 on {card()}")
+    check(bench_torch.mpc_sizes() == (MPC_T, MPC_NS, MPC_NU, MPC_BATCH),
+          "the BENCH_MPC_* environment resizes bench_torch.py's mpc "
+          "workload; the smoke test runs it at its defaults")
+    label, value, unit, counts = bench_torch.bench_mpc(dev)
+    res = counts["result"]
+    conv = counts["converged"]
+    print(f"mpc: {conv * 100:.2f}% of {MPC_BATCH} converged (gate 95%), "
+          f"{int(counts['iterations'])} iterations summed, "
+          f"{int(res.iterations.max())} the most, "
+          f"{int(res.diverged.sum())} diverged")
+    check(conv >= 0.95, f"mpc: {conv} converged")
+    check(bool(torch.isfinite(res.u).all() & torch.isfinite(res.x).all()),
+          "mpc: u or x not finite")
+    data, solver = bench_torch.mpc_problem(dev)
+    cpu = RiccatiIPM(MPC_T, MPC_NS, MPC_NU, tol=1e-8, device="cpu")
+    ref = cpu.solve_batch(data.to("cpu", torch.float64))
+    check(bool(ref.converged.all()), "mpc: the CPU float64 port did not "
+          "converge")
+    objectives_vs_cpu("mpc", res, ref, 1e-4)
+    both = res.converged.cpu() & ref.converged
+    worst = {k: (((getattr(res, k).cpu().double() - getattr(ref, k)).abs()
+                  / (1 + getattr(ref, k).abs()))[both].max().item())
+             for k in ("u", "x")}
+    print(f"mpc: on the {int(both.sum())} instances both converge, largest "
+          f"|v_gpu - v_cpu| / (1 + |v_cpu|): u {worst['u']:.3e}, x "
+          f"{worst['x']:.3e} (limit 1e-3)")
+    check(max(worst.values()) <= 1e-3, "mpc: u or x disagrees with the CPU "
+          "float64 port")
+    solver.solve_batch(data)
+    solver.host_syncs = 0
+    solver.solve_batch(data)
+    syncs = solver.host_syncs
+    steps = int(res.iterations.max())
+    busy, launches = profiled(lambda: solver.solve_batch(data), "mpc")
+    wall = counts["wall_ms"]
+    print(f"mpc: wall median {wall:.3f} ms (CUDA events), {steps} "
+          f"iterations, {wall / steps:.3f} ms per iteration, host syncs "
+          f"{syncs} a solve, launches per iteration "
+          f"{launches / steps:.1f}, busy {busy:.3f} ms = share "
+          f"{busy / wall:.4f}")
+    print_bench("mpc", label, value, unit)
+
+
+def mpc_pair(solver_kw, data_kw, dev):
+    """The same RiccatiIPM (float64, tol 1e-8) on the card and on the CPU,
+    on random_mpc(**data_kw): (card result, CPU result)."""
+    import torch
+    from ipmzoo_tpu_torch.models.mpc import RiccatiIPM, random_mpc
+    T, ns, nu = MPC_SMALL
+    data = random_mpc(T, ns, nu, device=dev, **data_kw)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        s = RiccatiIPM(T, ns, nu, device=d, **solver_kw)
+        one = s.solve_batch if data.batch_shape else s.solve
+        out.append(one(data.to(d)))
+    return data, out[0], out[1]
+
+
+def check_mpc_f64(dev):
+    """Step 42: float64 RiccatiIPM on the card against the CPU port:
+    iterations equal, u, x, y within 1e-8 (1 + |v|) on every instance the
+    CPU converges; converged / diverged equal everywhere."""
+    import torch
+    print(f"step 42 on {card()}")
+    for what, skw, dkw in (
+            ("random_mpc() solve", {}, {}),
+            (f"random_mpc(batch={MPC_SMALL_BATCH}, state_bounds=True) "
+             f"solve_batch, gondzio=2", dict(state_bounds=True, gondzio=2),
+             dict(batch=MPC_SMALL_BATCH, state_bounds=True))):
+        _, gpu, cpu = mpc_pair(skw, dkw, dev)
+        its_g = gpu.iterations.reshape(-1).cpu()
+        its_c = cpu.iterations.reshape(-1)
+        conv_c = cpu.converged.reshape(-1)
+        print(f"mpc f64 {what}: iterations card {its_g.tolist()}, CPU "
+              f"{its_c.tolist()}; converged {conv_c.tolist()}, diverged "
+              f"{cpu.diverged.reshape(-1).tolist()}")
+        check(torch.equal(gpu.converged.reshape(-1).cpu(), conv_c) and
+              torch.equal(gpu.diverged.reshape(-1).cpu(),
+                          cpu.diverged.reshape(-1)),
+              f"mpc f64 {what}: converged / diverged differ")
+        check(bool(conv_c.any()), f"mpc f64 {what}: nothing converged")
+        check(torch.equal(its_g[conv_c], its_c[conv_c]),
+              f"mpc f64 {what}: iterations differ")
+        worst = 0.0
+        for k in ("u", "x", "y"):
+            a = gpu.variables[k].cpu().reshape(len(conv_c), -1)[conv_c]
+            b = cpu.variables[k].reshape(len(conv_c), -1)[conv_c]
+            worst = max(worst, ((a - b).abs() / (1 + b.abs())).max().item())
+        print(f"mpc f64 {what}: largest |v_gpu - v_cpu| / (1 + |v_cpu|) "
+              f"over u, x, y of the converged instances {worst:.3e} (limit "
+              f"1e-8)")
+        check(worst <= 1e-8, f"mpc f64 {what}: u, x, y disagree")
+
+
+def run_mpc_condensed(dev):
+    """Step 43: condense() of the state-bounded batch through the dense
+    CompiledIPM ('auto' = 'ldlt' at aug_dim 96) on the card, against
+    RiccatiIPM's u and objectives; K2 / K3 launches by route."""
+    import numpy as np
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    from ipmzoo_tpu_torch.models.mpc import RiccatiIPM, condense, random_mpc
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    print(f"step 43 on {card()}")
+    T, ns, nu = MPC_SMALL
+    B, f64 = MPC_SMALL_BATCH, torch.float64
+    data = random_mpc(T, ns, nu, batch=B, state_bounds=True, device=dev)
+    mres = RiccatiIPM(T, ns, nu, state_bounds=True,
+                      device=dev).solve_batch(data)
+    qp, S, free = condense(data, device=dev)
+    dense = CompiledIPM(Settings(), n=T * nu, m_ineq=T * ns, device=dev)
+    n = dense.aug_dim
+    check(n == MPC_AUG, f"condensed MPC: aug_dim {n}, steps 4 and 8 hold "
+          f"K2 and K3 at {MPC_AUG}")
+    check(dense._mode == "ldlt", f"condensed MPC: 'auto' picks "
+          f"{dense._mode}, not 'ldlt'")
+    cuda_ldlt.reset_launch_counts()
+    dres = dense.solve_batch(qp)
+    torch.cuda.synchronize()
+    routes = {k: v for k, v in cuda_ldlt.route_launches.items() if v}
+    print(f"condensed MPC (n={T * nu}, m_ineq={T * ns}, aug_dim {n}, "
+          f"kernel '{dense._mode}'): iterations {dres.iterations.tolist()}; "
+          f"K2 / K3 launches by route {routes} (k2_route "
+          f"{cuda_ldlt.k2_route(n, B, f64)}, k3_route "
+          f"{cuda_ldlt.k3_route(n, B, f64)})")
+    check(cuda_ldlt.launches["ldlt"] > 0 and
+          cuda_ldlt.launches["solve_ldlt"] > 0,
+          "the condensed MPC solve launched no K2 / K3")
+    conv = mres.converged.cpu()
+    check(torch.equal(dres.converged.cpu(), conv) and bool(conv.any()),
+          f"condensed MPC: converged {dres.converged.tolist()} against "
+          f"RiccatiIPM's {conv.tolist()}")
+    du = (mres.u.reshape(B, -1) - dres.x).abs().cpu()
+    du = du[conv].max().item()
+    Q, q = data.Q.cpu().numpy(), data.q.cpu().numpy()
+    worst = 0.0
+    for i in np.nonzero(conv.numpy())[0]:
+        Qbar = np.zeros((T * ns, T * ns))
+        for k in range(T):
+            Qbar[k * ns:(k + 1) * ns, k * ns:(k + 1) * ns] = Q[i, k]
+        const = 0.5 * free[i] @ Qbar @ free[i] + q[i].ravel() @ free[i]
+        f = mres.objective[i].item()
+        worst = max(worst, abs(f - dres.objective[i].item() - const) /
+                    (1 + abs(f)))
+    print(f"condensed MPC: {int(conv.sum())} of {B} "
+          f"converged in both; largest |u - x_dense| {du:.3e} (limit "
+          f"1e-6), objectives {worst:.3e} (limit 1e-6)")
+    check(du <= 1e-6 and worst <= 1e-6, "condensed MPC disagrees with "
+          "RiccatiIPM")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3635,6 +3869,9 @@ def main():
     run_normal_slice(dev)
     run_equality(dev)
     run_dense_modes(dev)
+    run_mpc_slice(dev)
+    check_mpc_f64(dev)
+    run_mpc_condensed(dev)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")

@@ -14,8 +14,9 @@ mirror the JAX package's:
   ``kernel="nd"``), ``QPData``, the QP ``families``, the compaction
   engine, and
   ``FusedBatchedIPM`` (the fused whole-solve engine, kernel K1 generated
-  from the symbolic derivation), and ``ArrowIPM`` (banded+arrow box QPs
-  over the cyclic-reduction kernels K6/K7).
+  from the symbolic derivation), ``ArrowIPM`` (banded+arrow box QPs
+  over the cyclic-reduction kernels K6/K7), and ``RiccatiIPM`` (MPC
+  over a batched Riccati factor/solve, :mod:`.ops.riccati`).
 * :mod:`ipmzoo_tpu_torch.parallel` — ``SchurIPM``, the block-separable
   coupled-QP engine (Schur complements over K2/K3/K4), on one device.
 * :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve, multi-rhs
@@ -49,7 +50,8 @@ from .formulations import (Bounds, EqualityHandling,  # noqa: E402
 def __getattr__(name):
     # torch-heavy imports stay lazy
     if name in ("CompiledIPM", "FusedBatchedIPM", "QPData", "SolveResult",
-                "IPMState", "ArrowIPM", "ArrowQPData", "ArrowSolveResult"):
+                "IPMState", "ArrowIPM", "ArrowQPData", "ArrowSolveResult",
+                "RiccatiIPM", "MPCData", "MPCSolveResult"):
         from . import models
         return getattr(models, name)
     if name == "SchurIPM":

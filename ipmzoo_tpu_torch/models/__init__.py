@@ -10,7 +10,8 @@ from .arrow import ArrowIPM, ArrowQPData, ArrowSolveResult
 from .data import QPData, validate
 from .fused import FusedBatchedIPM
 from .ipm import CompiledIPM, IPMState, SolveResult
+from .mpc import MPCData, MPCSolveResult, RiccatiIPM
 
 __all__ = ["QPData", "validate", "CompiledIPM", "FusedBatchedIPM",
            "IPMState", "SolveResult", "ArrowIPM", "ArrowQPData",
-           "ArrowSolveResult"]
+           "ArrowSolveResult", "RiccatiIPM", "MPCData", "MPCSolveResult"]

@@ -44,8 +44,7 @@ from ..ops.banded import (ArrowStructure, arrow_factor_solve, arrow_solve,
                           band_to_blocks, check_method, detect_arrow)
 from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
-from .compact import _where
-from .state import tree_map
+from .state import bad_iterate, step_ratio, tree_map, where_instances
 
 
 @dataclasses.dataclass
@@ -148,19 +147,6 @@ class ArrowSolveResult:
     gap: torch.Tensor
     converged: torch.Tensor
     diverged: torch.Tensor
-
-
-def _ratio(alpha, v, dv):
-    """min(alpha, min over the entries with dv < 0 of -v / dv), per
-    instance."""
-    neg = dv < 0
-    r = torch.where(neg, -v / torch.where(neg, dv, -1.0), float("inf"))
-    return torch.minimum(alpha, r.amin(dim=-1))
-
-
-def _bad(s: ArrowState) -> torch.Tensor:
-    return torch.isnan(s.residual) | torch.isinf(s.residual) | \
-        torch.isnan(s.gap)
 
 
 class ArrowIPM:
@@ -273,10 +259,10 @@ class ArrowIPM:
         g, h = self._slacks(data, x)
         dx, dlg, dlh = d
         alpha = torch.ones(x.shape[0], dtype=self.dtype, device=x.device)
-        alpha = _ratio(alpha, g, dx)
-        alpha = _ratio(alpha, h, -dx)
-        alpha = _ratio(alpha, lg, dlg)
-        alpha = _ratio(alpha, lh, dlh)
+        alpha = step_ratio(alpha, g, dx)
+        alpha = step_ratio(alpha, h, -dx)
+        alpha = step_ratio(alpha, lg, dlg)
+        alpha = step_ratio(alpha, lh, dlh)
         return alpha
 
     def _gap_at(self, data, vars):
@@ -424,8 +410,8 @@ class ArrowIPM:
             new = self._step_impl(state, data)
             # divergence rollback: a failed step keeps the last good
             # iterate and flags the instance
-            failed = _bad(new)
-            state = _where(~active | failed, state, new)
+            failed = bad_iterate(new)
+            state = where_instances(~active | failed, state, new)
             diverged = diverged | (active & failed)
         x, lg, lh = state.vars
         return ArrowSolveResult(
@@ -436,7 +422,7 @@ class ArrowIPM:
             residual=state.residual,
             gap=state.gap,
             converged=self._done(state),
-            diverged=diverged | _bad(state))
+            diverged=diverged | bad_iterate(state))
 
     # -- public ----------------------------------------------------------
 

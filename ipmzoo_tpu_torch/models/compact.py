@@ -26,18 +26,8 @@ from typing import Optional
 import torch
 
 from .data import QPData
-from .state import IPMState, SolveResult, tree_map
-
-
-def _where(mask, old, new):
-    """Per-instance select: ``old`` where ``mask`` else ``new``."""
-    return tree_map(lambda o, n_: torch.where(
-        mask.reshape(mask.shape + (1,) * (n_.dim() - 1)), o, n_), old, new)
-
-
-def _bad(s: IPMState) -> torch.Tensor:
-    return (torch.isnan(s.residual) | torch.isinf(s.residual) |
-            torch.isnan(s.gap) | torch.isinf(s.gap))
+from .state import (IPMState, SolveResult, bad_iterate, tree_map,
+                    where_instances)
 
 
 def _stragglers_first(converged: torch.Tensor, cap: int) -> torch.Tensor:
@@ -63,8 +53,8 @@ class CompactScheduleMixin:
         """One batched iteration; frozen instances re-enter unchanged and
         a step that goes NaN/inf rolls back to the last good iterate."""
         new = self._step_impl(st, data, gondzio=gondzio)
-        bad = _bad(new)
-        return _where(frozen | bad, st, new), div | (bad & ~frozen)
+        bad = bad_iterate(new, masked=True)
+        return where_instances(frozen | bad, st, new), div | (bad & ~frozen)
 
     def _masked_steps(self, state, data, diverged, res_tol, k: int,
                       gondzio: Optional[int] = None):
@@ -212,7 +202,7 @@ class CompactScheduleMixin:
                 fresh = IPMState(vars=fresh.vars, mu=fresh.mu,
                                  iteration=s_state.iteration,
                                  residual=fresh.residual, gap=fresh.gap)
-                s_state = _where(s_done, s_state, fresh)
+                s_state = where_instances(s_done, s_state, fresh)
                 s_div = s_div & s_done
             s_state, s_div = self._masked_steps(s_state, s_data, s_div,
                                                 s_tol, k,

@@ -10,7 +10,10 @@ engine's results and warm states are dicts already (``x``,
 ``converged``) and cross with ``fused_from_numpy`` / ``fused_to_numpy``.
 ``block_qp_from_numpy`` does the same for the coupled-QP data of
 ``SchurIPM``, ``arrow_qp_from_numpy`` / ``arrow_state_from_numpy`` for the
-data and state of ``ArrowIPM``, ``family_from_reference`` for a whole
+data and state of ``ArrowIPM``, ``mpc_data_from_numpy`` /
+``mpc_data_to_numpy``, ``mpc_state_from_numpy`` and
+``mpc_result_to_numpy`` for the data, states and results of
+``RiccatiIPM``, ``family_from_reference`` for a whole
 ``families.Family`` (data and settings).  Tests use them to pass the same data and
 state between the reference and the port.  ``device=None`` is the CUDA
 device, as for every entry point of the port; the tests pass
@@ -34,6 +37,7 @@ from ..formulations import (Bounds, EqualityHandling, InequalityHandling,
 from ..utils.device import resolve_device
 from .arrow import ArrowQPData, ArrowState
 from .data import QPData
+from .mpc import MPCData, MPCSolveResult, MPCState
 from .state import IPMState, SolveResult
 
 _QP_FIELDS = tuple(f.name for f in dataclasses.fields(QPData))
@@ -169,6 +173,40 @@ def arrow_state_from_numpy(src, *, dtype: torch.dtype = torch.float64,
         residual=_t(src.residual, dtype, device),
         gap=_t(src.gap, dtype, device),
         rx=_t(src.rx, dtype, device))
+
+
+def mpc_data_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                        device=None) -> MPCData:
+    """The port's ``MPCData`` from any object with its fields (the
+    reference's ``MPCData`` included), with or without the batch axis."""
+    return MPCData(**{f.name: _t(getattr(src, f.name), dtype, device)
+                      for f in dataclasses.fields(MPCData)})
+
+
+def mpc_data_to_numpy(data: MPCData) -> dict:
+    return {f.name: _np(getattr(data, f.name))
+            for f in dataclasses.fields(MPCData)}
+
+
+def mpc_state_from_numpy(src, *, dtype: torch.dtype = torch.float64,
+                         device=None) -> MPCState:
+    """The port's ``MPCState`` from the reference's (or any object with
+    its fields); ``iteration`` stays int32."""
+    return MPCState(
+        vars=tuple(_t(v, dtype, device) for v in src.vars),
+        mu=_t(src.mu, dtype, device),
+        iteration=_t(src.iteration, torch.int32, device),
+        residual=_t(src.residual, dtype, device),
+        gap=_t(src.gap, dtype, device),
+        res=tuple(_t(v, dtype, device) for v in src.res))
+
+
+def mpc_result_to_numpy(res: MPCSolveResult) -> dict:
+    out = {f.name: _np(getattr(res, f.name))
+           for f in dataclasses.fields(MPCSolveResult)
+           if f.name != "variables"}
+    out["variables"] = {k: _np(v) for k, v in res.variables.items()}
+    return out
 
 
 def make_batch(batch: int, n: int, m: int, dtype: torch.dtype,

@@ -44,12 +44,13 @@ from ..symbolic import expr as E
 from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
 from . import codegen as cg
-from .compact import CompactScheduleMixin, _where
+from .compact import CompactScheduleMixin
 from .data import QPData
 from .directions import DirectionsMixin
 from .kernels import KernelDispatchMixin
 from .ndplan import NdPlanMixin
-from .state import IPMState, SolveResult, tree_map
+from .state import (IPMState, SolveResult, bad_iterate, tree_map,
+                    where_instances)
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
@@ -537,12 +538,6 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         res_tol = self._res_tol(state)
         nd_pre = self._nd_prework(data)
 
-        def bad(s):
-            # the reference's while loop does not test gap for inf (its
-            # masked compact loops do: compact.py's _bad)
-            return torch.isnan(s.residual) | torch.isinf(s.residual) | \
-                torch.isnan(s.gap)
-
         diverged = torch.zeros_like(res_tol, dtype=torch.bool)
         while True:
             active = ~self._done(state, res_tol) & ~diverged & \
@@ -553,10 +548,11 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             new = self._step_impl(state, data, nd_pre=nd_pre)
             # divergence rollback: a failed step keeps the last good
             # iterate and flags the instance
-            failed = bad(new)
-            state = _where(~active | failed, state, new)
+            failed = bad_iterate(new)
+            state = where_instances(~active | failed, state, new)
             diverged = diverged | (active & failed)
-        return self._result(state, data, res_tol, diverged | bad(state))
+        return self._result(state, data, res_tol,
+                            diverged | bad_iterate(state))
 
     # ------------------------------------------------------------------
     # public API

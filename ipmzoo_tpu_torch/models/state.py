@@ -1,5 +1,8 @@
 """State and result containers of the batched solver, plus ``tree_map``
-over them (counterpart of :mod:`ipmzoo_tpu.models.state`)."""
+over them (counterpart of :mod:`ipmzoo_tpu.models.state`), and the
+per-instance helpers every batched engine's loop shares: the select of
+frozen instances, the fraction-to-boundary ratio test and the test of a
+failed iterate."""
 
 from __future__ import annotations
 
@@ -49,3 +52,28 @@ def tree_map(fn, x, *rest):
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(x)})
     raise TypeError(f"tree_map: unsupported node {type(x).__name__}")
+
+
+def where_instances(mask, old, new):
+    """Per-instance select over a state: ``old`` where ``mask`` (B,) else
+    ``new``."""
+    return tree_map(lambda o, n_: torch.where(
+        mask.reshape(mask.shape + (1,) * (n_.dim() - 1)), o, n_), old, new)
+
+
+def step_ratio(alpha, v, dv):
+    """Fraction-to-boundary, per instance: min(alpha, min over the entries
+    with dv < 0 of -v / dv); every axis after the first is reduced."""
+    neg = dv < 0
+    r = torch.where(neg, -v / torch.where(neg, dv, -1.0), float("inf"))
+    return torch.minimum(alpha, r.flatten(1).amin(dim=-1))
+
+
+def bad_iterate(s, *, masked: bool = False) -> torch.Tensor:
+    """Per instance, whether the iterate ``s`` (with ``residual`` and
+    ``gap``) failed: residual NaN or inf, or gap NaN, as the reference's
+    while loops test it (CompiledIPM, ArrowIPM, RiccatiIPM); ``masked``
+    also fails an infinite gap, as its masked compact loops do."""
+    bad = torch.isnan(s.residual) | torch.isinf(s.residual) | \
+        torch.isnan(s.gap)
+    return bad | torch.isinf(s.gap) if masked else bad

@@ -7,8 +7,7 @@ mode's ``value`` is the count it divides by the wall: the same converged
 share and the same counts must come out.  float32 iteration totals may
 part by rounding (2%); in float64 the port's function is held to the
 reference's solver iteration for iteration.  The modes the port refuses
-(mpc, sharded, tf) raise ``NotImplementedError`` naming their ROADMAP
-item.
+(sharded, tf) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import dataclasses
@@ -33,6 +32,8 @@ from ipmzoo_tpu.models import ArrowIPM as RefArrowIPM
 from ipmzoo_tpu.models import CompiledIPM as RefIPM
 from ipmzoo_tpu.models import QPData as RefQPData
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
+from ipmzoo_tpu.models.mpc import RiccatiIPM as RefRiccatiIPM
+from ipmzoo_tpu.models.mpc import random_mpc as ref_random_mpc
 from ipmzoo_tpu.parallel.schur import SchurIPM as RefSchurIPM
 from ipmzoo_tpu_torch.models.convert import make_batch
 
@@ -266,8 +267,45 @@ def test_nd_mode(small, monkeypatch, spy):
     assert value64 == int(want.iterations)
 
 
+def mpc_env(monkeypatch):
+    for k, v in (("T", 6), ("NS", 3), ("NU", 2), ("BATCH", 16)):
+        monkeypatch.setenv(f"BENCH_MPC_{k}", str(v))
+
+
+def test_mpc_mode(small, monkeypatch, spy):
+    mpc_env(monkeypatch)
+    seen = spy(RefRiccatiIPM, "solve_batch")
+    ref_label, ref_value, ref_unit, _ = bench.bench_mpc("cpu")
+    label, value, unit, counts = bench_torch.run_mode("mpc", CPU)
+    assert unit == ref_unit == "iterations/s"
+    assert "16 structured MPC QPs fully solved" in label
+    assert "T=6, ns=3, nu=2, float32" in label
+    assert "100.0% converged" in ref_label and "100.0% converged" in label
+    assert counts["converged"] == 1.0 and value == counts["iterations"]
+    assert float(np.asarray(seen[0].iterations).sum()) == ref_value
+    assert abs(value - ref_value) <= 0.02 * ref_value
+    # the instances are bench.py's
+    ref = ref_random_mpc(horizon=6, n_states=3, n_controls=2, batch=16,
+                         seed=0, dtype=jnp.float32)
+    data, _ = bench_torch.mpc_problem(CPU)
+    np.testing.assert_array_equal(data.A.numpy(), np.asarray(ref.A))
+    np.testing.assert_array_equal(data.x0.numpy(), np.asarray(ref.x0))
+
+
+def test_mpc_mode_float64_iterations_equal(small, monkeypatch):
+    mpc_env(monkeypatch)
+    ref = RefRiccatiIPM(6, 3, 2, dtype=jnp.float64, tol=1e-5, max_iter=40)
+    want = ref.solve_batch(ref_random_mpc(horizon=6, n_states=3,
+                                          n_controls=2, batch=16, seed=0,
+                                          dtype=jnp.float64))
+    _, value, _, counts = bench_torch.bench_mpc(CPU, dtype=torch.float64)
+    np.testing.assert_array_equal(counts["result"].iterations.numpy(),
+                                  np.asarray(want.iterations))
+    assert value == float(np.asarray(want.iterations).sum())
+
+
 @pytest.mark.parametrize("mode,item", [
-    ("mpc", "item 14"), ("sharded", "item 16"), ("tf", "item 7")])
+    ("sharded", "item 16"), ("tf", "item 7")])
 def test_refused_modes_name_their_item(mode, item):
     with pytest.raises(NotImplementedError, match=item) as exc:
         bench_torch.run_mode(mode, CPU)
@@ -422,7 +460,8 @@ def test_unknown_mode_and_the_lists_of_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bench_torch.run_mode("nope", CPU)
     assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
-                                 "arrow", "nd", "normal", "aug")
+                                 "arrow", "nd", "normal", "aug", "mpc")
+    assert set(bench_torch.REFUSED) == {"sharded", "tf"}
     assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
 
 

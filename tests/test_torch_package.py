@@ -63,6 +63,12 @@ def test_port_imports_and_solves_without_jax():
         nd = p.CompiledIPM(fam.settings, n=fam.n, kernel="nd", nd_leaf=4,
                            nd_fallback=False, device="cpu")
         assert bool(nd.solve(fam.data).converged) and nd._mode == "nd"
+        from ipmzoo_tpu_torch.models.mpc import condense, random_mpc
+        mpc = p.RiccatiIPM(4, 2, 1, state_bounds=True, gondzio=1,
+                           device="cpu")
+        md = random_mpc(4, 2, 1, batch=2, state_bounds=True, device="cpu")
+        assert bool(mpc.solve_batch(md).converged.all())
+        assert condense(md, device="cpu")[0].batch_shape == (2,)
         jaxy = [m for m in sys.modules
                 if m in ("jax", "jaxlib", "ipmzoo_tpu")
                 or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
@@ -192,8 +198,12 @@ def test_kernel_build_is_keyed_by_source_and_flags():
 
 def test_schur_ipm_resolves_at_the_top_level():
     import ipmzoo_tpu_torch as port
+    from ipmzoo_tpu_torch.models import mpc
     from ipmzoo_tpu_torch.parallel.schur import SchurIPM
     assert port.SchurIPM is SchurIPM
+    # the MPC engine's names, as the reference exports them
+    for name in ("RiccatiIPM", "MPCData", "MPCSolveResult"):
+        assert getattr(port, name) is getattr(mpc, name)
     # the reference exports no BlockQPData at the top level either
     import ipmzoo_tpu as ref
     for name in ("BlockQPData", "NoSuchSolver"):
