@@ -43,8 +43,9 @@ Steps, each reported on its own line:
    matrix) at every (order, systems) of K3_SHAPES (the compact slice's
    batches, its float64 escalation, the Schur slice's H and S blocks, the
    nd slice's levels, the equality_qp slice's KKT (30, 64, float64),
-   the condensed MPC QP of step 43 (96, 8, float64) and the nd slice's
-   generic top, both over the warp route's cap) and
+   the condensed MPC QP of step 43 (96, 8, float64), the nd slice's
+   generic top, both over the warp route's cap, and the levels of step
+   44's side-96 plan) and
    of K3_EDGES in both types (n=1, odd orders, a batch that fills no
    tile, the cap 83 and 84), float32 within 1e-5 and float64 within
    1e-12, the largest difference between the two routes' x, and
@@ -193,7 +194,9 @@ Steps, each reported on its own line:
     of order <= 32; the split route, a block per matrix of order <= 64,
     the factor on one segment of lanes and the right-hand sides split
     across the block's segments) at those shapes, at the batch of 8's
-    levels (840, 64, 40), (224, 16, 48), (128, 16, 64) and at K5_EDGES
+    levels (840, 64, 40), (224, 16, 48), (128, 16, 64), at the levels of
+    step 44's side-96 plan (K5_SWEEP_LEVELS: (180, 64, 40), (64, 16, 56),
+    (28, 24, 72), (16, 24, 96), (6, 40, 96)) and at K5_EDGES
     (n=1, odd orders, batches that fill no whole block, n = 17, 33, 63,
     64, k = 1 and k not a multiple of the split route's 4 columns a
     group), L exactly unit-lower; and every route on an exactly-zero
@@ -220,7 +223,8 @@ Steps, each reported on its own line:
     against the port on the CPU in float64 (the library composition
     there): |f_gpu - f_cpu| <= 1e-4 (1 + |f_cpu|);
 27. time each K5 route at every shape of step 22's paths (the three nd
-    levels, one instance and the batch of 8, (10240, 32, 2) and
+    levels, one instance and the batch of 8, step 44's side-96
+    levels, (10240, 32, 2) and
     (3, 37, 5) in float32; (105, 64, 40) and (10240, 32, 2) also in
     float64) against its plain version, against K2 followed by K4 (the
     wrappers, their layout transposes included) and against
@@ -343,6 +347,20 @@ Steps, each reported on its own line:
     as in RiccatiIPM's solve, and on those u within 1e-6 of RiccatiIPM's
     and the objectives equal within 1e-6 (1 + |f|) up to the eliminated
     states' constant (the check of tests/test_mpc.py).
+44. the nd auto-fallback's cost model on the card:
+    chip_nd_crossover.py's measurement at grid sides 32, 64 and 96 (nd
+    against the dense 'auto' path, ms per step by the slope of two step
+    counts, median of three interleaved rounds) with the decisions of
+    ops/ndiss.py's constants and of the card's fit (CARD_FIT); at sides
+    32 and 64, whose readings lie well outside the timing noise, it fails
+    where the card's fit keeps nd at a measured speedup below 0.87 or
+    drops it above 1.2; side 96 lies inside that band: its ratio is
+    printed, and its plan's levels must be the shapes K5 and K3 are held
+    at in steps 4, 8, 22 and 27; then bench_nd's QP (side 64) through
+    CompiledIPM(kernel="nd") with its default fallback, launch counts set
+    to 0 just before and read just after: which path it took
+    (nd_fell_back, the mode), converged, and the objective within 1e-4
+    (1 + |f|) of step 24's nd solve.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -444,10 +462,17 @@ ND_SIDE, ND_LEAF, ND_BATCH = 64, 64, 8
 K5_LEVEL, K5_KKT = (105, 64, 40), (10240, 32, 2)
 #: the nd levels of the batch of 8 (step 25)
 K5_BATCH_LEVELS = ((840, 64, 40), (224, 16, 48), (128, 16, 64))
+#: step 44's sweep: its grid sides, those whose decision it gates (the
+#: readings of side 96 spread across the band, 0.855-1.211), the side of
+#: its levels below, and the levels of that side's plan under K5 (the
+#: signed top, the last level, takes two Cholesky stages)
+ND_SWEEP_SIDES, ND_GATED_SIDES, ND_SWEEP_SIDE = (32, 64, 96), (32, 64), 96
+K5_SWEEP_LEVELS = ((180, 64, 40), (64, 16, 56), (28, 24, 72), (16, 24, 96),
+                   (6, 40, 96))
 K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5)) + \
-    K5_BATCH_LEVELS
-#: the nd levels, one instance and the batch of 8
-K5_ND_LEVELS = K5_SHAPES[:3] + K5_BATCH_LEVELS
+    K5_BATCH_LEVELS + K5_SWEEP_LEVELS
+#: the nd levels: one instance, the batch of 8 and step 44's side 96
+K5_ND_LEVELS = K5_SHAPES[:3] + K5_BATCH_LEVELS + K5_SWEEP_LEVELS
 #: a shape over K5's shared-memory cap: the wrapper runs K2 then K4
 K5_OVER_CAP = (1, 328, 1)
 #: more shapes at which each K5 route is held to plain (step 22): n = 1,
@@ -483,14 +508,15 @@ K2_OVER_CAP = (328, 1)
 #: float64 escalation, the Schur slice's H and S blocks, the nd slice's
 #: three levels, the equality_qp slice's KKT ('regldlt', float64), the
 #: condensed MPC QP of step 43 (order 96, float64, over the warp route's
-#: cap) and the nd slice's generic top (order 328, over the warp route's
-#: shared memory)
+#: cap), the nd slice's generic top (order 328, over the warp route's
+#: shared memory) and the levels of step 44's side-96 plan
 K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
              (SCHUR_MC, SCHUR_I, "float64"), (64, 105, "float32"),
              (16, 28, "float32"), (16, 16, "float32"), (30, 64, "float64"),
-             (MPC_AUG, MPC_SMALL_BATCH, "float64"), (328, 1, "float32"))
+             (MPC_AUG, MPC_SMALL_BATCH, "float64"), (328, 1, "float32")) + \
+    tuple((n, B, "float32") for B, n, _ in K5_SWEEP_LEVELS)
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
@@ -2669,7 +2695,8 @@ def run_nd(what, solve, solver, n_inst):
 def run_nd_slice():
     """Steps 24-26: bench_nd's QP through CompiledIPM(kernel='nd') on the
     default device, one instance and a batch of ND_BATCH, and the
-    objectives against the port on the CPU in float64."""
+    objectives against the port on the CPU in float64.  Returns the
+    launches of the single solve and its objective."""
     import torch
     from ipmzoo_tpu_torch.models.families import grid_qp
     from ipmzoo_tpu_torch.models.state import tree_map
@@ -2705,7 +2732,86 @@ def run_nd_slice():
           "nd: the CPU f64 port did not converge")
     check(bool((rel <= 1e-4).all()), "nd: objectives disagree with the CPU "
           "f64 port")
-    return launches
+    return launches, float(res.objective)
+
+
+#: step 44's band of measured speedups (dense / nd ms per step) inside
+#: which the fallback may take either path: timing noise of the host-bound
+#: nd step
+ND_BAND = (0.87, 1.2)
+
+
+def run_nd_crossover(dev, nd_objective):
+    """Step 44: the fallback's cost model on the card.  The crossover
+    tool's measurement at ND_SWEEP_SIDES (the levels of ND_SWEEP_SIDE's
+    plan must be K5_SWEEP_LEVELS and the top); fails where, at a side of
+    ND_GATED_SIDES, the card's fit (chip_nd_crossover.CARD_FIT) keeps nd
+    at a measured speedup below ND_BAND or drops it above.  Then
+    bench_nd's QP through CompiledIPM(kernel='nd') with its default
+    fallback, the launch counts set to 0 just before the solve and read
+    just after: the path it took, converged, and its objective within
+    1e-4 (1 + |f|) of step 24's nd solve (``nd_objective``)."""
+    import torch
+    import chip_nd_crossover
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.models.families import grid_qp
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    t0 = time.perf_counter()
+    lo, hi = ND_BAND
+    for g in ND_SWEEP_SIDES:
+        r = chip_nd_crossover.measure_side(g, dev)
+        keeps = r["predicted_card"] >= 1.05
+        default = r["predicted_reference"] >= 1.05
+        print("nd crossover " + chip_nd_crossover.row_line(r) +
+              f"; the fallback {'keeps nd' if default else 'falls back'}"
+              f", the card's fit {'keeps nd' if keeps else 'falls back'}" +
+              ("" if g in ND_GATED_SIDES else " (not gated)") +
+              (f" (inside the band {lo}-{hi}: either path)"
+               if lo <= r["measured"] <= hi else ""))
+        if g == ND_SWEEP_SIDE:
+            check([tuple(x) for x in r["shapes"][:-1]] ==
+                  list(K5_SWEEP_LEVELS) and r["shapes"][-1][0] == 1,
+                  f"the levels of side {g} are {r['shapes']}, not the "
+                  f"shapes K5 and K3 are held at")
+        if g not in ND_GATED_SIDES:
+            continue
+        check(not (keeps and r["measured"] < lo),
+              f"g={g}: the card's fit keeps nd at a measured "
+              f"{r['measured']:.3f}x")
+        check(not (not keeps and r["measured"] > hi),
+              f"g={g}: the card's fit drops nd at a measured "
+              f"{r['measured']:.3f}x")
+
+    fam = grid_qp(side=ND_SIDE, seed=0, dtype=torch.float32)
+    solver = CompiledIPM(fam.settings, n=ND_SIDE * ND_SIDE,
+                         dtype=torch.float32, tol=1e-5, kernel="nd",
+                         nd_leaf=ND_LEAF)
+    cuda_ldlt.reset_launch_counts()
+    res = solver.solve(fam.data)
+    torch.cuda.synchronize()
+    launches = dict(cuda_ldlt.launches)
+    routes = {k: v for k, v in cuda_ldlt.route_launches.items() if v}
+    f = float(res.objective)
+    rel = abs(f - nd_objective) / (1.0 + abs(nd_objective))
+    print(f"nd with the default fallback g={ND_SIDE} n={solver.n}: "
+          f"nd_fell_back {solver.nd_fell_back}, mode '{solver._mode}', "
+          f"converged {bool(res.converged)} in {int(res.iterations)} "
+          f"iterations; launches {launches}, by route {routes}; objective "
+          f"{f:.6f} against step 24's {nd_objective:.6f}: "
+          f"|diff| / (1 + |f|) = {rel:.3e} (limit 1e-4)")
+    check(bool(res.converged), "nd with the default fallback did not "
+          "converge")
+    check(rel <= 1e-4, "nd with the default fallback: the objective "
+          "disagrees with step 24's")
+    if solver.nd_fell_back:
+        check(launches["ldlt_solve_matrix"] == 0, "the fallback still "
+              "launched K5")
+    else:
+        check(launches["ldlt_solve_matrix"] > 0 and
+              launches["solve_ldlt"] > 0, f"nd kept: K5 or K3 never "
+              f"launched ({launches})")
+    print(f"step 44: {time.perf_counter() - t0:.1f} s")
 
 
 #: K5's kernels by route, as launch_ms matches them
@@ -3853,7 +3959,7 @@ def main():
     errs.update(cr_errs)
     errs["ldlt_solve_matrix"], k5_errs = check_k5(dev)
     top_routes = check_nd_kkt()
-    nd_launches = run_nd_slice()
+    nd_launches, nd_objective = run_nd_slice()
     check(nd_launches["ldlt_solve_matrix split"] > 0, "the nd slice never "
           "launched K5's split route")
     k5_times = time_k5(dev)
@@ -3872,6 +3978,7 @@ def main():
     run_mpc_slice(dev)
     check_mpc_f64(dev)
     run_mpc_condensed(dev)
+    run_nd_crossover(dev, nd_objective)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")

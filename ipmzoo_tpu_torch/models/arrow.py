@@ -27,9 +27,10 @@ iteration for the whole batch (:mod:`ipmzoo_tpu_torch.ops.cuda_cr`).
 
 Where the reference is a pure function of one instance batched by
 ``vmap``, the methods here take a leading batch axis on every leaf;
-:meth:`ArrowIPM.solve` adds and removes it for one instance.  The loop
-asks the device once per iteration whether an instance is still active
-(``host_syncs``); finished and diverged instances are frozen.
+:meth:`ArrowIPM.solve` and ``init_state`` add and remove it for one
+instance.  The loop asks the device once per iteration whether an
+instance is still active (``host_syncs``); finished and diverged
+instances are frozen.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ from ..ops.banded import (ArrowStructure, arrow_factor_solve, arrow_solve,
                           band_to_blocks, check_method, detect_arrow)
 from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
-from .state import bad_iterate, step_ratio, tree_map, where_instances
+from .state import (bad_iterate, step_ratio, tree_map, where_instances,
+                    with_batch_axis, without_batch_axis)
 
 
 @dataclasses.dataclass
@@ -299,12 +301,26 @@ class ArrowIPM:
                     f"{shape} (N, b, t) = {(N, b, t)}")
         return data.to(dtype=self.dtype)
 
+    def _is_instance(self, data: ArrowQPData) -> bool:
+        """Whether ``data`` is one instance: c is (n,) there and (B, n) in
+        a batch, so a batch of one stays a batch."""
+        return data.c.dim() == 1
+
     def init_state(self, data: ArrowQPData,
                    warm_start: Optional[dict] = None) -> ArrowState:
-        """Bound midpoints / ones for a batch, or a warm start (a previous
-        ``ArrowSolveResult.variables``, in solver order): x is clipped
-        strictly inside the bounds, duals floored away from zero, the same
-        safeguards as :class:`CompiledIPM`."""
+        """Bound midpoints / ones for one instance or a batch, or a warm
+        start (a previous ``ArrowSolveResult.variables``, in solver
+        order): x is clipped strictly inside the bounds, duals floored
+        away from zero, the same safeguards as :class:`CompiledIPM`.  The
+        data is checked and cast to the solver's dtype as ``solve``
+        checks it."""
+        one = self._is_instance(data)
+        data = self._check_data(with_batch_axis(data, one))
+        return without_batch_axis(self._init_batch(data, warm_start), one)
+
+    def _init_batch(self, data: ArrowQPData,
+                    warm_start: Optional[dict] = None) -> ArrowState:
+        """``init_state`` on checked, batched data."""
         dt, dev = self.dtype, data.c.device
         B = data.c.shape[0]
         x = 0.5 * (data.l_x + data.u_x)
@@ -399,7 +415,7 @@ class ArrowIPM:
                     warm_start: Optional[dict] = None) -> ArrowSolveResult:
         """Solve every instance of a batch: the batched form of the
         reference's per-instance ``while_loop``."""
-        state = self.init_state(data, warm_start)
+        state = self._init_batch(data, warm_start)
         diverged = torch.zeros_like(state.residual, dtype=torch.bool)
         while True:
             active = ~self._done(state) & ~diverged & \
@@ -431,9 +447,8 @@ class ArrowIPM:
         """Solve one instance (fields without a batch axis);
         ``warm_start`` takes a previous result's ``variables`` dict
         (receding-horizon / homotopy pattern)."""
-        one = tree_map(lambda a: a.unsqueeze(0), data)
-        res = self._solve_impl(self._check_data(one), warm_start)
-        return tree_map(lambda a: a[0], res)
+        one = self._check_data(with_batch_axis(data, True))
+        return without_batch_axis(self._solve_impl(one, warm_start), True)
 
     def step(self, state: ArrowState, data: ArrowQPData) -> ArrowState:
         """One IPM iteration of a batch (leading batch axis on ``data``

@@ -26,6 +26,8 @@ instance that converged or diverged is frozen (its state re-enters
 unchanged), and a step that goes NaN/inf rolls back to the last good
 iterate.  The loop asks the device once per iteration whether any
 instance is still active; ``host_syncs`` counts those round trips.
+``init_state`` and ``step`` take one instance, as the reference's do, or
+a batch (:meth:`CompiledIPM._is_instance` tells them apart).
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ from .data import QPData
 from .directions import DirectionsMixin
 from .kernels import KernelDispatchMixin
 from .ndplan import NdPlanMixin
-from .state import (IPMState, SolveResult, bad_iterate, tree_map,
-                    where_instances)
+from .state import (IPMState, SolveResult, bad_iterate, where_instances,
+                    with_batch_axis, without_batch_axis)
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
@@ -419,12 +421,26 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     # iteration / loop
     # ------------------------------------------------------------------
 
+    def _is_instance(self, data: QPData) -> bool:
+        """Whether ``data`` is one instance: Q is (n, n) there and
+        (B, n, n) in a batch, so a batch of one stays a batch."""
+        return data.Q.dim() == 2
+
     def init_state(self, data: QPData,
                    warm_start: Optional[dict] = None) -> IPMState:
-        """The initial iterate of a batch: bound midpoints for x and s,
-        ones elsewhere.  ``warm_start`` maps variable names to starting
-        values broadcastable to (B, size); nonnegative variables are
-        kept at least 1e-2 from their bound."""
+        """The initial iterate of one instance or of a batch: bound
+        midpoints for x and s, ones elsewhere.  The data is checked and
+        cast to the solver's dtype as ``solve`` checks it.
+        ``warm_start`` maps variable names to starting values
+        broadcastable to (B, size); nonnegative variables are kept at
+        least 1e-2 from their bound."""
+        one = self._is_instance(data)
+        data = self._check_data(with_batch_axis(data, one))
+        return without_batch_axis(self._init_batch(data, warm_start), one)
+
+    def _init_batch(self, data: QPData,
+                    warm_start: Optional[dict] = None) -> IPMState:
+        """``init_state`` on checked, batched data."""
         o = self.symbols
         B = data.Q.shape[0]
         init = {
@@ -534,7 +550,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         """Solve every instance of a batch: the batched form of the
         reference's per-instance ``while_loop``."""
         self._ensure_nd_plan(data)
-        state = self.init_state(data, warm_start)
+        state = self._init_batch(data, warm_start)
         res_tol = self._res_tol(state)
         nd_pre = self._nd_prework(data)
 
@@ -564,14 +580,17 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
 
         ``warm_start``: optional dict of variable name -> initial value
         (e.g. a previous ``SolveResult.variables``)."""
-        one = tree_map(lambda t: t.unsqueeze(0), data)
-        res = self._solve_impl(self._check_data(one), warm_start)
-        return tree_map(lambda t: t[0], res)
+        one = self._check_data(with_batch_axis(data, True))
+        return without_batch_axis(self._solve_impl(one, warm_start), True)
 
     def step(self, state: IPMState, data: QPData) -> IPMState:
-        """One IPM iteration of a batch (leading batch axis on ``data``
-        and on every field of ``state``)."""
-        return self._step_impl(state, self._check_data(data))
+        """One IPM iteration of one instance, or of a batch (then a
+        leading batch axis on ``data`` and on every field of
+        ``state``)."""
+        one = self._is_instance(data)
+        data = self._check_data(with_batch_axis(data, one))
+        new = self._step_impl(with_batch_axis(state, one), data)
+        return without_batch_axis(new, one)
 
     def solve_batch(self, data: QPData) -> SolveResult:
         """Solve a batch of QPs (leading batch axis on every field)."""

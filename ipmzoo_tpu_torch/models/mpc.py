@@ -27,11 +27,11 @@ exactly the structure the Riccati recursion consumes.
 
 Where the reference is a pure function of one instance batched by
 ``vmap``, the methods here take a leading batch axis on every leaf
-(batch first, then the stage axis); :meth:`RiccatiIPM.solve` adds and
-removes it for one instance.  The loop asks the device once per
-iteration whether an instance is still active (``host_syncs``);
-converged, diverged and exhausted instances are frozen, as the
-reference's ``vmap(while_loop)`` freezes them.
+(batch first, then the stage axis); :meth:`RiccatiIPM.solve`,
+``init_state`` and ``step`` add and remove it for one instance.  The
+loop asks the device once per iteration whether an instance is still
+active (``host_syncs``); converged, diverged and exhausted instances are
+frozen, as the reference's ``vmap(while_loop)`` freezes them.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import torch
 from ..ops.riccati import riccati_factor, riccati_solve
 from ..utils.device import resolve_device
 from ..utils.precision import apply_default_matmul_precision
-from .state import bad_iterate, step_ratio, tree_map, where_instances
+from .state import (bad_iterate, step_ratio, tree_map, where_instances,
+                    with_batch_axis, without_batch_axis)
 
 
 @dataclasses.dataclass
@@ -277,13 +278,26 @@ class RiccatiIPM:
             names += ["lambda_gx", "lambda_hx"]
         return names
 
+    def _is_instance(self, data: MPCData) -> bool:
+        """Whether ``data`` is one instance: A is (T, ns, ns) there and
+        (B, T, ns, ns) in a batch, so a batch of one stays a batch."""
+        return data.A.dim() == 3
+
     def init_state(self, data: MPCData,
                    warm_start: Optional[dict] = None) -> MPCState:
         """Bound midpoints for u (and x under state bounds; otherwise the
         dynamics rollout, which zeroes the dynamics residual), ones for
         duals; or a warm start (a previous ``MPCSolveResult.variables``):
         u (and x under state bounds) clipped strictly inside the bounds,
-        duals floored away from zero.  Takes batched data."""
+        duals floored away from zero.  Takes one instance or a batch,
+        checked and cast to the solver's dtype as ``solve`` checks it."""
+        one = self._is_instance(data)
+        data = self._check_data(with_batch_axis(data, one))
+        return without_batch_axis(self._init_batch(data, warm_start), one)
+
+    def _init_batch(self, data: MPCData,
+                    warm_start: Optional[dict] = None) -> MPCState:
+        """``init_state`` on checked, batched data."""
         dt, dev = self.dtype, data.A.device
         Bn, T, ns, nu = data.A.shape[0], self.T, self.ns, self.nu
         u = 0.5 * (data.l_u + data.u_u)
@@ -430,7 +444,7 @@ class RiccatiIPM:
                     warm_start: Optional[dict] = None) -> MPCSolveResult:
         """Solve every instance of a batch: the batched form of the
         reference's per-instance ``while_loop``."""
-        state = self.init_state(data, warm_start)
+        state = self._init_batch(data, warm_start)
         diverged = torch.zeros_like(state.residual, dtype=torch.bool)
         while True:
             active = ~self._done(state) & ~diverged & \
@@ -463,14 +477,17 @@ class RiccatiIPM:
 
         ``warm_start``: a previous ``MPCSolveResult.variables``, the
         receding-horizon pattern (shift externally if desired)."""
-        one = tree_map(lambda a: a.unsqueeze(0), data)
-        res = self._solve_impl(self._check_data(one), warm_start)
-        return tree_map(lambda a: a[0], res)
+        one = self._check_data(with_batch_axis(data, True))
+        return without_batch_axis(self._solve_impl(one, warm_start), True)
 
     def step(self, state: MPCState, data: MPCData) -> MPCState:
-        """One IPM iteration of a batch (leading batch axis on ``data``
-        and on every field of ``state``)."""
-        return self._step_impl(state, self._check_data(data))
+        """One IPM iteration of one instance, or of a batch (then a
+        leading batch axis on ``data`` and on every field of
+        ``state``)."""
+        one = self._is_instance(data)
+        data = self._check_data(with_batch_axis(data, one))
+        new = self._step_impl(with_batch_axis(state, one), data)
+        return without_batch_axis(new, one)
 
     def solve_batch(self, data: MPCData) -> MPCSolveResult:
         """Batch of instances: every MPCData leaf carries a leading

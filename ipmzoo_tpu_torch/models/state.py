@@ -1,8 +1,8 @@
 """State and result containers of the batched solver, plus ``tree_map``
 over them (counterpart of :mod:`ipmzoo_tpu.models.state`), and the
-per-instance helpers every batched engine's loop shares: the select of
-frozen instances, the fraction-to-boundary ratio test and the test of a
-failed iterate."""
+per-instance helpers every batched engine shares: the batch axis added
+to one instance and stripped again, the select of frozen instances, the
+fraction-to-boundary ratio test and the test of a failed iterate."""
 
 from __future__ import annotations
 
@@ -52,6 +52,18 @@ def tree_map(fn, x, *rest):
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(x)})
     raise TypeError(f"tree_map: unsupported node {type(x).__name__}")
+
+
+def with_batch_axis(x, one: bool):
+    """``x`` with a leading batch axis of one on every tensor where
+    ``one`` (``x`` is one instance), else ``x`` as it is."""
+    return tree_map(lambda t: t.unsqueeze(0), x) if one else x
+
+
+def without_batch_axis(x, one: bool):
+    """The inverse of :func:`with_batch_axis`: the leading axis of every
+    tensor stripped where ``one``."""
+    return tree_map(lambda t: t[0], x) if one else x
 
 
 def where_instances(mask, old, new):

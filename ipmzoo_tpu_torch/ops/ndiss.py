@@ -48,7 +48,7 @@ atomics, so two solves of the same data give the same bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -110,14 +110,23 @@ class NDPlan:
 #:   t_nd    = ND_T_LEVEL * levels + 2 * flops_nd / ND_FLOP_RATE
 #:   t_dense = DENSE_T_FLOOR + DENSE_A * n^2 + DENSE_B * n^3
 #:
-#: The five values below are the JAX package's DECISION CONSTANTS, copied
-#: so that ``CompiledIPM(kernel="nd")`` falls back exactly where the
-#: reference does.  They were fitted on the reference's accelerator and
-#: are not times, rates or sizes of a CUDA card: nothing measured on the
-#: port enters them yet (recalibrating needs a dense comparator at
-#: n >= 384, which the port lacks).  The model's form (a per-level
-#: latency against a dense floor plus a cubic) holds on any accelerator
-#: with a dispatch floor.
+#: in seconds per IPM step.  The five values below are the JAX package's
+#: decision constants, copied so that ``CompiledIPM(kernel="nd")`` falls
+#: back exactly where the reference does; they are not times or rates of
+#: a CUDA card.  The card's own fit is kept beside the tool that made it,
+#: not used here: ``chip_nd_crossover.CARD_FIT``, from
+#: ``python3 chip_nd_crossover.py --fit`` on two runs of the tool's grid
+#: sweep (grid_qp sides 16-128, float32, tol 1e-5, nd_leaf 64, against
+#: the dense 'auto' mode) on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+#: limit.  Measured there, nd loses to the dense path up
+#: to side 80 (n = 6400; 0.44-0.88x), is inside the timing noise at side
+#: 96 (n = 9216; 0.855-1.211x, so the right decision there is a coin
+#: toss) and wins from side 112 (n = 12544; 1.54-3.67x): the values below
+#: keep nd on the grids where it loses.  The card's fit drops those plans
+#: but keeps one-level plans (a dense pattern), which lose there too: this
+#: form has no constant term for the nd step's own floor, and its fits to
+#: the card's rows, one-level rows pooled in or not, keep such plans
+#: (ROADMAP Queue 3, F2).
 ND_T_LEVEL = 3.2e-5
 ND_FLOP_RATE = 3.1e10
 DENSE_T_FLOOR = 2.3e-4
@@ -125,15 +134,36 @@ DENSE_A = 1.34e-10
 DENSE_B = 1.29e-14
 
 
-def nd_predicted_speedup(plan: NDPlan) -> float:
+def cost_model_constants() -> dict:
+    """The five constants above by name, as ``constants=`` takes them."""
+    return {"ND_T_LEVEL": ND_T_LEVEL, "ND_FLOP_RATE": ND_FLOP_RATE,
+            "DENSE_T_FLOOR": DENSE_T_FLOOR, "DENSE_A": DENSE_A,
+            "DENSE_B": DENSE_B}
+
+
+def cost_model_times(n: int, levels: int, flops_nd: float,
+                     constants: Optional[Mapping[str, float]] = None):
+    """(t_nd, t_dense) in seconds of the time model above for a plan of
+    order ``n`` with ``levels`` levels and ``flops_nd`` flops, under
+    ``constants`` (a mapping of the five names of
+    :func:`cost_model_constants`; None: this module's)."""
+    c = cost_model_constants() if constants is None else constants
+    t_nd = c["ND_T_LEVEL"] * levels + 2.0 * flops_nd / c["ND_FLOP_RATE"]
+    n = float(n)
+    return t_nd, c["DENSE_T_FLOOR"] + c["DENSE_A"] * n * n + \
+        c["DENSE_B"] * n ** 3
+
+
+def nd_predicted_speedup(plan: NDPlan,
+                         constants: Optional[Mapping[str, float]] = None
+                         ) -> float:
     """Predicted step speedup of the plan vs the dense factorisation
-    from the time model above.  > 1 means the plan is
-    predicted to win; CompiledIPM's auto-fallback refuses plans below
-    its threshold so a losing nd plan is never silently selected."""
-    t_nd = ND_T_LEVEL * len(plan.levels) + \
-        2.0 * plan.flops_nd / ND_FLOP_RATE
-    n = float(plan.n)
-    t_dense = DENSE_T_FLOOR + DENSE_A * n * n + DENSE_B * n ** 3
+    from the time model above (``constants``: see
+    :func:`cost_model_times`).  > 1 means the plan is predicted to win;
+    CompiledIPM's auto-fallback refuses plans below its threshold so a
+    losing nd plan is never silently selected."""
+    t_nd, t_dense = cost_model_times(plan.n, len(plan.levels),
+                                     plan.flops_nd, constants)
     return t_dense / max(t_nd, 1e-12)
 
 

@@ -40,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from ..models.state import tree_map
+from ..models.state import tree_map, with_batch_axis, without_batch_axis
 from ..utils.device import resolve_device
 from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto, solve_ldlt_matrix_auto
 from ..ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
@@ -298,9 +298,22 @@ class SchurIPM:
         new.residual, new.gap = self._metrics(data, new)
         return new
 
+    def _is_instance(self, data: BlockQPData) -> bool:
+        """Whether ``data`` is one coupled QP: g is (m_c,) there and
+        (I, m_c) in a batch, so a batch of one stays a batch."""
+        return data.g.dim() == 1
+
     def init_state(self, data: BlockQPData) -> SchurState:
-        """Box midpoints for x, unit duals, zero coupling duals; data with
-        the instance axis, in the compute dtype."""
+        """Box midpoints for x, unit duals, zero coupling duals, of one
+        coupled QP (leaves with a leading block axis) or of a batch (an
+        instance axis before it); the data is checked and cast to the
+        compute dtype as ``solve`` checks it."""
+        one = self._is_instance(data)
+        data = with_batch_axis(self._check(data, 0 if one else 1), one)
+        return without_batch_axis(self._init_batch(data), one)
+
+    def _init_batch(self, data: BlockQPData) -> SchurState:
+        """``init_state`` on checked data with the instance axis."""
         x = 0.5 * (data.l_x + data.u_x)
         ones = torch.ones_like(x)
         I = x.shape[0]
@@ -322,7 +335,7 @@ class SchurIPM:
     def _solve_loop(self, data: BlockQPData) -> SchurState:
         """Iterate every instance until it converges or reaches
         ``max_iter``; finished instances are frozen."""
-        st = self.init_state(data)
+        st = self._init_batch(data)
         while True:
             active = ~self._done(st) & (st.iteration < self.max_iter)
             self.host_syncs += 1
@@ -366,9 +379,9 @@ class SchurIPM:
 
     def solve(self, data: BlockQPData) -> SchurResult:
         """Solve one coupled QP (leaves with a leading block axis)."""
-        data = tree_map(lambda a: a[None], self._check(data, 0))
-        res = self._result(data, self._solve_loop(data))
-        return tree_map(lambda a: a[0], res)
+        data = with_batch_axis(self._check(data, 0), True)
+        return without_batch_axis(
+            self._result(data, self._solve_loop(data)), True)
 
     def solve_batch(self, datas: BlockQPData) -> SchurResult:
         """Solve a batch of independent coupled QPs: every leaf carries a

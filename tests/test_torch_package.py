@@ -348,7 +348,7 @@ def test_packaging_ships_the_headers_and_names_torch():
 # -- the import guard over the whole port -----------------------------------
 
 PORT_SCRIPTS = ("bench_torch.py", "chip_smoke.py", "chip_profile.py",
-                "chip_roofline.py", "chip_phases.py")
+                "chip_roofline.py", "chip_phases.py", "chip_nd_crossover.py")
 
 
 def test_no_port_file_imports_the_jax_side():
@@ -366,7 +366,7 @@ def test_measurement_modules_import_and_run_without_jax():
         import sys
         import torch
         import bench_torch, chip_phases, chip_profile, chip_roofline
-        import chip_smoke
+        import chip_nd_crossover, chip_smoke
         import ipmzoo_tpu_torch.utils as u
         from ipmzoo_tpu_torch.models import fused_phases as fp
         from ipmzoo_tpu_torch.ops import cuda_roofline as cr
@@ -382,6 +382,9 @@ def test_measurement_modules_import_and_run_without_jax():
         assert "IPMZOO_PHASE_ENTRY_POINTS" in fp.phase_source(s, 2)
         assert u.slope(lambda k: float(k), 1, 3) == 1.0
         assert chip_roofline.main() == 2 and chip_phases.main() == 2
+        assert chip_nd_crossover.main(["16"]) == 2
+        chip_nd_crossover.fit([dict(n=256, levels=2, flops_nd=5e5,
+                                    nd_ms=1.0, dense_ms=1.0)])
         loaded = [m for m in sys.modules
                   if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
                   or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu.",
