@@ -7,7 +7,7 @@ fit of the auto-fallback's cost model (ops/ndiss.py) to what it measured.
     python3 chip_nd_crossover.py --one-level [--out ROWS.json] [g1 ...]
     python3 chip_nd_crossover.py --fit ROWS.json [ROWS.json ...]
 
-For each grid side g (default 16 24 32 48 64 80 96 128): the port's
+For each grid side g (default 16 24 32 48 64 80 96 112 128): the port's
 ``grid_qp(side=g, seed=0)`` in float32 under
 ``CompiledIPM(kernel="nd", nd_leaf=64, nd_fallback=False, tol=1e-5)``
 and under the dense ``CompiledIPM(tol=1e-5)`` (kernel 'auto'); one IPM
@@ -16,8 +16,9 @@ and dense rounds interleaved, the median of three rounds
 (``bench_torch.dense_speedup``; the dense path must converge first).  One
 line a side: n, the plan's levels and ``flops_nd``, nd ms, dense ms and
 the dense mode, the measured speedup (dense / nd) and the cost model's
-predicted speedup under ops/ndiss.py's constants (the JAX package's)
-and under the card's fit, ``CARD_FIT``.  ``--one-level`` measures, at
+predicted speedup under the JAX package's constants
+(``ops/ndiss.py:REFERENCE_CONSTANTS``) and under the card's fit,
+``CARD_FIT`` (the port's default).  ``--one-level`` measures, at
 each side's n, the plan of a dense pattern (``nd_pattern`` all true: one
 level, the whole matrix one leaf) instead of the grid's (default sides
 14 20 32, n = 196, 400, 1024).  Once a side has taken more than 60 s, the
@@ -26,10 +27,10 @@ whose dense step does not fit the card's memory is reported and skipped.
 ``--out`` writes the rows, with the card's name and power limit, as JSON.
 
 ``--fit`` reads the rows of one or more such files (no card needed) and
-prints the five constants fitted to them: the dense rows by non-negative
+prints the six constants fitted to them: the dense rows by non-negative
 least squares on the relative error against (1, n^2, n^3), the nd rows
-likewise against (levels, 2 flops_nd); a term the fit sets to zero stays
-zero in the model's form (ND_FLOP_RATE = inf).  Beside them, each row's
+likewise against (1, levels, 2 flops_nd); a term the fit sets to zero
+stays zero in the model's form (ND_FLOP_RATE = inf).  Beside them, each row's
 relative error, the worst per dense mode and for nd, and the speedups the
 fitted model predicts.
 
@@ -46,7 +47,7 @@ import time
 
 import numpy as np
 
-DEFAULT_SIDES = (16, 24, 32, 48, 64, 80, 96, 128)
+DEFAULT_SIDES = (16, 24, 32, 48, 64, 80, 96, 112, 128)
 #: seconds a side may take before the larger sides are skipped
 SIDE_BUDGET_S = 60.0
 ND_LEAF, TOL = 64, 1e-5
@@ -57,13 +58,29 @@ STEPS = (2, 14)
 #: --one-level's sides: n = 196 (the fallback's range starts at 192),
 #: 400 and 1024
 ONE_LEVEL_SIDES = (14, 20, 32)
-#: the cost model's five constants fitted on an NVIDIA H100 80GB HBM3 at
-#: a 700.00 W power limit (``--fit`` on two runs of the grid sweep at
-#: twelve steps a slope).  The port's fallback does not use them: they
-#: keep one-level plans, which lose on the card (ROADMAP Queue 3, F2).
-CARD_FIT = {"ND_T_LEVEL": 2.6343e-3, "ND_FLOP_RATE": float("inf"),
-            "DENSE_T_FLOOR": 5.1424e-3, "DENSE_A": 5.1151e-11,
-            "DENSE_B": 8.6522e-15}
+#: the cost model's six constants fitted on an NVIDIA H100 80GB HBM3 at a
+#: 700.00 W power limit: ``--fit`` on two runs of the grid sweep (sides
+#: 16-128, twelve steps a slope) and two ``--one-level`` runs, pooled.
+#: ops/ndiss.py's module constants are these (the port's default).
+CARD_FIT = {"ND_T_STEP": 6.104551e-3, "ND_T_LEVEL": 1.283299e-3,
+            "ND_FLOP_RATE": 3.214237e11, "DENSE_T_FLOOR": 5.561362e-3,
+            "DENSE_A": 2.008866e-11, "DENSE_B": 1.079313e-14}
+
+
+#: measured speedups (dense / nd ms a step) inside which either path is
+#: right: the timing noise of the host-bound nd step (side 96's readings
+#: spread over 0.833-1.466 on the card)
+BAND = (0.87, 1.2)
+#: the predicted speedup from which CompiledIPM's auto-fallback keeps nd
+KEEP = 1.05
+
+
+def decides_wrong(measured, predicted):
+    """Whether the fallback's decision at a ``predicted`` speedup takes the
+    slower path at a row ``measured`` outside BAND."""
+    keeps = predicted >= KEEP
+    return (keeps and measured < BAND[0]) or (not keeps and
+                                              measured > BAND[1])
 
 
 def measure_side(g, device, one_level=False):
@@ -77,7 +94,8 @@ def measure_side(g, device, one_level=False):
     from ipmzoo_tpu_torch import CompiledIPM
     from ipmzoo_tpu_torch.models.families import grid_qp
     from ipmzoo_tpu_torch.models.state import with_batch_axis
-    from ipmzoo_tpu_torch.ops.ndiss import nd_predicted_speedup
+    from ipmzoo_tpu_torch.ops.ndiss import (REFERENCE_CONSTANTS,
+                                            nd_predicted_speedup)
 
     n = g * g
     fam = grid_qp(side=g, seed=0, dtype=torch.float32, device=device)
@@ -100,7 +118,8 @@ def measure_side(g, device, one_level=False):
                         lev.bnd.shape[1]] for lev in plan.levels],
             "nd_ms": t_nd, "dense_ms": t_dense, "dense_mode": dense._mode,
             "measured": t_dense / t_nd,
-            "predicted_reference": nd_predicted_speedup(plan),
+            "predicted_reference": nd_predicted_speedup(
+                plan, REFERENCE_CONSTANTS),
             "predicted_card": nd_predicted_speedup(plan, CARD_FIT),
             "plan_s": plan_s}
 
@@ -116,8 +135,8 @@ def row_line(r):
             f"flops_nd={r['flops_nd']:.3e}; nd {r['nd_ms']:.4f} ms vs dense "
             f"{r['dense_ms']:.4f} ms ('{r['dense_mode']}') = "
             f"{r['measured']:.3f}x measured; predicted "
-            f"{r['predicted_reference']:.3f}x (ops/ndiss.py's, the JAX "
-            f"package's constants), {r['predicted_card']:.3f}x (CARD_FIT)")
+            f"{r['predicted_reference']:.3f}x (the JAX package's constants), "
+            f"{r['predicted_card']:.3f}x (CARD_FIT, the port's default)")
 
 
 def sweep(sides, device, one_level=False):
@@ -170,17 +189,17 @@ def nnls_relative(X, t):
 
 
 def fit(rows):
-    """The five constants of the cost model fitted to ``rows`` (times in
+    """The six constants of the cost model fitted to ``rows`` (times in
     ms, as measure_side gives them)."""
     n = np.array([r["n"] for r in rows], float)
     t_dense = np.array([r["dense_ms"] for r in rows]) * 1e-3
     t_nd = np.array([r["nd_ms"] for r in rows]) * 1e-3
     floor, a, b = nnls_relative(np.stack([np.ones_like(n), n ** 2, n ** 3],
                                          axis=1), t_dense)
-    t_level, inv_rate = nnls_relative(np.stack(
-        [[float(r["levels"]) for r in rows],
+    t_step, t_level, inv_rate = nnls_relative(np.stack(
+        [np.ones_like(n), [float(r["levels"]) for r in rows],
          [2.0 * r["flops_nd"] for r in rows]], axis=1), t_nd)
-    return {"ND_T_LEVEL": float(t_level),
+    return {"ND_T_STEP": float(t_step), "ND_T_LEVEL": float(t_level),
             "ND_FLOP_RATE": float(1.0 / inv_rate) if inv_rate > 0
             else float("inf"),
             "DENSE_T_FLOOR": float(floor), "DENSE_A": float(a),
@@ -188,12 +207,14 @@ def fit(rows):
 
 
 def report_fit(rows, c):
-    """Print the fitted constants, each row's relative errors and the
-    worst per regime; returns the worst by regime."""
+    """Print the fitted constants, each row's relative errors, its
+    decision and whether that takes the slower path outside BAND, the
+    worst error per regime and the count of such rows; returns the worst
+    by regime."""
     from ipmzoo_tpu_torch.ops.ndiss import cost_model_times
     for k, v in c.items():
         print(f"{k} = {v!r}" if np.isfinite(v) else f'{k} = float("inf")')
-    worst = {}
+    worst, wrong = {}, 0
     for r in sorted(rows, key=lambda r: r["n"]):
         m_nd, m_dense = cost_model_times(r["n"], r["levels"],
                                          r["flops_nd"], c)
@@ -203,14 +224,18 @@ def report_fit(rows, c):
                                       e_dense)):
             worst[key] = max(worst.get(key, 0.0), abs(e))
         fitted = m_dense / m_nd
+        wrong += decides_wrong(r["measured"], fitted)
         print(f"{label(r)}: nd {r['nd_ms']:.4f} ms, "
               f"model {m_nd * 1e3:.4f} ({e_nd:+.3f}); dense "
               f"{r['dense_ms']:.4f} ms ('{r['dense_mode']}'), model "
               f"{m_dense * 1e3:.4f} ({e_dense:+.3f}); measured "
               f"{r['measured']:.3f}x, fitted model {fitted:.3f}x, "
-              f"{'keeps nd' if fitted >= 1.05 else 'falls back'}")
+              f"{'keeps nd' if fitted >= KEEP else 'falls back'}"
+              + (" WRONG" if decides_wrong(r["measured"], fitted) else ""))
     for key, e in worst.items():
         print(f"worst relative error, {key}: {e:.3f}")
+    print(f"rows outside {BAND[0]}-{BAND[1]} decided for the slower path: "
+          f"{wrong} of {len(rows)}")
     return worst
 
 

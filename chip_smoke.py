@@ -82,8 +82,11 @@ Steps, each reported on its own line:
    lanes per instance, state in shared memory) at 16 and at 32 lanes;
    report each build's time and ptxas' registers, stack frame and
    spills, and for the team route its threads a block, bytes of shared
-   memory a team and teams resident per SM, float32 and float64 (the
-   builds run beside step 3's, all nvcc processes started together);
+   memory a team and teams resident per SM, float32 and float64; and
+   K1's wide route (one warp an instance, csrc/fused_wide.cuh) for each
+   formulation and sizes of step 45, with its threads a block, workspace
+   values an instance and blocks resident per SM (the builds run beside
+   step 3's, all nvcc processes started together);
 10. hold K1's thread route against its plain version on the card at
     B=10240: a cold solve_fused(max_iter=14), a warm resume of its
     output and a cold solve with gondzio=2; float64 iterations equal on
@@ -348,19 +351,50 @@ Steps, each reported on its own line:
     and the objectives equal within 1e-6 (1 + |f|) up to the eliminated
     states' constant (the check of tests/test_mpc.py).
 44. the nd auto-fallback's cost model on the card:
-    chip_nd_crossover.py's measurement at grid sides 32, 64 and 96 (nd
+    chip_nd_crossover.py's measurement at grid sides 32, 64 and 96 and at
+    the one-level plans of a dense pattern of order 196, 400 and 1024 (nd
     against the dense 'auto' path, ms per step by the slope of two step
-    counts, median of three interleaved rounds) with the decisions of
-    ops/ndiss.py's constants and of the card's fit (CARD_FIT); at sides
-    32 and 64, whose readings lie well outside the timing noise, it fails
-    where the card's fit keeps nd at a measured speedup below 0.87 or
-    drops it above 1.2; side 96 lies inside that band: its ratio is
-    printed, and its plan's levels must be the shapes K5 and K3 are held
-    at in steps 4, 8, 22 and 27; then bench_nd's QP (side 64) through
-    CompiledIPM(kernel="nd") with its default fallback, launch counts set
-    to 0 just before and read just after: which path it took
-    (nd_fell_back, the mode), converged, and the objective within 1e-4
-    (1 + |f|) of step 24's nd solve.
+    counts, median of three interleaved rounds) with the decisions of the
+    port's default constants (ops/ndiss.py: the card's fit, CARD_FIT) and
+    of the JAX package's; at grid sides 32 and 64 and the one-level 400
+    and 1024, whose readings lie well outside the timing noise, it fails
+    where the default keeps nd at a measured speedup below 0.87 or drops
+    it above 1.2; grid side 96 and the one-level 196 lie inside or near
+    that band: their ratios are printed, and side 96's plan's levels must
+    be the shapes K5 and K3 are held at in steps 4, 8, 22 and 27; then
+    bench_nd's QP (side 64) through CompiledIPM(kernel="nd") with its
+    default fallback, launch counts set to 0 just before and read just
+    after: it must fall back to 'blockg' (no K5 launch), converge, and
+    give the objective within 1e-4 (1 + |f|) of step 24's nd solve.
+
+45. hold K1's wide route (csrc/fused_wide.cuh: one warp an instance, its
+    TeamLayout region in a device-memory workspace) against its plain
+    version at WIDE_SHAPES: portfolio(n_assets=128) (aug 129) at B=1024,
+    the default formulation at n=128, m_ineq=64 (aug 192) at B=512 and
+    portfolio(n_assets=256) (aug 257) at B=256, each a cold
+    solve_fused(max_iter=14), a warm resume and a cold gondzio=2 solve:
+    float64 at tol 1e-6 iterations equal and x within 1e-10; float32 at
+    the shape's first decade above its float32 floor (1e-5 on the
+    portfolios, 1e-4 at aug 192) iterations equal on >= 99% and x within
+    1e-4 on instances converged in both at equal iterations; float32 at
+    tol 1e-6, at or below those floors, printed only (the summation order
+    decides there on which iteration some instances cross:
+    wide_contraction_spread); two launches of the cold solve
+    bit-identical; k1_route must pick the wide
+    route there and the team route at the fused slice's launches; the
+    cold launch timed in both types against the plain version and its
+    bound;
+46. the wide slice: FusedBatchedIPM(portfolio settings, n=128, m_eq=1,
+    float32, tol=1e-6).solve_fused_compact() (the default schedule and
+    esc_cap=32) on portfolio(n_assets=128, batch=4096, seed=0), launch
+    counts set to 0 just before and read just after: >= 99.9% converged,
+    finite x, K1 launched on the wide route and on no other, objectives
+    within 1e-4 (1 + |f|) of the port's CPU float64 solve on the first 64
+    instances, the wall by CUDA events (median of 5 after the counted
+    run), launches by route and host syncs; then the same solve with
+    every instance a straggler after three fused iterations, whose
+    float64 escalation and Gondzio tail must factor by the panel-blocked
+    LDL^T on K2.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -402,6 +436,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_ldlt_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "fused": "ipmzoo_tpu/models/fused.py:432",
             "fused team": "ipmzoo_tpu/models/fused.py:432",
+            "fused wide": "ipmzoo_tpu/models/fused.py:432",
             "solve_ldlt_matrix warp": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "ldlt_solve_matrix split": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
@@ -432,6 +467,24 @@ K1_TEAM_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
                   "ipmzoo_tpu_torch/models/fused_source.py")
 #: the team sizes timed against each other (step 13)
 K1_LANES = (16, 32)
+K1_WIDE_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_wide.cuh + "
+                  "ipmzoo_tpu_torch/models/codegen_team.py + "
+                  "ipmzoo_tpu_torch/models/fused_source.py")
+#: step 45's shapes of K1's wide route, (n, m_ineq, m_eq, batch, float32
+#: tolerance): m_eq = 1 is portfolio(n_assets=n) (aug n + 1), m_eq = 0 the
+#: default formulation on make_batch's QPs (aug n + m_ineq).  The float32
+#: tolerance is the shape's first decade above its float32 floor, where
+#: step 10's float32 limits hold: at or below it the residual stalls near
+#: the tolerance (~1e-6 on the portfolios, ~1.2e-5 at aug 192) and the
+#: summation order decides on which iteration an instance crosses, the
+#: plain version's on the card against its own on the CPU too
+#: (wide_contraction_spread)
+WIDE_SHAPES = ((128, 0, 1, 1024, 1e-5), (128, 64, 0, 512, 1e-4),
+               (256, 0, 1, 256, 1e-5))
+#: step 46's batch of portfolio(n_assets=128, seed=0)
+WIDE_SLICE_B = 4096
 CR_SOURCE = "ipmzoo_tpu_torch/csrc/cr.cu"
 ROOFLINE_SOURCE = "ipmzoo_tpu_torch/csrc/roofline.cu"
 #: bench_arrow's defaults: variables, half-bandwidth, arrow tip; and the
@@ -462,11 +515,16 @@ ND_SIDE, ND_LEAF, ND_BATCH = 64, 64, 8
 K5_LEVEL, K5_KKT = (105, 64, 40), (10240, 32, 2)
 #: the nd levels of the batch of 8 (step 25)
 K5_BATCH_LEVELS = ((840, 64, 40), (224, 16, 48), (128, 16, 64))
-#: step 44's sweep: its grid sides, those whose decision it gates (the
-#: readings of side 96 spread across the band, 0.855-1.211), the side of
-#: its levels below, and the levels of that side's plan under K5 (the
+#: step 44's sweep: (side, one level) of its rows, a grid's plan or the
+#: one-level plan of a dense pattern of the same order; those whose
+#: decision it gates (the readings of grid side 96 spread across the band,
+#: 0.833-1.466, and those of the one-level n = 196 reach 0.940); the side
+#: of its levels below, and the levels of that side's plan under K5 (the
 #: signed top, the last level, takes two Cholesky stages)
-ND_SWEEP_SIDES, ND_GATED_SIDES, ND_SWEEP_SIDE = (32, 64, 96), (32, 64), 96
+ND_SWEEP = ((32, False), (64, False), (96, False), (14, True), (20, True),
+            (32, True))
+ND_GATED = ((32, False), (64, False), (20, True), (32, True))
+ND_SWEEP_SIDE = 96
 K5_SWEEP_LEVELS = ((180, 64, 40), (64, 16, 56), (28, 24, 72), (16, 24, 96),
                    (6, 40, 96))
 K5_SHAPES = (K5_LEVEL, (28, 16, 48), (16, 16, 64), K5_KKT, (3, 37, 5)) + \
@@ -1356,6 +1414,7 @@ def build_kernels():
     cpu_solver = fused_solver("cpu", torch.float32)
     src = cpu_solver.kernel_source()
     team_srcs = team_sources(cpu_solver)
+    wide_srcs = wide_sources()
     phase_srcs = chip_phases.phase_sources()
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
@@ -1367,6 +1426,9 @@ def build_kernels():
     for p, text in enumerate(phase_srcs):
         libs[f"phase{p}"] = _build.generated_library_path("fused_phase",
                                                           text)
+    for key, text in wide_srcs.items():
+        libs[f"wide{key}"] = _build.generated_library_path("fused_wide",
+                                                           text)
     cached = {k: p.exists() for k, p in libs.items()}
     jobs = {"ldlt": cuda_ldlt._lib, "cr": cuda_cr._lib,
             "roofline": cuda_roofline._lib,
@@ -1377,6 +1439,9 @@ def build_kernels():
     for p, text in enumerate(phase_srcs):
         jobs[f"phase{p}"] = lambda t=text: cuda_fused.library(t,
                                                               "fused_phase")
+    for key, text in wide_srcs.items():
+        jobs[f"wide{key}"] = lambda t=text: cuda_fused.library(t,
+                                                               "fused_wide")
     seconds = build_all(jobs)
     print_build(SOURCE, libs["ldlt"], cached["ldlt"], seconds["ldlt"])
     print_build(CR_SOURCE, libs["cr"], cached["cr"], seconds["cr"])
@@ -1397,6 +1462,7 @@ def build_kernels():
                   f"threads a block, {sh['team_bytes']} bytes of shared "
                   f"memory a team, {sh['teams_per_sm']} teams resident per "
                   f"SM")
+    report_wide_builds(wide_srcs, libs, cached, seconds)
     print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
                 seconds["roofline"])
     for p in range(len(phase_srcs)):
@@ -1491,6 +1557,58 @@ def team_sources(solver):
     return {lanes: fused_team_source(solver, lanes) for lanes in K1_LANES}
 
 
+def wide_case(n, m, e, B, dtype, device, tol=1e-6):
+    """(solver, data) of a WIDE_SHAPES row at batch ``B``: e = 1 is
+    portfolio(n_assets=n, batch=B, seed=0), e = 0 make_batch(B, n, m)
+    under Settings(); FusedBatchedIPM at ``tol``, its other settings the
+    defaults."""
+    from ipmzoo_tpu_torch import Settings
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.models.families import portfolio
+    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+    if e:
+        fam = portfolio(n_assets=n, batch=B, seed=0, dtype=dtype,
+                        device=device)
+        settings, data = fam.settings, fam.data
+    else:
+        settings, data = Settings(), make_batch(B, n, m, dtype,
+                                                device=device)
+    return FusedBatchedIPM(settings, n, m, e, dtype=dtype, tol=tol,
+                           device=device), data
+
+
+def wide_sources():
+    """The wide route's sources at WIDE_SHAPES, by (n, m_ineq, m_eq) (the
+    text depends on neither the batch nor the type)."""
+    import torch
+    return {shape[:3]: wide_case(*shape[:3], 1, torch.float32,
+                                 "cpu")[0].kernel_source("wide")
+            for shape in WIDE_SHAPES}
+
+
+def report_wide_builds(srcs, libs, cached, seconds):
+    """Step 9, the wide route: each build's time, ptxas' report and what
+    the build is (threads a block, workspace values an instance, blocks
+    resident per SM) in both types."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    for key, text in srcs.items():
+        k = f"wide{key}"
+        print_build(f"K1 wide route n={key[0]} m_ineq={key[1]} m_eq={key[2]}"
+                    f" (generated fused_wide, {len(text.splitlines())} "
+                    f"lines)", libs[k], cached[k], seconds[k])
+        lib = cuda_fused.library(text, "fused_wide")
+        for dtype in (torch.float32, torch.float64):
+            sh = cuda_fused.wide_shape(lib, dtype)
+            print(f"build: K1 wide route n={key[0]} m_ineq={key[1]} "
+                  f"m_eq={key[2]} {str(dtype).replace('torch.', '')}: "
+                  f"{sh['threads']} threads a block, {sh['region']} values "
+                  f"of workspace an instance, {sh['blocks_per_sm']} blocks "
+                  f"resident per SM")
+            check(sh["lanes"] == 32 and sh["blocks_per_sm"] > 0,
+                  f"the wide route's build is {sh}")
+
+
 def record_k1_calls(solver, data):
     """The fused slice's K1 launches: (data, state, max_iter, gondzio) of
     each solve_fused call that solve_fused_compact(esc_cap=32) makes on
@@ -1535,33 +1653,48 @@ def k1_launcher(solver, call, route, source=None):
                                         solver.kernel_params(), route)
 
 
-def hold_k1(label, k, p, dtype, tol):
+def hold_k1(label, k, p, dtype, tol, f32_checks=None):
     """Hold one K1 result dict to the plain version's by step 10's
     limits; prints the reading and returns the largest absolute x
-    difference on the instances converged in both."""
+    difference on the instances converged in both.  ``f32_checks``: which
+    of "iterations" (equal on >= 99% of instances), "x" (within 1e-4 of
+    the largest |x| on the instances converged in both) and "x at equal
+    iterations" (the same on those of them that took as many iterations
+    in both) a float32 result must pass; by default step 10's,
+    "iterations" at tol 1e-5 and "x" at other tolerances."""
     import torch
     B = k["x"].shape[0]
-    n_same = int((k["iterations"] == p["iterations"]).sum())
+    same = (k["iterations"] == p["iterations"]).cpu()
+    n_same = int(same.sum())
     conv = (k["converged"] & p["converged"]).cpu()
     dx = (k["x"] - p["x"]).abs().cpu()
     scale = p["x"].abs().max().item()
-    rel_all = dx.max().item() / scale
-    rel_conv = (dx[conv].max().item() / scale) if conv.any() else 0.0
+
+    def rel(mask):
+        return (dx[mask].max().item() / scale) if mask.any() else 0.0
+    rel_all, rel_conv, rel_eq = dx.max().item() / scale, rel(conv), \
+        rel(conv & same)
     print(f"{label}: iterations equal on {n_same}/{B}, converged in both "
           f"{int(conv.sum())}, rel diff x all {rel_all:.3e}, on converged "
-          f"{rel_conv:.3e}")
+          f"{rel_conv:.3e}, on converged at equal iterations {rel_eq:.3e}")
     check(bool(torch.isfinite(k["x"]).all()), f"{label}: non-finite x")
     if dtype == torch.float64:
         check(n_same == B, f"{label}: iterations differ from the plain "
               f"version")
         check(rel_all <= 1e-10, f"{label}: x differs from the plain version "
               f"by {rel_all:.3e}")
-    elif tol == 1e-5:
-        check(n_same >= 0.99 * B, f"{label}: iterations equal on only "
-              f"{n_same} instances")
     else:
-        check(rel_conv <= 1e-4, f"{label}: x differs by {rel_conv:.3e} on "
-              f"converged instances")
+        if f32_checks is None:
+            f32_checks = ("iterations",) if tol == 1e-5 else ("x",)
+        if "iterations" in f32_checks:
+            check(n_same >= 0.99 * B, f"{label}: iterations equal on only "
+                  f"{n_same} instances")
+        if "x" in f32_checks:
+            check(rel_conv <= 1e-4, f"{label}: x differs by {rel_conv:.3e} "
+                  f"on converged instances")
+        if "x at equal iterations" in f32_checks:
+            check(rel_eq <= 1e-4, f"{label}: x differs by {rel_eq:.3e} on "
+                  f"instances converged at equal iterations")
     return dx[conv].max().item() if conv.any() else 0.0
 
 
@@ -1706,16 +1839,26 @@ def compare_cpu_fused(data, out):
           "port")
 
 
+def k1_bound(solver, soa, outs):
+    """K1's bound for a launch on the SoA inputs ``soa`` that gave
+    ``outs``: its inputs and outputs moved once, and for each iteration
+    its instances took the LDL^T factor of the augmented system (N^3/3
+    multiply-adds, N the augmented order), two solves (N^2 each) and four
+    evaluations of Q x, A x and A^T y."""
+    n, a = solver.n, solver.aug_dim
+    rows = solver.m_ineq + solver.m_eq
+    per_it = 2 * a ** 3 / 3 + 4 * a ** 2 + 4 * (2 * n * n + 4 * rows * n)
+    return bound(sum(t.numel() for t in soa) + sum(t.numel() for t in outs),
+                 float(outs[2][0].sum()) * per_it, soa[0].dtype)
+
+
 def time_fused(dev):
     """Step 13: K1's routes alone.
 
     (a) The thread route, the team route (at its default lanes) and the
     plain version at one cold solve_fused(max_iter=14), float32, at each
     batch of K1_BATCHES, by CUDA events, on SoA inputs made once, with
-    K1's bound.  The bound counts its inputs and outputs once, and for
-    each iteration this run's instances take: the LDL^T factor of the
-    augmented system (N^3/3 multiply-adds, N = n + m), two solves (N^2
-    each) and four evaluations of Q x, A x and A^T y.
+    K1's bound (k1_bound).
 
     (b) The thread route and the team route at each size of K1_LANES at
     the fused slice's four launches (recorded as in step 34) and at a
@@ -1741,15 +1884,10 @@ def time_fused(dev):
              "K1_plain": time_cuda(lambda: solver._fused_plain(
                  soa, None, 14, 0), 2)}
         outs = thread()
-        its = float(outs[2][0].sum())
-        n, m = 16, 8
-        per_it = 2 * N_AUG ** 3 / 3 + 4 * N_AUG ** 2 + \
-            4 * (2 * n * n + 4 * m * n)
-        t["bound"] = bound(sum(a.numel() for a in soa) +
-                           sum(a.numel() for a in outs), its * per_it,
-                           torch.float32)
-        print(f"K1 bound B={B}: {int(its)} instance-iterations, "
-              f"{t['bound'][0]:.6f} ms by {t['bound'][1]}")
+        t["bound"] = k1_bound(solver, soa, outs)
+        print(f"K1 bound B={B}: {int(outs[2][0].sum())} "
+              f"instance-iterations, {t['bound'][0]:.6f} ms by "
+              f"{t['bound'][1]}")
         out[B] = t
         print(f"timing K1 cold solve_fused(max_iter=14) B={B} float32 "
               f"(ms per call, CUDA events): thread route {t['K1']:.4f}, "
@@ -1784,6 +1922,229 @@ def time_fused(dev):
                   f"{other:.4f}")
             out[(name, k1_call_name(call))] = t
     return out
+
+
+def check_fused_wide(dev):
+    """Step 45: K1's wide route against its plain version on the card at
+    WIDE_SHAPES (portfolio aug 129, B=1024; the default formulation at
+    n=128, m_ineq=64, aug 192, B=512; portfolio aug 257, B=256), each a
+    cold solve_fused(max_iter=14), a warm resume (max_iter=16) and a cold
+    gondzio=2 solve.  float64 at tol 1e-6: iterations equal on every
+    instance and x within 1e-10 (step 10's limits).  float32 at the
+    shape's tolerance above its floor (WIDE_SHAPES): iterations equal on
+    >= 99% and x within 1e-4 on the instances converged in both at equal
+    iterations.  float32 at the fused slice's tol 1e-6, at or below these
+    shapes' floor, is printed only: there the summation order decides on
+    which iteration some instances cross, and one more iteration moves x
+    by up to 1e-2 of its largest entry (wide_contraction_spread).
+    Two launches of the cold solve must be bit-identical.  k1_route must
+    pick the wide route at every shape, and the team route at the fused
+    slice's launches.  Then each
+    shape's cold max_iter=14 launch timed by CUDA events in both types
+    (mean of 3 behind a warm-up) at the shape's float32 tolerance and
+    tol 1e-6 in float64, the plain version in float32 (one call), and
+    the bound (k1_bound).  Returns the timings by shape and type, and the
+    largest float32 x difference of each shape's gated cold launch."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused
+
+    for dtype in (torch.float32, torch.float64):
+        sizes = fused_solver("cpu", dtype).k1_sizes()
+        for B in K1_BATCHES + (32,):
+            route = cuda_fused.k1_route(B, sizes, dtype)
+            check(route == "team", f"k1_route takes the {route} route at "
+                  f"the fused slice's B={B} {dtype}")
+    times, errs = {}, {}
+    for n, m, e, B, tol32 in WIDE_SHAPES:
+        for dtype, tol, gate in ((torch.float64, 1e-6, None),
+                                 (torch.float32, tol32,
+                                  ("iterations", "x at equal iterations")),
+                                 (torch.float32, 1e-6, ())):
+            solver, data = wide_case(n, m, e, B, dtype, dev, tol)
+            route = cuda_fused.k1_route(B, solver.k1_sizes(), dtype)
+            name = (f"n={n} m_ineq={m} m_eq={e} aug {solver.aug_dim} B={B} "
+                    f"{str(dtype).replace('torch.', '')} tol={tol:g}")
+            check(route == "wide", f"k1_route takes the {route} route at "
+                  f"{name}")
+            cold_call = (data, None, 14, 0)
+            cold = solver.soa_result(k1_launcher(solver, cold_call,
+                                                 "wide")())
+            state = {k: cold[k] for k in ("variables", "mu", "iterations")}
+            for what, call in (("cold max_iter=14", cold_call),
+                               ("warm resume max_iter=16",
+                                (data, state, 16, 0)),
+                               ("cold gondzio=2", (data, None, 14, 2))):
+                k = solver.soa_result(k1_launcher(solver, call, "wide")())
+                if call is cold_call:
+                    check(all(torch.equal(k[f], cold[f]) for f in
+                              ("x", "variables", "iterations")),
+                          f"{name}: two launches of the cold solve differ")
+                p = solver.soa_result(solver._fused_plain(
+                    *solver.soa_inputs(*call[:2]), *call[2:]))
+                torch.cuda.synchronize()
+                err = hold_k1(f"K1 wide route vs plain {name} {what}"
+                              + (" (not gated)" if gate == () else ""), k,
+                              p, dtype, tol, gate)
+                if what.startswith("cold max") and gate:
+                    errs[(n, m, e, B)] = err
+            if gate == ():
+                continue
+            wide = k1_launcher(solver, cold_call, "wide")
+            soa, _ = solver.soa_inputs(data)
+            t = {"K1_wide": time_cuda(wide, 3),
+                 "bound": k1_bound(solver, soa, wide())}
+            if dtype == torch.float32:
+                t["K1_plain"] = time_cuda(lambda: solver._fused_plain(
+                    soa, None, 14, 0), 1)
+            print(f"timing K1 wide route cold solve_fused(max_iter=14) "
+                  f"{name} (ms per call, CUDA events): wide route "
+                  f"{t['K1_wide']:.4f}" +
+                  (f", plain {t['K1_plain']:.4f}" if "K1_plain" in t
+                   else "") +
+                  f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+            times[(n, m, e, B, str(dtype).replace("torch.", ""))] = t
+    return times, errs
+
+
+def wide_contraction_spread(dev=None):
+    """What step 45's float32 spread comes from (run alone, not by
+    main()): at each WIDE_SHAPES row and float32 tol 1e-6, 1e-5 and 1e-4,
+    a cold solve_fused(max_iter=14) by K1's wide route as step 9 builds it
+    and as built without FMA contraction (nvcc --fmad=false), each held
+    to the plain version on the card, and the plain version on the card
+    held to the plain version on the CPU (the first 128 instances), all
+    printed by hold_k1 with no gate."""
+    import torch
+    from chip_roofline import banner, build_all
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops import _build, cuda_fused
+    dev = dev or banner("chip_smoke", "the spread is measured")
+    srcs = wide_sources()
+    # the text names the flag, so the library cache keys the build apart
+    plain_flags = _build.NVCC_FLAGS
+    _build.NVCC_FLAGS = plain_flags + ("--fmad=false",)
+    try:
+        nofma = {k: t + "\n// built with --fmad=false\n"
+                 for k, t in srcs.items()}
+        build_all({f"nofma{k}": lambda t=t: cuda_fused.library(
+            t, "fused_wide") for k, t in nofma.items()})
+    finally:
+        _build.NVCC_FLAGS = plain_flags
+    build_all({f"wide{k}": lambda t=t: cuda_fused.library(t, "fused_wide")
+               for k, t in srcs.items()})
+    for n, m, e, B, _ in WIDE_SHAPES:
+        for tol in (1e-6, 1e-5, 1e-4):
+            solver, data = wide_case(n, m, e, B, torch.float32, dev, tol)
+            name = (f"n={n} m_ineq={m} m_eq={e} aug {solver.aug_dim} B={B} "
+                    f"float32 tol={tol:g} cold max_iter=14")
+            call = (data, None, 14, 0)
+            p = solver.soa_result(solver._fused_plain(
+                *solver.soa_inputs(data), 14, 0))
+            for what, src in (("FMA", srcs[(n, m, e)]),
+                              ("no FMA", nofma[(n, m, e)])):
+                k = solver.soa_result(k1_launcher(solver, call, "wide",
+                                                  src)())
+                torch.cuda.synchronize()
+                hold_k1(f"spread: K1 wide route ({what}) vs plain {name}", k,
+                        p, torch.float32, tol, ())
+            sub = tree_map(lambda a: a[:128].cpu(), data)
+            cpu = wide_case(n, m, e, 128, torch.float32, "cpu", tol)[0]
+            c = cpu.soa_result(cpu._fused_plain(*cpu.soa_inputs(sub), 14, 0))
+            hold_k1(f"spread: plain on the card vs on the CPU {name}, first "
+                    f"128", {f: v[:128].cpu() for f, v in p.items()}, c,
+                    torch.float32, tol, ())
+
+
+def run_wide_slice(dev):
+    """Step 46: the wide slice, FusedBatchedIPM(portfolio settings,
+    n=128, m_eq=1, float32, tol=1e-6).solve_fused_compact() (the default
+    schedule, esc_cap=32) on portfolio(n_assets=128, batch=WIDE_SLICE_B,
+    seed=0), launch counts set to 0 just before and read just after: >=
+    99.9% converged, finite x, K1 launched on the wide route (and on no
+    other); objectives within 1e-4 (1 + |f|) of the port's CPU float64
+    solve on the first 64 instances; the wall by CUDA events (median of 5
+    after the counted run), launches by route and host syncs.  Then the
+    same solve with every instance left a straggler after three fused
+    iterations (schedule [(3, 1)], no fused tail): the float64 escalation
+    and the Gondzio tail factor by the panel-blocked LDL^T (its panels on
+    K2); printed, and it must launch that path.  Returns the counted
+    run's launches by route and its wall."""
+    import torch
+    from ipmzoo_tpu_torch.models.families import portfolio
+    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops import cuda_fused, cuda_ldlt
+
+    n, B = 128, WIDE_SLICE_B
+    fam = portfolio(n_assets=n, batch=B, seed=0, dtype=torch.float32,
+                    device=dev)
+    solver = FusedBatchedIPM(fam.settings, n, 0, 1, dtype=torch.float32,
+                             tol=1e-6, device=dev)
+    solver.kernel_source("wide")
+    cuda_fused.reset_launch_counts()
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    out = solver.solve_fused_compact(fam.data)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in {**cuda_fused.route_launches,
+                                  **cuda_ldlt.route_launches}.items() if v}
+    syncs = solver.host_syncs
+    x = out["x"]
+    conv = out["converged"].float().mean().item()
+    print(f"wide slice: portfolio n_assets={n} aug {solver.aug_dim} B={B} "
+          f"float32 tol=1e-6 max_iter={solver.max_iter} schedule "
+          f"{solver.default_fused_schedule(B)} esc_cap=32: converged "
+          f"{conv:.6f} ({int(out['converged'].sum())}/{B}), iterations "
+          f"{int(out['iterations'].sum().item())}; launches by route "
+          f"{launches}; escalated instances {int(solver.escalated)}; host "
+          f"syncs {syncs}")
+    check(tuple(x.shape) == (B, n), f"wide slice x shape {tuple(x.shape)}")
+    check(bool(torch.isfinite(x).all()), "wide slice: non-finite x")
+    check(conv >= 0.999, f"wide slice convergence {conv} < 0.999")
+    check(launches.get("fused wide", 0) > 0, "the wide slice never launched "
+          "K1's wide route")
+    check(not launches.get("fused team") and not launches.get(
+        "fused thread"), f"the wide slice launched K1 off the wide route: "
+          f"{launches}")
+    med = time_solves(lambda: solver.solve_fused_compact(fam.data), 5)
+    print(f"wide slice: wall ms per solve (CUDA events, 5 runs after the "
+          f"counted one) median {med:.3f}")
+
+    k = 64
+    sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
+                   fam.data)
+    cpu = FusedBatchedIPM(fam.settings, n, 0, 1, dtype=torch.float64,
+                          tol=1e-8, bt=k, device="cpu").solve_fused_compact(sub)
+    f_cpu = objective(sub, cpu["x"])
+    f_gpu = objective(sub, x[:k])
+    both = cpu["converged"] & out["converged"][:k].cpu()
+    worst = ((f_gpu - f_cpu).abs() / (1.0 + f_cpu.abs()))[both].max().item()
+    print(f"wide slice cpu f64 check: {int(both.sum())}/{k} instances "
+          f"converged in both; largest |f_gpu - f_cpu| / (1 + |f_cpu|) = "
+          f"{worst:.3e} (limit 1e-4)")
+    check(bool(cpu["converged"].all()), "CPU f64 wide port did not converge")
+    check(int(both.sum()) >= 0.99 * k, "too few instances to compare")
+    check(worst <= 1e-4, "wide slice objectives disagree with the CPU f64 "
+          "port")
+
+    cuda_fused.reset_launch_counts()
+    cuda_ldlt.reset_launch_counts()
+    tail = solver.solve_fused_compact(fam.data, schedule=[(3, 1)],
+                                      fused_tail=False)
+    torch.cuda.synchronize()
+    t_launches = {k: v for k, v in {**cuda_fused.route_launches,
+                                    **cuda_ldlt.route_launches}.items()
+                  if v}
+    print(f"wide slice, stragglers forced (schedule [(3, 1)], no fused "
+          f"tail): converged {int(tail['converged'].sum())}/{B} (the "
+          f"escalation takes 32, the Gondzio tail 128); launches by route "
+          f"{t_launches}")
+    check(t_launches.get("ldlt blocked", 0) > 0 and
+          t_launches.get("ldlt block", 0) > 0, "the escalation and the tail "
+          "did not factor by the panel-blocked LDL^T on K2")
+    check(bool(torch.isfinite(tail["x"]).all()), "forced stragglers: "
+          "non-finite x")
+    return launches, med
 
 
 def schur_data(dev):
@@ -2735,53 +3096,50 @@ def run_nd_slice():
     return launches, float(res.objective)
 
 
-#: step 44's band of measured speedups (dense / nd ms per step) inside
-#: which the fallback may take either path: timing noise of the host-bound
-#: nd step
-ND_BAND = (0.87, 1.2)
-
-
 def run_nd_crossover(dev, nd_objective):
     """Step 44: the fallback's cost model on the card.  The crossover
-    tool's measurement at ND_SWEEP_SIDES (the levels of ND_SWEEP_SIDE's
-    plan must be K5_SWEEP_LEVELS and the top); fails where, at a side of
-    ND_GATED_SIDES, the card's fit (chip_nd_crossover.CARD_FIT) keeps nd
-    at a measured speedup below ND_BAND or drops it above.  Then
-    bench_nd's QP through CompiledIPM(kernel='nd') with its default
-    fallback, the launch counts set to 0 just before the solve and read
-    just after: the path it took, converged, and its objective within
-    1e-4 (1 + |f|) of step 24's nd solve (``nd_objective``)."""
+    tool's measurement at the rows of ND_SWEEP (the levels of grid side
+    ND_SWEEP_SIDE's plan must be K5_SWEEP_LEVELS and the top); fails
+    where, at a row of ND_GATED, the default constants (ops/ndiss.py, the
+    card's fit chip_nd_crossover.CARD_FIT) keep nd at a measured speedup
+    below chip_nd_crossover.BAND or drop it above.  Then bench_nd's QP
+    (grid side 64, gated: the default falls back there) through
+    CompiledIPM(kernel='nd') with its default fallback, the launch counts
+    set to 0 just before the solve and read just after: the path it took
+    (the fallback, to 'blockg'), converged, and its objective within 1e-4
+    (1 + |f|) of step 24's nd solve (``nd_objective``)."""
     import torch
-    import chip_nd_crossover
+    import chip_nd_crossover as tool
     from ipmzoo_tpu_torch import CompiledIPM
     from ipmzoo_tpu_torch.models.families import grid_qp
     from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.ops.ndiss import cost_model_times
 
     t0 = time.perf_counter()
-    lo, hi = ND_BAND
-    for g in ND_SWEEP_SIDES:
-        r = chip_nd_crossover.measure_side(g, dev)
-        keeps = r["predicted_card"] >= 1.05
-        default = r["predicted_reference"] >= 1.05
-        print("nd crossover " + chip_nd_crossover.row_line(r) +
-              f"; the fallback {'keeps nd' if default else 'falls back'}"
-              f", the card's fit {'keeps nd' if keeps else 'falls back'}" +
-              ("" if g in ND_GATED_SIDES else " (not gated)") +
+    lo, hi = tool.BAND
+    for g, one_level in ND_SWEEP:
+        r = tool.measure_side(g, dev, one_level)
+        t_nd, t_dense = cost_model_times(r["n"], r["levels"], r["flops_nd"])
+        predicted = t_dense / t_nd
+        keeps = predicted >= tool.KEEP
+        gated = (g, one_level) in ND_GATED
+        print("nd crossover " + tool.row_line(r) +
+              f"; the default {'keeps nd' if keeps else 'falls back'}"
+              f" ({predicted:.3f}x), the JAX package's constants "
+              f"{'keep nd' if r['predicted_reference'] >= tool.KEEP else 'fall back'}"
+              + ("" if gated else " (not gated)") +
               (f" (inside the band {lo}-{hi}: either path)"
                if lo <= r["measured"] <= hi else ""))
-        if g == ND_SWEEP_SIDE:
+        if g == ND_SWEEP_SIDE and not one_level:
             check([tuple(x) for x in r["shapes"][:-1]] ==
                   list(K5_SWEEP_LEVELS) and r["shapes"][-1][0] == 1,
                   f"the levels of side {g} are {r['shapes']}, not the "
                   f"shapes K5 and K3 are held at")
-        if g not in ND_GATED_SIDES:
-            continue
-        check(not (keeps and r["measured"] < lo),
-              f"g={g}: the card's fit keeps nd at a measured "
-              f"{r['measured']:.3f}x")
-        check(not (not keeps and r["measured"] > hi),
-              f"g={g}: the card's fit drops nd at a measured "
-              f"{r['measured']:.3f}x")
+        if gated:
+            check(not tool.decides_wrong(r["measured"], predicted),
+                  f"{tool.label(r)}: the default "
+                  f"{'keeps' if keeps else 'drops'} nd at a measured "
+                  f"{r['measured']:.3f}x")
 
     fam = grid_qp(side=ND_SIDE, seed=0, dtype=torch.float32)
     solver = CompiledIPM(fam.settings, n=ND_SIDE * ND_SIDE,
@@ -2804,13 +3162,11 @@ def run_nd_crossover(dev, nd_objective):
           "converge")
     check(rel <= 1e-4, "nd with the default fallback: the objective "
           "disagrees with step 24's")
-    if solver.nd_fell_back:
-        check(launches["ldlt_solve_matrix"] == 0, "the fallback still "
-              "launched K5")
-    else:
-        check(launches["ldlt_solve_matrix"] > 0 and
-              launches["solve_ldlt"] > 0, f"nd kept: K5 or K3 never "
-              f"launched ({launches})")
+    check(solver.nd_fell_back and solver._mode == "blockg",
+          f"g={ND_SIDE}: the default kept nd or took "
+          f"'{solver._mode}', not the fallback to 'blockg'")
+    check(launches["ldlt_solve_matrix"] == 0, f"the fallback still "
+          f"launched K5 ({launches})")
     print(f"step 44: {time.perf_counter() - t0:.1f} s")
 
 
@@ -3979,6 +4335,8 @@ def main():
     check_mpc_f64(dev)
     run_mpc_condensed(dev)
     run_nd_crossover(dev, nd_objective)
+    w_times, w_errs = check_fused_wide(dev)
+    w_launches, _ = run_wide_slice(dev)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
@@ -4001,6 +4359,8 @@ def main():
     b64 = ldlt_bounds(SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
                       torch.float64)
     k1 = k1_times[B_SLICE]
+    w_shape = WIDE_SHAPES[0][:4]
+    w1 = w_times[w_shape + ("float32",)]
     k1_lanes = team_lanes(fused_solver("cpu", torch.float32))
     kw = k5_times[K5_KKT + ("float32",)]
     ct, ct32 = cr_times[("float32", 1)], cr_times[("float32", ARROW_BATCH)]
@@ -4054,6 +4414,13 @@ def main():
               f"float32, cold max_iter=14, B={B_SLICE})", K1_TEAM_SOURCE,
               "fused team", f_launches["fused team"], k1["K1_team"],
               k1["K1_plain"], k1["bound"], None),
+        # launches: the wide slice's (step 46), at portfolio aug 129
+        entry("K1 wide route (one warp an instance; generated; float32, "
+              "tol %g, cold max_iter=14, portfolio n=%d aug %d, B=%d)"
+              % (WIDE_SHAPES[0][4], w_shape[0], w_shape[0] + 1, w_shape[3]),
+              K1_WIDE_SOURCE,
+              "fused wide", w_launches["fused wide"], w1["K1_wide"],
+              w1["K1_plain"], w1["bound"], None, w_errs[w_shape]),
         # the thread route's launches on the slice's path: k4_route takes
         # it only at small orders (below 6, more at large batches) and
         # over the warp route's 96 rows

@@ -248,11 +248,17 @@ IPM_FN void team_ldlt(const Team<T>& tm, T* K, T* D, T pivot_floor) {
   }
 }
 
+// Orders up to which team_ldlt_solve unrolls its sweeps whole; above it
+// (the wide route, fused_wide.cuh) a sweep unrolls only over the lanes'
+// slots and loops over the columns of each.
+constexpr int kUnrolledSolve = 128;
+
 // Solve L D L^T x = b in place (b in shared memory) against team_ldlt's
 // factors: x in registers, entry i in lane i % kLanes, x_j broadcast by
-// shuffle; forward, diagonal and backward sweeps.  A lane reads and
-// writes only its own entries of b, so one barrier, after the writes,
-// is enough.
+// shuffle; forward, diagonal and backward sweeps, column j after column
+// j - 1 (forward) or j + 1 (backward) whatever the loop's shape.  A lane
+// reads and writes only its own entries of b, so one barrier, after the
+// writes, is enough.
 template <typename T, int N>
 IPM_FN void team_ldlt_solve(const Team<T>& tm, const T* K, const T* D,
                             T* b) {
@@ -263,13 +269,30 @@ IPM_FN void team_ldlt_solve(const Team<T>& tm, const T* K, const T* D,
     const int i = tm.lane + p * kLanes;
     x[p] = i < N ? b[i] : T(0);
   }
+  if constexpr (N <= kUnrolledSolve) {
 #pragma unroll
-  for (int j = 0; j < N - 1; ++j) {
-    const T xj = team_shfl(tm, x[j / kLanes], j % kLanes);
+    for (int j = 0; j < N - 1; ++j) {
+      const T xj = team_shfl(tm, x[j / kLanes], j % kLanes);
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tm.lane + p * kLanes;
-      if (i > j && i < N) x[p] -= K[tri(i, j)] * xj;
+      for (int p = 0; p < P; ++p) {
+        const int i = tm.lane + p * kLanes;
+        if (i > j && i < N) x[p] -= K[tri(i, j)] * xj;
+      }
+    }
+  } else {
+    // column j = q kLanes + c lives in slot q of lane c; rows below it in
+    // slots q and up
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      for (int c = 0; c < kLanes && q * kLanes + c < N - 1; ++c) {
+        const int j = q * kLanes + c;
+        const T xj = team_shfl(tm, x[q], c);
+#pragma unroll
+        for (int p = q; p < P; ++p) {
+          const int i = tm.lane + p * kLanes;
+          if (i > j && i < N) x[p] -= K[tri(i, j)] * xj;
+        }
+      }
     }
   }
 #pragma unroll
@@ -277,13 +300,30 @@ IPM_FN void team_ldlt_solve(const Team<T>& tm, const T* K, const T* D,
     const int i = tm.lane + p * kLanes;
     if (i < N) x[p] = x[p] / D[i];
   }
+  if constexpr (N <= kUnrolledSolve) {
 #pragma unroll
-  for (int j = N - 1; j > 0; --j) {
-    const T xj = team_shfl(tm, x[j / kLanes], j % kLanes);
+    for (int j = N - 1; j > 0; --j) {
+      const T xj = team_shfl(tm, x[j / kLanes], j % kLanes);
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int i = tm.lane + p * kLanes;
-      if (i < j) x[p] -= K[tri(j, i)] * xj;
+      for (int p = 0; p < P; ++p) {
+        const int i = tm.lane + p * kLanes;
+        if (i < j) x[p] -= K[tri(j, i)] * xj;
+      }
+    }
+  } else {
+    // rows above column j lie in slots q and below
+#pragma unroll
+    for (int q = P - 1; q >= 0; --q) {
+      for (int c = kLanes - 1; c >= 0; --c) {
+        const int j = q * kLanes + c;
+        if (j >= N || j == 0) continue;
+        const T xj = team_shfl(tm, x[q], c);
+#pragma unroll
+        for (int p = 0; p <= q; ++p) {
+          const int i = tm.lane + p * kLanes;
+          if (i < j) x[p] -= K[tri(j, i)] * xj;
+        }
+      }
     }
   }
 #pragma unroll

@@ -62,6 +62,14 @@ def lane_vec(name: str, size: int) -> LaneVec:
     return LaneVec(size, at, name)
 
 
+def _lane_entry(x, i: str) -> str:
+    """Entry ``i`` of an operand in a loop over the result's entries.  A
+    lane-local operand has the loop's size (:meth:`CppTeam._broadcastable`
+    shares a broadcast one first), so it is read at the loop's own entry,
+    also where both are one entry long."""
+    return x.at(i) if isinstance(x, LaneVec) else _entry(x, i)
+
+
 def team_loop(size: int, body: str) -> str:
     """One statement over the lane's own entries of a ``size``-entry
     vector: ``i`` is the entry, ``p`` its slot in the lane's arrays."""
@@ -129,15 +137,15 @@ class CppTeam(CppSoA):
         size = _broadcast(self.size(a), self.size(b))
         a = self._broadcastable(a, size)
         b = self._broadcastable(b, size)
-        return self.vec_tmp(size, lambda i: f"{_entry(a, i)} {op} "
-                                            f"{_entry(b, i)}")
+        return self.vec_tmp(size, lambda i: f"{_lane_entry(a, i)} {op} "
+                                            f"{_lane_entry(b, i)}")
 
     def dot(self, a: CVec, b: CVec) -> CScalar:
         n = _broadcast(a.size, b.size)
         a = self._broadcastable(a, n)
         b = self._broadcastable(b, n)
         return CScalar(self._reduce(
-            n, lambda k: f"{_entry(a, k)} * {_entry(b, k)}"))
+            n, lambda k: f"{_lane_entry(a, k)} * {_lane_entry(b, k)}"))
 
     # -- matrices: every vector inside is read at any index ----------------
 

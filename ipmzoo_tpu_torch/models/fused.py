@@ -5,9 +5,11 @@ in one kernel launch (counterpart of :mod:`ipmzoo_tpu.models.fused`).
 instance reads its data once and runs every iteration (KKT assembly,
 in-place LDL^T, predictor, ratio tests, centering, corrector, Gondzio
 rounds, update, convergence test) without returning to the host, on one
-of two routes that ``ops/cuda_fused.k1_route`` picks per launch: a thread
-per instance (``csrc/fused_ipm.cuh``) or a team of 16 or 32 lanes per
-instance with its state in shared memory (``csrc/fused_team.cuh``).
+of three routes that ``ops/cuda_fused.k1_route`` picks per launch: a
+thread per instance (``csrc/fused_ipm.cuh``), a team of 16 or 32 lanes
+per instance with its state in shared memory (``csrc/fused_team.cuh``),
+or, above augmented order 128 where four teams do not fit a block, a warp
+per instance with its state in device memory (``csrc/fused_wide.cuh``).
 For CPU tensors it runs K1's plain version, :meth:`_fused_plain`, which
 evaluates the same steps on the whole batch with the batch on the
 trailing axis (SoA), as the reference's kernel body does for a tile.
@@ -18,7 +20,8 @@ residual environments with the Taylor corrector, the augmented
 right-hand side, back-substitution, Gondzio targets) take an emitter:
 :class:`.codegen_soa.TorchSoA` runs them on tensors, and
 :mod:`.fused_source` passes :class:`.codegen_soa.CppSoA` to print them as
-K1's generated C++ (:class:`.codegen_team.CppTeam` for the team route).
+K1's generated C++ (:class:`.codegen_team.CppTeam` for the team and wide
+routes).
 The hand-written parts (the LDL^T, the ratio tests, the step and the
 loop) are written here in torch and for each route in its header.
 
@@ -39,12 +42,10 @@ from ..ops import cuda_fused
 from . import codegen_soa as soa
 from .data import QPData
 from .fused_compact import FusedCompactMixin
-from .fused_source import fused_source, fused_team_source
+from .fused_source import fused_source, fused_team_source, \
+    fused_wide_source
 from .ipm import CompiledIPM
 from .state import tree_map
-
-_ROADMAP_WIDE = ("ROADMAP.md Queue 1 item 11f (the fused engine at "
-                 "aug_dim > 128)")
 
 #: the QPData fields, in the order of the kernel's data arguments
 DATA_FIELDS = ("Q", "c", "A_ineq", "l_A_ineq", "u_A_ineq", "A_eq", "b_eq",
@@ -112,20 +113,17 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
     here it sets only the replicate-padding granularity of the public
     entries and the capacities of the compaction stages, so that every
     stage gathers the same instances as the reference.  It is not a CUDA
-    block size.  The Gondzio safety-net tail runs the base class's
-    dense LDL^T (kernels K2/K3 on the card), which for ``aug_dim <= 128``
-    computes what the reference's ``ldlt_blocked`` does."""
+    block size.  The Gondzio safety-net tail and the float64 escalation
+    run the base class's dense LDL^T, ``ldlt_auto``: the column LDL^T
+    (kernels K2/K3 on the card) up to order 128 and above it the
+    panel-blocked LDL^T (its diagonal panels on K2), which is what the
+    reference's ``kernel="jnp"`` tail computes at every order."""
 
     def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
                  m_eq: int = 0, *, bt: int = 512, **kw):
         kw.setdefault("dtype", torch.float32)
         kw.setdefault("kernel", "ldlt")
         super().__init__(settings, n, m_ineq, m_eq, **kw)
-        if self.aug_dim > 128:
-            raise NotImplementedError(
-                f"aug_dim={self.aug_dim}: the reference's tail solver "
-                f"switches to its panel-blocked LDL^T above 128, and K1 has "
-                f"no route at that size: see {_ROADMAP_WIDE}")
         self.bt = bt
         #: K1's generated sources, by route
         self._kernel_sources: dict = {}
@@ -452,13 +450,19 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
     # -- K1 ---------------------------------------------------------------
 
     def kernel_source(self, route: str = "thread") -> str:
-        """K1's C++ source of ``route`` ("thread" or "team") for this
-        formulation and these sizes (generated once per solver)."""
+        """K1's C++ source of ``route`` ("thread", "team" or "wide") for
+        this formulation and these sizes (generated once per solver)."""
         src = self._kernel_sources.get(route)
         if src is None:
-            make = {"thread": fused_source, "team": fused_team_source}
+            make = {"thread": fused_source, "team": fused_team_source,
+                    "wide": fused_wide_source}
             if route not in make:
                 raise ValueError(f"K1 has no route {route!r}")
+            if route == "thread" and self.aug_dim > cuda_fused.THREAD_MAX_AUG:
+                raise ValueError(
+                    f"K1's thread route keeps the packed factor of order "
+                    f"{self.aug_dim} in each thread's local memory: it is "
+                    f"built only up to order {cuda_fused.THREAD_MAX_AUG}")
             src = self._kernel_sources[route] = make[route](self)
         return src
 

@@ -10,7 +10,9 @@ hand-written ``csrc/fused_ipm.cuh`` together with the entry points: the
 thread route.  :func:`fused_team_source` makes the same walk with
 :class:`.codegen_team.CppTeam` (the same functions for a team of lanes,
 the data staged in shared memory) around ``csrc/fused_team.cuh``: the
-team route.
+team route.  :func:`fused_wide_source` prints the team route's text at
+32 lanes followed by ``csrc/fused_wide.cuh``: the wide route, one warp an
+instance with its region in device memory.
 The text depends only on the formulation and the sizes (and
 ``taylor``), never on the dtype or the solver's scalar settings, which
 are run-time arguments: one build serves both float32 and float64.
@@ -41,6 +43,7 @@ from .codegen_team import CppTeam, staged_matrix, staged_stride
 
 CUH = Path(__file__).resolve().parents[1] / "csrc" / "fused_ipm.cuh"
 TEAM_CUH = CUH.with_name("fused_team.cuh")
+WIDE_CUH = CUH.with_name("fused_wide.cuh")
 
 _PARAMS = "const Data<T>& dat, const Params<T>& prm"
 _TEAM_PARAMS = ("const Team<T>& tm, const Staged<T>& dat, "
@@ -410,6 +413,26 @@ def fused_source(solver) -> str:
            "IPMZOO_FUSED_ENTRY_POINTS(ipmzoo_fused::Form)", ""])
 
 
+def _team_text(solver, what: str, lanes: int, headers, entry: str) -> str:
+    """A source of the team walk: the head naming ``what``, ``lanes`` a
+    team, ``csrc/fused_ipm.cuh`` and the hand-written ``headers``, the
+    ``struct Form`` printed by :class:`.codegen_team.CppTeam` and the
+    entry-point macro ``entry``."""
+    g = _TeamGenerator(solver)
+    body = _struct(g)
+    head = ([f"// Kernel K1, {what}, generated by "
+             "ipmzoo_tpu_torch/models/fused_source.py."]
+            + describe(solver, g.total)
+            + [f"#define IPMZOO_TEAM_LANES {lanes}",
+               '#line 1 "fused_ipm.cuh"', CUH.read_text()])
+    for h in headers:
+        head += [f'#line 1 "{h.name}"', h.read_text()]
+    return "\n".join(
+        head + ['#line 1 "generated"', "namespace ipmzoo_fused {", ""]
+        + body + ["}  // namespace ipmzoo_fused", "",
+                  f"{entry}(ipmzoo_fused::Form)", ""])
+
+
 def fused_team_source(solver, lanes: int = None) -> str:
     """K1's team route for ``solver``'s formulation and sizes:
     ``csrc/fused_ipm.cuh`` (types and scalar helpers),
@@ -421,16 +444,15 @@ def fused_team_source(solver, lanes: int = None) -> str:
     lanes = team_lanes(solver) if lanes is None else lanes
     if lanes not in (16, 32):
         raise ValueError(f"a team is 16 or 32 lanes, not {lanes}")
-    g = _TeamGenerator(solver)
-    body = _struct(g)
-    head = (["// Kernel K1, team route, generated by "
-             "ipmzoo_tpu_torch/models/fused_source.py."]
-            + describe(solver, g.total)
-            + [f"#define IPMZOO_TEAM_LANES {lanes}",
-               '#line 1 "fused_ipm.cuh"'])
-    return "\n".join(
-        head + [CUH.read_text(), '#line 1 "fused_team.cuh"',
-                TEAM_CUH.read_text(), '#line 1 "generated"',
-                "namespace ipmzoo_fused {", ""] + body
-        + ["}  // namespace ipmzoo_fused", "",
-           "IPMZOO_FUSED_TEAM_ENTRY_POINTS(ipmzoo_fused::Form)", ""])
+    return _team_text(solver, "team route", lanes, (TEAM_CUH,),
+                      "IPMZOO_FUSED_TEAM_ENTRY_POINTS")
+
+
+def fused_wide_source(solver) -> str:
+    """K1's wide route for ``solver``'s formulation and sizes: the team
+    route's text at 32 lanes (``csrc/fused_ipm.cuh``,
+    ``csrc/fused_team.cuh``, the same ``struct Form``), then
+    ``csrc/fused_wide.cuh`` and the entry points ``ipmzoo_fused_wide_*``
+    (one warp an instance, the region in a device-memory workspace)."""
+    return _team_text(solver, "wide route", 32, (TEAM_CUH, WIDE_CUH),
+                      "IPMZOO_FUSED_WIDE_ENTRY_POINTS")

@@ -1,10 +1,13 @@
 """Kernel K1, the fused whole-solve IPM: the ctypes wrapper.
 
-K1 has two routes, each a source generated per formulation
+K1 has three routes, each a source generated per formulation
 (``models/fused_source.py``): the thread route, one thread per instance,
-printed around ``csrc/fused_ipm.cuh``, and the team route, a team of 16
-or 32 lanes per instance with its state in shared memory, printed around
-``csrc/fused_team.cuh``.  :func:`k1_route` picks one per launch.  Each is
+printed around ``csrc/fused_ipm.cuh``; the team route, a team of 16 or 32
+lanes per instance with its state in shared memory, printed around
+``csrc/fused_team.cuh``; and the wide route, one warp per instance with
+its state in a device-memory workspace that :func:`call` allocates,
+printed around the team code and ``csrc/fused_wide.cuh``.
+:func:`k1_route` picks one per launch.  Each is
 built with nvcc at first use and loaded here.  :func:`fused_soa` takes
 SoA tensors on a CUDA device (batch on the last axis, as the solver lays
 them out), allocates the outputs and launches K1 once on the current
@@ -31,16 +34,19 @@ import torch
 from . import _build
 
 #: kernel launches since the last :func:`reset_launch_counts`, per TPU
-#: kernel: K1 on either route ("fused") and T3; ``route_launches`` counts
+#: kernel: K1 on any route ("fused") and T3; ``route_launches`` counts
 #: K1's per route
 launches = {"fused": 0, "phase": 0}
-route_launches = {"fused thread": 0, "fused team": 0}
+route_launches = {"fused thread": 0, "fused team": 0, "fused wide": 0}
 
-#: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``) or a team
-#: of lanes per instance (``csrc/fused_team.cuh``): entry points and
-#: library names
-_ENTRY = {"thread": "ipmzoo_fused", "team": "ipmzoo_fused_team"}
-_LIB_NAME = {"thread": "fused_ipm", "team": "fused_team"}
+#: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``), a team
+#: of lanes per instance (``csrc/fused_team.cuh``) or a warp per instance
+#: with its region in device memory (``csrc/fused_wide.cuh``): entry
+#: points and library names
+_ENTRY = {"thread": "ipmzoo_fused", "team": "ipmzoo_fused_team",
+          "wide": "ipmzoo_fused_wide"}
+_LIB_NAME = {"thread": "fused_ipm", "team": "fused_team",
+             "wide": "fused_wide"}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -76,24 +82,28 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 def bind(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
     """K1's entry point in ``lib`` (built from the ``route``'s source) for
-    ``dtype``, with its ctypes signature; both routes take the same
-    arguments."""
+    ``dtype``, with its ctypes signature; the routes take the same
+    arguments, the wide route its workspace before the stream."""
     if dtype not in _SUFFIX:
         raise TypeError(f"K1 takes float32/float64, not {dtype}")
     fn = getattr(lib, f"{_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32,
-                   i32, ptr]
+                   i32] + [ptr] * (2 if route == "wide" else 1)
     fn.restype = i32
     return fn
 
 
 def call(fn, data: Sequence[torch.Tensor],
          warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
-         max_iter: int, gondzio: int, params: Sequence[float], stream=None):
+         max_iter: int, gondzio: int, params: Sequence[float], stream=None,
+         region: Optional[int] = None):
     """Check the SoA tensors, allocate the outputs on their device and call
     K1's entry point ``fn`` once; returns the outputs and the entry's
     status (a cudaError for the CUDA build, 0 for a host build).
+    ``region``: the wide route's values of workspace an instance
+    (:func:`wide_shape`), allocated here on the data's device; None for
+    the other routes.
 
     ``data``: the nine QPData fields (Q, c, A_ineq, l_A_ineq, u_A_ineq,
     A_eq, b_eq, l_x, u_x) as contiguous (..., B) tensors; ``warm``: None
@@ -122,8 +132,12 @@ def call(fn, data: Sequence[torch.Tensor],
                                    for t in data))
     out_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in outs))
     prm = (_CTYPE[dtype] * 6)(*params)
+    extra = ()
+    if region is not None:
+        work = torch.empty(B * region, dtype=dtype, device=device)
+        extra = (work.data_ptr(),)
     err = fn(ptrs, v0, mu0, it0, out_ptrs, B, prm, max_iter,
-             int(warm is not None), gondzio, stream)
+             int(warm is not None), gondzio, *extra, stream)
     return outs, err
 
 
@@ -138,11 +152,14 @@ def fused_soa(source: str, data: Sequence[torch.Tensor],
     device = data[0].device
     if device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {device}")
-    fn = bind(library(source, _LIB_NAME[route]), data[0].dtype, route)
+    lib = library(source, _LIB_NAME[route])
+    fn = bind(lib, data[0].dtype, route)
     with torch.cuda.device(device):
+        region = (wide_shape(lib, data[0].dtype)["region"]
+                  if route == "wide" else None)
         stream = torch.cuda.current_stream(device).cuda_stream
         outs, err = call(fn, data, warm, n, total, max_iter, gondzio, params,
-                         stream)
+                         stream, region)
     if err:
         raise RuntimeError(f"K1 (fused IPM, {route} route) launch failed: "
                            f"cudaError {err}")
@@ -168,20 +185,27 @@ def team_values(sizes: Tuple[int, int, int, int, int]) -> int:
     return data + 7 * total + aug * (aug + 1) // 2 + 2 * aug + 4 * total + 48
 
 
+#: the largest augmented order the thread route is built for: its
+#: per-thread arrays (the packed factor among them) live in local memory
+THREAD_MAX_AUG = 128
+
+
 def k1_route(B: int, sizes: Tuple[int, int, int, int, int],
              dtype: torch.dtype) -> str:
     """K1's route for a launch of ``B`` instances of ``sizes`` = (n,
     m_ineq, m_eq, variables, augmented order): ``"team"`` wherever a
-    block of four teams fits the shared memory, else ``"thread"``.  On an
-    H100 the team route was the faster at every launch of the fused
-    slice (B=10240 cold and warm, 1536, the 512 Gondzio tile) and at
-    B=32, in float32 and float64, by 3.5-8.5x (PERF.md section 6), so the
-    batch size does not enter the rule today.  Pure: the same arguments
-    give the same route."""
+    block of four teams fits the shared memory, else ``"thread"`` up to
+    augmented order THREAD_MAX_AUG, else ``"wide"``.  On an H100 the team
+    route was the faster at every launch of the fused slice (B=10240
+    cold and warm, 1536, the 512 Gondzio tile) and at B=32, in float32
+    and float64, by 3.5-8.5x (PERF.md section 6), so the batch size does
+    not enter the rule today.  Pure: the same arguments give the same
+    route."""
     itemsize = torch.finfo(dtype).bits // 8
     teams_per_block = 4     # 64 threads of 16 lanes: the largest block
-    fits = teams_per_block * team_values(sizes) * itemsize <= SHARED_CAP
-    return "team" if fits else "thread"
+    if teams_per_block * team_values(sizes) * itemsize <= SHARED_CAP:
+        return "team"
+    return "thread" if sizes[4] <= THREAD_MAX_AUG else "wide"
 
 
 def team_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
@@ -198,6 +222,21 @@ def team_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
                            f"cudaError {err}")
     return dict(zip(("lanes", "threads", "team_bytes", "teams_per_sm"),
                     out))
+
+
+def wide_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
+    """What a wide build is for ``dtype``: lanes an instance, threads a
+    block, values of workspace an instance (its TeamLayout region) and
+    blocks resident per SM (0 in a host build)."""
+    fn = lib.ipmzoo_fused_wide_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(torch.finfo(dtype).bits // 8, out)
+    if err:
+        raise RuntimeError(f"K1 wide route: occupancy query failed: "
+                           f"cudaError {err}")
+    return dict(zip(("lanes", "threads", "region", "blocks_per_sm"), out))
 
 
 def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype):

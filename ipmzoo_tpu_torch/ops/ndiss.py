@@ -107,48 +107,61 @@ class NDPlan:
 
 #: Time-based cost model of the auto-fallback:
 #:
-#:   t_nd    = ND_T_LEVEL * levels + 2 * flops_nd / ND_FLOP_RATE
+#:   t_nd    = ND_T_STEP + ND_T_LEVEL * levels + 2 * flops_nd / ND_FLOP_RATE
 #:   t_dense = DENSE_T_FLOOR + DENSE_A * n^2 + DENSE_B * n^3
 #:
-#: in seconds per IPM step.  The five values below are the JAX package's
-#: decision constants, copied so that ``CompiledIPM(kernel="nd")`` falls
-#: back exactly where the reference does; they are not times or rates of
-#: a CUDA card.  The card's own fit is kept beside the tool that made it,
-#: not used here: ``chip_nd_crossover.CARD_FIT``, from
-#: ``python3 chip_nd_crossover.py --fit`` on two runs of the tool's grid
-#: sweep (grid_qp sides 16-128, float32, tol 1e-5, nd_leaf 64, against
-#: the dense 'auto' mode) on an NVIDIA H100 80GB HBM3 at a 700.00 W power
-#: limit.  Measured there, nd loses to the dense path up
-#: to side 80 (n = 6400; 0.44-0.88x), is inside the timing noise at side
-#: 96 (n = 9216; 0.855-1.211x, so the right decision there is a coin
-#: toss) and wins from side 112 (n = 12544; 1.54-3.67x): the values below
-#: keep nd on the grids where it loses.  The card's fit drops those plans
-#: but keeps one-level plans (a dense pattern), which lose there too: this
-#: form has no constant term for the nd step's own floor, and its fits to
-#: the card's rows, one-level rows pooled in or not, keep such plans
-#: (ROADMAP Queue 3, F2).
-ND_T_LEVEL = 3.2e-5
-ND_FLOP_RATE = 3.1e10
-DENSE_T_FLOOR = 2.3e-4
-DENSE_A = 1.34e-10
-DENSE_B = 1.29e-14
+#: in seconds per IPM step.  ND_T_STEP is the nd step's own floor (its
+#: evaluation, ratio tests and host work, whatever the plan's depth).  The
+#: six values below are fitted on an NVIDIA H100 80GB HBM3 at a 700.00 W
+#: power limit: ``python3 chip_nd_crossover.py --fit`` on two grid sweeps
+#: (grid_qp sides 16-128, float32, tol 1e-5, nd_leaf 64, twelve steps a
+#: slope, against the dense 'auto' mode) and two ``--one-level`` runs (the
+#: plan of a dense pattern at n = 196, 400, 1024), the rows pooled: nd
+#: rows by non-negative least squares on the relative error against
+#: (1, levels, 2 flops_nd), dense rows against (1, n^2, n^3); worst
+#: relative error 0.31 (nd), 0.25 (dense).  Measured there, nd loses to
+#: the dense path up to grid side 80 (n = 6400; 0.44-0.88x) and on every
+#: one-level plan (0.62-0.94x), and wins from side 112 (n = 12544;
+#: 1.54-3.67x).  Side 96 (n = 9216) spreads over 0.833-1.466x from call to
+#: call, the timing noise of the host-bound nd step, so either decision
+#: there is right; these values keep nd (1.115x).  Every reading outside
+#: 0.87-1.2 but that side's two lowest is decided as measured.  Without
+#: ND_T_STEP a one-level plan looks cheap, and only a large ND_T_LEVEL
+#: could make it dear, which then loses side 112.
+#:
+#: REFERENCE_CONSTANTS are the JAX package's decision constants (its form
+#: has no ND_T_STEP: 0 here), so that ``nd_predicted_speedup(plan,
+#: REFERENCE_CONSTANTS)`` reproduces the reference's prediction exactly;
+#: they are not times or rates of a CUDA card.
+ND_T_STEP = 6.104551e-3
+ND_T_LEVEL = 1.283299e-3
+ND_FLOP_RATE = 3.214237e11
+DENSE_T_FLOOR = 5.561362e-3
+DENSE_A = 2.008866e-11
+DENSE_B = 1.079313e-14
+
+#: the six names of :func:`cost_model_constants`
+COST_MODEL_NAMES = ("ND_T_STEP", "ND_T_LEVEL", "ND_FLOP_RATE",
+                    "DENSE_T_FLOOR", "DENSE_A", "DENSE_B")
+REFERENCE_CONSTANTS = {"ND_T_STEP": 0.0, "ND_T_LEVEL": 3.2e-5,
+                       "ND_FLOP_RATE": 3.1e10, "DENSE_T_FLOOR": 2.3e-4,
+                       "DENSE_A": 1.34e-10, "DENSE_B": 1.29e-14}
 
 
 def cost_model_constants() -> dict:
-    """The five constants above by name, as ``constants=`` takes them."""
-    return {"ND_T_LEVEL": ND_T_LEVEL, "ND_FLOP_RATE": ND_FLOP_RATE,
-            "DENSE_T_FLOOR": DENSE_T_FLOOR, "DENSE_A": DENSE_A,
-            "DENSE_B": DENSE_B}
+    """The six constants above by name, as ``constants=`` takes them."""
+    return {k: globals()[k] for k in COST_MODEL_NAMES}
 
 
 def cost_model_times(n: int, levels: int, flops_nd: float,
                      constants: Optional[Mapping[str, float]] = None):
     """(t_nd, t_dense) in seconds of the time model above for a plan of
     order ``n`` with ``levels`` levels and ``flops_nd`` flops, under
-    ``constants`` (a mapping of the five names of
+    ``constants`` (a mapping of the six names of
     :func:`cost_model_constants`; None: this module's)."""
     c = cost_model_constants() if constants is None else constants
-    t_nd = c["ND_T_LEVEL"] * levels + 2.0 * flops_nd / c["ND_FLOP_RATE"]
+    t_nd = c["ND_T_STEP"] + c["ND_T_LEVEL"] * levels + \
+        2.0 * flops_nd / c["ND_FLOP_RATE"]
     n = float(n)
     return t_nd, c["DENSE_T_FLOOR"] + c["DENSE_A"] * n * n + \
         c["DENSE_B"] * n ** 3

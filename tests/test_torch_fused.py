@@ -205,12 +205,6 @@ def test_float32_escalation_twin_is_float64():
     assert fused.host_syncs >= twin.host_syncs > 0
 
 
-def test_wide_augmented_system_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11f"):
-        FusedBatchedIPM(port_settings(Settings(inequalities=Bounds.NONE)),
-                        n=129, device="cpu")
-
-
 def test_cpu_solves_run_the_plain_version():
     cuda_fused.reset_launch_counts()
     _, port = solvers(4, 2)

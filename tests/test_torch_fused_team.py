@@ -441,7 +441,9 @@ def test_k1_route_at_the_slice_launches(B, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k1_route_keeps_the_thread_route_over_the_shared_memory(dtype):
-    big = (100, 60, 0, 5 * 100 + 6 * 60, 160)
+    # up to augmented order 128 (above it the wide route takes over:
+    # tests/test_torch_fused_wide.py)
+    big = (100, 20, 0, 5 * 100 + 6 * 20, 120)
     assert cuda_fused.k1_route(10240, big, dtype) == "thread"
     item = 4 if dtype == torch.float32 else 8
     assert 4 * cuda_fused.team_values(big) * item > cuda_fused.SHARED_CAP
@@ -456,7 +458,8 @@ def test_cpu_solve_runs_the_plain_version_on_no_route():
     out = solver.solve_fused(data)
     assert bool(out["converged"].all())
     assert cuda_fused.launches == {"fused": 0, "phase": 0}
-    assert cuda_fused.route_launches == {"fused thread": 0, "fused team": 0}
+    assert cuda_fused.route_launches == {"fused thread": 0, "fused team": 0,
+                                         "fused wide": 0}
 
 
 def test_team_wrapper_refuses_cpu_tensors():
@@ -465,4 +468,5 @@ def test_team_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fused.fused_soa(solver.kernel_source("team"), soa_data, None,
                              16, 128, 5, 0, solver.kernel_params(), "team")
-    assert set(cuda_fused.route_launches) == {"fused thread", "fused team"}
+    assert set(cuda_fused.route_launches) == {"fused thread", "fused team",
+                                              "fused wide"}

@@ -27,7 +27,8 @@ from ipmzoo_tpu_torch.models.convert import (qpdata_from_numpy,
 from ipmzoo_tpu_torch.models.families import grid_qp
 from ipmzoo_tpu_torch.ops import cuda_ldlt
 from ipmzoo_tpu_torch.ops.ldlt import ldlt, solve_ldlt
-from ipmzoo_tpu_torch.ops.ndiss import (NDPlan, _uses_kernels, nd_factor,
+from ipmzoo_tpu_torch.ops.ndiss import (REFERENCE_CONSTANTS, NDPlan,
+                                        _uses_kernels, nd_factor,
                                         nd_factor_pre, nd_plan,
                                         nd_predicted_speedup, nd_prework,
                                         nd_solve, nd_solve_matrix)
@@ -460,8 +461,11 @@ class TestAutoFallback:
         assert s._mode == "nd" and not s.nd_fell_back
 
     def test_predicted_speedup_equals_reference(self):
+        # under the JAX package's constants (the port's default is the
+        # card's fit: tests/test_torch_nd_crossover.py)
         for A in (grid_spd(16, seed=2), banded_qd(200, 3, seed=1)):
-            assert nd_predicted_speedup(nd_plan(A != 0, leaf=16)) == \
+            assert nd_predicted_speedup(nd_plan(A != 0, leaf=16),
+                                        REFERENCE_CONSTANTS) == \
                 ref_nd.nd_predicted_speedup(ref_nd.nd_plan(A != 0, leaf=16))
 
 
