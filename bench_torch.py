@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
 
     python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd|
-                                  normal|aug|mpc
+                                  normal|aug|mpc|tf
                            [--device cpu] [--batch B] [--dense] [--large]
 
 runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
@@ -49,11 +49,17 @@ The workloads, gates and counts are bench.py's:
   seed 0, horizon T=32, ns=8 states, nu=4 controls, float32) through
   ``RiccatiIPM(tol=1e-5, max_iter=40).solve_batch``; >= 95% must
   converge; useful iterations/s.
+* ``tf`` — the first 2048 QPs of the ``solve`` batch (float32 data)
+  through ``CompiledIPM(tol=1e-8, two_float=True, max_iter=30)
+  .solve_batch_compact``: the reference-parity tolerance, which float32
+  cannot reach; ``two_float`` runs the iteration in float64 (K2/K3's
+  float64 instantiations on the card) and returns float32; >= 99% must
+  converge; useful iterations/s.
 
 The BENCH_* environment variables of bench.py size the workloads
 (BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
 BENCH_ARROW_*, BENCH_ND_*, BENCH_NORMAL_*, BENCH_AUG_*, BENCH_KKT_*,
-BENCH_MPC_*).
+BENCH_MPC_*, BENCH_TF_B, BENCH_TF_TOL).
 Walls are CUDA-event times (``utils/timer.cuda_time``; the host clock
 with ``--device cpu``): the median over the runs, with the spread and
 every run printed on an earlier line.
@@ -61,8 +67,8 @@ every run printed on an earlier line.
 ``vs_baseline`` is null: bench.py's baselines are rates of another
 program measured on another machine's host, and no number of this card.
 
-Not ported: the modes ``sharded`` and ``tf`` raise
-``NotImplementedError`` naming their ROADMAP item.
+Not ported: the mode ``sharded`` raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 import argparse
@@ -81,12 +87,16 @@ STEPS = int(os.environ.get("BENCH_STEPS", 10))
 # the working precision supports
 TOL = float(os.environ.get("BENCH_TOL", 1e-6))
 
+#: bench.py's tf mode: the first BENCH_TF_B QPs of the batch, solved to
+#: the reference-parity tolerance
+TF_B = int(os.environ.get("BENCH_TF_B", 2048))
+TF_TOL = float(os.environ.get("BENCH_TF_TOL", 1e-8))
+
 MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd", "normal",
-         "aug", "mpc")
+         "aug", "mpc", "tf")
 #: modes of bench.py the port does not have yet, with their ROADMAP item
 REFUSED = {
     "sharded": "ROADMAP.md Queue 1 item 16 (multi-device)",
-    "tf": "ROADMAP.md Queue 1 item 7 (escalation precision: two_float)",
 }
 
 
@@ -182,6 +192,38 @@ def bench_steps(data, device, dtype=None, runs=3):
              f"{backend(device)})")
     return label, batch * STEPS / t, "iterations/s", {
         "converged": conv, "iterations": float(batch * STEPS)}
+
+
+def tf_solver(device, **kw):
+    """bench.py's tf solver: ``_solver(tol=1e-8, two_float=True,
+    max_iter=30)``, float32."""
+    return compact_solver(device, tol=TF_TOL, two_float=True, max_iter=30,
+                          **kw)
+
+
+def bench_tf(data, device, runs=3):
+    """Full batched solves of the first TF_B instances of ``data`` at the
+    reference-parity tolerance under two_float (the iteration in
+    float64, the data and the result float32), convergence-gated at 99%:
+    useful iterations/s."""
+    from ipmzoo_tpu_torch.models.state import tree_map
+    sub = tree_map(lambda a: a[:TF_B], data)
+    solver = tf_solver(device)
+    syncs = solver.host_syncs
+    res = solver.solve_batch_compact(sub)
+    syncs = solver.host_syncs - syncs
+    conv = res.converged.float().mean().item()
+    _gate(conv, 0.99, "two-float")
+    iters = float(res.iterations.sum().item())
+    t = timed(lambda: solver.solve_batch_compact(sub), device, runs, "tf")
+    batch = sub.Q.shape[0]
+    label = (f"IPM iterations/s, {batch} batched QPs FULLY SOLVED to the "
+             f"reference-parity tol={TF_TOL:g} from float32 data, two_float "
+             f"(float64 iteration; {conv * 100:.2f}% converged, n={N}, "
+             f"m={M_INEQ}, {backend(device)})")
+    return label, iters / t, "iterations/s", {
+        "converged": conv, "iterations": iters, "wall_ms": t * 1e3,
+        "host_syncs": syncs, "result": res}
 
 
 def bench_fused(data, device, dtype=None, runs=7):
@@ -783,10 +825,10 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
     if large and mode != "kkt":
         raise ValueError("--large belongs to the mode kkt")
     batch = BATCH if batch is None else batch
-    if mode in ("fused", "solve", "steps"):
+    if mode in ("fused", "solve", "steps", "tf"):
         data = make_batch(batch, N, M_INEQ, torch.float32, device=device)
         fn = {"fused": bench_fused, "solve": bench_solve,
-              "steps": bench_steps}[mode]
+              "steps": bench_steps, "tf": bench_tf}[mode]
         return fn(data, device)
     if mode == "kkt":
         label, value, unit, counts = bench_kkt(device, batch=batch)

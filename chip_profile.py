@@ -5,7 +5,7 @@
                                  # CUDA card and nvcc
     python3 chip_profile.py arrow schur   # only the named sections
                                  # (arrow, schur, fused, compact, nd,
-                                 # dense, mpc)
+                                 # dense, mpc, tf)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -57,7 +57,15 @@ the same data, and prints, after the card's name and power limit:
    host-clock time of three single iterations as they run, then three
    split into the riccati_factor call, the riccati_solve calls (two,
    more with gondzio) and the rest (a synchronize around each call),
-   both before the first torch.profiler session.
+   both before the first torch.profiler session;
+8. the tf slice (section ``tf``: bench_torch.py's tf mode, the first
+   2048 QPs of the compact slice's data, float32, tol 1e-8,
+   two_float=True) and the same QPs cast to float64 through a plain
+   float64 solver at the same tolerance: the wall of each by CUDA events
+   (median of 3 runs after a warm-up), the host-clock time of three
+   single batched steps of each at B=2048, and of the two_float solve
+   the launches per step, busy share and K2's / K3's share of one solve
+   under torch.profiler.
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -469,6 +477,44 @@ def profile_mpc(dev):
              "mpc, one riccati_solve")
 
 
+def profile_tf(dev, data):
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    sub = tree_map(lambda a: a[:bench_torch.TF_B], data)
+    tf = bench_torch.tf_solver(dev)
+    f64 = bench_torch.compact_solver(dev, torch.float64,
+                                     tol=bench_torch.TF_TOL, max_iter=30)
+    sub64 = sub.to(dtype=torch.float64)
+    steps = sum(k for k, _ in tf.default_schedule(bench_torch.TF_B))
+    walls = {}
+    for label, solver, d in (("tf two_float", tf, sub),
+                             ("tf plain float64", f64, sub64)):
+        res = solver.solve_batch_compact(d)
+        med = walls[label] = cs.time_solves(
+            lambda: solver.solve_batch_compact(d), 3)
+        dd = solver._check_data(d)
+        state = solver.init_state(dd)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver._step_impl(state, dd)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"{label}: converged {int(res.converged.sum())}, iterations "
+              f"{int(res.iterations.sum())}, wall median {med:.3f} ms "
+              f"({steps} batched steps); one _step_impl at B="
+              f"{bench_torch.TF_B} " + ", ".join(f"{t:.3f}" for t in ms) +
+              " ms (host clock)")
+    events = []
+    busy, launches = profiled(lambda: tf.solve_batch_compact(sub),
+                              "tf two_float", events)
+    print(f"tf two_float: launches per batched step {launches / steps:.1f}; "
+          f"busy share {busy / walls['tf two_float']:.4f}; " +
+          shares(events, busy, SCHUR_KERNELS[:6]))
+
+
 def main():
     import torch
     from chip_roofline import banner
@@ -476,18 +522,19 @@ def main():
     if dev is None:
         return 2
     from ipmzoo_tpu_torch.models.convert import make_batch
-    known = ["schur", "fused", "compact", "arrow", "nd", "dense", "mpc"]
+    known = ["schur", "fused", "compact", "arrow", "nd", "dense", "mpc",
+             "tf"]
     sections = sys.argv[1:] or known
     unknown = set(sections) - set(known)
     if unknown:
         print(f"chip_profile: unknown sections {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if set(sections) - {"nd", "schur", "dense", "mpc"}:
+    if set(sections) - {"nd", "schur", "dense", "mpc", "tf"}:
         cs.build_kernels()
     if "schur" in sections:
         profile_schur(dev)
-    if {"fused", "compact"} & set(sections):
+    if {"fused", "compact", "tf"} & set(sections):
         data = make_batch(cs.B_SLICE, 16, 8, torch.float32, device=dev)
     if "fused" in sections:
         profile_fused(dev, data)
@@ -501,6 +548,8 @@ def main():
         profile_dense(dev)
     if "mpc" in sections:
         profile_mpc(dev)
+    if "tf" in sections:
+        profile_tf(dev, data)
     return 0
 
 

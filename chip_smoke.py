@@ -35,7 +35,8 @@ Steps, each reported on its own line:
    compact slice's batches and its float64 escalation, the Schur slice's
    H and S blocks, the equality_qp slice's KKT (30, 64), the normal
    slice's order-128 panels (128, 16), the condensed MPC QP of step 43
-   (96, 8), odd orders, n=1, batches that fill no whole block;
+   (96, 8), odd orders, n=1, batches that fill no whole block, the tf
+   slice's batches (24, 2048) and (24, 512) (step 47);
    the SoA route also at (328, 1), over the block route's shared memory;
    and both on an exactly-zero pivot; then each route of K3 alone (the
    thread route, a thread per matrix, and the warp route, a tile of
@@ -44,8 +45,9 @@ Steps, each reported on its own line:
    batches, its float64 escalation, the Schur slice's H and S blocks, the
    nd slice's levels, the equality_qp slice's KKT (30, 64, float64),
    the condensed MPC QP of step 43 (96, 8, float64), the nd slice's
-   generic top, both over the warp route's cap, and the levels of step
-   44's side-96 plan) and
+   generic top, both over the warp route's cap, the levels of step
+   44's side-96 plan and the tf slice's float64 batches (24, 2048) and
+   (24, 512)) and
    of K3_EDGES in both types (n=1, odd orders, a batch that fills no
    tile, the cap 83 and 84), float32 within 1e-5 and float64 within
    1e-12, the largest difference between the two routes' x, and
@@ -65,8 +67,10 @@ Steps, each reported on its own line:
 8. time K2 and K3 against their plain versions at the slice's batch
    sizes (10240, 2560, 320) with CUDA events, and both K2 routes there
    (each with its caller's layout work), at the float64 escalation's
-   B=32, at step 43's condensed MPC QP (96, 8) float64 and at (328, 1),
-   by CUDA events and by their kernels' device
+   B=32, at step 43's condensed MPC QP (96, 8) float64, at the tf
+   slice's float64 batches (24, 2048) and (24, 512) (with K3's warp
+   route, its plain version and torch.linalg.ldl_solve at (24, 2048)) and
+   at (328, 1), by CUDA events and by their kernels' device
    time under torch.profiler; fail where k2_route picks a route whose
    device time is more than 5% (timing noise) above the other's; the same
    for both K3 routes at every shape of step 4's K3 check, all in one
@@ -394,7 +398,27 @@ Steps, each reported on its own line:
     run), launches by route and host syncs; then the same solve with
     every instance a straggler after three fused iterations, whose
     float64 escalation and Gondzio tail must factor by the panel-blocked
-    LDL^T on K2.
+    LDL^T on K2;
+47. the tf slice: bench_torch.py's tf mode, the first 2048 QPs of step
+    6's data (float32) through CompiledIPM(tol=1e-8, two_float=True,
+    max_iter=30).solve_batch_compact, whose iteration runs in float64,
+    launch counts set to 0 just before and read just after: >= 99%
+    converged, finite float32 x, K2 and K3 launched in float64 only (K2
+    on its block route, K3 on its warp route; no float32 launch, no
+    other kernel); the same QPs in plain float32 at tol 1e-8 (no
+    escalation) converge on fewer than half; the first 256 against the
+    port on the CPU in float64 at tol 1e-8: converged equal, the float64
+    iteration's x within 1e-8 and objectives within 1e-8 (1 + |f|), the
+    float32 result within 1e-8 beyond its rounding; then bench_tf's wall
+    (median of 3 after a warm-up, spread), useful iterations/s, host
+    syncs, launches by route and type, and its JSON line;
+48. the other precision options on the floor table's class (48 QPs of
+    tests/test_precision_floor.py, n=16, m=8, seed 0, float32 data):
+    refine=2 with hybrid_refine at tol 1e-6 converges all, df_residuals
+    at 1e-6 at least the 47 the reference converges (both stall on
+    instance 21), none diverged; two_float on instances 0-2 by
+    init_state and step: residual and gap below 1e-8 and x within 1e-9
+    of the float64 solve on the card.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -548,18 +572,24 @@ MPC_SMALL, MPC_SMALL_BATCH = (16, 4, 2), 8
 #: step 43's condensed MPC QP: order of its augmented system (n = T nu,
 #: m_ineq = T ns, no equalities)
 MPC_AUG = MPC_SMALL[0] * (MPC_SMALL[1] + MPC_SMALL[2])
+#: bench_torch.py's tf mode (step 47): the first TF_B QPs of the slice at
+#: tol 1e-8 under two_float, whose float64 iteration factors at order 24
+#: at its schedule's batches ([(16, 1), (14, 4)] at max_iter=30)
+TF_B = 2048
+TF_BATCHES = (TF_B, TF_B // 4)
 #: (order, matrices) at which both K2 routes are held to plain (step 4)
 #: and timed (steps 8, 17): the compact slice's batches and its float64
 #: escalation of at most 32 stragglers, the Schur slice's H and S blocks,
 #: the equality_qp slice's KKT (order 30, 64 systems: 'regldlt'), the
 #: normal slice's order-128 normal equations and H's panels (16
 #: matrices), the condensed MPC QP of step 43 (order 96, 8 systems), odd
-#: orders, n = 1, batches that fill no whole block; and one order over
-#: the block route's shared memory (the nd slice's generic top)
+#: orders, n = 1, batches that fill no whole block, the tf slice's
+#: batches (step 47); and one order over the block route's shared memory
+#: (the nd slice's generic top)
 K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
              (30, 64), (128, 16), (MPC_AUG, MPC_SMALL_BATCH), (13, 1000),
-             (37, 77), (1, 5))
+             (37, 77), (1, 5)) + tuple((N_AUG, B) for B in TF_BATCHES)
 K2_OVER_CAP = (328, 1)
 #: (order, systems, type) at which both K3 routes are held to plain
 #: (step 4) and timed (step 8): the compact slice's batches and its
@@ -567,14 +597,16 @@ K2_OVER_CAP = (328, 1)
 #: three levels, the equality_qp slice's KKT ('regldlt', float64), the
 #: condensed MPC QP of step 43 (order 96, float64, over the warp route's
 #: cap), the nd slice's generic top (order 328, over the warp route's
-#: shared memory) and the levels of step 44's side-96 plan
+#: shared memory), the levels of step 44's side-96 plan and the tf
+#: slice's float64 batches (step 47)
 K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
              (SCHUR_MC, SCHUR_I, "float64"), (64, 105, "float32"),
              (16, 28, "float32"), (16, 16, "float32"), (30, 64, "float64"),
              (MPC_AUG, MPC_SMALL_BATCH, "float64"), (328, 1, "float32")) + \
-    tuple((n, B, "float32") for B, n, _ in K5_SWEEP_LEVELS)
+    tuple((n, B, "float32") for B, n, _ in K5_SWEEP_LEVELS) + \
+    tuple((N_AUG, B, "float64") for B in TF_BATCHES)
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
@@ -1383,6 +1415,20 @@ def time_kernels(dev):
     # memory)
     time_k2_routes(dev, N_AUG, 32, torch.float64)
     time_k2_routes(dev, MPC_AUG, MPC_SMALL_BATCH, torch.float64)
+    # the tf slice's float64 batches (step 47), and its K3 solve at the
+    # full batch by the warp route, the plain version and the library
+    for B in TF_BATCHES:
+        out[(N_AUG, B, "float64")] = time_k2_routes(dev, N_AUG, B,
+                                                    torch.float64)
+    L0, D0, b, soa = k3_inputs(N_AUG, TF_B, torch.float64, dev,
+                               seed=N_AUG + TF_B)
+    tf = out[(N_AUG, TF_B, "float64")]
+    tf["K3_warp"] = time_cuda(lambda: k3_call("warp", *soa), 50)
+    tf["K3_plain"] = time_cuda(lambda: solve_ldlt(L0, D0, b), 5)
+    tf["K3_library"] = time_library(
+        f"torch.linalg.ldl_solve (K3's function) n={N_AUG} B={TF_B} "
+        f"float64", ldl_solve_call(L0, D0, b), solve_ldlt(L0, D0, b), 1e-10,
+        2)
     out[K2_OVER_CAP] = time_k2_routes(dev, *K2_OVER_CAP, torch.float64,
                                       reps=2)
     return out
@@ -4262,6 +4308,171 @@ def run_mpc_condensed(dev):
           "RiccatiIPM")
 
 
+def run_tf_slice(dev, data):
+    """Step 47: bench_torch.py's tf mode on the card: the first TF_B QPs of
+    the slice's data (float32) through CompiledIPM(tol=1e-8,
+    two_float=True, max_iter=30).solve_batch_compact, launch counts set to
+    0 just before and read just after: >= 99% converged, finite float32
+    x, K2 and K3 launched in float64 only (block and warp routes, no
+    float32 launch, no other kernel); the same QPs in plain float32 at
+    tol 1e-8 (no float64 escalation) converge on fewer than half; the
+    first 256 against the port on the CPU in float64 at tol 1e-8:
+    converged equal, the float64 iteration's x within 1e-8 and objectives
+    within 1e-8 (1 + |f|), the float32 result within that plus its
+    rounding; then bench_torch.bench_tf's wall (median of 3 after a
+    warm-up, CUDA events) and JSON line.  Returns the counted run's
+    launches by route."""
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    t0 = time.perf_counter()
+    print(f"step 47 on {card()}")
+    sub = tree_map(lambda a: a[:TF_B], data)
+    solver = bench_torch.tf_solver(dev)
+    schedule = solver.default_schedule(TF_B)
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    res = solver.solve_batch_compact(sub)
+    torch.cuda.synchronize()
+    launches, f64 = dict(cuda_ldlt.launches), dict(cuda_ldlt.f64_launches)
+    routes = dict(cuda_ldlt.route_launches)
+    syncs = solver.host_syncs
+    check(tuple(res.x.shape) == (TF_B, 16) and res.x.dtype == torch.float32,
+          f"tf slice: x {tuple(res.x.shape)} {res.x.dtype}")
+    check(bool(torch.isfinite(res.x).all()) and
+          bool(torch.isfinite(res.objective).all()),
+          "tf slice: non-finite x or objective")
+    conv = res.converged.float().mean().item()
+    iters = int(res.iterations.sum())
+    print(f"tf slice: {TF_B} QPs n=16 m=8 float32 data, tol=1e-8, "
+          f"two_float (float64 iteration), schedule {schedule}: converged "
+          f"{conv:.6f} ({int(res.converged.sum())}/{TF_B}), diverged "
+          f"{int(res.diverged.sum())}, iterations {iters} (largest "
+          f"{int(res.iterations.max())}), host syncs {syncs}")
+    f32 = {k: launches[k] - f64[k] for k in launches}
+    made = {k: v for k, v in routes.items() if v}
+    print(f"tf slice: launches K2 {launches['ldlt']} K3 "
+          f"{launches['solve_ldlt']}: float64 K2 {f64['ldlt']} K3 "
+          f"{f64['solve_ldlt']}, float32 K2 {f32['ldlt']} K3 "
+          f"{f32['solve_ldlt']}; by route {made}")
+    check(conv >= 0.99, f"tf slice convergence {conv} < 0.99")
+    check(not any(f32.values()), f"the tf slice launched float32 kernels: "
+          f"{f32}")
+    check(f64["ldlt"] > 0 and f64["solve_ldlt"] > 0,
+          "the tf slice never launched K2 or K3")
+    check(made == {"ldlt block": launches["ldlt"],
+                   "solve_ldlt warp": launches["solve_ldlt"]},
+          f"the tf slice launched other routes or kernels: {made}")
+
+    plain = bench_torch.compact_solver(dev, tol=bench_torch.TF_TOL,
+                                       max_iter=30)
+    pres = plain.solve_batch_compact(sub, esc_cap=0)
+    pconv = pres.converged.float().mean().item()
+    print(f"tf slice: plain float32 at tol 1e-8 (no escalation): converged "
+          f"{pconv:.6f} ({int(pres.converged.sum())}/{TF_B})")
+    check(pconv < 0.5, f"plain float32 reached 1e-8 on {pconv}: the slice "
+          f"does not need two_float")
+
+    k = 256
+    cpu = tree_map(lambda a: a[:k].to("cpu", torch.float64), sub)
+    ref = CompiledIPM(Settings(), 16, 8, dtype=torch.float64, tol=1e-8,
+                      max_iter=30, device="cpu").solve_batch_compact(cpu)
+    own = solver._tf.solve_batch_compact(
+        tree_map(lambda a: a[:k].to(torch.float64), sub), esc_cap=0)
+    check(bool(ref.converged.all()), "the CPU float64 port did not converge")
+    check(torch.equal(res.converged[:k].cpu(), ref.converged),
+          "tf slice: converged differs from the CPU float64 port")
+    x_ref, f_ref = ref.x, ref.objective
+    dx = (own.x.cpu() - x_ref).abs().max().item()
+    df = ((own.objective.cpu() - f_ref).abs() / (1 + f_ref.abs())).max()
+    over = ((res.x[:k].cpu().double() - x_ref).abs() -
+            x_ref.abs() * 2.0 ** -24).max().item()
+    print(f"tf slice: first {k} against the CPU float64 port: the float64 "
+          f"iteration's x within {dx:.3e} (limit 1e-8), objectives "
+          f"{df.item():.3e} (limit 1e-8 (1 + |f|)); the float32 result "
+          f"beyond its rounding {over:.3e} (limit 1e-8)")
+    check(dx <= 1e-8 and df.item() <= 1e-8 and over <= 1e-8,
+          "tf slice disagrees with the CPU float64 port")
+
+    label, value, unit, counts = bench_torch.bench_tf(data, dev)
+    print(f"tf slice: wall {counts['wall_ms']:.3f} ms a batch solve, useful "
+          f"iterations/s {value:.1f}, host syncs {counts['host_syncs']}")
+    print_bench("tf", label, value, unit)
+    print(f"step 47: {time.perf_counter() - t0:.1f} s")
+    return routes
+
+
+def floor_class(dev, dtype):
+    """The 48 QPs of tests/test_precision_floor.py (n=16, m=8, numpy seed
+    0), float32 data."""
+    import numpy as np
+    from ipmzoo_tpu_torch import QPData
+    B, n, m = 48, 16, 8
+    rng = np.random.default_rng(0)
+    Mx = rng.normal(size=(B, n, n)).astype(np.float32)
+    Q = np.einsum("bij,bkj->bik", Mx, Mx) / n + np.eye(n, dtype=np.float32)
+    raw = dict(Q=Q, c=rng.normal(size=(B, n)),
+               A_ineq=rng.normal(size=(B, m, n)),
+               l_A_ineq=-np.abs(rng.normal(size=(B, m))) - 1,
+               u_A_ineq=np.abs(rng.normal(size=(B, m))) + 1,
+               l_x=np.full((B, n), -5.0), u_x=np.full((B, n), 5.0))
+    return QPData.make(**{k: v.astype(np.float32) for k, v in raw.items()},
+                       dtype=dtype, device=dev)
+
+
+def run_precision_options(dev):
+    """Step 48: the other precision options on the card, on the floor
+    table's class: float32 with refine=2, hybrid_refine at 1e-6 (all
+    converge), float32 with df_residuals at 1e-6 (at least the 47 of 48
+    the reference and the CPU port converge: both stall on instance 21),
+    none diverged; two_float on instances 0-2 by init_state and step to
+    1e-8: residual and gap below 1e-8, x within 1e-9 of the float64 solve
+    on the card."""
+    import torch
+    from ipmzoo_tpu_torch import CompiledIPM, Settings
+    from ipmzoo_tpu_torch.models.state import tree_map
+
+    t0 = time.perf_counter()
+    print(f"step 48 on {card()}")
+    data = floor_class(dev, torch.float32)
+    for opts, least in ((dict(refine=2, hybrid_refine=True), 48),
+                        (dict(df_residuals=True), 47)):
+        res = CompiledIPM(Settings(), 16, 8, dtype=torch.float32, tol=1e-6,
+                          device=dev, **opts).solve_batch(data)
+        missed = torch.nonzero(~res.converged).flatten().tolist()
+        print(f"precision float32 {opts} tol 1e-6: converged "
+              f"{int(res.converged.sum())}/48 (not: {missed}), diverged "
+              f"{int(res.diverged.sum())}, iterations "
+              f"{int(res.iterations.sum())}")
+        check(int(res.converged.sum()) >= least and
+              not bool(res.diverged.any()),
+              f"precision {opts}: fewer than {least} of 48 converged")
+    rows = tree_map(lambda a: a[:3], data)
+    x64 = CompiledIPM(Settings(), 16, 8, dtype=torch.float64, tol=1e-8,
+                      device=dev).solve_batch(rows.to(dtype=torch.float64))
+    check(bool(x64.converged.all()), "the float64 solve of rows 0-2")
+    s = CompiledIPM(Settings(), 16, 8, dtype=torch.float32, tol=1e-8,
+                    two_float=True, device=dev)
+    xi = s.var_index[s.symbols.x]
+    for i in range(3):
+        one = tree_map(lambda a: a[i], rows)
+        st = s.init_state(one)
+        for _ in range(30):
+            if float(st.residual) < 1e-8 and float(st.gap) < 1e-8:
+                break
+            st = s.step(st, one)
+        dx = (st.vars[xi] - x64.x[i]).abs().max().item()
+        print(f"precision two_float row {i}: {int(st.iteration)} steps, "
+              f"residual {float(st.residual):.3e} gap {float(st.gap):.3e}, "
+              f"x within {dx:.3e} of the float64 solve (limit 1e-9)")
+        check(float(st.residual) < 1e-8 and float(st.gap) < 1e-8 and
+              dx < 1e-9, f"two_float row {i} misses 1e-8 or the f64 x")
+    print(f"step 48: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4273,7 +4484,8 @@ def main():
 
     import bench_torch
     check((bench_torch.BATCH, bench_torch.N, bench_torch.M_INEQ,
-           bench_torch.TOL) == (B_SLICE, 16, 8, 1e-6),
+           bench_torch.TOL, bench_torch.TF_B, bench_torch.TF_TOL) ==
+          (B_SLICE, 16, 8, 1e-6, TF_B, 1e-8),
           "the BENCH_* environment resizes bench_torch.py's workload; the "
           "smoke test runs it at its defaults")
     ptxas = build_kernels()
@@ -4337,6 +4549,8 @@ def main():
     run_nd_crossover(dev, nd_objective)
     w_times, w_errs = check_fused_wide(dev)
     w_launches, _ = run_wide_slice(dev)
+    tf_launches = run_tf_slice(dev, data)
+    run_precision_options(dev)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
@@ -4354,6 +4568,7 @@ def main():
                 "library_ms": library_ms}
 
     t = times[B_SLICE]
+    tf = times[(N_AUG, TF_B, "float64")]
     top = times[K2_OVER_CAP]
     b24 = ldlt_bounds(B_SLICE, N_AUG, 1, torch.float32)
     b64 = ldlt_bounds(SCHUR_I * SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
@@ -4382,6 +4597,16 @@ def main():
               % (K2_PANEL[1], K2_PANEL[0], aug_iters), SOURCE, "ldlt",
               aug_routes["ldlt block"], panel["K2"], panel["K2_plain"],
               panel["bound"], panel["K2_library"], panel["err"]),
+        # the tf slice's float64 factorisations and solves (step 47)
+        entry(f"K2 block route (float64, n={N_AUG}, B={TF_B}: the tf "
+              f"slice)", SOURCE, "ldlt", tf_launches["ldlt block"],
+              tf["K2_block"], tf["K2_plain"], tf["bound"], None,
+              k2_errs[("block", N_AUG, TF_B, "float64")]),
+        entry(f"K3 warp route (float64, n={N_AUG}, B={TF_B}: the tf slice)",
+              SOURCE, "solve_ldlt", tf_launches["solve_ldlt warp"],
+              tf["K3_warp"], tf["K3_plain"],
+              ldlt_bounds(TF_B, N_AUG, 1, torch.float64)["K3"],
+              tf["K3_library"], k3_errs[("warp", N_AUG, TF_B, "float64")]),
         entry(f"K2 block route (float64, n={SCHUR_N}, B="
               f"{SCHUR_I * SCHUR_BLOCKS})", SOURCE, "ldlt",
               s_launches["ldlt block"], s_times["K2_block"],

@@ -12,7 +12,9 @@ The escalation stage finishes the instances left at the float32
 representation floor in float64: where the reference carries them in
 double-single pairs (its ``two_float`` twin, for a TPU without f64), the
 port's twin is the same solver in ``torch.float64`` on the same device,
-which on a card runs the f64 instantiations of K2/K3.
+which on a card runs the f64 instantiations of K2/K3.  A ``two_float``
+solver iterates in float64 from the start (``CompiledIPM._tf``): its
+'auto' capacity is 0, and its twin is that float64 iteration.
 
 Host syncs: ``_masked_steps`` runs a fixed count and never asks the
 device anything; ``_masked_while`` asks once per iteration whether any
@@ -81,12 +83,16 @@ class CompactScheduleMixin:
         return state, diverged
 
     def _escalation_twin(self):
-        """The float64 twin of this solver for the escalation stage (the
-        solver itself when it works in float64).  It keeps this solver's
+        """The float64 twin of this solver for the escalation stage: the
+        solver itself when it works in float64, and under two_float its
+        own float64 iteration (``_tf``: the reference's pair solver is
+        its own twin).  Otherwise it keeps this solver's
         settings, ``mu_floor`` included, as the reference's pair twin
         does, and factors the dense augmented system as the reference's
         pair twin does: by LDL^T, signed-regularised where the system is
         indefinite."""
+        if self.two_float:
+            return self._tf
         if self.dtype == torch.float64:
             return self
         esc = getattr(self, "_esc_twin", None)
@@ -249,6 +255,13 @@ class CompactScheduleMixin:
             schedule.append((k2, d2))
         return schedule
 
+    def _auto_esc_cap(self) -> int:
+        """``esc_cap='auto'``: 32 where the working dtype's floor can sit
+        above the tolerance (float32 at tight tolerances), 0 otherwise
+        and under two_float, whose iteration runs in float64 already."""
+        eps = torch.finfo(self.dtype).eps
+        return 32 if not self.two_float and self.tol <= eps * 20 else 0
+
     def solve_batch_compact(self, data: QPData, schedule=None,
                             tail_gondzio: int = 2,
                             tail_restart: bool = True,
@@ -259,15 +272,20 @@ class CompactScheduleMixin:
         ``schedule``: list of ``(steps, batch_divisor)`` stages; the
         first divisor must be 1 (default: :meth:`default_schedule`).
         ``esc_cap``: capacity of the float64 escalation stage for
-        float32-floor stragglers ('auto' = 32 when the working dtype's
-        floor can sit above the tolerance, i.e. float32 at tight
-        tolerances; 0 otherwise); ``esc_iters``: its iteration budget."""
+        float32-floor stragglers ('auto': :meth:`_auto_esc_cap`);
+        ``esc_iters``: its iteration budget.  Under two_float the solve
+        runs on the float64 iteration and comes back rounded to the
+        working dtype."""
         if esc_cap == "auto":
-            eps = torch.finfo(self.dtype).eps
-            esc_cap = 32 if self.tol <= eps * 20 else 0
+            esc_cap = self._auto_esc_cap()
         data = self._check_data(data)
-        self._ensure_nd_plan(data)
         if schedule is None:
             schedule = self.default_schedule(data.Q.shape[0])
+        if self._tf is not None:
+            return self._on_tf(lambda tf: self._rounded(
+                tf.solve_batch_compact(data.to(dtype=torch.float64), schedule,
+                                       tail_gondzio, tail_restart, esc_cap,
+                                       esc_iters)))
+        self._ensure_nd_plan(data)
         return self._compact_impl(data, schedule, tail_gondzio,
                                   tail_restart, esc_cap, esc_iters)

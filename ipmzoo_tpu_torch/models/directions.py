@@ -50,10 +50,14 @@ class DirectionsMixin:
 
         With ``affine_deltas`` given, complementarity residuals get the
         exact second-order Mehrotra correction
-        ``c_i(v + d_aff) - c_i(v) - J_i d_aff`` added (corrector phase)."""
+        ``c_i(v + d_aff) - c_i(v) - J_i d_aff`` added (corrector phase).
+
+        ``env`` must be of the residual pipeline's dtype: lifted
+        (``_lift``) under df_residuals."""
         B = env[self.symbols.Q].val.shape[0]
+        rdt = self._rdt
         renv = dict(env)
-        renv[self.symbols.mu] = cg.scalar(self._bscalar(mu_val, B))
+        renv[self.symbols.mu] = cg.scalar(self._bscalar(mu_val, B, rdt))
         memo = {}
 
         corr_vals = None
@@ -61,9 +65,9 @@ class DirectionsMixin:
             # taylor="symbolic": one evaluation of the staged remainder
             corr_vals = {}
             cenv = dict(env)
-            cenv[self.symbols.mu] = cg.scalar(self._bscalar(0.0, B))
+            cenv[self.symbols.mu] = cg.scalar(self._bscalar(0.0, B, rdt))
             for var, dj in zip(self.full.variables, affine_deltas):
-                cenv[delta_variable(var)] = cg.vector(dj)
+                cenv[delta_variable(var)] = cg.vector(dj.to(rdt))
             cmemo = {}
             for vec, rem in self.corrector_rem.items():
                 corr_vals[vec] = cg.evaluate(rem, cenv, cmemo)
@@ -71,8 +75,8 @@ class DirectionsMixin:
             corr_vals = {}
             aff_point = tuple(v + d for v, d in
                               zip(var_vals, affine_deltas))
-            aenv = self._env(data, aff_point, 0.0)
-            benv = self._env(data, var_vals, 0.0)
+            aenv = self._envm(data, aff_point, 0.0)
+            benv = self._envm(data, var_vals, 0.0)
             amemo, bmemo, jmemo = {}, {}, {}
             for i, (vec, definition, comp) in enumerate(self.corrector):
                 if not comp:
@@ -85,7 +89,7 @@ class DirectionsMixin:
                     if cell is E.ZERO or dj.shape[-1] == 0:
                         continue
                     term = cg.multiply_tv(cg.evaluate(cell, env, jmemo),
-                                          cg.vector(dj))
+                                          cg.vector(dj.to(rdt)))
                     lin = term if lin is None else cg.add_tv(lin, term)
                 corr = cg.add_tv(c_shift, cg.negate_tv(c_base))
                 if lin is not None:
@@ -102,11 +106,15 @@ class DirectionsMixin:
     def _search_direction(self, solve_fn, renv):
         """Solve the consumed reduction (the augmented system, or the
         normal equations) and back-substitute eliminated variables via
-        the symbolic delta definitions."""
+        the symbolic delta definitions.  The right-hand side and the
+        back-substitutions are evaluated in the residual pipeline's dtype
+        and rounded to the working dtype (the reference's
+        ``as_vector_arr``), the solve runs in the working dtype."""
+        dt, rdt = self.dtype, self._rdt
         memo = {}
         parts = [cg.as_vector(cg.evaluate(r, renv, memo), sz)
                  for r, sz in zip(self.red.rhs, self.red_sizes)]
-        sol = solve_fn(torch.cat(parts, dim=-1))
+        sol = solve_fn(torch.cat(parts, dim=-1).to(dt))
 
         deltas = [None] * len(self.full.variables)
         denv = dict(renv)
@@ -115,21 +123,24 @@ class DirectionsMixin:
             val = sol[:, offset:offset + sz]
             offset += sz
             deltas[self.var_index[var]] = val
-            denv[delta_variable(var)] = cg.vector(val)
+            denv[delta_variable(var)] = cg.vector(val.to(rdt))
         memo2 = {}
         for dvar, ddef in reversed(self.red.delta_definitions):
             var = self.delta_to_var[dvar]
             val = cg.as_vector(cg.evaluate(ddef, denv, memo2),
-                               self.size_of[var])
-            denv[dvar] = cg.vector(val)
+                               self.size_of[var]).to(dt)
+            denv[dvar] = cg.vector(val.to(rdt))
             deltas[self.var_index[var]] = val
         return deltas
 
     def _max_step(self, env, var_vals, deltas):
         """Per-instance fraction-to-boundary step (B,): the largest
         alpha <= 1 keeping nonnegative variables (and, for Slacks
-        handling, the explicit boxes) feasible."""
-        alpha = torch.ones(var_vals[0].shape[0], dtype=self.dtype,
+        handling, the explicit boxes) feasible.  The test runs on the
+        values rounded to the scalar dtype, and alpha is of that dtype
+        (the reference's ``_var_val`` under two_float)."""
+        sd = self._sdt
+        alpha = torch.ones(var_vals[0].shape[0], dtype=sd,
                            device=self.device)
 
         def clip(alpha, num, d, neg: bool):
@@ -146,7 +157,8 @@ class DirectionsMixin:
             return torch.minimum(alpha, ratio.amin(dim=-1))
 
         for i in self.nonneg_idx:
-            alpha = clip(alpha, -var_vals[i], deltas[i], neg=True)
+            alpha = clip(alpha, -var_vals[i].to(sd), deltas[i].to(sd),
+                         neg=True)
         if self.box_test:
             o = self.symbols
             checks = []
@@ -159,11 +171,13 @@ class DirectionsMixin:
                                o.u_A_ineq if self.s_has_ub else None))
             for var, lb_sym, ub_sym in checks:
                 i = self.var_index[var]
-                v, d = var_vals[i], deltas[i]
+                v, d = var_vals[i].to(sd), deltas[i].to(sd)
                 if lb_sym is not None:
-                    alpha = clip(alpha, env[lb_sym].val - v, d, neg=True)
+                    alpha = clip(alpha, env[lb_sym].val.to(sd) - v, d,
+                                 neg=True)
                 if ub_sym is not None:
-                    alpha = clip(alpha, env[ub_sym].val - v, d, neg=False)
+                    alpha = clip(alpha, env[ub_sym].val.to(sd) - v, d,
+                                 neg=False)
         return alpha
 
     def _gondzio_round(self, env, data, var_vals, solve_fn, d, alpha,
@@ -175,26 +189,30 @@ class DirectionsMixin:
         [beta_min, beta_max] * mu are pulled back to the nearest bound by
         an extra solve with the existing factors.  The corrected
         direction is kept, per instance, only if it lengthens the
-        step."""
+        step.  ``env`` is of the residual pipeline's dtype; the products
+        and their targets are rounded to the scalar dtype (the
+        reference's ``as_vector_arr``)."""
+        sd, rdt = self._sdt, self._rdt
         alpha_t = torch.clamp(alpha + delta_alpha, max=1.0)
-        trial = tuple(v + alpha_t[:, None] * dv
-                      for v, dv in zip(var_vals, d))
-        tenv = self._env(data, trial, 0.0)
+        tenv = self._envm(data, self._axpy(var_vals, alpha_t, d), 0.0)
 
         # residual-vector bindings: comp rows get (p - clip(p)), others 0
         genv = dict(env)
         memo = {}
-        lo = (beta_min * mu_target)[:, None]
-        hi = (beta_max * mu_target)[:, None]
+        mu_t = mu_target.to(sd)
+        lo = (beta_min * mu_t)[:, None]
+        hi = (beta_max * mu_t)[:, None]
         B = alpha.shape[0]
         for i, (vec, definition, comp) in enumerate(self.corrector):
             sz = self.var_sizes[i]
             if comp and sz:
-                p = cg.as_vector(cg.evaluate(definition, tenv, memo), sz)
-                genv[vec] = cg.vector(p - torch.clamp(p, min=lo, max=hi))
+                p = cg.as_vector(cg.evaluate(definition, tenv, memo),
+                                 sz).to(sd)
+                genv[vec] = cg.vector(
+                    (p - torch.clamp(p, min=lo, max=hi)).to(rdt))
             else:
                 genv[vec] = cg.vector(torch.zeros(
-                    (B, sz), dtype=self.dtype, device=self.device))
+                    (B, sz), dtype=rdt, device=self.device))
         dm = self._search_direction(solve_fn, genv)
 
         d_new = tuple(dv + dmv for dv, dmv in zip(d, dm))

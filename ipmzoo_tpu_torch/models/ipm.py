@@ -28,10 +28,16 @@ iterate.  The loop asks the device once per iteration whether any
 instance is still active; ``host_syncs`` counts those round trips.
 ``init_state`` and ``step`` take one instance, as the reference's do, or
 a batch (:meth:`CompiledIPM._is_instance` tells them apart).
+
+The reference's double-single precision options are backed by float64
+(see :class:`CompiledIPM`): ``two_float`` runs every entry point on a
+float64 solver built once, ``df_residuals`` lifts the residual pipeline
+to float64 and ``hybrid_refine`` the refinement residuals.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -51,12 +57,11 @@ from .data import QPData
 from .directions import DirectionsMixin
 from .kernels import KernelDispatchMixin
 from .ndplan import NdPlanMixin
-from .state import (IPMState, SolveResult, bad_iterate, where_instances,
-                    with_batch_axis, without_batch_axis)
+from .state import (IPMState, SolveResult, bad_iterate, tree_map,
+                    where_instances, with_batch_axis, without_batch_axis)
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
-_ROADMAP_TWO_FLOAT = "ROADMAP.md Queue 1 item 7 (escalation precision)"
 _ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
 _KERNELS = ("auto", "ldlt", "jnp", "block", "blockg", "lu", "regldlt",
             "normal", "sharded", "nd")
@@ -93,7 +98,27 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     the data.  ``nd_leaf``: stop dissecting below this many variables.
     ``nd_fallback``: refuse a plan predicted to lose to the dense path
     and solve with the mode the dense auto rule picks instead (recorded
-    in ``nd_fell_back``); False keeps the plan."""
+    in ``nd_fell_back``); False keeps the plan.
+
+    The precision options, where the reference computes in double-single
+    (hi, lo) pairs, are backed by float64 here:
+
+    - ``hybrid_refine``: each refinement sweep's residual b - K x is
+      computed in float64 against the assembled K and rounded to the
+      working dtype (no effect without a sweep: ``refine=0`` leaves only
+      the three sweeps of 'regldlt');
+    - ``df_residuals``: residuals, metrics, right-hand sides, Gondzio
+      trials and back-substitutions are evaluated in float64 and rounded
+      to the working dtype; iterates and factor stay in it ('normal'
+      raises, as the reference);
+    - ``two_float`` (implies ``df_residuals``; 'auto' / 'ldlt' only):
+      the whole iteration runs in float64 on a float64 solver (``_tf``,
+      dense LDL^T, K2/K3 in float64 on the card), the scalars (mu, step
+      lengths, residual, gap, tolerance) held in the working dtype as
+      the reference holds them.  ``SolveResult`` comes back in the
+      working dtype (x, variables, objective, residual, gap); the
+      ``IPMState`` of ``init_state`` / ``step`` is float64, the
+      counterpart of the reference's (2, n) pairs."""
 
     def __init__(self, settings: Settings, n: int, m_ineq: int = 0,
                  m_eq: int = 0, *, names: VariableNames = VariableNames(),
@@ -119,10 +144,17 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 f"with models.convert.settings_from_reference")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
-        if two_float or df_residuals or hybrid_refine:
+        if two_float:
+            if kernel not in ("auto", "ldlt"):
+                raise ValueError(
+                    "two_float=True factors the dense augmented system in "
+                    "float64 and supports kernel='auto'/'ldlt' only")
+            df_residuals = True
+        if kernel == "normal" and df_residuals:
             raise NotImplementedError(
-                "two_float / df_residuals / hybrid_refine are not ported: "
-                f"see {_ROADMAP_TWO_FLOAT}")
+                "kernel='normal' pre-binds dense-matrix inverses in working "
+                "precision; the float64 residual pipeline does not consume "
+                "them: use the augmented-system kernels with df_residuals")
         if mesh is not None or mesh_axis is not None or kernel == "sharded":
             raise NotImplementedError(
                 "mesh= / mesh_axis= / kernel='sharded' are not ported: see "
@@ -158,6 +190,25 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.mu_floor = float(mu_floor)
         #: scale the residual test by (1 + initial residual norm)
         self.scale_tol = scale_tol
+        #: refinement residuals b - K x in float64 against the assembled
+        #: K, rounded to the working dtype (the reference's compensated
+        #: two-float residual); no effect without a refinement sweep
+        self.hybrid_refine = hybrid_refine
+        #: residuals, metrics, right-hand sides and back-substitutions in
+        #: float64 (the reference's two-float pairs), rounded to the
+        #: working dtype before the solve and the step; iterates and
+        #: factor stay in the working dtype
+        self.df_residuals = df_residuals
+        #: the whole iteration in float64 (the reference's double-single
+        #: pairs): every entry point runs on the float64 solver ``_tf``
+        self.two_float = two_float
+        #: the dtype the residual pipeline evaluates in
+        self._rdt = torch.float64 if df_residuals else dtype
+        #: the dtype of the iteration's scalars (mu, the step lengths,
+        #: residual, gap, the tolerance): the working dtype, which the
+        #: float64 solver of a two_float solver keeps from its owner, as
+        #: the reference keeps them beside its pair iterates
+        self._sdt = dtype
         #: device-to-host round trips made by the iteration loops
         self.host_syncs = 0
         #: instances the escalation stage took in unconverged, summed over
@@ -230,8 +281,10 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
 
         # --- linear-solver mode --------------------------------------------
         #: the kernel mode in use (the reference's selection, without
-        #: 'sharded' and two-float)
-        if self._indefinite:
+        #: 'sharded'; 'tf' runs on ``_tf``)
+        if two_float:
+            self._mode = "tf"
+        elif self._indefinite:
             self._mode = "lu" if kernel == "lu" else "regldlt"
         elif kernel in ("lu", "regldlt", "blockg", "normal"):
             self._mode = kernel
@@ -307,6 +360,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.objective_expr = E.sum_expr([
             E.product([E.number(0.5), E.transpose(o.x), o.Q, o.x]),
             E.product([E.transpose(o.c), o.x])])
+        #: under two_float, the float64 solver every entry point runs on
+        self._tf = self._two_float_solver() if two_float else None
 
     # ------------------------------------------------------------------
     # environment plumbing
@@ -321,12 +376,13 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             return "blockg"
         return "ldlt"
 
-    def _bscalar(self, v, B: int) -> torch.Tensor:
-        """A per-instance scalar as a (B,) tensor; a constant becomes an
-        expanded view."""
+    def _bscalar(self, v, B: int, dtype=None) -> torch.Tensor:
+        """A per-instance scalar as a (B,) tensor of ``dtype`` (default
+        the working dtype); a constant becomes an expanded view."""
+        dtype = dtype or self.dtype
         if isinstance(v, torch.Tensor) and v.dim() == 1:
-            return v
-        return torch.full((1,), v, dtype=self.dtype,
+            return v.to(dtype)
+        return torch.full((1,), v, dtype=dtype,
                           device=self.device).expand(B)
 
     def _ones(self, B: int, size: int) -> torch.Tensor:
@@ -359,6 +415,25 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             env[var] = cg.vector(val)
         return env
 
+    def _lift(self, env: cg.Env) -> cg.Env:
+        """``env`` for the residual pipeline: its values cast to float64
+        under df_residuals (the reference's ``cgdf.lift_env``: exact, as
+        its pairs' zero low words), else ``env`` itself."""
+        if self._rdt == self.dtype:
+            return env
+        return {k: cg.TV(v.tag, v.val.to(self._rdt)
+                         if isinstance(v.val, torch.Tensor) else v.val)
+                for k, v in env.items()}
+
+    def _envm(self, data: QPData, var_vals, mu_val) -> cg.Env:
+        return self._lift(self._env(data, var_vals, mu_val))
+
+    def _scalar(self, fn, acc: torch.Tensor) -> torch.Tensor:
+        """``fn`` of a sum ``acc`` of the residual pipeline, taken in the
+        scalar dtype and held in the working dtype (the reference rounds
+        its pair sums so; a no-op on the plain pipeline)."""
+        return fn(acc.to(self._sdt)).to(self.dtype)
+
     def _check_data(self, data: QPData) -> QPData:
         """Reject data on another device or of the wrong sizes; cast it
         to the working dtype.  Returns batched data."""
@@ -387,7 +462,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
 
     def _metrics(self, env0, B: int):
         """(residual norm, duality gap) of the full system at mu=0, each
-        (B,)."""
+        (B,).  ``env0`` is a working env, or a lifted one (``_envm``)
+        under df_residuals; the metrics come back in the working dtype."""
         zero = torch.zeros(B, dtype=self.dtype, device=self.device)
         if sum(self.var_sizes) == 0:
             return zero, zero
@@ -395,24 +471,25 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         vals = [cg.as_vector(cg.evaluate(r, env0, memo), sz)
                 for r, sz in zip(self.full.rhs, self.var_sizes)]
         r = torch.cat(vals, dim=-1)
-        residual = torch.sqrt((r * r).sum(-1))
+        residual = self._scalar(torch.sqrt, (r * r).sum(-1))
         if self.comp_size == 0:
             return residual, zero
         comp = torch.cat([vals[i] for i in self.comp_rows], dim=-1)
-        return residual, comp.abs().sum(-1) / self.comp_size
+        return residual, self._scalar(lambda t: t / self.comp_size,
+                                      comp.abs().sum(-1))
 
     def _gap_only(self, env0, B: int):
         """Duality measure alone (only the complementarity rows), (B,)."""
-        acc = torch.zeros(B, dtype=self.dtype, device=self.device)
+        acc = torch.zeros(B, dtype=self._rdt, device=self.device)
         if self.comp_size == 0:
-            return acc
+            return acc.to(self.dtype)
         memo = {}
         for i in self.comp_rows:
             v = cg.as_vector(cg.evaluate(self.full.rhs[i], env0, memo),
                              self.var_sizes[i])
             if v.shape[-1]:
                 acc = acc + v.abs().sum(-1)
-        return acc / self.comp_size
+        return self._scalar(lambda t: t / self.comp_size, acc)
 
     def _done(self, state: IPMState, res_tol) -> torch.Tensor:
         return (state.residual < res_tol) & (state.gap < self.tol)
@@ -441,6 +518,9 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     def _init_batch(self, data: QPData,
                     warm_start: Optional[dict] = None) -> IPMState:
         """``init_state`` on checked, batched data."""
+        if self._tf is not None:
+            return self._tf._init_batch(data.to(dtype=torch.float64),
+                                        self._tf_warm(warm_start))
         o = self.symbols
         B = data.Q.shape[0]
         init = {
@@ -461,7 +541,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             else:
                 vals.append(torch.ones((B, sz), dtype=self.dtype,
                                        device=self.device))
-        residual, gap = self._metrics(self._env(data, vals, 0.0), B)
+        residual, gap = self._metrics(self._envm(data, vals, 0.0), B)
         return IPMState(
             vars=tuple(vals),
             mu=torch.full((B,), self.mu0, dtype=self.dtype,
@@ -472,44 +552,60 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     def _step_impl(self, state: IPMState, data: QPData,
                    gondzio: Optional[int] = None, nd_pre=None) -> IPMState:
         """One Mehrotra iteration of every instance of the batch."""
+        if self._tf is not None:
+            return self._tf._step_impl(
+                tree_map(lambda t: t.to(torch.float64)
+                         if t.is_floating_point() else t, state),
+                data.to(dtype=torch.float64), gondzio=gondzio, nd_pre=nd_pre)
         B = data.Q.shape[0]
         env = self._env(data, state.vars, state.mu)
-        gap = state.gap
+        envm = self._lift(env)
 
-        # factor the augmented KKT once
+        # factor the augmented KKT once (always in the working dtype)
         solve_fn = self._make_solve(env, B, nd_pre=nd_pre)
 
         # affine predictor (mu = 0)
-        renv = self._residual_env(env, 0.0)
+        renv = self._residual_env(envm, 0.0)
         d_aff = self._search_direction(solve_fn, renv)
         alpha_aff = self._max_step(env, state.vars, d_aff)
 
         # trial step -> mu_aff -> sigma
-        trial = tuple(v + alpha_aff[:, None] * d
-                      for v, d in zip(state.vars, d_aff))
-        gap_aff = self._gap_only(self._env(data, trial, 0.0), B)
-        pos = gap > 0
-        sigma = torch.where(pos, (gap_aff / torch.where(
-            pos, gap, torch.ones_like(gap))) ** 3, torch.zeros_like(gap))
-        mu_new = torch.clamp(gap * sigma, min=self.mu_floor)
+        trial = self._axpy(state.vars, alpha_aff, d_aff)
+        gap_aff = self._gap_only(self._envm(data, trial, 0.0), B)
+        mu_new = self._centring(state.gap, gap_aff)
 
         # corrector with recentred complementarity + affine correction
-        cenv = self._residual_env(env, mu_new, data=data,
+        cenv = self._residual_env(envm, mu_new, data=data,
                                   var_vals=state.vars, affine_deltas=d_aff)
         d_cc = self._search_direction(solve_fn, cenv)
         alpha = self._max_step(env, state.vars, d_cc)
 
         n_gondzio = self.gondzio if gondzio is None else gondzio
         for _ in range(n_gondzio):
-            d_cc, alpha = self._gondzio_round(env, data, state.vars,
+            d_cc, alpha = self._gondzio_round(envm, data, state.vars,
                                               solve_fn, d_cc, alpha, mu_new)
 
-        step = (self.fraction_to_boundary * alpha)[:, None]
-        new_vars = tuple(v + step * d for v, d in zip(state.vars, d_cc))
-        residual, new_gap = self._metrics(self._env(data, new_vars, 0.0), B)
+        new_vars = self._axpy(state.vars, self.fraction_to_boundary * alpha,
+                              d_cc)
+        residual, new_gap = self._metrics(self._envm(data, new_vars, 0.0), B)
         return IPMState(vars=new_vars, mu=mu_new,
                         iteration=state.iteration + 1,
                         residual=residual, gap=new_gap)
+
+    def _axpy(self, var_vals, alpha, deltas) -> tuple:
+        """Every variable stepped by ``alpha`` (B,) of the scalar dtype
+        along its delta."""
+        a = alpha.to(self.dtype)[:, None]
+        return tuple(v + a * d for v, d in zip(var_vals, deltas))
+
+    def _centring(self, gap, gap_aff) -> torch.Tensor:
+        """mu = gap sigma with sigma = (mu_aff / mu)^3, at least
+        ``mu_floor``, computed in the scalar dtype."""
+        g, ga = gap.to(self._sdt), gap_aff.to(self._sdt)
+        pos = g > 0
+        sigma = torch.where(pos, (ga / torch.where(
+            pos, g, torch.ones_like(g))) ** 3, torch.zeros_like(g))
+        return torch.clamp(g * sigma, min=self.mu_floor).to(self.dtype)
 
     def _result(self, state: IPMState, data: QPData, res_tol,
                 diverged) -> SolveResult:
@@ -527,7 +623,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
 
     def _res_tol(self, state: IPMState) -> torch.Tensor:
         if self.scale_tol:
-            return self.tol * (1.0 + state.residual)
+            return (self.tol * (1.0 + state.residual.to(self._sdt))).to(
+                self.dtype)
         return torch.full_like(state.residual, self.tol)
 
     def _nd_prework(self, data: QPData):
@@ -549,6 +646,9 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                     warm_start: Optional[dict] = None) -> SolveResult:
         """Solve every instance of a batch: the batched form of the
         reference's per-instance ``while_loop``."""
+        if self._tf is not None:
+            return self._on_tf(lambda tf: self._rounded(tf._solve_impl(
+                data.to(dtype=torch.float64), self._tf_warm(warm_start))))
         self._ensure_nd_plan(data)
         state = self._init_batch(data, warm_start)
         res_tol = self._res_tol(state)
@@ -569,6 +669,61 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
             diverged = diverged | (active & failed)
         return self._result(state, data, res_tol,
                             diverged | bad_iterate(state))
+
+    # ------------------------------------------------------------------
+    # two_float: the iteration in float64
+    # ------------------------------------------------------------------
+
+    def _two_float_solver(self) -> "CompiledIPM":
+        """The float64 solver a two_float solver runs on.  It keeps this
+        solver's settings; the constants the reference holds in the
+        working dtype (tol, mu0, delta0) are rounded to it, and its
+        scalars stay in it (``_sdt``).  It factors by the dense LDL^T, as
+        the reference's pair mode does, signed-regularised where the
+        augmented system is indefinite (at float64's eps^(2/3) where the
+        reference's pairs take 2^-48's)."""
+        def w(v):
+            return torch.tensor(v, dtype=self.dtype).item()
+        tf = CompiledIPM(
+            self.settings, self.n, self.m_ineq, self.m_eq, names=self.names,
+            dtype=torch.float64, device=self.device, tol=w(self.tol),
+            max_iter=self.max_iter,
+            fraction_to_boundary=self.fraction_to_boundary, mu0=w(self.mu0),
+            delta0=w(self.delta0), pivot_floor=self.pivot_floor,
+            refine=self.refine, scale_tol=self.scale_tol,
+            gondzio=self.gondzio, mu_floor=self.mu_floor, taylor=self.taylor,
+            kernel="regldlt" if self._indefinite else "ldlt")
+        tf._sdt = self.dtype
+        return tf
+
+    def _tf_warm(self, warm_start: Optional[dict]) -> Optional[dict]:
+        """A warm start rounded to the working dtype, as the reference
+        reads it."""
+        if warm_start is None:
+            return None
+        return {k: torch.as_tensor(v, device=self.device).to(self.dtype)
+                for k, v in warm_start.items()}
+
+    def _on_tf(self, fn):
+        """``fn(self._tf)``, with the float64 solver's host syncs and
+        escalated instances counted here too."""
+        tf = self._tf
+        syncs, escalated = tf.host_syncs, tf.escalated
+        out = fn(tf)
+        self.host_syncs += tf.host_syncs - syncs
+        self.escalated = self.escalated + (tf.escalated - escalated)
+        return out
+
+    def _rounded(self, res: SolveResult) -> SolveResult:
+        """A result of the float64 iteration with its values rounded to
+        the working dtype (the reference's hi + lo); iterations and flags
+        as they are."""
+        dt = self.dtype
+        return dataclasses.replace(
+            res, x=res.x.to(dt),
+            variables={k: v.to(dt) for k, v in res.variables.items()},
+            objective=res.objective.to(dt), residual=res.residual.to(dt),
+            gap=res.gap.to(dt))
 
     # ------------------------------------------------------------------
     # public API

@@ -2,7 +2,8 @@
 consumed reduction, the kernel-mode dispatch (``_make_solve``) and the
 dense-matrix-inverse binding the normal-equations reduction needs
 (counterpart of :mod:`ipmzoo_tpu.models.kernels`, without its
-``'sharded'`` and two-float modes).
+``'sharded'`` mode; its two-float mode ``'tf'`` is a float64 solver of
+these modes here, ``CompiledIPM._tf``).
 
 The modes:
 
@@ -19,6 +20,10 @@ The modes:
   its panels), with each dense H^-1 bound once per iteration;
 - ``'nd'``: nested dissection along a plan (:mod:`..ops.ndiss`: K5 per
   level, K3 in the solves).
+
+With ``hybrid_refine`` every refinement sweep computes b - K x in
+float64 against the assembled K (the reference's compensated two-float
+residual), rounded to the working dtype.
 """
 
 from __future__ import annotations
@@ -123,20 +128,32 @@ class KernelDispatchMixin:
     def _refined(self, solve_once, K, sweeps=None, matvec=None):
         """``solve_once`` followed by ``sweeps`` (default ``refine``)
         iterative-refinement sweeps against K (assembled by ``K()`` only
-        if any are asked for), or against ``matvec`` where given."""
+        if any are asked for), or against ``matvec`` where given and
+        ``hybrid_refine`` is off."""
         sweeps = self.refine if sweeps is None else sweeps
-        if matvec is None and sweeps:
-            Kmat = K()
+        if sweeps and self.hybrid_refine:
+            K64 = K().to(torch.float64)
 
-            def matvec(x):
-                return torch.matmul(Kmat, x.unsqueeze(-1)).squeeze(-1)
+            def resid(b, x):
+                r = b.to(torch.float64) - torch.matmul(
+                    K64, x.to(torch.float64).unsqueeze(-1)).squeeze(-1)
+                return r.to(b.dtype)
+        elif sweeps:
+            if matvec is None:
+                Kmat = K()
+
+                def matvec(x):
+                    return torch.matmul(Kmat, x.unsqueeze(-1)).squeeze(-1)
+
+            def resid(b, x):
+                return b - matvec(x)
 
         def solve(b):
             if b.shape[-1] == 0:
                 return b
             sol = solve_once(b)
             for _ in range(sweeps):
-                sol = sol + solve_once(b - matvec(sol))
+                sol = sol + solve_once(resid(b, sol))
             return sol
 
         return solve
@@ -178,7 +195,8 @@ class KernelDispatchMixin:
                 parts = torch.split(x, sizes, dim=-1)
                 return torch.cat(blockg_matvec(blocks, parts), dim=-1)
 
-            return self._refined(lambda b: blockg_solve(factors, b), None,
+            return self._refined(lambda b: blockg_solve(factors, b),
+                                 lambda: self._assemble_kkt(env, B),
                                  matvec=matvec)
         if mode == "block":
             from ..ops.block_solve import (block2_factor, block2_factor_inv,
@@ -204,7 +222,8 @@ class KernelDispatchMixin:
                 return torch.cat(block2_matvec(H, Bm, C, x[:, :n1],
                                                x[:, n1:]), dim=-1)
 
-            return self._refined(once, None, matvec=matvec)
+            return self._refined(once, lambda: self._assemble_kkt(env, B),
+                                 matvec=matvec)
         if mode == "normal":
             # bind H^-1 first (mutates env: the residual / corrector envs
             # derive from this env by dict copy, so the binding reaches

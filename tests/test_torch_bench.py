@@ -6,8 +6,8 @@ variables and both timers are replaced by a constant second, so a
 mode's ``value`` is the count it divides by the wall: the same converged
 share and the same counts must come out.  float32 iteration totals may
 part by rounding (2%); in float64 the port's function is held to the
-reference's solver iteration for iteration.  The modes the port refuses
-(sharded, tf) raise ``NotImplementedError`` naming their ROADMAP item.
+reference's solver iteration for iteration.  The mode the port refuses
+(sharded) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
@@ -304,8 +304,35 @@ def test_mpc_mode_float64_iterations_equal(small, monkeypatch):
     assert value == float(np.asarray(want.iterations).sum())
 
 
-@pytest.mark.parametrize("mode,item", [
-    ("sharded", "item 16"), ("tf", "item 7")])
+def test_tf_mode(small, monkeypatch):
+    """bench_tf at a small batch (16 of the 48 QPs, n=8, m=4): its
+    float32 x is the float32 rounding of a point within 1e-9 of the
+    port's float64 solve_batch of the same float32 data, ``converged``
+    equal; the value is the useful iterations over the (one-second)
+    wall.  bench.py's tf mode is not run: XLA's CPU compile of its pair
+    pipeline takes minutes."""
+    monkeypatch.setattr(bench_torch, "TF_B", 16)
+    label, value, unit, counts = bench_torch.run_mode("tf", CPU)
+    res = counts["result"]
+    assert unit == "iterations/s" and "tol=1e-08" in label
+    assert res.x.dtype == torch.float32 and tuple(res.x.shape) == (16, N)
+    assert value == counts["iterations"] == float(res.iterations.sum())
+    assert counts["converged"] == 1.0
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.formulations import Settings as PortSettings
+    from ipmzoo_tpu_torch.models.state import tree_map
+    sub = tree_map(lambda a: a[:16].double(),
+                   make_batch(BATCH, N, M, torch.float32, device=CPU))
+    want = CompiledIPM(PortSettings(), n=N, m_ineq=M, tol=1e-8,
+                       device=CPU).solve_batch(sub)
+    np.testing.assert_array_equal(res.converged.numpy(),
+                                  want.converged.numpy())
+    x64 = want.x.numpy()
+    assert (np.abs(res.x.double().numpy() - x64) <=
+            1e-9 + np.abs(x64) * 2.0 ** -24).all()
+
+
+@pytest.mark.parametrize("mode,item", [("sharded", "item 16")])
 def test_refused_modes_name_their_item(mode, item):
     with pytest.raises(NotImplementedError, match=item) as exc:
         bench_torch.run_mode(mode, CPU)
@@ -460,8 +487,8 @@ def test_unknown_mode_and_the_lists_of_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bench_torch.run_mode("nope", CPU)
     assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
-                                 "arrow", "nd", "normal", "aug", "mpc")
-    assert set(bench_torch.REFUSED) == {"sharded", "tf"}
+                                 "arrow", "nd", "normal", "aug", "mpc", "tf")
+    assert set(bench_torch.REFUSED) == {"sharded"}
     assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
 
 

@@ -270,13 +270,6 @@ class TestRejects:
         np.testing.assert_allclose(res.x.numpy(), want.x.numpy(),
                                    atol=1e-7)
 
-    @pytest.mark.parametrize("option", ["two_float", "df_residuals",
-                                        "hybrid_refine"])
-    def test_unported_precision_options(self, option):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            CompiledIPM(port_settings(Settings()), 4, 2, device="cpu",
-                        **{option: True})
-
     def test_mesh(self):
         with pytest.raises(NotImplementedError, match="item 16"):
             CompiledIPM(port_settings(Settings()), 4, 2, mesh=object(),
