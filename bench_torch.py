@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
 
     python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd|
-                                  normal|aug|mpc|tf
+                                  normal|aug|mpc|tf|sharded
                            [--device cpu] [--batch B] [--dense] [--large]
 
 runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
@@ -55,6 +55,14 @@ The workloads, gates and counts are bench.py's:
   cannot reach; ``two_float`` runs the iteration in float64 (K2/K3's
   float64 instantiations on the card) and returns float32; >= 99% must
   converge; useful iterations/s.
+* ``sharded`` — bench.py's bench_sharded: ``dp_scaling_report`` of the
+  ``solve`` solver on the same 10240 QPs, 10 steps, over the ranks of
+  the process group: rank 0 steps the whole batch alone, then every rank
+  its slice at once; the value is the sharded useful iterations/s, the
+  report's summary stands on an earlier line.  It joins the process
+  group when ``WORLD_SIZE`` > 1 is set (``RANK``, ``MASTER_ADDR``,
+  ``MASTER_PORT`` beside it, one process per rank; every rank prints the
+  same report), else runs one rank.  Ranks on one card time-slice it.
 
 The BENCH_* environment variables of bench.py size the workloads
 (BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
@@ -67,8 +75,7 @@ every run printed on an earlier line.
 ``vs_baseline`` is null: bench.py's baselines are rates of another
 program measured on another machine's host, and no number of this card.
 
-Not ported: the mode ``sharded`` raises ``NotImplementedError`` naming
-its ROADMAP item.
+Every mode of bench.py is ported; ``REFUSED`` names none.
 """
 
 import argparse
@@ -93,11 +100,9 @@ TF_B = int(os.environ.get("BENCH_TF_B", 2048))
 TF_TOL = float(os.environ.get("BENCH_TF_TOL", 1e-8))
 
 MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd", "normal",
-         "aug", "mpc", "tf")
+         "aug", "mpc", "tf", "sharded")
 #: modes of bench.py the port does not have yet, with their ROADMAP item
-REFUSED = {
-    "sharded": "ROADMAP.md Queue 1 item 16 (multi-device)",
-}
+REFUSED = {}
 
 
 def refuse(mode: str):
@@ -811,6 +816,34 @@ def bench_mpc(device, dtype=None, runs=5):
         "result": res}
 
 
+def bench_sharded(device, batch=None):
+    """dp-sharded batched stepping over the ranks of the process group,
+    with its strong-scaling efficiency against rank 0 alone (bench.py's
+    bench_sharded); joins the group first where ``WORLD_SIZE`` > 1."""
+    import torch
+    import torch.distributed as dist
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.parallel.distributed import initialize
+    from ipmzoo_tpu_torch.parallel.mesh import make_mesh
+    from ipmzoo_tpu_torch.parallel.scaling import dp_scaling_report
+    if not dist.is_initialized():
+        initialize()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    devices = None if device.type == "cuda" else [device] * world
+    dev = make_mesh(devices=devices).device
+    data = make_batch(BATCH if batch is None else batch, N, M_INEQ,
+                      torch.float32, device=dev)
+    report = dp_scaling_report(compact_solver(dev), data, steps=10,
+                               devices=devices)
+    print(report.summary())
+    label = (f"IPM iterations/s, {report.batch} batched QPs, dp-sharded over "
+             f"{report.n_devices} device(s), strong-scaling efficiency "
+             f"{100 * report.efficiency:.1f}% vs 1 device "
+             f"(n={N}, m={M_INEQ}, {backend(dev)})")
+    return label, report.iters_per_s_ndev, "iterations/s", {
+        "report": report}
+
+
 def run_mode(mode, device, batch=None, dense=False, large=False):
     """Run one mode; returns (label, value, unit, counts)."""
     import torch
@@ -847,6 +880,8 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
     if mode in ("arrow", "nd"):
         return {"arrow": bench_arrow, "nd": bench_nd}[mode](device,
                                                             dense=dense)
+    if mode == "sharded":
+        return bench_sharded(device, batch)
     return {"schur": bench_schur, "normal": bench_normal,
             "aug": bench_aug, "mpc": bench_mpc}[mode](device)
 
@@ -867,13 +902,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
+    from ipmzoo_tpu_torch.parallel.distributed import shutdown
     from ipmzoo_tpu_torch.utils.device import nvidia_smi, resolve_device
     device = resolve_device(args.device)
     if device.type == "cuda":
         print(nvidia_smi())
     print(f"torch {torch.__version__}; device {backend(device)}")
-    label, value, unit, _ = run_mode(args.mode, device, args.batch,
-                                     args.dense, args.large)
+    try:
+        label, value, unit, _ = run_mode(args.mode, device, args.batch,
+                                         args.dense, args.large)
+    finally:
+        shutdown()
     print(json.dumps({"metric": label, "value": round(value, 1),
                       "unit": unit, "vs_baseline": None}))
     return 0

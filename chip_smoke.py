@@ -418,7 +418,32 @@ Steps, each reported on its own line:
     at 1e-6 at least the 47 the reference converges (both stall on
     instance 21), none diverged; two_float on instances 0-2 by
     init_state and step: residual and gap below 1e-8 and x within 1e-9
-    of the float64 solve on the card.
+    of the float64 solve on the card;
+49. the sp path at one rank: bench_schur's coupled QP of seed 0 (64
+    blocks of n=64, 16 coupling rows, float32 data) through
+    SchurIPM(mesh=make_mesh(), tol=1e-8, refine=2).solve_sharded
+    (two_float: the iteration in float64), launch counts set to 0 just
+    before and read just after: converged, x within 1e-8 and the
+    objective within 1e-10 relative of SchurIPM.solve on the card; K2 on
+    its block route, K3 on its warp route and K4 on its warp route, all
+    in float64, each launched, launches by shape; its wall (CUDA events,
+    median of 5); then K2, K3 and K4 at its shapes timed against their
+    plain versions and library calls;
+50. the same solve at two ranks: two processes spawned and joined in one
+    gloo group, both on cuda:0, each factoring 32 blocks: every rank
+    returns the same x, rank 0's x and objective within step 49's limits
+    of SchurIPM.solve; each rank's launches by shape (K2 (64, 32) and
+    (16, 1), K4 (64, 16, 32), K3 (64, 32) and (16, 1), all float64),
+    host syncs (the loop's and the collectives staged through the host)
+    and wall; a rank that fails fails the step;
+51. bench_torch.py --mode sharded at one rank (in this process, launch
+    counts set to 0 just before and read just after: K2 and K3 launched)
+    and at two (two processes started with WORLD_SIZE=2, RANK,
+    MASTER_ADDR, MASTER_PORT, both on cuda:0, gloo): each report's
+    summary and JSON line, both ranks printing the same value;
+52. dryrun_multichip(2): the dp step, the sharded Schur solve and its
+    two_float variant at two ranks on cuda:0, each within 1e-5 of its
+    local run.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -443,7 +468,15 @@ SCHEDULE_BATCHES = (10240, 2560, 320)
 SOURCE = "ipmzoo_tpu_torch/csrc/ldlt.cu"
 #: bench_schur's defaults: instances, blocks, block size, coupling rows
 SCHUR_I, SCHUR_BLOCKS, SCHUR_N, SCHUR_MC = 8, 64, 64, 16
-K4_SHAPES = ((SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS), (24, 2, 10240),
+#: steps 49-50: bench_schur's coupled QP of seed 0 with its blocks over
+#: one rank and over SP_WORLD ranks sharing the card; the sp solve's
+#: refinement sweeps
+SP_WORLD, SP_REFINE = 2, 2
+#: K4's shapes: the Schur slice's H blocks, the sp solve's at one and two
+#: ranks, the kkt point and an odd shape
+K4_SHAPES = ((SCHUR_N, SCHUR_MC, SCHUR_I * SCHUR_BLOCKS),
+             (SCHUR_N, SCHUR_MC, SCHUR_BLOCKS),
+             (SCHUR_N, SCHUR_MC, SCHUR_BLOCKS // SP_WORLD), (24, 2, 10240),
              (13, 5, 1000))
 #: more (order, right-hand sides, systems) at which both K4 routes are held
 #: to plain (step 4) and timed (step 8), in both types: n = 1 and the
@@ -584,12 +617,16 @@ TF_BATCHES = (TF_B, TF_B // 4)
 #: normal slice's order-128 normal equations and H's panels (16
 #: matrices), the condensed MPC QP of step 43 (order 96, 8 systems), odd
 #: orders, n = 1, batches that fill no whole block, the tf slice's
-#: batches (step 47); and one order over the block route's shared memory
-#: (the nd slice's generic top)
+#: batches (step 47), the sp solve's H blocks and S at one and two ranks
+#: (steps 49-50) and the dp slice's half batch at two ranks (step 51);
+#: and one order over the block route's shared memory (the nd slice's
+#: generic top)
 K2_SHAPES = ((N_AUG, 10240), (N_AUG, 2560), (N_AUG, 320), (N_AUG, 32),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS), (SCHUR_MC, SCHUR_I),
              (30, 64), (128, 16), (MPC_AUG, MPC_SMALL_BATCH), (13, 1000),
-             (37, 77), (1, 5)) + tuple((N_AUG, B) for B in TF_BATCHES)
+             (37, 77), (1, 5)) + tuple((N_AUG, B) for B in TF_BATCHES) + \
+    ((SCHUR_N, SCHUR_BLOCKS), (SCHUR_N, SCHUR_BLOCKS // SP_WORLD),
+     (SCHUR_MC, 1), (N_AUG, B_SLICE // SP_WORLD))
 K2_OVER_CAP = (328, 1)
 #: (order, systems, type) at which both K3 routes are held to plain
 #: (step 4) and timed (step 8): the compact slice's batches and its
@@ -597,8 +634,10 @@ K2_OVER_CAP = (328, 1)
 #: three levels, the equality_qp slice's KKT ('regldlt', float64), the
 #: condensed MPC QP of step 43 (order 96, float64, over the warp route's
 #: cap), the nd slice's generic top (order 328, over the warp route's
-#: shared memory), the levels of step 44's side-96 plan and the tf
-#: slice's float64 batches (step 47)
+#: shared memory), the levels of step 44's side-96 plan, the tf
+#: slice's float64 batches (step 47), the sp solve's H blocks and S at
+#: one and two ranks (steps 49-50) and the dp slice's half batch at two
+#: ranks (step 51)
 K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (N_AUG, 320, "float32"), (N_AUG, 32, "float64"),
              (SCHUR_N, SCHUR_I * SCHUR_BLOCKS, "float64"),
@@ -606,7 +645,10 @@ K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
              (16, 28, "float32"), (16, 16, "float32"), (30, 64, "float64"),
              (MPC_AUG, MPC_SMALL_BATCH, "float64"), (328, 1, "float32")) + \
     tuple((n, B, "float32") for B, n, _ in K5_SWEEP_LEVELS) + \
-    tuple((N_AUG, B, "float64") for B in TF_BATCHES)
+    tuple((N_AUG, B, "float64") for B in TF_BATCHES) + \
+    ((SCHUR_N, SCHUR_BLOCKS, "float64"),
+     (SCHUR_N, SCHUR_BLOCKS // SP_WORLD, "float64"),
+     (SCHUR_MC, 1, "float64"), (N_AUG, B_SLICE // SP_WORLD, "float32"))
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
@@ -1431,6 +1473,14 @@ def time_kernels(dev):
         2)
     out[K2_OVER_CAP] = time_k2_routes(dev, *K2_OVER_CAP, torch.float64,
                                       reps=2)
+    # the sp solve's H blocks and S at one and two ranks (steps 49-50)
+    # and the dp slice's half batch at two ranks (step 51)
+    for n, B, dtype in ((SCHUR_N, SCHUR_BLOCKS, torch.float64),
+                        (SCHUR_N, SCHUR_BLOCKS // SP_WORLD, torch.float64),
+                        (SCHUR_MC, 1, torch.float64),
+                        (N_AUG, B_SLICE // SP_WORLD, torch.float32)):
+        out[(n, B, str(dtype).replace("torch.", ""))] = time_k2_routes(
+            dev, n, B, dtype)
     return out
 
 
@@ -4473,6 +4523,288 @@ def run_precision_options(dev):
     print(f"step 48: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the multi-device paths (steps 49-52) ------------------------------------
+
+def sp_data(dev):
+    """bench_schur's coupled QP of seed 0: SCHUR_BLOCKS blocks of order
+    SCHUR_N with SCHUR_MC coupling rows, float32."""
+    import bench_torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    return tree_map(lambda a: a[0], bench_torch.schur_data(
+        dev, 1, SCHUR_BLOCKS, SCHUR_N, SCHUR_MC))
+
+
+def sp_solver(mesh=None, dev=None):
+    """bench_schur's solver: float32 data at tol 1e-8 (two_float: the
+    iteration in float64), refine=2."""
+    import torch
+    from ipmzoo_tpu_torch.parallel import SchurIPM
+    return SchurIPM(SCHUR_N, SCHUR_MC, mesh=mesh, device=dev,
+                    dtype=torch.float32, tol=1e-8, refine=SP_REFINE,
+                    max_iter=60)
+
+
+def sp_counted(solver, data):
+    """solve_sharded with the launch counts set to 0 just before and read
+    just after, and the solver's factor / solve calls recorded by kernel
+    and (order, [columns,] systems): (result, launches, float64
+    launches, launches by route, calls by shape, host syncs)."""
+    import collections
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    shapes = collections.Counter()
+    for name, key in (
+            ("_factor", lambda A: f"K2 ({A.shape[-1]}, {A.shape[0]})"),
+            ("_solve", lambda f, r: f"K3 ({r.shape[-1]}, {r.shape[0]})"),
+            ("_solve_mat", lambda f, R:
+             f"K4 ({R.shape[1]}, {R.shape[2]}, {R.shape[0]})")):
+        def recorded(*a, _call=getattr(solver, name), _key=key):
+            shapes[_key(*a)] += 1
+            return _call(*a)
+        setattr(solver, name, recorded)
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    res = solver.solve_sharded(data)
+    torch.cuda.synchronize()
+    for name in ("_factor", "_solve", "_solve_mat"):
+        delattr(solver, name)
+    return (res, dict(cuda_ldlt.launches), dict(cuda_ldlt.f64_launches),
+            {k: v for k, v in cuda_ldlt.route_launches.items() if v},
+            dict(shapes), solver.host_syncs)
+
+
+def check_sp_launches(what, iterations, world, launches, f64, routes,
+                      shapes):
+    """The counted launches and calls by shape against one rank's share
+    of ``iterations`` iterations over ``world`` ranks: each factors the H
+    blocks and S once, solves the H^-1 F^T panel once, H twice and S
+    2 (1 + refine) times, every call one float64 launch."""
+    b, it = SCHUR_BLOCKS // world, iterations
+    want = {f"K2 ({SCHUR_N}, {b})": it, f"K2 ({SCHUR_MC}, 1)": it,
+            f"K4 ({SCHUR_N}, {SCHUR_MC}, {b})": it,
+            f"K3 ({SCHUR_N}, {b})": 2 * it,
+            f"K3 ({SCHUR_MC}, 1)": 2 * (1 + SP_REFINE) * it}
+    print(f"{what}: launches by shape (float64) {shapes}; by route "
+          f"{routes}")
+    check(shapes == want, f"{what}: calls by shape {shapes}, expected "
+          f"{want}")
+    by_kernel = {"ldlt": 2 * it, "solve_ldlt_matrix": it,
+                 "solve_ldlt": (2 + 2 * (1 + SP_REFINE)) * it,
+                 "ldlt_solve_matrix": 0}
+    check(launches == by_kernel, f"{what}: launches {launches}, expected "
+          f"{by_kernel}")
+    check(f64 == launches, f"{what}: float32 launches {f64} of {launches}")
+
+
+def run_sp_one_rank(dev):
+    """Step 49: solve_sharded at one rank against solve on the card;
+    returns (the local result, launches by route)."""
+    import torch
+    from ipmzoo_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    print(f"step 49 on {card()}")
+    data = sp_data(dev)
+    mesh = make_mesh()
+    check(mesh.shape == {"dp": 1} and mesh.device == dev,
+          f"one-rank mesh {mesh.shape} on {mesh.device}")
+    solver = sp_solver(mesh)
+    res, launches, f64, routes, shapes, syncs = sp_counted(solver, data)
+    local = sp_solver(dev=dev).solve(data)
+    it = int(res.iterations)
+    check(solver.two_float and bool(res.converged) and
+          tuple(res.x.shape) == (SCHUR_BLOCKS, SCHUR_N) and
+          bool(torch.isfinite(res.x).all()),
+          f"sp one rank: converged {bool(res.converged)}, x "
+          f"{tuple(res.x.shape)}")
+    dx = (res.x.double() - local.x.double()).abs().max().item()
+    df = abs(float(res.objective) - float(local.objective)) / \
+        abs(float(local.objective))
+    print(f"sp one rank: {SCHUR_BLOCKS} blocks x n={SCHUR_N}, m_c="
+          f"{SCHUR_MC}, float32 data, tol 1e-8 (float64 iteration): "
+          f"{it} iterations, residual {float(res.residual):.3e}, gap "
+          f"{float(res.gap):.3e}, host syncs {syncs}; against solve: x "
+          f"{dx:.3e} (limit 1e-8), objective {df:.3e} relative (limit "
+          f"1e-10)")
+    check(dx <= 1e-8 and df <= 1e-10, "sp one rank disagrees with solve")
+    check_sp_launches("sp one rank", it, 1, launches, f64, routes, shapes)
+    for r in ("ldlt block", "solve_ldlt warp", "solve_ldlt_matrix warp"):
+        check(routes.get(r, 0) > 0, f"sp one rank: {r} never launched")
+    ms = time_solves(lambda: solver.solve_sharded(data), 5)
+    print(f"sp one rank: wall {ms:.3f} ms a solve (CUDA events, median of "
+          f"5), {ms / it:.3f} ms an iteration")
+    print(f"step 49: {time.perf_counter() - t0:.1f} s")
+    return local, routes
+
+
+def sp_rank():
+    """One rank of step 50 (run in a spawned process): the counted
+    solve_sharded, then its wall and the host clock of one collective
+    (a psum of S's size, staged through the host); plain values for the
+    parent."""
+    import torch
+    import torch.distributed as dist
+    from ipmzoo_tpu_torch.parallel import make_mesh
+    from ipmzoo_tpu_torch.parallel.mesh import psum
+    mesh = make_mesh()
+    data = sp_data(mesh.device)
+    solver = sp_solver(mesh)
+    res, launches, f64, routes, shapes, syncs = sp_counted(solver, data)
+    staged = mesh.host_syncs
+    ms = time_solves(lambda: solver.solve_sharded(data), 5)
+    S = torch.ones((1, SCHUR_MC, SCHUR_MC), dtype=torch.float64,
+                   device=mesh.device)
+    psum(S, mesh)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        psum(S, mesh)
+    psum_ms = (time.perf_counter() - t0) / 20 * 1e3
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": dist.get_backend(), "x": res.x.double().cpu().numpy(),
+            "objective": float(res.objective),
+            "iterations": int(res.iterations),
+            "converged": bool(res.converged), "launches": launches,
+            "f64": f64, "routes": routes, "shapes": shapes,
+            "host_syncs": syncs, "staged": staged, "ms": ms,
+            "psum_ms": psum_ms}
+
+
+def run_sp_two_ranks(local):
+    """Step 50: solve_sharded at SP_WORLD ranks sharing the card, against
+    step 49's solve."""
+    import numpy as np
+    from ipmzoo_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    print(f"step 50 on {card()}")
+    outs = spawn(sp_rank, SP_WORLD, timeout=600)
+    x0 = local.x.double().cpu().numpy()
+    f0 = float(local.objective)
+    for out in outs:
+        check(out["converged"] and np.array_equal(out["x"], outs[0]["x"]),
+              f"sp rank {out['rank']}: converged {out['converged']}, x "
+              f"differs from rank 0's")
+        print(f"sp rank {out['rank']} of {SP_WORLD} on {out['device']} "
+              f"({out['backend']}): {out['iterations']} iterations, host "
+              f"syncs {out['host_syncs']} ({out['staged']} collectives "
+              f"staged through the host), wall {out['ms']:.3f} ms a solve "
+              f"(CUDA events, median of 5); one staged psum of S "
+              f"{out['psum_ms']:.4f} ms (host clock, mean of 20)")
+        check_sp_launches(f"sp rank {out['rank']}", out["iterations"],
+                          SP_WORLD, out["launches"], out["f64"],
+                          out["routes"], out["shapes"])
+    dx = float(np.abs(outs[0]["x"] - x0).max())
+    df = abs(outs[0]["objective"] - f0) / abs(f0)
+    print(f"sp {SP_WORLD} ranks against solve: x {dx:.3e} (limit 1e-8), "
+          f"objective {df:.3e} relative (limit 1e-10)")
+    check(dx <= 1e-8 and df <= 1e-10, "sp at two ranks disagrees with "
+          "solve")
+    print(f"step 50: {time.perf_counter() - t0:.1f} s")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_dp_sharded(dev):
+    """Step 51: bench_torch.py --mode sharded at one rank in this process
+    (launch counts set to 0 just before, read just after) and at
+    SP_WORLD ranks, one process each started by the launch variables;
+    returns the one-rank run's launches by route."""
+    import os
+    import subprocess
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    t0 = time.perf_counter()
+    print(f"step 51 on {card()}")
+    cuda_ldlt.reset_launch_counts()
+    label, value, unit, _ = bench_torch.run_mode("sharded", dev)
+    torch.cuda.synchronize()
+    routes = {k: v for k, v in cuda_ldlt.route_launches.items() if v}
+    print(f"dp one rank: launches by route {routes}")
+    check(cuda_ldlt.launches["ldlt"] > 0 and
+          cuda_ldlt.launches["solve_ldlt"] > 0,
+          "the dp slice never launched K2 or K3")
+    print_bench("sharded", label, value, unit)
+
+    env = dict(os.environ, WORLD_SIZE=str(SP_WORLD), MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "bench_torch.py"), "--mode",
+         "sharded"], cwd=root,
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(SP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    values = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"bench_torch.py --mode sharded rank {r} "
+              f"exited {p.returncode}:\n{out[-3000:]}")
+        lines = out.strip().splitlines()
+        rec = json.loads(lines[-1])
+        summary = [ln for ln in lines if ln.startswith("dp scaling:")]
+        print(f"dp rank {r} of {SP_WORLD}: {summary[-1]}")
+        print(f"bench_torch --mode sharded rank {r}: {lines[-1]}")
+        values.append(rec["value"])
+    check(len(set(values)) == 1, f"the ranks report different values "
+          f"{values}")
+    print(f"step 51: {time.perf_counter() - t0:.1f} s")
+    return routes
+
+
+def run_dryrun(dev):
+    """Step 52: dryrun_multichip at SP_WORLD ranks on the card."""
+    from ipmzoo_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    print(f"step 52 on {card()}")
+    diffs = dryrun_multichip(SP_WORLD)
+    check(set(diffs) == {"dp-step", "schur", "schur-tf"},
+          f"dryrun checks {sorted(diffs)}")
+    print(f"step 52: {time.perf_counter() - t0:.1f} s")
+
+
+def time_sp_kernels(dev, times):
+    """K3's and K4's warp routes at the sp solve's one-rank shapes (float64,
+    H blocks n=64, B=64; K4 with the panel's 16 columns) against their
+    plain versions and torch.linalg.ldl_solve, by CUDA events; K2's from
+    step 8 (``times``)."""
+    import torch
+    from ipmzoo_tpu_torch.ops.ldlt import solve_ldlt, solve_ldlt_matrix
+    n, k, B, dt = SCHUR_N, SCHUR_MC, SCHUR_BLOCKS, torch.float64
+    t = {"K2": times[(n, B, "float64")]}
+    L, D, b, soa = k3_inputs(n, B, dt, dev, seed=n + B)
+    x0 = solve_ldlt(L, D, b)
+    t["K3_warp"] = time_cuda(lambda: k3_call("warp", *soa), 50)
+    t["K3_plain"] = time_cuda(lambda: solve_ldlt(L, D, b), 5)
+    t["K3_library"] = time_library(
+        f"torch.linalg.ldl_solve (K3's function) n={n} B={B} float64",
+        ldl_solve_call(L, D, b), x0, 1e-10, 2)
+    L, D, R, soa = k4_inputs(n, k, B, dt, dev)
+    X0 = solve_ldlt_matrix(L, D, R)
+    t["K4_warp"] = time_cuda(lambda: k4_call("warp", *soa, R), 50)
+    t["K4_plain"] = time_cuda(lambda: solve_ldlt_matrix(L, D, R), 5)
+    t["K4_library"] = time_library(
+        f"torch.linalg.ldl_solve (K4's function) n={n} k={k} B={B} "
+        f"float64", ldl_solve_call(L, D, R), X0, 1e-10, 2)
+    print(f"timing sp shapes n={n} k={k} B={B} float64 (ms per call, CUDA "
+          f"events): " + ", ".join(f"{a} {v:.4f}" for a, v in t.items()
+                                   if isinstance(v, float)))
+    return t
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -4501,7 +4833,7 @@ def main():
     data, res, launches = run_slice(dev)
     compare_cpu(data, res)
     times = time_kernels(dev)
-    time_k3_routes(dev)
+    k3_times = time_k3_routes(dev)
     time_k4_routes(dev)
     errs["fused"] = check_fused(dev)
     errs["fused team"] = check_fused_team(dev)
@@ -4551,6 +4883,11 @@ def main():
     w_launches, _ = run_wide_slice(dev)
     tf_launches = run_tf_slice(dev, data)
     run_precision_options(dev)
+    sp_local, sp_routes = run_sp_one_rank(dev)
+    sp_times = time_sp_kernels(dev, times)
+    run_sp_two_ranks(sp_local)
+    dp_routes = run_dp_sharded(dev)
+    run_dryrun(dev)
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")
@@ -4607,6 +4944,38 @@ def main():
               tf["K3_warp"], tf["K3_plain"],
               ldlt_bounds(TF_B, N_AUG, 1, torch.float64)["K3"],
               tf["K3_library"], k3_errs[("warp", N_AUG, TF_B, "float64")]),
+        # the sp solve at one rank (step 49): its H blocks
+        entry(f"K2 block route (float64, n={SCHUR_N}, B={SCHUR_BLOCKS}: the "
+              f"sp solve, one rank)", SOURCE, "ldlt",
+              sp_routes["ldlt block"], sp_times["K2"]["K2_block"],
+              sp_times["K2"]["K2_plain"], sp_times["K2"]["bound"], None,
+              k2_errs[("block", SCHUR_N, SCHUR_BLOCKS, "float64")]),
+        entry(f"K3 warp route (float64, n={SCHUR_N}, B={SCHUR_BLOCKS}: the "
+              f"sp solve, one rank)", SOURCE, "solve_ldlt",
+              sp_routes["solve_ldlt warp"], sp_times["K3_warp"],
+              sp_times["K3_plain"],
+              ldlt_bounds(SCHUR_BLOCKS, SCHUR_N, 1, torch.float64)["K3"],
+              sp_times["K3_library"],
+              k3_errs[("warp", SCHUR_N, SCHUR_BLOCKS, "float64")]),
+        entry(f"K4 warp route (float64, n={SCHUR_N}, k={SCHUR_MC}, "
+              f"B={SCHUR_BLOCKS}: the sp solve, one rank)", SOURCE,
+              "solve_ldlt_matrix warp", sp_routes["solve_ldlt_matrix warp"],
+              sp_times["K4_warp"], sp_times["K4_plain"],
+              ldlt_bounds(SCHUR_BLOCKS, SCHUR_N, SCHUR_MC,
+                          torch.float64)["K4"], sp_times["K4_library"],
+              k4_errs[("warp", SCHUR_N, SCHUR_MC, SCHUR_BLOCKS,
+                       "float64")]),
+        # the dp slice at one rank (step 51): K2 at the whole batch
+        entry(f"K2 block route (float32, n={N_AUG}, B={B_SLICE}: the dp "
+              f"slice, one rank)", SOURCE, "ldlt", dp_routes["ldlt block"],
+              t["K2_block"], t["K2_plain"], t["bound"], None,
+              k2_errs[("block", N_AUG, B_SLICE, "float32")]),
+        entry(f"K3 warp route (float32, n={N_AUG}, B={B_SLICE}: the dp "
+              f"slice, one rank)", SOURCE, "solve_ldlt",
+              dp_routes["solve_ldlt warp"],
+              k3_times[(N_AUG, B_SLICE, "float32")]["events"]["warp"],
+              t["K3_plain"], b24["K3"], t["K3_library"],
+              k3_errs[("warp", N_AUG, B_SLICE, "float32")]),
         entry(f"K2 block route (float64, n={SCHUR_N}, B="
               f"{SCHUR_I * SCHUR_BLOCKS})", SOURCE, "ldlt",
               s_launches["ldlt block"], s_times["K2_block"],

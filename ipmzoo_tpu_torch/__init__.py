@@ -17,8 +17,11 @@ mirror the JAX package's:
   from the symbolic derivation), ``ArrowIPM`` (banded+arrow box QPs
   over the cyclic-reduction kernels K6/K7), and ``RiccatiIPM`` (MPC
   over a batched Riccati factor/solve, :mod:`.ops.riccati`).
-* :mod:`ipmzoo_tpu_torch.parallel` — ``SchurIPM``, the block-separable
-  coupled-QP engine (Schur complements over K2/K3/K4), on one device.
+* :mod:`ipmzoo_tpu_torch.parallel` — meshes over ``torch.distributed``
+  (one rank a process, gloo or NCCL), the multi-process launch, the dp
+  scaling report and the dry run, and ``SchurIPM``, the block-separable
+  coupled-QP engine (Schur complements over K2/K3/K4), on one device or
+  with its blocks over a mesh axis (``solve_sharded``).
 * :mod:`ipmzoo_tpu_torch.ops` — batched LDL^T factor, solve, multi-rhs
   solve and fused factor + multi-rhs solve: CUDA kernels
   (``csrc/ldlt.cu``) with plain torch versions for CPU tensors; the

@@ -62,7 +62,7 @@ from .state import (IPMState, SolveResult, bad_iterate, tree_map,
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
-_ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
+_ROADMAP_MESH = "ROADMAP.md Queue 1 item 16b (multi-device: the tp axis)"
 _KERNELS = ("auto", "ldlt", "jnp", "block", "blockg", "lu", "regldlt",
             "normal", "sharded", "nd")
 

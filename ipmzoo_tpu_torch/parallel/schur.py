@@ -31,6 +31,15 @@ pairs (for a TPU without f64) when float32 must reach a tolerance below
 its floor.  Here the same switch solves in float64 (data and state
 promoted, the f64 kernels on a card) and returns x, nu, the objective
 and the metrics in the working dtype.
+
+``solve_sharded`` spreads the blocks of one coupled QP over the ranks of
+a mesh axis (:mod:`.mesh`): each rank factors its contiguous slice of
+blocks, and every reduction over the blocks (S, the coupling residual,
+the two right-hand sides of S, the step lengths, mu_aff, the metrics and
+the objective) is a collective over the axis, so every rank holds the
+same coupling system, step lengths and stop test.  Under ``two_float``
+the collectives run in float64, where the reference folds its pairs
+exactly with an ``all_gather``.
 """
 
 from __future__ import annotations
@@ -44,8 +53,7 @@ from ..models.state import tree_map, with_batch_axis, without_batch_axis
 from ..utils.device import resolve_device
 from ..ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto, solve_ldlt_matrix_auto
 from ..ops.ldlt import PIVOT_FLOOR, ldlt, solve_ldlt
-
-_ROADMAP_MESH = "ROADMAP.md Queue 1 item 16 (multi-device)"
+from . import mesh as mesh_ops
 
 
 @dataclasses.dataclass
@@ -91,7 +99,9 @@ class SchurResult:
 
 
 class SchurIPM:
-    """Mehrotra IPM over the blocks of coupled QPs, on one device.
+    """Mehrotra IPM over the blocks of coupled QPs, on one device, or
+    with its blocks over the ``axis`` of ``mesh`` (``solve_sharded``;
+    the solver then runs on this rank's device of the mesh).
 
     ``block_kernel``: 'pallas' factors and solves the H_b blocks and the
     coupling system with kernels K2/K3/K4 through the ``*_auto``
@@ -103,7 +113,8 @@ class SchurIPM:
     on for float32 with tol < 1e-6, as the reference; it solves in
     float64 (see the module docstring)."""
 
-    def __init__(self, n: int, m_c: int, *, device=None,
+    def __init__(self, n: int, m_c: int, *, mesh=None, axis: str = "dp",
+                 device=None,
                  dtype: torch.dtype = torch.float64, tol: float = 1e-8,
                  max_iter: int = 100, fraction_to_boundary: float = 0.995,
                  delta: float = 1e-8, pivot_floor: float = PIVOT_FLOOR,
@@ -114,6 +125,12 @@ class SchurIPM:
         if block_kernel not in ("auto", "pallas", "jnp"):
             raise ValueError(f"unknown block_kernel={block_kernel!r}")
         self.n, self.m_c = n, m_c
+        self.mesh, self.axis = mesh, axis
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not this rank's "
+                                 f"device of the mesh, {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.dtype = dtype
         self.tol = tol
@@ -180,23 +197,40 @@ class SchurIPM:
                 torch.einsum("abij,ai->abj", data.F, st.nu) - st.z_l +
                 st.z_u)
 
-    def _coupling(self, data: BlockQPData, x):
-        """sum_b F_b x_b - g."""
-        return torch.einsum("abij,abj->ai", data.F, x) - data.g
+    # -- reductions over the mesh axis (the identity without a mesh) -----
 
-    def _metrics(self, data: BlockQPData, st: SchurState):
+    def _psum(self, x, mesh):
+        return x if mesh is None else mesh_ops.psum(x, mesh, self.axis)
+
+    def _pmin(self, x, mesh):
+        return x if mesh is None else mesh_ops.pmin(x, mesh, self.axis)
+
+    def _ranks(self, mesh) -> int:
+        return 1 if mesh is None else mesh.shape[self.axis]
+
+    def _coupling(self, data: BlockQPData, x, mesh=None):
+        """sum_b F_b x_b - g, summed over every rank's blocks."""
+        return self._psum(torch.einsum("abij,abj->ai", data.F, x),
+                          mesh) - data.g
+
+    def _metrics(self, data: BlockQPData, st: SchurState, mesh=None):
         grad = self._grad(data, st)
-        coupling = self._coupling(data, st.x)
+        coupling = self._coupling(data, st.x, mesh)
         I = grad.shape[0]
         comp = torch.cat([(st.s_l * st.z_l).reshape(I, -1),
                           (st.s_u * st.z_u).reshape(I, -1)], dim=1)
-        sq = (grad ** 2).sum(dim=(1, 2)) + (comp ** 2).sum(-1)
+        # the squares and the gap's sum over every rank's blocks, in one
+        # collective
+        sq, gap_sum = self._psum(torch.stack([
+            (grad ** 2).sum(dim=(1, 2)) + (comp ** 2).sum(-1),
+            comp.abs().sum(-1)]), mesh)
         sq = sq + (coupling ** 2).sum(-1)
-        return torch.sqrt(sq), comp.abs().sum(-1) / comp.shape[1]
+        return torch.sqrt(sq), gap_sum / (comp.shape[1] * self._ranks(mesh))
 
-    def _local_rhs(self, data, st, grad, fact, mu, corr=None):
+    def _local_rhs(self, data, st, grad, fact, mu, corr=None, mesh=None):
         """Complementarity residuals (with the Mehrotra correction when
-        ``corr`` = (dx_aff, dz_l_aff, dz_u_aff)) and H^{-1} r_x."""
+        ``corr`` = (dx_aff, dz_l_aff, dz_u_aff)), H^{-1} r_x, and the
+        right-hand side sum_b F_b H_b^{-1} r_b of S over every rank."""
         m = mu[:, None, None]
         r_l = st.s_l * st.z_l - m
         r_u = st.s_u * st.z_u - m
@@ -207,7 +241,7 @@ class SchurIPM:
         r_x = -grad - r_l / st.s_l + r_u / st.s_u
         I, B, n = r_x.shape
         Hinv_rx = self._solve(fact, r_x.reshape(I * B, n)).reshape(I, B, n)
-        rS = torch.einsum("abij,abj->ai", data.F, Hinv_rx)
+        rS = self._psum(torch.einsum("abij,abj->ai", data.F, Hinv_rx), mesh)
         return rS, (Hinv_rx, r_l, r_u)
 
     def _direction(self, st, Hinv_FT, pieces, dnu):
@@ -236,9 +270,11 @@ class SchurIPM:
             torch.minimum(ratio(st.s_l, ds_l), ratio(st.s_u, ds_u)),
             torch.minimum(ratio(st.z_l, dz_l), ratio(st.z_u, dz_u))))
 
-    def _step(self, data: BlockQPData, st: SchurState) -> SchurState:
+    def _step(self, data: BlockQPData, st: SchurState,
+              mesh=None) -> SchurState:
         """One Mehrotra iteration of every instance: one factorisation of
-        the H_b blocks and one of S, shared by predictor and corrector."""
+        the H_b blocks and one of S, shared by predictor and corrector.
+        With a mesh, ``data`` and ``st`` hold this rank's blocks."""
         dt = st.x.dtype
         I, B, n = st.x.shape
         m_c = self.m_c
@@ -251,9 +287,10 @@ class SchurIPM:
         Hinv_FT = self._solve_mat(
             fact, data.F.transpose(-1, -2).reshape(I * B, n, m_c)
         ).reshape(I, B, n, m_c)
-        S = torch.einsum("abij,abjk->aik", data.F, Hinv_FT) + \
+        S = self._psum(torch.einsum("abij,abjk->aik", data.F, Hinv_FT),
+                       mesh) + \
             self.delta * torch.eye(m_c, dtype=dt, device=st.x.device)
-        r_c = self._coupling(data, st.x)
+        r_c = self._coupling(data, st.x, mesh)
         fact_S = self._factor(S)
 
         def solve_S(rhs):
@@ -265,17 +302,18 @@ class SchurIPM:
 
         # affine predictor
         rS, pieces = self._local_rhs(data, st, grad, fact,
-                                     torch.zeros_like(mu))
+                                     torch.zeros_like(mu), mesh=mesh)
         dnu = solve_S(rS + r_c)
         d_aff = self._direction(st, Hinv_FT, pieces, dnu)
-        alpha_aff = self._max_step(st, d_aff)
+        alpha_aff = self._pmin(self._max_step(st, d_aff), mesh)
 
         # centering
         dx, dsl, dsu, dzl, dzu = d_aff
         a = alpha_aff[:, None, None]
-        mu_aff_sum = (((st.s_l + a * dsl) * (st.z_l + a * dzl)).sum((1, 2)) +
-                      ((st.s_u + a * dsu) * (st.z_u + a * dzu)).sum((1, 2)))
-        mu_aff = mu_aff_sum / (2 * B * n)
+        mu_aff_sum = self._psum(
+            ((st.s_l + a * dsl) * (st.z_l + a * dzl)).sum((1, 2)) +
+            ((st.s_u + a * dsu) * (st.z_u + a * dzu)).sum((1, 2)), mesh)
+        mu_aff = mu_aff_sum / (2 * B * n * self._ranks(mesh))
         pos = mu > 0
         sigma = torch.where(pos, (mu_aff / torch.where(pos, mu, 1.0)) ** 3,
                             0.0)
@@ -283,10 +321,10 @@ class SchurIPM:
 
         # corrector: same factorisations, Mehrotra correction terms
         rS2, pieces2 = self._local_rhs(data, st, grad, fact, mu_new,
-                                       corr=(dx, dzl, dzu))
+                                       corr=(dx, dzl, dzu), mesh=mesh)
         dnu2 = solve_S(rS2 + r_c)
         d = self._direction(st, Hinv_FT, pieces2, dnu2)
-        step = self.ftb * self._max_step(st, d)
+        step = self.ftb * self._pmin(self._max_step(st, d), mesh)
         a = step[:, None, None]
 
         dx, dsl, dsu, dzl, dzu = d
@@ -295,7 +333,7 @@ class SchurIPM:
             z_l=st.z_l + a * dzl, z_u=st.z_u + a * dzu,
             nu=st.nu + step[:, None] * dnu2, iteration=st.iteration + 1,
             residual=st.residual, gap=st.gap)
-        new.residual, new.gap = self._metrics(data, new)
+        new.residual, new.gap = self._metrics(data, new, mesh)
         return new
 
     def _is_instance(self, data: BlockQPData) -> bool:
@@ -312,8 +350,9 @@ class SchurIPM:
         data = with_batch_axis(self._check(data, 0 if one else 1), one)
         return without_batch_axis(self._init_batch(data), one)
 
-    def _init_batch(self, data: BlockQPData) -> SchurState:
-        """``init_state`` on checked data with the instance axis."""
+    def _init_batch(self, data: BlockQPData, mesh=None) -> SchurState:
+        """``init_state`` on checked data with the instance axis (this
+        rank's blocks with a mesh)."""
         x = 0.5 * (data.l_x + data.u_x)
         ones = torch.ones_like(x)
         I = x.shape[0]
@@ -326,22 +365,24 @@ class SchurIPM:
                                 device=x.device),
             gap=torch.full((I,), float("inf"), dtype=x.dtype,
                            device=x.device))
-        st.residual, st.gap = self._metrics(data, st)
+        st.residual, st.gap = self._metrics(data, st, mesh)
         return st
 
     def _done(self, st: SchurState) -> torch.Tensor:
         return (st.residual < self.tol) & (st.gap < self.tol)
 
-    def _solve_loop(self, data: BlockQPData) -> SchurState:
+    def _solve_loop(self, data: BlockQPData, mesh=None) -> SchurState:
         """Iterate every instance until it converges or reaches
-        ``max_iter``; finished instances are frozen."""
-        st = self._init_batch(data)
+        ``max_iter``; finished instances are frozen.  With a mesh the
+        stop test reads only reduced values, the same bits on every rank,
+        so the ranks leave the loop together."""
+        st = self._init_batch(data, mesh)
         while True:
             active = ~self._done(st) & (st.iteration < self.max_iter)
             self.host_syncs += 1
             if not bool(active.any()):
                 return st
-            new = self._step(data, st)
+            new = self._step(data, st, mesh)
             st = tree_map(lambda o, nw: torch.where(
                 active.reshape((-1,) + (1,) * (nw.dim() - 1)), nw, o),
                 st, new)
@@ -367,10 +408,16 @@ class SchurIPM:
                              f"{tuple(data.g.shape)}")
         return data.to(dtype=self.compute_dtype)
 
-    def _result(self, data: BlockQPData, st: SchurState) -> SchurResult:
+    def _result(self, data: BlockQPData, st: SchurState,
+                mesh=None) -> SchurResult:
+        """The result; with a mesh the objective is summed over the ranks
+        and x gathered from every rank's blocks, on every rank."""
         x = st.x
-        obj = (0.5 * torch.einsum("abi,abij,abj->a", x, data.Q, x) +
-               torch.einsum("abi,abi->a", data.c, x))
+        obj = self._psum(0.5 * torch.einsum("abi,abij,abj->a", x, data.Q, x) +
+                         torch.einsum("abi,abi->a", data.c, x), mesh)
+        if mesh is not None:
+            x = mesh_ops.all_gather(x.transpose(0, 1), mesh, self.axis,
+                                    tiled=True).transpose(0, 1)
         dt = self.dtype
         return SchurResult(
             x=x.to(dt), nu=st.nu.to(dt), objective=obj.to(dt),
@@ -391,6 +438,20 @@ class SchurIPM:
         return self._result(datas, self._solve_loop(datas))
 
     def solve_sharded(self, data: BlockQPData) -> SchurResult:
-        """The reference's blocks-over-a-mesh solve is not ported."""
-        raise NotImplementedError(
-            f"SchurIPM.solve_sharded is not ported: see {_ROADMAP_MESH}")
+        """Solve one coupled QP with its blocks over the mesh axis: every
+        rank passes the whole QP, factors its contiguous slice of blocks
+        and returns the whole result (x gathered on every rank).  The
+        block count must divide over the axis.  Collectives staged
+        through the host count in ``host_syncs``."""
+        if self.mesh is None:
+            raise ValueError("solve_sharded needs a mesh")
+        mesh = self.mesh
+        data = with_batch_axis(self._check(data, 0), True)
+        sl = mesh_ops.shard_slice(data.Q.shape[1], mesh, self.axis)
+        local = BlockQPData(Q=data.Q[:, sl], c=data.c[:, sl],
+                            F=data.F[:, sl], l_x=data.l_x[:, sl],
+                            u_x=data.u_x[:, sl], g=data.g)
+        staged = mesh.host_syncs
+        res = self._result(local, self._solve_loop(local, mesh), mesh)
+        self.host_syncs += mesh.host_syncs - staged
+        return without_batch_axis(res, True)

@@ -6,8 +6,8 @@ variables and both timers are replaced by a constant second, so a
 mode's ``value`` is the count it divides by the wall: the same converged
 share and the same counts must come out.  float32 iteration totals may
 part by rounding (2%); in float64 the port's function is held to the
-reference's solver iteration for iteration.  The mode the port refuses
-(sharded) raises ``NotImplementedError`` naming its ROADMAP item.
+reference's solver iteration for iteration.  The sharded mode runs at
+one rank in this process and at two in gloo processes.
 """
 
 import dataclasses
@@ -332,12 +332,33 @@ def test_tf_mode(small, monkeypatch):
             1e-9 + np.abs(x64) * 2.0 ** -24).all()
 
 
-@pytest.mark.parametrize("mode,item", [("sharded", "item 16")])
-def test_refused_modes_name_their_item(mode, item):
-    with pytest.raises(NotImplementedError, match=item) as exc:
-        bench_torch.run_mode(mode, CPU)
-    assert f"bench mode {mode!r}" in str(exc.value)
-    assert "ROADMAP.md Queue 1" in str(exc.value)
+@pytest.mark.parametrize("world", [1, 2])
+def test_sharded_mode(small, monkeypatch, world):
+    """bench_sharded at the small size, both stepping timers at one
+    second: the value is batch x 10 steps, as bench.py's; the report's
+    efficiency is 1 / world.  World 2 runs in two gloo processes."""
+    import ipmzoo_tpu.parallel.scaling as ref_scaling
+    import torch_spawn_jobs as jobs
+    from ipmzoo_tpu_torch.parallel import scaling
+    # the reference's scaling module holds its own name of the timer
+    monkeypatch.setattr(ref_scaling, "measure_chain",
+                        lambda fn, init, **k: 1.0)
+    ref_label, ref_value, ref_unit, _ = bench.bench_sharded(
+        bench.make_batch(BATCH, N, M, jnp.float32), "cpu")
+    if world == 1:
+        monkeypatch.setattr(scaling, "time_steps", lambda *a, **k: 1.0)
+        label, value, unit, counts = bench_torch.run_mode("sharded", CPU)
+        outs = [(label, value, unit, counts["report"])]
+    else:
+        outs = jobs.run(jobs.bench_sharded, world, BATCH, N, M)
+    for label, value, unit, report in outs:
+        assert unit == ref_unit == "iterations/s"
+        assert value == ref_value == BATCH * 10
+        assert f"{BATCH} batched QPs, dp-sharded over {world} device(s)" \
+            in label and ref_label.startswith(label.split(", dp-")[0])
+        assert f"efficiency {100 / world:.1f}% vs 1 device" in label
+        assert report.n_devices == world and report.steps == 10
+        assert report.t_1dev == report.t_ndev == 1.0
 
 
 def aug_env(monkeypatch):
@@ -487,8 +508,9 @@ def test_unknown_mode_and_the_lists_of_modes():
     with pytest.raises(ValueError, match="unknown mode"):
         bench_torch.run_mode("nope", CPU)
     assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
-                                 "arrow", "nd", "normal", "aug", "mpc", "tf")
-    assert set(bench_torch.REFUSED) == {"sharded"}
+                                 "arrow", "nd", "normal", "aug", "mpc", "tf",
+                                 "sharded")
+    assert bench_torch.REFUSED == {}
     assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
 
 

@@ -271,7 +271,7 @@ class TestRejects:
                                    atol=1e-7)
 
     def test_mesh(self):
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match="item 16b"):
             CompiledIPM(port_settings(Settings()), 4, 2, mesh=object(),
                         device="cpu")
 

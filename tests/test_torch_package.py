@@ -58,6 +58,18 @@ def test_port_imports_and_solves_without_jax():
                           g=torch.zeros(1))
         assert bool(SchurIPM(2, 1, dtype=torch.float32, device="cpu").solve(
             blk.to(dtype=torch.float32)).converged)
+        from ipmzoo_tpu_torch.parallel import (batch_sharding, make_mesh,
+                                               replicated)
+        from ipmzoo_tpu_torch.parallel import distributed, dryrun, scaling
+        mesh = make_mesh(devices=["cpu"])
+        assert mesh.shape == {"dp": 1} and mesh.group is None
+        assert tuple(batch_sharding(mesh).spec) == ("dp",)
+        assert tuple(replicated(mesh).spec) == ()
+        assert bool(SchurIPM(2, 1, mesh=mesh).solve_sharded(blk).converged)
+        distributed.initialize()
+        assert distributed.is_primary()
+        assert callable(dryrun.dryrun_multichip)
+        assert callable(scaling.dp_scaling_report)
         from ipmzoo_tpu_torch.models.families import grid_qp
         fam = grid_qp(side=4, device="cpu")
         nd = p.CompiledIPM(fam.settings, n=fam.n, kernel="nd", nd_leaf=4,
@@ -273,8 +285,10 @@ def test_env_typo_warns_and_leaves_the_default(monkeypatch):
     (dict(kernel="sharded"), "item 16"),
 ])
 def test_unported_constructor_options_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=item) as exc:
         CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
+    # the tp axis: the second half of item 16
+    assert "item 16b" in str(exc.value)
 
 
 def test_block_inv_option():

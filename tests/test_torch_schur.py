@@ -329,9 +329,11 @@ class TestSolveBatch:
 
 class TestRejects:
     def test_solve_sharded_is_not_ported(self):
+        """Without a mesh, solve_sharded raises as the reference's does
+        (its sharded cases: tests/test_torch_schur_sharded.py)."""
         data = block_qp_from_numpy(make_coupled(blocks=2, n=3, m_c=1),
                                    device="cpu")
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(ValueError, match="solve_sharded needs a mesh"):
             SchurIPM(3, 1, device="cpu").solve_sharded(data)
 
     def test_data_of_other_sizes_or_devices(self):
