@@ -443,7 +443,46 @@ Steps, each reported on its own line:
     summary and JSON line, both ranks printing the same value;
 52. dryrun_multichip(2): the dp step, the sharded Schur solve and its
     two_float variant at two ranks on cuda:0, each within 1e-5 of its
-    local run.
+    local run (run after step 55, with step 56's checks);
+53. the tp factor at one rank on the card: tests/test_sharded_ldlt.py's
+    slow test's system kkt(3584, 512, seed=3, scale=2.0) of order 4096
+    row-sharded over a one-rank ("tp",) mesh, sharded_ldlt at the default
+    panel (128) and one sharded_ldlt_solve, launch counts set to 0 just
+    before and read just after: 32 K2 launches (block route, one a
+    diagonal panel) and no other kernel of the port; float64 max |L D L^T
+    - K| and max |K x - b| below 1e-9 (the slow test's bar), float32
+    held to the backward error bound n u (u = 2^-24): max |L D L^T -
+    K| / (|L| |D| |L^T|) elementwise and the solve's max |K x - b| /
+    max(|K| |x| + |b|) (both printed in float64 too); L and D
+    against ldlt_blocked on the card (float64 1e-11, float32 1e-4); the
+    wall of one factor, one solve and ldlt_blocked (CUDA events, median
+    of 3), K2's device ms a factor from a torch.profiler trace and its
+    share of the wall and of the busy time; then K2's block route at the
+    tp panel (the first diagonal block, n=128, B=1, float64) against its
+    plain version (1e-12), its device ms, events ms, plain ms, bound and
+    torch.linalg.cholesky_ex's ms;
+54. the same float64 factor and solve at two ranks: two processes
+    spawned and joined in one gloo group, both on cuda:0, each factoring
+    2048 rows: each rank's rows of L within 1e-10 of ldlt_blocked's (which
+    step 53 holds the one-rank factor to), D and x within 1e-10 of step
+    53's and equal on both ranks, 32 K2 launches a rank, 96 collectives
+    staged through the host (a broadcast a panel in the factor, a
+    broadcast and a psum a panel in the solve); each rank's wall (CUDA
+    events, median of 3), the bytes staged and the host clock of one
+    staged panel broadcast (1, 128, 4096) float64;
+55. tests/test_sharded_ipm.py's slow test's QP (box QP of n = 4096,
+    float32, tol 1e-4, panel 128, max_iter 40, scale_tol) through
+    CompiledIPM(kernel='sharded').solve at one rank and at two (spawned,
+    gloo, cuda:0), against kernel='jnp' on the card, launch counts set
+    to 0 just before and read just after each solve: converged,
+    iterations equal to 'jnp''s, x within 5e-3, 32 K2 launches an
+    iteration and, at one rank, no other kernel of the port; x the same
+    bits on both ranks; the one-rank wall (median of 3), ms and launches
+    an iteration and busy share (torch.profiler); each rank's wall,
+    collectives and bytes staged an iteration;
+56. the dry run's tp checks in step 52's run: tp-ldlt (order 16, panel 4,
+    against ldlt_solve) and tp-ipm (the box QP of n=8, panel 2, against
+    the default kernel), each within 1e-5.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -652,6 +691,14 @@ K3_SHAPES = ((N_AUG, 10240, "float32"), (N_AUG, 2560, "float32"),
 #: more (order, systems), in both types: n = 1, odd orders, batches that
 #: fill no tile, the warp route's cap (83) and one past it
 K3_EDGES = ((1, 5), (13, 7), (37, 77), (24, 3), (83, 9), (84, 9))
+#: steps 53-56: the tp path at the reference's full width, the bar of the
+#: slow tests of tests/test_sharded_ldlt.py (the system kkt(3584, 512,
+#: seed=3, scale=2.0) of order TP_DIM at the default panel) and
+#: tests/test_sharded_ipm.py (the box QP of n = TP_QP_N, float32, tol
+#: 1e-4, panel TP_PANEL, max_iter 40, scale_tol), at one rank and at
+#: TP_WORLD ranks sharing the card
+TP_KKT, TP_DIM, TP_PANEL, TP_WORLD = (3584, 512, 3, 2.0), 4096, 128, 2
+TP_QP_N, TP_QP_TOL, TP_QP_ITER = 4096, 1e-4, 40
 #: published peaks of one H100 SXM: HBM bytes/s, and FLOP/s outside the
 #: tensor cores (float64 runs at half the float32 rate there)
 HBM_BYTES_PER_S = 3.35e12
@@ -4766,14 +4813,15 @@ def run_dp_sharded(dev):
 
 
 def run_dryrun(dev):
-    """Step 52: dryrun_multichip at SP_WORLD ranks on the card."""
+    """Steps 52 and 56: dryrun_multichip at SP_WORLD ranks on the card, its
+    dp and sp checks (step 52) and its tp checks (step 56) in one run."""
     from ipmzoo_tpu_torch.parallel.dryrun import dryrun_multichip
     t0 = time.perf_counter()
-    print(f"step 52 on {card()}")
+    print(f"steps 52 and 56 on {card()}")
     diffs = dryrun_multichip(SP_WORLD)
-    check(set(diffs) == {"dp-step", "schur", "schur-tf"},
-          f"dryrun checks {sorted(diffs)}")
-    print(f"step 52: {time.perf_counter() - t0:.1f} s")
+    check(set(diffs) == {"dp-step", "schur", "schur-tf", "tp-ldlt",
+                         "tp-ipm"}, f"dryrun checks {sorted(diffs)}")
+    print(f"steps 52 and 56: {time.perf_counter() - t0:.1f} s")
 
 
 def time_sp_kernels(dev, times):
@@ -4803,6 +4851,351 @@ def time_sp_kernels(dev, times):
           f"events): " + ", ".join(f"{a} {v:.4f}" for a, v in t.items()
                                    if isinstance(v, float)))
     return t
+
+
+# -- the tp path (steps 53-56) -----------------------------------------------
+
+def tp_kkt(dtype, dev):
+    """tests/test_sharded_ldlt.py's slow test's system on ``dev``: K =
+    kkt(3584, 512, seed=3, scale=2.0) of order TP_DIM and b of seed 4."""
+    import numpy as np
+    import torch
+    n, m, seed, scale = TP_KKT
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(n, n))
+    H = H @ H.T / n + scale * np.eye(n)
+    S = rng.normal(size=(m, m))
+    S = S @ S.T / m + np.eye(m)
+    B = rng.normal(size=(m, n))
+    K = np.block([[H, B.T], [B, -S]])
+    b = np.random.default_rng(4).normal(size=n + m)
+    return (torch.tensor(K, dtype=dtype, device=dev),
+            torch.tensor(b, dtype=dtype, device=dev))
+
+
+def tp_errors(K, L, D, x, b):
+    """In float64: max |L D L^T - K|, max |K x - b|, the factor's
+    elementwise backward error max |L D L^T - K| / (|L| |D| |L^T|) and the
+    solve's normwise one max |K x - b| / max(|K| |x| + |b|)."""
+    import torch
+    K, L, D, x, b = (t.double() for t in (K, L, D, x, b))
+    dK = ((L * D) @ L.T - K).abs()
+    scale = (L.abs() * D.abs()) @ L.abs().T
+    r = (K @ x - b).abs()
+    return (dK.max().item(), r.max().item(),
+            (dK / scale.clamp(min=torch.finfo(scale.dtype).tiny)).max()
+            .item(), (r.max() / (K.abs() @ x.abs() + b.abs()).max()).item())
+
+
+def tp_counted(mesh, A_loc, b):
+    """The sharded factor and one solve with the launch counts and the
+    mesh's staged collectives set to 0 just before and read just after:
+    (factors, x, K2 launches, all launches, collectives staged, bytes
+    staged)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt, sharded_ldlt, \
+        sharded_ldlt_solve
+    cuda_ldlt.reset_launch_counts()
+    mesh.host_syncs = mesh.host_bytes = 0
+    factors = sharded_ldlt(A_loc, mesh)
+    x = sharded_ldlt_solve(factors, b, mesh)
+    torch.cuda.synchronize()
+    return (factors, x, cuda_ldlt.route_launches["ldlt block"],
+            sum(cuda_ldlt.launches.values()), mesh.host_syncs,
+            mesh.host_bytes)
+
+
+def run_tp_factor(dev):
+    """Step 53: the tp factor and solve at one rank on the card, float64
+    and float32; returns step 54's float64 reference (D, x) and the K2
+    row's numbers at the tp panel."""
+    import torch
+    from ipmzoo_tpu_torch.ops import shard_kkt, sharded_ldlt, \
+        sharded_ldlt_solve
+    from ipmzoo_tpu_torch.ops.blocked_ldlt import ldlt_blocked
+    from ipmzoo_tpu_torch.ops.ldlt import ldlt
+    from ipmzoo_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    print(f"step 53 on {card()}")
+    mesh = make_mesh((1,), ("tp",))
+    check(mesh.shape == {"tp": 1} and mesh.device == dev,
+          f"one-rank mesh {mesh.shape} on {mesh.device}")
+    stages = TP_DIM // TP_PANEL
+    ref = {}
+    for dtype, limit, same in ((torch.float64, 1e-9, 1e-11),
+                               (torch.float32, None, 1e-4)):
+        name = str(dtype).replace("torch.", "")
+        K, b = tp_kkt(dtype, dev)
+        A_loc = shard_kkt(K, mesh)
+        factors, x, k2, total, _, _ = tp_counted(mesh, A_loc, b)
+        L, _, D = factors
+        check(k2 == stages and total == stages,
+              f"tp factor {name}: {k2} K2 block launches of {total}, "
+              f"expected {stages} (one a panel)")
+        rec, res, ratio, eta = tp_errors(K, L, D, x, b)
+        L0, D0 = ldlt_blocked(K[None])
+        dL = (L - L0[0]).abs().max().item()
+        dD = (D - D0[0]).abs().max().item()
+        gamma = TP_DIM * torch.finfo(dtype).eps / 2
+        print(f"tp factor {name}, n={TP_DIM}, panel {TP_PANEL}, one rank: "
+              f"max|L D L^T - K| {rec:.3e}, max|K x - b| {res:.3e}; "
+              f"against the backward error bound n u = {gamma:.3e}: "
+              f"max |L D L^T - K| / (|L||D||L^T|) {ratio:.3e}, the solve's "
+              f"{eta:.3e}; against ldlt_blocked on the card: L {dL:.3e}, "
+              f"D {dD:.3e} (limit {same:g}); K2 launches {k2} (block "
+              f"route), all launches {total}")
+        if limit is None:
+            check(ratio <= gamma and eta <= gamma, f"tp factor {name}: "
+                  f"backward errors {ratio:.3e}, {eta:.3e} over n u = "
+                  f"{gamma:.3e}")
+        else:
+            check(rec < limit and res < limit, f"tp factor {name}: "
+                  f"reconstruction {rec:.3e} or residual {res:.3e} over "
+                  f"{limit:g}")
+        check(dL <= same and dD <= same, f"tp factor {name} differs from "
+              f"ldlt_blocked: L {dL:.3e}, D {dD:.3e}")
+        f_ms = time_solves(lambda: sharded_ldlt(A_loc, mesh), 3)
+        s_ms = time_solves(lambda: sharded_ldlt_solve(factors, b, mesh), 3)
+        blocked_ms = time_solves(lambda: ldlt_blocked(K[None]), 3)
+        per_kernel = []
+        busy, launches = profiled(lambda: sharded_ldlt(A_loc, mesh),
+                                  f"tp factor {name}", per_kernel)
+        k2_ms = sum(ms for k, ms in per_kernel
+                    if "ldlt_factor_kernel_block" in k)
+        print(f"tp factor {name}: wall {f_ms:.3f} ms a factor (ldlt_blocked "
+              f"{blocked_ms:.3f}), {s_ms:.3f} ms a solve (CUDA events, "
+              f"median of 3); K2 {k2_ms:.3f} ms of device time a factor, "
+              f"{k2_ms / stages:.4f} a launch: {100 * k2_ms / f_ms:.1f}% "
+              f"of the wall, {100 * k2_ms / busy:.1f}% of {busy:.3f} ms "
+              f"busy, {launches} launches")
+        if dtype == torch.float64:
+            ref = {"D": D.cpu().numpy(), "x": x.cpu().numpy(), "A": K,
+                   "launches": k2}
+    # K2 at the tp panel: the system's first diagonal block, (1, 128) f64
+    A = ref.pop("A")[None, :TP_PANEL, :TP_PANEL].contiguous()
+    t = {"err": hold_k2(f"float64 n={TP_PANEL} B=1 (the tp panel)", A,
+                        "block", 1e-12)[-1],
+         "ms": device_ms(lambda: k2_call("block", A), 20),
+         "events": time_cuda(lambda: k2_call("block", A), 20),
+         "plain": time_cuda(lambda: ldlt(A), 3),
+         "bound": ldlt_bounds(1, TP_PANEL, 1, torch.float64)["K2"]}
+    check(int(torch.linalg.cholesky_ex(A).info.abs().max()) == 0,
+          "the tp panel is not SPD")
+    t["library"] = time_cuda(lambda: torch.linalg.cholesky_ex(A), 20)
+    print(f"timing K2 block route at the tp panel n={TP_PANEL} B=1 float64 "
+          f"(ms): device {t['ms']:.4f}, events {t['events']:.4f}, plain "
+          f"{t['plain']:.4f}, bound {t['bound'][0]:.6f} by "
+          f"{t['bound'][1]}; torch.linalg.cholesky_ex {t['library']:.4f} "
+          f"(nearest library call, not the same function)")
+    print(f"step 53: {time.perf_counter() - t0:.1f} s")
+    return ref, t
+
+
+def tp_rank(D1, x1):
+    """One rank of step 54 (run in a spawned process): the counted
+    float64 factor and solve, held to step 53's one-rank D and x and to
+    ldlt_blocked's rows (which step 53 holds the one-rank factor to);
+    its wall and the host clock of one staged panel broadcast."""
+    import torch
+    import torch.distributed as dist
+    from ipmzoo_tpu_torch.ops import shard_kkt, sharded_ldlt, \
+        sharded_ldlt_solve
+    from ipmzoo_tpu_torch.ops.blocked_ldlt import ldlt_blocked
+    from ipmzoo_tpu_torch.parallel import make_mesh
+    from ipmzoo_tpu_torch.parallel.mesh import broadcast, shard_slice
+    mesh = make_mesh((TP_WORLD,), ("tp",))
+    K, b = tp_kkt(torch.float64, mesh.device)
+    A_loc = shard_kkt(K, mesh)
+    factors, x, k2, total, syncs, nbytes = tp_counted(mesh, A_loc, b)
+    L, _, D = factors
+    rows = ldlt_blocked(K[None])[0][0][shard_slice(TP_DIM, mesh, "tp")]
+    ms = time_solves(lambda: sharded_ldlt_solve(
+        sharded_ldlt(A_loc, mesh), b, mesh), 3)
+    panel = A_loc[None, :TP_PANEL, :].contiguous()
+    broadcast(panel, mesh, "tp", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        broadcast(panel, mesh, "tp", 0)
+    bcast_ms = (time.perf_counter() - t0) / 20 * 1e3
+    return {"rank": mesh.rank, "device": str(mesh.device),
+            "backend": dist.get_backend(), "rows": tuple(L.shape),
+            "dL": (L - rows).abs().max().item(),
+            "dD": float(abs(D.cpu().numpy() - D1).max()),
+            "dx": float(abs(x.cpu().numpy() - x1).max()),
+            "D": D.cpu().numpy(), "x": x.cpu().numpy(),
+            "res": (K @ x - b).abs().max().item(), "k2": k2,
+            "launches": total, "staged": syncs, "bytes": nbytes, "ms": ms,
+            "bcast_ms": bcast_ms}
+
+
+def run_tp_two_ranks(ref):
+    """Step 54: the tp factor and solve at TP_WORLD ranks sharing the card
+    (gloo), against step 53's."""
+    import numpy as np
+    from ipmzoo_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    print(f"step 54 on {card()}")
+    outs = spawn(tp_rank, TP_WORLD, ref["D"], ref["x"], timeout=600)
+    stages = TP_DIM // TP_PANEL
+    for out in outs:
+        print(f"tp rank {out['rank']} of {TP_WORLD} on {out['device']} "
+              f"({out['backend']}): rows {out['rows']}; against step 53 L "
+              f"{out['dL']:.3e}, D {out['dD']:.3e}, x {out['dx']:.3e} "
+              f"(limit 1e-10); max|K x - b| {out['res']:.3e}; K2 launches "
+              f"{out['k2']} of {out['launches']}; {out['staged']} "
+              f"collectives staged through the host, {out['bytes']} bytes; "
+              f"wall {out['ms']:.3f} ms a factor + solve (CUDA events, "
+              f"median of 3); one staged panel broadcast (1, {TP_PANEL}, "
+              f"{TP_DIM}) float64 {out['bcast_ms']:.4f} ms (host clock, "
+              f"mean of 20)")
+        check(max(out["dL"], out["dD"], out["dx"]) <= 1e-10,
+              f"tp rank {out['rank']} differs from the one-rank factor")
+        check(out["k2"] == stages and out["launches"] == stages,
+              f"tp rank {out['rank']}: {out['k2']} K2 launches of "
+              f"{out['launches']}, expected {stages}")
+        check(out["staged"] == 3 * stages,
+              f"tp rank {out['rank']}: {out['staged']} collectives staged, "
+              f"expected {3 * stages} (a broadcast a panel, two a panel "
+              f"in the solve)")
+        check(np.array_equal(out["D"], outs[0]["D"]) and
+              np.array_equal(out["x"], outs[0]["x"]),
+              f"tp rank {out['rank']}: D or x differs from rank 0's")
+    print(f"step 54: {time.perf_counter() - t0:.1f} s")
+
+
+def tp_qp(dev):
+    """tests/test_sharded_ipm.py's slow test's box QP, n = TP_QP_N,
+    float32, on ``dev``."""
+    import numpy as np
+    import torch
+    from ipmzoo_tpu_torch.models.data import QPData
+    n = TP_QP_N
+    rng = np.random.default_rng(0)
+    M = rng.normal(size=(n, n))
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    return QPData(Q=t(M @ M.T / n + np.eye(n)), c=t(rng.normal(size=n)),
+                  A_ineq=t(np.zeros((0, n))), l_A_ineq=t(np.zeros(0)),
+                  u_A_ineq=t(np.zeros(0)), A_eq=t(np.zeros((0, n))),
+                  b_eq=t(np.zeros(0)), l_x=t(np.full(n, -2.0)),
+                  u_x=t(np.full(n, 2.0)))
+
+
+def tp_solver(kernel, mesh=None, dev=None):
+    """The slow test's solver: BOX, float32, tol 1e-4, max_iter 40,
+    scale_tol; kernel='sharded' at panel TP_PANEL."""
+    import torch
+    from ipmzoo_tpu_torch import Bounds, CompiledIPM, InequalityHandling, \
+        Settings
+    box = Settings(inequalities=Bounds.NONE,
+                   inequality_handling=InequalityHandling.SLACKS)
+    kw = dict(mesh=mesh, panel=TP_PANEL) if kernel == "sharded" else \
+        dict(device=dev)
+    return CompiledIPM(box, n=TP_QP_N, dtype=torch.float32, tol=TP_QP_TOL,
+                       max_iter=TP_QP_ITER, scale_tol=True, kernel=kernel,
+                       **kw)
+
+
+def tp_solve_counted(solver, data, mesh=None):
+    """solve with the launch counts (and the mesh's staged collectives)
+    set to 0 just before and read just after: (result, K2 launches, all
+    launches of the port's kernels, loop syncs, staged collectives,
+    staged bytes)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    cuda_ldlt.reset_launch_counts()
+    solver.host_syncs = 0
+    if mesh is not None:
+        mesh.host_syncs = mesh.host_bytes = 0
+    res = solver.solve(data)
+    torch.cuda.synchronize()
+    return (res, cuda_ldlt.route_launches["ldlt block"],
+            sum(cuda_ldlt.launches.values()), solver.host_syncs,
+            0 if mesh is None else mesh.host_syncs,
+            0 if mesh is None else mesh.host_bytes)
+
+
+def tp_ipm_rank():
+    """One rank of step 55's two-rank solve (a spawned process)."""
+    from ipmzoo_tpu_torch.parallel import make_mesh
+    mesh = make_mesh((TP_WORLD,), ("tp",))
+    data = tp_qp(mesh.device)
+    solver = tp_solver("sharded", mesh)
+    res, k2, total, syncs, staged, nbytes = tp_solve_counted(solver, data,
+                                                             mesh)
+    ms = time_solves(lambda: solver.solve(data), 1)
+    return {"rank": mesh.rank, "x": res.x.cpu().numpy(),
+            "iterations": int(res.iterations),
+            "converged": bool(res.converged), "k2": k2, "launches": total,
+            "syncs": syncs, "staged": staged, "bytes": nbytes, "ms": ms,
+            "device": str(mesh.device)}
+
+
+def run_tp_ipm(dev):
+    """Step 55: kernel='sharded' on the slow test's QP at one rank and at
+    TP_WORLD, against kernel='jnp' on the card."""
+    import numpy as np
+    from ipmzoo_tpu_torch.parallel import make_mesh
+    from ipmzoo_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    print(f"step 55 on {card()}")
+    data = tp_qp(dev)
+    jnp_res, jnp_k2, _, _, _, _ = tp_solve_counted(
+        tp_solver("jnp", dev=dev), data)
+    it = int(jnp_res.iterations)
+    x0 = jnp_res.x.cpu().numpy()
+    print(f"tp QP n={TP_QP_N} float32 tol {TP_QP_TOL:g} kernel='jnp': "
+          f"converged {bool(jnp_res.converged)}, {it} iterations, K2 "
+          f"{jnp_k2} ({jnp_k2 / max(it, 1):.1f} an iteration)")
+    check(bool(jnp_res.converged), "the tp QP does not converge on 'jnp'")
+    stages = TP_QP_N // TP_PANEL
+
+    def hold(what, x, iters, converged, k2):
+        dx = float(np.abs(x - x0).max())
+        print(f"{what}: converged {converged}, {iters} iterations ('jnp' "
+              f"{it}), x against 'jnp' {dx:.3e} (limit 5e-3), K2 {k2} "
+              f"({k2 / max(iters, 1):.1f} an iteration)")
+        check(converged and iters == it and dx <= 5e-3,
+              f"{what}: converged {converged}, iterations {iters} against "
+              f"{it}, x {dx:.3e}")
+        check(k2 == stages * iters, f"{what}: {k2} K2 launches, expected "
+              f"{stages} an iteration")
+
+    mesh = make_mesh((1,), ("tp",))
+    solver = tp_solver("sharded", mesh)
+    res, k2, total, syncs, _, _ = tp_solve_counted(solver, data, mesh)
+    iters = int(res.iterations)
+    hold("tp QP kernel='sharded' one rank", res.x.cpu().numpy(), iters,
+         bool(res.converged), k2)
+    check(total == k2, f"tp one rank: port launches {total}, K2 {k2}")
+    ms = time_solves(lambda: solver.solve(data), 3)
+    busy, launches = profiled(lambda: solver.solve(data),
+                              "tp QP kernel='sharded' one rank")
+    print(f"tp QP one rank: wall {ms:.3f} ms a solve (CUDA events, median "
+          f"of 3), {ms / iters:.3f} ms an iteration, {launches / iters:.1f} "
+          f"launches an iteration, {100 * busy / ms:.1f}% busy, {syncs} "
+          f"loop syncs")
+    outs = spawn(tp_ipm_rank, TP_WORLD, timeout=900)
+    for out in outs:
+        hold(f"tp QP kernel='sharded' rank {out['rank']} of {TP_WORLD}",
+             out["x"], out["iterations"], out["converged"], out["k2"])
+        print(f"tp QP rank {out['rank']} on {out['device']}: wall "
+              f"{out['ms']:.3f} ms a solve (CUDA events, one run after "
+              f"the counted one), {out['staged'] / out['iterations']:.1f} "
+              f"collectives staged an iteration "
+              f"({out['bytes'] / out['iterations'] / 1e6:.3f} MB), "
+              f"{out['syncs']} loop syncs; x against one rank "
+              f"{float(np.abs(out['x'] - res.x.cpu().numpy()).max()):.3e}")
+        check(np.array_equal(out["x"], outs[0]["x"]),
+              f"tp QP rank {out['rank']}: x differs from rank 0's")
+    print(f"step 55: {time.perf_counter() - t0:.1f} s")
+    return k2 // max(iters, 1)
 
 
 def main():
@@ -4887,6 +5280,9 @@ def main():
     sp_times = time_sp_kernels(dev, times)
     run_sp_two_ranks(sp_local)
     dp_routes = run_dp_sharded(dev)
+    tp_ref, tp_k2 = run_tp_factor(dev)
+    run_tp_two_ranks(tp_ref)
+    run_tp_ipm(dev)
     run_dryrun(dev)
 
     loaded = [m for m in sys.modules
@@ -4976,6 +5372,12 @@ def main():
               k3_times[(N_AUG, B_SLICE, "float32")]["events"]["warp"],
               t["K3_plain"], b24["K3"], t["K3_library"],
               k3_errs[("warp", N_AUG, B_SLICE, "float32")]),
+        # the tp factor at one rank (step 53): a launch a diagonal panel
+        entry(f"K2 block route (float64, n={TP_PANEL}, B=1: the diagonal "
+              f"panels of the tp factor, n={TP_DIM}, one rank; launches a "
+              f"factor)", SOURCE, "ldlt", tp_ref["launches"], tp_k2["ms"],
+              tp_k2["plain"], tp_k2["bound"], tp_k2["library"],
+              tp_k2["err"]),
         entry(f"K2 block route (float64, n={SCHUR_N}, B="
               f"{SCHUR_I * SCHUR_BLOCKS})", SOURCE, "ldlt",
               s_launches["ldlt block"], s_times["K2_block"],

@@ -62,7 +62,6 @@ from .state import (IPMState, SolveResult, bad_iterate, tree_map,
 
 __all__ = ["CompiledIPM", "IPMState", "SolveResult"]
 
-_ROADMAP_MESH = "ROADMAP.md Queue 1 item 16b (multi-device: the tp axis)"
 _KERNELS = ("auto", "ldlt", "jnp", "block", "blockg", "lu", "regldlt",
             "normal", "sharded", "nd")
 
@@ -89,9 +88,15 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     against the true system and 'lu' a pivoted LU, for genuinely
     indefinite systems; 'nd' by nested-dissection block elimination for
     general sparsity (``ops/ndiss.py``: K5 per tree level, K3 in the
-    solves).  'auto' picks 'regldlt' for an indefinite system, 'block'
-    for a 2x2 system from n = 384, 'blockg' from aug_dim = 384, else
-    'ldlt', as the reference.  ``block_inv``: the 'block' mode binds
+    solves); 'sharded' by the panel-sharded LDL^T over the ``mesh_axis``
+    axis of ``mesh`` (``ops/sharded_ldlt.py``: K2 on every diagonal
+    panel, library products and triangular solves), the one system
+    identity-padded to a multiple of ranks x ``panel`` (default
+    min(128, aug_dim / ranks)); every rank passes the whole QP, runs the
+    same iteration and returns the same bits, and the solver runs on
+    this rank's device of the mesh.  'auto' picks 'regldlt' for an
+    indefinite system, 'block' for a 2x2 system from n = 384, 'blockg'
+    from aug_dim = 384, else 'ldlt', as the reference.  ``block_inv``: the 'block' mode binds
     explicit H^-1 / S^-1 ('auto' = off).  The dissection plan is built
     on the host from the KKT sparsity pattern: pass it as
     ``nd_pattern``, or leave None and the first solve derives it from
@@ -131,7 +136,7 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                  mu_floor: float | str = "auto",
                  hybrid_refine: bool = False, df_residuals: bool = False,
                  two_float: bool = False, mesh=None,
-                 mesh_axis: Optional[str] = None,
+                 mesh_axis: str = "tp",
                  panel: Optional[int] = None, block_inv="auto",
                  taylor: str = "staged", nd_pattern=None,
                  nd_leaf: int = 32, nd_fallback: bool = True):
@@ -155,14 +160,6 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 "kernel='normal' pre-binds dense-matrix inverses in working "
                 "precision; the float64 residual pipeline does not consume "
                 "them: use the augmented-system kernels with df_residuals")
-        if mesh is not None or mesh_axis is not None or kernel == "sharded":
-            raise NotImplementedError(
-                "mesh= / mesh_axis= / kernel='sharded' are not ported: see "
-                f"{_ROADMAP_MESH}")
-        if panel is not None:
-            raise NotImplementedError(
-                "panel= sets the panel of kernel='sharded', which is not "
-                f"ported: see {_ROADMAP_MESH}")
         if kernel not in _KERNELS:
             raise ValueError(f"unknown kernel={kernel!r}; expected one of "
                              f"{_KERNELS}")
@@ -172,6 +169,12 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         self.settings = settings
         self.n, self.m_ineq, self.m_eq = n, m_ineq, m_eq
         self.dtype = dtype
+        if kernel == "sharded" and mesh is not None:
+            # the solver's tensors live on this rank's device of the mesh
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not this rank's "
+                                 f"device of the mesh, {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.tol = tol
         self.max_iter = max_iter
@@ -280,8 +283,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
         ) if self.aug_sizes else np.zeros((0,))
 
         # --- linear-solver mode --------------------------------------------
-        #: the kernel mode in use (the reference's selection, without
-        #: 'sharded'; 'tf' runs on ``_tf``)
+        #: the kernel mode in use (the reference's selection; 'tf' runs on
+        #: ``_tf``)
         if two_float:
             self._mode = "tf"
         elif self._indefinite:
@@ -301,6 +304,8 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
                 self._nd_plan = nd_plan(np.asarray(nd_pattern),
                                         leaf=nd_leaf, signs=self._sign_vec)
                 self._maybe_nd_fallback()
+        elif kernel == "sharded":
+            self._sharded_setup(mesh, mesh_axis, panel)
         elif kernel == "block":
             if not can_block:
                 raise ValueError("kernel='block' needs a 2x2 augmented "
@@ -366,6 +371,26 @@ class CompiledIPM(KernelDispatchMixin, DirectionsMixin,
     # ------------------------------------------------------------------
     # environment plumbing
     # ------------------------------------------------------------------
+
+    def _sharded_setup(self, mesh, mesh_axis: str, panel) -> None:
+        """kernel='sharded': the one augmented system is identity-padded
+        to ``_sharded_dim``, a multiple of ranks x ``_sharded_panel``, so
+        any aug_dim shards (the unpivoted LDL^T of blockdiag(K, I)
+        factors the padding trivially and leaves the solution as it
+        is)."""
+        if mesh is None:
+            raise ValueError("kernel='sharded' requires mesh=")
+        if mesh_axis not in mesh.axis_names:
+            raise ValueError(f"no axis {mesh_axis!r} in mesh axes "
+                             f"{mesh.axis_names}")
+        ranks = mesh.shape[mesh_axis]
+        p = panel if panel is not None else \
+            min(128, max(self.aug_dim // ranks, 1))
+        chunk = ranks * p
+        self._mesh, self._mesh_axis = mesh, mesh_axis
+        self._sharded_panel = p
+        self._sharded_dim = -(-self.aug_dim // chunk) * chunk
+        self._mode = "sharded"
 
     def _dense_auto_mode(self) -> str:
         """The reference's dense auto rule: 'block' for a 2x2 augmented

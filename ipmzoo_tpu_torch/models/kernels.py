@@ -1,9 +1,8 @@
 """Linear-solver staging for :class:`CompiledIPM`: KKT assembly from the
 consumed reduction, the kernel-mode dispatch (``_make_solve``) and the
 dense-matrix-inverse binding the normal-equations reduction needs
-(counterpart of :mod:`ipmzoo_tpu.models.kernels`, without its
-``'sharded'`` mode; its two-float mode ``'tf'`` is a float64 solver of
-these modes here, ``CompiledIPM._tf``).
+(counterpart of :mod:`ipmzoo_tpu.models.kernels`; its two-float mode
+``'tf'`` is a float64 solver of these modes here, ``CompiledIPM._tf``).
 
 The modes:
 
@@ -19,7 +18,10 @@ The modes:
 - ``'normal'``: the panel-blocked LDL^T of the normal equations (K2 on
   its panels), with each dense H^-1 bound once per iteration;
 - ``'nd'``: nested dissection along a plan (:mod:`..ops.ndiss`: K5 per
-  level, K3 in the solves).
+  level, K3 in the solves);
+- ``'sharded'``: the panel-sharded LDL^T of the identity-padded system
+  over a mesh axis (:mod:`..ops.sharded_ldlt`: K2 on the diagonal
+  panels), each rank factoring its rows of the whole K it assembles.
 
 With ``hybrid_refine`` every refinement sweep computes b - K x in
 float64 against the assembled K (the reference's compensated two-float
@@ -164,6 +166,8 @@ class KernelDispatchMixin:
         mode = self._mode
         if mode == "nd":
             return self._make_solve_nd(env, B, nd_pre)
+        if mode == "sharded":
+            return self._make_solve_sharded(env, B)
         if mode == "lu":
             K = self._assemble_kkt(env, B)
             LU, piv, _ = torch.linalg.lu_factor_ex(K)
@@ -230,6 +234,31 @@ class KernelDispatchMixin:
             # every rhs and back-substitution of this iteration)
             self._bind_matrix_inverts(env)
         return self._make_solve_dense(env, B)
+
+    def _make_solve_sharded(self, env, B: int):
+        """Every rank assembles the whole K (the reference's replicated
+        input), factors its rows of blockdiag(K, I) over the mesh axis and
+        solves with the refinement sweeps against the unpadded K.  Every
+        rank returns the same bits: the stop test reads only them."""
+        from ..ops.sharded_ldlt import sharded_ldlt, sharded_ldlt_solve
+        from ..parallel.mesh import shard_slice
+        mesh, axis, panel = self._mesh, self._mesh_axis, self._sharded_panel
+        K = self._assemble_kkt(env, B)
+        dim, pdim = self.red_dim, self._sharded_dim
+        sl = shard_slice(pdim, mesh, axis)
+        K_loc = K.new_zeros((B, sl.stop - sl.start, pdim))
+        top = min(max(dim, sl.start), sl.stop)   # the rank's last row of K
+        K_loc[:, :top - sl.start, :dim] = K[:, sl.start:top]
+        pad = torch.arange(top, sl.stop, device=K.device)
+        K_loc[:, pad - sl.start, pad] = 1.0
+        factors = sharded_ldlt(K_loc, mesh, axis, panel, self.pivot_floor)
+
+        def once(b):
+            bp = torch.nn.functional.pad(b, (0, pdim - dim))
+            return sharded_ldlt_solve(factors, bp, mesh, axis,
+                                      panel)[:, :dim]
+
+        return self._refined(once, lambda: K)
 
     def _make_solve_nd(self, env, B: int, nd_pre):
         """The nested-dissection factor and solve along the plan."""

@@ -7,7 +7,9 @@ fused factor + multi-rhs solve of :mod:`ipmzoo_tpu.ops.pallas_ldlt`
 (``solve_ldlt_matrix``, ``ldlt_solve_matrix``).  These are the plain
 versions of the CUDA kernels in ``csrc/ldlt.cu`` (K2, K3, K4, K5):
 :mod:`.cuda_ldlt` runs them for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernels to them.
+``chip_smoke.py`` hold the kernels to them.  :func:`ldlt_solve` and
+:func:`cholesky_solve` are the reference's one-call solves, on the
+kernels for CUDA tensors.
 
 The augmented KKT system of an interior-point iteration is symmetric
 quasi-definite, so an unpivoted LDL^T is stable; an exactly-zero pivot is
@@ -95,3 +97,45 @@ def ldlt_solve_matrix(A: torch.Tensor, R: torch.Tensor,
     if R.shape[-1] == 0:
         return L, D, R
     return L, D, solve_ldlt_matrix(L, D, R)
+
+
+def _batched(A: torch.Tensor, b: torch.Tensor):
+    """(A, b) with a leading batch axis, and whether one was added: A
+    (n, n) / b (n,) is one system, A (B, n, n) / b (B, n) a batch."""
+    one = A.dim() == 2
+    if A.dim() - 1 != b.dim() or A.shape[-1] != A.shape[-2] or \
+            A.shape[:-1] != b.shape or A.dim() not in (2, 3):
+        raise ValueError(f"expected A (n, n) and b (n,), or a batch of "
+                         f"them, got {tuple(A.shape)} and {tuple(b.shape)}")
+    return (A[None], b[None], one) if one else (A, b, one)
+
+
+def ldlt_solve(A: torch.Tensor, b: torch.Tensor,
+               pivot_floor: float = PIVOT_FLOOR) -> torch.Tensor:
+    """Solve A x = b by LDL^T (the reference's ``ldlt_solve``): A (n, n)
+    and b (n,), or a batch (B, n, n) / (B, n).  On CUDA tensors the
+    factor and the solve run on the kernels (:func:`.cuda_ldlt.ldlt_auto`,
+    :func:`.cuda_ldlt.solve_ldlt_auto`), on CPU tensors their plain
+    versions."""
+    from .cuda_ldlt import ldlt_auto, solve_ldlt_auto
+    A, b, one = _batched(A, b)
+    if b.shape[-1] == 0:
+        x = b
+    else:
+        L, D = ldlt_auto(A, pivot_floor)
+        x = solve_ldlt_auto(L, D, b)
+    return x[0] if one else x
+
+
+def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for symmetric positive definite A by the library's
+    Cholesky factor and two triangular solves (the reference's
+    ``cholesky_solve``): A (n, n) and b (n,), or a batch.  A matrix that
+    is not positive definite gives NaN, as the reference's does."""
+    from .banded import _cholesky
+    A, b, one = _batched(A, b)
+    L = _cholesky(A)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y,
+                                      upper=True)[..., 0]
+    return x[0] if one else x

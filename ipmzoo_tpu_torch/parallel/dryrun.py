@@ -1,9 +1,9 @@
-"""Multi-process dry run of the sharded paths (the dp and sp parts of the
+"""Multi-process dry run of the sharded paths (the counterpart of the
 reference's ``__graft_entry__.dryrun_multichip``).
 
 ``dryrun_multichip(world)`` starts ``world`` processes joined in one
 group (:func:`.distributed.spawn`), builds a mesh over them, and runs
-three checks at the reference's sizes, each sharded against the same
+five checks at the reference's sizes, each sharded against the same
 path run locally on every rank:
 
 * ``dp-step``: one batched IPM step of 2 x world QPs (n=4, m_ineq=2,
@@ -13,7 +13,16 @@ path run locally on every rank:
   blocks (n=4, m_c=2, float32, tol 1e-4, three iterations) against
   ``SchurIPM.solve``;
 * ``schur-tf``: the same at tol 1e-8, where ``two_float`` engages
-  (float64 iteration), 20 iterations, refine=2.
+  (float64 iteration), 20 iterations, refine=2;
+* ``tp-ldlt``: one SPD system of order 8 x world row-sharded over a
+  ``("tp",)`` mesh, the panel-sharded LDL^T (panel 4) and its solve
+  against :func:`..ops.ldlt.ldlt_solve`;
+* ``tp-ipm``: the box QP of n = 4 x world through ``CompiledIPM(kernel=
+  'sharded', panel=2)`` (tol 1e-4, three iterations) against the same
+  solve with the default kernel.
+
+The tp checks draw their data from the reference's generator, after the
+coupled QP's draws, so both dry runs solve the same numbers.
 
 A check fails on wrong numbers, not only on a crash: sharded and local x
 must agree within 1e-5.  The ranks run on their cards (``cuda:{rank %
@@ -70,6 +79,33 @@ def _coupled(world, dtype, device):
                        g=t(np.zeros(mc)))
 
 
+def _tp_data(world, dtype, device):
+    """The reference's tp data: its seed-1 generator continued past the
+    coupled QP's draws; (K, rhs) of order 8 x world and the box QP of
+    n = 4 x world."""
+    from ..models.data import QPData
+    blocks, nb, mc = 2 * world, 4, 2
+    rng = np.random.default_rng(1)
+    for size in ((blocks, nb, nb), (blocks, nb), (blocks, mc, nb)):
+        rng.normal(size=size)
+    dim = 8 * world
+    Mk = rng.normal(size=(dim, dim))
+    K = Mk @ Mk.T / dim + 2.0 * np.eye(dim)
+    rhs = rng.normal(size=dim)
+    n = 4 * world
+    Mq = rng.normal(size=(n, n))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    qp = QPData(Q=t(Mq @ Mq.T / n + np.eye(n)), c=t(rng.normal(size=n)),
+                A_ineq=t(np.zeros((0, n))), l_A_ineq=t(np.zeros(0)),
+                u_A_ineq=t(np.zeros(0)), A_eq=t(np.zeros((0, n))),
+                b_eq=t(np.zeros(0)), l_x=t(np.full(n, -3.0)),
+                u_x=t(np.full(n, 3.0)))
+    return t(K), t(rhs), qp
+
+
 def _check(name, a, b) -> float:
     diff = float((a - b).abs().max()) if a.numel() else 0.0
     if not diff <= TOL_EQ:
@@ -78,10 +114,13 @@ def _check(name, a, b) -> float:
 
 
 def _rank(world, device):
-    """One rank's three checks; returns name -> sharded-vs-local max
+    """One rank's five checks; returns name -> sharded-vs-local max
     |diff|."""
-    from ..formulations import Settings
+    from ..formulations import Bounds, InequalityHandling, Settings
     from ..models.ipm import CompiledIPM
+    from ..ops.ldlt import ldlt_solve
+    from ..ops.sharded_ldlt import (shard_kkt, sharded_ldlt,
+                                    sharded_ldlt_solve)
     from .mesh import gather_batch, make_mesh, shard_batch
     from .schur import SchurIPM
 
@@ -126,11 +165,31 @@ def _rank(world, device):
                         block_kernel=schur_tf.block_kernel,
                         device=dev).solve(bdata)
     diffs["schur-tf"] = _check("schur-tf", res_tf.x, res_tf_l.x)
+
+    # tp: one system row-sharded over the ranks, factored and solved
+    mesh_tp = make_mesh((world,), ("tp",), list(mesh.devices.flat))
+    K, rhs, qp = _tp_data(world, dtype, dev)
+    factors = sharded_ldlt(shard_kkt(K, mesh_tp), mesh_tp, panel=4)
+    xs = sharded_ldlt_solve(factors, rhs, mesh_tp, panel=4)
+    if tuple(xs.shape) != tuple(rhs.shape):
+        raise AssertionError(f"tp-ldlt: x of shape {tuple(xs.shape)}")
+    diffs["tp-ldlt"] = _check("tp-ldlt", xs, ldlt_solve(K, rhs))
+
+    # tp end to end: the Mehrotra loop with the sharded factor inside
+    box = Settings(inequalities=Bounds.NONE,
+                   inequality_handling=InequalityHandling.SLACKS)
+    kw = dict(n=qp.n, dtype=dtype, tol=1e-4, max_iter=3)
+    tr = CompiledIPM(box, kernel="sharded", mesh=mesh_tp, panel=2,
+                     **kw).solve(qp)
+    if tuple(tr.x.shape) != (qp.n,):
+        raise AssertionError(f"tp-ipm: x of shape {tuple(tr.x.shape)}")
+    tr_l = CompiledIPM(box, device=dev, **kw).solve(qp)
+    diffs["tp-ipm"] = _check("tp-ipm", tr.x, tr_l.x)
     return diffs
 
 
 def dryrun_multichip(world: int, device=None) -> dict:
-    """Run the three sharded-against-local checks in ``world`` processes
+    """Run the five sharded-against-local checks in ``world`` processes
     (on their cards, or on the CPU with ``device="cpu"``); prints each
     check's largest difference over the ranks and returns them by name.
     Raises where a rank's check fails or a rank fails."""

@@ -10,6 +10,13 @@ The framework's scaling axes:
 * ``sp`` — structure parallelism over the blocks of one coupled QP
   (``SchurIPM.solve_sharded``): the coupling system is assembled with
   :func:`psum` of the ranks' contributions.
+* ``tp`` — one KKT system row-sharded over the ranks
+  (:mod:`ipmzoo_tpu_torch.ops.sharded_ldlt`, ``CompiledIPM(kernel=
+  'sharded')``): each panel's rows reach every rank by :func:`broadcast`.
+
+A collective runs over one axis: on a mesh with more than one axis of
+size above 1, every slice along an axis (the ranks that share every other
+coordinate) has its own process group, made once by :func:`make_mesh`.
 
 A mesh is one rank per process, each on its own device
 (:func:`ipmzoo_tpu_torch.parallel.distributed.initialize` joins the
@@ -22,7 +29,8 @@ needs a process group even at one rank.
 Collectives on the ``gloo`` backend run on host tensors: a CUDA tensor
 is staged through the host (ranks that share one card take gloo, since
 NCCL refuses two ranks on one GPU), and each staging is counted in
-``Mesh.host_syncs``.  The decision is taken from the backend, never by
+``Mesh.host_syncs``, its bytes (this rank's tensor) in
+``Mesh.host_bytes``.  The decision is taken from the backend, never by
 catching an error.
 """
 
@@ -34,9 +42,6 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-
-_ROADMAP_TP = "ROADMAP.md Queue 1 item 16b (multi-device: the tp axis)"
-
 
 class PartitionSpec(tuple):
     """Names of the mesh axes each array axis is split over, as the
@@ -63,12 +68,17 @@ class Mesh:
     ``devices`` holds one ``torch.device`` per rank, shaped by the axis
     sizes; ``rank`` is this process's rank and ``group`` the process
     group (None for one rank).  ``host_syncs`` counts the collectives
-    staged through the host."""
+    staged through the host, ``host_bytes`` the bytes of this rank's
+    tensors they staged."""
     devices: np.ndarray
     axis_names: Tuple[str, ...]
     rank: int = 0
     group: Optional[object] = None
     host_syncs: int = 0
+    host_bytes: int = 0
+    #: axis name -> the process group of this rank's slice along it,
+    #: where the mesh has more than one axis of size above 1
+    axis_groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def shape(self) -> dict:
@@ -83,6 +93,18 @@ class Mesh:
     def device(self) -> torch.device:
         """This rank's device."""
         return self.devices.flat[self.rank]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return int(np.unravel_index(self.rank, self.devices.shape)[
+            self.axis_names.index(axis)])
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The rank at coordinate ``index`` along ``axis`` that shares
+        every other coordinate with this rank."""
+        coords = list(np.unravel_index(self.rank, self.devices.shape))
+        coords[self.axis_names.index(axis)] = index
+        return int(np.ravel_multi_index(coords, self.devices.shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +164,30 @@ def make_mesh(axis_sizes: Optional[Sequence[int]] = None,
         raise ValueError(f"{len(devices)} devices for {n} ranks")
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
-    return Mesh(arr.reshape(axis_sizes), axis_names, rank,
+    mesh = Mesh(arr.reshape(axis_sizes), axis_names, rank,
                 group if world > 1 else None)
+    if sum(s > 1 for s in axis_sizes) > 1:
+        mesh.axis_groups = _slice_groups(mesh)
+    return mesh
+
+
+def _slice_groups(mesh: Mesh) -> dict:
+    """This rank's process group along each axis of size above 1.  Every
+    rank makes every slice's group, the slices of each axis in C order of
+    the other coordinates, since ``new_group`` must be called by every
+    rank of the world in the same order."""
+    ranks = np.arange(mesh.size).reshape(mesh.devices.shape)
+    mine = {}
+    for a, (name, size) in enumerate(zip(mesh.axis_names,
+                                         mesh.devices.shape)):
+        if size == 1:
+            continue
+        slices = np.moveaxis(ranks, a, -1).reshape(-1, size)
+        for members in slices:
+            group = dist.new_group([int(r) for r in members])
+            if mesh.rank in members:
+                mine[name] = group
+    return mine
 
 
 def batch_sharding(mesh: Mesh, axis: str = "dp") -> NamedSharding:
@@ -158,21 +202,24 @@ def replicated(mesh: Mesh) -> NamedSharding:
 # -- collectives over one mesh axis (the shard_map body's) -----------------
 
 def _axis_group(mesh: Mesh, axis: str):
-    """The process group of ``axis``: the whole group where every other
-    axis has one rank."""
+    """The process group of this rank's slice along ``axis``: None (the
+    collective is the identity) at one rank or where the axis has size
+    1, the whole group where every other axis has size 1."""
     if axis not in mesh.axis_names:
         raise ValueError(f"no axis {axis!r} in mesh axes {mesh.axis_names}")
-    if any(s > 1 for a, s in mesh.shape.items() if a != axis):
-        raise NotImplementedError(
-            f"a collective over axis {axis!r} of the mesh {mesh.shape} is "
-            f"not ported: see {_ROADMAP_TP}")
-    return mesh.group
+    if mesh.group is None or mesh.shape[axis] == 1:
+        return None
+    return mesh.axis_groups.get(axis, mesh.group)
 
 
 def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
-    """Whether a collective on ``x`` goes through the host: CUDA tensors
-    on the gloo backend."""
-    return x.is_cuda and dist.get_backend(mesh.group) == "gloo"
+    """Whether a collective on ``x`` goes through the host (CUDA tensors
+    on the gloo backend); counts it where it does."""
+    staged = x.is_cuda and dist.get_backend(mesh.group) == "gloo"
+    if staged:
+        mesh.host_syncs += 1
+        mesh.host_bytes += x.numel() * x.element_size()
+    return staged
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op) -> torch.Tensor:
@@ -180,7 +227,6 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op) -> torch.Tensor:
     if group is None:
         return x
     if _staged(mesh, x):
-        mesh.host_syncs += 1
         y = x.detach().cpu()
         dist.all_reduce(y, op=op, group=group)
         return y.to(x.device)
@@ -214,8 +260,6 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "dp",
         return x if tiled else x.unsqueeze(0)
     staged = _staged(mesh, x)
     src = x.detach().cpu() if staged else x.detach().contiguous()
-    if staged:
-        mesh.host_syncs += 1
     if src.dtype == torch.bool:
         # the backends move bytes, not booleans
         src = src.to(torch.uint8)
@@ -225,10 +269,32 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str = "dp",
     return out.to(device=x.device, dtype=x.dtype)
 
 
-def barrier(mesh: Mesh) -> None:
-    """Wait for every rank of the mesh (nothing at one rank)."""
-    if mesh.group is not None:
-        dist.barrier(group=mesh.group)
+def broadcast(x: torch.Tensor, mesh: Mesh, axis: str,
+              index: int) -> torch.Tensor:
+    """The ``x`` of the rank at coordinate ``index`` along ``axis``, on
+    every rank of this rank's slice, bit for bit.  The other ranks pass
+    a tensor of the same shape and dtype, whose values are not read."""
+    group = _axis_group(mesh, axis)
+    if group is None:
+        return x
+    mine = mesh.axis_index(axis) == index
+    if _staged(mesh, x):
+        y = x.detach().contiguous().cpu() if mine else \
+            torch.empty(x.shape, dtype=x.dtype)
+        dist.broadcast(y, src=mesh.axis_rank(axis, index), group=group)
+        return y.to(x.device)
+    y = x.detach().contiguous() if mine else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
+    dist.broadcast(y, src=mesh.axis_rank(axis, index), group=group)
+    return y
+
+
+def barrier(mesh: Mesh, axis: Optional[str] = None) -> None:
+    """Wait for every rank of the mesh, or of this rank's slice along
+    ``axis`` (nothing at one rank)."""
+    group = mesh.group if axis is None else _axis_group(mesh, axis)
+    if group is not None:
+        dist.barrier(group=group)
 
 
 # -- sharded batches --------------------------------------------------------
@@ -248,8 +314,7 @@ def shard_slice(size: int, mesh: Mesh, axis: str = "dp") -> slice:
         raise ValueError(f"a leading axis of {size} does not split over "
                          f"{ranks} ranks of axis {axis!r}")
     per = size // ranks
-    index = np.unravel_index(mesh.rank, mesh.devices.shape)[
-        mesh.axis_names.index(axis)]
+    index = mesh.axis_index(axis)
     return slice(index * per, (index + 1) * per)
 
 

@@ -238,14 +238,18 @@ def test_gondzio_rounds_keep_the_solution():
 
 
 class TestRejects:
-    """What the port does not have raises, naming its ROADMAP item; the
-    kernel modes it has solve."""
+    """What the port refuses, it refuses as the reference; the kernel
+    modes solve."""
 
     @pytest.mark.parametrize("kernel", ["sharded"])
     def test_unported_kernel_modes(self, kernel):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # every kernel mode of the reference is ported; 'sharded' without
+        # a mesh raises as the reference's does
+        with pytest.raises(ValueError, match="requires mesh="):
             CompiledIPM(port_settings(Settings()), kernel=kernel,
                         device="cpu", n=4, m_ineq=2)
+        with pytest.raises(ValueError, match="requires mesh="):
+            RefIPM(Settings(), kernel=kernel, n=4, m_ineq=2)
 
     @pytest.mark.parametrize("kernel", ["jnp", "block", "blockg", "lu",
                                         "regldlt", "normal", "nd"])
@@ -271,9 +275,28 @@ class TestRejects:
                                    atol=1e-7)
 
     def test_mesh(self):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            CompiledIPM(port_settings(Settings()), 4, 2, mesh=object(),
-                        device="cpu")
+        # kernel='sharded' on a one-rank mesh solves the batch as the
+        # dense LDL^T mode does; another mode reads no mesh, as the
+        # reference's
+        from ipmzoo_tpu_torch.parallel import make_mesh
+        mesh = make_mesh((1,), ("tp",), ["cpu"])
+        data = qpdata_from_numpy(numpy_batch(3, 6, 2, seed=4), device="cpu")
+        s = CompiledIPM(port_settings(Settings()), 6, 2, kernel="sharded",
+                        mesh=mesh, panel=4)
+        assert s._mode == "sharded" and s.device == torch.device("cpu")
+        assert (s._sharded_dim, s._sharded_panel) == (8, 4)
+        res = s.solve_batch(data)
+        want = CompiledIPM(port_settings(Settings()), 6, 2,
+                           device="cpu").solve_batch(data)
+        assert bool(res.converged.all())
+        np.testing.assert_array_equal(res.iterations.numpy(),
+                                      want.iterations.numpy())
+        np.testing.assert_allclose(res.x.numpy(), want.x.numpy(),
+                                   atol=1e-10)
+        other = CompiledIPM(port_settings(Settings()), 4, 2, mesh=object(),
+                            device="cpu")
+        assert other._mode == RefIPM(Settings(), 4, 2,
+                                     mesh=object())._mode == "ldlt"
 
     def test_indefinite_formulation(self):
         # 'auto' takes the signed-regularised LDL^T, as the reference

@@ -81,6 +81,16 @@ def test_port_imports_and_solves_without_jax():
         md = random_mpc(4, 2, 1, batch=2, state_bounds=True, device="cpu")
         assert bool(mpc.solve_batch(md).converged.all())
         assert condense(md, device="cpu")[0].batch_shape == (2,)
+        from ipmzoo_tpu_torch.ops import (ldlt_solve, shard_kkt,
+                                          sharded_ldlt, sharded_ldlt_solve)
+        tp = make_mesh((1,), ("tp",), ["cpu"])
+        K = torch.eye(4, dtype=torch.float64) * 2
+        b = torch.ones(4, dtype=torch.float64)
+        x = sharded_ldlt_solve(sharded_ldlt(shard_kkt(K, tp), tp), b, tp)
+        assert torch.equal(x, ldlt_solve(K, b))
+        sh = p.CompiledIPM(p.Settings(), n=2, m_ineq=1, kernel="sharded",
+                           mesh=tp)
+        assert bool(sh.solve(d).converged)
         jaxy = [m for m in sys.modules
                 if m in ("jax", "jaxlib", "ipmzoo_tpu")
                 or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
@@ -276,7 +286,7 @@ def test_env_typo_warns_and_leaves_the_default(monkeypatch):
     assert torch.get_float32_matmul_precision() == "highest"
 
 
-# -- options the port does not have raise, naming their item ---------------
+# -- the constructor options of item 16 (multi-device), ported -------------
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh_axis="tp"), "item 16"),
@@ -285,10 +295,18 @@ def test_env_typo_warns_and_leaves_the_default(monkeypatch):
     (dict(kernel="sharded"), "item 16"),
 ])
 def test_unported_constructor_options_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item) as exc:
-        CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
-    # the tp axis: the second half of item 16
-    assert "item 16b" in str(exc.value)
+    # every option of ``item`` is taken as the reference takes it:
+    # mesh_axis= and panel= are read by kernel='sharded' only (mesh_axis
+    # defaults to "tp"), and kernel='sharded' asks for a mesh
+    if kw.get("kernel") == "sharded":
+        with pytest.raises(ValueError, match="requires mesh="):
+            CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
+        with pytest.raises(ValueError, match="requires mesh="):
+            RefIPM(Settings(), 4, 2, **kw)
+        return
+    s = CompiledIPM(port_settings(Settings()), 4, 2, device="cpu", **kw)
+    assert s._mode == RefIPM(Settings(), 4, 2, **kw)._mode == "ldlt"
+    assert not any(hasattr(s, a) for a in ("_mesh", "_sharded_panel"))
 
 
 def test_block_inv_option():

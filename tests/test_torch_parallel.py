@@ -100,9 +100,9 @@ def test_mesh_refusals_at_four_ranks(world4):
         out["too_few"][1]
     assert out["uneven"][0] == "ValueError" and "does not split" in \
         out["uneven"][1]
-    # collectives over one axis of a two-axis mesh come with the tp axis
-    assert out["two_axes"][0] == "NotImplementedError" and \
-        "item 16b" in out["two_axes"][1]
+    # a collective over one axis of a two-axis mesh sums the ranks that
+    # share the other coordinate: (rank 0 + 1) + (rank 2 + 1) over dp
+    assert [o["two_axes"] for o in world4] == [[4.0], [6.0], [4.0], [6.0]]
 
 
 def test_collectives(world4):
@@ -197,7 +197,8 @@ def test_sharded_steps_equal_single_rank_steps(world4):
 @pytest.mark.parametrize("world", [2, 4])
 def test_graft_dryrun_multichip(world, capsys):
     diffs = dryrun_multichip(world, device="cpu")
-    assert set(diffs) == {"dp-step", "schur", "schur-tf"}
+    assert set(diffs) == {"dp-step", "schur", "schur-tf", "tp-ldlt",
+                          "tp-ipm"}
     assert all(d <= 1e-5 for d in diffs.values())
     out = capsys.readouterr().out
     for name in diffs:

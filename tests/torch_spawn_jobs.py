@@ -172,8 +172,8 @@ def parallel_world4():
         "too_many": _error(lambda: make_mesh((8,), devices=cpus(8))),
         "too_few": _error(lambda: make_mesh((2,), devices=cpus(4))),
         "uneven": _error(lambda: m.shard_batch(torch.zeros(6), mesh)),
-        "two_axes": _error(lambda: m.psum(
-            torch.ones(1), make_mesh((2, 2), ("dp", "tp"), cpus(4)), "dp")),
+        "two_axes": m.psum(torch.ones(1) + r, make_mesh(
+            (2, 2), ("dp", "tp"), cpus(4)), "dp").tolist(),
     }
 
     # dp: solve_batch over the shards, gathered
@@ -252,3 +252,211 @@ def failing_rank():
     if dist.get_rank() == 1:
         raise ValueError("rank 1 fails on purpose")
     return "ok"
+
+
+# -- the tp axis --------------------------------------------------------------
+
+def kkt(n, m, seed, scale=1.0):
+    """tests/test_sharded_ldlt.py's quasi-definite KKT matrix of order
+    n + m."""
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(n, n))
+    H = H @ H.T / n + scale * np.eye(n)
+    S = rng.normal(size=(m, m))
+    S = S @ S.T / m + np.eye(m)
+    B = rng.normal(size=(m, n))
+    return np.block([[H, B.T], [B, -S]])
+
+
+def box_qp(n, seed=0, scale=1.0):
+    """tests/test_sharded_ipm.py's box QP, as numpy leaves of one
+    QPData."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    return dict(Q=(M @ M.T / n + np.eye(n)) * scale, c=rng.normal(size=n),
+                A_ineq=np.zeros((0, n)), l_A_ineq=np.zeros(0),
+                u_A_ineq=np.zeros(0), A_eq=np.zeros((0, n)),
+                b_eq=np.zeros(0), l_x=np.full(n, -2.0), u_x=np.full(n, 2.0))
+
+
+def ineq_qp(n=24, m=8, seed=1):
+    """tests/test_sharded_ipm.py's QP with two-sided inequalities, as
+    numpy leaves of one QPData."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    return dict(Q=M @ M.T / n + np.eye(n), c=rng.normal(size=n),
+                A_ineq=rng.normal(size=(m, n)),
+                l_A_ineq=-np.abs(rng.normal(size=m)) - 1,
+                u_A_ineq=np.abs(rng.normal(size=m)) + 1,
+                A_eq=np.zeros((0, n)), b_eq=np.zeros(0),
+                l_x=np.full(n, -5.0), u_x=np.full(n, 5.0))
+
+
+#: tests/test_sharded_ldlt.py's panels of the dim-512 factor
+TP_PANELS = (32, 64)
+#: the batched factor's three systems (dim 128) and panel
+TP_BATCH, TP_BATCH_PANEL = 3, 16
+
+
+def _tp_factor(K, mesh, axis, panel):
+    """The sharded factor of K (numpy) over ``axis``: the whole L
+    gathered in row order, D and the panels' diagonal factors."""
+    from ipmzoo_tpu_torch.ops import shard_kkt, sharded_ldlt
+    from ipmzoo_tpu_torch.parallel import mesh as m
+    L, Lds, D = sharded_ldlt(shard_kkt(torch.tensor(K), mesh, axis), mesh,
+                             axis, panel=panel)
+    L_all = m.all_gather(L, mesh, axis, tiled=L.dim() == 2)
+    if L.dim() == 3:
+        # (ranks, B, rows, n) -> (B, n, n)
+        L_all = L_all.permute(1, 0, 2, 3).reshape(L.shape[0], -1,
+                                                  L.shape[-1])
+    return L_all.numpy(), D.numpy(), [t.numpy() for t in Lds]
+
+
+def sharded_ldlt_world4():
+    """Every case of tests/test_torch_sharded_ldlt.py at 4 ranks."""
+    from ipmzoo_tpu_torch.ops import (shard_kkt, sharded_ldlt,
+                                      sharded_ldlt_solve)
+    from ipmzoo_tpu_torch.parallel import make_mesh
+    from ipmzoo_tpu_torch.parallel import mesh as m
+
+    mesh = make_mesh((4,), ("tp",), cpus(4))
+    K0 = kkt(384, 128, seed=0)
+    out = {"rank": mesh.rank,
+           "factor": {p: _tp_factor(K0, mesh, "tp", p) for p in TP_PANELS}}
+    K1 = kkt(384, 128, seed=1)
+    b = np.random.default_rng(2).normal(size=512)
+    factors = sharded_ldlt(shard_kkt(torch.tensor(K1), mesh), mesh,
+                           panel=64)
+    out["x"] = sharded_ldlt_solve(factors, torch.tensor(b), mesh,
+                                  panel=64).numpy()
+    out["rows"] = tuple(factors[0].shape)
+    out["bad_n"] = _error(lambda: sharded_ldlt(torch.eye(102)[:26], mesh))
+    out["bad_n_shard"] = _error(lambda: shard_kkt(torch.eye(102), mesh))
+    out["bad_panel"] = _error(lambda: sharded_ldlt(
+        shard_kkt(torch.eye(512), mesh), mesh, panel=48))
+
+    # a leading batch axis of three systems against each alone
+    Ks = np.stack([kkt(96, 32, seed=10 + s) for s in range(TP_BATCH)])
+    bs = np.random.default_rng(11).normal(size=(TP_BATCH, 128))
+    fb = sharded_ldlt(shard_kkt(torch.tensor(Ks), mesh), mesh,
+                      panel=TP_BATCH_PANEL)
+    xb = sharded_ldlt_solve(fb, torch.tensor(bs), mesh)
+    singles = []
+    for s in range(TP_BATCH):
+        f1 = sharded_ldlt(shard_kkt(torch.tensor(Ks[s]), mesh), mesh,
+                          panel=TP_BATCH_PANEL)
+        x1 = sharded_ldlt_solve(f1, torch.tensor(bs[s]), mesh)
+        singles.append((f1[0].numpy(), f1[2].numpy(), x1.numpy()))
+    out["batch"] = ((fb[0].numpy(), fb[2].numpy(), xb.numpy()), singles)
+
+    # a (2, 2) ("dp", "tp") mesh: collectives over each axis, and the tp
+    # factor on each dp slice against the 1-D mesh's
+    mesh2 = make_mesh((2, 2), ("dp", "tp"), cpus(4))
+    r = mesh2.rank
+    v = torch.tensor([float(r), 10.0 * r + 1.0])
+    out["two_axes"] = {
+        "coords": (mesh2.axis_index("dp"), mesh2.axis_index("tp")),
+        "groups": sorted(mesh2.axis_groups),
+        "collectives": {
+            a: {"psum": m.psum(v, mesh2, a).tolist(),
+                "pmin": m.pmin(v, mesh2, a).tolist(),
+                "pmax": m.pmax(v, mesh2, a).tolist(),
+                "gather": m.all_gather(v, mesh2, a).tolist(),
+                "gather_tiled": m.all_gather(v, mesh2, a,
+                                             tiled=True).tolist(),
+                "broadcast": m.broadcast(v.clone(), mesh2, a, 1).tolist()}
+            for a in ("dp", "tp")},
+        "shard": m.shard_slice(8, mesh2, "tp"),
+    }
+    m.barrier(mesh2, "dp")
+    m.barrier(mesh2, "tp")
+    L2, D2, _ = _tp_factor(K0, mesh2, "tp", 64)
+    fac2 = sharded_ldlt(shard_kkt(torch.tensor(K1), mesh2), mesh2,
+                        panel=64)
+    x2 = sharded_ldlt_solve(fac2, torch.tensor(b), mesh2)
+    out["two_axes"].update(L=L2, D=D2, x=x2.numpy())
+    out["staged"] = mesh.host_syncs + mesh2.host_syncs
+    return out
+
+
+#: tests/test_sharded_ipm.py's cases at 4 ranks, float64: name ->
+#: (QP, Settings keywords (None: BOX), n, m_ineq, panel)
+TP_IPM_CASES = {
+    "matches_unsharded": (box_qp(64), None, 64, 0, 8),
+    "padding": (box_qp(50, seed=3), None, 50, 0, 8),
+    "ineq": (ineq_qp(), {}, 24, 8, 4),
+}
+
+
+def _tp_settings(kw):
+    from ipmzoo_tpu_torch import Bounds, InequalityHandling, Settings
+    if kw is None:
+        return Settings(inequalities=Bounds.NONE,
+                        inequality_handling=InequalityHandling.SLACKS)
+    return Settings(**kw)
+
+
+def _result(res):
+    return {k: getattr(res, k).numpy()
+            for k in ("x", "iterations", "converged", "objective",
+                      "residual", "gap")}
+
+
+def sharded_ipm_world4():
+    """Every case of tests/test_torch_sharded_ipm.py at 4 ranks: the
+    sharded solve and the port's local 'jnp' solve of the same data."""
+    from ipmzoo_tpu_torch import CompiledIPM
+    from ipmzoo_tpu_torch.models.state import tree_map
+    from ipmzoo_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((4,), ("tp",), cpus(4))
+    out = {"rank": mesh.rank}
+    for name, (raw, skw, n, m_ineq, panel) in TP_IPM_CASES.items():
+        data = _qp(raw)
+        kw = dict(n=n, m_ineq=m_ineq, dtype=torch.float64, tol=1e-8)
+        sharded = CompiledIPM(_tp_settings(skw), kernel="sharded",
+                              mesh=mesh, panel=panel, **kw)
+        plain = CompiledIPM(_tp_settings(skw), kernel="jnp", device="cpu",
+                            **kw)
+        out[name] = {"sharded": _result(sharded.solve(data)),
+                     "plain": _result(plain.solve(data)),
+                     "dim": sharded._sharded_dim,
+                     "panel": sharded._sharded_panel,
+                     "device": str(sharded.device)}
+
+    # the batch entry points: two instances through solve_batch and
+    # solve_batch_compact, and init_state / step of one instance and of
+    # the batch
+    raw, skw, n, m_ineq, panel = TP_IPM_CASES["ineq"]
+    kw = dict(n=n, m_ineq=m_ineq, dtype=torch.float64, tol=1e-8)
+    sharded = CompiledIPM(_tp_settings(skw), kernel="sharded", mesh=mesh,
+                          panel=panel, **kw)
+    plain = CompiledIPM(_tp_settings(skw), kernel="jnp", device="cpu", **kw)
+    one = _qp(raw)
+    batch = tree_map(lambda a: torch.stack([a, 1.5 * a]), one)
+    out["batch"] = {"sharded": _result(sharded.solve_batch(batch)),
+                    "plain": _result(plain.solve_batch(batch))}
+    out["compact"] = {"sharded": _result(sharded.solve_batch_compact(batch)),
+                      "plain": _result(plain.solve_batch_compact(batch))}
+    steps = {}
+    for what, data in (("one", one), ("batch", batch)):
+        pair = []
+        for s in (sharded, plain):
+            st = s.init_state(data)
+            for _ in range(3):
+                st = s.step(st, data)
+            pair.append([v.numpy() for v in st.vars] +
+                        [st.mu.numpy(), st.iteration.numpy()])
+        steps[what] = pair
+    out["steps"] = steps
+    out["default_panel"] = CompiledIPM(
+        _tp_settings(None), n=64, kernel="sharded", mesh=mesh)._sharded_panel
+    out["other_device"] = _error(lambda: CompiledIPM(
+        _tp_settings(None), n=8, kernel="sharded", mesh=mesh,
+        device="meta"))
+    out["no_axis"] = _error(lambda: CompiledIPM(
+        _tp_settings(None), n=8, kernel="sharded", mesh=mesh,
+        mesh_axis="dp"))
+    out["staged"] = mesh.host_syncs
+    return out
