@@ -483,6 +483,36 @@ Steps, each reported on its own line:
 56. the dry run's tp checks in step 52's run: tp-ldlt (order 16, panel 4,
     against ldlt_solve) and tp-ipm (the box QP of n=8, panel 2, against
     the default kernel), each within 1e-5.
+57. the CLI (ipmzoo_tpu_torch.frontend.cli) in this process: main(["-e",
+    "-n"]) on the default device (the card), launch counts set to 0 just
+    before and read just after, against main(["-e", "-n", "--device",
+    "cpu"]): the -e output equal, each handling converged in the CPU's
+    iterations (7 / 12 / 12), x within 1e-8, residual and gap below 1e-8,
+    K2 and K3 launched; launches by route and the wall printed;
+58. the native host tier (ipmzoo_tpu_torch.native: g++ at first use into
+    the build directory, its time and flags printed) beside K2/K3 on the
+    card in float64: ldlt_factor / ldlt_solve against ldlt_auto /
+    solve_ldlt_auto at tests/test_native.py's quasidefinite shapes 4+2,
+    16+9 and 40+23 within 1e-9, the pivot floor on a zero 3x3 (D = 1e-8
+    from both), the regularised LDL^T recipe (three refinement sweeps)
+    on K2/K3 against bunch_kaufman_solve at (6, 2), (20, 8), (48, 17) and
+    a batch of 8 x (12, 5) within 1e-9; then printed, no gate:
+    ldlt_factor_solve_batch at (10240, 24) float64 on the host against
+    K2 + K3 at (24, 10240) float64 by CUDA events (median of 5 each);
+59. the four example twins (examples/torch_*.py) in this process at
+    their defaults on the default device, launch counts set to 0 just
+    before and read just after each: their printed dicts, walls and
+    launches by route; portfolio (1024 x 32, float64, tol 1e-8) 100%
+    converged, budget residual <= 1e-8, K2 and K3 launched; grid (side
+    24, leaf 32, float64) both solves converged, the path taken printed,
+    max |x_nd - x_dense| <= 1e-6 (at its defaults the card's cost model
+    and the dense auto rule both take 'blockg', library Cholesky, so
+    the grid twin runs again with nd_fallback=False, which must launch
+    a hand-written kernel: K5 and K3); arrow (n=512, bandwidth 8, tip 4,
+    float32, tol 1e-5) both converged, max |x_s - x_d| <= 1e-3, K6 and
+    K7 launched; Schur (64 blocks x 16, m_c = 4, float32 data, tol 1e-8:
+    two_float; world 1) converged, coupling feasibility <= 1e-6, K2, K3
+    and K4 launched.
 
 Steps 29-31 are the measurement path: every launch count of T1-T3 in the
 kernels line comes from their timed sweeps, counted apart from the
@@ -5198,6 +5228,313 @@ def run_tp_ipm(dev):
     return k2 // max(iters, 1)
 
 
+#: step 57: the CLI demo's iterations on the port's CPU float64 run, one a
+#: handling (slacks, slacked_slacks, naive_slacks)
+CLI_ITERATIONS = (7, 12, 12)
+#: step 58: tests/test_native.py's quasidefinite shapes (n1 + n2), the
+#: regularised-LDL^T KKT shapes (n, m) and the batch (count, n, m), and
+#: the compact slice's shape for the host-against-card line
+NATIVE_QD = ((4, 2), (16, 9), (40, 23))
+NATIVE_KKT = ((6, 2), (20, 8), (48, 17))
+NATIVE_KKT_BATCH = (8, 12, 5)
+#: step 59: the example twins (examples/torch_<name>.py)
+EXAMPLES = ("batch_portfolio", "grid_qp", "arrow_chain", "distributed_schur")
+
+
+def _captured(fn, *args, **kw):
+    """``fn(*args, **kw)``'s result and what it printed."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def _cli_rows(text):
+    """The numerical demo's rows: handling -> (x, f, iterations, residual,
+    gap, converged), parsed from the CLI's output."""
+    import re
+    rows = {}
+    for m in re.finditer(r"^  (\w+)\s+x = \(([^)]*)\), f = (\S+), iters = "
+                         r"(\d+), residual = (\S+), gap = (\S+), converged "
+                         r"= (\w+)$", text, re.M):
+        rows[m.group(1)] = ([float(v) for v in m.group(2).split(",")],
+                            float(m.group(3).rstrip(",")), int(m.group(4)),
+                            float(m.group(5).rstrip(",")),
+                            float(m.group(6).rstrip(",")),
+                            m.group(7) == "True")
+    return rows
+
+
+def run_cli(dev):
+    """Step 57: the CLI's -e and -n demos on the default device (the card),
+    launch counts set to 0 just before and read just after, against the
+    same demos with --device cpu."""
+    from ipmzoo_tpu_torch.formulations import InequalityHandling
+    from ipmzoo_tpu_torch.frontend import cli
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+
+    t0 = time.perf_counter()
+    print(f"step 57 on {card()}")
+    cuda_ldlt.reset_launch_counts()
+    rc, text = _captured(cli.main, ["-e", "-n"])
+    routes = {k: v for k, v in cuda_ldlt.route_launches.items() if v}
+    wall = time.perf_counter() - t0
+    rc_cpu, text_cpu = _captured(cli.main, ["-e", "-n", "--device", "cpu"])
+    print(text, end="")
+    print(f"cli -e -n on the card: {wall:.2f} s, launches by route {routes}")
+    check(rc == 0 and rc_cpu == 0, f"the CLI exited {rc} / {rc_cpu}")
+    head = "Numerical optimization"
+    check(text.split(head)[0] == text_cpu.split(head)[0],
+          "the -e demo on the card differs from the CPU's")
+    rows, rows_cpu = _cli_rows(text), _cli_rows(text_cpu)
+    names = [h.value for h in InequalityHandling]
+    check(list(rows) == names and list(rows_cpu) == names,
+          f"the -n demo's rows {list(rows)} / {list(rows_cpu)}")
+    for name, it_cpu in zip(names, CLI_ITERATIONS):
+        x, f, it, res, gap, conv = rows[name]
+        x0, f0, it0, _, _, _ = rows_cpu[name]
+        dx = max(abs(a - b) for a, b in zip(x, x0))
+        print(f"cli {name}: iterations {it} (CPU {it0}), x against the "
+              f"CPU {dx:.1e}, residual {res:.2e}, gap {gap:.2e}")
+        check(conv and it == it0 == it_cpu and dx <= 1e-8 and res < 1e-8
+              and gap < 1e-8, f"the CLI's {name} solve on the card: "
+              f"converged {conv}, iterations {it} against {it0} "
+              f"({it_cpu} expected), x {dx:.1e}, residual {res:.2e}, gap "
+              f"{gap:.2e}")
+    check(cuda_ldlt.launches["ldlt"] > 0 and
+          cuda_ldlt.launches["solve_ldlt"] > 0,
+          "the CLI's demo never launched K2 or K3")
+    print(f"step 57: {time.perf_counter() - t0:.1f} s")
+    return routes
+
+
+def native_qd(n1, n2, seed):
+    """tests/test_native.py's quasidefinite matrix (numpy, float64)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    H = rng.normal(size=(n1, n1))
+    H = H @ H.T + n1 * np.eye(n1)
+    S = rng.normal(size=(n2, n2))
+    S = S @ S.T + n2 * np.eye(n2)
+    A = rng.normal(size=(n2, n1))
+    return np.block([[H, A.T], [A, -S]])
+
+
+def native_kkt(n, m, seed):
+    """tests/test_native.py's indefinite KKT matrix with a zero dual
+    block (numpy, float64)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(n, n))
+    Q = Q @ Q.T / n + np.eye(n)
+    A = rng.normal(size=(m, n))
+    return np.block([[Q, A.T], [A, np.zeros((m, m))]])
+
+
+def regldlt_on(K, b, signs, scale):
+    """TestRegLDLTAgainstBK's recipe on ldlt_auto / solve_ldlt_auto: K
+    (B, n, n) regularised by signs eps^(2/3) scale, factored once, solved
+    with three refinement sweeps against K."""
+    import torch
+    from ipmzoo_tpu_torch.ops.cuda_ldlt import ldlt_auto, solve_ldlt_auto
+    eps = torch.finfo(torch.float64).eps
+    reg = torch.diag(torch.as_tensor(signs * eps ** (2 / 3) * scale,
+                                     device=K.device))
+    L, D = ldlt_auto(K + reg)
+    x = solve_ldlt_auto(L, D, b)
+    for _ in range(3):
+        x = x + solve_ldlt_auto(L, D, b - torch.einsum("bij,bj->bi", K, x))
+    return x
+
+
+def run_native(dev):
+    """Step 58: the native host tier (g++, ctypes) beside K2/K3 on the
+    card in float64: the factors and solves of tests/test_native.py's
+    shapes, the pivot floor, the regularised LDL^T against Bunch-Kaufman,
+    and (printed, no gate) the host's batched factor + solve at the
+    compact slice's shape against K2 + K3 there."""
+    import os
+    import numpy as np
+    import torch
+    from ipmzoo_tpu_torch import native
+    from ipmzoo_tpu_torch.ops import cuda_ldlt
+    from ipmzoo_tpu_torch.utils.timer import cuda_time, host_time
+
+    t0 = time.perf_counter()
+    print(f"step 58 on {card()}")
+    info = native.build_info()
+    print(f"native: {os.path.basename(info['path'])} by g++ {info['flags']}"
+          f"{', built in %.2f s' % info['seconds'] if info['built'] else ''}")
+    cuda_ldlt.reset_launch_counts()
+
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    for n1, n2 in NATIVE_QD:
+        A = native_qd(n1, n2, seed=n1 + n2)
+        b = np.random.default_rng(0).normal(size=n1 + n2)
+        Ln, Dn = native.ldlt_factor(A)
+        xn = native.ldlt_solve(Ln, Dn, b)
+        L, D = cuda_ldlt.ldlt_auto(on(A)[None])
+        x = cuda_ldlt.solve_ldlt_auto(L, D, on(b)[None])
+        err = max(float(np.abs(L[0].cpu().numpy() - Ln).max()),
+                  float(np.abs(D[0].cpu().numpy() - Dn).max()),
+                  float(np.abs(x[0].cpu().numpy() - xn).max()))
+        print(f"native against K2/K3 at {n1}+{n2}: {err:.2e} (limit 1e-9)")
+        check(err <= 1e-9, f"native against K2/K3 at {n1}+{n2}: {err:.2e}")
+    _, Dn = native.ldlt_factor(np.zeros((3, 3)))
+    _, D = cuda_ldlt.ldlt_auto(torch.zeros(1, 3, 3, dtype=torch.float64,
+                                           device=dev))
+    print(f"pivot floor on a zero 3x3: native {Dn.tolist()}, K2 "
+          f"{D[0].tolist()}")
+    check(np.all(Dn == 1e-8) and bool((D == 1e-8).all()),
+          "the pivot floor is not 1e-8 on both")
+
+    for n, m in NATIVE_KKT:
+        K = native_kkt(n, m, seed=n)
+        b = np.random.default_rng(n + 1).normal(size=n + m)
+        F, ipiv, infos = native.bunch_kaufman_factor(K)
+        x_bk = native.bunch_kaufman_solve(F, ipiv, b)
+        signs = np.concatenate([np.ones(n), -np.ones(m)])
+        scale = max(1.0, float(np.max(np.abs(np.diag(K)))))
+        x = regldlt_on(on(K)[None], on(b)[None], signs, scale)[0]
+        err = float(np.abs(x.cpu().numpy() - x_bk).max())
+        print(f"regularised LDL^T on K2/K3 against Bunch-Kaufman at ({n}, "
+              f"{m}): {err:.2e} (limit 1e-9)")
+        check(infos == 0 and err <= 1e-9,
+              f"regldlt against Bunch-Kaufman at ({n}, {m}): {err:.2e}")
+    count, n, m = NATIVE_KKT_BATCH
+    Ks = np.stack([native_kkt(n, m, seed=100 + i) for i in range(count)])
+    bs = np.random.default_rng(0).normal(size=(count, n + m))
+    signs = np.concatenate([np.ones(n), -np.ones(m)])
+    xs = regldlt_on(on(Ks), on(bs), signs, 1.0).cpu().numpy()
+    err = 0.0
+    for i in range(count):
+        F, ipiv, _ = native.bunch_kaufman_factor(Ks[i])
+        err = max(err, float(np.abs(
+            xs[i] - native.bunch_kaufman_solve(F, ipiv, bs[i])).max()))
+    print(f"regularised LDL^T on K2/K3 against Bunch-Kaufman, batch of "
+          f"{count} x ({n}, {m}): {err:.2e} (limit 1e-9)")
+    check(err <= 1e-9, f"the batched regldlt against Bunch-Kaufman: "
+          f"{err:.2e}")
+    routes = {k: v for k, v in cuda_ldlt.route_launches.items() if v}
+    print(f"step 58 launches by route: {routes}")
+    check(cuda_ldlt.launches["ldlt"] > 0 and
+          cuda_ldlt.launches["solve_ldlt"] > 0,
+          "step 58 never launched K2 or K3")
+
+    K, b = quasi_definite(B_SLICE, N_AUG, torch.float64, dev, seed=58)
+    Kh, bh = K.cpu().numpy(), b.cpu().numpy()
+    xh = native.ldlt_factor_solve_batch(Kh, bh)
+    xd = cuda_ldlt.solve_ldlt_auto(*cuda_ldlt.ldlt_auto(K), b)
+    host = host_time(lambda: native.ldlt_factor_solve_batch(Kh, bh), runs=5)
+    card_ms = cuda_time(lambda: cuda_ldlt.solve_ldlt_auto(
+        *cuda_ldlt.ldlt_auto(K), b), runs=5)
+    print(f"native ldlt_factor_solve_batch at ({B_SLICE}, {N_AUG}) float64 "
+          f"on the host ({os.cpu_count()} cores): {host.ms:.4f} ms (median "
+          f"of 5, spread {host.spread:.4f}); K2 + K3 at ({N_AUG}, {B_SLICE}) "
+          f"float64 on the card: {card_ms.ms:.4f} ms (CUDA events, median "
+          f"of 5, spread {card_ms.spread:.4f}); host / card "
+          f"{host.ms / card_ms.ms:.2f}x; largest difference of x "
+          f"{float(np.abs(xd.cpu().numpy() - xh).max()):.2e}")
+    print(f"step 58: {time.perf_counter() - t0:.1f} s")
+    return {"host_ms": host.ms, "card_ms": card_ms.ms}
+
+
+def load_example(name):
+    """examples/torch_<name>.py as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_torch_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_run(name, **kw):
+    """One run of the twin ``name``'s main (defaults but ``kw``) with every
+    launch count set to 0 just before and read just after: its dict, its
+    wall and the port's launches by route."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_cr, cuda_ldlt
+    main = load_example(name).main
+    cuda_ldlt.reset_launch_counts()
+    cuda_cr.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, text = _captured(main, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = {k: v for d in (cuda_ldlt.route_launches, cuda_cr.route_launches)
+              for k, v in d.items() if v}
+    print(text, end="")
+    print(f"example torch_{name}{kw or ''}: wall {wall:.2f} s on the card, "
+          f"launches by route {routes}; {json.dumps(out)}")
+    return out, wall, routes
+
+
+def run_examples(dev):
+    """Step 59: the four example twins on the default device (the card) at
+    their defaults, in this process: each one's printed quantities, wall
+    and launches by route, gated; the grid twin once more with the nd path
+    itself (nd_fallback=False), since at its default side the card's cost
+    model takes 'blockg', whose factors are the library's Cholesky."""
+    import torch
+
+    t0 = time.perf_counter()
+    print(f"step 59 on {card()}")
+    check(not torch.distributed.is_initialized(),
+          "a process group is joined before the examples run")
+    walls = {}
+
+    def launched(routes, *prefixes):
+        return all(any(v for k, v in routes.items() if k.startswith(p + " "))
+                   for p in prefixes)
+
+    out, walls["portfolio"], r = example_run("batch_portfolio")
+    check(out["converged"] == 1.0 and out["budget_residual"] <= 1e-8,
+          f"portfolio: converged {out['converged']}, budget residual "
+          f"{out['budget_residual']:.2e}")
+    check(launched(r, "ldlt", "solve_ldlt"), f"portfolio: K2 / K3 not "
+          f"launched ({r})")
+
+    out, walls["grid"], r = example_run("grid_qp")
+    check(out["nd_converged"] and out["dense_converged"] and
+          out["max_dx"] <= 1e-6, f"grid: converged {out['nd_converged']} / "
+          f"{out['dense_converged']}, max dx {out['max_dx']:.2e}")
+    print(f"grid at its defaults: path taken '{out['mode']}', dense mode "
+          f"'{out['dense_mode']}'; hand-written launches {sum(r.values())}")
+    out, walls["grid nd"], r = example_run("grid_qp", nd_fallback=False)
+    check(out["mode"] == "nd" and out["nd_converged"] and
+          out["dense_converged"] and out["max_dx"] <= 1e-6,
+          f"grid, nd path: mode {out['mode']}, converged "
+          f"{out['nd_converged']} / {out['dense_converged']}, max dx "
+          f"{out['max_dx']:.2e}")
+    check(sum(r.values()) > 0, "grid, nd path: no hand-written kernel "
+          "launched")
+
+    out, walls["arrow"], r = example_run("arrow_chain")
+    check(out["converged"] and out["dense_converged"] and
+          out["max_dx"] <= 1e-3, f"arrow: converged {out['converged']} / "
+          f"{out['dense_converged']}, max dx {out['max_dx']:.2e}")
+    check(launched(r, "cr_factor", "cr_solve"), f"arrow: K6 / K7 not "
+          f"launched ({r})")
+
+    out, walls["schur"], r = example_run("distributed_schur")
+    check(out["converged"] and out["coupling"] <= 1e-6 and
+          out["devices"] == 1, f"schur: converged {out['converged']}, "
+          f"coupling {out['coupling']:.2e}, devices {out['devices']}")
+    check(launched(r, "ldlt", "solve_ldlt", "solve_ldlt_matrix"),
+          f"schur: K2 / K3 / K4 not launched ({r})")
+    print(f"step 59 walls (s): {json.dumps(walls)}")
+    print(f"step 59: {time.perf_counter() - t0:.1f} s")
+    return walls
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -5284,6 +5621,11 @@ def main():
     run_tp_two_ranks(tp_ref)
     run_tp_ipm(dev)
     run_dryrun(dev)
+    t_new = time.perf_counter()
+    run_cli(dev)
+    run_native(dev)
+    run_examples(dev)
+    print(f"steps 57-59: {time.perf_counter() - t_new:.1f} s")
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")

@@ -91,6 +91,20 @@ def test_port_imports_and_solves_without_jax():
         sh = p.CompiledIPM(p.Settings(), n=2, m_ineq=1, kernel="sharded",
                            mesh=tp)
         assert bool(sh.solve(d).converged)
+        import contextlib, io
+        import numpy as np
+        from ipmzoo_tpu_torch.frontend import cli, render_problem
+        from ipmzoo_tpu_torch.frontend.web import build_derivations
+        assert "{minimize}" in render_problem(p.Settings())
+        assert len(build_derivations()) == 336
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.main(["-b", "-e", "-n", "--device", "cpu"]) == 0
+        assert "naive_slacks" in buf.getvalue()
+        from ipmzoo_tpu_torch import native
+        assert native.available()
+        L, D = native.ldlt_factor(np.array([[4.0, 2.0], [2.0, 3.0]]))
+        assert D.tolist() == [4.0, 2.0] and L[1, 0] == 0.5
         jaxy = [m for m in sys.modules
                 if m in ("jax", "jaxlib", "ipmzoo_tpu")
                 or m.startswith(("jax.", "jaxlib.", "ipmzoo_tpu."))]
@@ -372,6 +386,7 @@ def test_packaging_ships_the_headers_and_names_torch():
     meta = tomllib.loads((Path(ROOT) / "pyproject.toml").read_text())
     shipped = meta["tool"]["setuptools"]["package-data"]["ipmzoo_tpu_torch"]
     assert "csrc/*.cu" in shipped and "csrc/*.cuh" in shipped
+    assert "native/*.cpp" in shipped
     assert meta["project"]["optional-dependencies"]["torch"] == ["torch"]
     for f in _build.CSRC.iterdir():
         assert f.suffix in (".cu", ".cuh"), f.name
@@ -385,7 +400,9 @@ PORT_SCRIPTS = ("bench_torch.py", "chip_smoke.py", "chip_profile.py",
 
 def test_no_port_file_imports_the_jax_side():
     files = [Path(ROOT) / f for f in PORT_SCRIPTS] + sorted(
-        (Path(ROOT) / "ipmzoo_tpu_torch").rglob("*.py"))
+        (Path(ROOT) / "ipmzoo_tpu_torch").rglob("*.py")) + sorted(
+        (Path(ROOT) / "examples").glob("torch_*.py"))
+    assert len([f for f in files if f.parent.name == "examples"]) == 4
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ipmzoo_tpu|bench|"
                      r"tools)(\.|\s|$)", re.M)
     for f in files:
