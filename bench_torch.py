@@ -2,7 +2,7 @@
 """Benchmark of the PyTorch/CUDA port: the counterpart of bench.py.
 
     python3 bench_torch.py --mode fused|solve|steps|kkt|schur|arrow|nd|
-                                  normal|aug|mpc|tf|sharded
+                                  normal|aug|mpc|tf|sharded|wide
                            [--device cpu] [--batch B] [--dense] [--large]
 
 runs ONE convergence-gated engine of ``ipmzoo_tpu_torch`` on the CUDA
@@ -55,6 +55,13 @@ The workloads, gates and counts are bench.py's:
   cannot reach; ``two_float`` runs the iteration in float64 (K2/K3's
   float64 instantiations on the card) and returns float32; >= 99% must
   converge; useful iterations/s.
+* ``wide`` — the fused engine above augmented order 128, where K1 runs
+  its wide routes: ``portfolio(n_assets=128, batch=4096, seed=0)``
+  (aug_dim 129, float32, tol 1e-6) through
+  ``FusedBatchedIPM.solve_fused_compact()`` (its default schedule and
+  escalation); >= 99.9% must converge; useful iterations/s as the fused
+  mode.  bench.py has no such mode: its sizes are BENCH_WIDE_B and
+  BENCH_WIDE_ASSETS.
 * ``sharded`` — bench.py's bench_sharded: ``dp_scaling_report`` of the
   ``solve`` solver on the same 10240 QPs, 10 steps, over the ranks of
   the process group: rank 0 steps the whole batch alone, then every rank
@@ -67,7 +74,8 @@ The workloads, gates and counts are bench.py's:
 The BENCH_* environment variables of bench.py size the workloads
 (BENCH_BATCH, BENCH_N, BENCH_M, BENCH_STEPS, BENCH_TOL, BENCH_SCHUR_*,
 BENCH_ARROW_*, BENCH_ND_*, BENCH_NORMAL_*, BENCH_AUG_*, BENCH_KKT_*,
-BENCH_MPC_*, BENCH_TF_B, BENCH_TF_TOL).
+BENCH_MPC_*, BENCH_TF_B, BENCH_TF_TOL; BENCH_WIDE_* are the port's
+own).
 Walls are CUDA-event times (``utils/timer.cuda_time``; the host clock
 with ``--device cpu``): the median over the runs, with the spread and
 every run printed on an earlier line.
@@ -99,8 +107,14 @@ TOL = float(os.environ.get("BENCH_TOL", 1e-6))
 TF_B = int(os.environ.get("BENCH_TF_B", 2048))
 TF_TOL = float(os.environ.get("BENCH_TF_TOL", 1e-8))
 
+#: the wide mode: portfolios of WIDE_ASSETS assets (aug_dim WIDE_ASSETS +
+#: 1), WIDE_B of them, float32 at the float32 floor
+WIDE_B = int(os.environ.get("BENCH_WIDE_B", 4096))
+WIDE_ASSETS = int(os.environ.get("BENCH_WIDE_ASSETS", 128))
+WIDE_TOL = 1e-6
+
 MODES = ("fused", "solve", "steps", "kkt", "schur", "arrow", "nd", "normal",
-         "aug", "mpc", "tf", "sharded")
+         "aug", "mpc", "tf", "sharded", "wide")
 #: modes of bench.py the port does not have yet, with their ROADMAP item
 REFUSED = {}
 
@@ -247,6 +261,40 @@ def bench_fused(data, device, dtype=None, runs=7):
              f"m={M_INEQ}, {backend(device)})")
     return label, iters / t, "iterations/s", {"converged": conv,
                                               "iterations": iters}
+
+
+def wide_problem(device, batch=None):
+    """The wide mode's family and solver: portfolio(n_assets=WIDE_ASSETS,
+    batch, seed=0) in float32 and FusedBatchedIPM at tol WIDE_TOL with its
+    other settings the defaults."""
+    import torch
+    from ipmzoo_tpu_torch.models.families import portfolio
+    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+    fam = portfolio(n_assets=WIDE_ASSETS, batch=WIDE_B if batch is None
+                    else batch, seed=0, dtype=torch.float32, device=device)
+    return fam, FusedBatchedIPM(fam.settings, fam.n, fam.m_ineq, fam.m_eq,
+                                dtype=torch.float32, tol=WIDE_TOL,
+                                device=device)
+
+
+def bench_wide(device, batch=None, runs=7):
+    """Full solves above augmented order 128: the wide mode's
+    portfolios through solve_fused_compact, gated at 99.9%."""
+    fam, solver = wide_problem(device, batch)
+    out = solver.solve_fused_compact(fam.data)
+    conv = out["converged"].float().mean().item()
+    _gate(conv, 0.999, "wide fused solver")
+    iters = float(out["iterations"].sum().item())
+    t = timed(lambda: solver.solve_fused_compact(fam.data), device, runs,
+              "wide")
+    label = (f"IPM iterations/s, {fam.data.Q.shape[0]} batched portfolio "
+             f"QPs FULLY SOLVED to tol={WIDE_TOL:g} in the "
+             f"compaction-scheduled fused engine + anti-cycling tail "
+             f"({conv * 100:.2f}% converged, n={fam.n}, m_eq={fam.m_eq}, "
+             f"aug_dim {solver.aug_dim}, {backend(device)})")
+    return label, iters / t, "iterations/s", {"converged": conv,
+                                              "iterations": iters,
+                                              "result": out}
 
 
 def flops_model(B, d, k):
@@ -857,6 +905,8 @@ def run_mode(mode, device, batch=None, dense=False, large=False):
         raise ValueError("--dense belongs to the modes arrow and nd")
     if large and mode != "kkt":
         raise ValueError("--large belongs to the mode kkt")
+    if mode == "wide":
+        return bench_wide(device, batch)
     batch = BATCH if batch is None else batch
     if mode in ("fused", "solve", "steps", "tf"):
         data = make_batch(batch, N, M_INEQ, torch.float32, device=device)
@@ -893,7 +943,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU; default: the CUDA card")
     ap.add_argument("--batch", type=int, default=None,
-                    help="instances of the dense-QP modes (BENCH_BATCH)")
+                    help="instances of the dense-QP modes (BENCH_BATCH) "
+                    "and of the wide mode (BENCH_WIDE_B)")
     ap.add_argument("--dense", action="store_true",
                     help="arrow / nd: the step's speed-up over the dense "
                     "path")

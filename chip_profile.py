@@ -5,7 +5,7 @@
                                  # CUDA card and nvcc
     python3 chip_profile.py arrow schur   # only the named sections
                                  # (arrow, schur, fused, compact, nd,
-                                 # dense, mpc, tf)
+                                 # dense, mpc, tf, wide)
 
 It builds the kernels as chip_smoke.py does, drives the same slices on
 the same data, and prints, after the card's name and power limit:
@@ -66,6 +66,17 @@ the same data, and prints, after the card's name and power limit:
    single batched steps of each at B=2048, and of the two_float solve
    the launches per step, busy share and K2's / K3's share of one solve
    under torch.profiler.
+
+9. the wide slice (section ``wide``: bench_torch.py's wide mode, 4096
+   portfolios of 128 assets, aug_dim 129, float32, tol 1e-6) before and
+   after the block route in one process: K1 held on the wide route, then
+   on k1_route's pick; for each the stages and each K1 launch (as the
+   fused slice), the wall by CUDA events (median of 5), launches by
+   route, and under torch.profiler the busy time, launches and K1's
+   device ms a launch with its share of busy and of the wall; then the
+   LDL^T of the wide and block routes alone at chip_smoke's wide_rows()
+   (factor_alone), beside the cold launch and the factor's share of it,
+   and that share read inside the launch by clock64 (clocked_share).
 
 torch.profiler inflates the wall; only its device times and launch
 counts are read.  It checks nothing: chip_smoke.py holds the results.
@@ -330,10 +341,15 @@ def profile_dense(dev):
               f"{launches}; busy share {busy / med:.4f}")
 
 
-def profile_fused(dev, data):
+def k1_stages(solver, runs):
+    """Run each (label, fn) of ``runs`` twice, ``fn`` a solve of
+    ``solver``: print the wall and the host-clock time of each stage
+    (solve_fused, the escalation, the safety-net tail; each ends in a
+    synchronize) beside each K1 launch's route, batch and device time
+    (CUDA events around the launch alone), K1's device ms by route,
+    converged instances, host syncs and escalated instances."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_fused
-    solver = cs.fused_solver(dev, torch.float32)
     stages = []
     k1 = []   # (route, batch, start event, end event) of each K1 launch
     fused_soa = cuda_fused.fused_soa
@@ -367,18 +383,20 @@ def profile_fused(dev, data):
     for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
         setattr(solver, name, timed(name, getattr(solver, name)))
     try:
-        for esc in (32, 0):
+        for label, fn in runs:
             for rep in range(2):
                 stages.clear()
                 solver.host_syncs = 0
+                escalated = solver.escalated
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = solver.solve_fused_compact(data, esc_cap=esc)
+                out = fn()
                 torch.cuda.synchronize()
-                print(f"fused esc_cap={esc} run {rep}: wall "
+                print(f"{label} run {rep}: wall "
                       f"{1e3 * (time.perf_counter() - t0):.3f} ms (host "
                       f"clock), converged {int(out['converged'].sum())}, "
-                      f"host syncs {solver.host_syncs}")
+                      f"host syncs {solver.host_syncs}, escalated "
+                      f"{int(solver.escalated - escalated)}")
                 k1_ms = {}
                 for name, ms, launches in stages:
                     dev_ms = "".join(
@@ -394,8 +412,226 @@ def profile_fused(dev, data):
         cuda_fused.fused_soa = fused_soa
         for name in ("solve_fused", "_escalate_tail", "_gondzio_tail"):
             delattr(solver, name)
+
+
+def profile_fused(dev, data):
+    import torch
+    solver = cs.fused_solver(dev, torch.float32)
+    k1_stages(solver, [(f"fused esc_cap={esc}",
+                        lambda esc=esc: solver.solve_fused_compact(
+                            data, esc_cap=esc)) for esc in (32, 0)])
     profiled(lambda: solver.solve_fused_compact(data, esc_cap=32),
              "fused esc_cap=32")
+
+
+#: K1's wide routes and their kernels' names under torch.profiler
+K1_WIDE_KERNELS = (("wide", "fused_wide_kernel"),
+                   ("block", "fused_wide_block_kernel"))
+
+
+def profile_wide(dev):
+    """Section ``wide``: bench_torch.py's wide mode (the wide slice of
+    chip_smoke.py step 46) before and after the block route, in one
+    process: its solve with K1 held on the wide route (k1_route
+    replaced), then on the route k1_route picks.  For each, the stages
+    and K1's launches (k1_stages), the wall by CUDA events (median of 5
+    after a warm-up), launches by route, and under torch.profiler the
+    busy time, launches and K1's device ms by route, a launch, and its
+    share of busy and of the wall; then the factor alone
+    (factor_alone) and its share read inside the launch
+    (clocked_share)."""
+    import torch
+    import bench_torch
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    fam, solver = bench_torch.wide_problem(dev)
+    picked = cuda_fused.k1_route
+    for label, route in (("wide slice before (K1 on the wide route)",
+                          "wide"),
+                         ("wide slice after (K1 on k1_route's pick)",
+                          None)):
+        if route:
+            cuda_fused.k1_route = lambda *a, **k: route
+        try:
+            def run():
+                return solver.solve_fused_compact(fam.data)
+            k1_stages(solver, [(label, run)])
+            wall = cs.time_solves(run, 5)
+            cuda_fused.reset_launch_counts()
+            run()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda_fused.route_launches.items()
+                        if v}
+            events = []
+            busy, n_launches = profiled(run, label, events)
+            parts = []
+            for r, key in K1_WIDE_KERNELS:
+                ms = sum(t for k, t in events if key in k)
+                count = launches.get(f"fused {r}", 0)
+                if count:
+                    parts.append(f"K1 {r} route {ms:.3f} device ms "
+                                 f"({ms / count:.3f} a launch, {count} "
+                                 f"launches), {ms / busy:.4f} of busy, "
+                                 f"{ms / wall:.4f} of the wall")
+            print(f"{label}: wall median {wall:.3f} ms (CUDA events), busy "
+                  f"{busy:.3f} ms ({busy / wall:.4f} of the wall), "
+                  f"{n_launches} kernel launches; K1 launches by route "
+                  f"{launches}; " + "; ".join(parts))
+        finally:
+            cuda_fused.k1_route = picked
+    factor_alone(dev)
+    clocked_share(dev)
+
+
+def factor_alone(dev, reps=4):
+    """The LDL^T of K1's wide and block routes alone at chip_smoke's
+    wide_rows(), float32 and float64 (ops/cuda_k1_measure.factor_reps):
+    each instance's packed quasi-definite matrix of the shape's order
+    (chip_smoke's quasi_definite_on) factored 1 and 1 + ``reps`` times in
+    one launch, each from a fresh copy; the slope is the ms of one factor
+    of the whole batch.  The wide route's factor (team_ldlt on one warp,
+    K and D in device memory) at the wide build's blocks per SM, two
+    ways: a grid of that many blocks an SM, the L1 left whole as in the
+    route's launch; and a block for each instance with shared memory
+    padded to hold an SM to that many, which takes the L1's bytes.  The
+    block route's factor (block_ldlt on W warps, K in shared memory) at
+    each W of chip_smoke's BLOCK_WARPS at its build's blocks per SM, by
+    the grid.  Their sinks must agree bit for bit.  Printed beside the
+    bytes team_ldlt reads (B a^3 / 3 values) and the rate that implies,
+    and the cold max_iter=14 launch of each route with the factor's
+    share of it (instance-iterations / B factors an instance)."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused, cuda_k1_measure
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
+    for n, m, e, B, tol32 in cs.wide_rows():
+        for dtype, tol in ((torch.float32, tol32), (torch.float64, 1e-6)):
+            solver, data = cs.wide_case(n, m, e, B, dtype, dev, tol)
+            a = solver.aug_dim
+            name = (f"n={n} m_ineq={m} m_eq={e} aug {a} B={B} "
+                    f"{str(dtype).replace('torch.', '')}")
+            if not cs.block_fits(solver, dtype):
+                print(f"factor alone {name}: the block does not fit")
+                continue
+            lib = cuda_k1_measure.library(solver)
+            blib = cuda_fused.library(solver.kernel_source("block"),
+                                      "fused_wide_block")
+            wlib = cuda_fused.library(solver.kernel_source("wide"),
+                                      "fused_wide")
+            K, _ = cs.quasi_definite_on(B, a, dtype, dev, seed=a + B)
+            rows, cols = torch.tril_indices(a, a, device=dev)
+            K0 = K[:, rows, cols].contiguous()
+            del K
+            pf = solver.pivot_floor
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            wide_sm = cuda_fused.wide_shape(wlib, dtype)["blocks_per_sm"]
+            # an SM's 228 KB of shared memory, less the 1 KB the runtime
+            # keeps a block, shared among wide_sm blocks
+            pad = 233472 // wide_sm - 1024
+            cases = [("wide", 0, wide_sm, 0),
+                     ("wide, shared-padded", 0, 0, pad)]
+            cases += [(f"block W={w}", w, cuda_fused.block_shape(
+                blib, dtype, w)["blocks_per_sm"], 0) for w in cs.BLOCK_WARPS]
+            sinks, ms = {}, {}
+            for label, w, resident, pad_bytes in cases:
+                def launch(r, w=w, resident=resident, pad_bytes=pad_bytes):
+                    sink, err = cuda_k1_measure.factor_reps(
+                        lib, K0, r, w, pf, resident, pad_bytes, stream)
+                    cs.check(err == 0, f"factor alone {label}: cudaError "
+                             f"{err}")
+                    return sink
+                sinks[label] = launch(1 + reps)
+                t1 = cuda_time(lambda: launch(1), runs=3).ms
+                t2 = cuda_time(lambda: launch(1 + reps), runs=3).ms
+                ms[label] = (t2 - t1) / reps
+            torch.cuda.synchronize()
+            same = all(torch.equal(v, sinks["wide"]) for v in sinks.values())
+            cs.check(same and bool(torch.isfinite(sinks["wide"]).all()),
+                     f"factor alone {name}: the sinks differ or are not "
+                     f"finite")
+            call = (data, None, 14, 0)
+            wide = cs.k1_launcher(solver, call, "wide")
+            outs = wide()
+            per = float(outs[2][0].sum()) / B
+            launch_ms = {"wide": cs.time_cuda(wide, 3)}
+            launch_ms["wide, shared-padded"] = launch_ms["wide"]
+            for w in cs.BLOCK_WARPS:
+                launch_ms[f"block W={w}"] = cs.time_cuda(
+                    cs.block_launcher(solver, call, w), 3)
+            gb = B * a ** 3 / 3 * dtype.itemsize / 1e9
+            print(f"factor alone {name} (ms a factor of the batch, slope of "
+                  f"1 and {1 + reps} in one launch, CUDA events): " +
+                  ", ".join(f"{c[0]} {ms[c[0]]:.4f} (blocks per SM "
+                            f"{c[2] or wide_sm}"
+                            + (f", {c[3]} B of shared memory a block"
+                               if c[3] else ", by the grid") + ")"
+                            for c in cases) +
+                  f"; team_ldlt reads {gb:.3f} GB a factor: "
+                  f"{gb / ms['wide']:.2f} TB/s on the wide route, "
+                  f"{gb / ms['wide, shared-padded']:.2f} shared-padded; "
+                  f"sinks bit-equal")
+            print(f"factor share {name}: {per:.2f} factors an instance in "
+                  f"the cold max_iter=14 launch; " + ", ".join(
+                      f"{k}: launch {launch_ms[k]:.4f} ms, factor "
+                      f"{per * ms[k]:.4f} ms = "
+                      f"{per * ms[k] / launch_ms[k]:.4f} of it"
+                      for k in ms))
+
+
+def clocked_share(dev):
+    """The share of a cold max_iter=14 launch that K1's wide and block
+    routes spend in their factor, read inside the launch (ops/
+    cuda_k1_measure.clocked: each route's kernel with its factor wrapped
+    in clock64 reads) at chip_smoke's wide_rows() in both types, the
+    block route at K1_BLOCK_RULE's W (4 where the rule keeps the wide
+    route) where it fits: the factor's cycles over the blocks' lives,
+    summed over the instances.  Printed beside the clocked and the
+    launched kernels' ms (CUDA events, mean of 3) and whether the
+    clocked launch gave the launched one's bits."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused, cuda_k1_measure
+    for n, m, e, B, tol32 in cs.wide_rows():
+        for dtype, tol in ((torch.float32, tol32), (torch.float64, 1e-6)):
+            solver, data = cs.wide_case(n, m, e, B, dtype, dev, tol)
+            name = (f"n={n} m_ineq={m} m_eq={e} aug {solver.aug_dim} "
+                    f"B={B} {str(dtype).replace('torch.', '')}")
+            lib = cuda_k1_measure.library(solver)
+            call = (data, None, 14, 0)
+            soa, _ = solver.soa_inputs(data)
+            args = (soa, None, solver.n, sum(solver.var_sizes), 14, 0,
+                    solver.kernel_params())
+            runs = [("wide", 0, cuda_fused.wide_shape(cuda_fused.library(
+                solver.kernel_source("wide"), "fused_wide"), dtype)["region"],
+                cs.k1_launcher(solver, call, "wide"))]
+            if cs.block_fits(solver, dtype):
+                w = cuda_fused.block_warps(solver.k1_sizes(), dtype,
+                                           solver.k1_slots()) or 4
+                blib = cuda_fused.library(solver.kernel_source("block"),
+                                          "fused_wide_block")
+                runs.append((f"block W={w}", w, cuda_fused.block_shape(
+                    blib, dtype, w)["region"],
+                    cs.block_launcher(solver, call, w)))
+            parts = []
+            for label, w, region, launched in runs:
+                stream = torch.cuda.current_stream(dev).cuda_stream
+
+                def clock(w=w, region=region, stream=stream):
+                    outs, cycles, err = cuda_k1_measure.clocked(
+                        lib, *args, w, region, stream)
+                    cs.check(err == 0, f"clocked {label}: cudaError {err}")
+                    return outs, cycles
+                outs, cycles = clock()
+                ref = launched()
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(outs, ref))
+                share = float(cycles[0].sum()) / float(cycles[1].sum())
+                parts.append(
+                    f"{label}: factor {share:.4f} of the blocks' cycles, "
+                    f"{float(cycles[0].sum()) / float(outs[2].sum()):.0f} "
+                    f"cycles a factor; clocked launch "
+                    f"{cs.time_cuda(lambda: clock()[0], 3):.4f} ms, "
+                    f"launched {cs.time_cuda(launched, 3):.4f} ms, same "
+                    f"bits {same}")
+            print(f"factor share in the launch {name} (clock64, cold "
+                  f"max_iter=14): " + "; ".join(parts))
 
 
 def profile_compact(dev, data):
@@ -523,15 +759,27 @@ def main():
         return 2
     from ipmzoo_tpu_torch.models.convert import make_batch
     known = ["schur", "fused", "compact", "arrow", "nd", "dense", "mpc",
-             "tf"]
+             "tf", "wide"]
     sections = sys.argv[1:] or known
     unknown = set(sections) - set(known)
     if unknown:
         print(f"chip_profile: unknown sections {sorted(unknown)}",
               file=sys.stderr)
         return 2
-    if set(sections) - {"nd", "schur", "dense", "mpc", "tf"}:
+    if set(sections) - {"nd", "schur", "dense", "mpc", "tf", "wide"}:
         cs.build_kernels()
+    elif "wide" in sections:
+        from chip_roofline import build_all
+        from ipmzoo_tpu_torch.ops import cuda_ldlt
+        from ipmzoo_tpu_torch.ops import cuda_k1_measure
+        jobs = {k: job[2] for k, job in cs.wide_jobs().items()
+                if " apart" not in k}
+        for shape in cs.wide_rows():
+            solver = cs.wide_case(*shape[:3], 1, torch.float32, "cpu")[0]
+            jobs[f"measure{shape[:3]}"] = functools.partial(
+                cuda_k1_measure.library, solver)
+        jobs["ldlt"] = cuda_ldlt._lib
+        build_all(jobs)
     if "schur" in sections:
         profile_schur(dev)
     if {"fused", "compact", "tf"} & set(sections):
@@ -550,6 +798,8 @@ def main():
         profile_mpc(dev)
     if "tf" in sections:
         profile_tf(dev, data)
+    if "wide" in sections:
+        profile_wide(dev)
     return 0
 
 

@@ -89,8 +89,13 @@ Steps, each reported on its own line:
    memory a team and teams resident per SM, float32 and float64; and
    K1's wide route (one warp an instance, csrc/fused_wide.cuh) for each
    formulation and sizes of step 45, with its threads a block, workspace
-   values an instance and blocks resident per SM (the builds run beside
-   step 3's, all nvcc processes started together);
+   values an instance and blocks resident per SM, and K1's block route
+   (one thread block an instance, csrc/fused_wide_block.cuh) at the same
+   sizes, with its threads a block, workspace values an instance, shared
+   bytes a block and blocks resident per SM at each W of BLOCK_WARPS,
+   and both routes' check builds (the generated functions compiled
+   apart) at the same sizes (the builds run beside step 3's, all nvcc
+   processes started together);
 10. hold K1's thread route against its plain version on the card at
     B=10240: a cold solve_fused(max_iter=14), a warm resume of its
     output and a cold solve with gondzio=2; float64 iterations equal on
@@ -384,18 +389,34 @@ Steps, each reported on its own line:
     tol 1e-6, at or below those floors, printed only (the summation order
     decides there on which iteration some instances cross:
     wide_contraction_spread); two launches of the cold solve
-    bit-identical; k1_route must pick the wide
-    route there and the team route at the fused slice's launches; the
-    cold launch timed in both types against the plain version and its
-    bound;
+    bit-identical; then K1's block route (csrc/fused_wide_block.cuh: a
+    thread block of W warps an instance, its factor and work vectors in
+    shared memory) wherever its block fits (not float64 at aug 225 and
+    257), at
+    the W that K1_BLOCK_RULE gives (4 where it keeps the wide route),
+    under the same gates, two cold launches bit-identical, the cold
+    solve bit-equal at every W of BLOCK_WARPS; as launched, against the
+    wide route as launched at the gated tolerances: iterations equal on
+    every instance and x within WIDE_ROUTES_X (1e-13 in float64, 1e-5 in
+    float32); the design's gate: the two routes' check builds (each
+    generated function compiled apart, APART) bit-equal (x, variables,
+    iterations, residual, gap, mu) at every launch and, on the cold
+    solve, at every W; k1_route must pick the
+    team route at the fused slice's launches and the block route only
+    where it fits; at RULE_SHAPES (aug 161 and 225) the block route held
+    to the wide route as launched only; the cold launch timed in both
+    types on the wide route and on the block route at each W against the
+    plain version (WIDE_SHAPES) and its bound, and k1_route's pick within
+    5% of the fastest;
 46. the wide slice: FusedBatchedIPM(portfolio settings, n=128, m_eq=1,
     float32, tol=1e-6).solve_fused_compact() (the default schedule and
     esc_cap=32) on portfolio(n_assets=128, batch=4096, seed=0), launch
     counts set to 0 just before and read just after: >= 99.9% converged,
-    finite x, K1 launched on the wide route and on no other, objectives
-    within 1e-4 (1 + |f|) of the port's CPU float64 solve on the first 64
-    instances, the wall by CUDA events (median of 5 after the counted
-    run), launches by route and host syncs; then the same solve with
+    finite x, K1 launched on the route k1_route picks and on no other,
+    objectives within 1e-4 (1 + |f|) of the port's CPU float64 solve on
+    the first 64 instances, the wall by CUDA events (median of 5 after the
+    counted run) beside the wide route's (WIDE_ROUTE_SLICE_MS), launches
+    by route and host syncs; then the same solve with
     every instance a straggler after three fused iterations, whose
     float64 escalation and Gondzio tail must factor by the panel-blocked
     LDL^T on K2;
@@ -563,6 +584,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "fused": "ipmzoo_tpu/models/fused.py:432",
             "fused team": "ipmzoo_tpu/models/fused.py:432",
             "fused wide": "ipmzoo_tpu/models/fused.py:432",
+            "fused block": "ipmzoo_tpu/models/fused.py:432",
             "solve_ldlt_matrix warp": "ipmzoo_tpu/ops/pallas_ldlt.py:185",
             "ldlt_solve_matrix": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
             "ldlt_solve_matrix split": "ipmzoo_tpu/ops/pallas_ldlt.py:226",
@@ -598,6 +620,13 @@ K1_WIDE_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
                   "ipmzoo_tpu_torch/csrc/fused_wide.cuh + "
                   "ipmzoo_tpu_torch/models/codegen_team.py + "
                   "ipmzoo_tpu_torch/models/fused_source.py")
+K1_BLOCK_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_wide_block.cuh + "
+                   "ipmzoo_tpu_torch/models/codegen_team.py + "
+                   "ipmzoo_tpu_torch/models/fused_source.py")
+#: the block route's warps a block, each held and timed at step 45
+BLOCK_WARPS = (2, 4, 8)
 #: step 45's shapes of K1's wide route, (n, m_ineq, m_eq, batch, float32
 #: tolerance): m_eq = 1 is portfolio(n_assets=n) (aug n + 1), m_eq = 0 the
 #: default formulation on make_batch's QPs (aug n + m_ineq).  The float32
@@ -609,6 +638,50 @@ K1_WIDE_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
 #: (wide_contraction_spread)
 WIDE_SHAPES = ((128, 0, 1, 1024, 1e-5), (128, 64, 0, 512, 1e-4),
                (256, 0, 1, 256, 1e-5))
+#: step 45's rows that time K1_BLOCK_RULE between WIDE_SHAPES' orders, as
+#: WIDE_SHAPES' rows: portfolio(n_assets=160) (aug 161) and (224) (aug
+#: 225).  Their block route is held to the wide route as launched
+#: (WIDE_ROUTES_X), not to the plain version: at aug 161, B=512, float32
+#: tol 1e-5, gondzio=2 the plain version parts from the wide route by
+#: 2.6e-4 of the largest |x| at equal iterations, over step 45's 1e-4,
+#: and on the CPU the plain version in float32 parts there from float64
+#: by 1.2e-3 on one instance solved in a batch of 512 and by 4e-7 when
+#: it is solved in a batch of 8 (plain_batch_spread; PERF.md section 6)
+RULE_SHAPES = ((160, 0, 1, 512, 1e-5), (224, 0, 1, 256, 1e-5))
+
+
+def wide_rows():
+    """WIDE_SHAPES and RULE_SHAPES by augmented order."""
+    return sorted(WIDE_SHAPES + RULE_SHAPES, key=lambda s: s[0] + s[1] + s[2])
+#: step 45's gate on the block route as launched against the wide route
+#: as launched, by type: iterations equal on every instance and the
+#: largest |x - x_wide| within this.  The two builds part only where nvcc
+#: contracts a multiply-add in one and not in the other (APART); on an
+#: H100 that moved x by at most 2.1e-15 in float64 and 4.1e-6 in float32
+#: at the gated tolerances of WIDE_SHAPES and aug 161 (PERF.md section 6)
+WIDE_ROUTES_X = {"float64": 1e-13, "float32": 1e-5}
+#: what a check build of the wide and block routes prints before the
+#: generated ``struct Form``: each of its functions compiled apart.  nvcc
+#: contracts a * b + c into an FMA wherever it sees both, across the
+#: generated code's temporaries too, and what it sees depends on what was
+#: inlined into what and on where the arrays live: the two routes as
+#: launched (everything inlined) part in the last bits by how the compiler
+#: contracted, not by what they compute.  Compiled apart, each generated
+#: function is the same machine code in both kernels, so their check
+#: builds, which differ in the factor (team_ldlt, block_ldlt: the same
+#: arithmetic) and in where the work arrays live, must give the same bits
+#: (step 45).  The calls cost both routes much of their speed on the card
+#: (PERF.md section 6), so the routes launch inlined.
+APART = ["// check build: each generated function compiled apart",
+         "#ifdef __CUDACC__", "#undef IPM_FN",
+         "#define IPM_FN __host__ __device__ __noinline__", "#endif"]
+
+
+def apart(text):
+    """The check build of a wide or block route's ``text``: APART's lines
+    before its generated part."""
+    gen = '#line 1 "generated"'
+    return text.replace(gen, "\n".join(APART + [gen]), 1)
 #: step 46's batch of portfolio(n_assets=128, seed=0)
 WIDE_SLICE_B = 4096
 CR_SOURCE = "ipmzoo_tpu_torch/csrc/cr.cu"
@@ -1587,7 +1660,7 @@ def build_kernels():
     cpu_solver = fused_solver("cpu", torch.float32)
     src = cpu_solver.kernel_source()
     team_srcs = team_sources(cpu_solver)
-    wide_srcs = wide_sources()
+    wide = wide_jobs()
     phase_srcs = chip_phases.phase_sources()
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
@@ -1599,9 +1672,8 @@ def build_kernels():
     for p, text in enumerate(phase_srcs):
         libs[f"phase{p}"] = _build.generated_library_path("fused_phase",
                                                           text)
-    for key, text in wide_srcs.items():
-        libs[f"wide{key}"] = _build.generated_library_path("fused_wide",
-                                                           text)
+    for k, (path, _, _) in wide.items():
+        libs[k] = path
     cached = {k: p.exists() for k, p in libs.items()}
     jobs = {"ldlt": cuda_ldlt._lib, "cr": cuda_cr._lib,
             "roofline": cuda_roofline._lib,
@@ -1612,9 +1684,8 @@ def build_kernels():
     for p, text in enumerate(phase_srcs):
         jobs[f"phase{p}"] = lambda t=text: cuda_fused.library(t,
                                                               "fused_phase")
-    for key, text in wide_srcs.items():
-        jobs[f"wide{key}"] = lambda t=text: cuda_fused.library(t,
-                                                               "fused_wide")
+    for k, (_, _, build) in wide.items():
+        jobs[k] = build
     seconds = build_all(jobs)
     print_build(SOURCE, libs["ldlt"], cached["ldlt"], seconds["ldlt"])
     print_build(CR_SOURCE, libs["cr"], cached["cr"], seconds["cr"])
@@ -1635,7 +1706,8 @@ def build_kernels():
                   f"threads a block, {sh['team_bytes']} bytes of shared "
                   f"memory a team, {sh['teams_per_sm']} teams resident per "
                   f"SM")
-    report_wide_builds(wide_srcs, libs, cached, seconds)
+    report_wide_builds(wide_sources(), libs, cached, seconds)
+    report_block_builds(wide_sources("block"), libs, cached, seconds)
     print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
                 seconds["roofline"])
     for p in range(len(phase_srcs)):
@@ -1750,13 +1822,81 @@ def wide_case(n, m, e, B, dtype, device, tol=1e-6):
                            device=device), data
 
 
-def wide_sources():
-    """The wide route's sources at WIDE_SHAPES, by (n, m_ineq, m_eq) (the
-    text depends on neither the batch nor the type)."""
+def wide_sources(route="wide", check_build=False):
+    """The wide (or block) route's sources at WIDE_SHAPES and RULE_SHAPES,
+    by (n, m_ineq, m_eq) (the text depends on neither the batch nor the
+    type); ``check_build``: the check builds (apart) at WIDE_SHAPES."""
     import torch
-    return {shape[:3]: wide_case(*shape[:3], 1, torch.float32,
-                                 "cpu")[0].kernel_source("wide")
-            for shape in WIDE_SHAPES}
+    from ipmzoo_tpu_torch.models import fused_source
+    make = {"wide": fused_source.fused_wide_source,
+            "block": fused_source.fused_wide_block_source}[route]
+    if check_build:
+        return {shape[:3]: apart(make(wide_case(*shape[:3], 1,
+                                                torch.float32, "cpu")[0]))
+                for shape in WIDE_SHAPES}
+    return {shape[:3]: make(wide_case(*shape[:3], 1, torch.float32,
+                                      "cpu")[0])
+            for shape in WIDE_SHAPES + RULE_SHAPES}
+
+
+def wide_jobs():
+    """The wide and block routes' builds, as launched at WIDE_SHAPES and
+    RULE_SHAPES and their check builds at WIDE_SHAPES, by build name
+    ("wide<shape>", "block<shape>", "wide apart<shape>", "block
+    apart<shape>"): (library path, source, build callable)."""
+    from ipmzoo_tpu_torch.ops import _build, cuda_fused
+    jobs = {}
+    for route in ("wide", "block"):
+        name = cuda_fused._LIB_NAME[route]
+        for check_build in (False, True):
+            for key, text in wide_sources(route, check_build).items():
+                jobs[f"{route}{' apart' if check_build else ''}{key}"] = (
+                    _build.generated_library_path(name, text), text,
+                    lambda t=text, nm=name: cuda_fused.library(t, nm))
+    return jobs
+
+
+def report_block_builds(srcs, libs, cached, seconds):
+    """Step 9, the block route: each build's time, ptxas' report, and at
+    each W of BLOCK_WARPS in both types the threads a block, workspace
+    values an instance, shared bytes a block and blocks resident per SM
+    (0 where the block does not fit), and the kernel's registers, stack
+    and spills a type; the check builds' times."""
+    import torch
+    from ipmzoo_tpu_torch.ops import _build, cuda_fused
+    for k in sorted(k for k in libs if " apart" in k):
+        print(f"build: K1 {k.split()[0]} route, check build (generated "
+              f"functions apart) {k[k.index('('):]} ready in "
+              f"{seconds[k]:.2f} s ({'reused' if cached[k] else 'compiled'} "
+              f"{libs[k].name})")
+    for key, text in srcs.items():
+        k = f"block{key}"
+        print_build(f"K1 block route n={key[0]} m_ineq={key[1]} "
+                    f"m_eq={key[2]} (generated fused_wide_block, "
+                    f"{len(text.splitlines())} lines)", libs[k], cached[k],
+                    seconds[k])
+        lib = cuda_fused.library(text, "fused_wide_block")
+        for k in _build.ptxas_report(libs[f"block{key}"]):
+            if "fused_wide_block_kernel" in k["name"]:
+                t = "float64" if "FormEdE" in k["name"] else "float32"
+                print(f"build: K1 block route n={key[0]} m_ineq={key[1]} "
+                      f"m_eq={key[2]} {t} kernel: {k['registers']} "
+                      f"registers, {k['stack']} B stack frame, "
+                      f"{k['spill_stores']} / {k['spill_loads']} B spill "
+                      f"stores / loads")
+        for dtype in (torch.float32, torch.float64):
+            for w in BLOCK_WARPS:
+                sh = cuda_fused.block_shape(lib, dtype, w)
+                print(f"build: K1 block route n={key[0]} m_ineq={key[1]} "
+                      f"m_eq={key[2]} {str(dtype).replace('torch.', '')} "
+                      f"W={w}: {sh['threads']} threads a block, "
+                      f"{sh['region']} values of workspace an instance, "
+                      f"{sh['shared_bytes']} bytes of shared memory a "
+                      f"block, {sh['blocks_per_sm']} blocks resident per "
+                      f"SM")
+                fits = sh["shared_bytes"] <= cuda_fused.SHARED_CAP
+                check(sh["lanes"] == 32 and (sh["blocks_per_sm"] > 0) == fits,
+                      f"the block route's build is {sh}")
 
 
 def report_wide_builds(srcs, libs, cached, seconds):
@@ -2097,27 +2237,70 @@ def time_fused(dev):
     return out
 
 
+def block_launcher(solver, call, warps, source=None):
+    """One K1 launch of ``call`` on the block route at ``warps`` warps a
+    block, built from ``source`` (default the solver's), through the
+    wrapper (as k1_launcher)."""
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    d, state, max_iter, gondzio = call
+    soa, warm = solver.soa_inputs(d, state)
+    src = source or solver.kernel_source("block")
+    total = sum(solver.var_sizes)
+    return lambda: cuda_fused.fused_soa(src, soa, warm, solver.n, total,
+                                        max_iter, gondzio,
+                                        solver.kernel_params(), "block",
+                                        warps)
+
+
+def block_fits(solver, dtype):
+    """Whether the block route's block fits the shared memory at
+    ``solver``'s sizes in ``dtype`` (the generated code's exact slots)."""
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    return cuda_fused.block_values(solver.k1_sizes(), solver.k1_slots()) * \
+        dtype.itemsize <= cuda_fused.SHARED_CAP
+
+
 def check_fused_wide(dev):
-    """Step 45: K1's wide route against its plain version on the card at
-    WIDE_SHAPES (portfolio aug 129, B=1024; the default formulation at
-    n=128, m_ineq=64, aug 192, B=512; portfolio aug 257, B=256), each a
-    cold solve_fused(max_iter=14), a warm resume (max_iter=16) and a cold
-    gondzio=2 solve.  float64 at tol 1e-6: iterations equal on every
-    instance and x within 1e-10 (step 10's limits).  float32 at the
-    shape's tolerance above its floor (WIDE_SHAPES): iterations equal on
-    >= 99% and x within 1e-4 on the instances converged in both at equal
-    iterations.  float32 at the fused slice's tol 1e-6, at or below these
-    shapes' floor, is printed only: there the summation order decides on
-    which iteration some instances cross, and one more iteration moves x
-    by up to 1e-2 of its largest entry (wide_contraction_spread).
-    Two launches of the cold solve must be bit-identical.  k1_route must
-    pick the wide route at every shape, and the team route at the fused
-    slice's launches.  Then each
-    shape's cold max_iter=14 launch timed by CUDA events in both types
-    (mean of 3 behind a warm-up) at the shape's float32 tolerance and
-    tol 1e-6 in float64, the plain version in float32 (one call), and
-    the bound (k1_bound).  Returns the timings by shape and type, and the
-    largest float32 x difference of each shape's gated cold launch."""
+    """Step 45: K1's wide and block routes against the plain version on
+    the card at WIDE_SHAPES (portfolio aug 129, B=1024; the default
+    formulation at n=128, m_ineq=64, aug 192, B=512; portfolio aug 257,
+    B=256), each a cold solve_fused(max_iter=14), a warm resume
+    (max_iter=16) and a cold gondzio=2 solve.  float64 at tol 1e-6:
+    iterations equal on every instance and x within 1e-10 (step 10's
+    limits).  float32 at the shape's tolerance above its floor
+    (WIDE_SHAPES): iterations equal on >= 99% and x within 1e-4 on the
+    instances converged in both at equal iterations.  float32 at the
+    fused slice's tol 1e-6, at or below these shapes' floor, is printed
+    only: there the summation order decides on which iteration some
+    instances cross, and one more iteration moves x by up to 1e-2 of its
+    largest entry (wide_contraction_spread).  Two launches of the cold
+    solve must be bit-identical.
+
+    The block route, wherever its block fits the shared memory (not
+    float64 at aug 225 and 257), at the warps K1_BLOCK_RULE gives the shape (4
+    where the rule keeps the wide route): held to the plain version the
+    same way, two cold launches bit-identical, the cold solve bit-equal
+    at every W of BLOCK_WARPS (the row split changes no bit), and, as
+    launched, against the wide route as launched: at the gated
+    tolerances iterations equal on every instance and x within
+    WIDE_ROUTES_X (printed only at float32 tol 1e-6).  The design's gate:
+    the two routes' check builds (the generated functions compiled apart,
+    APART) give the same bits (all six outputs) at every
+    launch, and on the cold solve at every W.  k1_route must pick the
+    team route at the fused slice's launches, and above order 128 the
+    block route only where it fits.
+
+    At RULE_SHAPES (aug 161 and 225, float64 and float32 at tol 1e-5) the
+    block route only against the wide route as launched (W-invariance,
+    WIDE_ROUTES_X) and timed.
+
+    Then, at the gated tolerances, each shape's cold max_iter=14 launch
+    timed by CUDA events (mean of 3 behind a warm-up) on the wide route
+    and on the block route at each W, the plain version in float32 (one
+    call; WIDE_SHAPES only) and the bound (k1_bound); k1_route's pick must
+    be within 5% of the fastest of them (timing noise).  Returns the timings by shape
+    and type, and the largest float32 x difference of each route's gated
+    cold launch by (route, shape)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_fused
 
@@ -2128,55 +2311,129 @@ def check_fused_wide(dev):
             check(route == "team", f"k1_route takes the {route} route at "
                   f"the fused slice's B={B} {dtype}")
     times, errs = {}, {}
-    for n, m, e, B, tol32 in WIDE_SHAPES:
+    fields = ("x", "variables", "iterations")
+    for shape in WIDE_SHAPES + RULE_SHAPES:
+        n, m, e, B, tol32 = shape
+        held = shape in WIDE_SHAPES
         for dtype, tol, gate in ((torch.float64, 1e-6, None),
                                  (torch.float32, tol32,
                                   ("iterations", "x at equal iterations")),
                                  (torch.float32, 1e-6, ())):
+            if gate == () and not held:
+                continue
             solver, data = wide_case(n, m, e, B, dtype, dev, tol)
-            route = cuda_fused.k1_route(B, solver.k1_sizes(), dtype)
+            sizes, slots = solver.k1_sizes(), solver.k1_slots()
+            route = cuda_fused.k1_route(B, sizes, dtype, slots)
+            fits = block_fits(solver, dtype)
+            warps = cuda_fused.block_warps(sizes, dtype, slots) or 4
             name = (f"n={n} m_ineq={m} m_eq={e} aug {solver.aug_dim} B={B} "
                     f"{str(dtype).replace('torch.', '')} tol={tol:g}")
-            check(route == "wide", f"k1_route takes the {route} route at "
-                  f"{name}")
+            check(route in ("wide", "block") and (fits or route == "wide"),
+                  f"k1_route takes the {route} route at {name}")
             cold_call = (data, None, 14, 0)
             cold = solver.soa_result(k1_launcher(solver, cold_call,
                                                  "wide")())
             state = {k: cold[k] for k in ("variables", "mu", "iterations")}
-            for what, call in (("cold max_iter=14", cold_call),
-                               ("warm resume max_iter=16",
-                                (data, state, 16, 0)),
-                               ("cold gondzio=2", (data, None, 14, 2))):
-                k = solver.soa_result(k1_launcher(solver, call, "wide")())
-                if call is cold_call:
-                    check(all(torch.equal(k[f], cold[f]) for f in
-                              ("x", "variables", "iterations")),
-                          f"{name}: two launches of the cold solve differ")
+            calls = (("cold max_iter=14", cold_call),
+                     ("warm resume max_iter=16", (data, state, 16, 0)),
+                     ("cold gondzio=2", (data, None, 14, 2)))
+            routes = [("wide", lambda c: k1_launcher(solver, c, "wide"))]
+            if fits:
+                routes.append((f"block W={warps}",
+                               lambda c: block_launcher(solver, c, warps)))
+                ks = [solver.soa_result(block_launcher(solver, cold_call,
+                                                       w)())
+                      for w in BLOCK_WARPS]
+                check(all(torch.equal(k[f], ks[0][f]) for k in ks
+                          for f in fields), f"{name}: the block route's "
+                      f"cold solve differs between W={BLOCK_WARPS}")
+                dx = (ks[0]["x"] - cold["x"]).abs().max().item()
+                same = int((ks[0]["iterations"] == cold["iterations"]).sum())
+                limit = WIDE_ROUTES_X[str(dtype).replace("torch.", "")]
+                print(f"K1 block route {name}: cold max_iter=14 bit-equal "
+                      f"at W={BLOCK_WARPS}; against the wide route as "
+                      f"launched: iterations equal on {same}/{B}, largest "
+                      f"|x - x_wide| {dx:.3e}"
+                      + ("" if gate == () else f" (limit {limit:g})")
+                      + ", bit-equal "
+                      f"{all(torch.equal(ks[0][f], cold[f]) for f in fields)}")
+                check(gate == () or (same == B and dx <= limit),
+                      f"{name}: the block route as launched parts from the "
+                      f"wide route as launched: iterations equal on "
+                      f"{same}/{B}, largest |x - x_wide| {dx:.3e} against "
+                      f"{limit:g}")
+                if held:
+                    check_apart(solver, calls, name)
+            for what, call in calls if held else ():
                 p = solver.soa_result(solver._fused_plain(
                     *solver.soa_inputs(*call[:2]), *call[2:]))
-                torch.cuda.synchronize()
-                err = hold_k1(f"K1 wide route vs plain {name} {what}"
-                              + (" (not gated)" if gate == () else ""), k,
-                              p, dtype, tol, gate)
-                if what.startswith("cold max") and gate:
-                    errs[(n, m, e, B)] = err
+                for label, launch in routes:
+                    k = solver.soa_result(launch(call)())
+                    if call is cold_call:
+                        k2 = solver.soa_result(launch(call)())
+                        check(all(torch.equal(k[f], k2[f]) for f in fields),
+                              f"{name}: two launches of the cold solve on "
+                              f"the {label} route differ")
+                    torch.cuda.synchronize()
+                    err = hold_k1(f"K1 {label} route vs plain {name} {what}"
+                                  + (" (not gated)" if gate == () else ""),
+                                  k, p, dtype, tol, gate)
+                    if what.startswith("cold max") and gate:
+                        errs[(label.split()[0], n, m, e, B)] = err
             if gate == ():
                 continue
-            wide = k1_launcher(solver, cold_call, "wide")
             soa, _ = solver.soa_inputs(data)
+            wide = k1_launcher(solver, cold_call, "wide")
             t = {"K1_wide": time_cuda(wide, 3),
                  "bound": k1_bound(solver, soa, wide())}
-            if dtype == torch.float32:
+            if fits:
+                for w in BLOCK_WARPS:
+                    t[f"K1_block{w}"] = time_cuda(
+                        block_launcher(solver, cold_call, w), 3)
+                t["K1_block"] = t[f"K1_block{warps}"]
+            if dtype == torch.float32 and held:
                 t["K1_plain"] = time_cuda(lambda: solver._fused_plain(
                     soa, None, 14, 0), 1)
-            print(f"timing K1 wide route cold solve_fused(max_iter=14) "
-                  f"{name} (ms per call, CUDA events): wide route "
-                  f"{t['K1_wide']:.4f}" +
+            routes_ms = {k[3:]: v for k, v in t.items()
+                         if k.startswith("K1_") and k != "K1_plain"
+                         and k != "K1_block"}
+            picked = t["K1_block"] if route == "block" else t["K1_wide"]
+            print(f"timing K1 wide routes cold solve_fused(max_iter=14) "
+                  f"{name} (ms per call, CUDA events): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in routes_ms.items()) +
                   (f", plain {t['K1_plain']:.4f}" if "K1_plain" in t
                    else "") +
-                  f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}")
+                  f"; bound {t['bound'][0]:.6f} ms by {t['bound'][1]}; "
+                  f"k1_route picks {route}"
+                  + (f" at W={warps}" if route == "block" else ""))
+            check(picked <= 1.05 * min(routes_ms.values()),
+                  f"k1_route picks the {route} route at {name}: "
+                  f"{picked:.4f} ms against {routes_ms}")
             times[(n, m, e, B, str(dtype).replace("torch.", ""))] = t
     return times, errs
+
+
+def check_apart(solver, calls, name):
+    """Step 45's gate on the design: the block route's check build gives
+    the wide route's check build's bits (x, variables, iterations,
+    residual, gap, mu) at each of ``calls``, and on the first (cold) at
+    every W of BLOCK_WARPS.  Check builds compile each generated function
+    apart, so both kernels run the same machine code for everything but
+    the factor and where the work arrays live."""
+    import torch
+    wide_src = apart(solver.kernel_source("wide"))
+    block_src = apart(solver.kernel_source("block"))
+    for i, (what, call) in enumerate(calls):
+        w = k1_launcher(solver, call, "wide", wide_src)()
+        for warps in (BLOCK_WARPS if i == 0 else (4,)):
+            b = block_launcher(solver, call, warps, block_src)()
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(b, w)),
+                  f"{name} {what}: the block route's check build at "
+                  f"W={warps} differs from the wide route's")
+    print(f"K1 check builds (generated functions apart) {name}: the block "
+          f"route gives the wide route's bits at {len(calls)} launches "
+          f"(the cold one at W={BLOCK_WARPS})")
 
 
 def wide_contraction_spread(dev=None):
@@ -2192,7 +2449,8 @@ def wide_contraction_spread(dev=None):
     from ipmzoo_tpu_torch.models.state import tree_map
     from ipmzoo_tpu_torch.ops import _build, cuda_fused
     dev = dev or banner("chip_smoke", "the spread is measured")
-    srcs = wide_sources()
+    every = wide_sources()
+    srcs = {shape[:3]: every[shape[:3]] for shape in WIDE_SHAPES}
     # the text names the flag, so the library cache keys the build apart
     plain_flags = _build.NVCC_FLAGS
     _build.NVCC_FLAGS = plain_flags + ("--fmad=false",)
@@ -2228,15 +2486,54 @@ def wide_contraction_spread(dev=None):
                     torch.float32, tol, ())
 
 
+def plain_batch_spread(n=160, B=64, device="cpu"):
+    """Why aug 161 is a RULE_SHAPES row (run alone, not by main(); the
+    CPU by default): portfolio(n_assets=n, batch=B, seed=0), a cold
+    solve_fused(max_iter=14, gondzio=2) at tol 1e-5 by the plain version
+    in float32, held to the plain version in float64, over the whole
+    batch (padded to the solver's tile, bt=512) and again in batches of 8
+    (bt=8); prints the largest difference in x (of the largest |x|) of
+    each run and its instance."""
+    import torch
+    from ipmzoo_tpu_torch.models.state import tree_map
+    s64, d64 = wide_case(n, 0, 1, B, torch.float64, device, 1e-5)
+    s32, d32 = wide_case(n, 0, 1, B, torch.float32, device, 1e-5)
+    ref = s64.solve_fused(d64, max_iter=14, gondzio=2)["x"]
+    scale = ref.abs().max().item()
+    x = s32.solve_fused(d32, max_iter=14, gondzio=2)["x"].double()
+    eight = wide_case(n, 0, 1, 8, torch.float32, device, 1e-5)[0]
+    eight.bt = 8
+    parts = [eight.solve_fused(tree_map(lambda a, i=i: a[i:i + 8], d32),
+                               max_iter=14, gondzio=2)["x"].double()
+             for i in range(0, B, 8)]
+    worst = None
+    for what, got in ((f"the batch of {B} padded to {s32.bt}", x),
+                      ("batches of 8", torch.cat(parts))):
+        d = (got - ref).abs().max(dim=1).values / scale
+        worst = int(d.argmax()) if worst is None else worst
+        print(f"plain float32 vs float64, aug {n + 1} portfolio seed 0 "
+              f"tol 1e-5 gondzio=2, {what}: largest x difference "
+              f"{d.max().item():.3e} at instance {int(d.argmax())}, "
+              f"{d[worst].item():.3e} at instance {worst}")
+
+
+#: the wide slice's wall with K1 on the wide route, before the block
+#: route (H100 80GB HBM3 at 700 W, PERF.md section 6): ms per solve, low
+#: and high
+WIDE_ROUTE_SLICE_MS = (62.383, 63.158)
+
+
 def run_wide_slice(dev):
     """Step 46: the wide slice, FusedBatchedIPM(portfolio settings,
     n=128, m_eq=1, float32, tol=1e-6).solve_fused_compact() (the default
     schedule, esc_cap=32) on portfolio(n_assets=128, batch=WIDE_SLICE_B,
     seed=0), launch counts set to 0 just before and read just after: >=
-    99.9% converged, finite x, K1 launched on the wide route (and on no
-    other); objectives within 1e-4 (1 + |f|) of the port's CPU float64
-    solve on the first 64 instances; the wall by CUDA events (median of 5
-    after the counted run), launches by route and host syncs.  Then the
+    99.9% converged, finite x, K1 launched on the route k1_route picks
+    (the block route at aug 129 in float32 where K1_BLOCK_RULE takes it)
+    and on no other; objectives within 1e-4 (1 + |f|) of the port's CPU
+    float64 solve on the first 64 instances; the wall by CUDA events
+    (median of 5 after the counted run) beside WIDE_ROUTE_SLICE_MS,
+    launches by route and host syncs.  Then the
     same solve with every instance left a straggler after three fused
     iterations (schedule [(3, 1)], no fused tail): the float64 escalation
     and the Gondzio tail factor by the panel-blocked LDL^T (its panels on
@@ -2253,7 +2550,9 @@ def run_wide_slice(dev):
                     device=dev)
     solver = FusedBatchedIPM(fam.settings, n, 0, 1, dtype=torch.float32,
                              tol=1e-6, device=dev)
-    solver.kernel_source("wide")
+    route = cuda_fused.k1_route(B, solver.k1_sizes(), torch.float32,
+                                solver.k1_slots())
+    solver.kernel_source(route)
     cuda_fused.reset_launch_counts()
     cuda_ldlt.reset_launch_counts()
     solver.host_syncs = 0
@@ -2274,14 +2573,15 @@ def run_wide_slice(dev):
     check(tuple(x.shape) == (B, n), f"wide slice x shape {tuple(x.shape)}")
     check(bool(torch.isfinite(x).all()), "wide slice: non-finite x")
     check(conv >= 0.999, f"wide slice convergence {conv} < 0.999")
-    check(launches.get("fused wide", 0) > 0, "the wide slice never launched "
-          "K1's wide route")
-    check(not launches.get("fused team") and not launches.get(
-        "fused thread"), f"the wide slice launched K1 off the wide route: "
-          f"{launches}")
+    check(launches.get(f"fused {route}", 0) > 0, f"the wide slice never "
+          f"launched K1's {route} route")
+    check(all(not v for k, v in launches.items() if k.startswith("fused ")
+              and k != f"fused {route}"), f"the wide slice launched K1 off "
+          f"the {route} route: {launches}")
     med = time_solves(lambda: solver.solve_fused_compact(fam.data), 5)
     print(f"wide slice: wall ms per solve (CUDA events, 5 runs after the "
-          f"counted one) median {med:.3f}")
+          f"counted one) median {med:.3f} on the {route} route (on the "
+          f"wide route: {WIDE_ROUTE_SLICE_MS[0]}-{WIDE_ROUTE_SLICE_MS[1]})")
 
     k = 64
     sub = tree_map(lambda a: a[:k].to(device="cpu", dtype=torch.float64),
@@ -5540,6 +5840,7 @@ def main():
     import torch
     from chip_roofline import banner
     from ipmzoo_tpu_torch.models.fused_source import team_lanes
+    from ipmzoo_tpu_torch.ops import cuda_fused
     dev = banner("chip_smoke", "this smoke test runs")
     if dev is None:
         return 2
@@ -5609,8 +5910,10 @@ def main():
     check_mpc_f64(dev)
     run_mpc_condensed(dev)
     run_nd_crossover(dev, nd_objective)
+    t_wide = time.perf_counter()
     w_times, w_errs = check_fused_wide(dev)
     w_launches, _ = run_wide_slice(dev)
+    print(f"steps 45-46: {time.perf_counter() - t_wide:.1f} s")
     tf_launches = run_tf_slice(dev, data)
     run_precision_options(dev)
     sp_local, sp_routes = run_sp_one_rank(dev)
@@ -5651,6 +5954,9 @@ def main():
     k1 = k1_times[B_SLICE]
     w_shape = WIDE_SHAPES[0][:4]
     w1 = w_times[w_shape + ("float32",)]
+    w_solver = wide_case(*w_shape[:3], 1, torch.float32, "cpu")[0]
+    w_warps = cuda_fused.block_warps(w_solver.k1_sizes(), torch.float32,
+                                     w_solver.k1_slots()) or 4
     k1_lanes = team_lanes(fused_solver("cpu", torch.float32))
     kw = k5_times[K5_KKT + ("float32",)]
     ct, ct32 = cr_times[("float32", 1)], cr_times[("float32", ARROW_BATCH)]
@@ -5752,13 +6058,22 @@ def main():
               f"float32, cold max_iter=14, B={B_SLICE})", K1_TEAM_SOURCE,
               "fused team", f_launches["fused team"], k1["K1_team"],
               k1["K1_plain"], k1["bound"], None),
-        # launches: the wide slice's (step 46), at portfolio aug 129
+        # launches: the wide slice's (step 46), at portfolio aug 129; the
+        # wide route's are 0 where k1_route takes the block route there
         entry("K1 wide route (one warp an instance; generated; float32, "
               "tol %g, cold max_iter=14, portfolio n=%d aug %d, B=%d)"
               % (WIDE_SHAPES[0][4], w_shape[0], w_shape[0] + 1, w_shape[3]),
               K1_WIDE_SOURCE,
-              "fused wide", w_launches["fused wide"], w1["K1_wide"],
-              w1["K1_plain"], w1["bound"], None, w_errs[w_shape]),
+              "fused wide", w_launches.get("fused wide", 0), w1["K1_wide"],
+              w1["K1_plain"], w1["bound"], None, w_errs[("wide",) + w_shape]),
+        entry("K1 block route (one thread block an instance, W=%d; "
+              "generated; float32, tol %g, cold max_iter=14, portfolio n=%d "
+              "aug %d, B=%d)" % ((w_warps, WIDE_SHAPES[0][4], w_shape[0],
+                                  w_shape[0] + 1, w_shape[3])),
+              K1_BLOCK_SOURCE, "fused block",
+              w_launches.get("fused block", 0), w1["K1_block"],
+              w1["K1_plain"], w1["bound"], None,
+              w_errs[("block",) + w_shape]),
         # the thread route's launches on the slice's path: k4_route takes
         # it only at small orders (below 6, more at large batches) and
         # over the warp route's 96 rows

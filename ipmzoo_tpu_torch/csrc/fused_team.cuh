@@ -52,7 +52,6 @@
 // IPMZOO_TEAM_EMULATE the host build runs each team as kLanes threads
 // instead, so the tests also run the lane-spread code and its barriers.
 
-#include <atomic>
 #include <vector>
 
 #ifndef IPMZOO_TEAM_LANES
@@ -248,6 +247,16 @@ IPM_FN void team_ldlt(const Team<T>& tm, T* K, T* D, T pivot_floor) {
   }
 }
 
+// The factor of the team and wide routes: team_ldlt on the team's lanes.
+// solve_team takes the factor as a policy, so that a route can run it on
+// more threads than the team (fused_wide_block.cuh: BlockFactor).
+struct TeamFactor {
+  template <int N, typename T>
+  IPM_FN void run(const Team<T>& tm, T* K, T* D, T pivot_floor) const {
+    team_ldlt<T, N>(tm, K, D, pivot_floor);
+  }
+};
+
 // Orders up to which team_ldlt_solve unrolls its sweeps whole; above it
 // (the wide route, fused_wide.cuh) a sweep unrolls only over the lanes'
 // slots and loops over the columns of each.
@@ -407,13 +416,15 @@ IPM_FN void team_gondzio_round(const Team<T>& tm, const Staged<T>& dat,
 }
 
 // One Mehrotra predictor-corrector iteration of the team's instance
-// (fused_ipm.cuh:fused_step); w.v is updated in place.
-template <typename F, typename T>
+// (fused_ipm.cuh:fused_step), the LDL^T by `factor`; w.v is updated in
+// place.
+template <typename F, typename T, typename Factor>
 IPM_FN void team_fused_step(const Team<T>& tm, const Staged<T>& dat,
                             const Params<T>& prm, const Work<T>& w, T mu,
-                            T gap, int gondzio, T& mu_new) {
+                            T gap, int gondzio, T& mu_new,
+                            const Factor& factor) {
   F::template assemble<T>(tm, dat, prm, w.v, mu, w.K);
-  team_ldlt<T, F::kAug>(tm, w.K, w.D, prm.pivot_floor);
+  factor.template run<F::kAug>(tm, w.K, w.D, prm.pivot_floor);
 
   // affine predictor at mu = 0
   F::template residuals<T>(tm, dat, prm, w.v, T(0), w.r);
@@ -480,14 +491,14 @@ IPM_FN void stage_data(const Data<T>& dat, T* smem, int64_t b0, int nb,
 }
 
 // The whole solve of instance b by its team, the data already staged in
-// `region` (fused_ipm.cuh:solve_instance).
-template <typename F, typename T>
-IPM_FN void solve_team(const Team<T>& tm, T* region, const Params<T>& prm,
-                       const T* v0, const T* mu0, const T* it0,
-                       const Out<T>& out, int64_t S, int64_t b, int max_iter,
-                       int warm, int gondzio) {
-  const Staged<T> dat = staged<F, T>(region);
-  const Work<T> w = work<F, T>(region);
+// `dat`, the work arrays at `w`, the LDL^T by `factor`
+// (fused_ipm.cuh:solve_instance).
+template <typename F, typename T, typename Factor>
+IPM_FN void solve_team(const Team<T>& tm, const Staged<T>& dat,
+                       const Work<T>& w, const Factor& factor,
+                       const Params<T>& prm, const T* v0, const T* mu0,
+                       const T* it0, const Out<T>& out, int64_t S, int64_t b,
+                       int max_iter, int warm, int gondzio) {
   T mu, iterations;
   if (warm) {
     IPM_FOR(F::kTotal) w.v[i] = v0[i * S + b];
@@ -503,7 +514,8 @@ IPM_FN void solve_team(const Team<T>& tm, T* region, const Params<T>& prm,
   bool done = residual < prm.tol && gap < prm.tol;
   for (int it = 0; it < max_iter && !done; ++it) {
     T mu_new;
-    team_fused_step<F, T>(tm, dat, prm, w, mu, gap, gondzio, mu_new);
+    team_fused_step<F, T>(tm, dat, prm, w, mu, gap, gondzio, mu_new,
+                          factor);
     mu = mu_new;
     F::template metrics<T>(tm, dat, prm, w.v, residual, gap);
     iterations = iterations + T(1);
@@ -518,6 +530,18 @@ IPM_FN void solve_team(const Team<T>& tm, T* region, const Params<T>& prm,
     out.gap[b] = gap;
     out.mu[b] = mu;
   }
+}
+
+// The whole solve of instance b by its team, everything in `region`
+// (TeamLayout) and the LDL^T by team_ldlt.
+template <typename F, typename T>
+IPM_FN void solve_team(const Team<T>& tm, T* region, const Params<T>& prm,
+                       const T* v0, const T* mu0, const T* it0,
+                       const Out<T>& out, int64_t S, int64_t b, int max_iter,
+                       int warm, int gondzio) {
+  solve_team<F, T>(tm, staged<F, T>(region), work<F, T>(region),
+                   TeamFactor{}, prm, v0, mu0, it0, out, S, b, max_iter,
+                   warm, gondzio);
 }
 
 // Bytes of dynamic shared memory a block of the team kernel takes.
@@ -563,27 +587,17 @@ fused_team_kernel(Data<T> dat, Params<T> prm, const T* v0, const T* mu0,
 // The most dynamic shared memory a block may take on sm_90, in bytes.
 constexpr int kTeamSharedCap = 232448;
 
-// Raise the team kernel's dynamic shared-memory limit once per device
-// (bit d of `done`), where its blocks take more than the default 48 KB.
-template <typename F, typename T>
-int allow_team_shared(std::atomic<unsigned>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned bit = 1u << (dev & 31);
-  if (done.load() & bit) return 0;
-  err = cudaFuncSetAttribute(fused_team_kernel<F, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTeamSharedCap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  done.fetch_or(bit);
-  return 0;
-}
-
-template <typename F, typename T>
-std::atomic<unsigned>& team_shared_done() {
-  static std::atomic<unsigned> done{0};
-  return done;
+// Raise `kernel`'s dynamic shared-memory limit on the current device to
+// the cap, at each launch (and occupancy query) whose block takes more
+// than the default 48 KB.  Not once per device: K1's libraries, one per
+// formulation and sizes, share the generated type's name, and a static
+// of a function template is then one object for the whole process (g++
+// makes it a unique symbol, merged across the libraries loaded), so a
+// flag kept there would leave the second library's kernel unset.
+template <typename Kernel>
+int allow_shared(Kernel kernel) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTeamSharedCap));
 }
 #endif
 
@@ -607,7 +621,7 @@ int fused_team_entry(const T* const* data9, const T* v0, const T* mu0,
   const int bytes = team_block_bytes<F, T>();
   if (bytes > kTeamSharedCap) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
-    const int err = allow_team_shared<F, T>(team_shared_done<F, T>());
+    const int err = allow_shared(fused_team_kernel<F, T>);
     if (err) return err;
   }
   const unsigned grid =
@@ -657,13 +671,13 @@ int fused_team_shape(int itemsize, int* out4) {
   int blocks = 0;
   cudaError_t err;
   if (f64) {
-    const int e = allow_team_shared<F, double>(team_shared_done<F, double>());
+    const int e = allow_shared(fused_team_kernel<F, double>);
     if (e) return e;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, fused_team_kernel<F, double>, kTeamThreads,
         team_block_bytes<F, double>());
   } else {
-    const int e = allow_team_shared<F, float>(team_shared_done<F, float>());
+    const int e = allow_shared(fused_team_kernel<F, float>);
     if (e) return e;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, fused_team_kernel<F, float>, kTeamThreads,

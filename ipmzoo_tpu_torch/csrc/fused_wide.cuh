@@ -7,14 +7,16 @@
 // _fused_kernel (FusedBatchedIPM.solve_fused), which has no limit on the
 // order.  Its plain version is ipmzoo_tpu_torch/models/fused.py:
 // FusedBatchedIPM._fused_plain.  ops/cuda_fused.py:k1_route picks this
-// route where four teams overflow a block's shared memory and the
-// augmented order is above 128.
+// route where four teams overflow a block's shared memory, the augmented
+// order is above 128 and the block route (fused_wide_block.cuh) does not
+// take the launch (K1_BLOCK_RULE, or its block over the shared memory).
 //
 // This file is not compiled alone: models/fused_source.py:
 // fused_wide_source prints fused_ipm.cuh, fused_team.cuh at 32 lanes,
 // this file, the team route's generated `struct Form`
 // (models/codegen_team.py:CppTeam) and the entry points
-// (IPMZOO_FUSED_WIDE_ENTRY_POINTS).
+// (IPMZOO_FUSED_WIDE_ENTRY_POINTS); chip_smoke.py's check build compiles
+// each generated function apart (its APART says why).
 //
 // Why a third route.  Above order 128 the thread route's per-thread
 // arrays (the packed factor alone is aug (aug + 1) / 2 values) no longer
@@ -93,24 +95,6 @@ fused_wide_kernel(Data<T> dat, Params<T> prm, const T* v0, const T* mu0,
   solve_team<F, T>(tm, region, prm, v0, mu0, it0, out, dat.S, b, max_iter,
                    warm, gondzio);
 }
-
-// Raise the wide kernel's dynamic shared-memory limit once per device
-// (bit d of `done`), where its slots take more than the default 48 KB.
-template <typename F, typename T>
-int allow_wide_shared() {
-  static std::atomic<unsigned> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned bit = 1u << (dev & 31);
-  if (done.load() & bit) return 0;
-  err = cudaFuncSetAttribute(fused_wide_kernel<F, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kTeamSharedCap);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  done.fetch_or(bit);
-  return 0;
-}
 #endif
 
 // Entry point, with the C signature of fused_ipm.cuh:fused_entry and the
@@ -133,7 +117,7 @@ int fused_wide_entry(const T* const* data9, const T* v0, const T* mu0,
   const int bytes = wide_block_bytes<F, T>();
   if (bytes > kTeamSharedCap) return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
-    const int err = allow_wide_shared<F, T>();
+    const int err = allow_shared(fused_wide_kernel<F, T>);
     if (err) return err;
   }
   fused_wide_kernel<F, T><<<static_cast<unsigned>(B), kWideThreads, bytes,

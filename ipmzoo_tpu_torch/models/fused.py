@@ -5,11 +5,13 @@ in one kernel launch (counterpart of :mod:`ipmzoo_tpu.models.fused`).
 instance reads its data once and runs every iteration (KKT assembly,
 in-place LDL^T, predictor, ratio tests, centering, corrector, Gondzio
 rounds, update, convergence test) without returning to the host, on one
-of three routes that ``ops/cuda_fused.k1_route`` picks per launch: a
+of four routes that ``ops/cuda_fused.k1_route`` picks per launch: a
 thread per instance (``csrc/fused_ipm.cuh``), a team of 16 or 32 lanes
 per instance with its state in shared memory (``csrc/fused_team.cuh``),
 or, above augmented order 128 where four teams do not fit a block, a warp
-per instance with its state in device memory (``csrc/fused_wide.cuh``).
+per instance with its state in device memory (``csrc/fused_wide.cuh``)
+or a thread block per instance with its factor and work vectors in shared
+memory (``csrc/fused_wide_block.cuh``).
 For CPU tensors it runs K1's plain version, :meth:`_fused_plain`, which
 evaluates the same steps on the whole batch with the batch on the
 trailing axis (SoA), as the reference's kernel body does for a tile.
@@ -20,8 +22,8 @@ residual environments with the Taylor corrector, the augmented
 right-hand side, back-substitution, Gondzio targets) take an emitter:
 :class:`.codegen_soa.TorchSoA` runs them on tensors, and
 :mod:`.fused_source` passes :class:`.codegen_soa.CppSoA` to print them as
-K1's generated C++ (:class:`.codegen_team.CppTeam` for the team and wide
-routes).
+K1's generated C++ (:class:`.codegen_team.CppTeam` for the team, wide
+and block routes).
 The hand-written parts (the LDL^T, the ratio tests, the step and the
 loop) are written here in torch and for each route in its header.
 
@@ -43,7 +45,7 @@ from . import codegen_soa as soa
 from .data import QPData
 from .fused_compact import FusedCompactMixin
 from .fused_source import fused_source, fused_team_source, \
-    fused_wide_source
+    fused_wide_block_source, fused_wide_source, team_slots
 from .ipm import CompiledIPM
 from .state import tree_map
 
@@ -125,8 +127,9 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
         kw.setdefault("kernel", "ldlt")
         super().__init__(settings, n, m_ineq, m_eq, **kw)
         self.bt = bt
-        #: K1's generated sources, by route
+        #: K1's generated sources, by route, and its team code's slots
         self._kernel_sources: dict = {}
+        self._k1_slots: Optional[int] = None
         #: generated sources of the fused-iteration prefixes (kernel T3,
         #: ``models/fused_phases.py``), by prefix
         self._phase_sources: dict = {}
@@ -450,12 +453,14 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
     # -- K1 ---------------------------------------------------------------
 
     def kernel_source(self, route: str = "thread") -> str:
-        """K1's C++ source of ``route`` ("thread", "team" or "wide") for
-        this formulation and these sizes (generated once per solver)."""
+        """K1's C++ source of ``route`` ("thread", "team", "wide" or
+        "block") for this formulation and these sizes (generated once per
+        solver)."""
         src = self._kernel_sources.get(route)
         if src is None:
             make = {"thread": fused_source, "team": fused_team_source,
-                    "wide": fused_wide_source}
+                    "wide": fused_wide_source,
+                    "block": fused_wide_block_source}
             if route not in make:
                 raise ValueError(f"K1 has no route {route!r}")
             if route == "thread" and self.aug_dim > cuda_fused.THREAD_MAX_AUG:
@@ -471,6 +476,15 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
         m_ineq, m_eq, variables, augmented order)."""
         return (self.n, self.m_ineq, self.m_eq, sum(self.var_sizes),
                 self.aug_dim)
+
+    def k1_slots(self) -> int:
+        """The team slots of K1's generated team code (the team, wide and
+        block routes' ``kSlots``) at these sizes: what
+        :func:`..ops.cuda_fused.k1_route` reads to fit the block route's
+        shared memory exactly (generated once per solver)."""
+        if self._k1_slots is None:
+            self._k1_slots = team_slots(self)
+        return self._k1_slots
 
     def kernel_params(self):
         """K1's scalar settings, in the order of ``Params`` in
@@ -515,11 +529,16 @@ class FusedBatchedIPM(FusedCompactMixin, CompiledIPM):
 
         data_soa, warm = self.soa_inputs(data, state)
         if self.device.type == "cuda":
-            route = cuda_fused.k1_route(B, self.k1_sizes(), self.dtype)
+            sizes = self.k1_sizes()
+            slots = (self.k1_slots() if self.aug_dim >
+                     cuda_fused.THREAD_MAX_AUG else None)
+            route = cuda_fused.k1_route(B, sizes, self.dtype, slots)
+            warps = (cuda_fused.block_warps(sizes, self.dtype, slots)
+                     if route == "block" else None)
             outs = cuda_fused.fused_soa(self.kernel_source(route), data_soa,
                                         warm, self.n, sum(self.var_sizes),
                                         max_iter, gondzio,
-                                        self.kernel_params(), route)
+                                        self.kernel_params(), route, warps)
         elif self.device.type == "cpu":
             outs = self._fused_plain(data_soa, warm, max_iter, gondzio)
         else:

@@ -12,7 +12,10 @@ thread route.  :func:`fused_team_source` makes the same walk with
 the data staged in shared memory) around ``csrc/fused_team.cuh``: the
 team route.  :func:`fused_wide_source` prints the team route's text at
 32 lanes followed by ``csrc/fused_wide.cuh``: the wide route, one warp an
-instance with its region in device memory.
+instance with its region in device memory; :func:`fused_wide_block_source`
+the same text followed by ``csrc/fused_wide_block.cuh``: the block route,
+one thread block an instance with its factor and work vectors in shared
+memory.
 The text depends only on the formulation and the sizes (and
 ``taylor``), never on the dtype or the solver's scalar settings, which
 are run-time arguments: one build serves both float32 and float64.
@@ -44,6 +47,7 @@ from .codegen_team import CppTeam, staged_matrix, staged_stride
 CUH = Path(__file__).resolve().parents[1] / "csrc" / "fused_ipm.cuh"
 TEAM_CUH = CUH.with_name("fused_team.cuh")
 WIDE_CUH = CUH.with_name("fused_wide.cuh")
+BLOCK_CUH = CUH.with_name("fused_wide_block.cuh")
 
 _PARAMS = "const Data<T>& dat, const Params<T>& prm"
 _TEAM_PARAMS = ("const Team<T>& tm, const Staged<T>& dat, "
@@ -381,6 +385,16 @@ def form_struct(solver):
     return _struct(g), g.total
 
 
+def team_slots(solver) -> int:
+    """The team slots (``kSlots``) of the ``struct Form`` that
+    :class:`.codegen_team.CppTeam` prints for ``solver``: the most
+    entries of lane-local vectors a generated function stores for reads
+    across lanes."""
+    g = _TeamGenerator(solver)
+    _struct(g)
+    return g.slots
+
+
 def team_lanes(solver) -> int:
     """The team route's lanes for ``solver``'s sizes: the smallest of 16
     and 32 that holds the largest variable block."""
@@ -456,3 +470,15 @@ def fused_wide_source(solver) -> str:
     (one warp an instance, the region in a device-memory workspace)."""
     return _team_text(solver, "wide route", 32, (TEAM_CUH, WIDE_CUH),
                       "IPMZOO_FUSED_WIDE_ENTRY_POINTS")
+
+
+def fused_wide_block_source(solver) -> str:
+    """K1's block route for ``solver``'s formulation and sizes: the team
+    route's text at 32 lanes (``csrc/fused_ipm.cuh``,
+    ``csrc/fused_team.cuh``, the same ``struct Form``), then
+    ``csrc/fused_wide_block.cuh`` and the entry points
+    ``ipmzoo_fused_block_*`` (one thread block an instance, the factor and
+    the work vectors in shared memory, the staged data in a device-memory
+    workspace)."""
+    return _team_text(solver, "block route", 32, (TEAM_CUH, BLOCK_CUH),
+                      "IPMZOO_FUSED_BLOCK_ENTRY_POINTS")

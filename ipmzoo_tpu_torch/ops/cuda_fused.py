@@ -1,12 +1,15 @@
 """Kernel K1, the fused whole-solve IPM: the ctypes wrapper.
 
-K1 has three routes, each a source generated per formulation
+K1 has four routes, each a source generated per formulation
 (``models/fused_source.py``): the thread route, one thread per instance,
 printed around ``csrc/fused_ipm.cuh``; the team route, a team of 16 or 32
 lanes per instance with its state in shared memory, printed around
-``csrc/fused_team.cuh``; and the wide route, one warp per instance with
-its state in a device-memory workspace that :func:`call` allocates,
-printed around the team code and ``csrc/fused_wide.cuh``.
+``csrc/fused_team.cuh``; the wide route, one warp per instance with its
+state in a device-memory workspace that :func:`call` allocates, printed
+around the team code and ``csrc/fused_wide.cuh``; and the block route, a
+thread block of 2, 4 or 8 warps per instance with its factor and work
+vectors in shared memory and its staged data in such a workspace,
+printed around the team code and ``csrc/fused_wide_block.cuh``.
 :func:`k1_route` picks one per launch.  Each is
 built with nvcc at first use and loaded here.  :func:`fused_soa` takes
 SoA tensors on a CUDA device (batch on the last axis, as the solver lays
@@ -37,16 +40,18 @@ from . import _build
 #: kernel: K1 on any route ("fused") and T3; ``route_launches`` counts
 #: K1's per route
 launches = {"fused": 0, "phase": 0}
-route_launches = {"fused thread": 0, "fused team": 0, "fused wide": 0}
+route_launches = {"fused thread": 0, "fused team": 0, "fused wide": 0,
+                  "fused block": 0}
 
 #: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``), a team
-#: of lanes per instance (``csrc/fused_team.cuh``) or a warp per instance
-#: with its region in device memory (``csrc/fused_wide.cuh``): entry
-#: points and library names
+#: of lanes per instance (``csrc/fused_team.cuh``), a warp per instance
+#: with its region in device memory (``csrc/fused_wide.cuh``) or a thread
+#: block per instance with its factor in shared memory
+#: (``csrc/fused_wide_block.cuh``): entry points and library names
 _ENTRY = {"thread": "ipmzoo_fused", "team": "ipmzoo_fused_team",
-          "wide": "ipmzoo_fused_wide"}
+          "wide": "ipmzoo_fused_wide", "block": "ipmzoo_fused_block"}
 _LIB_NAME = {"thread": "fused_ipm", "team": "fused_team",
-             "wide": "fused_wide"}
+             "wide": "fused_wide", "block": "fused_wide_block"}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -83,13 +88,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def bind(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
     """K1's entry point in ``lib`` (built from the ``route``'s source) for
     ``dtype``, with its ctypes signature; the routes take the same
-    arguments, the wide route its workspace before the stream."""
+    arguments, the wide route its workspace before the stream, the block
+    route its warps a block and its workspace."""
     if dtype not in _SUFFIX:
         raise TypeError(f"K1 takes float32/float64, not {dtype}")
     fn = getattr(lib, f"{_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    extra = {"wide": [ptr], "block": [i32, ptr]}.get(route, [])
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32,
-                   i32] + [ptr] * (2 if route == "wide" else 1)
+                   i32] + extra + [ptr]
     fn.restype = i32
     return fn
 
@@ -97,13 +104,14 @@ def bind(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
 def call(fn, data: Sequence[torch.Tensor],
          warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
          max_iter: int, gondzio: int, params: Sequence[float], stream=None,
-         region: Optional[int] = None):
+         region: Optional[int] = None, warps: Optional[int] = None):
     """Check the SoA tensors, allocate the outputs on their device and call
     K1's entry point ``fn`` once; returns the outputs and the entry's
     status (a cudaError for the CUDA build, 0 for a host build).
-    ``region``: the wide route's values of workspace an instance
-    (:func:`wide_shape`), allocated here on the data's device; None for
-    the other routes.
+    ``region``: the wide and block routes' values of workspace an
+    instance (:func:`wide_shape`, :func:`block_shape`), allocated here on
+    the data's device; None for the other routes.  ``warps``: the block
+    route's warps a block; None for the other routes.
 
     ``data``: the nine QPData fields (Q, c, A_ineq, l_A_ineq, u_A_ineq,
     A_eq, b_eq, l_x, u_x) as contiguous (..., B) tensors; ``warm``: None
@@ -132,10 +140,10 @@ def call(fn, data: Sequence[torch.Tensor],
                                    for t in data))
     out_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in outs))
     prm = (_CTYPE[dtype] * 6)(*params)
-    extra = ()
+    extra = () if warps is None else (warps,)
     if region is not None:
         work = torch.empty(B * region, dtype=dtype, device=device)
-        extra = (work.data_ptr(),)
+        extra += (work.data_ptr(),)
     err = fn(ptrs, v0, mu0, it0, out_ptrs, B, prm, max_iter,
              int(warm is not None), gondzio, *extra, stream)
     return outs, err
@@ -144,22 +152,29 @@ def call(fn, data: Sequence[torch.Tensor],
 def fused_soa(source: str, data: Sequence[torch.Tensor],
               warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
               max_iter: int, gondzio: int, params: Sequence[float],
-              route: str = "thread"):
+              route: str = "thread", warps: Optional[int] = None):
     """Launch K1, built from ``source`` (the text of ``route``), on SoA
     tensors of one CUDA device (arguments and outputs as :func:`call`) on
-    the current stream.  A failed build or launch raises: there is no
-    other route to fall back on."""
+    the current stream; the block route on ``warps`` warps a block.  A
+    failed build or launch raises: there is no other route to fall back
+    on."""
+    if (route == "block") != (warps is not None):
+        raise ValueError(f"K1's {route} route takes warps={warps}: the "
+                         f"block route needs its warps, no other takes any")
     device = data[0].device
     if device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {device}")
     lib = library(source, _LIB_NAME[route])
     fn = bind(lib, data[0].dtype, route)
     with torch.cuda.device(device):
-        region = (wide_shape(lib, data[0].dtype)["region"]
-                  if route == "wide" else None)
+        region = None
+        if route == "wide":
+            region = wide_shape(lib, data[0].dtype)["region"]
+        elif route == "block":
+            region = block_shape(lib, data[0].dtype, warps)["region"]
         stream = torch.cuda.current_stream(device).cuda_stream
         outs, err = call(fn, data, warm, n, total, max_iter, gondzio, params,
-                         stream, region)
+                         stream, region, warps)
     if err:
         raise RuntimeError(f"K1 (fused IPM, {route} route) launch failed: "
                            f"cudaError {err}")
@@ -190,22 +205,82 @@ def team_values(sizes: Tuple[int, int, int, int, int]) -> int:
 THREAD_MAX_AUG = 128
 
 
+def block_values(sizes: Tuple[int, int, int, int, int], slots: int) -> int:
+    """The values the block route keeps in one block's shared memory
+    (``csrc/fused_wide_block.cuh``: BlockLayout) for ``sizes``: seven
+    work vectors, the packed factor, D, b, two buffers of a column's
+    products, ``slots`` team slots (the generated code's,
+    ``FusedBatchedIPM.k1_slots``) and the flag."""
+    n, m, e, total, aug = sizes
+    return 7 * total + aug * (aug + 1) // 2 + 4 * aug + slots + 1
+
+
+#: K1's block route where it was measured faster than the wide route, per
+#: type: rows (lowest augmented order, highest, warps a block).  Measured
+#: on an H100 80GB HBM3 at 700 W by chip_smoke.py step 45, a cold
+#: solve_fused(max_iter=14), ms by CUDA events, wide / block at W = 2, 4,
+#: 8 (PERF.md section 6): float32 at aug 129 (portfolio, B=1024) 11.13 /
+#: 5.08, 4.74, 5.79; at aug 161 (portfolio, B=512) 14.34 / 6.43, 5.70,
+#: 5.37; at aug 192 (the default formulation at n=128, m_ineq=64, B=512)
+#: 31.33 / 15.61, 13.82, 17.84; at aug 225 (portfolio, B=256) 26.71 /
+#: 11.93, 9.83, 9.16 (chip_profile.py wide); at aug 257 (portfolio,
+#: B=256) 39.03 / 14.48, 11.64, 10.83; float64 at aug 129 32.90 / 10.05,
+#: 9.08, 9.04, at aug 161 37.96 / 14.48, 12.50, 12.10 and at aug 192
+#: 96.05 / 52.54, 46.06, 44.84.  Each order between measured ones takes
+#: the W of the nearer: the best W follows the blocks an SM holds (W=8
+#: won where it kept W=4's, at aug 161, 225 and 257 f32), which the order
+#: alone does not give.  float64 at aug 225 and 257 does not fit a
+#: block's shared memory, and nothing above the measured orders is taken.
+K1_BLOCK_RULE = {
+    torch.float32: ((129, 145, 4), (146, 176, 8), (177, 208, 4),
+                    (209, 257, 8)),
+    torch.float64: ((129, 192, 8),),
+}
+
+
+def block_warps(sizes: Tuple[int, int, int, int, int], dtype: torch.dtype,
+                slots: int) -> Optional[int]:
+    """The block route's warps a block for ``sizes`` in ``dtype`` where
+    K1_BLOCK_RULE takes it and its block fits the shared memory
+    (:func:`block_values` with the generated code's ``slots``), else
+    None."""
+    aug = sizes[4]
+    if block_values(sizes, slots) * (torch.finfo(dtype).bits // 8) > \
+            SHARED_CAP:
+        return None
+    for lo, hi, warps in K1_BLOCK_RULE.get(dtype, ()):
+        if lo <= aug <= hi:
+            return warps
+    return None
+
+
 def k1_route(B: int, sizes: Tuple[int, int, int, int, int],
-             dtype: torch.dtype) -> str:
+             dtype: torch.dtype, slots: Optional[int] = None) -> str:
     """K1's route for a launch of ``B`` instances of ``sizes`` = (n,
     m_ineq, m_eq, variables, augmented order): ``"team"`` wherever a
     block of four teams fits the shared memory, else ``"thread"`` up to
-    augmented order THREAD_MAX_AUG, else ``"wide"``.  On an H100 the team
-    route was the faster at every launch of the fused slice (B=10240
-    cold and warm, 1536, the 512 Gondzio tile) and at B=32, in float32
-    and float64, by 3.5-8.5x (PERF.md section 6), so the batch size does
-    not enter the rule today.  Pure: the same arguments give the same
-    route."""
+    augmented order THREAD_MAX_AUG, else ``"block"`` where
+    :func:`block_warps` takes it (K1_BLOCK_RULE's measured rows, the
+    block within the shared memory with the generated code's ``slots``,
+    ``FusedBatchedIPM.k1_slots``, which that choice needs: without them
+    it raises), else ``"wide"``.  On an H100 the team route was the
+    faster at every launch of the fused slice (B=10240 cold and warm,
+    1536, the 512 Gondzio tile) and at B=32, in float32 and float64, by
+    3.5-8.5x (PERF.md section 6); above order 128 the block route was
+    measured against the wide one at the batches K1_BLOCK_RULE names.
+    The batch size does not enter the rule.  Pure: the same arguments
+    give the same route."""
     itemsize = torch.finfo(dtype).bits // 8
     teams_per_block = 4     # 64 threads of 16 lanes: the largest block
     if teams_per_block * team_values(sizes) * itemsize <= SHARED_CAP:
         return "team"
-    return "thread" if sizes[4] <= THREAD_MAX_AUG else "wide"
+    if sizes[4] <= THREAD_MAX_AUG:
+        return "thread"
+    if slots is None:
+        raise ValueError(f"K1's route above order {THREAD_MAX_AUG} (here "
+                         f"{sizes[4]}) needs the generated code's team "
+                         f"slots (FusedBatchedIPM.k1_slots)")
+    return "block" if block_warps(sizes, dtype, slots) else "wide"
 
 
 def team_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
@@ -237,6 +312,24 @@ def wide_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
         raise RuntimeError(f"K1 wide route: occupancy query failed: "
                            f"cudaError {err}")
     return dict(zip(("lanes", "threads", "region", "blocks_per_sm"), out))
+
+
+def block_shape(lib: ctypes.CDLL, dtype: torch.dtype,
+                warps: int) -> Dict[str, int]:
+    """What a block build is for ``dtype`` at ``warps`` warps a block:
+    lanes of the team, threads a block, values of workspace an instance
+    (the staged data), bytes of shared memory a block and blocks resident
+    per SM (0 in a host build, and where the block does not fit)."""
+    fn = lib.ipmzoo_fused_block_shape
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(torch.finfo(dtype).bits // 8, warps, out)
+    if err:
+        raise RuntimeError(f"K1 block route: occupancy query failed: "
+                           f"cudaError {err}")
+    return dict(zip(("lanes", "threads", "region", "shared_bytes",
+                     "blocks_per_sm"), out))
 
 
 def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype):

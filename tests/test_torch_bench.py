@@ -31,6 +31,7 @@ from ipmzoo_tpu.formulations import Settings
 from ipmzoo_tpu.models import ArrowIPM as RefArrowIPM
 from ipmzoo_tpu.models import CompiledIPM as RefIPM
 from ipmzoo_tpu.models import QPData as RefQPData
+from ipmzoo_tpu.models import families as ref_families
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused
 from ipmzoo_tpu.models.mpc import RiccatiIPM as RefRiccatiIPM
 from ipmzoo_tpu.models.mpc import random_mpc as ref_random_mpc
@@ -332,6 +333,36 @@ def test_tf_mode(small, monkeypatch):
             1e-9 + np.abs(x64) * 2.0 ** -24).all()
 
 
+def test_wide_mode(small):
+    """bench_wide at a small batch: 4 portfolios of 128 assets (aug_dim
+    129, float32, tol 1e-6) through solve_fused_compact on the CPU (K1's
+    plain version); all converge, the value is the useful iterations over
+    the (one-second) wall, and each objective is within 1e-5 (1 + |f|) of
+    the JAX package's jnp solver in float64 at tol 1e-8 on the same
+    portfolios (float32 at its floor: the gap 1e-6 bounds the objective's
+    error; seen 1.8e-6).  bench.py has no such mode."""
+    label, value, unit, counts = bench_torch.run_mode("wide", CPU, 4)
+    out = counts["result"]
+    assert unit == "iterations/s" and "aug_dim 129" in label
+    assert "4 batched portfolio QPs" in label and "tol=1e-06" in label
+    assert counts["converged"] == 1.0
+    assert value == counts["iterations"] == float(out["iterations"].sum())
+    ref = ref_families.portfolio(n_assets=128, batch=4, seed=0,
+                                 dtype=jnp.float64)
+    want = RefIPM(ref.settings, n=ref.n, m_ineq=ref.m_ineq, m_eq=ref.m_eq,
+                  dtype=jnp.float64, kernel="jnp", tol=1e-8).solve_batch(
+                      ref.data)
+    assert bool(np.all(want.converged))
+    Q, c = np.asarray(ref.data.Q), np.asarray(ref.data.c)
+
+    def objective(x):
+        return (0.5 * np.einsum("bi,bij,bj->b", x, Q, x)
+                + np.einsum("bi,bi->b", c, x))
+    f_ref = objective(np.asarray(want.x))
+    f = objective(out["x"].double().numpy())
+    assert (np.abs(f - f_ref) <= 1e-5 * (1 + np.abs(f_ref))).all()
+
+
 @pytest.mark.parametrize("world", [1, 2])
 def test_sharded_mode(small, monkeypatch, world):
     """bench_sharded at the small size, both stepping timers at one
@@ -509,7 +540,7 @@ def test_unknown_mode_and_the_lists_of_modes():
         bench_torch.run_mode("nope", CPU)
     assert bench_torch.MODES == ("fused", "solve", "steps", "kkt", "schur",
                                  "arrow", "nd", "normal", "aug", "mpc", "tf",
-                                 "sharded")
+                                 "sharded", "wide")
     assert bench_torch.REFUSED == {}
     assert not set(bench_torch.MODES) & set(bench_torch.REFUSED)
 

@@ -459,7 +459,7 @@ def test_cpu_solve_runs_the_plain_version_on_no_route():
     assert bool(out["converged"].all())
     assert cuda_fused.launches == {"fused": 0, "phase": 0}
     assert cuda_fused.route_launches == {"fused thread": 0, "fused team": 0,
-                                         "fused wide": 0}
+                                         "fused wide": 0, "fused block": 0}
 
 
 def test_team_wrapper_refuses_cpu_tensors():
@@ -469,4 +469,4 @@ def test_team_wrapper_refuses_cpu_tensors():
         cuda_fused.fused_soa(solver.kernel_source("team"), soa_data, None,
                              16, 128, 5, 0, solver.kernel_params(), "team")
     assert set(cuda_fused.route_launches) == {"fused thread", "fused team",
-                                              "fused wide"}
+                                              "fused wide", "fused block"}

@@ -15,9 +15,9 @@ instance, its region in a device-memory workspace) in host builds.
   (cold, Gondzio rounds, warm), as ``tests/test_torch_fused_team.py``
   holds the team route, and under ThreadSanitizer no lane reads the
   region where another writes without a team barrier between;
-* ``k1_route`` takes the wide route exactly where four teams overflow a
-  block's shared memory above order 128, and the thread route is not
-  built above 128.
+* ``k1_route`` takes a wide route (the wide or the block route) exactly
+  where four teams overflow a block's shared memory above order 128, and
+  the thread route is not built above 128.
 """
 
 import subprocess
@@ -262,26 +262,40 @@ def test_thread_route_is_not_built_above_order_128():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64])
-@pytest.mark.parametrize("n, m, e, route", [
-    (16, 8, 0, "team"),         # the fused slice
-    (100, 20, 0, "thread"),     # aug 120: four teams overflow
-    (127, 0, 1, "thread"),      # portfolio, aug 128
-    (128, 0, 1, "wide"),        # portfolio, aug 129
-    (100, 40, 0, "wide"),       # aug 140
-    (128, 64, 0, "wide"),       # aug 192
-    (256, 0, 1, "wide"),        # aug 257
+@pytest.mark.parametrize("n, m, e, route, route64", [
+    (16, 8, 0, "team", "team"),         # the fused slice
+    (100, 20, 0, "thread", "thread"),   # aug 120: four teams overflow
+    (127, 0, 1, "thread", "thread"),    # portfolio, aug 128
+    (128, 0, 1, "block", "block"),      # portfolio, aug 129
+    (100, 40, 0, "block", "block"),     # aug 140
+    (128, 64, 0, "block", "block"),     # aug 192
+    (256, 0, 1, "block", "wide"),       # aug 257
 ])
-def test_k1_route_takes_the_wide_route_above_128(n, m, e, route, dtype):
+def test_k1_route_takes_the_wide_route_above_128(n, m, e, route, route64,
+                                                 dtype):
+    """Above order 128, where four teams overflow the shared memory,
+    k1_route, given the generated code's slots as solve_fused gives them,
+    takes the block route (csrc/fused_wide_block.cuh) where
+    K1_BLOCK_RULE's rows take the order and the block fits, else the
+    wide route (float64 at aug 257); without the slots it refuses to
+    choose there.  test_torch_fused_wide_block.py holds the rule
+    itself."""
+    route = route64 if dtype == F64 else route
     settings = portfolio(n_assets=4, device="cpu").settings if e else \
         settings_from_reference(RefSettings())
     solver = FusedBatchedIPM(settings, n, m, e, dtype=dtype, device="cpu")
     sizes = solver.k1_sizes()
+    wide = solver.aug_dim > cuda_fused.THREAD_MAX_AUG
+    slots = solver.k1_slots() if wide else None
     for B in (32, 512, 4096):
-        assert cuda_fused.k1_route(B, sizes, dtype) == route
+        assert cuda_fused.k1_route(B, sizes, dtype, slots) == route
+    if wide:
+        with pytest.raises(ValueError, match="slots"):
+            cuda_fused.k1_route(32, sizes, dtype)
     fits = 4 * cuda_fused.team_values(sizes) * dtype.itemsize <= \
         cuda_fused.SHARED_CAP
     assert (route == "team") == fits
-    assert (route == "wide") == (not fits and solver.aug_dim > 128)
+    assert (route in ("wide", "block")) == (not fits and wide)
 
 
 def test_team_route_prints_a_one_equality_formulation(host_build):
