@@ -25,7 +25,10 @@ the same data, and prints, after the card's name and power limit:
    synchronize), beside each K1 launch's route, batch and device time
    (CUDA events around the launch alone) and K1's device time by route,
    converged instances and host syncs; then the profiled launches and
-   busy time of one esc_cap=32 solve;
+   busy time of one esc_cap=32 solve; then the share of a cold K1 launch
+   on the team route (B=10240, max_iter=14, float32 and float64) spent in
+   its factor, read inside the launch by clock64 (team_clocked_share),
+   beside T3's team route's factor (prefix 2 less prefix 1);
 3. the compact slice with esc_cap 'auto', 0, 0, 'auto' in turns: the
    wall by CUDA events (median of 2 runs after the first);
 4. the banded+arrow slice (bench_arrow's defaults, float32, tol 1e-5),
@@ -422,6 +425,64 @@ def profile_fused(dev, data):
                             data, esc_cap=esc)) for esc in (32, 0)])
     profiled(lambda: solver.solve_fused_compact(data, esc_cap=32),
              "fused esc_cap=32")
+    team_clocked_share(dev)
+
+
+def team_clocked_share(dev):
+    """The share of a cold solve_fused(max_iter=14) launch of K1's team
+    route at the fused slice's shape that its teams spend in their factor,
+    read inside the launch (ops/cuda_k1_measure.clocked_team: the team
+    kernel with its factor wrapped in clock64 reads): the factor's cycles
+    over the teams' cycles from their block's start, summed over the
+    instances.  Turned into ms of one factor of the whole batch (the
+    share of the launch's ms over the mean iterations an instance), it
+    stands beside T3's team route's factor at the same B (the slope of
+    prefix 2 less prefix 1, chip_phases.time_phases), which compares two
+    builds; the clocked and the launched kernels' ms (CUDA events, mean
+    of 3) and whether they gave the same bits are printed with it."""
+    import torch
+    import chip_phases as ph
+    from ipmzoo_tpu_torch.models.convert import make_batch
+    from ipmzoo_tpu_torch.ops import cuda_fused, cuda_k1_measure
+    B = cs.B_SLICE
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        solver = cs.fused_solver(dev, dtype)
+        soa, _ = solver.soa_inputs(make_batch(B, 16, 8, dtype, device=dev))
+        args = (soa, None, solver.n, sum(solver.var_sizes), 14, 0,
+                solver.kernel_params())
+        lib = cuda_k1_measure.team_library(solver)
+        src = solver.kernel_source("team")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def clock():
+            outs, cycles, err = cuda_k1_measure.clocked_team(lib, *args,
+                                                             stream)
+            cs.check(err == 0, f"clocked team route: cudaError {err}")
+            return outs, cycles
+
+        def launched():
+            return cuda_fused.fused_soa(src, *args, "team")
+
+        outs, cycles = clock()
+        ref = launched()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(outs, ref))
+        share = float(cycles[0].sum()) / float(cycles[1].sum())
+        iters = float(outs[2].sum()) / B
+        launch_ms = cs.time_cuda(launched, 3)
+        clock_ms = cs.time_cuda(lambda: clock()[0], 3)
+        times, _ = ph.time_phases(dev, B, dtype, None, "team")
+        t3 = ph.phase_split(times)["factor"]
+        per_factor = share * launch_ms / iters
+        print(f"factor share in the launch, team route B={B} {name} "
+              f"(clock64, cold max_iter=14): {share:.4f} of the teams' "
+              f"cycles, {float(cycles[0].sum()) / float(outs[2].sum()):.0f} "
+              f"cycles a factor, {iters:.3f} iterations an instance; "
+              f"launch {launch_ms:.4f} ms (clocked {clock_ms:.4f}, same bits "
+              f"{same}): {per_factor:.4f} ms a factor of the batch, against "
+              f"T3's team factor {t3:.4f} ms a repetition "
+              f"({per_factor / t3:.2f}x)")
 
 
 #: K1's wide routes and their kernels' names under torch.profiler
@@ -767,7 +828,13 @@ def main():
               file=sys.stderr)
         return 2
     if set(sections) - {"nd", "schur", "dense", "mpc", "tf", "wide"}:
-        cs.build_kernels()
+        from ipmzoo_tpu_torch.ops import cuda_k1_measure
+        extra = {}
+        if "fused" in sections:
+            solver = cs.fused_solver("cpu", torch.float32)
+            extra["k1 team measure"] = functools.partial(
+                cuda_k1_measure.team_library, solver)
+        cs.build_kernels(extra)
     elif "wide" in sections:
         from chip_roofline import build_all
         from ipmzoo_tpu_torch.ops import cuda_ldlt

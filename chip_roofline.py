@@ -20,7 +20,10 @@ It measures, on the card it runs on, and prints:
    B=10240 (the fused slice) and B=512, float32 and float64; the rates by
    ``fused_flops`` against the ceiling of 1; and the share of one fused
    iteration that is linear algebra (one factor and two solves against
-   K1's measured time per iteration).
+   K1's measured time per iteration).  Beside the thread route's, T2a's
+   team route (K1's team route's factor: team_ldlt on 16 lanes, K and D
+   in shared memory) at the same shapes, with its bound; no slope of it
+   may lie below its bound at B=10240.
 
 T1 and T2 are first held to their plain versions, and T1 again at what
 the sweep launched: every block size at 1024 rounds, and the winning
@@ -244,10 +247,11 @@ def reps_inputs(B, dtype, dev):
 
 
 def check_reps(dev, B=B_SLICE):
-    """T2a / T2b against their plain versions on the card at order 24,
-    ``B`` instances, 3 repetitions, float32 within 1e-5 and float64
-    within 1e-12 on both outputs.  Returns the largest absolute
-    differences of the float32 sinks."""
+    """T2a (both routes) / T2b against their plain versions on the card at
+    order 24, ``B`` instances, 3 repetitions, float32 within 1e-5 and
+    float64 within 1e-12 on both outputs.  Returns the largest absolute
+    differences of the float32 sinks, by kernel ("factor_reps team" the
+    team route's)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
 
@@ -255,8 +259,10 @@ def check_reps(dev, B=B_SLICE):
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         name = dtype_name(dtype)
         K0, b0 = reps_inputs(B, dtype, dev)
-        runs = {"factor_reps": (cr.factor_reps(K0, 3),
-                                cr.factor_reps_plain(K0, 3)),
+        factor = cr.factor_reps_plain(K0, 3)
+        runs = {"factor_reps": (cr.factor_reps(K0, 3), factor),
+                "factor_reps team": (cr.factor_reps(K0, 3, route="team"),
+                                     factor),
                 "solve_reps": (cr.solve_reps(K0, b0, 3),
                                cr.solve_reps_plain(K0, b0, 3))}
         torch.cuda.synchronize()
@@ -272,9 +278,18 @@ def check_reps(dev, B=B_SLICE):
     return errs
 
 
+def factor_bound(B, dtype):
+    """The least ms of one in-kernel factorisation of B instances at
+    order 24: ``fused_flops``' operations over the card's peak for the
+    type (each repetition reads no new bytes from device memory)."""
+    from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+    return cr.fused_flops(N_AUG)[0] * B / cr.DATA_SHEET_FLOPS[dtype] * 1e3
+
+
 def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
-    """Step 3: T2's slopes.  Returns {(B, dtype name): {factor_ms,
-    solve_ms, factor_flops, solve_flops}} (ms per repetition, FLOP/s)."""
+    """Step 3: T2's slopes, T2a on both routes.  Returns {(B, dtype
+    name): {factor_ms, factor_team_ms, solve_ms, factor_flops,
+    solve_flops}} (ms per repetition, FLOP/s)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
 
@@ -286,8 +301,12 @@ def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
         for B in batches:
             K0, b0 = reps_inputs(B, dtype, dev)
             f = cr.reps_slope(lambda r: cr.factor_reps(K0, r))
+            ft = cr.reps_slope(lambda r: cr.factor_reps(K0, r,
+                                                         route="team"))
             s = cr.reps_slope(lambda r: cr.solve_reps(K0, b0, r))
-            row = {"factor_ms": f["ms_per_rep"], "solve_ms": s["ms_per_rep"],
+            row = {"factor_ms": f["ms_per_rep"],
+                   "factor_team_ms": ft["ms_per_rep"],
+                   "solve_ms": s["ms_per_rep"],
                    "factor_flops": fac * B / (f["ms_per_rep"] * 1e-3),
                    "solve_flops": sol * B / (s["ms_per_rep"] * 1e-3)}
             out[(B, name)] = row
@@ -302,6 +321,22 @@ def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
                   f"{row['solve_flops'] / 1e12:.3f} TFLOP/s = "
                   f"{100 * row['solve_flops'] / peak:.1f}% [{sol} flops per "
                   f"instance]")
+            team_flops = fac * B / (ft["ms_per_rep"] * 1e-3)
+            bnd = factor_bound(B, dtype)
+            print(f"T2a team route {name} n={N_AUG} B={B}: factor "
+                  f"{ft['ms_per_rep']:.4f} ms per repetition (slope of reps "
+                  f"{ft['r1']} / {ft['r2']}: {ft['ms_r1']:.4f} / "
+                  f"{ft['ms_r2']:.4f} ms), {team_flops / 1e12:.3f} TFLOP/s "
+                  f"= {100 * team_flops / peak:.1f}% of the measured FMA "
+                  f"ceiling; bound {bnd:.6f} ms; thread route "
+                  f"{row['factor_ms']:.4f} ms "
+                  f"({row['factor_ms'] / ft['ms_per_rep']:.2f}x the team "
+                  f"route's)")
+            if B == B_SLICE:
+                check(ft["ms_per_rep"] >= bnd, f"T2a's team route reads "
+                      f"{ft['ms_per_rep']:.6f} ms a factorisation at "
+                      f"B={B} {name}, below its bound {bnd:.6f}: work was "
+                      f"dropped")
     return out
 
 

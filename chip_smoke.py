@@ -246,11 +246,12 @@ Steps, each reported on its own line:
     fail where k5_route picks a route whose device time is more than 5%
     above the fastest;
 28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
-    T2b in-kernel factor / solve repetitions) and the five generated
-    prefixes of one fused iteration (T3), each prefix a source of its
-    own; all nvcc processes run beside those of steps 3 and 9, and each
-    build's time and ptxas' registers, stack frame and spills are
-    reported;
+    T2b in-kernel factor / solve repetitions, T2a on both routes) and the
+    five generated prefixes of one fused iteration (T3) on each of its
+    two routes, thread and team, each prefix a source of its own; all
+    nvcc processes run beside those of steps 3 and 9, and each build's
+    time and ptxas' registers, stack frame and spills are reported, with
+    the team prefixes' shared bytes a team and teams per SM;
 29. hold T1 against its plain version at (64, 512) and at (256, 512),
     the shape of its kernels-line entry, reps 64, chains 4 / 8 / 16
     (float32 within 1e-5: nvcc contracts acc * a + x to one FMA; float64
@@ -262,22 +263,28 @@ Steps, each reported on its own line:
     winning configuration at its own size, block size, chains and rounds
     (float32 within 1e-2, float64 within 1e-10: thousands of contracted
     rounds drift, a miscounted chain or round is off by factors);
-30. hold T2a and T2b against their plain versions at order 24, B=10240,
-    float32 (1e-5) and float64 (1e-12), on both outputs (the reference
-    kernel's sum and the sink that keeps the whole factorisation alive),
-    then the time of one factorisation and of one solve inside K1's
-    per-thread storage as the slope between two in-kernel repetition
-    counts, at B=10240 and B=512; their rates against step 29's ceiling;
-    one factor + two solves against K1's measured time per iteration;
-    T2a's time per factorisation at B=10240 must lie within 3x of K2's
-    at the same shape (step 8): the work was not optimised away;
-31. hold each T3 prefix against its plain version at B=10240 (float64
-    within 1e-10, float32 within 1e-4, both outputs, metrics nudge off
-    and on), then the time of each prefix per in-kernel repetition, the
-    differences (the phases' costs), one whole launch, and ptxas'
-    figures per prefix, at B=10240 and B=512, float32 and float64; the
-    float32 prefix times at B=10240 must not decrease; beside them one
-    solve_fused(max_iter=1) of K1 and one CompiledIPM.step;
+30. hold T2a (thread and team routes) and T2b against their plain
+    versions at order 24, B=10240, float32 (1e-5) and float64 (1e-12), on
+    both outputs (the reference kernel's sum and the sink that keeps the
+    whole factorisation alive), then the time of one factorisation and of
+    one solve inside K1's per-thread storage, and of one factorisation on
+    the team route (team_ldlt, K and D in shared memory), as the slope
+    between two in-kernel repetition counts, at B=10240 and B=512; their
+    rates against step 29's ceiling; one factor + two solves against K1's
+    measured time per iteration; T2a's thread-route time per
+    factorisation at B=10240 must lie within 3x of K2's at the same shape
+    (step 8): the work was not optimised away; the team route's slope at
+    B=10240 must not lie below its bound, and is printed beside K2's
+    block route at (24, 10240);
+31. hold each T3 prefix of both routes against its plain version at
+    B=10240 and B=512 (float64 within 1e-10, float32 within 1e-4, both
+    outputs, metrics nudge off and on), then for each route the time of
+    each prefix per in-kernel repetition, the differences (the phases'
+    costs), one whole launch, the slope's bound, and ptxas' figures per
+    prefix, at B=10240 and B=512, float32 and float64; the float32 prefix
+    times at B=10240 must not decrease, and no slope at B=10240 may lie
+    below its bound; beside them one solve_fused(max_iter=1) of K1 on its
+    thread and its team route and one CompiledIPM.step;
 32. the library's matrix-product rates (torch.matmul, 1024^2 float32
     with TF32 off, 2048^2 bfloat16), a yardstick;
 33. bench_torch.py's modes `steps` (10 batched steps after the
@@ -594,8 +601,10 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "cr_solve shared": "ipmzoo_tpu/ops/cr_pallas.py:281",
             "fma_chains": "tools/roofline.py:41",
             "factor_reps": "tools/roofline.py:111",
+            "factor_reps team": "tools/roofline.py:111",
             "solve_reps": "tools/roofline.py:124",
-            "phase": "tools/fused_phases.py:44"}
+            "phase": "tools/fused_phases.py:44",
+            "phase team": "tools/fused_phases.py:44"}
 #: T1's shape in the kernels line: the reference sweep's largest buffer
 T1_SHAPE, T1_CHAINS, T1_REPS = (256, 512), 16, 64
 #: T2's repetitions in the kernels line: the slope's upper count
@@ -605,6 +614,12 @@ T3_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
              "ipmzoo_tpu_torch/models/codegen_soa.py + "
              "ipmzoo_tpu_torch/models/fused_source.py + "
              "ipmzoo_tpu_torch/models/fused_phases.py")
+T3_TEAM_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_phases_team.cuh + "
+                  "ipmzoo_tpu_torch/models/codegen_team.py + "
+                  "ipmzoo_tpu_torch/models/fused_source.py + "
+                  "ipmzoo_tpu_torch/models/fused_phases.py")
 #: the fused slice's K1 batches: the cold full batch and its warm mop-up,
 #: the 1/8 stage (round_up(10240 // 8, 512)) and the Gondzio tile
 K1_BATCHES = (10240, 1536, 512)
@@ -1648,10 +1663,11 @@ def print_build(what, lib, cached, seconds):
             print(f"build: {line.strip()}")
 
 
-def build_kernels():
+def build_kernels(extra=None):
     """Steps 3, 9 and 28: build ldlt.cu, cr.cu, roofline.cu, K1 and the
-    five T3 prefixes, one nvcc process each, all started together; report
-    each build's time and ptxas' report."""
+    five T3 prefixes of each route (and the builds of ``extra``, name ->
+    callable), one nvcc process each, all started together; report each
+    build's time and ptxas' report."""
     import torch
     import chip_phases
     from chip_roofline import build_all
@@ -1661,7 +1677,8 @@ def build_kernels():
     src = cpu_solver.kernel_source()
     team_srcs = team_sources(cpu_solver)
     wide = wide_jobs()
-    phase_srcs = chip_phases.phase_sources()
+    phase_srcs = {route: chip_phases.phase_sources(route)
+                  for route in chip_phases.ROUTES}
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
             "roofline": _build.library_path("roofline"),
@@ -1669,9 +1686,10 @@ def build_kernels():
     for lanes, text in team_srcs.items():
         libs[f"team{lanes}"] = _build.generated_library_path("fused_team",
                                                              text)
-    for p, text in enumerate(phase_srcs):
-        libs[f"phase{p}"] = _build.generated_library_path("fused_phase",
-                                                          text)
+    for route, texts in phase_srcs.items():
+        for p, text in enumerate(texts):
+            libs[f"phase {route} {p}"] = _build.generated_library_path(
+                cuda_fused.PHASE_LIBS[route], text)
     for k, (path, _, _) in wide.items():
         libs[k] = path
     cached = {k: p.exists() for k, p in libs.items()}
@@ -1681,11 +1699,13 @@ def build_kernels():
     for lanes, text in team_srcs.items():
         jobs[f"team{lanes}"] = lambda t=text: cuda_fused.library(
             t, "fused_team")
-    for p, text in enumerate(phase_srcs):
-        jobs[f"phase{p}"] = lambda t=text: cuda_fused.library(t,
-                                                              "fused_phase")
+    for route, texts in phase_srcs.items():
+        for p, text in enumerate(texts):
+            jobs[f"phase {route} {p}"] = lambda t=text, r=route: \
+                cuda_fused.library(t, cuda_fused.PHASE_LIBS[r])
     for k, (_, _, build) in wide.items():
         jobs[k] = build
+    jobs.update(extra or {})
     seconds = build_all(jobs)
     print_build(SOURCE, libs["ldlt"], cached["ldlt"], seconds["ldlt"])
     print_build(CR_SOURCE, libs["cr"], cached["cr"], seconds["cr"])
@@ -1710,10 +1730,12 @@ def build_kernels():
     report_block_builds(wide_sources("block"), libs, cached, seconds)
     print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
                 seconds["roofline"])
-    for p in range(len(phase_srcs)):
-        k = f"phase{p}"
-        print(f"build: T3 prefix {p} ready in {seconds[k]:.2f} s "
-              f"({'reused' if cached[k] else 'compiled'} {libs[k].name})")
+    for route, texts in phase_srcs.items():
+        for p in range(len(texts)):
+            k = f"phase {route} {p}"
+            how = "reused" if cached[k] else "compiled"
+            print(f"build: T3 {route} route prefix {p} ready in "
+                  f"{seconds[k]:.2f} s ({how} {libs[k].name})")
     return chip_phases.report_ptxas()
 
 
@@ -4001,14 +4023,16 @@ def sweep_k7(dev=None):
                   flush=True)
 
 
-def measure_roofline(dev, k2_ms, k1_ms):
-    """Steps 29, 30 and 32: T1, T2a and T2b held to their plain versions,
-    then the measurement itself (the FMA ceilings, the in-kernel
-    repetition slopes), whose launches are counted; ``k2_ms`` is K2's
-    time at n=24, B=10240 (step 8), ``k1_ms`` K1's cold
+def measure_roofline(dev, k2_ms, k2_block, k1_ms):
+    """Steps 29, 30 and 32: T1, T2a (both routes) and T2b held to their
+    plain versions, then the measurement itself (the FMA ceilings, the
+    in-kernel repetition slopes), whose launches are counted, T2a's by
+    route; ``k2_ms`` is K2's time at n=24, B=10240 (step 8),
+    ``k2_block`` its block route's there (CUDA events, device time),
+    ``k1_ms`` K1's cold
     solve_fused(max_iter=14) there (step 13).  Returns the largest
-    absolute differences, the launch counts of the measurement, and the
-    kernels-line times."""
+    absolute differences, the launch counts of the measurement (T2a's
+    team route under "factor_reps team"), and the kernels-line times."""
     import torch
     import chip_roofline as rl
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
@@ -4021,9 +4045,10 @@ def measure_roofline(dev, k2_ms, k1_ms):
     ceilings = rl.fma_ceilings(dev)
     reps_times = rl.time_reps(dev, ceilings)
     launches = dict(cr.launches)
+    launches["factor_reps team"] = cr.route_launches["factor_reps team"]
     print(f"roofline: launches of the measurement T1 "
-          f"{launches['fma_chains']} T2a {launches['factor_reps']} T2b "
-          f"{launches['solve_reps']}")
+          f"{launches['fma_chains']} T2a {launches['factor_reps']} (by "
+          f"route {cr.route_launches}) T2b {launches['solve_reps']}")
     for k, v in launches.items():
         check(v > 0, f"the roofline measurement never launched {k}")
     rl.check_fma_sweep(dev, ceilings)
@@ -4034,6 +4059,16 @@ def measure_roofline(dev, k2_ms, k1_ms):
     check(k2_ms / 3 <= t2a <= 3 * k2_ms, f"T2a's {t2a:.4f} ms per "
           f"factorisation is not within 3x of K2's {k2_ms:.4f} ms: the "
           f"repeated work is not what was asked for")
+    for (B, name), row in sorted(reps_times.items()):
+        print(f"roofline: T2a ms per factorisation at n={N_AUG} B={B} "
+              f"{name}: team route {row['factor_team_ms']:.4f}, thread route "
+              f"{row['factor_ms']:.4f}; bound "
+              f"{rl.factor_bound(B, getattr(torch, name)):.6f}")
+    team = reps_times[(B_SLICE, "float32")]["factor_team_ms"]
+    print(f"roofline: T2a team route {team:.4f} ms per factorisation at "
+          f"n={N_AUG} B={B_SLICE} float32 against one launch of K2's block "
+          f"route there: {k2_block[0]:.4f} ms by CUDA events, its layout "
+          f"work included, {k2_block[1]:.4f} ms device")
     rl.matmul_peaks(dev)
 
     # the kernels line: one launch each at a stated shape
@@ -4043,6 +4078,9 @@ def measure_roofline(dev, k2_ms, k1_ms):
                        device=dev).reshape(S, L)
     K0, b0 = rl.reps_inputs(B_SLICE, torch.float32, dev)
     f32 = torch.float32
+    # both routes read only K0's packed lower triangle (load_packed,
+    # stage_packed): those are the bytes the function must move
+    packed = N_AUG * (N_AUG + 1) // 2 * B_SLICE
     t = {
         "fma_chains": (
             time_cuda(lambda: cr.fma_chains(x, T1_CHAINS, T1_REPS), 50),
@@ -4051,11 +4089,15 @@ def measure_roofline(dev, k2_ms, k1_ms):
         "factor_reps": (
             time_cuda(lambda: cr.factor_reps(K0, T2_REPS), 20),
             time_cuda(lambda: cr.factor_reps_plain(K0, T2_REPS), 2),
-            bound(K0.numel() + 2 * B_SLICE, T2_REPS * fac * B_SLICE, f32)),
+            bound(packed + 2 * B_SLICE, T2_REPS * fac * B_SLICE, f32)),
+        "factor_reps team": (
+            time_cuda(lambda: cr.factor_reps(K0, T2_REPS, route="team"), 20),
+            time_cuda(lambda: cr.factor_reps_plain(K0, T2_REPS), 2),
+            bound(packed + 2 * B_SLICE, T2_REPS * fac * B_SLICE, f32)),
         "solve_reps": (
             time_cuda(lambda: cr.solve_reps(K0, b0, T2_REPS), 20),
             time_cuda(lambda: cr.solve_reps_plain(K0, b0, T2_REPS), 2),
-            bound(K0.numel() + b0.numel() + 2 * B_SLICE,
+            bound(packed + b0.numel() + 2 * B_SLICE,
                   (fac + T2_REPS * sol) * B_SLICE, f32)),
     }
     for k, (ms, plain_ms, bnd) in t.items():
@@ -4066,39 +4108,59 @@ def measure_roofline(dev, k2_ms, k1_ms):
 
 
 def measure_phases(dev, ptxas):
-    """Step 31: each T3 prefix held to its plain version, then the timed
-    prefixes, whose launches are counted.  Returns the largest absolute
-    difference (last prefix, float32), the launch count and the
-    kernels-line times of the last prefix."""
+    """Step 31: each T3 prefix of both routes held to its plain version at
+    B=10240 and B=512, then the timed prefixes, whose launches are
+    counted by route.  Returns the largest absolute difference (last
+    prefix, float32, at B=10240) and the launch count by route ("phase"
+    the thread route's, "phase team" the team route's), and the
+    kernels-line times of the last prefix by route."""
     import torch
     import chip_phases as ph
     from ipmzoo_tpu_torch.models import fused_phases as fp
     from ipmzoo_tpu_torch.ops import cuda_fused
 
-    err = ph.check_phases(dev, B_SLICE)
+    errs = {}
+    for route in ph.ROUTES:
+        key = "phase" if route == "thread" else f"phase {route}"
+        errs[key] = ph.check_phases(dev, B_SLICE, route)
+        ph.check_phases(dev, ph.B_TILE, route)
     cuda_fused.reset_launch_counts()
     for B in (B_SLICE, ph.B_TILE):
         for dtype in (torch.float32, torch.float64):
-            times = ph.time_phases(dev, B, dtype, ptxas)
-            if B == B_SLICE and dtype == torch.float32:
-                check(all(b >= 0.97 * a for a, b in zip(times, times[1:])),
-                      f"T3's prefix times decrease: {times}")
+            for route in ph.ROUTES:
+                times, _ = ph.time_phases(dev, B, dtype, ptxas[route], route)
+                if B == B_SLICE:
+                    ph.check_slopes(times, B, dtype, route)
+                    if dtype == torch.float32:
+                        check(all(b >= 0.97 * a
+                                  for a, b in zip(times, times[1:])),
+                              f"T3's {route} prefix times decrease: {times}")
+                print(f"phases: {route} route B={B} "
+                      f"{str(dtype).replace('torch.', '')}, ms a repetition:"
+                      + "".join(f" {k} {v:.4f}," for k, v in
+                                ph.phase_split(times).items()))
         ph.time_reference_points(dev, B)
-    launches = cuda_fused.launches["phase"]
-    print(f"phases: launches of the measurement T3 {launches}")
-    check(launches > 0, "the phase measurement never launched T3")
+    launches = {"phase": cuda_fused.phase_route_launches["phase thread"],
+                "phase team": cuda_fused.phase_route_launches["phase team"]}
+    print(f"phases: launches of the measurement T3 by route {launches}")
+    for k, v in launches.items():
+        check(v > 0, f"the phase measurement never launched T3's {k}")
 
     last = len(fp.PHASES) - 1
     solver = fused_solver(dev, torch.float32)
     _, soa = ph.slice_inputs(solver, B_SLICE, dev)
-    ms = time_cuda(lambda: fp.phase(solver, soa, last, 1, 1), 20)
     plain_ms = time_cuda(lambda: fp.phase_plain(solver, soa, last, 1, 1), 2)
     bnd = bound(sum(a.numel() for a in soa) + 2 * B_SLICE,
                 ph.phase_flops(last) * B_SLICE, torch.float32)
-    print(f"timing T3 prefix {last} B={B_SLICE} float32 (ms per launch, "
-          f"CUDA events): kernel {ms:.4f}, plain {plain_ms:.4f}; bound "
-          f"{bnd[0]:.6f} ms by {bnd[1]}")
-    return err, launches, (ms, plain_ms, bnd)
+    times = {}
+    for route in ph.ROUTES:
+        ms = time_cuda(lambda: fp.phase(solver, soa, last, 1, 1, route), 20)
+        key = "phase" if route == "thread" else f"phase {route}"
+        times[key] = (ms, plain_ms, bnd)
+        print(f"timing T3 prefix {last} {route} route B={B_SLICE} float32 "
+              f"(ms per launch, CUDA events): kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}; bound {bnd[0]:.6f} ms by {bnd[1]}")
+    return errs, launches, times
 
 
 #: (B, n, type, panel) at which step 35 holds the panel-blocked LDL^T to
@@ -5896,9 +5958,12 @@ def main():
     k5_times = time_k5(dev)
     k5 = k5_times[K5_LEVEL + ("float32",)]
     r_errs, r_launches, r_times = measure_roofline(
-        dev, times[B_SLICE]["K2"], k1_times[B_SLICE]["K1"])
+        dev, times[B_SLICE]["K2"],
+        (times[B_SLICE]["K2_block"], times[B_SLICE]["K2_block_device"]),
+        k1_times[B_SLICE]["K1"])
     errs.update(r_errs)
-    errs["phase"], p_launches, p_times = measure_phases(dev, ptxas)
+    p_errs, p_launches, p_times = measure_phases(dev, ptxas)
+    errs.update(p_errs)
     bench_routes = run_bench_modes(dev, data)
     blocked_errs = check_blocked(dev)
     panel = check_ldlt_routes(dev)
@@ -6126,16 +6191,27 @@ def main():
               "fma_chains", r_launches["fma_chains"],
               *r_times["fma_chains"], None),
         entry(f"T2a in-kernel LDL^T factor repetitions (float32, n={N_AUG}, "
-              f"B={B_SLICE}, reps={T2_REPS})", ROOFLINE_SOURCE,
-              "factor_reps", r_launches["factor_reps"],
+              f"B={B_SLICE}, reps={T2_REPS})",
+              ROOFLINE_SOURCE, "factor_reps",
+              r_launches["factor_reps"] - r_launches["factor_reps team"],
               *r_times["factor_reps"], None),
+        entry(f"T2a team route (team_ldlt, 16 lanes an instance, K and D "
+              f"in shared memory; float32, n={N_AUG}, B={B_SLICE}, "
+              f"reps={T2_REPS})", ROOFLINE_SOURCE + " + "
+              "ipmzoo_tpu_torch/csrc/fused_team.cuh", "factor_reps team",
+              r_launches["factor_reps team"], *r_times["factor_reps team"],
+              None),
         entry(f"T2b in-kernel LDL^T solve repetitions (float32, n={N_AUG}, "
               f"B={B_SLICE}, one factor + reps={T2_REPS})", ROOFLINE_SOURCE,
               "solve_reps", r_launches["solve_reps"],
               *r_times["solve_reps"], None),
         entry(f"T3 fused iteration prefix 4 (generated; float32, "
               f"B={B_SLICE}, one repetition)", T3_SOURCE, "phase",
-              p_launches, *p_times, None),
+              p_launches["phase"], *p_times["phase"], None),
+        entry(f"T3 team route prefix 4 ({k1_lanes} lanes an instance; "
+              f"generated; float32, B={B_SLICE}, one repetition)",
+              T3_TEAM_SOURCE, "phase team", p_launches["phase team"],
+              *p_times["phase team"], None),
     ]
     for k in kernels:
         print(f"bound: {k['name']}: {k['bound_ms']:.6f} ms by "

@@ -544,6 +544,24 @@ IPM_FN void solve_team(const Team<T>& tm, T* region, const Params<T>& prm,
                    warm, gondzio);
 }
 
+#ifndef __CUDACC__
+// Run fn(tm) for one team on the host, its slots at `slot`: one lane, or
+// with IPMZOO_TEAM_EMULATE kLanes threads joined by a barrier.
+template <typename T, typename Fn>
+void host_team(T* slot, Fn fn) {
+#ifdef IPMZOO_TEAM_HOST_THREADS
+  std::barrier<> bar(kLanes);
+  TeamHost host{&bar, {}};
+  std::vector<std::thread> lanes;
+  for (int l = 0; l < kLanes; ++l)
+    lanes.emplace_back([&, l] { fn(Team<T>{l, 0u, slot, &host}); });
+  for (auto& t : lanes) t.join();
+#else
+  fn(Team<T>{0, 1u, slot});
+#endif
+}
+#endif
+
 // Bytes of dynamic shared memory a block of the team kernel takes.
 template <typename F, typename T>
 constexpr int team_block_bytes() {
@@ -599,6 +617,39 @@ int allow_shared(Kernel kernel) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTeamSharedCap));
 }
+
+// Enqueue one launch of a team kernel on `stream`: blocks of
+// kTeamsPerBlock teams over B instances, `bytes` of dynamic shared memory
+// a block (refused above the cap, the limit raised above 48 KB).  Returns
+// the cudaError.
+template <typename Kernel, typename... Args>
+int launch_team(Kernel kernel, int bytes, long long B, void* stream,
+                Args... args) {
+  if (bytes > kTeamSharedCap) return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes > 48 * 1024) {
+    const int err = allow_shared(kernel);
+    if (err) return err;
+  }
+  const unsigned grid =
+      static_cast<unsigned>((B + kTeamsPerBlock - 1) / kTeamsPerBlock);
+  kernel<<<grid, kTeamThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The teams of a team kernel resident per SM at `bytes` a block, into
+// *teams.  Returns the cudaError.
+template <typename Kernel>
+int team_occupancy(Kernel kernel, int bytes, int* teams) {
+  const int e = allow_shared(kernel);
+  if (e) return e;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kTeamThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *teams = blocks * kTeamsPerBlock;
+  return 0;
+}
 #endif
 
 // Entry point, with the C signature of fused_ipm.cuh:fused_entry.  With
@@ -618,40 +669,18 @@ int fused_team_entry(const T* const* data9, const T* v0, const T* mu0,
   const Out<T> out{out6[0], out6[1], out6[2], out6[3], out6[4], out6[5]};
   using L = TeamLayout<F>;
 #ifdef __CUDACC__
-  const int bytes = team_block_bytes<F, T>();
-  if (bytes > kTeamSharedCap) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    const int err = allow_shared(fused_team_kernel<F, T>);
-    if (err) return err;
-  }
-  const unsigned grid =
-      static_cast<unsigned>((B + kTeamsPerBlock - 1) / kTeamsPerBlock);
-  fused_team_kernel<F, T>
-      <<<grid, kTeamThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-          dat, prm, v0, mu0, it0, out, max_iter, warm, gondzio);
-  return static_cast<int>(cudaGetLastError());
+  return launch_team(fused_team_kernel<F, T>, team_block_bytes<F, T>(), B,
+                     stream, dat, prm, v0, mu0, it0, out, max_iter, warm,
+                     gondzio);
 #else
   (void)stream;
   std::vector<T> region(L::kStride);
   for (long long b = 0; b < B; ++b) {
     stage_data<F, T>(dat, region.data(), b, 1, 0, 1);
-#ifdef IPMZOO_TEAM_HOST_THREADS
-    std::barrier<> bar(kLanes);
-    TeamHost host{&bar, {}};
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < kLanes; ++l) {
-      lanes.emplace_back([&, l] {
-        const Team<T> tm{l, 0u, region.data() + L::kSlot, &host};
-        solve_team<F, T>(tm, region.data(), prm, v0, mu0, it0, out, B, b,
-                         max_iter, warm, gondzio);
-      });
-    }
-    for (auto& t : lanes) t.join();
-#else
-    const Team<T> tm{0, 1u, region.data() + L::kSlot};
-    solve_team<F, T>(tm, region.data(), prm, v0, mu0, it0, out, B, b,
-                     max_iter, warm, gondzio);
-#endif
+    host_team(region.data() + L::kSlot, [&](const Team<T>& tm) {
+      solve_team<F, T>(tm, region.data(), prm, v0, mu0, it0, out, B, b,
+                       max_iter, warm, gondzio);
+    });
   }
   return 0;
 #endif
@@ -662,33 +691,19 @@ int fused_team_entry(const T* const* data9, const T* v0, const T* mu0,
 // build) for the working type of `itemsize` bytes.
 template <typename F>
 int fused_team_shape(int itemsize, int* out4) {
-  const bool f64 = itemsize == 8;
   out4[0] = kLanes;
   out4[1] = kTeamThreads;
   out4[2] = itemsize * TeamLayout<F>::kStride;
   out4[3] = 0;
 #ifdef __CUDACC__
-  int blocks = 0;
-  cudaError_t err;
-  if (f64) {
-    const int e = allow_shared(fused_team_kernel<F, double>);
-    if (e) return e;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fused_team_kernel<F, double>, kTeamThreads,
-        team_block_bytes<F, double>());
-  } else {
-    const int e = allow_shared(fused_team_kernel<F, float>);
-    if (e) return e;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fused_team_kernel<F, float>, kTeamThreads,
-        team_block_bytes<F, float>());
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out4[3] = blocks * kTeamsPerBlock;
+  return itemsize == 8
+             ? team_occupancy(fused_team_kernel<F, double>,
+                              team_block_bytes<F, double>(), out4 + 3)
+             : team_occupancy(fused_team_kernel<F, float>,
+                              team_block_bytes<F, float>(), out4 + 3);
 #else
-  (void)f64;
-#endif
   return 0;
+#endif
 }
 
 }  // namespace ipmzoo_fused

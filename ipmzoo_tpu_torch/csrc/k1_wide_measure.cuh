@@ -5,7 +5,8 @@
 // This file is not compiled alone: ops/cuda_k1_measure.py:source prints
 // the block route's text (models/fused_source.py:fused_wide_block_source:
 // fused_ipm.cuh, fused_team.cuh at 32 lanes, fused_wide_block.cuh, the
-// generated `struct Form` and its entry points), then this file and
+// generated `struct Form` and its entry points), then k1_clock.cuh
+// (measure_clock, ClockedFactor), this file and
 // IPMZOO_K1_MEASURE_ENTRY_POINTS(ipmzoo_fused::Form).
 //
 // * The factor alone (factor_reps_kernel): `reps` LDL^T factorisations of
@@ -24,31 +25,6 @@
 //   its block lived.
 
 namespace ipmzoo_fused {
-
-// This thread's SM clock; 0 in the host build.
-IPM_FN long long measure_clock() {
-#ifdef __CUDA_ARCH__
-  return clock64();
-#else
-  return 0;
-#endif
-}
-
-// A factor policy (TeamFactor, BlockFactor) whose time the team's lane 0
-// adds to *cycles at each factor.
-template <typename Factor>
-struct ClockedFactor {
-  Factor inner;
-  long long* cycles;
-
-  template <int N, typename T>
-  IPM_FN void run(const Team<T>& tm, T* K, T* D, T pivot_floor) const {
-    const long long t0 = measure_clock();
-    inner.template run<N>(tm, K, D, pivot_floor);
-    const long long t1 = measure_clock();
-    if (tm.lane == 0) *cycles += t1 - t0;
-  }
-};
 
 // Values of shared memory the factor alone takes: on the block route's
 // factor K, D, two product buffers, the flag and a slot; on the wide

@@ -4,7 +4,8 @@
 //
 // T1 fma_chains_kernel replaces the TPU kernel
 //     tools/roofline.py:_fma_kernel
-// T2a factor_reps_kernel replaces the TPU kernel
+// T2a factor_reps_kernel (thread route) and factor_reps_team_kernel (team
+// route) replace the TPU kernel
 //     tools/roofline.py:_factor_bench_kernel
 // T2b solve_reps_kernel replaces the TPU kernel
 //     tools/roofline.py:_solve_bench_kernel
@@ -52,16 +53,41 @@
 // every x[i] (T2b): it depends on the whole computation, and the
 // wrappers hold it to the plain version.
 //
+// T2a has a second route, the team route (factor_reps_team_kernel): the
+// same repetitions on K1's team route (fused_team.cuh), whose launches are
+// all of the fused slice's K1 launches.  A team of kLanes (16) lanes an
+// instance, 64-thread blocks of kTeamsPerBlock teams; each team's region
+// in dynamic shared memory holds the packed K0, staged once a launch with
+// consecutive threads on consecutive instances, and the K and D that
+// team_ldlt (the team route's factor, TeamFactor) works on, as
+// team_fused_step holds them.  Repetition r copies K0 (1 + 1e-6 r) into K,
+// lane by lane, and factors it; its sink sums the same entries as the
+// thread route's, each lane its own, and team_sum adds the lanes' parts
+// at the end: another order than the plain version's, held to a
+// tolerance.  Bound as the thread route's: the factor's operations.  On
+// the team route the factor is one column after the other, a team
+// barrier each, with the rows below a column spread over the lanes.
+//
 // Arithmetic is plain IEEE (no fast-math); nvcc contracts a * b + c into
 // one FMA, which is the point of T1 and a rounding-level difference to
-// the plain versions elsewhere.
+// the plain versions elsewhere.  Without nvcc the team route runs one
+// lane a team, or with IPMZOO_TEAM_EMULATE (C++20, threads) kLanes host
+// threads a team, as the host builds of K1's team route do.
 
 #include "fused_ipm.cuh"
+#include "fused_team.cuh"
 
 namespace ipmzoo_roofline {
 
+using ipmzoo_fused::kLanes;
+using ipmzoo_fused::kTeamsPerBlock;
+using ipmzoo_fused::kTeamThreads;
 using ipmzoo_fused::ldlt_packed;
 using ipmzoo_fused::ldlt_solve_packed;
+using ipmzoo_fused::Team;
+using ipmzoo_fused::team_ldlt;
+using ipmzoo_fused::team_sum;
+using ipmzoo_fused::team_sync;
 using ipmzoo_fused::tri;
 
 // T1 for one element.
@@ -135,6 +161,60 @@ IPM_FN void solve_reps_instance(const T* K0, const T* b0, int64_t S,
   sink_out[b] = sink;
 }
 
+// T2a's team route: one team's region in shared memory, in values; the
+// stride padded as TeamLayout's, so the two teams of a warp start 16
+// banks apart.
+template <int N>
+struct FactorTeamLayout {
+  static constexpr int kTri = N * (N + 1) / 2;
+  static constexpr int kK0 = 0;
+  static constexpr int kK = kK0 + kTri;
+  static constexpr int kD = kK + kTri;
+  static constexpr int kSlot = kD + N;
+  static constexpr int kEnd = kSlot + 1;
+  static constexpr int kStride = (kEnd + 31) / 32 * 32 + 16;
+};
+
+// The packed lower triangles of the nb instances from b0 of K0 (N, N, S)
+// into their teams' regions, `stride` values apart; consecutive
+// e = first, first + step, ... take consecutive instances of one entry.
+template <typename T, int N>
+IPM_FN void stage_packed(const T* K0, int64_t S, int64_t b0, int nb,
+                         T* smem, int stride, int first, int step) {
+  for (int e = first; e < N * N * nb; e += step) {
+    const int k = e / nb, g = e - k * nb;
+    const int i = k / N, j = k - i * N;
+    if (j <= i)
+      smem[g * stride + FactorTeamLayout<N>::kK0 + tri(i, j)] =
+          K0[static_cast<int64_t>(k) * S + b0 + g];
+  }
+}
+
+// T2a on the team route for one team's staged instance: `reps`
+// factorisations of K0 (1 + 1e-6 r) by team_ldlt; acc and sink alike in
+// every lane.
+template <typename T, int N>
+IPM_FN void factor_reps_team(const Team<T>& tm, T* region, int reps,
+                             T pivot_floor, T& acc_out, T& sink_out) {
+  using L = FactorTeamLayout<N>;
+  const T* K0 = region + L::kK0;
+  T* K = region + L::kK;
+  T* D = region + L::kD;
+  T acc = T(0), sink = T(0);
+  for (int r = 0; r < reps; ++r) {
+    const T scale = T(1.0 + 1e-6 * r);
+    for (int e = tm.lane; e < L::kTri; e += kLanes) K[e] = K0[e] * scale;
+    team_sync(tm);
+    team_ldlt<T, N>(tm, K, D, pivot_floor);
+    if (tm.lane == 0) acc = acc + D[0];
+    for (int j = tm.lane; j < N; j += kLanes) sink += D[j];
+    for (int k = tm.lane; k < N - 1; k += kLanes) sink += K[tri(N - 1, k)];
+    team_sync(tm);   // every lane's reads done before the next copy
+  }
+  acc_out = team_sum(tm, acc);
+  sink_out = team_sum(tm, sink);
+}
+
 #ifdef __CUDACC__
 // K1's block size (ipmzoo_fused::kThreads).
 constexpr int kInstanceThreads = 64;
@@ -156,6 +236,33 @@ __global__ void factor_reps_kernel(const T* __restrict__ K0, int64_t S,
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= S) return;
   factor_reps_instance<T, N>(K0, S, b, reps, pivot_floor, acc, sink);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kTeamThreads)
+factor_reps_team_kernel(const T* __restrict__ K0, int64_t S, int reps,
+                        T pivot_floor, T* __restrict__ acc,
+                        T* __restrict__ sink) {
+  extern __shared__ __align__(16) unsigned char reps_smem[];
+  T* smem = reinterpret_cast<T*>(reps_smem);
+  using L = FactorTeamLayout<N>;
+  const int team = threadIdx.x / kLanes;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kTeamsPerBlock;
+  const int nb = static_cast<int>(
+      S - b0 < kTeamsPerBlock ? S - b0 : kTeamsPerBlock);
+  stage_packed<T, N>(K0, S, b0, nb, smem, L::kStride, threadIdx.x,
+                     blockDim.x);
+  __syncthreads();
+  if (team >= nb) return;   // the whole team alike
+  T* region = smem + team * L::kStride;
+  const Team<T> tm{static_cast<int>(threadIdx.x % kLanes),
+                   ipmzoo_fused::team_mask(threadIdx.x), region + L::kSlot};
+  T a, s;
+  factor_reps_team<T, N>(tm, region, reps, pivot_floor, a, s);
+  if (tm.lane == 0) {
+    acc[b0 + team] = a;
+    sink[b0 + team] = s;
+  }
 }
 
 template <typename T, int N>
@@ -227,6 +334,34 @@ int factor_reps_launch(const T* K0, T* acc, T* sink, long long B, int reps,
 }
 
 template <typename T, int N>
+int factor_reps_team_launch(const T* K0, T* acc, T* sink, long long B,
+                            int reps, T pivot_floor, void* stream) {
+  using L = FactorTeamLayout<N>;
+#ifdef __CUDACC__
+  return ipmzoo_fused::launch_team(
+      factor_reps_team_kernel<T, N>,
+      static_cast<int>(sizeof(T)) * L::kStride * kTeamsPerBlock, B, stream,
+      K0, B, reps, pivot_floor, acc, sink);
+#else
+  (void)stream;
+  std::vector<T> region(L::kStride);
+  for (long long b = 0; b < B; ++b) {
+    stage_packed<T, N>(K0, B, b, 1, region.data(), L::kStride, 0, 1);
+    ipmzoo_fused::host_team(
+        region.data() + L::kSlot, [&](const Team<T>& tm) {
+          T a, s;
+          factor_reps_team<T, N>(tm, region.data(), reps, pivot_floor, a, s);
+          if (tm.lane == 0) {
+            acc[b] = a;
+            sink[b] = s;
+          }
+        });
+  }
+  return 0;
+#endif
+}
+
+template <typename T, int N>
 int solve_reps_launch(const T* K0, const T* b0, T* acc, T* sink, long long B,
                       int reps, T pivot_floor, void* stream) {
 #ifdef __CUDACC__
@@ -262,6 +397,21 @@ int factor_reps_entry(const T* K0, T* acc, T* sink, int n, long long B,
 }
 
 template <typename T>
+int factor_reps_team_entry(const T* K0, T* acc, T* sink, int n, long long B,
+                           int reps, T pivot_floor, void* stream) {
+  switch (n) {
+    case 8:
+      return factor_reps_team_launch<T, 8>(K0, acc, sink, B, reps,
+                                           pivot_floor, stream);
+    case 24:
+      return factor_reps_team_launch<T, 24>(K0, acc, sink, B, reps,
+                                            pivot_floor, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
 int solve_reps_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
                      long long B, int reps, T pivot_floor, void* stream) {
   switch (n) {
@@ -290,6 +440,12 @@ int solve_reps_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
                                           T pivot_floor, void* stream) {      \
     return ipmzoo_roofline::factor_reps_entry<T>(K0, acc, sink, n, B, reps,   \
                                                  pivot_floor, stream);        \
+  }                                                                           \
+  extern "C" int ipmzoo_factor_reps_team_##SFX(                              \
+      const T* K0, T* acc, T* sink, int n, long long B, int reps,             \
+      T pivot_floor, void* stream) {                                          \
+    return ipmzoo_roofline::factor_reps_team_entry<T>(                        \
+        K0, acc, sink, n, B, reps, pivot_floor, stream);                      \
   }                                                                           \
   extern "C" int ipmzoo_solve_reps_##SFX(const T* K0, const T* b0, T* acc,    \
                                          T* sink, int n, long long B,         \

@@ -427,14 +427,15 @@ def fused_source(solver) -> str:
            "IPMZOO_FUSED_ENTRY_POINTS(ipmzoo_fused::Form)", ""])
 
 
-def _team_text(solver, what: str, lanes: int, headers, entry: str) -> str:
+def _team_text(solver, what: str, lanes: int, headers, entry: str,
+               args: str = "") -> str:
     """A source of the team walk: the head naming ``what``, ``lanes`` a
     team, ``csrc/fused_ipm.cuh`` and the hand-written ``headers``, the
     ``struct Form`` printed by :class:`.codegen_team.CppTeam` and the
-    entry-point macro ``entry``."""
+    entry-point macro ``entry`` (the Form, then ``args``)."""
     g = _TeamGenerator(solver)
     body = _struct(g)
-    head = ([f"// Kernel K1, {what}, generated by "
+    head = ([f"// {what}, generated by "
              "ipmzoo_tpu_torch/models/fused_source.py."]
             + describe(solver, g.total)
             + [f"#define IPMZOO_TEAM_LANES {lanes}",
@@ -444,7 +445,7 @@ def _team_text(solver, what: str, lanes: int, headers, entry: str) -> str:
     return "\n".join(
         head + ['#line 1 "generated"', "namespace ipmzoo_fused {", ""]
         + body + ["}  // namespace ipmzoo_fused", "",
-                  f"{entry}(ipmzoo_fused::Form)", ""])
+                  f"{entry}(ipmzoo_fused::Form{args})", ""])
 
 
 def fused_team_source(solver, lanes: int = None) -> str:
@@ -458,7 +459,7 @@ def fused_team_source(solver, lanes: int = None) -> str:
     lanes = team_lanes(solver) if lanes is None else lanes
     if lanes not in (16, 32):
         raise ValueError(f"a team is 16 or 32 lanes, not {lanes}")
-    return _team_text(solver, "team route", lanes, (TEAM_CUH,),
+    return _team_text(solver, "Kernel K1, team route", lanes, (TEAM_CUH,),
                       "IPMZOO_FUSED_TEAM_ENTRY_POINTS")
 
 
@@ -468,7 +469,8 @@ def fused_wide_source(solver) -> str:
     ``csrc/fused_team.cuh``, the same ``struct Form``), then
     ``csrc/fused_wide.cuh`` and the entry points ``ipmzoo_fused_wide_*``
     (one warp an instance, the region in a device-memory workspace)."""
-    return _team_text(solver, "wide route", 32, (TEAM_CUH, WIDE_CUH),
+    return _team_text(solver, "Kernel K1, wide route", 32,
+                      (TEAM_CUH, WIDE_CUH),
                       "IPMZOO_FUSED_WIDE_ENTRY_POINTS")
 
 
@@ -480,5 +482,6 @@ def fused_wide_block_source(solver) -> str:
     ``ipmzoo_fused_block_*`` (one thread block an instance, the factor and
     the work vectors in shared memory, the staged data in a device-memory
     workspace)."""
-    return _team_text(solver, "block route", 32, (TEAM_CUH, BLOCK_CUH),
+    return _team_text(solver, "Kernel K1, block route", 32,
+                      (TEAM_CUH, BLOCK_CUH),
                       "IPMZOO_FUSED_BLOCK_ENTRY_POINTS")

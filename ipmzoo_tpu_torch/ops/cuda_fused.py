@@ -22,9 +22,10 @@ launch raise.  The plain version is
 CPU tensors.
 
 Kernel T3 (the prefixes of one fused iteration,
-``models/fused_phases.py``) is generated around the same header and is
-launched here the same way: :func:`phase_soa`, with :func:`bind_phase` /
-:func:`call_phase` for a host build.
+``models/fused_phases.py``) has K1's thread and team routes, generated
+around the same headers, and is launched here the same way:
+:func:`phase_soa`, with :func:`bind_phase` / :func:`call_phase` for a host
+build.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ import torch
 from . import _build
 
 #: kernel launches since the last :func:`reset_launch_counts`, per TPU
-#: kernel: K1 on any route ("fused") and T3; ``route_launches`` counts
-#: K1's per route
+#: kernel: K1 on any route ("fused") and T3 on any route ("phase");
+#: ``route_launches`` counts K1's per route, ``phase_route_launches`` T3's
 launches = {"fused": 0, "phase": 0}
 route_launches = {"fused thread": 0, "fused team": 0, "fused wide": 0,
                   "fused block": 0}
+phase_route_launches = {"phase thread": 0, "phase team": 0}
 
 #: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``), a team
 #: of lanes per instance (``csrc/fused_team.cuh``), a warp per instance
@@ -59,7 +61,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, route_launches):
+    for counts in (launches, route_launches, phase_route_launches):
         for k in counts:
             counts[k] = 0
 
@@ -67,7 +69,7 @@ def reset_launch_counts() -> None:
 def library(source: str, name: str = "fused_ipm") -> ctypes.CDLL:
     """The built and loaded library of the generated ``source`` (built at
     first use): K1 under its default name, a prefix of T3 under
-    ``fused_phase``."""
+    ``fused_phase`` (``fused_phase_team`` on the team route)."""
     lib = _LIBS.get(source)
     if lib is None:
         lib = _LIBS[source] = _build.load_generated(name, source)
@@ -332,12 +334,18 @@ def block_shape(lib: ctypes.CDLL, dtype: torch.dtype,
                      "blocks_per_sm"), out))
 
 
-def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype):
-    """T3's entry point in ``lib`` for ``dtype``, with its ctypes
-    signature."""
+#: T3's routes: entry-point prefixes and library names
+_PHASE_ENTRY = {"thread": "ipmzoo_phase", "team": "ipmzoo_phase_team"}
+PHASE_LIBS = {"thread": "fused_phase", "team": "fused_phase_team"}
+
+
+def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
+    """T3's entry point in ``lib`` (built from the ``route``'s source) for
+    ``dtype``, with its ctypes signature; the routes take the same
+    arguments."""
     if dtype not in _SUFFIX:
         raise TypeError(f"T3 takes float32/float64, not {dtype}")
-    fn = getattr(lib, f"ipmzoo_phase_{_SUFFIX[dtype]}")
+    fn = getattr(lib, f"{_PHASE_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr]
     fn.restype = i32
@@ -366,19 +374,25 @@ def call_phase(fn, data: Sequence[torch.Tensor], params: Sequence[float],
 
 
 def phase_soa(source: str, data: Sequence[torch.Tensor],
-              params: Sequence[float], reps: int = 1, perturb: int = 0):
-    """Launch the prefix of T3 built from ``source`` on SoA tensors of one
-    CUDA device on the current stream; (acc, sink), each (1, B)."""
+              params: Sequence[float], reps: int = 1, perturb: int = 0,
+              route: str = "thread"):
+    """Launch the prefix of T3 built from ``source`` (the text of
+    ``route``) on SoA tensors of one CUDA device on the current stream;
+    (acc, sink), each (1, B).  A failed build or launch raises: there is
+    no other route to fall back on."""
+    if route not in _PHASE_ENTRY:
+        raise ValueError(f"T3 has no route {route!r}")
     device = data[0].device
     if device.type != "cuda":
         raise ValueError(f"T3 needs CUDA tensors, got {device}")
-    fn = bind_phase(library(source, "fused_phase"), data[0].dtype)
+    fn = bind_phase(library(source, PHASE_LIBS[route]), data[0].dtype, route)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         outs, err = call_phase(fn, data, params, reps, perturb, stream)
     if err:
-        raise RuntimeError(f"T3 (fused phases) launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"T3 (fused phases, {route} route) launch failed: "
+                           f"cudaError {err}")
     if data[0].shape[-1]:
         launches["phase"] += 1
+        phase_route_launches[f"phase {route}"] += 1
     return outs

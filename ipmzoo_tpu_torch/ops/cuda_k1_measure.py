@@ -1,11 +1,17 @@
-"""K1's wide and block routes measured (``csrc/k1_wide_measure.cuh``):
-the factor alone and the share of a launch in the factor.
+"""K1's routes measured: on the wide and block routes
+(``csrc/k1_wide_measure.cuh``) the factor alone and the share of a launch
+in the factor, on the team route (``csrc/k1_team_measure.cuh``) that
+share.
 
 :func:`source` prints the block route's text
-(``models/fused_source.py:fused_wide_block_source``) followed by the
-measurement header and its entry points, one library per formulation and
-sizes, built at first use as K1's are.  ``chip_profile.py wide`` reads
-them; no solver loads them, and they count no launch of K1.
+(``models/fused_source.py:fused_wide_block_source``) followed by
+``csrc/k1_clock.cuh``, the measurement header and its entry points;
+:func:`team_source` the team route's text
+(``models/fused_source.py:fused_team_source``) followed by the same clock
+helpers, ``csrc/k1_team_measure.cuh`` and its entry points.  One library
+per formulation and sizes, built at first use as K1's are.
+``chip_profile.py wide`` and ``fused`` read them; no solver loads them,
+and they count no launch of K1.
 
 * :func:`factor_reps`: the LDL^T of the wide route (``team_ldlt`` on one
   warp, the factor in a device-memory workspace) or of the block route
@@ -13,7 +19,9 @@ them; no solver loads them, and they count no launch of K1.
   repeated in one launch.
 * :func:`clocked`: one launch of the wide or the block route's kernel
   with its factor clocked; per instance the SM cycles its team spent in
-  the factor and the cycles its block lived.
+  the factor and the cycles its block lived.  :func:`clocked_team` the
+  same on the team route, the cycles from the block's start to the
+  team's end.
 """
 
 from __future__ import annotations
@@ -28,21 +36,42 @@ from . import cuda_fused
 
 HEADER = Path(__file__).resolve().parents[1] / "csrc" / \
     "k1_wide_measure.cuh"
+TEAM_HEADER = HEADER.with_name("k1_team_measure.cuh")
+CLOCK_HEADER = HEADER.with_name("k1_clock.cuh")
+
+
+def _text(route_text: str, header: Path, entry: str) -> str:
+    return "\n".join([route_text, f'#line 1 "{CLOCK_HEADER.name}"',
+                      CLOCK_HEADER.read_text(), f'#line 1 "{header.name}"',
+                      header.read_text(), f"{entry}(ipmzoo_fused::Form)",
+                      ""])
 
 
 def source(solver) -> str:
-    """The measurement library's text for ``solver``'s formulation and
-    sizes."""
+    """The wide and block routes' measurement library's text for
+    ``solver``'s formulation and sizes."""
     from ..models.fused_source import fused_wide_block_source
-    return "\n".join([fused_wide_block_source(solver),
-                      f'#line 1 "{HEADER.name}"', HEADER.read_text(),
-                      "IPMZOO_K1_MEASURE_ENTRY_POINTS(ipmzoo_fused::Form)",
-                      ""])
+    return _text(fused_wide_block_source(solver), HEADER,
+                 "IPMZOO_K1_MEASURE_ENTRY_POINTS")
+
+
+def team_source(solver) -> str:
+    """The team route's measurement library's text for ``solver``'s
+    formulation and sizes, at the team route's lanes."""
+    from ..models.fused_source import fused_team_source
+    return _text(fused_team_source(solver), TEAM_HEADER,
+                 "IPMZOO_K1_TEAM_MEASURE_ENTRY_POINTS")
 
 
 def library(solver) -> ctypes.CDLL:
     """The built and loaded measurement library for ``solver``."""
     return cuda_fused.library(source(solver), "k1_wide_measure")
+
+
+def team_library(solver) -> ctypes.CDLL:
+    """The built and loaded team-route measurement library for
+    ``solver``."""
+    return cuda_fused.library(team_source(solver), "k1_team_measure")
 
 
 def factor_reps(lib: ctypes.CDLL, K0: torch.Tensor, reps: int, warps: int,
@@ -72,21 +101,15 @@ def factor_reps(lib: ctypes.CDLL, K0: torch.Tensor, reps: int, warps: int,
     return sink, err
 
 
-def clocked(lib: ctypes.CDLL, data: Sequence[torch.Tensor],
-            warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
-            max_iter: int, gondzio: int, params: Sequence[float],
-            warps: int, region: int, stream=None):
-    """One launch of the wide route's kernel (``warps`` = 0) or the block
-    route's on ``warps`` warps, its factor clocked, on SoA tensors
-    (arguments as ``cuda_fused.call``; ``region``: the route's values of
-    workspace an instance).  Returns K1's six outputs, cycles (2, B)
-    int64 (the factor's cycles, then the block's life, per instance; 0 in
-    a host build) and the entry's status."""
-    dtype = data[0].dtype
-    raw = getattr(lib, f"ipmzoo_k1_clocked_{cuda_fused._SUFFIX[dtype]}")
+def _clocked(raw, extra, data, warm, n, total, max_iter, gondzio, params,
+             stream, region=None, warps=None):
+    """One call of a clocked entry ``raw`` (K1's arguments, ``extra``
+    ctypes before the cycles and the stream) through
+    ``cuda_fused.call``; returns K1's six outputs, cycles (2, B) int64
+    and the entry's status."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     raw.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32,
-                    i32, i32, ptr, ptr, ptr]
+                    i32] + extra + [ptr, ptr]
     raw.restype = i32
     B = data[0].shape[-1]
     cycles = torch.zeros((2, B), dtype=torch.int64, device=data[0].device)
@@ -97,3 +120,35 @@ def clocked(lib: ctypes.CDLL, data: Sequence[torch.Tensor],
     outs, err = cuda_fused.call(fn, data, warm, n, total, max_iter, gondzio,
                                 params, stream, region, warps)
     return outs, cycles, err
+
+
+def clocked(lib: ctypes.CDLL, data: Sequence[torch.Tensor],
+            warm: Optional[Tuple[torch.Tensor, ...]], n: int, total: int,
+            max_iter: int, gondzio: int, params: Sequence[float],
+            warps: int, region: int, stream=None):
+    """One launch of the wide route's kernel (``warps`` = 0) or the block
+    route's on ``warps`` warps, its factor clocked, on SoA tensors
+    (arguments as ``cuda_fused.call``; ``region``: the route's values of
+    workspace an instance).  Returns K1's six outputs, cycles (2, B)
+    int64 (the factor's cycles, then the block's life, per instance; 0 in
+    a host build) and the entry's status."""
+    sfx = cuda_fused._SUFFIX[data[0].dtype]
+    raw = getattr(lib, f"ipmzoo_k1_clocked_{sfx}")
+    return _clocked(raw, [ctypes.c_int, ctypes.c_void_p], data, warm, n,
+                    total, max_iter, gondzio, params, stream, region, warps)
+
+
+def clocked_team(lib: ctypes.CDLL, data: Sequence[torch.Tensor],
+                 warm: Optional[Tuple[torch.Tensor, ...]], n: int,
+                 total: int, max_iter: int, gondzio: int,
+                 params: Sequence[float], stream=None):
+    """One launch of the team route's kernel with its factor clocked, from
+    :func:`team_library`, on SoA tensors (arguments as
+    ``cuda_fused.call``).  Returns K1's six outputs, cycles (2, B) int64
+    (the factor's cycles, then the cycles from the block's start to the
+    team's end, per instance; 0 in a host build) and the entry's
+    status."""
+    sfx = cuda_fused._SUFFIX[data[0].dtype]
+    raw = getattr(lib, f"ipmzoo_k1_clocked_team_{sfx}")
+    return _clocked(raw, [], data, warm, n, total, max_iter, gondzio, params,
+                    stream)

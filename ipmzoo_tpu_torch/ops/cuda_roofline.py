@@ -15,10 +15,13 @@ The CUDA sources are ``csrc/roofline.cu`` (which includes
 * :func:`factor_reps` (T2a) and :func:`solve_reps` (T2b): ``reps``
   factorisations of ``K0 (1 + 1e-6 r)``, or one factorisation and
   ``reps`` solves of ``b0 (1 + 1e-6 r)``, per instance, SoA with the
-  batch on the last axis.  Each returns ``(acc, sink)``: the TPU
-  kernel's own sum (of ``D[0]`` or ``x[0]``) and a sum that depends on
-  every pivot and the last row of L (or on every entry of x), so that no
-  part of the work is dead code.  :func:`reps_slope` turns two in-kernel
+  batch on the last axis.  T2a has two routes, K1's: the thread route
+  (one thread an instance, ``ldlt_packed`` in local memory) and the team
+  route (``route="team"``: a team of 16 lanes an instance, ``team_ldlt``
+  on K and D in shared memory, ``csrc/fused_team.cuh``).  Each returns
+  ``(acc, sink)``: the TPU kernel's own sum (of ``D[0]`` or ``x[0]``)
+  and a sum that depends on every pivot and the last row of L (or on
+  every entry of x), so that no part of the work is dead code.  :func:`reps_slope` turns two in-kernel
   repetition counts into milliseconds per repetition.
 
 For CUDA tensors the wrappers launch the kernels on the current stream
@@ -39,8 +42,13 @@ import torch
 from . import _build
 from .ldlt import PIVOT_FLOOR
 
-#: kernel launches since the last :func:`reset_launch_counts`
+#: kernel launches since the last :func:`reset_launch_counts`, per TPU
+#: kernel (T2a on any route); ``route_launches`` counts T2a's per route
 launches = {"fma_chains": 0, "factor_reps": 0, "solve_reps": 0}
+route_launches = {"factor_reps thread": 0, "factor_reps team": 0}
+#: T2a's routes: entry-point names
+_FACTOR_ENTRY = {"thread": "ipmzoo_factor_reps",
+                 "team": "ipmzoo_factor_reps_team"}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -53,8 +61,9 @@ DATA_SHEET_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 
 
 def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, route_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -65,9 +74,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f = getattr(lib, f"ipmzoo_fma_chains_{sfx}")
         f.argtypes = [ptr, ptr, i64, i32, i32, i32, ptr]
         f.restype = i32
-        f = getattr(lib, f"ipmzoo_factor_reps_{sfx}")
-        f.argtypes = [ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt], ptr]
-        f.restype = i32
+        for entry in _FACTOR_ENTRY.values():
+            f = getattr(lib, f"{entry}_{sfx}")
+            f.argtypes = [ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt], ptr]
+            f.restype = i32
         f = getattr(lib, f"ipmzoo_solve_reps_{sfx}")
         f.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt], ptr]
         f.restype = i32
@@ -272,15 +282,25 @@ def _reps_shapes(K0: torch.Tensor):
     return N, B
 
 
+def _factor_entry(route: str) -> str:
+    """T2a's entry-point name on ``route``; raises for another route."""
+    if route not in _FACTOR_ENTRY:
+        raise ValueError(f"T2a has no route {route!r}: "
+                         f"{tuple(_FACTOR_ENTRY)}")
+    return _FACTOR_ENTRY[route]
+
+
 def factor_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, reps: int,
-                     pivot_floor: float = PIVOT_FLOOR):
+                     pivot_floor: float = PIVOT_FLOOR,
+                     route: str = "thread"):
     """Check K0, allocate the outputs and call T2a's entry point of
-    ``lib`` once; returns ((acc, sink), status)."""
+    ``lib`` on ``route`` once; returns ((acc, sink), status)."""
     N, B = _reps_shapes(K0)
+    entry = _factor_entry(route)
     acc, sink = K0.new_empty((1, B)), K0.new_empty((1, B))
     if B == 0:
         return (acc, sink), 0
-    fn = getattr(lib, f"ipmzoo_factor_reps_{_SUFFIX[K0.dtype]}")
+    fn = getattr(lib, f"{entry}_{_SUFFIX[K0.dtype]}")
     return (acc, sink), fn(K0.data_ptr(), acc.data_ptr(), sink.data_ptr(), N,
                            B, reps, pivot_floor, _stream(K0))
 
@@ -300,20 +320,24 @@ def solve_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, b0: torch.Tensor,
 
 
 def factor_reps(K0: torch.Tensor, reps: int,
-                pivot_floor: float = PIVOT_FLOOR):
-    """T2a on K0 (N, N, B), one thread per instance: (acc, sink), each
-    (1, B); the plain version for CPU tensors."""
+                pivot_floor: float = PIVOT_FLOOR, route: str = "thread"):
+    """T2a on K0 (N, N, B), one thread an instance (``route="thread"``) or
+    a team of 16 lanes an instance with K and D in shared memory
+    (``"team"``): (acc, sink), each (1, B); the plain version for CPU
+    tensors."""
+    _factor_entry(route)
     if K0.device.type == "cpu":
         return factor_reps_plain(K0, reps, pivot_floor)
     if not K0.is_cuda:
         raise ValueError(f"T2a needs CUDA or CPU tensors, got {K0.device}")
     with torch.cuda.device(K0.device):
-        outs, err = factor_reps_call(_lib(), K0, reps, pivot_floor)
+        outs, err = factor_reps_call(_lib(), K0, reps, pivot_floor, route)
     if err:
-        raise RuntimeError(f"T2a (factor_reps) launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"T2a (factor_reps, {route} route) launch "
+                           f"failed: cudaError {err}")
     if K0.shape[-1]:    # an empty batch launches nothing
         launches["factor_reps"] += 1
+        route_launches[f"factor_reps {route}"] += 1
     return outs
 
 
