@@ -21,15 +21,21 @@ It measures, on the card it runs on, and prints:
    ``fused_flops`` against the ceiling of 1; and the share of one fused
    iteration that is linear algebra (one factor and two solves against
    K1's measured time per iteration).  Beside the thread route's, T2a's
-   team route (K1's team route's factor: team_ldlt on 16 lanes, K and D
-   in shared memory) at the same shapes, with its bound; no slope of it
-   may lie below its bound at B=10240.
+   and T2b's team routes (K1's team route's factor and solve: team_ldlt
+   and team_ldlt_solve on 16 lanes, K and D in shared memory) at the same
+   shapes, each with its bound and the thread/team ratio; no slope of
+   them may lie below its bound at B=10240.  Their teams resident per SM
+   beside K1 team's, the SASS of T2b team's repetition loop (it must load
+   the factor from shared memory: K1 reloads it every solve), and the
+   linear-algebra share of both routes, each against K1's iteration on
+   that route (the team route's is the fused slice's).
 
 T1 and T2 are first held to their plain versions, and T1 again at what
 the sweep launched: every block size at 1024 rounds, and the winning
 configurations at their own sizes and round counts.  The kernels are built
-at first use (``csrc/roofline.cu`` in a few seconds; K1, which step 3
-needs for the time of an iteration, in about a minute, both at once).
+at first use (``csrc/roofline.cu`` in a few seconds; K1's thread and
+team routes, which step 3 needs for the time of an iteration, in about a
+minute, all at once).
 Exits 2 without a CUDA device.
 """
 
@@ -247,11 +253,11 @@ def reps_inputs(B, dtype, dev):
 
 
 def check_reps(dev, B=B_SLICE):
-    """T2a (both routes) / T2b against their plain versions on the card at
-    order 24, ``B`` instances, 3 repetitions, float32 within 1e-5 and
-    float64 within 1e-12 on both outputs.  Returns the largest absolute
-    differences of the float32 sinks, by kernel ("factor_reps team" the
-    team route's)."""
+    """T2a / T2b (both routes each) against their plain versions on the
+    card at order 24, ``B`` instances, 3 repetitions, float32 within 1e-5
+    and float64 within 1e-12 on both outputs.  Returns the largest
+    absolute differences of the float32 sinks, by kernel ("factor_reps
+    team", "solve_reps team" the team routes')."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
 
@@ -260,11 +266,13 @@ def check_reps(dev, B=B_SLICE):
         name = dtype_name(dtype)
         K0, b0 = reps_inputs(B, dtype, dev)
         factor = cr.factor_reps_plain(K0, 3)
+        solve = cr.solve_reps_plain(K0, b0, 3)
         runs = {"factor_reps": (cr.factor_reps(K0, 3), factor),
                 "factor_reps team": (cr.factor_reps(K0, 3, route="team"),
                                      factor),
-                "solve_reps": (cr.solve_reps(K0, b0, 3),
-                               cr.solve_reps_plain(K0, b0, 3))}
+                "solve_reps": (cr.solve_reps(K0, b0, 3), solve),
+                "solve_reps team": (cr.solve_reps(K0, b0, 3, route="team"),
+                                    solve)}
         torch.cuda.synchronize()
         for what, ((acc, sink), (acc0, sink0)) in runs.items():
             ra, rs = rel_diff(acc, acc0), rel_diff(sink, sink0)
@@ -286,10 +294,17 @@ def factor_bound(B, dtype):
     return cr.fused_flops(N_AUG)[0] * B / cr.DATA_SHEET_FLOPS[dtype] * 1e3
 
 
+def solve_bound(B, dtype):
+    """The least ms of one in-kernel solve of B instances at order 24:
+    ``fused_flops``' operations over the card's peak for the type."""
+    from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+    return cr.fused_flops(N_AUG)[1] * B / cr.DATA_SHEET_FLOPS[dtype] * 1e3
+
+
 def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
-    """Step 3: T2's slopes, T2a on both routes.  Returns {(B, dtype
-    name): {factor_ms, factor_team_ms, solve_ms, factor_flops,
-    solve_flops}} (ms per repetition, FLOP/s)."""
+    """Step 3: T2's slopes, T2a and T2b on both routes.  Returns {(B,
+    dtype name): {factor_ms, factor_team_ms, solve_ms, solve_team_ms,
+    factor_flops, solve_flops}} (ms per repetition, FLOP/s)."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
 
@@ -304,9 +319,12 @@ def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
             ft = cr.reps_slope(lambda r: cr.factor_reps(K0, r,
                                                          route="team"))
             s = cr.reps_slope(lambda r: cr.solve_reps(K0, b0, r))
+            st = cr.reps_slope(lambda r: cr.solve_reps(K0, b0, r,
+                                                        route="team"))
             row = {"factor_ms": f["ms_per_rep"],
                    "factor_team_ms": ft["ms_per_rep"],
                    "solve_ms": s["ms_per_rep"],
+                   "solve_team_ms": st["ms_per_rep"],
                    "factor_flops": fac * B / (f["ms_per_rep"] * 1e-3),
                    "solve_flops": sol * B / (s["ms_per_rep"] * 1e-3)}
             out[(B, name)] = row
@@ -332,12 +350,143 @@ def time_reps(dev, ceilings, batches=(B_SLICE, B_TILE)):
                   f"{row['factor_ms']:.4f} ms "
                   f"({row['factor_ms'] / ft['ms_per_rep']:.2f}x the team "
                   f"route's)")
+            solve_flops = sol * B / (st["ms_per_rep"] * 1e-3)
+            sbnd = solve_bound(B, dtype)
+            print(f"T2b team route {name} n={N_AUG} B={B}: solve "
+                  f"{st['ms_per_rep']:.6f} ms per repetition (slope of reps "
+                  f"{st['r1']} / {st['r2']}: {st['ms_r1']:.4f} / "
+                  f"{st['ms_r2']:.4f} ms), {solve_flops / 1e12:.3f} TFLOP/s "
+                  f"= {100 * solve_flops / peak:.1f}% of the measured FMA "
+                  f"ceiling; bound {sbnd:.6f} ms "
+                  f"({st['ms_per_rep'] / sbnd:.1f}x it); thread route "
+                  f"{row['solve_ms']:.6f} ms "
+                  f"({row['solve_ms'] / st['ms_per_rep']:.2f}x the team "
+                  f"route's)")
             if B == B_SLICE:
                 check(ft["ms_per_rep"] >= bnd, f"T2a's team route reads "
                       f"{ft['ms_per_rep']:.6f} ms a factorisation at "
                       f"B={B} {name}, below its bound {bnd:.6f}: work was "
                       f"dropped")
+                check(st["ms_per_rep"] >= sbnd, f"T2b's team route reads "
+                      f"{st['ms_per_rep']:.6f} ms a solve at B={B} {name}, "
+                      f"below its bound {sbnd:.6f}: work was dropped")
     return out
+
+
+def team_shapes(k1_team_lib):
+    """T2a's and T2b's team routes at order 24 beside K1's team route
+    (``k1_team_lib``, its build for the fused slice): bytes of shared
+    memory a team and teams resident per SM, float32 and float64.  A
+    standalone kernel's region is smaller than K1's, so more of its teams
+    fit an SM and a batch runs in fewer waves than inside K1.  Returns
+    {(kernel, dtype name): shape}."""
+    import torch
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        out[("K1", name)] = cuda_fused.team_shape(k1_team_lib, dtype)
+        for kernel in ("T2a", "T2b"):
+            out[(kernel, name)] = cr.reps_team_shape(dtype, kernel, N_AUG)
+        print(f"team routes {name} n={N_AUG}: " + "; ".join(
+            f"{k} {out[(k, name)]['team_bytes']} B a team, "
+            f"{out[(k, name)]['teams_per_sm']} teams per SM"
+            for k in ("T2a", "T2b", "K1")))
+    return out
+
+
+def sass_functions(text):
+    """{mangled name: [(address, instruction)]} of a ``cuobjdump -sass``
+    listing; a branch to a label (`` `(.L_x_3) ``) names the address of
+    the instruction after the label instead (``0x...``)."""
+    import re
+    funcs, labels, name = {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name], labels[name] = [], {}
+            continue
+        if name is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[name][m.group(1)] = len(funcs[name])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    for name, ins in funcs.items():     # labels may follow their branches
+        def to_address(m, ins=ins, labels=labels[name]):
+            i = labels.get(m.group(1))
+            return m.group(0) if i is None or i >= len(ins) else \
+                hex(ins[i][0])
+        funcs[name] = [(a, re.sub(r"`\((\.L_x_\d+)\)", to_address, t))
+                       for a, t in ins]
+    return funcs
+
+
+def solve_loops(text):
+    """The repetition loop of each T2b team instantiation in a SASS
+    listing: the backward branch, innermost of those whose body holds the
+    solve's shuffles (SHFL.IDX; the factor in front of the loop holds
+    none).  Returns {name: (LDS, SHFL.IDX, instructions)} of the loop's
+    body, None for a function with no such loop."""
+    import re
+    out = {}
+    for name, ins in sass_functions(text).items():
+        if "solve_reps_team_kernel" not in name:
+            continue
+        addr = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (_, t) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+            j = addr.get(int(m.group(1), 16)) if m else None
+            if j is not None and j <= i:
+                body = [b for _, b in ins[j:i + 1]]
+                if any("SHFL.IDX" in b for b in body):
+                    loops.append(body)
+        if not loops:
+            out[name] = None
+            continue
+        body = min(loops, key=len)
+        lds = sum(bool(re.match(r"(@!?U?P\d\s+)?LDS\b", b)) for b in body)
+        out[name] = (lds, sum("SHFL.IDX" in b for b in body), len(body))
+    return out
+
+
+def check_solve_loop_sass(lib_path=None):
+    """T2b team's repetition loops (:func:`solve_loops`) in the SASS of
+    the roofline build (``cuobjdump -sass``): prints each loop's
+    shared-memory loads (LDS), shuffles and instructions, and fails where
+    a loop loads fewer values than the order: then the factor would stay
+    in registers across repetitions, and the slope would time a cheaper
+    solve than K1's, which reloads it every solve."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from ipmzoo_tpu_torch.ops import _build
+    lib_path = lib_path or _build.library_path("roofline")
+    tool = shutil.which("cuobjdump") or str(
+        Path(_build._nvcc()).with_name("cuobjdump"))
+    loops = solve_loops(subprocess.run(
+        [tool, "-sass", str(lib_path)], check=True, capture_output=True,
+        text=True).stdout)
+    check(loops, "no solve_reps_team_kernel in the roofline build's SASS")
+    for name, loop in loops.items():
+        check(loop is not None, f"{name}: no loop around the solve's "
+              f"shuffles in the SASS")
+        lds, shfl, n = loop
+        order = int(re.search(r"Li(\d+)E", name).group(1))
+        print(f"SASS {name}: repetition loop of {n} instructions, {lds} "
+              f"LDS, {shfl} SHFL.IDX")
+        check(lds >= order, f"{name}: the repetition loop loads {lds} "
+              f"values from shared memory, fewer than the order {order}: "
+              f"the factor is held in registers across repetitions")
+    return loops
 
 
 def fused_solver(dev, dtype):
@@ -347,8 +496,8 @@ def fused_solver(dev, dtype):
     return bench_torch.fused_solver(dev, dtype)
 
 
-def k1_iteration_ms(dev, B=B_SLICE):
-    """K1's measured time per iteration, float32: one cold
+def k1_iteration_ms(dev, B=B_SLICE, route="thread"):
+    """K1's measured time per iteration on ``route``, float32: one cold
     ``solve_fused(max_iter=14)`` at ``B`` over the largest iteration
     count an instance took."""
     import torch
@@ -357,66 +506,79 @@ def k1_iteration_ms(dev, B=B_SLICE):
     from ipmzoo_tpu_torch.utils.timer import cuda_time
 
     solver = fused_solver(dev, torch.float32)
-    src, params = solver.kernel_source(), solver.kernel_params()
+    src, params = solver.kernel_source(route), solver.kernel_params()
     total = sum(solver.var_sizes)
     soa, _ = solver.soa_inputs(make_batch(B, 16, 8, torch.float32,
                                           device=dev))
 
     def run():
         return cuda_fused.fused_soa(src, soa, None, 16, total, K1_ITERS, 0,
-                                    params)
+                                    params, route)
 
     its = int(run()[2].max())
     t = cuda_time(run, runs=5)
-    print(f"K1 cold solve_fused(max_iter={K1_ITERS}) B={B} float32: "
+    print(f"K1 {route} route cold solve_fused(max_iter={K1_ITERS}) B={B} "
+          f"float32: "
           f"{t.ms:.4f} ms (spread {t.spread:.4f}), {its} iterations at "
           f"most: {t.ms / its:.4f} ms per iteration")
     return t.ms / its
 
 
-def linear_algebra_share(reps_times, iter_ms, B=B_SLICE):
-    """One factor and two solves against K1's time per iteration."""
+def linear_algebra_share(reps_times, iter_ms, route="thread", B=B_SLICE):
+    """One factor and two solves of ``route`` (T2a and T2b on it)
+    against ``iter_ms``, K1's time per iteration on the same route."""
     row = reps_times[(B, "float32")]
-    lin = row["factor_ms"] + 2 * row["solve_ms"]
-    print(f"linear algebra per fused iteration (B={B}, float32): factor "
-          f"{row['factor_ms']:.4f} + 2 x solve {row['solve_ms']:.4f} = "
-          f"{lin:.4f} ms of {iter_ms:.4f} ms measured per iteration "
-          f"({100 * lin / iter_ms:.0f}%); the rest is the evaluation of the "
-          f"derived expressions (assembly, residuals, corrector, metrics, "
-          f"ratio tests)")
+    key = "_team" if route == "team" else ""
+    fac, sol = row[f"factor{key}_ms"], row[f"solve{key}_ms"]
+    lin = fac + 2 * sol
+    print(f"linear algebra per fused iteration, {route} route (B={B}, "
+          f"float32): factor {fac:.4f} + 2 x solve {sol:.6f} = {lin:.4f} ms "
+          f"of {iter_ms:.4f} ms measured per iteration "
+          f"({100 * lin / iter_ms:.1f}%); the rest is the evaluation of the "
+          f"derived expressions (assembly, right-hand sides and "
+          f"back-substitution, residuals, corrector, metrics, ratio tests)")
     return lin / iter_ms
 
 
 def build():
-    """Build roofline.cu and (for the time of an iteration) K1, both nvcc
-    processes started together."""
+    """Build roofline.cu and (for the time of an iteration) K1's thread
+    and team routes, the nvcc processes started together; returns K1 team
+    route's library."""
     import torch
     from ipmzoo_tpu_torch.ops import _build, cuda_fused, cuda_roofline
 
-    src = fused_solver("cpu", torch.float32).kernel_source()
+    solver = fused_solver("cpu", torch.float32)
+    src, team = solver.kernel_source(), solver.kernel_source("team")
     seconds = build_all({
         ROOFLINE_SOURCE: cuda_roofline._lib,
-        "K1 (generated fused_ipm)": lambda: cuda_fused.library(src)})
+        "K1 (generated fused_ipm)": lambda: cuda_fused.library(src),
+        "K1 team route (generated fused_team)":
+            lambda: cuda_fused.library(team, "fused_team")})
     for k, t in seconds.items():
         print(f"build: {k} ready in {t:.2f} s")
     for k in _build.ptxas_report(_build.library_path("roofline")):
         print(f"build: {k['name'][:60]}: {k['registers']} registers, "
               f"{k['stack']} bytes stack, spills {k['spill_stores']} / "
               f"{k['spill_loads']} bytes")
+    return cuda_fused.library(team, "fused_team")
 
 
 def main():
     dev = banner("chip_roofline", "the roofline is measured")
     if dev is None:
         return 2
-    build()
+    k1_team = build()
+    check_solve_loop_sass()
+    team_shapes(k1_team)
     check_fma(dev)
     ceilings = fma_ceilings(dev)
     check_fma_sweep(dev, ceilings)
     matmul_peaks(dev)
     check_reps(dev)
     reps_times = time_reps(dev, ceilings)
-    linear_algebra_share(reps_times, k1_iteration_ms(dev))
+    for route in ("thread", "team"):
+        linear_algebra_share(reps_times, k1_iteration_ms(dev, route=route),
+                             route)
     return 0
 
 

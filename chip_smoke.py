@@ -246,7 +246,7 @@ Steps, each reported on its own line:
     fail where k5_route picks a route whose device time is more than 5%
     above the fastest;
 28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
-    T2b in-kernel factor / solve repetitions, T2a on both routes) and the
+    T2b in-kernel factor / solve repetitions, each on both routes) and the
     five generated prefixes of one fused iteration (T3) on each of its
     two routes, thread and team, each prefix a source of its own; all
     nvcc processes run beside those of steps 3 and 9, and each build's
@@ -263,19 +263,24 @@ Steps, each reported on its own line:
     winning configuration at its own size, block size, chains and rounds
     (float32 within 1e-2, float64 within 1e-10: thousands of contracted
     rounds drift, a miscounted chain or round is off by factors);
-30. hold T2a (thread and team routes) and T2b against their plain
-    versions at order 24, B=10240, float32 (1e-5) and float64 (1e-12), on
-    both outputs (the reference kernel's sum and the sink that keeps the
-    whole factorisation alive), then the time of one factorisation and of
-    one solve inside K1's per-thread storage, and of one factorisation on
-    the team route (team_ldlt, K and D in shared memory), as the slope
-    between two in-kernel repetition counts, at B=10240 and B=512; their
-    rates against step 29's ceiling; one factor + two solves against K1's
-    measured time per iteration; T2a's thread-route time per
-    factorisation at B=10240 must lie within 3x of K2's at the same shape
-    (step 8): the work was not optimised away; the team route's slope at
-    B=10240 must not lie below its bound, and is printed beside K2's
-    block route at (24, 10240);
+30. hold T2a and T2b, each on the thread and the team route, against
+    their plain versions at order 24, B=10240, float32 (1e-5) and float64
+    (1e-12), on both outputs (the reference kernel's sum and the sink
+    that keeps the whole factorisation or solve alive), then the time of
+    one factorisation and of one solve inside K1's per-thread storage and
+    on the team route (team_ldlt and team_ldlt_solve, K and D in shared
+    memory), as the slope between two in-kernel repetition counts, at
+    B=10240 and B=512; their rates against step 29's ceiling; the team
+    routes' bytes a team and teams per SM beside K1 team's; the SASS of
+    T2b team's repetition loop, which must load the factor from shared
+    memory; one factor + two solves against K1's measured time per
+    iteration on each route (the team route's share must not pass 100%);
+    T2a's thread-route time per factorisation at B=10240 must lie within
+    3x of K2's at the same shape (step 8): the work was not optimised
+    away; the team routes' slopes at B=10240 must not lie below their
+    bounds, and T2a team's is printed beside K2's block route at (24,
+    10240); torch.linalg.ldl_solve (trivial pivots) on T2b's factor and
+    right-hand sides, the library call for its solves;
 31. hold each T3 prefix of both routes against its plain version at
     B=10240 and B=512 (float64 within 1e-10, float32 within 1e-4, both
     outputs, metrics nudge off and on), then for each route the time of
@@ -603,6 +608,7 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "factor_reps": "tools/roofline.py:111",
             "factor_reps team": "tools/roofline.py:111",
             "solve_reps": "tools/roofline.py:124",
+            "solve_reps team": "tools/roofline.py:124",
             "phase": "tools/fused_phases.py:44",
             "phase team": "tools/fused_phases.py:44"}
 #: T1's shape in the kernels line: the reference sweep's largest buffer
@@ -885,10 +891,15 @@ def cr_bounds(B, N, b, k, dtype):
 def time_library(what, fn, want, tol, reps):
     """Milliseconds of one PyTorch call that computes the same function
     (a yardstick the port never calls), or None when the call is refused
-    here or computes something else; says which."""
+    here or computes something else; says which.  ``reps`` 0 times the
+    checked call itself by CUDA events (a call of seconds)."""
     import torch
     try:
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
         got = fn()
+        end.record()
         torch.cuda.synchronize()
     except Exception as exc:                       # noqa: BLE001
         print(f"library call {what}: refused ({type(exc).__name__}: "
@@ -899,7 +910,7 @@ def time_library(what, fn, want, tol, reps):
         print(f"library call {what}: rel diff {diff:.3e} > {tol:g}, not "
               f"the same function here; library_ms null")
         return None
-    ms = time_cuda(fn, reps)
+    ms = time_cuda(fn, reps) if reps else start.elapsed_time(end)
     print(f"library call {what}: {ms:.4f} ms per call, rel diff to the "
           f"plain version {diff:.3e}")
     return ms
@@ -950,16 +961,21 @@ def time_cuda(fn, reps):
     return cuda_time(fn, runs=1, warmup=1, calls=reps).ms
 
 
+#: how often trace_kernels takes a trace again that lost launches
+TRACE_RETAKES = 4
+
+
 def trace_kernels(run, kept):
     """The device's kernels, as (name, start us, duration us) in the order
     they ran, in one torch.profiler trace of ``run()``.  A trace for which
     ``kept(events)`` is false (it lost launches: on the H100 with torch
-    2.11 a trace kept 19 of 20 launches, once 2 of 5, and after a few
-    hundred sessions three came back empty) is taken again, at most
-    twice."""
+    2.11 a trace kept 19 of 20 launches, once 2 of 5, after a few
+    hundred sessions three came back empty, and once three in a row came
+    back empty after a few dozen) is taken again, at most
+    TRACE_RETAKES times, each retake said."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for attempt in range(1 + TRACE_RETAKES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
@@ -970,8 +986,10 @@ def trace_kernels(run, kept):
                         key=lambda e: e[1])
         if kept(events):
             return events
-    raise AssertionError("three torch.profiler traces lost the launches "
-                         "under test")
+        print(f"trace_kernels: trace {attempt + 1} lost the launches under "
+              f"test ({len(events)} device events); taken again")
+    raise AssertionError(f"{1 + TRACE_RETAKES} torch.profiler traces lost "
+                         f"the launches under test")
 
 
 def device_ms(fn, reps):
@@ -4023,36 +4041,49 @@ def sweep_k7(dev=None):
                   flush=True)
 
 
-def measure_roofline(dev, k2_ms, k2_block, k1_ms):
-    """Steps 29, 30 and 32: T1, T2a (both routes) and T2b held to their
-    plain versions, then the measurement itself (the FMA ceilings, the
-    in-kernel repetition slopes), whose launches are counted, T2a's by
-    route; ``k2_ms`` is K2's time at n=24, B=10240 (step 8),
+def measure_roofline(dev, k2_ms, k2_block, k1_ms, k1_team_ms):
+    """Steps 29, 30 and 32: T1, T2a and T2b (both routes each) held to
+    their plain versions, then the measurement itself (the FMA ceilings,
+    the in-kernel repetition slopes), whose launches are counted, T2a's
+    and T2b's by route; ``k2_ms`` is K2's time at n=24, B=10240 (step 8),
     ``k2_block`` its block route's there (CUDA events, device time),
-    ``k1_ms`` K1's cold
-    solve_fused(max_iter=14) there (step 13).  Returns the largest
-    absolute differences, the launch counts of the measurement (T2a's
-    team route under "factor_reps team"), and the kernels-line times."""
+    ``k1_ms`` / ``k1_team_ms`` K1's cold solve_fused(max_iter=14) there
+    on its thread / team route (step 13).  Returns the largest absolute
+    differences, the launch counts of the measurement (the team routes
+    under "factor_reps team" and "solve_reps team"), and the kernels-line
+    times."""
     import torch
     import chip_roofline as rl
+    from ipmzoo_tpu_torch.models.fused import _ldlt_soa, _solve_soa
+    from ipmzoo_tpu_torch.ops import cuda_fused
     from ipmzoo_tpu_torch.ops import cuda_roofline as cr
+    from ipmzoo_tpu_torch.ops.ldlt import PIVOT_FLOOR
 
     rl.check_fma(dev)
     errs = {"fma_chains": rl.check_fma(dev, T1_SHAPE)[T1_CHAINS]}
     errs.update(rl.check_reps(dev, B_SLICE))
+    rl.check_solve_loop_sass()
+    rl.team_shapes(cuda_fused.library(
+        fused_solver("cpu", torch.float32).kernel_source("team"),
+        "fused_team"))
 
     cr.reset_launch_counts()
     ceilings = rl.fma_ceilings(dev)
     reps_times = rl.time_reps(dev, ceilings)
     launches = dict(cr.launches)
-    launches["factor_reps team"] = cr.route_launches["factor_reps team"]
+    for k in ("factor_reps team", "solve_reps team"):
+        launches[k] = cr.route_launches[k]
     print(f"roofline: launches of the measurement T1 "
-          f"{launches['fma_chains']} T2a {launches['factor_reps']} (by "
-          f"route {cr.route_launches}) T2b {launches['solve_reps']}")
+          f"{launches['fma_chains']} T2a {launches['factor_reps']} T2b "
+          f"{launches['solve_reps']} (by route {cr.route_launches})")
     for k, v in launches.items():
         check(v > 0, f"the roofline measurement never launched {k}")
     rl.check_fma_sweep(dev, ceilings)
-    rl.linear_algebra_share(reps_times, k1_ms / rl.K1_ITERS)
+    rl.linear_algebra_share(reps_times, k1_ms / rl.K1_ITERS, "thread")
+    share = rl.linear_algebra_share(reps_times, k1_team_ms / rl.K1_ITERS,
+                                    "team")
+    check(share <= 1.0, f"the team route's factor and two solves take "
+          f"{100 * share:.1f}% of K1 team's iteration: more than all of it")
     t2a = reps_times[(B_SLICE, "float32")]["factor_ms"]
     print(f"roofline: T2a {t2a:.4f} ms per factorisation at n={N_AUG} "
           f"B={B_SLICE} float32 against K2's {k2_ms:.4f} ms")
@@ -4100,10 +4131,26 @@ def measure_roofline(dev, k2_ms, k2_block, k1_ms):
             bound(packed + b0.numel() + 2 * B_SLICE,
                   (fac + T2_REPS * sol) * B_SLICE, f32)),
     }
+    # the same plain version and bound as the thread route's
+    t["solve_reps team"] = (
+        time_cuda(lambda: cr.solve_reps(K0, b0, T2_REPS, route="team"), 20),
+        *t["solve_reps"][1:])
     for k, (ms, plain_ms, bnd) in t.items():
         print(f"timing {k} float32 (ms per launch, CUDA events): kernel "
               f"{ms:.4f}, plain {plain_ms:.4f}; bound {bnd[0]:.6f} ms by "
               f"{bnd[1]}")
+    # the library's solves of a launch: torch.linalg.ldl_solve on T2b's
+    # factor, its T2_REPS right-hand sides as the columns of one call (no
+    # library call factors without pivoting: the factor is not in it)
+    L, D = _ldlt_soa(K0, PIVOT_FLOOR)
+    rhs = torch.stack([b0 * (1.0 + 1e-6 * r) for r in range(T2_REPS)], -1)
+    X = torch.stack([_solve_soa(L, D, rhs[..., r]) for r in range(T2_REPS)],
+                    -1)
+    t["library"] = time_library(
+        f"torch.linalg.ldl_solve (T2b's {T2_REPS} solves) n={N_AUG} "
+        f"B={B_SLICE} float32", ldl_solve_call(
+            L.permute(2, 0, 1), D.t(), rhs.permute(1, 0, 2)),
+        X.permute(1, 0, 2), 1e-4, 0)
     return errs, launches, t
 
 
@@ -5960,7 +6007,7 @@ def main():
     r_errs, r_launches, r_times = measure_roofline(
         dev, times[B_SLICE]["K2"],
         (times[B_SLICE]["K2_block"], times[B_SLICE]["K2_block_device"]),
-        k1_times[B_SLICE]["K1"])
+        k1_times[B_SLICE]["K1"], k1_times[B_SLICE]["K1_team"])
     errs.update(r_errs)
     p_errs, p_launches, p_times = measure_phases(dev, ptxas)
     errs.update(p_errs)
@@ -6203,8 +6250,16 @@ def main():
               None),
         entry(f"T2b in-kernel LDL^T solve repetitions (float32, n={N_AUG}, "
               f"B={B_SLICE}, one factor + reps={T2_REPS})", ROOFLINE_SOURCE,
-              "solve_reps", r_launches["solve_reps"],
-              *r_times["solve_reps"], None),
+              "solve_reps",
+              r_launches["solve_reps"] - r_launches["solve_reps team"],
+              *r_times["solve_reps"], r_times["library"]),
+        entry(f"T2b team route (team_ldlt once, then team_ldlt_solve a "
+              f"repetition, 16 lanes an instance, K, D and b in shared "
+              f"memory; float32, n={N_AUG}, B={B_SLICE}, one factor + "
+              f"reps={T2_REPS})", ROOFLINE_SOURCE + " + "
+              "ipmzoo_tpu_torch/csrc/fused_team.cuh", "solve_reps team",
+              r_launches["solve_reps team"], *r_times["solve_reps team"],
+              r_times["library"]),
         entry(f"T3 fused iteration prefix 4 (generated; float32, "
               f"B={B_SLICE}, one repetition)", T3_SOURCE, "phase",
               p_launches["phase"], *p_times["phase"], None),

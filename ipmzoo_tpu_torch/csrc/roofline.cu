@@ -7,7 +7,8 @@
 // T2a factor_reps_kernel (thread route) and factor_reps_team_kernel (team
 // route) replace the TPU kernel
 //     tools/roofline.py:_factor_bench_kernel
-// T2b solve_reps_kernel replaces the TPU kernel
+// T2b solve_reps_kernel (thread route) and solve_reps_team_kernel (team
+// route) replace the TPU kernel
 //     tools/roofline.py:_solve_bench_kernel
 // Their plain versions are ipmzoo_tpu_torch/ops/cuda_roofline.py:
 // fma_chains_plain / factor_reps_plain / solve_reps_plain.
@@ -68,6 +69,23 @@
 // the team route the factor is one column after the other, a team
 // barrier each, with the rows below a column spread over the lanes.
 //
+// T2b has the same team route (solve_reps_team_kernel): each team's
+// region (SolveTeamLayout) holds the packed K0 and b0, staged once a
+// launch as T2a's K0, D, b and the slot.  The prologue factors K0 in
+// place by team_ldlt, as K1's team route does; repetition r writes
+// b = b0 (1 + 1e-6 r), entry i in lane i % kLanes, which is
+// team_ldlt_solve's own ownership, so no barrier comes before the solve,
+// and then runs team_ldlt_solve, the solve team_direction runs in K1:
+// x in registers, x_j broadcast by shuffle, K and D read from shared
+// memory.  acc is the sum of x[0] in lane 0; sink each lane's sum of its
+// own entries of x, added over the team by team_sum.  K and D are not
+// written in the repetition loop, so a compiler could keep a lane's
+// factor entries in registers across repetitions and time a cheaper
+// solve than K1's, which refactors every iteration: the loop is kept
+// rolled, and team_ldlt_solve's closing barrier orders every repetition's
+// shared-memory loads after the last one's (chip_roofline.py reads the
+// loop's loads in the build's SASS).  Bound: the solve's operations.
+//
 // Arithmetic is plain IEEE (no fast-math); nvcc contracts a * b + c into
 // one FMA, which is the point of T1 and a rounding-level difference to
 // the plain versions elsewhere.  Without nvcc the team route runs one
@@ -86,6 +104,7 @@ using ipmzoo_fused::ldlt_packed;
 using ipmzoo_fused::ldlt_solve_packed;
 using ipmzoo_fused::Team;
 using ipmzoo_fused::team_ldlt;
+using ipmzoo_fused::team_ldlt_solve;
 using ipmzoo_fused::team_sum;
 using ipmzoo_fused::team_sync;
 using ipmzoo_fused::tri;
@@ -175,18 +194,44 @@ struct FactorTeamLayout {
   static constexpr int kStride = (kEnd + 31) / 32 * 32 + 16;
 };
 
+// T2b's team route: one team's region, padded as FactorTeamLayout's.
+// K0 is factored in place into K.
+template <int N>
+struct SolveTeamLayout {
+  static constexpr int kK = 0;
+  static constexpr int kD = kK + N * (N + 1) / 2;
+  static constexpr int kB0 = kD + N;
+  static constexpr int kB = kB0 + N;
+  static constexpr int kSlot = kB + N;
+  static constexpr int kEnd = kSlot + 1;
+  static constexpr int kStride = (kEnd + 31) / 32 * 32 + 16;
+};
+
 // The packed lower triangles of the nb instances from b0 of K0 (N, N, S)
-// into their teams' regions, `stride` values apart; consecutive
-// e = first, first + step, ... take consecutive instances of one entry.
+// into the start of their teams' regions, `stride` values apart;
+// consecutive e = first, first + step, ... take consecutive instances of
+// one entry.
 template <typename T, int N>
 IPM_FN void stage_packed(const T* K0, int64_t S, int64_t b0, int nb,
                          T* smem, int stride, int first, int step) {
+  static_assert(FactorTeamLayout<N>::kK0 == 0 && SolveTeamLayout<N>::kK == 0,
+                "the packed K0 opens a team's region");
   for (int e = first; e < N * N * nb; e += step) {
     const int k = e / nb, g = e - k * nb;
     const int i = k / N, j = k - i * N;
     if (j <= i)
-      smem[g * stride + FactorTeamLayout<N>::kK0 + tri(i, j)] =
-          K0[static_cast<int64_t>(k) * S + b0 + g];
+      smem[g * stride + tri(i, j)] = K0[static_cast<int64_t>(k) * S + b0 + g];
+  }
+}
+
+// The right-hand sides of the nb instances from b0 of v (N, S) into their
+// teams' regions at `offset`, as stage_packed.
+template <typename T, int N>
+IPM_FN void stage_vector(const T* v, int64_t S, int64_t b0, int nb, T* smem,
+                         int stride, int offset, int first, int step) {
+  for (int e = first; e < N * nb; e += step) {
+    const int i = e / nb, g = e - i * nb;
+    smem[g * stride + offset + i] = v[static_cast<int64_t>(i) * S + b0 + g];
   }
 }
 
@@ -210,6 +255,32 @@ IPM_FN void factor_reps_team(const Team<T>& tm, T* region, int reps,
     for (int j = tm.lane; j < N; j += kLanes) sink += D[j];
     for (int k = tm.lane; k < N - 1; k += kLanes) sink += K[tri(N - 1, k)];
     team_sync(tm);   // every lane's reads done before the next copy
+  }
+  acc_out = team_sum(tm, acc);
+  sink_out = team_sum(tm, sink);
+}
+
+// T2b on the team route for one team's staged instance: team_ldlt of K0
+// in place, then `reps` solves of b0 (1 + 1e-6 r) by team_ldlt_solve;
+// acc and sink alike in every lane.
+template <typename T, int N>
+IPM_FN void solve_reps_team(const Team<T>& tm, T* region, int reps,
+                            T pivot_floor, T& acc_out, T& sink_out) {
+  using L = SolveTeamLayout<N>;
+  T* K = region + L::kK;
+  T* D = region + L::kD;
+  const T* b0 = region + L::kB0;
+  T* b = region + L::kB;
+  team_ldlt<T, N>(tm, K, D, pivot_floor);
+  T acc = T(0), sink = T(0);
+  // rolled: one solve a trip, K and D loaded from shared memory in each
+#pragma unroll 1
+  for (int r = 0; r < reps; ++r) {
+    const T scale = T(1.0 + 1e-6 * r);
+    for (int i = tm.lane; i < N; i += kLanes) b[i] = b0[i] * scale;
+    team_ldlt_solve<T, N>(tm, K, D, b);
+    if (tm.lane == 0) acc = acc + b[0];
+    for (int i = tm.lane; i < N; i += kLanes) sink += b[i];
   }
   acc_out = team_sum(tm, acc);
   sink_out = team_sum(tm, sink);
@@ -262,6 +333,35 @@ factor_reps_team_kernel(const T* __restrict__ K0, int64_t S, int reps,
   if (tm.lane == 0) {
     acc[b0 + team] = a;
     sink[b0 + team] = s;
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kTeamThreads)
+solve_reps_team_kernel(const T* __restrict__ K0, const T* __restrict__ b0,
+                       int64_t S, int reps, T pivot_floor,
+                       T* __restrict__ acc, T* __restrict__ sink) {
+  extern __shared__ __align__(16) unsigned char reps_smem[];
+  T* smem = reinterpret_cast<T*>(reps_smem);
+  using L = SolveTeamLayout<N>;
+  const int team = threadIdx.x / kLanes;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTeamsPerBlock;
+  const int nb = static_cast<int>(
+      S - first < kTeamsPerBlock ? S - first : kTeamsPerBlock);
+  stage_packed<T, N>(K0, S, first, nb, smem, L::kStride, threadIdx.x,
+                     blockDim.x);
+  stage_vector<T, N>(b0, S, first, nb, smem, L::kStride, L::kB0,
+                     threadIdx.x, blockDim.x);
+  __syncthreads();
+  if (team >= nb) return;   // the whole team alike
+  T* region = smem + team * L::kStride;
+  const Team<T> tm{static_cast<int>(threadIdx.x % kLanes),
+                   ipmzoo_fused::team_mask(threadIdx.x), region + L::kSlot};
+  T a, s;
+  solve_reps_team<T, N>(tm, region, reps, pivot_floor, a, s);
+  if (tm.lane == 0) {
+    acc[first + team] = a;
+    sink[first + team] = s;
   }
 }
 
@@ -379,6 +479,61 @@ int solve_reps_launch(const T* K0, const T* b0, T* acc, T* sink, long long B,
 #endif
 }
 
+template <typename T, int N>
+int solve_reps_team_launch(const T* K0, const T* b0, T* acc, T* sink,
+                           long long B, int reps, T pivot_floor,
+                           void* stream) {
+  using L = SolveTeamLayout<N>;
+#ifdef __CUDACC__
+  return ipmzoo_fused::launch_team(
+      solve_reps_team_kernel<T, N>,
+      static_cast<int>(sizeof(T)) * L::kStride * kTeamsPerBlock, B, stream,
+      K0, b0, B, reps, pivot_floor, acc, sink);
+#else
+  (void)stream;
+  std::vector<T> region(L::kStride);
+  for (long long b = 0; b < B; ++b) {
+    stage_packed<T, N>(K0, B, b, 1, region.data(), L::kStride, 0, 1);
+    stage_vector<T, N>(b0, B, b, 1, region.data(), L::kStride, L::kB0, 0,
+                       1);
+    ipmzoo_fused::host_team(
+        region.data() + L::kSlot, [&](const Team<T>& tm) {
+          T a, s;
+          solve_reps_team<T, N>(tm, region.data(), reps, pivot_floor, a, s);
+          if (tm.lane == 0) {
+            acc[b] = a;
+            sink[b] = s;
+          }
+        });
+  }
+  return 0;
+#endif
+}
+
+// What a team route of T2 is at order N in type T (solve: T2b, else
+// T2a): out4 = (lanes a team, threads a block, bytes of shared memory a
+// team, teams resident per SM; the last 0 in a host build).
+template <typename T, int N>
+int reps_team_shape_at(int solve, int* out4) {
+  const int bytes = static_cast<int>(sizeof(T)) *
+                    (solve ? SolveTeamLayout<N>::kStride
+                           : FactorTeamLayout<N>::kStride);
+  out4[0] = kLanes;
+  out4[1] = kTeamThreads;
+  out4[2] = bytes;
+  out4[3] = 0;
+#ifdef __CUDACC__
+  return solve ? ipmzoo_fused::team_occupancy(solve_reps_team_kernel<T, N>,
+                                              bytes * kTeamsPerBlock,
+                                              out4 + 3)
+               : ipmzoo_fused::team_occupancy(factor_reps_team_kernel<T, N>,
+                                              bytes * kTeamsPerBlock,
+                                              out4 + 3);
+#else
+  return 0;
+#endif
+}
+
 // The orders instantiated: the fused slice's augmented order 24, and 8
 // for small checks.
 template <typename T>
@@ -426,6 +581,34 @@ int solve_reps_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
   }
 }
 
+template <typename T>
+int solve_reps_team_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
+                          long long B, int reps, T pivot_floor,
+                          void* stream) {
+  switch (n) {
+    case 8:
+      return solve_reps_team_launch<T, 8>(K0, b0, acc, sink, B, reps,
+                                          pivot_floor, stream);
+    case 24:
+      return solve_reps_team_launch<T, 24>(K0, b0, acc, sink, B, reps,
+                                           pivot_floor, stream);
+    default:
+      return -1;
+  }
+}
+
+template <typename T>
+int reps_team_shape(int solve, int n, int* out4) {
+  switch (n) {
+    case 8:
+      return reps_team_shape_at<T, 8>(solve, out4);
+    case 24:
+      return reps_team_shape_at<T, 24>(solve, out4);
+    default:
+      return -1;
+  }
+}
+
 }  // namespace ipmzoo_roofline
 
 #define IPMZOO_ROOFLINE_ENTRY_POINTS(T, SFX)                                  \
@@ -453,6 +636,15 @@ int solve_reps_entry(const T* K0, const T* b0, T* acc, T* sink, int n,
                                          void* stream) {                      \
     return ipmzoo_roofline::solve_reps_entry<T>(K0, b0, acc, sink, n, B,      \
                                                 reps, pivot_floor, stream);   \
+  }                                                                           \
+  extern "C" int ipmzoo_solve_reps_team_##SFX(                               \
+      const T* K0, const T* b0, T* acc, T* sink, int n, long long B,          \
+      int reps, T pivot_floor, void* stream) {                                \
+    return ipmzoo_roofline::solve_reps_team_entry<T>(                         \
+        K0, b0, acc, sink, n, B, reps, pivot_floor, stream);                  \
+  }                                                                           \
+  extern "C" int ipmzoo_reps_team_shape_##SFX(int solve, int n, int* out4) {  \
+    return ipmzoo_roofline::reps_team_shape<T>(solve, n, out4);               \
   }
 
 IPMZOO_ROOFLINE_ENTRY_POINTS(float, f32)

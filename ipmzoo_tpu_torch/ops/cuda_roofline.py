@@ -5,8 +5,9 @@ Counterpart of the kernels of ``tools/roofline.py`` (``_fma_kernel``,
 ``_factor_bench_kernel``, ``_solve_bench_kernel``) and of its
 ``vpu_peak``, ``_bench_inkernel``, ``fused_flops`` and ``quasidef_tile``.
 The CUDA sources are ``csrc/roofline.cu`` (which includes
-``csrc/fused_ipm.cuh``: T2 repeats the very ``ldlt_packed`` and
-``ldlt_solve_packed`` that kernel K1 runs).
+``csrc/fused_ipm.cuh`` and ``csrc/fused_team.cuh``: T2 repeats the
+very ``ldlt_packed`` and ``ldlt_solve_packed`` of K1's thread route, or
+``team_ldlt`` and ``team_ldlt_solve`` of its team route).
 
 * :func:`fma_chains` (T1): ``chains`` independent accumulators per
   element, ``reps`` dependent ``acc = acc * a + x`` rounds each, their
@@ -15,14 +16,18 @@ The CUDA sources are ``csrc/roofline.cu`` (which includes
 * :func:`factor_reps` (T2a) and :func:`solve_reps` (T2b): ``reps``
   factorisations of ``K0 (1 + 1e-6 r)``, or one factorisation and
   ``reps`` solves of ``b0 (1 + 1e-6 r)``, per instance, SoA with the
-  batch on the last axis.  T2a has two routes, K1's: the thread route
-  (one thread an instance, ``ldlt_packed`` in local memory) and the team
-  route (``route="team"``: a team of 16 lanes an instance, ``team_ldlt``
-  on K and D in shared memory, ``csrc/fused_team.cuh``).  Each returns
-  ``(acc, sink)``: the TPU kernel's own sum (of ``D[0]`` or ``x[0]``)
-  and a sum that depends on every pivot and the last row of L (or on
-  every entry of x), so that no part of the work is dead code.  :func:`reps_slope` turns two in-kernel
-  repetition counts into milliseconds per repetition.
+  batch on the last axis.  Each has two routes, K1's: the thread route
+  (one thread an instance, ``ldlt_packed`` / ``ldlt_solve_packed`` on
+  the packed factor in local memory) and the team route
+  (``route="team"``: a team of 16 lanes an instance, K and D in shared
+  memory, ``team_ldlt`` / ``team_ldlt_solve`` of
+  ``csrc/fused_team.cuh``; T2b factors once by ``team_ldlt``).  Each
+  returns ``(acc, sink)``: the TPU kernel's own sum (of ``D[0]`` or
+  ``x[0]``) and a sum that depends on every pivot and the last row of L
+  (or on every entry of x), so that no part of the work is dead code.
+  :func:`reps_slope` turns two in-kernel repetition counts into
+  milliseconds per repetition; :func:`reps_team_shape` says what a team
+  route's block is (bytes a team, teams resident per SM).
 
 For CUDA tensors the wrappers launch the kernels on the current stream
 and count the launch; for CPU tensors they run the plain versions, which
@@ -43,12 +48,16 @@ from . import _build
 from .ldlt import PIVOT_FLOOR
 
 #: kernel launches since the last :func:`reset_launch_counts`, per TPU
-#: kernel (T2a on any route); ``route_launches`` counts T2a's per route
+#: kernel (T2a and T2b on any route); ``route_launches`` counts them per
+#: route
 launches = {"fma_chains": 0, "factor_reps": 0, "solve_reps": 0}
-route_launches = {"factor_reps thread": 0, "factor_reps team": 0}
-#: T2a's routes: entry-point names
+route_launches = {"factor_reps thread": 0, "factor_reps team": 0,
+                  "solve_reps thread": 0, "solve_reps team": 0}
+#: T2a's and T2b's routes: entry-point names
 _FACTOR_ENTRY = {"thread": "ipmzoo_factor_reps",
                  "team": "ipmzoo_factor_reps_team"}
+_SOLVE_ENTRY = {"thread": "ipmzoo_solve_reps",
+                "team": "ipmzoo_solve_reps_team"}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
@@ -78,8 +87,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             f = getattr(lib, f"{entry}_{sfx}")
             f.argtypes = [ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt], ptr]
             f.restype = i32
-        f = getattr(lib, f"ipmzoo_solve_reps_{sfx}")
-        f.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt], ptr]
+        for entry in _SOLVE_ENTRY.values():
+            f = getattr(lib, f"{entry}_{sfx}")
+            f.argtypes = [ptr, ptr, ptr, ptr, i32, i64, i32, _CTYPE[dt],
+                          ptr]
+            f.restype = i32
+        f = getattr(lib, f"ipmzoo_reps_team_shape_{sfx}")
+        f.argtypes = [i32, i32, ptr]
         f.restype = i32
     return lib
 
@@ -282,12 +296,14 @@ def _reps_shapes(K0: torch.Tensor):
     return N, B
 
 
-def _factor_entry(route: str) -> str:
-    """T2a's entry-point name on ``route``; raises for another route."""
-    if route not in _FACTOR_ENTRY:
-        raise ValueError(f"T2a has no route {route!r}: "
-                         f"{tuple(_FACTOR_ENTRY)}")
-    return _FACTOR_ENTRY[route]
+def _entry(kernel: str, route: str) -> str:
+    """T2a's (``kernel`` "T2a") or T2b's entry-point name on ``route``;
+    raises for another route."""
+    entries = {"T2a": _FACTOR_ENTRY, "T2b": _SOLVE_ENTRY}.get(kernel, {})
+    if route not in entries:
+        raise ValueError(f"{kernel} has no route {route!r}: "
+                         f"{tuple(entries)}")
+    return entries[route]
 
 
 def factor_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, reps: int,
@@ -296,7 +312,7 @@ def factor_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, reps: int,
     """Check K0, allocate the outputs and call T2a's entry point of
     ``lib`` on ``route`` once; returns ((acc, sink), status)."""
     N, B = _reps_shapes(K0)
-    entry = _factor_entry(route)
+    entry = _entry("T2a", route)
     acc, sink = K0.new_empty((1, B)), K0.new_empty((1, B))
     if B == 0:
         return (acc, sink), 0
@@ -306,14 +322,16 @@ def factor_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, reps: int,
 
 
 def solve_reps_call(lib: ctypes.CDLL, K0: torch.Tensor, b0: torch.Tensor,
-                    reps: int, pivot_floor: float = PIVOT_FLOOR):
+                    reps: int, pivot_floor: float = PIVOT_FLOOR,
+                    route: str = "thread"):
     """As :func:`factor_reps_call` for T2b, with b0 (N, B)."""
     N, B = _reps_shapes(K0)
     _check("b0", b0, (N, B), K0)
+    entry = _entry("T2b", route)
     acc, sink = K0.new_empty((1, B)), K0.new_empty((1, B))
     if B == 0:
         return (acc, sink), 0
-    fn = getattr(lib, f"ipmzoo_solve_reps_{_SUFFIX[K0.dtype]}")
+    fn = getattr(lib, f"{entry}_{_SUFFIX[K0.dtype]}")
     return (acc, sink), fn(K0.data_ptr(), b0.data_ptr(), acc.data_ptr(),
                            sink.data_ptr(), N, B, reps, pivot_floor,
                            _stream(K0))
@@ -325,7 +343,7 @@ def factor_reps(K0: torch.Tensor, reps: int,
     a team of 16 lanes an instance with K and D in shared memory
     (``"team"``): (acc, sink), each (1, B); the plain version for CPU
     tensors."""
-    _factor_entry(route)
+    _entry("T2a", route)
     if K0.device.type == "cpu":
         return factor_reps_plain(K0, reps, pivot_floor)
     if not K0.is_cuda:
@@ -342,21 +360,45 @@ def factor_reps(K0: torch.Tensor, reps: int,
 
 
 def solve_reps(K0: torch.Tensor, b0: torch.Tensor, reps: int,
-               pivot_floor: float = PIVOT_FLOOR):
-    """T2b on K0 (N, N, B), b0 (N, B): (acc, sink), each (1, B); the
-    plain version for CPU tensors."""
+               pivot_floor: float = PIVOT_FLOOR, route: str = "thread"):
+    """T2b on K0 (N, N, B), b0 (N, B), one thread an instance
+    (``route="thread"``) or a team of 16 lanes an instance with K, D and
+    b in shared memory (``"team"``): (acc, sink), each (1, B); the plain
+    version for CPU tensors."""
+    _entry("T2b", route)
     if K0.device.type == "cpu":
         return solve_reps_plain(K0, b0, reps, pivot_floor)
     if not K0.is_cuda:
         raise ValueError(f"T2b needs CUDA or CPU tensors, got {K0.device}")
     with torch.cuda.device(K0.device):
-        outs, err = solve_reps_call(_lib(), K0, b0, reps, pivot_floor)
+        outs, err = solve_reps_call(_lib(), K0, b0, reps, pivot_floor,
+                                    route)
     if err:
-        raise RuntimeError(f"T2b (solve_reps) launch failed: cudaError "
-                           f"{err}")
+        raise RuntimeError(f"T2b (solve_reps, {route} route) launch "
+                           f"failed: cudaError {err}")
     if K0.shape[-1]:
         launches["solve_reps"] += 1
+        route_launches[f"solve_reps {route}"] += 1
     return outs
+
+
+def reps_team_shape(dtype: torch.dtype, kernel: str = "T2b",
+                    N: int = 24, lib: ctypes.CDLL = None) -> Dict[str, int]:
+    """What the team route of ``kernel`` ("T2a" or "T2b") is at order
+    ``N`` in ``dtype``: lanes a team, threads a block, bytes of shared
+    memory a team and teams resident per SM (0 in a host build), from
+    ``lib`` (default the nvcc build, on the current device)."""
+    _entry(kernel, "team")
+    if N not in ORDERS:
+        raise ValueError(f"order {N}: T2 is built for {ORDERS}")
+    fn = getattr(lib or _lib(), f"ipmzoo_reps_team_shape_{_SUFFIX[dtype]}")
+    out = (ctypes.c_int * 4)()
+    err = fn(int(kernel == "T2b"), N, out)
+    if err:
+        raise RuntimeError(f"{kernel} team route: occupancy query failed: "
+                           f"cudaError {err}")
+    return dict(zip(("lanes", "threads", "team_bytes", "teams_per_sm"),
+                    out))
 
 
 def reps_slope(run: Callable[[int], object], r1: int = 2, r2: int = 8, *,
