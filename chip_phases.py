@@ -5,76 +5,145 @@
     python3 chip_phases.py       # from the repository root; needs one
                                  # CUDA card and nvcc
 
-Kernel T3 runs, at the cold start of the fused slice (Settings(), n=16,
-m_ineq=8, augmented order 24, bench workload, numpy seed 0), successive
-prefixes of one fused iteration through the functions K1 itself runs:
+Kernel T3 runs, at the cold start of a fused solve, successive prefixes
+of one fused iteration through the functions K1 itself runs:
 
     start iterate | + assemble | + factor | + directions | + metrics x3
 
-T3 has K1's two routes at this order: the thread route (one thread an
-instance, csrc/fused_phases.cuh) and the team route (16 lanes an
-instance, the instance's region in shared memory,
-csrc/fused_phases_team.cuh), which is the route K1 takes on the fused
-slice.  Each prefix of each route is generated and built as a
-translation unit of its own (all ten nvcc processes, and K1's two, started
-together), so ptxas reports its registers, stack frame and spills alone.
-The script holds each prefix of each route to its plain version (float64
-within 1e-10, float32 within 1e-4, both outputs, the metrics nudge off
-and on), then prints for each route, at B=10240 and B=512, float32 and
-float64: the time of each prefix per in-kernel repetition (a slope over
-repetition counts, so without the launch), the difference to the prefix
-before (the phase's cost; an estimate, since two prefixes are two
-register allocations), one whole launch, the slope's bound, and ptxas'
-figures; beside them one ``solve_fused(max_iter=1)`` (K1 on its thread
-and its team route) and one ``CompiledIPM.step`` on the same data.  At
-B=10240 no slope may lie below its bound.  The three metrics calls run
-on iterates nudged by a run-time factor (see csrc/fused_phases.cuh), so
-the compiler cannot merge them.  Exits 2 without a CUDA device.
+It has K1's four routes (ipmzoo_tpu_torch/models/fused_phases.py), and
+this script runs it at three points, each on the routes K1 takes there:
+
+* the fused slice (Settings(), n=16, m_ineq=8, augmented order 24, bench
+  workload, numpy seed 0) at B=10240 and 512: the thread route (one
+  thread an instance, csrc/fused_phases.cuh) and the team route (16 lanes
+  an instance, csrc/fused_phases_team.cuh), the route K1 takes there;
+* the wide slice (portfolio of 128 assets, seed 0, augmented order 129)
+  at B=4096 (its batch) and 512: the block route (a thread block of W
+  warps an instance, csrc/fused_phases_block.cuh) at K1_BLOCK_RULE's W,
+  4 in float32 and 8 in float64;
+* a portfolio of 256 assets (augmented order 257) in float64 at B=256,
+  where the block does not fit: the wide route (one warp an instance,
+  csrc/fused_phases_wide.cuh).
+
+Each prefix of each route is generated and built as a translation unit of
+its own (all nvcc processes, and K1's, started together), so ptxas
+reports its registers, stack frame and spills alone.  The script holds
+each prefix of each route to its plain version (float64 within 1e-10,
+float32 within 1e-4, both outputs, the metrics nudge off and on), then
+prints for each route and point: the time of each prefix per in-kernel
+repetition (a slope over repetition counts, so without the launch), the
+difference to the prefix before (the phase's cost; an estimate, since two
+prefixes are two register allocations), one whole launch, the slope's
+bound (the prefix's operations, counted from the solver's sizes, over the
+card's peak) and ptxas' figures; beside them K1's ``solve_fused(max_iter=
+1)`` on the same data on the same route (and at the fused slice one
+``CompiledIPM.step``).  At each point's largest batch no slope may lie
+below its bound.  The three metrics calls run on iterates nudged by a
+run-time factor (see csrc/fused_phases.cuh), so the compiler cannot merge
+them.  Exits 2 without a CUDA device.
 """
 
+import functools
 import re
 import sys
 
 from chip_roofline import (banner, build_all, check, dtype_name, fused_solver,
                            rel_diff)
-from ipmzoo_tpu_torch.models.fused_phases import ROUTES
 from ipmzoo_tpu_torch.ops.cuda_fused import PHASE_LIBS
 
 B_SLICE, B_TILE = 10240, 512
-#: operations of one set of the matrix-vector products Q x, A x, A^T y
-#: per instance at n=16, m=8
-MATVEC_FLOPS = 2 * 16 * 16 + 4 * 8 * 16
+#: the points: (batches, dtypes, routes); "slice" is the fused slice,
+#: "wide" the wide slice (portfolio of WIDE_ASSETS assets), "wide route"
+#: the portfolio of WIDE_ROUTE_ASSETS where K1 takes its wide route
+WIDE_ASSETS, WIDE_ROUTE_ASSETS = 128, 256
+POINTS = {"slice": ((B_SLICE, B_TILE), ("float32", "float64"),
+                    ("thread", "team")),
+          "wide": ((4096, 512), ("float32", "float64"), ("block",)),
+          "wide route": ((256,), ("float64",), ("wide",))}
+#: the fused slice's routes (what chip_smoke.py times at B_SLICE)
+ROUTES = POINTS["slice"][2]
+#: every (point, route) whose prefixes are built
+BUILDS = tuple((p, r) for p, (_, _, routes) in POINTS.items()
+               for r in routes)
 
 
-def phase_flops(phase):
-    """Operations per instance of prefix ``phase``, cumulative, at order
-    N = 24: the factor and each of the two solves as ``fused_flops``
-    counts them for T2 (about N^3/3 and 2 N^2 operations), and one set of
-    the matrix-vector products for the assembly, for each of the two
-    right-hand sides and for each of the three metrics."""
+def _dtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+@functools.lru_cache(maxsize=None)
+def point_solver(point, dev, dtype):
+    """The solver of ``point`` on ``dev`` in ``dtype`` (one a point, so
+    its generated sources are made once): the fused slice's, or a
+    portfolio's FusedBatchedIPM at tol 1e-6 (the wide slice's settings)."""
+    if point == "slice":
+        return fused_solver(dev, dtype)
+    from ipmzoo_tpu_torch.models.families import portfolio
+    from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM
+    n = WIDE_ASSETS if point == "wide" else WIDE_ROUTE_ASSETS
+    fam = portfolio(n_assets=n, seed=0, dtype=dtype, device="cpu")
+    return FusedBatchedIPM(fam.settings, fam.n, fam.m_ineq, fam.m_eq,
+                           dtype=dtype, tol=1e-6, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(point, B, dev, dtype):
+    if point == "slice":
+        from ipmzoo_tpu_torch.models.convert import make_batch
+        return make_batch(B, 16, 8, dtype, device=dev)
+    from ipmzoo_tpu_torch.models.families import portfolio
+    n = WIDE_ASSETS if point == "wide" else WIDE_ROUTE_ASSETS
+    return portfolio(n_assets=n, batch=B, seed=0, dtype=dtype,
+                     device=dev).data
+
+
+def point_inputs(point, B, dev, dtype):
+    """(solver, QPData, SoA data) of ``point`` at ``B`` instances: the
+    fused slice's make_batch QPs, or the portfolios of seed 0."""
+    solver = point_solver(point, dev, dtype)
+    data = _inputs(point, B, dev, dtype)
+    return solver, data, solver.soa_inputs(data)[0]
+
+
+def matvec_flops(solver):
+    """Operations of one set of the matrix-vector products Q x, A x and
+    A^T y per instance at the solver's sizes (A both the inequality and
+    the equality rows)."""
+    n, m, e = solver.n, solver.m_ineq, solver.m_eq
+    return 2 * n * n + 4 * (m + e) * n
+
+
+def phase_flops(phase, solver):
+    """Operations per instance of prefix ``phase``, cumulative, at the
+    solver's sizes: the factor and each of the two solves at its augmented
+    order as ``fused_flops`` counts them for T2 (about N^3/3 and 2 N^2
+    operations), and one set of the matrix-vector products for the
+    assembly, for each of the two right-hand sides and for each of the
+    three metrics."""
     from ipmzoo_tpu_torch.ops.cuda_roofline import fused_flops
-    fac, sol = fused_flops(24)
-    per = [0, MATVEC_FLOPS, fac, 2 * sol + 2 * MATVEC_FLOPS,
-           3 * MATVEC_FLOPS]
+    fac, sol = fused_flops(solver.aug_dim)
+    mv = matvec_flops(solver)
+    per = [0, mv, fac, 2 * sol + 2 * mv, 3 * mv]
     return sum(per[:phase + 1])
 
 
-def phase_sources(route="thread"):
-    """The five prefixes' sources of ``route`` for the fused slice (the
-    text does not depend on the dtype)."""
+def phase_sources(route="thread", point="slice"):
+    """The five prefixes' sources of ``route`` at ``point`` (the text
+    depends on neither the dtype nor the batch)."""
     import torch
     from ipmzoo_tpu_torch.models import fused_phases as fp
-    solver = fused_solver("cpu", torch.float32)
-    make = fp.phase_team_source if route == "team" else fp.phase_source
-    return [make(solver, p) for p in range(len(fp.PHASES))]
+    solver = point_solver(point, "cpu", torch.float32)
+    return [fp.SOURCES[route](solver, p) for p in range(len(fp.PHASES))]
 
 
-def ptxas_rows(route="thread"):
+def ptxas_rows(route="thread", point="slice"):
     """ptxas' registers, stack frame and spills of each prefix of
-    ``route``, per dtype: {(phase, 'float32'|'float64'): dict}."""
+    ``route`` at ``point``, per dtype: {(phase, 'float32'|'float64'):
+    dict}."""
     from ipmzoo_tpu_torch.ops import _build
     out = {}
-    for p, src in enumerate(phase_sources(route)):
+    for p, src in enumerate(phase_sources(route, point)):
         lib = _build.generated_library_path(PHASE_LIBS[route], src)
         for k in _build.ptxas_report(lib):
             m = re.search(r"FormE([fd])Li", k["name"])
@@ -83,39 +152,59 @@ def ptxas_rows(route="thread"):
     return out
 
 
-def build():
-    """Build the prefixes of both routes and K1's thread and team routes
-    at once; print each build's time and ptxas' report."""
+def k1_sources():
+    """K1's sources that the reference points launch, by build name:
+    the thread and team routes at the fused slice, the block route at
+    the wide slice and the wide route at WIDE_ROUTE_ASSETS."""
     import torch
-    from ipmzoo_tpu_torch.ops import cuda_fused
+    out = {}
+    for point, route in (("slice", "thread"), ("slice", "team"),
+                         ("wide", "block"), ("wide route", "wide")):
+        solver = point_solver(point, "cpu", torch.float32)
+        out[f"K1 {route} route ({point})"] = (route,
+                                              solver.kernel_source(route))
+    return out
 
-    jobs = {f"T3 {route} prefix {p}":
+
+def build_jobs():
+    """Every build of this script, by name: each prefix of each route at
+    its point, and K1's sources (k1_sources)."""
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    jobs = {f"T3 {route} prefix {p} ({point})":
             lambda s=src, r=route: cuda_fused.library(s, PHASE_LIBS[r])
-            for route in ROUTES for p, src in enumerate(phase_sources(route))}
-    solver = fused_solver("cpu", torch.float32)
-    k1, team = solver.kernel_source(), solver.kernel_source("team")
-    jobs["K1 (generated fused_ipm)"] = lambda: cuda_fused.library(k1)
-    jobs["K1 team route (generated fused_team)"] = \
-        lambda: cuda_fused.library(team, "fused_team")
-    for name, t in build_all(jobs).items():
+            for point, route in BUILDS
+            for p, src in enumerate(phase_sources(route, point))}
+    for name, (route, text) in k1_sources().items():
+        jobs[name] = lambda t=text, r=route: cuda_fused.library(
+            t, cuda_fused._LIB_NAME[r])
+    return jobs
+
+
+def build():
+    """Build every prefix and K1's sources at once; print each build's
+    time and ptxas' report."""
+    for name, t in build_all(build_jobs()).items():
         print(f"build: {name} ready in {t:.2f} s")
     return report_ptxas()
 
 
 def report_ptxas():
-    """Print and return ptxas' figures of every prefix: {route: rows}."""
+    """Print and return ptxas' figures of every prefix: {(point, route):
+    rows}; and what K1's team, block and wide layouts are at the points
+    the prefixes launch on them."""
     import torch
     from ipmzoo_tpu_torch.ops import cuda_fused
     out = {}
-    for route in ROUTES:
-        rows = out[route] = ptxas_rows(route)
+    for point, route in BUILDS:
+        rows = out[(point, route)] = ptxas_rows(route, point)
         for (p, name), k in sorted(rows.items()):
-            print(f"build: T3 {route} prefix {p} {name}: {k['registers']} "
-                  f"registers, {k['stack']} bytes stack frame, spill stores "
-                  f"{k['spill_stores']} / loads {k['spill_loads']} bytes")
-    # the prefixes launch as K1's team route, on its layout and launch
+            print(f"build: T3 {route} prefix {p} ({point}) {name}: "
+                  f"{k['registers']} registers, {k['stack']} bytes stack "
+                  f"frame, spill stores {k['spill_stores']} / loads "
+                  f"{k['spill_loads']} bytes")
+    # the team prefixes launch as K1's team route, on its layout and launch
     # bounds: K1's shape query holds for each of them
-    team = fused_solver("cpu", torch.float32).kernel_source("team")
+    team = point_solver("slice", "cpu", torch.float32).kernel_source("team")
     lib = cuda_fused.library(team, "fused_team")
     for dtype in (torch.float32, torch.float64):
         sh = cuda_fused.team_shape(lib, dtype)
@@ -123,78 +212,99 @@ def report_ptxas():
               f"{sh['lanes']} lanes, {sh['threads']} threads a block, "
               f"{sh['team_bytes']} bytes of shared memory a team, "
               f"{sh['teams_per_sm']} teams resident per SM")
+    # the block and wide prefixes answer their own shape query
+    for point, route in BUILDS:
+        if route not in ("block", "wide"):
+            continue
+        _, dtypes, _ = POINTS[point]
+        for p, src in enumerate(phase_sources(route, point)):
+            lib = cuda_fused.library(src, PHASE_LIBS[route])
+            for name in dtypes:
+                solver = point_solver(point, "cpu", _dtype(name))
+                if route == "block":
+                    warps = cuda_fused.block_warps(
+                        solver.k1_sizes(), solver.dtype, solver.k1_slots())
+                    sh = cuda_fused.block_shape(lib, solver.dtype, warps,
+                                                "phase")
+                else:
+                    sh = cuda_fused.wide_shape(lib, solver.dtype, "phase")
+                print(f"build: T3 {route} route prefix {p} ({point}, "
+                      f"aug_dim {solver.aug_dim}) {name}: {sh}")
+                check(sh["lanes"] == 32 and sh["blocks_per_sm"] > 0,
+                      f"T3's {route} prefix {p} does not fit: {sh}")
     return out
 
 
-def slice_inputs(solver, B, dev):
-    from ipmzoo_tpu_torch.models.convert import make_batch
-    data = make_batch(B, 16, 8, solver.dtype, device=dev)
-    return data, solver.soa_inputs(data)[0]
-
-
-def check_phases(dev, B=B_SLICE, route="thread"):
-    """Each prefix of ``route`` against its plain version on the card at
-    ``B`` instances: float64 within 1e-10 relative, float32 within 1e-4,
-    both outputs, with the metrics nudge off (the reference kernel's value)
-    and on.  Returns the largest absolute difference of the float32
-    outputs of the last prefix."""
+def check_phases(dev, B=B_SLICE, route="thread", point="slice",
+                 dtypes=("float64", "float32"), phases=range(5)):
+    """Each prefix of ``phases`` on ``route`` (None: the route K1 takes,
+    which must be one of the point's) against its plain version on the card
+    at ``B`` instances of ``point``: float64 within 1e-10 relative,
+    float32 within 1e-4, both outputs, with the metrics nudge off (the
+    reference kernel's value) and on.  Returns the largest absolute
+    difference of either output of the last prefix at one repetition, by
+    dtype name."""
     import torch
     from ipmzoo_tpu_torch.models import fused_phases as fp
 
-    err = None
-    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
-        name = dtype_name(dtype)
-        solver = fused_solver(dev, dtype)
-        _, soa = slice_inputs(solver, B, dev)
-        for p in range(len(fp.PHASES)):
+    err = {}
+    for name in dtypes:
+        tol = 1e-10 if name == "float64" else 1e-4
+        solver, _, soa = point_inputs(point, B, dev, _dtype(name))
+        took = route or fp.phase_route(solver, B)
+        check(took in POINTS[point][2], f"K1 takes its {took} route at "
+              f"{point} B={B} {name}, not one of {POINTS[point][2]}")
+        for p in phases:
             for reps, perturb in ((1, 0), (2, 1)):
                 acc, sink = fp.phase(solver, soa, p, reps, perturb, route)
                 acc0, sink0 = fp.phase_plain(solver, soa, p, reps, perturb)
-                torch.cuda.synchronize()
-                check(bool(torch.isfinite(acc).all()) and
-                      bool(torch.isfinite(sink).all()),
-                      f"T3 {route} prefix {p}: non-finite output")
+                if acc.is_cuda:
+                    torch.cuda.synchronize()
+                check(bool(acc.isfinite().all()) and
+                      bool(sink.isfinite().all()),
+                      f"T3 {took} prefix {p}: non-finite output")
                 ra = rel_diff(acc, acc0) if p else \
                     (acc - acc0).abs().max().item()
                 rs = rel_diff(sink, sink0)
-                print(f"T3 {route} prefix {p} vs plain {name} B={B} "
-                      f"reps={reps} perturb={perturb}: rel diff acc "
-                      f"{ra:.3e} sink {rs:.3e} (limit {tol:g})")
-                check(max(ra, rs) <= tol, f"T3 {route} prefix {p} "
+                print(f"T3 {took} prefix {p} vs plain ({point}, aug_dim "
+                      f"{solver.aug_dim}) {name} B={B} reps={reps} "
+                      f"perturb={perturb}: rel diff acc {ra:.3e} sink "
+                      f"{rs:.3e} (limit {tol:g})")
+                check(max(ra, rs) <= tol, f"T3 {took} prefix {p} "
                       f"disagrees with its plain version in {name}: "
                       f"{max(ra, rs):.3e} > {tol:g}")
-                if dtype == torch.float32 and p == len(fp.PHASES) - 1 \
-                        and reps == 1:
-                    err = max((acc - acc0).abs().max().item(),
-                              (sink - sink0).abs().max().item())
+                if reps == 1:
+                    err[name] = max((acc - acc0).abs().max().item(),
+                                    (sink - sink0).abs().max().item())
     return err
 
 
-def slope_bound(phase, B, dtype):
-    """The least ms of one repetition of prefix ``phase`` on B instances:
-    its operations (phase_flops) over the card's peak for the type (the
-    data is read once a launch, outside the repetitions)."""
+def slope_bound(phase, B, solver):
+    """The least ms of one repetition of prefix ``phase`` on B instances
+    of ``solver``'s sizes: its operations (phase_flops) over the card's
+    peak for the type (the data is read once a launch, outside the
+    repetitions)."""
     import torch
-    peak = 67e12 if dtype == torch.float32 else 33.5e12
-    return phase_flops(phase) * B / peak * 1e3
+    peak = 67e12 if solver.dtype == torch.float32 else 33.5e12
+    return phase_flops(phase, solver) * B / peak * 1e3
 
 
-def time_phases(dev, B, dtype, ptxas=None, route="thread"):
-    """Milliseconds of each prefix of ``route`` at ``B`` instances: per
-    in-kernel repetition (the slope between two repetition counts, which
-    leaves the launch and the first loads out) with the difference to the
-    prefix before, one whole launch beside it, the slope's bound
-    (slope_bound) and ptxas' figures.  Returns the list of per-repetition
-    times and the list of one-launch times."""
+def time_phases(dev, B, dtype, ptxas=None, route="thread", point="slice"):
+    """Milliseconds of each prefix of ``route`` at ``B`` instances of
+    ``point``: per in-kernel repetition (the slope between two repetition
+    counts, which leaves the launch and the first loads out) with the
+    difference to the prefix before, one whole launch beside it, the
+    slope's bound (slope_bound) and ptxas' figures.  Returns the list of
+    per-repetition times and the list of one-launch times."""
     from ipmzoo_tpu_torch.models import fused_phases as fp
     from ipmzoo_tpu_torch.ops.cuda_roofline import reps_slope
     from ipmzoo_tpu_torch.utils.timer import cuda_time
 
     name = dtype_name(dtype)
-    solver = fused_solver(dev, dtype)
-    _, soa = slice_inputs(solver, B, dev)
+    solver, _, soa = point_inputs(point, B, dev, dtype)
     times, ones, prev = [], [], 0.0
-    print(f"fused prefixes, {route} route (B={B}, n=16, m=8, aug_dim="
+    print(f"fused prefixes, {route} route ({point}, B={B}, n={solver.n}, "
+          f"m_ineq={solver.m_ineq}, m_eq={solver.m_eq}, aug_dim="
           f"{solver.aug_dim}, {name}; metrics nudged; ms per in-kernel "
           f"repetition):")
     for p, what in enumerate(fp.PHASES):
@@ -209,7 +319,7 @@ def time_phases(dev, B, dtype, ptxas=None, route="thread"):
         t = s["ms_per_rep"]
         print(f"  prefix {p} {what:36s}: {t:8.4f} ms (delta "
               f"{t - prev:8.4f} ms; reps {s['r1']} / {s['r2']}; one launch "
-              f"{one:.4f} ms; bound {slope_bound(p, B, dtype):.6f} ms)"
+              f"{one:.4f} ms; bound {slope_bound(p, B, solver):.6f} ms)"
               f"{regs}")
         times.append(t)
         ones.append(one)
@@ -217,14 +327,14 @@ def time_phases(dev, B, dtype, ptxas=None, route="thread"):
     return times, ones
 
 
-def check_slopes(times, B, dtype, route):
+def check_slopes(times, B, solver, route):
     """No slope below its bound: a phase the compiler dropped would read
     as free."""
     for p, t in enumerate(times):
-        b = slope_bound(p, B, dtype)
-        check(t >= b, f"T3 {route} prefix {p} {dtype_name(dtype)} B={B}: "
-              f"{t:.6f} ms a repetition, below its bound {b:.6f}: work was "
-              f"dropped")
+        b = slope_bound(p, B, solver)
+        check(t >= b, f"T3 {route} prefix {p} {dtype_name(solver.dtype)} "
+              f"aug_dim {solver.aug_dim} B={B}: {t:.6f} ms a repetition, "
+              f"below its bound {b:.6f}: work was dropped")
 
 
 def phase_split(times):
@@ -234,29 +344,41 @@ def phase_split(times):
     return dict(zip(names, (b - a for a, b in zip(times, times[1:]))))
 
 
+def time_k1(dev, B, dtype, point, route):
+    """K1's ``solve_fused(max_iter=1)`` on ``route`` at ``B`` instances of
+    ``point`` (the block route at K1_BLOCK_RULE's W): ms by CUDA events
+    behind a leading launch."""
+    from ipmzoo_tpu_torch.ops import cuda_fused
+    from ipmzoo_tpu_torch.utils.timer import cuda_time
+    solver, _, soa = point_inputs(point, B, dev, dtype)
+    warps = (cuda_fused.block_warps(solver.k1_sizes(), dtype,
+                                    solver.k1_slots())
+             if route == "block" else None)
+    src = solver.kernel_source(route)
+    ms = cuda_time(lambda: cuda_fused.fused_soa(
+        src, soa, None, solver.n, sum(solver.var_sizes), 1, 0,
+        solver.kernel_params(), route, warps), runs=5, calls=10,
+        lead=1).ms
+    w = f" W={warps}" if warps else ""
+    print(f"  K1 solve_fused(max_iter=1) ({point}, aug_dim {solver.aug_dim})"
+          f" B={B} {dtype_name(dtype)}, {route} route{w}: {ms:.4f} ms (one "
+          f"iteration with its ratio tests, sigma and the two metrics "
+          f"around it)")
+    return ms
+
+
 def time_reference_points(dev, B):
-    """Beside the prefixes, as the reference tool: one
+    """Beside the fused slice's prefixes, as the reference tool: one
     ``solve_fused(max_iter=1)`` (K1 on its thread route and on its team
     route) and one ``CompiledIPM.step`` on the same data, float32.
     Returns K1's ms by route and the step's ms."""
     import torch
     from ipmzoo_tpu_torch import CompiledIPM, Settings
-    from ipmzoo_tpu_torch.ops import cuda_fused
     from ipmzoo_tpu_torch.utils.timer import cuda_time
 
-    solver = fused_solver(dev, torch.float32)
-    data, soa = slice_inputs(solver, B, dev)
-    params = solver.kernel_params()
-    total = sum(solver.var_sizes)
-    k1 = {}
-    for route in ROUTES:
-        src = solver.kernel_source(route)
-        k1[route] = cuda_time(lambda: cuda_fused.fused_soa(
-            src, soa, None, 16, total, 1, 0, params, route), runs=5,
-            calls=10, lead=1).ms
-        print(f"  K1 solve_fused(max_iter=1) B={B} float32, {route} route: "
-              f"{k1[route]:.4f} ms (one iteration with its ratio tests, "
-              f"sigma and the two metrics around it)")
+    k1 = {route: time_k1(dev, B, torch.float32, "slice", route)
+          for route in ROUTES}
+    _, data, _ = point_inputs("slice", B, dev, torch.float32)
     step = CompiledIPM(Settings(), 16, 8, dtype=torch.float32, tol=1e-5,
                        device=dev)
     checked = step._check_data(data)
@@ -267,26 +389,44 @@ def time_reference_points(dev, B):
     return k1, ts.ms
 
 
+def run_point(dev, point, ptxas):
+    """Check, then time every route of ``point`` at each of its batches
+    and types (prefix times non-decreasing within 10%; no slope below its
+    bound at the largest batch), with K1's one-iteration launch on the
+    same route beside them.  Returns {(B, dtype name, route): times}."""
+    batches, dtypes, routes = POINTS[point]
+    for route in routes:
+        check_phases(dev, batches[0], route, point, dtypes)
+    out = {}
+    for B in batches:
+        for name in dtypes:
+            for route in routes:
+                times, _ = time_phases(dev, B, _dtype(name),
+                                       ptxas[(point, route)], route, point)
+                check(all(b >= a * 0.9 for a, b in zip(times, times[1:])),
+                      f"{route} prefix times decrease: {times}")
+                if B == batches[0]:
+                    check_slopes(times, B, point_solver(point, dev,
+                                                        _dtype(name)), route)
+                print(f"  {route} route phases ({point}, B={B}, {name}; ms "
+                      f"a repetition): " + ", ".join(
+                          f"{k} {v:.4f}"
+                          for k, v in phase_split(times).items()))
+                out[(B, name, route)] = times
+                if point != "slice":
+                    time_k1(dev, B, _dtype(name), point, route)
+        if point == "slice":
+            time_reference_points(dev, B)
+    return out
+
+
 def main():
-    import torch
     dev = banner("chip_phases", "the prefixes are timed")
     if dev is None:
         return 2
     rows = build()
-    for route in ROUTES:
-        check_phases(dev, route=route)
-    for B in (B_SLICE, B_TILE):
-        for dtype in (torch.float32, torch.float64):
-            for route in ROUTES:
-                times, _ = time_phases(dev, B, dtype, rows[route], route)
-                check(all(b >= a * 0.9 for a, b in zip(times, times[1:])),
-                      f"{route} prefix times decrease: {times}")
-                if B == B_SLICE:
-                    check_slopes(times, B, dtype, route)
-                print(f"  {route} route phases (ms a repetition): " +
-                      ", ".join(f"{k} {v:.4f}"
-                                for k, v in phase_split(times).items()))
-        time_reference_points(dev, B)
+    for point in POINTS:
+        run_point(dev, point, rows)
     return 0
 
 

@@ -70,7 +70,8 @@ Steps, each reported on its own line:
    B=32, at step 43's condensed MPC QP (96, 8) float64, at the tf
    slice's float64 batches (24, 2048) and (24, 512) (with K3's warp
    route, its plain version and torch.linalg.ldl_solve at (24, 2048)) and
-   at (328, 1), by CUDA events and by their kernels' device
+   at (328, 1), by CUDA events (torch.linalg.ldl_solve at the slice's
+   (24, 10240) float32, seconds a call, once: the checked call itself) and by their kernels' device
    time under torch.profiler; fail where k2_route picks a route whose
    device time is more than 5% (timing noise) above the other's; the same
    for both K3 routes at every shape of step 4's K3 check, all in one
@@ -248,10 +249,13 @@ Steps, each reported on its own line:
 28. build the measurement kernels: csrc/roofline.cu (T1 FMA chains, T2a /
     T2b in-kernel factor / solve repetitions, each on both routes) and the
     five generated prefixes of one fused iteration (T3) on each of its
-    two routes, thread and team, each prefix a source of its own; all
-    nvcc processes run beside those of steps 3 and 9, and each build's
-    time and ptxas' registers, stack frame and spills are reported, with
-    the team prefixes' shared bytes a team and teams per SM;
+    four routes, each prefix a source of its own: thread and team at the
+    fused slice, block at the wide slice (portfolio aug 129), wide at
+    portfolio aug 257 (chip_phases.POINTS); all nvcc processes run beside
+    those of steps 3 and 9, and each build's time and ptxas' registers,
+    stack frame and spills are reported, with the team prefixes' shared
+    bytes a team and teams per SM and the block and wide prefixes' own
+    shape queries (threads, workspace, shared bytes, blocks per SM);
 29. hold T1 against its plain version at (64, 512) and at (256, 512),
     the shape of its kernels-line entry, reps 64, chains 4 / 8 / 16
     (float32 within 1e-5: nvcc contracts acc * a + x to one FMA; float64
@@ -289,7 +293,14 @@ Steps, each reported on its own line:
     prefix, at B=10240 and B=512, float32 and float64; the float32 prefix
     times at B=10240 must not decrease, and no slope at B=10240 may lie
     below its bound; beside them one solve_fused(max_iter=1) of K1 on its
-    thread and its team route and one CompiledIPM.step;
+    thread and its team route and one CompiledIPM.step; then T3 on K1's
+    block route (phase() with no route: the route K1 takes) at the wide
+    slice's point, portfolio aug 129, B=4096 and B=512, float32 (W=4) and
+    float64 (W=8), every prefix against its plain version in the same
+    limits, and on K1's wide route at portfolio aug 257 float64, B=256,
+    prefixes 2 and 4; launches by route counted over those runs (only the
+    block and the wide route may launch) and one launch of prefix 4 on
+    each timed against its plain version;
 32. the library's matrix-product rates (torch.matmul, 1024^2 float32
     with TF32 off, 2048^2 bfloat16), a yardstick;
 33. bench_torch.py's modes `steps` (10 batched steps after the
@@ -495,7 +506,8 @@ Steps, each reported on its own line:
     plain version (1e-12), its device ms, events ms, plain ms, bound and
     torch.linalg.cholesky_ex's ms;
 54. the same float64 factor and solve at two ranks: two processes
-    spawned and joined in one gloo group, both on cuda:0, each factoring
+    spawned and joined in one gloo group, both on cuda:0 (the same
+    processes then run step 55's two-rank solve), each factoring
     2048 rows: each rank's rows of L within 1e-10 of ldlt_blocked's (which
     step 53 holds the one-rank factor to), D and x within 1e-10 of step
     53's and equal on both ranks, 32 K2 launches a rank, 96 collectives
@@ -505,8 +517,9 @@ Steps, each reported on its own line:
     staged panel broadcast (1, 128, 4096) float64;
 55. tests/test_sharded_ipm.py's slow test's QP (box QP of n = 4096,
     float32, tol 1e-4, panel 128, max_iter 40, scale_tol) through
-    CompiledIPM(kernel='sharded').solve at one rank and at two (spawned,
-    gloo, cuda:0), against kernel='jnp' on the card, launch counts set
+    CompiledIPM(kernel='sharded').solve at one rank and at two (step
+    54's spawned ranks, gloo, cuda:0), against kernel='jnp' on the card,
+    launch counts set
     to 0 just before and read just after each solve: converged,
     iterations equal to 'jnp''s, x within 5e-3, 32 K2 launches an
     iteration and, at one rank, no other kernel of the port; x the same
@@ -610,7 +623,9 @@ REPLACES = {"ldlt": "ipmzoo_tpu/ops/pallas_ldlt.py:79",
             "solve_reps": "tools/roofline.py:124",
             "solve_reps team": "tools/roofline.py:124",
             "phase": "tools/fused_phases.py:44",
-            "phase team": "tools/fused_phases.py:44"}
+            "phase team": "tools/fused_phases.py:44",
+            "phase block": "tools/fused_phases.py:44",
+            "phase wide": "tools/fused_phases.py:44"}
 #: T1's shape in the kernels line: the reference sweep's largest buffer
 T1_SHAPE, T1_CHAINS, T1_REPS = (256, 512), 16, 64
 #: T2's repetitions in the kernels line: the slope's upper count
@@ -623,6 +638,22 @@ T3_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
 T3_TEAM_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
                   "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
                   "ipmzoo_tpu_torch/csrc/fused_phases_team.cuh + "
+                  "ipmzoo_tpu_torch/models/codegen_team.py + "
+                  "ipmzoo_tpu_torch/models/fused_source.py + "
+                  "ipmzoo_tpu_torch/models/fused_phases.py")
+T3_BLOCK_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_wide_block.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_phases_team.cuh + "
+                   "ipmzoo_tpu_torch/csrc/fused_phases_block.cuh + "
+                   "ipmzoo_tpu_torch/models/codegen_team.py + "
+                   "ipmzoo_tpu_torch/models/fused_source.py + "
+                   "ipmzoo_tpu_torch/models/fused_phases.py")
+T3_WIDE_SOURCE = ("ipmzoo_tpu_torch/csrc/fused_ipm.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_team.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_wide.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_phases_team.cuh + "
+                  "ipmzoo_tpu_torch/csrc/fused_phases_wide.cuh + "
                   "ipmzoo_tpu_torch/models/codegen_team.py + "
                   "ipmzoo_tpu_torch/models/fused_source.py + "
                   "ipmzoo_tpu_torch/models/fused_phases.py")
@@ -1630,7 +1661,7 @@ def time_kernels(dev):
             t["K3_library"] = time_library(
                 f"torch.linalg.ldl_solve (K3's function) n={N_AUG} B={B} "
                 f"float32", ldl_solve_call(L0, D0, b),
-                solve_ldlt(L0, D0, b), 1e-4, 1)
+                solve_ldlt(L0, D0, b), 1e-4, 0)
         out[B] = t
         print(f"timing B={B} n={N_AUG} float32 (ms per call, CUDA events): "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
@@ -1695,8 +1726,8 @@ def build_kernels(extra=None):
     src = cpu_solver.kernel_source()
     team_srcs = team_sources(cpu_solver)
     wide = wide_jobs()
-    phase_srcs = {route: chip_phases.phase_sources(route)
-                  for route in chip_phases.ROUTES}
+    phase_srcs = {key: chip_phases.phase_sources(key[1], key[0])
+                  for key in chip_phases.BUILDS}
     libs = {"ldlt": _build.library_path("ldlt"),
             "cr": _build.library_path("cr"),
             "roofline": _build.library_path("roofline"),
@@ -1704,10 +1735,11 @@ def build_kernels(extra=None):
     for lanes, text in team_srcs.items():
         libs[f"team{lanes}"] = _build.generated_library_path("fused_team",
                                                              text)
-    for route, texts in phase_srcs.items():
+    for (point, route), texts in phase_srcs.items():
         for p, text in enumerate(texts):
-            libs[f"phase {route} {p}"] = _build.generated_library_path(
-                cuda_fused.PHASE_LIBS[route], text)
+            libs[f"phase {route} {p} ({point})"] = \
+                _build.generated_library_path(cuda_fused.PHASE_LIBS[route],
+                                              text)
     for k, (path, _, _) in wide.items():
         libs[k] = path
     cached = {k: p.exists() for k, p in libs.items()}
@@ -1717,10 +1749,11 @@ def build_kernels(extra=None):
     for lanes, text in team_srcs.items():
         jobs[f"team{lanes}"] = lambda t=text: cuda_fused.library(
             t, "fused_team")
-    for route, texts in phase_srcs.items():
+    for (point, route), texts in phase_srcs.items():
         for p, text in enumerate(texts):
-            jobs[f"phase {route} {p}"] = lambda t=text, r=route: \
-                cuda_fused.library(t, cuda_fused.PHASE_LIBS[r])
+            jobs[f"phase {route} {p} ({point})"] = \
+                lambda t=text, r=route: cuda_fused.library(
+                    t, cuda_fused.PHASE_LIBS[r])
     for k, (_, _, build) in wide.items():
         jobs[k] = build
     jobs.update(extra or {})
@@ -1748,11 +1781,11 @@ def build_kernels(extra=None):
     report_block_builds(wide_sources("block"), libs, cached, seconds)
     print_build(ROOFLINE_SOURCE, libs["roofline"], cached["roofline"],
                 seconds["roofline"])
-    for route, texts in phase_srcs.items():
+    for (point, route), texts in phase_srcs.items():
         for p in range(len(texts)):
-            k = f"phase {route} {p}"
+            k = f"phase {route} {p} ({point})"
             how = "reused" if cached[k] else "compiled"
-            print(f"build: T3 {route} route prefix {p} ready in "
+            print(f"build: T3 {route} route prefix {p} ({point}) ready in "
                   f"{seconds[k]:.2f} s ({how} {libs[k].name})")
     return chip_phases.report_ptxas()
 
@@ -4155,11 +4188,13 @@ def measure_roofline(dev, k2_ms, k2_block, k1_ms, k1_team_ms):
 
 
 def measure_phases(dev, ptxas):
-    """Step 31: each T3 prefix of both routes held to its plain version at
-    B=10240 and B=512, then the timed prefixes, whose launches are
-    counted by route.  Returns the largest absolute difference (last
-    prefix, float32, at B=10240) and the launch count by route ("phase"
-    the thread route's, "phase team" the team route's), and the
+    """Step 31: each T3 prefix of the thread and team routes held to its
+    plain version at the fused slice's B=10240 and B=512, then the timed
+    prefixes, whose launches are counted by route; then the block and
+    wide routes (measure_wide_phases).  Returns the largest absolute
+    difference (last prefix, float32, at B=10240; the wide route's in
+    float64), the launch count by route ("phase" the thread route's,
+    "phase team", "phase block", "phase wide" the others') and the
     kernels-line times of the last prefix by route."""
     import torch
     import chip_phases as ph
@@ -4169,15 +4204,18 @@ def measure_phases(dev, ptxas):
     errs = {}
     for route in ph.ROUTES:
         key = "phase" if route == "thread" else f"phase {route}"
-        errs[key] = ph.check_phases(dev, B_SLICE, route)
+        errs[key] = ph.check_phases(dev, B_SLICE, route)["float32"]
         ph.check_phases(dev, ph.B_TILE, route)
     cuda_fused.reset_launch_counts()
     for B in (B_SLICE, ph.B_TILE):
         for dtype in (torch.float32, torch.float64):
             for route in ph.ROUTES:
-                times, _ = ph.time_phases(dev, B, dtype, ptxas[route], route)
+                times, _ = ph.time_phases(dev, B, dtype,
+                                          ptxas[("slice", route)], route)
                 if B == B_SLICE:
-                    ph.check_slopes(times, B, dtype, route)
+                    ph.check_slopes(times, B,
+                                    ph.point_solver("slice", dev, dtype),
+                                    route)
                     if dtype == torch.float32:
                         check(all(b >= 0.97 * a
                                   for a, b in zip(times, times[1:])),
@@ -4194,11 +4232,10 @@ def measure_phases(dev, ptxas):
         check(v > 0, f"the phase measurement never launched T3's {k}")
 
     last = len(fp.PHASES) - 1
-    solver = fused_solver(dev, torch.float32)
-    _, soa = ph.slice_inputs(solver, B_SLICE, dev)
+    solver, _, soa = ph.point_inputs("slice", B_SLICE, dev, torch.float32)
     plain_ms = time_cuda(lambda: fp.phase_plain(solver, soa, last, 1, 1), 2)
     bnd = bound(sum(a.numel() for a in soa) + 2 * B_SLICE,
-                ph.phase_flops(last) * B_SLICE, torch.float32)
+                ph.phase_flops(last, solver) * B_SLICE, torch.float32)
     times = {}
     for route in ph.ROUTES:
         ms = time_cuda(lambda: fp.phase(solver, soa, last, 1, 1, route), 20)
@@ -4207,6 +4244,68 @@ def measure_phases(dev, ptxas):
         print(f"timing T3 prefix {last} {route} route B={B_SLICE} float32 "
               f"(ms per launch, CUDA events): kernel {ms:.4f}, plain "
               f"{plain_ms:.4f}; bound {bnd[0]:.6f} ms by {bnd[1]}")
+    w_errs, w_launches, w_times = measure_wide_phases(dev)
+    errs.update(w_errs)
+    launches.update(w_launches)
+    times.update(w_times)
+    return errs, launches, times
+
+
+#: the block and wide routes' kernels-line points: (chip_phases point,
+#: batch, type)
+T3_WIDE_ROWS = {"phase block": ("wide", WIDE_SLICE_B, "float32"),
+                "phase wide": ("wide route", 256, "float64")}
+
+
+def measure_wide_phases(dev):
+    """Step 31, T3's block and wide routes: with the launch counts set to 0
+    just before, phase() with no route (the route K1 takes) holds every
+    prefix at the wide slice's point (portfolio aug 129) at B=4096 and
+    B=512, float32 and float64, and prefixes 2 and 4 at portfolio aug 257
+    float64, B=256, to the plain version; the counts by route are read
+    just after, and only the block and the wide route may have launched.
+    Then one launch of prefix 4 on each route against the plain version
+    and the bound (T3_WIDE_ROWS).  Returns errs, launches and times as
+    measure_phases, keyed "phase block" / "phase wide"."""
+    import torch
+    import chip_phases as ph
+    from ipmzoo_tpu_torch.models import fused_phases as fp
+    from ipmzoo_tpu_torch.ops import cuda_fused
+
+    t0 = time.perf_counter()
+    cuda_fused.reset_launch_counts()
+    batches, _, _ = ph.POINTS["wide"]
+    errs = {"phase block": ph.check_phases(dev, batches[0], None,
+                                           "wide")["float32"]}
+    for B in batches[1:]:
+        ph.check_phases(dev, B, None, "wide")
+    errs["phase wide"] = ph.check_phases(
+        dev, T3_WIDE_ROWS["phase wide"][1], None, "wide route",
+        ("float64",), (2, 4))["float64"]
+    counts = dict(cuda_fused.phase_route_launches)
+    print(f"phases: launches of T3 at portfolio aug 129 and 257 by route "
+          f"{counts}")
+    check(counts["phase thread"] == counts["phase team"] == 0,
+          f"another route stood in for T3's block or wide route: {counts}")
+    launches = {k: counts[k] for k in T3_WIDE_ROWS}
+    for k, v in launches.items():
+        check(v > 0, f"T3 at the wide points never launched its {k} route")
+    times = {}
+    last = len(fp.PHASES) - 1
+    for key, (point, B, name) in T3_WIDE_ROWS.items():
+        dtype = getattr(torch, name)
+        solver, _, soa = ph.point_inputs(point, B, dev, dtype)
+        plain_ms = time_cuda(lambda: fp.phase_plain(solver, soa, last, 1, 1),
+                             2)
+        ms = time_cuda(lambda: fp.phase(solver, soa, last, 1, 1), 20)
+        bnd = bound(sum(a.numel() for a in soa) + 2 * B,
+                    ph.phase_flops(last, solver) * B, dtype)
+        times[key] = (ms, plain_ms, bnd)
+        print(f"timing T3 prefix {last} {key.split()[1]} route ({point}, "
+              f"aug_dim {solver.aug_dim}) B={B} {name} (ms per launch, CUDA "
+              f"events): kernel {ms:.4f}, plain {plain_ms:.4f}; bound "
+              f"{bnd[0]:.6f} ms by {bnd[1]}")
+    print(f"step 31, block and wide routes: {time.perf_counter() - t0:.1f} s")
     return errs, launches, times
 
 
@@ -5469,15 +5568,24 @@ def tp_rank(D1, x1):
             "bcast_ms": bcast_ms}
 
 
+def tp_ranks(D1, x1):
+    """One rank of steps 54 and 55 (a spawned process): step 54's factor
+    and solve, then step 55's two-rank solve, in one process, so that the
+    ranks start once."""
+    return tp_rank(D1, x1), tp_ipm_rank()
+
+
 def run_tp_two_ranks(ref):
     """Step 54: the tp factor and solve at TP_WORLD ranks sharing the card
-    (gloo), against step 53's."""
+    (gloo), against step 53's.  The same spawned ranks then run step 55's
+    two-rank solve: returns their results, which run_tp_ipm checks."""
     import numpy as np
     from ipmzoo_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
     print(f"step 54 on {card()}")
-    outs = spawn(tp_rank, TP_WORLD, ref["D"], ref["x"], timeout=600)
+    both = spawn(tp_ranks, TP_WORLD, ref["D"], ref["x"], timeout=1500)
+    outs = [b[0] for b in both]
     stages = TP_DIM // TP_PANEL
     for out in outs:
         print(f"tp rank {out['rank']} of {TP_WORLD} on {out['device']} "
@@ -5502,7 +5610,9 @@ def run_tp_two_ranks(ref):
         check(np.array_equal(out["D"], outs[0]["D"]) and
               np.array_equal(out["x"], outs[0]["x"]),
               f"tp rank {out['rank']}: D or x differs from rank 0's")
-    print(f"step 54: {time.perf_counter() - t0:.1f} s")
+    print(f"step 54 (with step 55's two-rank solve): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [b[1] for b in both]
 
 
 def tp_qp(dev):
@@ -5560,7 +5670,8 @@ def tp_solve_counted(solver, data, mesh=None):
 
 
 def tp_ipm_rank():
-    """One rank of step 55's two-rank solve (a spawned process)."""
+    """One rank of step 55's two-rank solve (in step 54's spawned
+    processes, tp_ranks)."""
     from ipmzoo_tpu_torch.parallel import make_mesh
     mesh = make_mesh((TP_WORLD,), ("tp",))
     data = tp_qp(mesh.device)
@@ -5575,12 +5686,12 @@ def tp_ipm_rank():
             "device": str(mesh.device)}
 
 
-def run_tp_ipm(dev):
+def run_tp_ipm(dev, outs):
     """Step 55: kernel='sharded' on the slow test's QP at one rank and at
-    TP_WORLD, against kernel='jnp' on the card."""
+    TP_WORLD (``outs``: the ranks' results of tp_ipm_rank, which step 54's
+    spawned processes ran), against kernel='jnp' on the card."""
     import numpy as np
     from ipmzoo_tpu_torch.parallel import make_mesh
-    from ipmzoo_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
     print(f"step 55 on {card()}")
@@ -5620,7 +5731,6 @@ def run_tp_ipm(dev):
           f"of 3), {ms / iters:.3f} ms an iteration, {launches / iters:.1f} "
           f"launches an iteration, {100 * busy / ms:.1f}% busy, {syncs} "
           f"loop syncs")
-    outs = spawn(tp_ipm_rank, TP_WORLD, timeout=900)
     for out in outs:
         hold(f"tp QP kernel='sharded' rank {out['rank']} of {TP_WORLD}",
              out["x"], out["iterations"], out["converged"], out["k2"])
@@ -6033,8 +6143,7 @@ def main():
     run_sp_two_ranks(sp_local)
     dp_routes = run_dp_sharded(dev)
     tp_ref, tp_k2 = run_tp_factor(dev)
-    run_tp_two_ranks(tp_ref)
-    run_tp_ipm(dev)
+    run_tp_ipm(dev, run_tp_two_ranks(tp_ref))
     run_dryrun(dev)
     t_new = time.perf_counter()
     run_cli(dev)
@@ -6267,6 +6376,16 @@ def main():
               f"generated; float32, B={B_SLICE}, one repetition)",
               T3_TEAM_SOURCE, "phase team", p_launches["phase team"],
               *p_times["phase team"], None),
+        entry("T3 block route prefix 4 (one thread block of W=%d warps an "
+              "instance; generated; float32, portfolio n=%d aug %d, B=%d, "
+              "one repetition)" % (w_warps, w_shape[0], w_shape[0] + 1,
+                                   WIDE_SLICE_B), T3_BLOCK_SOURCE,
+              "phase block", p_launches["phase block"],
+              *p_times["phase block"], None),
+        entry("T3 wide route prefix 4 (one warp an instance; generated; "
+              "float64, portfolio n=256 aug 257, B=%d, one repetition)"
+              % T3_WIDE_ROWS["phase wide"][1], T3_WIDE_SOURCE, "phase wide",
+              p_launches["phase wide"], *p_times["phase wide"], None),
     ]
     for k in kernels:
         print(f"bound: {k['name']}: {k['bound_ms']:.6f} ms by "

@@ -29,7 +29,7 @@
 //
 //   0  the start iterate only
 //   1  + F::assemble               acc += sum of the symmetric K
-//   2  + TeamFactor (team_ldlt)    acc += D[0]
+//   2  + the factor                acc += D[0]
 //   3  + F::residuals at mu = 0, team_direction, F::corrector,
 //        team_direction (both at the start mu: no step length, no sigma)
 //                                   acc += the corrector delta's first entry
@@ -57,10 +57,15 @@
 
 namespace ipmzoo_fused {
 
-template <typename F, typename T, int PHASE>
+// The prefix on one team, the LDL^T by `factor`, as team_fused_step takes
+// it: TeamFactor (team_ldlt on the team) here and on the wide route,
+// BlockFactor (block_ldlt on the whole block) on the block route
+// (fused_phases_block.cuh).
+template <typename F, typename T, int PHASE, typename Factor>
 IPM_FN void phase_team(const Team<T>& tm, const Staged<T>& dat,
-                       const Work<T>& w, const Params<T>& prm, int reps,
-                       int perturb, T& acc_out, T& sink_out) {
+                       const Work<T>& w, const Factor& factor,
+                       const Params<T>& prm, int reps, int perturb,
+                       T& acc_out, T& sink_out) {
   F::template init<T>(tm, dat, w.trial);
   const T mu = prm.mu0;
   T acc = T(0), sink = T(0);
@@ -81,7 +86,7 @@ IPM_FN void phase_team(const Team<T>& tm, const Staged<T>& dat,
       team_sync(tm);   // the factor overwrites K in place
     }
     if (PHASE >= 2) {
-      TeamFactor{}.template run<F::kAug>(tm, w.K, w.D, prm.pivot_floor);
+      factor.template run<F::kAug>(tm, w.K, w.D, prm.pivot_floor);
       T s = T(0);
       for (int i = 1; i < F::kAug; ++i)
         for (int j = tm.lane; j < i; j += kLanes) s += w.K[tri(i, j)];
@@ -136,8 +141,8 @@ phase_team_kernel(Data<T> dat, Params<T> prm, T* acc, T* sink, int reps,
   const Team<T> tm{static_cast<int>(threadIdx.x % kLanes),
                    team_mask(threadIdx.x), region + L::kSlot};
   T a, s;
-  phase_team<F, T, PHASE>(tm, staged<F, T>(region), work<F, T>(region), prm,
-                          reps, perturb, a, s);
+  phase_team<F, T, PHASE>(tm, staged<F, T>(region), work<F, T>(region),
+                          TeamFactor{}, prm, reps, perturb, a, s);
   if (tm.lane == 0) {
     acc[b0 + team] = a;
     sink[b0 + team] = s;
@@ -170,8 +175,8 @@ int phase_team_entry(const T* const* data9, T* acc, T* sink, long long B,
     host_team(region.data() + L::kSlot, [&](const Team<T>& tm) {
       T a, s;
       phase_team<F, T, PHASE>(tm, staged<F, T>(region.data()),
-                              work<F, T>(region.data()), prm, reps, perturb,
-                              a, s);
+                              work<F, T>(region.data()), TeamFactor{}, prm,
+                              reps, perturb, a, s);
       if (tm.lane == 0) {
         acc[b] = a;
         sink[b] = s;

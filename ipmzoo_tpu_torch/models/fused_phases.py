@@ -6,8 +6,9 @@ start of that solve, only a prefix of one iteration — the start iterate
 | + KKT assembly | + the LDL^T factor | + the predictor and corrector
 directions | + three metrics evaluations — through the very functions K1
 runs, so that the time and, from ptxas, the registers, stack frame and
-spills of each prefix can be read apart.  It has K1's two routes below
-order 128:
+spills of each prefix can be read apart.  It has K1's four routes, so
+that it runs on the route K1 itself takes at every order and dtype K1
+runs:
 
 * the thread route, :func:`phase_source`: ``csrc/fused_ipm.cuh``,
   ``csrc/fused_phases.cuh`` (``phase_kernel<F, T, PHASE>``, one thread an
@@ -18,7 +19,18 @@ order 128:
   ``csrc/fused_phases_team.cuh``: ``phase_team_kernel<F, T, PHASE>``, a
   team of lanes an instance with its region in shared memory, and the
   ``struct Form`` of :class:`.codegen_team.CppTeam`) with the entry points
-  for that PHASE.
+  for that PHASE;
+* the block route, :func:`phase_block_source`: K1's block route's text
+  (the team code at 32 lanes and ``csrc/fused_wide_block.cuh``),
+  ``csrc/fused_phases_team.cuh`` and ``csrc/fused_phases_block.cuh``
+  (``phase_block_kernel<F, T, PHASE>``: a thread block of W = 2, 4 or 8
+  warps an instance, warp 0 running the prefix and all W warps the
+  factor, on K1's shared layout and device-memory workspace);
+* the wide route, :func:`phase_wide_source`: K1's wide route's text (the
+  team code at 32 lanes and ``csrc/fused_wide.cuh``),
+  ``csrc/fused_phases_team.cuh`` and ``csrc/fused_phases_wide.cuh``
+  (``phase_wide_kernel<F, T, PHASE>``: one warp an instance, its region in
+  a device-memory workspace).
 
 Each prefix is a translation unit of its own.  :func:`phase` launches one
 through ``ops/cuda_fused.py`` for CUDA tensors, on the route K1 itself
@@ -35,17 +47,19 @@ import torch
 from ..ops import cuda_fused
 from . import codegen_soa as soa
 from .fused import DATA_FIELDS, _ldlt_soa
-from .fused_source import (CUH, TEAM_CUH, _team_text, describe, form_struct,
-                           team_lanes)
+from .fused_source import (BLOCK_CUH, CUH, TEAM_CUH, WIDE_CUH, _team_text,
+                           describe, form_struct, team_lanes)
 
 PHASE_CUH = Path(__file__).resolve().parents[1] / "csrc" / "fused_phases.cuh"
 PHASE_TEAM_CUH = PHASE_CUH.with_name("fused_phases_team.cuh")
+PHASE_BLOCK_CUH = PHASE_CUH.with_name("fused_phases_block.cuh")
+PHASE_WIDE_CUH = PHASE_CUH.with_name("fused_phases_wide.cuh")
 
 #: what each prefix adds to the one before
 PHASES = ("start iterate only", "+ assemble", "+ factor",
           "+ directions (predictor, corrector)", "+ metrics x3")
 #: T3's routes, each K1's of the same name
-ROUTES = ("thread", "team")
+ROUTES = ("thread", "team", "block", "wide")
 
 
 def _check_prefix(solver, phase: int) -> None:
@@ -60,8 +74,13 @@ def _check_prefix(solver, phase: int) -> None:
 def phase_source(solver, phase: int) -> str:
     """T3's thread route for prefix ``phase`` (0-4) of ``solver``'s
     formulation and sizes.  Deterministic, and independent of the dtype
-    and the scalar settings, as K1's."""
+    and the scalar settings, as K1's; refused above order THREAD_MAX_AUG,
+    where K1's thread route is not built either."""
     _check_prefix(solver, phase)
+    if solver.aug_dim > cuda_fused.THREAD_MAX_AUG:
+        raise ValueError(f"T3's thread route, as K1's, is built only up to "
+                         f"order {cuda_fused.THREAD_MAX_AUG}, not "
+                         f"{solver.aug_dim}")
     body, total = form_struct(solver)
     head = (["// Kernel T3, generated by "
              "ipmzoo_tpu_torch/models/fused_phases.py.",
@@ -88,6 +107,38 @@ def phase_team_source(solver, phase: int) -> str:
                       "IPMZOO_PHASE_TEAM_ENTRY_POINTS", args=f", {phase}")
 
 
+def phase_block_source(solver, phase: int) -> str:
+    """T3's block route for prefix ``phase`` (0-4) of ``solver``'s
+    formulation and sizes: K1's block route's text
+    (:func:`.fused_source.fused_wide_block_source`: the team code at 32
+    lanes, the same ``struct Form``), the prefix's headers and its entry
+    points.  Deterministic, independent of the dtype, the scalar settings
+    and the warps a block (a launch argument, as K1's)."""
+    _check_prefix(solver, phase)
+    return _team_text(solver, f"Kernel T3, block route, prefix {phase}: "
+                      f"{PHASES[phase]}", 32,
+                      (TEAM_CUH, BLOCK_CUH, PHASE_TEAM_CUH, PHASE_BLOCK_CUH),
+                      "IPMZOO_PHASE_BLOCK_ENTRY_POINTS", args=f", {phase}")
+
+
+def phase_wide_source(solver, phase: int) -> str:
+    """T3's wide route for prefix ``phase`` (0-4) of ``solver``'s
+    formulation and sizes: K1's wide route's text
+    (:func:`.fused_source.fused_wide_source`), the prefix's headers and its
+    entry points.  Deterministic, independent of the dtype and the scalar
+    settings."""
+    _check_prefix(solver, phase)
+    return _team_text(solver, f"Kernel T3, wide route, prefix {phase}: "
+                      f"{PHASES[phase]}", 32,
+                      (TEAM_CUH, WIDE_CUH, PHASE_TEAM_CUH, PHASE_WIDE_CUH),
+                      "IPMZOO_PHASE_WIDE_ENTRY_POINTS", args=f", {phase}")
+
+
+#: each route's source of a prefix
+SOURCES = {"thread": phase_source, "team": phase_team_source,
+           "block": phase_block_source, "wide": phase_wide_source}
+
+
 def phase_route(solver, B: int) -> str:
     """The route K1 takes for a launch of ``B`` instances of ``solver``'s
     sizes (:func:`..ops.cuda_fused.k1_route`): T3's default."""
@@ -102,7 +153,8 @@ def phase_plain(solver, data_soa, phase: int, reps: int = 1,
     (..., B) in ``DATA_FIELDS`` order): returns (acc, sink), each (1, B).
     ``acc`` is the reference kernel's value; ``sink`` also sums
     everything a phase produces.  ``reps`` and ``perturb`` as in
-    ``csrc/fused_phases.cuh``.  Both routes compute this function."""
+    ``csrc/fused_phases.cuh``.  All four routes compute this
+    function."""
     o = solver.symbols
     dt = solver.dtype
     B = data_soa[0].shape[-1]
@@ -162,27 +214,40 @@ def phase_plain(solver, data_soa, phase: int, reps: int = 1,
     return acc, sink
 
 
+def launch_route(solver, B: int, route: str = None):
+    """(route, warps) of a launch of ``B`` instances: ``route`` (one of
+    ROUTES; None: K1's, :func:`phase_route`) and, on the block route,
+    K1's warps a block (:func:`..ops.cuda_fused.block_warps`), else
+    None.  Raises on a route T3 does not have and on the block route
+    where K1 takes none at these sizes."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"T3 has no route {route!r}: {ROUTES}")
+    route = route or phase_route(solver, B)
+    if route != "block":
+        return route, None
+    warps = cuda_fused.block_warps(solver.k1_sizes(), solver.dtype,
+                                   solver.k1_slots())
+    if warps is None:
+        raise ValueError(f"K1 takes no block route at aug_dim "
+                         f"{solver.aug_dim} in {solver.dtype}")
+    return route, warps
+
+
 def phase(solver, data_soa, phase: int, reps: int = 1, perturb: int = 0,
           route: str = None):
     """Prefix ``phase`` on SoA tensors: kernel T3 for CUDA tensors (built
-    at first use) on ``route`` ("thread" or "team"; None: the route K1
-    takes at this shape, :func:`phase_route`, which raises where that is
-    neither), its plain version for CPU tensors; (acc, sink), each
-    (1, B)."""
-    if route is not None and route not in ROUTES:
-        raise ValueError(f"T3 has no route {route!r}: {ROUTES}")
-    device = data_soa[0].device
-    if device.type == "cpu":
+    at first use) on ``route`` (one of ROUTES; None: the route K1 takes at
+    this shape, at K1's warps a block on the block route:
+    :func:`launch_route`), its plain version for CPU tensors; (acc, sink),
+    each (1, B)."""
+    B = data_soa[0].shape[-1]
+    route, warps = launch_route(solver, B, route)
+    if data_soa[0].device.type == "cpu":
         return phase_plain(solver, data_soa, phase, reps, perturb)
-    if route is None:
-        route = phase_route(solver, data_soa[0].shape[-1])
-        if route not in ROUTES:
-            raise ValueError(f"K1 takes its {route} route at this shape; "
-                             f"T3 has only {ROUTES}")
     # the text is generated once per solver, route and prefix, as K1's is
     sources = solver._phase_sources
     if (route, phase) not in sources:
-        make = phase_team_source if route == "team" else phase_source
-        sources[(route, phase)] = make(solver, phase)
+        sources[(route, phase)] = SOURCES[route](solver, phase)
     return cuda_fused.phase_soa(sources[(route, phase)], data_soa,
-                                solver.kernel_params(), reps, perturb, route)
+                                solver.kernel_params(), reps, perturb, route,
+                                warps)

@@ -22,10 +22,10 @@ launch raise.  The plain version is
 CPU tensors.
 
 Kernel T3 (the prefixes of one fused iteration,
-``models/fused_phases.py``) has K1's thread and team routes, generated
-around the same headers, and is launched here the same way:
-:func:`phase_soa`, with :func:`bind_phase` / :func:`call_phase` for a host
-build.
+``models/fused_phases.py``) has K1's four routes, generated around the
+same headers, and is launched here the same way: :func:`phase_soa`, with
+:func:`bind_phase` / :func:`call_phase` for a host build; the block and
+wide routes' workspace is allocated here as K1's.
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ from . import _build
 launches = {"fused": 0, "phase": 0}
 route_launches = {"fused thread": 0, "fused team": 0, "fused wide": 0,
                   "fused block": 0}
-phase_route_launches = {"phase thread": 0, "phase team": 0}
+phase_route_launches = {"phase thread": 0, "phase team": 0,
+                        "phase block": 0, "phase wide": 0}
 
 #: K1's routes, one thread per instance (``csrc/fused_ipm.cuh``), a team
 #: of lanes per instance (``csrc/fused_team.cuh``), a warp per instance
@@ -57,6 +58,11 @@ _LIB_NAME = {"thread": "fused_ipm", "team": "fused_team",
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CTYPE = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+#: the arguments of K1's and T3's entries before the stream that a route
+#: adds: the wide route its workspace, the block route its warps a block
+#: and its workspace
+_ROUTE_ARGTYPES = {"wide": [ctypes.c_void_p],
+                   "block": [ctypes.c_int, ctypes.c_void_p]}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -69,7 +75,7 @@ def reset_launch_counts() -> None:
 def library(source: str, name: str = "fused_ipm") -> ctypes.CDLL:
     """The built and loaded library of the generated ``source`` (built at
     first use): K1 under its default name, a prefix of T3 under
-    ``fused_phase`` (``fused_phase_team`` on the team route)."""
+    ``PHASE_LIBS``' name of its route."""
     lib = _LIBS.get(source)
     if lib is None:
         lib = _LIBS[source] = _build.load_generated(name, source)
@@ -96,11 +102,23 @@ def bind(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
         raise TypeError(f"K1 takes float32/float64, not {dtype}")
     fn = getattr(lib, f"{_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    extra = {"wide": [ptr], "block": [i32, ptr]}.get(route, [])
     fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32,
-                   i32] + extra + [ptr]
+                   i32] + _ROUTE_ARGTYPES.get(route, []) + [ptr]
     fn.restype = i32
     return fn
+
+
+def _route_args(B: int, region: Optional[int], warps: Optional[int],
+                dtype: torch.dtype, device):
+    """The route's arguments of an entry (_ROUTE_ARGTYPES): ``warps`` where
+    given, and a workspace of B x ``region`` values allocated on
+    ``device`` where ``region`` is given; and the workspace tensor, which
+    the caller keeps until the launch is enqueued."""
+    extra, work = (() if warps is None else (warps,)), None
+    if region is not None:
+        work = torch.empty(B * region, dtype=dtype, device=device)
+        extra += (work.data_ptr(),)
+    return extra, work
 
 
 def call(fn, data: Sequence[torch.Tensor],
@@ -142,10 +160,7 @@ def call(fn, data: Sequence[torch.Tensor],
                                    for t in data))
     out_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in outs))
     prm = (_CTYPE[dtype] * 6)(*params)
-    extra = () if warps is None else (warps,)
-    if region is not None:
-        work = torch.empty(B * region, dtype=dtype, device=device)
-        extra += (work.data_ptr(),)
+    extra, work = _route_args(B, region, warps, dtype, device)
     err = fn(ptrs, v0, mu0, it0, out_ptrs, B, prm, max_iter,
              int(warm is not None), gondzio, *extra, stream)
     return outs, err
@@ -169,11 +184,7 @@ def fused_soa(source: str, data: Sequence[torch.Tensor],
     lib = library(source, _LIB_NAME[route])
     fn = bind(lib, data[0].dtype, route)
     with torch.cuda.device(device):
-        region = None
-        if route == "wide":
-            region = wide_shape(lib, data[0].dtype)["region"]
-        elif route == "block":
-            region = block_shape(lib, data[0].dtype, warps)["region"]
+        region = region_values(lib, data[0].dtype, route, warps)
         stream = torch.cuda.current_stream(device).cuda_stream
         outs, err = call(fn, data, warm, n, total, max_iter, gondzio, params,
                          stream, region, warps)
@@ -301,62 +312,87 @@ def team_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
                     out))
 
 
-def wide_shape(lib: ctypes.CDLL, dtype: torch.dtype) -> Dict[str, int]:
+def wide_shape(lib: ctypes.CDLL, dtype: torch.dtype,
+               kernel: str = "fused") -> Dict[str, int]:
     """What a wide build is for ``dtype``: lanes an instance, threads a
     block, values of workspace an instance (its TeamLayout region) and
-    blocks resident per SM (0 in a host build)."""
-    fn = lib.ipmzoo_fused_wide_shape
+    blocks resident per SM (0 in a host build); ``kernel`` "fused" asks
+    K1's library, "phase" a T3 prefix's."""
+    fn = getattr(lib, f"ipmzoo_{kernel}_wide_shape")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     err = fn(torch.finfo(dtype).bits // 8, out)
     if err:
-        raise RuntimeError(f"K1 wide route: occupancy query failed: "
+        raise RuntimeError(f"{kernel} wide route: occupancy query failed: "
                            f"cudaError {err}")
     return dict(zip(("lanes", "threads", "region", "blocks_per_sm"), out))
 
 
-def block_shape(lib: ctypes.CDLL, dtype: torch.dtype,
-                warps: int) -> Dict[str, int]:
+def block_shape(lib: ctypes.CDLL, dtype: torch.dtype, warps: int,
+                kernel: str = "fused") -> Dict[str, int]:
     """What a block build is for ``dtype`` at ``warps`` warps a block:
     lanes of the team, threads a block, values of workspace an instance
     (the staged data), bytes of shared memory a block and blocks resident
-    per SM (0 in a host build, and where the block does not fit)."""
-    fn = lib.ipmzoo_fused_block_shape
+    per SM (0 in a host build, and where the block does not fit);
+    ``kernel`` "fused" asks K1's library, "phase" a T3 prefix's."""
+    fn = getattr(lib, f"ipmzoo_{kernel}_block_shape")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
     err = fn(torch.finfo(dtype).bits // 8, warps, out)
     if err:
-        raise RuntimeError(f"K1 block route: occupancy query failed: "
+        raise RuntimeError(f"{kernel} block route: occupancy query failed: "
                            f"cudaError {err}")
     return dict(zip(("lanes", "threads", "region", "shared_bytes",
                      "blocks_per_sm"), out))
 
 
+def region_values(lib: ctypes.CDLL, dtype: torch.dtype, route: str,
+                  warps: Optional[int] = None,
+                  kernel: str = "fused") -> Optional[int]:
+    """The workspace values an instance of a launch of ``lib``, built on
+    ``route``: the wide route's region (:func:`wide_shape`), the block
+    route's staged data at ``warps`` (:func:`block_shape`), None on the
+    routes that keep everything in shared memory or registers; ``kernel``
+    "fused" for K1's library, "phase" for a T3 prefix's."""
+    if route == "wide":
+        return wide_shape(lib, dtype, kernel)["region"]
+    if route == "block":
+        return block_shape(lib, dtype, warps, kernel)["region"]
+    return None
+
+
 #: T3's routes: entry-point prefixes and library names
-_PHASE_ENTRY = {"thread": "ipmzoo_phase", "team": "ipmzoo_phase_team"}
-PHASE_LIBS = {"thread": "fused_phase", "team": "fused_phase_team"}
+_PHASE_ENTRY = {"thread": "ipmzoo_phase", "team": "ipmzoo_phase_team",
+                "block": "ipmzoo_phase_block", "wide": "ipmzoo_phase_wide"}
+PHASE_LIBS = {"thread": "fused_phase", "team": "fused_phase_team",
+              "block": "fused_phase_block", "wide": "fused_phase_wide"}
 
 
 def bind_phase(lib: ctypes.CDLL, dtype: torch.dtype, route: str = "thread"):
     """T3's entry point in ``lib`` (built from the ``route``'s source) for
     ``dtype``, with its ctypes signature; the routes take the same
-    arguments."""
+    arguments, the wide route its workspace before the stream, the block
+    route its warps a block and its workspace."""
     if dtype not in _SUFFIX:
         raise TypeError(f"T3 takes float32/float64, not {dtype}")
     fn = getattr(lib, f"{_PHASE_ENTRY[route]}_{_SUFFIX[dtype]}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr]
+    fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32] + \
+        _ROUTE_ARGTYPES.get(route, []) + [ptr]
     fn.restype = i32
     return fn
 
 
 def call_phase(fn, data: Sequence[torch.Tensor], params: Sequence[float],
-               reps: int = 1, perturb: int = 0, stream=None):
+               reps: int = 1, perturb: int = 0, stream=None,
+               region: Optional[int] = None, warps: Optional[int] = None):
     """Check the SoA data (as :func:`call`), allocate (acc, sink), each
     (1, B), on its device and call T3's entry point ``fn`` once; returns
-    the outputs and the entry's status."""
+    the outputs and the entry's status.  ``region`` and ``warps`` as in
+    :func:`call`: the wide and block routes' workspace values an instance,
+    allocated here on the data's device, and the block route's warps."""
     dtype, device = data[0].dtype, data[0].device
     B = data[0].shape[-1]
     for i, t in enumerate(data):
@@ -368,27 +404,35 @@ def call_phase(fn, data: Sequence[torch.Tensor], params: Sequence[float],
     ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() if t.numel() else None
                                    for t in data))
     prm = (_CTYPE[dtype] * 6)(*params)
+    extra, work = _route_args(B, region, warps, dtype, device)
     err = fn(ptrs, outs[0].data_ptr(), outs[1].data_ptr(), B, prm, reps,
-             perturb, stream)
+             perturb, *extra, stream)
     return outs, err
 
 
 def phase_soa(source: str, data: Sequence[torch.Tensor],
               params: Sequence[float], reps: int = 1, perturb: int = 0,
-              route: str = "thread"):
+              route: str = "thread", warps: Optional[int] = None):
     """Launch the prefix of T3 built from ``source`` (the text of
-    ``route``) on SoA tensors of one CUDA device on the current stream;
-    (acc, sink), each (1, B).  A failed build or launch raises: there is
-    no other route to fall back on."""
+    ``route``) on SoA tensors of one CUDA device on the current stream,
+    the block route on ``warps`` warps a block; (acc, sink), each (1, B).
+    A failed build or launch raises: there is no other route to fall back
+    on."""
     if route not in _PHASE_ENTRY:
         raise ValueError(f"T3 has no route {route!r}")
+    if (route == "block") != (warps is not None):
+        raise ValueError(f"T3's {route} route takes warps={warps}: the "
+                         f"block route needs its warps, no other takes any")
     device = data[0].device
     if device.type != "cuda":
         raise ValueError(f"T3 needs CUDA tensors, got {device}")
-    fn = bind_phase(library(source, PHASE_LIBS[route]), data[0].dtype, route)
+    lib = library(source, PHASE_LIBS[route])
+    fn = bind_phase(lib, data[0].dtype, route)
     with torch.cuda.device(device):
+        region = region_values(lib, data[0].dtype, route, warps, "phase")
         stream = torch.cuda.current_stream(device).cuda_stream
-        outs, err = call_phase(fn, data, params, reps, perturb, stream)
+        outs, err = call_phase(fn, data, params, reps, perturb, stream,
+                               region, warps)
     if err:
         raise RuntimeError(f"T3 (fused phases, {route} route) launch failed: "
                            f"cudaError {err}")

@@ -456,15 +456,23 @@ def test_phase_operations_count_the_factor_and_solves_as_fused_flops():
         import chip_phases
     finally:
         sys.path.remove(ROOT)
+    import torch
     from ipmzoo_tpu_torch.ops.cuda_roofline import fused_flops
-    fac, sol = fused_flops(24)
-    flops = [chip_phases.phase_flops(p) for p in range(5)]
-    mv = chip_phases.MATVEC_FLOPS
-    assert flops[0] == 0 and flops[1] == mv
-    assert flops[2] - flops[1] == fac
-    assert flops[3] - flops[2] == 2 * sol + 2 * mv
-    assert flops[4] - flops[3] == 3 * mv
-    assert flops == sorted(flops)
+    # the fused slice (n=16, m_ineq=8, aug 24) and the portfolios of the
+    # block and wide routes (aug 129 and 257, one equality row)
+    for point, aug, mv in (("slice", 24, 2 * 16 * 16 + 4 * 8 * 16),
+                           ("wide", 129, 2 * 128 * 128 + 4 * 128),
+                           ("wide route", 257, 2 * 256 * 256 + 4 * 256)):
+        solver = chip_phases.point_solver(point, "cpu", torch.float32)
+        assert solver.aug_dim == aug
+        assert chip_phases.matvec_flops(solver) == mv
+        fac, sol = fused_flops(aug)
+        flops = [chip_phases.phase_flops(p, solver) for p in range(5)]
+        assert flops[0] == 0 and flops[1] == mv
+        assert flops[2] - flops[1] == fac
+        assert flops[3] - flops[2] == 2 * sol + 2 * mv
+        assert flops[4] - flops[3] == 3 * mv
+        assert flops == sorted(flops)
 
 
 def test_all_four_scripts_refuse_a_machine_without_a_card(capsys):

@@ -224,10 +224,11 @@ def test_default_route_cpu_counts_no_launch_and_cuda_entry_raises():
         out = fp.phase(port, small, 3, route=route)
         assert all(torch.equal(x, y) for x, y in zip(out, plain))
     assert cuda_fused.launches == {"fused": 0, "phase": 0}
-    assert cuda_fused.phase_route_launches == {"phase thread": 0,
-                                               "phase team": 0}
+    assert cuda_fused.phase_route_launches == {
+        "phase thread": 0, "phase team": 0, "phase block": 0,
+        "phase wide": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_fused.phase_soa(fp.phase_team_source(port, 0), small,
                              port.kernel_params(), route="team")
-    with pytest.raises(ValueError, match="no route 'wide'"):
-        fp.phase(port, small, 0, route="wide")
+    with pytest.raises(ValueError, match="no route 'warp'"):
+        fp.phase(port, small, 0, route="warp")
