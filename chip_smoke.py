@@ -992,61 +992,16 @@ def time_cuda(fn, reps):
     return cuda_time(fn, runs=1, warmup=1, calls=reps).ms
 
 
-#: how often trace_kernels takes a trace again that lost launches
-TRACE_RETAKES = 4
-
-
-def trace_kernels(run, kept):
-    """The device's kernels, as (name, start us, duration us) in the order
-    they ran, in one torch.profiler trace of ``run()``.  A trace for which
-    ``kept(events)`` is false (it lost launches: on the H100 with torch
-    2.11 a trace kept 19 of 20 launches, once 2 of 5, after a few
-    hundred sessions three came back empty, and once three in a row came
-    back empty after a few dozen) is taken again, at most
-    TRACE_RETAKES times, each retake said."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1 + TRACE_RETAKES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        events = sorted(((e.name, e.time_range.start,
-                          e.time_range.elapsed_us()) for e in prof.events()
-                         if e.device_type.name == "CUDA" and
-                         not getattr(e, "is_user_annotation", False)),
-                        key=lambda e: e[1])
-        if kept(events):
-            return events
-        print(f"trace_kernels: trace {attempt + 1} lost the launches under "
-              f"test ({len(events)} device events); taken again")
-    raise AssertionError(f"{1 + TRACE_RETAKES} torch.profiler traces lost "
-                         f"the launches under test")
-
-
 def device_ms(fn, reps):
     """Device milliseconds per call of ``fn``: the time of the CUDA
-    kernels it launches, summed in one trace (trace_kernels) of ``reps``
-    calls after one warm-up call.  Unlike time_cuda it leaves out the
-    host's time between launches, which at a few tens of microseconds a
-    call hides the difference between two short kernels.  The sum is
-    divided by the calls the trace holds, counted by the launches of the
-    kernel with the most device time."""
-    import collections
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    events = trace_kernels(lambda: [fn() for _ in range(reps)], bool)
-    busy, count = collections.Counter(), collections.Counter()
-    for name, _, us in events:
-        busy[name] += us
-        count[name] += 1
-    main = max(busy, key=busy.get)
-    per_call = max(1, round(count[main] / reps))
-    calls = count[main] / per_call
-    if count[main] != per_call * reps:
-        print(f"device_ms: the trace holds {count[main]} launches of "
-              f"{main[:60]} over {reps} calls; dividing by {calls:g}")
-    return sum(busy.values()) / 1e3 / calls
+    kernels it launches, from one trace of ``reps`` calls (the port's
+    ``utils/timer.device_calls``: a whole one if one of five takes is,
+    else the last, divided by the calls it holds, said).  Unlike
+    time_cuda it leaves out the host's time between launches, which at a
+    few tens of microseconds a call hides the difference between two
+    short kernels."""
+    from ipmzoo_tpu_torch.utils.timer import device_calls
+    return device_calls(fn, reps).ms
 
 
 #: the device's idle time between two groups of launch_ms, and the
@@ -1057,7 +1012,8 @@ GROUP_GAP_S, GROUP_SPLIT_US = 0.02, 1e4
 
 def launch_ms(groups, reps):
     """Device milliseconds per launch of each kernel of each group, all
-    in one trace (trace_kernels), so a whole sweep opens one profiler
+    in one trace (the port's ``utils/timer.trace_kernels``, the first
+    group's call its lead), so a whole sweep opens one profiler
     session.  ``groups`` is a list of (fn, kernels): ``reps`` calls of
     ``fn``, and ``kernels`` a name -> (substring of the kernel's name, a
     substring it must not have) map.  The groups run one after another
@@ -1068,6 +1024,7 @@ def launch_ms(groups, reps):
     again.  Returns one name -> ms map per group."""
     import time
     import torch
+    from ipmzoo_tpu_torch.utils import timer
     for fn, _ in groups:
         fn()
     torch.cuda.synchronize()
@@ -1104,7 +1061,8 @@ def launch_ms(groups, reps):
             out.append(ms)
         return out
 
-    return times(trace_kernels(run, lambda ev: times(ev) is not None))
+    return times(timer.trace_kernels(run, lambda ev: times(ev) is not None,
+                                     groups[0][0]))
 
 
 def check_kernels(dev):
@@ -6054,6 +6012,129 @@ def run_examples(dev):
     return walls
 
 
+#: step 60: repetitions of the three probes (their defaults: 5 runs)
+PROBE_RUNS = 2
+#: step 60's process is stopped after this many seconds
+PROBE_DEADLINE_S = 600
+#: step 60: the arrow phases on the card (float32) against the port's CPU
+#: float64 run of the same phases, relative to the larger of 1 and the
+#: output's largest magnitude
+PROBE_ARROW_REL = 1e-4
+#: step 60: the normal probe's float32 pieces (L L^T against H, H^-1 H
+#: against I) and its step rows' x against each other, relative
+PROBE_NORMAL_REL = 1e-4
+
+
+def measured(rows, tool):
+    """Step 60: every row of ``tool`` read its device time and launches
+    from a whole trace (``utils/timer.device_calls``: none divided by a
+    count of calls read off a lossy trace), both finite and above 0, and
+    its host syncs (where it counts them) finite."""
+    import math
+    for r in rows:
+        got = [r["device_ms"], r["launches"]] + ([r["syncs"]] if "syncs" in r
+                                                  else [])
+        check(r["whole"] and all(math.isfinite(v) for v in got) and
+              r["device_ms"] > 0 and r["launches"] > 0,
+              f"{tool} row {r.get('batch', '')} "
+              f"{r['row'] if 'row' in r else r['key']}: whole trace "
+              f"{r['whole']}, device ms {r['device_ms']}, launches "
+              f"{r['launches']}, syncs {r.get('syncs')}")
+
+
+def run_probes(dev):
+    """Step 60: the port's counterparts of the reference's last three
+    probes on the card at their defaults, each row printed with the card's
+    name and power limit: chip_arrow_phases.py (n=4096, bandwidth 16, tip
+    8, float32, the single instance and the batch of 32), whose phases at
+    B=1 are held to the port's CPU float64 run of the same phases;
+    chip_normal_probe.py (n=1024, m=128, B=8), whose pieces are checked
+    and whose step rows must agree within each gondzio; and
+    chip_compact_sched.py (the compact workload under the four schedules),
+    each schedule >= 99% converged."""
+    import torch
+    import chip_arrow_phases as ap
+    import chip_compact_sched as sched
+    import chip_normal_probe as npb
+    from ipmzoo_tpu_torch.utils.timer import host_syncs
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    print(f"step 60 on {card()}")
+    one = torch.ones(1, device=dev)
+    check(host_syncs(lambda: one.sum().item(), 2) == 1,
+          "torch's sync debug mode did not count one .item() a call: the "
+          "probes' host syncs would read 0")
+    measured(ap.run(device=dev, dtype=torch.float32, runs=PROBE_RUNS),
+             "arrow phases")
+    got = ap.results(dtype=torch.float32, device=dev)
+    want = ap.results(dtype=torch.float64, device="cpu")
+    # relative to the larger of 1 and the output's largest magnitude: qx
+    # at the initial x (the bounds' midpoint, 0) is 0
+    worst = {k: max(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+                    .item() for a, b in zip(got[k], want[k]))
+             for k in want}
+    print(f"step 60 arrow phases, card float32 against CPU float64: "
+          f"{json.dumps(worst)}")
+    check(all(v <= PROBE_ARROW_REL for v in worst.values()),
+          f"arrow phases off the CPU float64 run: {worst}")
+
+    rows = npb.run(device=dev, dtype=torch.float32, runs=PROBE_RUNS)
+    measured(rows, "normal probe")
+    check(all(r["ms"] > 0 for r in rows), "a normal-probe row took no time")
+    H, A, b1, Bm = (torch.tensor(a).to(dev) for a in
+                    npb.problem(npb.N, npb.M, npb.B))
+    outs = [fn() for _, fn in npb.pieces(H, A, b1, Bm)]
+    L, hinv = torch.linalg.cholesky(H), outs[3]
+    eye = torch.eye(npb.N, device=dev)
+    errs = {"L L^T": rel_diff(L @ L.mT, H),
+            "1 rhs": rel_diff(L @ outs[1], b1[..., None]),
+            f"{npb.M} rhs": rel_diff(L @ outs[2], Bm),
+            "H^-1 H": rel_diff(hinv @ H, eye.expand_as(H))}
+    xs = {}
+    for r in rows:
+        if "x" in r:
+            check(bool(torch.isfinite(r["x"]).all()), f"normal probe step "
+                  f"{r['row']} gondzio={r['gondzio']}: x not finite")
+            xs.setdefault(r["gondzio"], []).append((r["row"], r["x"]))
+    for gz, group in xs.items():
+        for label, x in group[1:]:
+            errs[f"{label} gondzio={gz}"] = rel_diff(x, group[0][1])
+    print(f"step 60 normal probe checks (relative): {json.dumps(errs)}")
+    check(all(v <= PROBE_NORMAL_REL for v in errs.values()),
+          f"normal probe pieces or step rows off: {errs}")
+
+    for r in sched.run(device=dev, dtype=torch.float32, runs=PROBE_RUNS - 1):
+        check(r["converged"] >= 0.99 and r["iterations"] > 0 and
+              len(r["actives"]) == len(r["schedule"]),
+              f"compact schedule {r['row']}: converged {r['converged']}")
+    print(f"step 60: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def run_probes_apart():
+    """Step 60 (run_probes) in a process of its own on the first card:
+    torch.profiler in a process that has opened a few hundred sessions
+    (this script's steps 8-31) returns empty traces, and the probes read
+    launches and device time from it.  The kernels' libraries are built
+    already, keyed by their text, so the process only loads them."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.stdout.flush()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import torch, chip_smoke; "
+         "chip_smoke.run_probes(torch.device('cuda', 0))"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    try:
+        proc.wait(timeout=PROBE_DEADLINE_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"step 60 exited {proc.returncode}")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -6150,6 +6231,7 @@ def main():
     run_native(dev)
     run_examples(dev)
     print(f"steps 57-59: {time.perf_counter() - t_new:.1f} s")
+    run_probes_apart()
 
     loaded = [m for m in sys.modules
               if m in ("jax", "jaxlib", "ipmzoo_tpu", "bench", "tools")

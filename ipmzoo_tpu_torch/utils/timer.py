@@ -11,6 +11,11 @@
   not completion; CUDA events time the device itself, so that machinery
   has no counterpart here.
 * :func:`host_time` — the same on the host clock, for CPU runs.
+* :func:`cuda_time_rounds` — :func:`cuda_time` of several calls in turns.
+* :func:`trace_kernels` — the device's kernels in a ``torch.profiler``
+  trace, behind a leading call; :func:`device_calls` — device
+  milliseconds and launches of a call from it.
+* :func:`host_syncs` — how often a call waits for the card.
 * :func:`slope` — time per repetition from two in-kernel repetition
   counts, which cancels the launch, the loads and the prologue.
 """
@@ -163,6 +168,172 @@ def host_time(fn: Callable[[], object], runs: int = 5, warmup: int = 1,
             fn()
         times.append(1e3 * (time.perf_counter() - t0) / calls)
     return _timing(times)
+
+
+def _need_card(what: str) -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what} needs a CUDA device")
+
+
+class DeviceCalls(NamedTuple):
+    """Per call on the card: device ms, launches, (name, device ms,
+    launches) of each kernel or copy, the longest first, and whether the
+    trace read was whole (else divided by the calls it holds)."""
+    ms: float
+    launches: float
+    kernels: List[tuple]
+    whole: bool = True
+
+
+class LostLaunches(RuntimeError):
+    """:func:`trace_kernels` kept none of its traces; ``events`` is the
+    last one read."""
+
+    def __init__(self, message: str, events: list):
+        super().__init__(message)
+        self.events = events
+
+
+#: how often :func:`trace_kernels` takes a trace again that it does not keep
+TRACE_RETAKES = 4
+#: the device's idle time after :func:`trace_kernels`' leading call, and
+#: the shortest idle gap in its trace that marks it: longer than any gap
+#: inside a traced run (a call's own launches follow each other within the
+#: host's launch time, tens of us; a sweep's groups are apart a few tens
+#: of ms)
+LEAD_GAP_S, LEAD_SPLIT_US = 0.1, 5e4
+
+
+def after_lead(events):
+    """The (name, start us, duration us) events, in the order they ran,
+    after the first idle gap (from the end of every event before to the
+    start of the next) of at least LEAD_SPLIT_US; all of them where there
+    is none (the lead's launches were lost whole)."""
+    end = None
+    for i, (_, start, us) in enumerate(events):
+        if end is not None and start - end >= LEAD_SPLIT_US:
+            return events[i:]
+        end = start + us if end is None else max(end, start + us)
+    return events
+
+
+def trace_kernels(run: Callable[[], object], kept: Callable[[list], bool],
+                  lead: Callable[[], object]) -> list:
+    """The device's kernels and copies, as (name, start us, duration us)
+    in the order they ran, of ``run()`` in one ``torch.profiler`` session
+    that opens with ``lead()`` and LEAD_GAP_S of idle device, read after
+    that gap (:func:`after_lead`).  torch 2.11 on the H100 drops launches,
+    most at the start of a session (of four K6 launches at B=32, two to
+    four came back; of 20 K2 launches, 17 to 19), which the lead absorbs
+    in a fresh process (not always in a long one: behind it, every trace
+    of a K2 row after chip_smoke.py's Schur slice still lost one launch),
+    and in a process that has opened a few hundred sessions whole traces
+    come back empty.  A trace for which ``kept(events)`` is false is taken
+    again, at most TRACE_RETAKES times, each retake said; then this
+    raises :class:`LostLaunches`."""
+    import time
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _need_card("trace_kernels")
+    for attempt in range(1 + TRACE_RETAKES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead()
+            torch.cuda.synchronize()
+            time.sleep(LEAD_GAP_S)
+            run()
+            torch.cuda.synchronize()
+        events = after_lead(sorted(
+            ((e.name, e.time_range.start, e.time_range.elapsed_us())
+             for e in prof.events() if e.device_type.name == "CUDA" and
+             not getattr(e, "is_user_annotation", False)),
+            key=lambda e: e[1]))
+        if kept(events):
+            return events
+        print(f"trace_kernels: trace {attempt + 1} lost launches "
+              f"({len(events)} device events after the lead)" +
+              ("; taken again" if attempt < TRACE_RETAKES else ""))
+    raise LostLaunches(f"{1 + TRACE_RETAKES} torch.profiler traces lost "
+                       f"launches", events)
+
+
+def device_calls(fn: Callable[[], object], calls: int = 4) -> DeviceCalls:
+    """Per call of ``fn`` on the card, after an untimed call: the
+    kernels' and copies' own device time, their launches, and each by
+    name, from one trace (:func:`trace_kernels`, ``fn`` the lead) of
+    ``calls`` calls.  Every call launches the same kernels, so a trace is
+    whole when each kernel's launches are a multiple of ``calls``.  Where
+    no trace is whole, the last is divided by the calls its longest
+    kernel's launches count, said, and the result marked not ``whole``
+    (a caller that must read whole traces checks it); where it holds no
+    launch at all, :class:`LostLaunches` is raised."""
+    import collections
+
+    def whole(events):
+        count = collections.Counter(name for name, _, _ in events)
+        return bool(count) and all(c % calls == 0 for c in count.values())
+
+    fn()
+    try:
+        events, held = trace_kernels(lambda: [fn() for _ in range(calls)],
+                                     whole, fn), calls
+    except LostLaunches as lost:
+        events, held = lost.events, None
+        if not events:
+            raise
+    busy, count = collections.Counter(), collections.Counter()
+    for name, _, us in events:
+        busy[name] += us
+        count[name] += 1
+    if held is None:
+        main = count[max(busy, key=busy.get)]
+        held = main / max(1, round(main / calls))
+        print(f"device_calls: no whole trace; the last divided by the "
+              f"{held:g} calls its longest kernel's launches count")
+    return DeviceCalls(sum(busy.values()) / 1e3 / held,
+                       sum(count.values()) / held,
+                       [(k, busy[k] / 1e3 / held, count[k] / held)
+                        for k in sorted(busy, key=busy.get, reverse=True)],
+                       whole(events))
+
+
+def cuda_time_rounds(fns: List[Callable[[], object]], rounds: int = 5,
+                     warmup: bool = True) -> List[Timing]:
+    """:func:`cuda_time` of several calls taken in turns: one untimed
+    call of each (unless ``warmup`` is false), then ``rounds`` rounds
+    that time each once (from an idle device), so a drift of the host's
+    speed falls on all alike."""
+    for fn in fns if warmup else ():
+        fn()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for fn, out in zip(fns, times):
+            out.extend(cuda_time(fn, runs=1, warmup=0).times)
+    return [_timing(t) for t in times]
+
+
+#: what torch's sync debug mode warns at each host sync
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def host_syncs(fn: Callable[[], object], calls: int = 1) -> float:
+    """How many times a call of ``fn`` makes the host wait for the card
+    (``.item()``, a data-dependent shape, a copy to the host...), per
+    call over ``calls`` calls: torch's sync debug mode warns at each."""
+    import warnings
+    import torch
+    _need_card("host_syncs")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(SYNC_WARNING in str(w.message) for w in seen) / calls
 
 
 def slope(timed: Callable[[int], float], k1: int, k2: int) -> float:

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 import ipmzoo_tpu.symbolic as ref_sym
 import ipmzoo_tpu_torch.symbolic as port_sym

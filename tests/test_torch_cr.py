@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops.banded import bt_factor, bt_solve, cr_factor, cr_solve
 from ipmzoo_tpu.ops.cr_pallas import cr_factor_pallas, cr_solve_pallas

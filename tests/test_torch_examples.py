@@ -11,6 +11,7 @@ import re
 import sys
 
 import pytest
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,6 +12,7 @@ JAX package's CompiledIPM on the same data: iterations equal, x within
 
 import numpy as np
 import pytest
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)

@@ -14,6 +14,7 @@ import textwrap
 
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.frontend import cli as ref_cli
 from ipmzoo_tpu.frontend import web as ref_web

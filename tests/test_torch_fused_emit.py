@@ -19,6 +19,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.formulations import Bounds, EqualityHandling, Settings
 from ipmzoo_tpu_torch.models import codegen_soa as soa

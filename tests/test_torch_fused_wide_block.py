@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu_torch.models.families import portfolio
 from ipmzoo_tpu_torch.models.fused import FusedBatchedIPM

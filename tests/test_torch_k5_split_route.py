@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops.pallas_ldlt import batched_ldlt_solve_matrix_pallas
 from ipmzoo_tpu_torch.ops import cuda_ldlt

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops.ldlt import batched_ldlt
 from ipmzoo_tpu.ops.pallas_ldlt import (batched_ldlt_pallas,

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.models import mpc as ref_mpc
 from ipmzoo_tpu.ops import riccati as ref_riccati

@@ -21,6 +21,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops import ndiss as ref_nd
 from ipmzoo_tpu_torch.ops import ndiss

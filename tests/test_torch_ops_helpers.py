@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 import ipmzoo_tpu.ops as ref_ops
 import ipmzoo_tpu_torch.ops as ops

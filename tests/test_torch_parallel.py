@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 from jax.sharding import PartitionSpec as RefP
 
 import torch_spawn_jobs as jobs

@@ -28,11 +28,11 @@ import functools
 import hashlib
 import shutil
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
+import torch_host
 
 from ipmzoo_tpu_torch import Settings
 from ipmzoo_tpu_torch.models import fused_phases as fp
@@ -79,7 +79,8 @@ def gxx():
 
 @pytest.fixture(scope="module")
 def libs(gxx, tmp_path_factory):
-    """Every host library this file loads, compiled at once: the five
+    """Every host library this file loads, compiled up front
+    (``torch_host.BUILD_JOBS`` at a time): the five
     prefixes of each route at aug 129, one lane ("one") and emulated
     ("emulated"), and K1's block and wide routes at one lane ("K1")."""
     root = tmp_path_factory.mktemp("t3block")
@@ -103,8 +104,7 @@ def libs(gxx, tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(6) as pool:
-        return dict(zip(sources, pool.map(build, sources)))
+    return torch_host.build_all(build, sources)
 
 
 def run_prefix(lib, solver, soa, route, warps, reps=1, perturb=0):

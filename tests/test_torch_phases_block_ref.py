@@ -26,6 +26,7 @@ import functools
 import jax.numpy as jnp
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.formulations import Settings
 from ipmzoo_tpu.models.fused import FusedBatchedIPM as RefFused

@@ -7,6 +7,7 @@ plain prefix, and a g++ host build of the generated source.
 """
 
 import pytest
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from test_torch_phases import (PHASES, hold_three_ways,  # noqa: F401
                                host_build, tool)

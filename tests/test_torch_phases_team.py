@@ -33,10 +33,10 @@ import functools
 import hashlib
 import shutil
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
+import torch_host
 
 from ipmzoo_tpu_torch.models import fused_phases as fp
 from ipmzoo_tpu_torch.models.convert import qpdata_from_numpy
@@ -62,7 +62,8 @@ EMULATED_B = 2
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """Every host build this file uses, compiled at once: the five team
+    """Every host build this file uses, compiled up front
+    (``torch_host.BUILD_JOBS`` at a time): the five team
     prefixes of the fused slice, each one lane a team ("one") and emulated
     at 16 lanes ("emulated"); and the team route's measurement library,
     one lane a team ("measure")."""
@@ -90,8 +91,7 @@ def libs(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(6) as pool:
-        return dict(zip(sources, pool.map(build, sources)))
+    return torch_host.build_all(build, sources)
 
 
 def first(tensors, b):

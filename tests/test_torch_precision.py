@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.formulations import InequalityHandling, Settings
 from ipmzoo_tpu.models import CompiledIPM as RefIPM

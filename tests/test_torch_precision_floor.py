@@ -19,6 +19,7 @@ regression.
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu_torch import CompiledIPM, QPData, Settings
 

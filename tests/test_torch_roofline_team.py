@@ -28,12 +28,12 @@ import importlib.util
 import os
 import shutil
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host
 from jax.experimental.pallas import tpu as pltpu
 
 from ipmzoo_tpu_torch.ops import _build
@@ -63,7 +63,8 @@ def tool():
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     """csrc/roofline.cu compiled for the host with g++, one lane a team
-    ("one") and 16 emulated lanes ("emulated"), both at once."""
+    ("one") and 16 emulated lanes ("emulated"), ``torch_host.BUILD_JOBS``
+    at a time."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++) found to build roofline.cu")
@@ -79,8 +80,7 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return cr.bind(ctypes.CDLL(str(lib)))
 
-    with ThreadPoolExecutor(2) as pool:
-        return dict(zip(flags, pool.map(build, flags)))
+    return torch_host.build_all(build, flags)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

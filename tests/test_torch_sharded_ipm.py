@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 import torch_spawn_jobs as jobs
 from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 import torch_spawn_jobs as jobs
 from ipmzoo_tpu.ops.blocked_ldlt import ldlt_blocked as ref_ldlt_blocked

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops.pallas_ldlt import LANE, _batched_solve_t
 from ipmzoo_tpu_torch.ops import cuda_cr, cuda_ldlt
@@ -487,20 +488,23 @@ def test_solve_bounds_count_the_strict_lower_triangle(n, B, k, dtype):
 
 
 def _fake_trace(monkeypatch, cs, traces):
-    """Replace the profiler: each call of trace_kernels runs the body
-    and offers the traces in turn until one is kept."""
+    """Replace the profiler: each call of the port's trace_kernels runs
+    the lead and the body and offers the traces in turn until one is
+    kept."""
+    from ipmzoo_tpu_torch.utils import timer
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "GROUP_GAP_S", 0.0)
     offered = []
 
-    def trace_kernels(run, kept):
+    def trace_kernels(run, kept, lead):
+        lead()
         run()
         for t in traces:
             offered.append(t)
             if kept(t):
                 return t
-        raise AssertionError("no trace kept")
-    monkeypatch.setattr(cs, "trace_kernels", trace_kernels)
+        raise timer.LostLaunches("no trace kept", traces[-1])
+    monkeypatch.setattr(timer, "trace_kernels", trace_kernels)
     return offered
 
 
@@ -517,8 +521,9 @@ def test_launch_ms_splits_one_trace_at_the_idle_gaps(monkeypatch):
     k = {r: cs.K3_KERNELS[r] for r in ("thread", "warp")}
     got = cs.launch_ms([(lambda: calls.append(0), k),
                         (lambda: calls.append(1), k)], 2)
-    # a warm-up call of each group, then the groups' calls in turn
-    assert calls == [0, 1, 0, 0, 1, 1]
+    # a warm-up call of each group, the first group's as the trace's
+    # lead, then the groups' calls in turn
+    assert calls == [0, 1, 0, 0, 0, 1, 1]
     # a trace that lost a group or every launch of a kernel is retaken
     assert offered == [lost_group, lost_kernel, whole]
     assert got[0] == pytest.approx({"thread": 0.0011, "warp": 0.0022})
@@ -527,7 +532,16 @@ def test_launch_ms_splits_one_trace_at_the_idle_gaps(monkeypatch):
 
 def test_device_ms_divides_by_the_calls_the_trace_holds(monkeypatch):
     cs = _chip_smoke()
-    # 19 of 20 launches of the main kernel kept, and a memset beside them
+    # a kernel and a memset a call: an empty trace and one that lost a
+    # launch are taken again, and the whole one is divided by its 20 calls
+    whole = [("k<float>", 10.0 * i, 2.0) for i in range(20)] + \
+        [("Memset (Device)", 500.0 + i, 0.5) for i in range(20)]
+    lossy = whole[1:]
+    offered = _fake_trace(monkeypatch, cs, [[], lossy, whole])
+    assert cs.device_ms(lambda: None, 20) == pytest.approx(50.0 / 20 / 1e3)
+    assert offered == [[], lossy, whole]
+    # no whole trace: 19 of 20 launches of the main kernel kept, and a
+    # memset beside them; the last is divided by the 19 calls it holds
     trace = [("k<float>", 10.0 * i, 2.0) for i in range(19)] + \
         [("Memset (Device)", 500.0, 0.5)]
     _fake_trace(monkeypatch, cs, [[], trace])

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.ops.cr_pallas import cr_factor_pallas, cr_solve_pallas
 from ipmzoo_tpu.ops.pallas_ldlt import batched_solve_ldlt_matrix_pallas

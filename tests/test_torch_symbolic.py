@@ -15,6 +15,7 @@ import types
 
 import pytest
 import torch
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 import ipmzoo_tpu.formulations as ref_f
 from ipmzoo_tpu_torch.formulations import (Bounds, EqualityHandling,

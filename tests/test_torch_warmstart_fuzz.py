@@ -14,6 +14,7 @@ their boxes) are held as the reference holds them.
 
 import numpy as np
 import pytest
+import torch_host  # noqa: F401  (this worker's share of the host)
 
 from ipmzoo_tpu.formulations import (Bounds, EqualityHandling,
                                      InequalityHandling, Settings)
